@@ -15,7 +15,8 @@ final ``{"ok": true, ...}`` line is never printed):
    feature) plus 2^16 random rows, then the log1p artifact
    ``artifacts/logreg_int8.npz`` the same way; and for each params the
    decoded B=2048 serving batches of both scenarios, the shape the main
-   path hands the scorer.
+   path hands the scorer; ragged batches of 1, 15, 2047 and 2049 rows;
+   and the packed output table against the plain output stage.
 3. ``table_summary`` kernel vs plain, exact: an empty 2^20-row table, a
    random fill at 2^20 rows, a row count that is no multiple of 1024,
    and (after phase 4) the real table the served run left.
@@ -24,15 +25,21 @@ final ``{"ok": true, ...}`` line is never printed):
    just before and read just after, and each kernel must have launched.
 5. Cross-check: a shorter corpus of each scenario through the CUDA
    engine and through ``Engine(device="cpu")`` (the plain versions):
-   stats, blacklist and a digest of the whole table must be equal.
+   stats, blacklist and a digest of the whole table must be equal; and
+   the XLA:CPU rounding helpers (``xla_exp``, ``xla_exp2``, ``fma32``,
+   ``recip_mul``) give the same bits on the card as on the host.
 
 Then the timing line per kernel: ``ms`` (CUDA events, host launch gaps
 included), ``device_ms`` (the kernel's own time from ``torch.profiler``),
-the plain version, one library call where one exists, and the bound
-from this run's inputs (for ``table_summary``: every key plus the two
-state words of each tracked row, which is what the kernel must read);
-then the card line, and last the ``ok`` line.  The script imports
-nothing of JAX.
+``host_us_per_call`` (the wrapper's enqueue time), the plain version,
+one library call where one exists (event and profiler time), and the
+bound from this run's inputs (for ``table_summary``: every key plus the
+two state words of each tracked row, which is what the kernel must
+read; beside it the sector-level floor, every key plus each distinct
+32-byte sector that holds a tracked row's two words, counted on this
+run's table), ``table_summary`` on both served tables; then the card
+line, and
+last the ``ok`` line.  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ TABLE_CAP = 1 << 20
 BATCH = 2048
 SERVE_BATCHES = 384
 CROSS_BATCHES = 48
+RAGGED_B = (1, 15, 2047, 2049)
 
 FAILED: list[str] = []
 
@@ -194,6 +202,18 @@ def main() -> int:
                 res[name][f"serve_{scen}"] = {"shape": list(x.shape),
                                               "mismatches": m}
                 mismatches.append(m)
+            # ragged batches: a partial block, a partial last row group
+            ragged = {}
+            for b in RAGGED_B:
+                ragged[b] = compare_scores(params, raw_x[:b].contiguous())
+                mismatches.append(ragged[b])
+            res[name]["ragged_mismatches"] = ragged
+            # the packed output table is the plain output stage, per code
+            codes = torch.arange(256, dtype=torch.float32, device=dev)
+            table_ok = torch.equal(kernels.pack_score_params(params).table,
+                                   logreg.score_from_code(params, codes))
+            res[name]["table_equals_plain"] = table_ok
+            mismatches.append(int(not table_ok))
         ok = not any(mismatches)
         return {"ok": ok, "tolerance": "exact (0 mismatches)", **res}
 
@@ -334,6 +354,29 @@ def main() -> int:
                             schema.TableCol(c).name: [int((ulp[:, c] > 0).sum()),
                                                       int(ulp[:, c].max())]
                             for c in range(ulp.shape[1]) if ulp[:, c].any()}}
+        # XLA:CPU's rounding rules (vote decay, limiter, minifloat decode)
+        # give the same bits on the card as on the host
+        from flowsentryx_tpu_torch.core import device as fdev
+
+        x = torch.from_numpy(np.concatenate([
+            rng.uniform(-100.0, 0.0, 1 << 22),
+            rng.uniform(-88.8, -86.0, 1 << 18)]).astype(np.float32))
+        a, b_, c = (torch.from_numpy(rng.standard_normal(1 << 20)
+                                     .astype(np.float32)) for _ in range(3))
+        math = {
+            "xla_exp": (fdev.xla_exp, (x,)),
+            "xla_exp2": (fdev.xla_exp2, (x,)),
+            "fma32": (fdev.fma32, (a, b_, c)),
+            "recip_mul_0.3": (lambda t: fdev.recip_mul(t, 0.3), (x,)),
+        }
+        res["xla_math"] = {}
+        for name, (fn, args) in math.items():
+            got = fn(*(t.to(dev) for t in args)).cpu()
+            mism = int((got.view(torch.int32)
+                        != fn(*args).view(torch.int32)).sum())
+            res["xla_math"][name] = {"n": int(got.numel()),
+                                     "mismatches": mism}
+            ok &= mism == 0
         return {"ok": ok, "batches": CROSS_BATCHES, **res}
 
     cross_phase()
@@ -362,6 +405,35 @@ def main() -> int:
             total += a.elapsed_time(b)
         return total / reps
 
+    def host_us(fn, reps):
+        """Host microseconds per call: the enqueue alone, no sync inside."""
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us = (time.perf_counter() - t) / reps * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def device_us(calls, reps, name=None):
+        """The kernels' own device time per call from ``torch.profiler``:
+        kernels whose name holds ``name`` (all kernels when None)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                calls()
+            torch.cuda.synchronize()
+        return sum(ev.time_range.elapsed_us() for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and (name is None or name in ev.name)) / reps
+
+    def bound(nbytes, ops):
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        to = ops / FP32_FLOPS * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
     @phase("kernel_timing")
     def timing_phase():
         engines = served.get("engines")
@@ -373,81 +445,100 @@ def main() -> int:
         x = serving_batch(params, "syn_benign_mix")
         saved = dict(kernels.LAUNCHES)
         b = x.shape[0]
-        s_ms = time_ms(lambda: kernels.score_int8(params, x, packed), 200)
-        s_plain = time_ms(lambda: kernels.score_int8_plain(params, x), 200)
+
+        def score():
+            kernels.score_int8(params, x, packed)
+
         w = (params.w_int8.float() * params.w_scale)[None, :]
-        s_lib = time_ms(lambda: torch.nn.functional.linear(
-            x, w, params.bias.reshape(1)), 200)
-        s_bytes = b * 8 * 4 + 16 * 4 + b * 4
-        s_ops = b * 64
-        # the report's scan over the table that fills to real occupancy
-        # (mixed_l34_1m, 2^19 + 2^19 sources)
-        te = engines[-1] if engines else e
-        tbl = te.table
-        n = tbl.capacity
-        tracked = int((tbl.key != 0).sum())
-        scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-        flush = scratch.zero_   # evict the 50 MB L2: reports find it cold
-        now = te._device_now
-        t_ms = time_ms(lambda: kernels.table_summary_counts(
-            tbl.key, tbl.state, now, 30.0), 30, flush)
-        t_plain = time_ms(lambda: kernels.table_summary_plain(
-            tbl.key, tbl.state, now, 30.0), 30, flush)
-        # what this run's data needs: every key, and the two state words
-        # (LAST_SEEN, BLOCKED_UNTIL) of each tracked row; the outputs
-        t_bytes = n * 4 + tracked * 8 + 3 * 8 + 4
-        t_ops = n + tracked * 4
-        # the kernels' own device time from the profiler (event timing of
-        # a ~µs kernel also counts host launch gaps): score_int8 back to
-        # back, as the step issues it; table_summary cold, L2 flushed
-        from torch.profiler import ProfilerActivity, profile
 
-        reps = {"score_int8": 50, "table_summary": 20}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps["score_int8"]):
-                kernels.score_int8(params, x, packed)
-            for _ in range(reps["table_summary"]):
-                flush()
+        def library():
+            torch.nn.functional.linear(x, w, params.bias.reshape(1))
+
+        s_ms = time_ms(score, 200)
+        s_plain = time_ms(lambda: kernels.score_int8_plain(params, x), 200)
+        s_lib = time_ms(library, 200)
+        s_host = host_us(score, 200)
+        s_dev = device_us(score, 50, "score_int8_kernel")
+        s_lib_dev = device_us(library, 50)
+        s_bytes = b * 8 * 4 + 16 * 4 + b * 4   # x, the params, out
+        sb, sby = bound(s_bytes, b * 64)
+        score_row = {
+            "name": "score_int8", "route": "cuda",
+            "source": "flowsentryx_tpu_torch/csrc/score_int8.cu",
+            "replaces": "flowsentryx_tpu/ops/pallas_kernels.py:101",
+            "launches": launches.get("score_int8", 0),
+            "max_abs_err": errs["score_int8"], "ms": s_ms,
+            "plain_ms": s_plain, "bound_ms": sb, "bound_by": sby,
+            "library_ms": s_lib, "device_ms": s_dev / 1e3,
+            "host_us_per_call": s_host, "library_device_ms": s_lib_dev / 1e3,
+            "shape": [b, 8]}
+        # the report's scan over both served tables, cold: evict the
+        # 50 MB L2 before each call by reading 256 MB (a read leaves L2
+        # clean; a zero fill would leave dirty lines for the timed call
+        # to write back)
+        scratch = torch.zeros(64 << 20, dtype=torch.float32, device=dev)
+        flush = scratch.sum
+        flush()
+        tables = {}
+        for (scen, _), te in zip(scenarios, engines or []):
+            tbl, now = te.table, te._device_now
+            n = tbl.capacity
+            tracked = int((tbl.key != 0).sum())
+
+            def summary():
                 kernels.table_summary_counts(tbl.key, tbl.state, now, 30.0)
-            torch.cuda.synchronize()
-        dev_us = {k: 0.0 for k in reps}
-        for ev in prof.events():
-            for k in dev_us:
-                if (k + "_kernel") in ev.name:
-                    dev_us[k] += ev.time_range.elapsed_us() / reps[k]
+
+            def flushed():
+                flush()
+                summary()
+
+            # what this run's data needs: every key, the two state words
+            # (LAST_SEEN, BLOCKED_UNTIL) of each tracked row, the outputs;
+            # at sector granularity, every distinct 32-byte sector holding
+            # one of those words (neighbouring rows share sectors)
+            out_bytes = 3 * 8 + 4
+            tb, tby = bound(n * 4 + tracked * 8 + out_bytes, n + tracked * 4)
+            rows = torch.nonzero(tbl.key != 0).flatten()
+            addr = tbl.state.data_ptr() + rows * (tbl.state.stride(0) * 4)
+            cols = (schema.TableCol.LAST_SEEN, schema.TableCol.BLOCKED_UNTIL)
+            words = torch.cat([addr + 4 * int(c) for c in cols])
+            sectors = torch.unique(words // 32).numel()
+            chunks = torch.unique(words // 64).numel()   # 64 B DRAM bursts
+            tables[scen] = {
+                "rows": n, "tracked": tracked,
+                "ms": time_ms(summary, 30, flush),
+                "plain_ms": time_ms(lambda: kernels.table_summary_plain(
+                    tbl.key, tbl.state, now, 30.0), 30, flush),
+                "device_ms": device_us(flushed, 20,
+                                       "table_summary_kernel") / 1e3,
+                "host_us_per_call": host_us(summary, 50),
+                "bound_ms": tb, "bound_by": tby,
+                "state_sectors": sectors,
+                "sector_floor_ms": (n * 4 + sectors * 32 + out_bytes)
+                / HBM_BYTES_PER_S * 1e3,
+                "state_64b_chunks": chunks,
+                "chunk64_floor_ms": (n * 4 + chunks * 64 + out_bytes)
+                / HBM_BYTES_PER_S * 1e3,
+                "stream_floor_ms": (n * (4 + 48) + out_bytes)
+                / HBM_BYTES_PER_S * 1e3}
         kernels.LAUNCHES.update(saved)   # timing launches do not count
-
-        def bound(nbytes, ops):
-            tb = nbytes / HBM_BYTES_PER_S * 1e3
-            to = ops / FP32_FLOPS * 1e3
-            return (tb, "bytes") if tb >= to else (to, "operations")
-
-        sb, sby = bound(s_bytes, s_ops)
-        tb, tby = bound(t_bytes, t_ops)
-        rows = [
-            {"name": "score_int8", "route": "cuda",
-             "source": "flowsentryx_tpu_torch/csrc/score_int8.cu",
-             "replaces": "flowsentryx_tpu/ops/pallas_kernels.py:101",
-             "launches": launches.get("score_int8", 0),
-             "max_abs_err": errs["score_int8"], "ms": s_ms,
-             "plain_ms": s_plain, "bound_ms": sb, "bound_by": sby,
-             "library_ms": s_lib,
-             "device_ms": dev_us["score_int8"] / 1e3},
-            {"name": "table_summary", "route": "cuda",
-             "source": "flowsentryx_tpu_torch/csrc/table_summary.cu",
-             "replaces": "flowsentryx_tpu/ops/pallas_kernels.py:166",
-             "launches": launches.get("table_summary", 0),
-             "max_abs_err": errs["table_summary"], "ms": t_ms,
-             "plain_ms": t_plain, "bound_ms": tb, "bound_by": tby,
-             "library_ms": None,
-             "device_ms": dev_us["table_summary"] / 1e3},
-        ]
+        main = tables.get("mixed_l34_1m", {})
+        summary_row = {
+            "name": "table_summary", "route": "cuda",
+            "source": "flowsentryx_tpu_torch/csrc/table_summary.cu",
+            "replaces": "flowsentryx_tpu/ops/pallas_kernels.py:166",
+            "launches": launches.get("table_summary", 0),
+            "max_abs_err": errs["table_summary"],
+            **{k: main.get(k) for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                "host_us_per_call", "sector_floor_ms")},
+            "library_ms": None, "tables": tables}
+        rows = [score_row, summary_row]
         served["kernels"] = rows
-        return {"card": card, "score_int8_shape": [b, 8],
+        return {"ok": bool(tables), "card": card,
                 "library_call": {"score_int8": "torch.nn.functional.linear "
                                  "(float logistic-regression matvec)",
                                  "table_summary": None},
-                "table_summary_rows": n, "table_summary_tracked": tracked,
                 "kernels": rows}
 
     timing_phase()

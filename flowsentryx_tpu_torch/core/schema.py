@@ -26,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from flowsentryx_tpu_torch.core.device import f32, fma32, u32
+from flowsentryx_tpu_torch.core.device import f32, fma32, u32, xla_exp2
 
 # ---------------------------------------------------------------------------
 # Feature vector and flow record
@@ -408,7 +408,7 @@ def decode_compact(
     elif feat_mode == "minifloat":
         e = torch.div(q, 8, rounding_mode="floor") - 1
         m = q % 8
-        big = torch.ldexp(8.0 + m.float(), e.float())
+        big = (8.0 + m.float()) * xla_exp2(e.float())
         feat = torch.where(q < 8, q.float(), big)
     else:
         raise ValueError(f"unknown feat_mode {feat_mode!r}")

@@ -110,7 +110,7 @@ class Engine:
             self.params))
         self.quant = schema.wire_quant_for(host_params)
         self.verdict_k = cfg.batch.verdict_k
-        # the scorer's [16] parameter vector, packed once for these params
+        # the scorer's kernel arguments and output table, packed once
         self.score_params = kernels.pack_score_params(self.params)
         self.step = fused.make_compact_step(
             cfg, functools.partial(spec.classify_batch,

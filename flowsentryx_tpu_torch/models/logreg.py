@@ -116,17 +116,30 @@ def _quantize_u8(x: torch.Tensor, scale: torch.Tensor,
     return torch.clamp(q, 0.0, 255.0)
 
 
-def score_from_acc(params: LogRegParams, acc: torch.Tensor) -> torch.Tensor:
-    """Integer accumulator ``sum((q_x - in_zp) * w_int8)`` -> quantized
-    probability: requant -> sigmoid -> output quant.  ``acc * s + bias``
-    is one fused multiply-add, as the reference's compiled graph rounds
-    it (:func:`~flowsentryx_tpu_torch.core.device.fma32`)."""
+def requant_acc(params: LogRegParams, acc: torch.Tensor) -> torch.Tensor:
+    """Integer accumulator ``sum((q_x - in_zp) * w_int8)`` -> the quint8
+    output code ``q_y`` (f32 in 0..255).  ``acc * s + bias`` is one fused
+    multiply-add, as the reference's compiled graph rounds it
+    (:func:`~flowsentryx_tpu_torch.core.device.fma32`)."""
     s = params.in_scale * params.w_scale
     y = fma32(acc.float(), s, params.bias)
-    q_y = _quantize_u8(y, params.out_scale, params.out_zp)
+    return _quantize_u8(y, params.out_scale, params.out_zp)
+
+
+def score_from_code(params: LogRegParams, q_y: torch.Tensor) -> torch.Tensor:
+    """Output code ``q_y`` -> quantized probability: dequant -> sigmoid
+    -> output quant on the 1/256 grid.  Only 256 inputs exist, so the
+    CUDA kernel reads this function's values from a table
+    (:func:`flowsentryx_tpu_torch.ops.kernels.pack_score_params`)."""
     y_dq = (q_y - params.out_zp.float()) * params.out_scale
     p = torch.sigmoid(y_dq)
     return torch.clamp(torch.round(p * 256.0), 0.0, 255.0) * (1.0 / 256.0)
+
+
+def score_from_acc(params: LogRegParams, acc: torch.Tensor) -> torch.Tensor:
+    """Integer accumulator -> quantized probability: requant -> sigmoid
+    -> output quant."""
+    return score_from_code(params, requant_acc(params, acc))
 
 
 def int8_acc(params: LogRegParams, x: torch.Tensor) -> torch.Tensor:

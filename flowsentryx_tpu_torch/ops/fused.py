@@ -32,7 +32,9 @@ import torch
 
 from flowsentryx_tpu_torch.core import schema
 from flowsentryx_tpu_torch.core.config import FsxConfig
-from flowsentryx_tpu_torch.core.device import as_i32, div_rn, f32, fma32
+from flowsentryx_tpu_torch.core.device import (
+    LN2_F32, as_i32, f32, fma32, xla_exp,
+)
 from flowsentryx_tpu_torch.core.schema import (
     GlobalStats, IpTableState, TableCol, Verdict,
 )
@@ -115,16 +117,13 @@ def _flow_core(
     mature = rec_seen >= mdl.vote_k
     fresh = torch.where(mature, ml_count, 0.0)
     if mdl.vote_decay_s > 0:
-        # half-life decay; the reference's graph fuses the decayed vote
-        # and the fresh count into one multiply-add.  exp2 runs in
-        # float64 and rounds once: the float32 exp2 of the CPU and CUDA
-        # math libraries differ in the last bit, this is the correctly
-        # rounded value on both (XLA:CPU's own exp2 may differ from it by
-        # an ULP; ROADMAP queue 3)
+        # half-life decay ``votes * exp2(-dt / s) + fresh``, rounded as
+        # the reference's compiled graph rounds it: ``/ s`` becomes a
+        # multiply by f32(1/s), exp2(x) is exp(x * f32(ln 2)), the two
+        # constants fold into one, and the multiply-add fuses
         dt = torch.clamp(fa.rep_ts - last_seen, min=0.0)
-        decay = torch.exp2(div_rn(-dt, f32(mdl.vote_decay_s)).double()
-                           ).float()
-        votes = fma32(ml_votes, decay, fresh)
+        k = f32(f32(1.0 / f32(mdl.vote_decay_s)) * LN2_F32)
+        votes = fma32(ml_votes, xla_exp(dt * -k), fresh)
     else:
         votes = ml_votes + fresh
     votes_new = torch.clamp(votes, max=f32(1e6))

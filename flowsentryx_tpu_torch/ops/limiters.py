@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from flowsentryx_tpu_torch.core.config import LimiterConfig, LimiterKind
-from flowsentryx_tpu_torch.core.device import div_rn, f32, fma32
+from flowsentryx_tpu_torch.core.device import f32, fma32, recip_mul
 
 
 class WindowState(NamedTuple):
@@ -77,7 +77,7 @@ def sliding_window(cfg: LimiterConfig, st: WindowState, d_pkts, d_bytes, now
         torch.where(rolled_one, st.win_start + w, st.win_start))
     pps = torch.where(rolled, d_pkts, st.win_pps + d_pkts)
     bps = torch.where(rolled, d_bytes, st.win_bps + d_bytes)
-    frac = torch.clamp(div_rn(now - start, w), 0.0, 1.0)
+    frac = torch.clamp(recip_mul(now - start, cfg.window_s), 0.0, 1.0)
     overlap = 1.0 - frac
     est_pps = fma32(prev_pps, overlap, pps)
     est_bps = fma32(prev_bps, overlap, bps)

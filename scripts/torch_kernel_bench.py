@@ -1,0 +1,207 @@
+#!/usr/bin/env python3
+"""Time the port's two CUDA kernels at the served shapes, on one GPU.
+
+    python3 scripts/torch_kernel_bench.py [--tree DIR] [--label NAME]
+        [--out FILE] [--flush read|write]
+
+Imports ``flowsentryx_tpu_torch`` from ``--tree`` (default: this
+checkout), so the same script times another revision of the kernels and
+their wrappers: unpack that revision with ``git archive`` into a
+directory that ``.gitignore`` lists and pass it as ``--tree``.  Runs of
+two trees in one call, in turns (A, B, B, A), compare the designs on
+one card.  Only the wrappers' public API is used
+(``build_all``, ``pack_score_params``, ``score_int8``,
+``table_summary_counts``), which both designs share.
+
+Per kernel, at the shapes the served path gives it:
+
+* ``score_int8`` on a decoded B=2048 ``syn_benign_mix`` serving batch
+  (golden params), back to back as the step issues it;
+* ``table_summary`` on the tables that 384 served batches of
+  ``syn_benign_mix`` and of ``mixed_l34_1m`` leave in a 2^20-row table,
+  with the 50 MB L2 flushed before each call, as a report finds it
+  (``--flush read``, the default, reads a 256 MB buffer, which leaves
+  L2 clean; ``--flush write`` zero-fills it, which leaves L2 full of
+  dirty lines that the timed call then pays to write back);
+
+it prints ``device_ms`` (the kernel's own time, ``torch.profiler``),
+``event_ms`` (CUDA events per call: back to back for the scorer, one
+flushed call at a time for the summary; launch gaps included),
+``host_us_per_call`` (the wrapper's enqueue time) and whether the result
+equals the plain version.  Needs a CUDA device; exits 2 without one.
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SEED = 20261016
+BATCH = 2048
+TABLE_CAP = 1 << 20
+SERVE_BATCHES = 384
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--flush", choices=("read", "write"), default="read")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.tree))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_bench: no CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    from flowsentryx_tpu_torch.core import schema
+    from flowsentryx_tpu_torch.core.config import (
+        BatchConfig, FsxConfig, ModelConfig, TableConfig,
+    )
+    from flowsentryx_tpu_torch.engine import (
+        Engine, NullSink, Scenario, TrafficSource, TrafficSpec,
+    )
+    from flowsentryx_tpu_torch.models import logreg
+    from flowsentryx_tpu_torch.ops import kernels
+
+    assert os.path.abspath(kernels.__file__).startswith(
+        os.path.abspath(args.tree)), kernels.__file__
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    t = time.perf_counter()
+    kernels.build_all()
+    build_s = time.perf_counter() - t
+
+    def back_to_back(fn, reps):
+        """CUDA-event ms per call over ``reps`` calls issued back to back,
+        as the step issues the scorer (launch gaps included)."""
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def flushed_time(fn, reps, flush):
+        """CUDA-event ms of one call, L2 flushed before each, averaged."""
+        fn()
+        total = 0.0
+        for _ in range(reps):
+            flush()
+            a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            total += a.elapsed_time(b)
+        return total / reps
+
+    def host_us(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def device_ms(fn, reps, name):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(ev.time_range.elapsed_us() for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and name in ev.name) / reps / 1e3
+
+    # score_int8 on a decoded serving batch
+    params = logreg.golden_params(dev)
+    packed = kernels.pack_score_params(params)
+    quant = schema.wire_quant_for(logreg.LogRegParams(
+        **logreg.params_to_numpy(params)))
+    rec = TrafficSource(TrafficSpec(scenario=Scenario("syn_benign_mix"),
+                                    rate_pps=1e6, seed=SEED),
+                        total=BATCH).poll(BATCH)
+    raw = schema.encode_compact(rec, BATCH, int(rec["ts_ns"][0]), **quant)
+    x = schema.decode_compact(schema.wire_to_tensor(raw).to(dev),
+                              **quant).feat.contiguous()
+
+    def score():
+        return kernels.score_int8(params, x, packed)
+
+    out = {"label": args.label, "tree": args.tree, "card": card,
+           "build_s": build_s}
+    out["score_int8"] = {
+        "shape": list(x.shape),
+        "equal_plain": bool(torch.equal(score(),
+                                        kernels.score_int8_plain(params, x))),
+        "device_ms": device_ms(score, 100, "score_int8_kernel"),
+        "event_ms": back_to_back(score, 200),
+        "host_us_per_call": host_us(score, 500),
+    }
+
+    # table_summary on the served tables
+    scratch = torch.zeros(64 << 20, dtype=torch.float32, device=dev)
+    flush = scratch.sum if args.flush == "read" else scratch.zero_
+    scratch.sum()          # write the zero fill back before any timing
+    out["flush"] = args.flush
+    out["table_summary"] = {}
+    for scen, model in (("syn_benign_mix", "logreg_int8"),
+                        ("mixed_l34_1m", "logreg_int8_pallas")):
+        cfg = FsxConfig(table=TableConfig(capacity=TABLE_CAP,
+                                          salt=SEED & 0xFFFFFFFF),
+                        batch=BatchConfig(max_batch=BATCH),
+                        model=ModelConfig(name=model))
+        src = TrafficSource(TrafficSpec(scenario=Scenario(scen),
+                                        rate_pps=1e6, seed=SEED),
+                            total=SERVE_BATCHES * BATCH)
+        e = Engine(cfg, src, NullSink(), device=dev)
+        e.run()
+        torch.cuda.synchronize()
+        key, state, now = e.table.key, e.table.state, e._device_now
+
+        def summary():
+            return kernels.table_summary_counts(key, state, now, 30.0)
+
+        def flushed():
+            flush()
+            return summary()
+
+        got, want = summary(), kernels.table_summary_plain(key, state, now,
+                                                            30.0)
+        out["table_summary"][scen] = {
+            "rows": int(key.shape[0]), "tracked": int((key != 0).sum()),
+            "equal_plain": bool(torch.equal(got[0], want[0]))
+            and float(got[1]) == float(want[1]),
+            "device_ms": device_ms(flushed, 30, "table_summary_kernel"),
+            "event_ms": flushed_time(summary, 30, flush),
+            "host_us_per_call": host_us(summary, 100),
+        }
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

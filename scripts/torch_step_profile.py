@@ -15,7 +15,8 @@ then profiles a steady window with ``torch.profiler`` (CPU + CUDA):
   process without the profiler, and the idle share it implies for the
   same busy time (the profiler slows the host, not the kernels);
 * kernel count and device time by kernel name (top entries);
-* the engine's host stage times (fill / step enqueue / sink).
+* the engine's host stage times (fill / step enqueue / sink), over all
+  windows, and the step enqueue ms per batch of the unprofiled window.
 
 Needs a CUDA device; exits 2 without one.  Imports nothing of JAX.
 """
@@ -65,10 +66,10 @@ def main() -> int:
                                     seed=1), total=None)
     eng = Engine(cfg, src, NullSink(), params=params, device="cuda")
     eng.warm()
-    eng.run(max_batches=64)                 # steady state before the window
+    r0 = eng.run(max_batches=64)            # steady state before the window
     torch.cuda.synchronize()
     t = time.perf_counter()
-    eng.run(max_batches=eng.batcher.batches_emitted + args.batches)
+    r1 = eng.run(max_batches=eng.batcher.batches_emitted + args.batches)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t
     start = eng.batcher.batches_emitted
@@ -117,6 +118,11 @@ def main() -> int:
         "unprofiled_wall_ms_per_batch": wall_plain * 1e3 / n,
         "unprofiled_records_per_s": n * b / wall_plain,
         "unprofiled_device_idle_share": 1.0 - busy_us / 1e6 / wall_plain,
+        # host ms per batch enqueuing the step, unprofiled window only
+        # (the report's stage totals are cumulative over runs)
+        "unprofiled_step_enqueue_ms_per_batch": (
+            r1.stages_ms["step"]["total_ms"]
+            - r0.stages_ms["step"]["total_ms"]) / n,
         "stages_ms": rep.stages_ms,
         "top_device_ops": [
             {"name": k[:90], "calls_per_batch": v[0] / n,

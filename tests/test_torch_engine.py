@@ -116,7 +116,7 @@ def test_cli_serve_cpu(capsys):
 
 def _port_sources():
     return sorted((REPO / "flowsentryx_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py"] + sorted((REPO / "scripts").glob("torch_*.py"))
 
 
 def test_port_never_imports_jax_or_reference_ast():

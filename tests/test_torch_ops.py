@@ -156,3 +156,45 @@ def test_aggregate_bit_exact(rng, b):
     np.testing.assert_array_equal(got.rep_valid.numpy(),
                                   np.asarray(want.rep_valid))
     np.testing.assert_array_equal(got.inv.numpy(), np.asarray(want.inv))
+
+
+@pytest.mark.parametrize("window_s", [0.3, 3.0])
+def test_sliding_window_non_power_of_two_window(rng, window_s):
+    """``(now - start) / window_s`` compiles to a multiply by the float32
+    reciprocal, which differs from true division for a window that is
+    not a power of two.  Lanes inside an open window are placed on the
+    packet threshold (the reference's estimate lands exactly on it), so a
+    one-ULP error in the overlap flips ``over_limit``."""
+    r = 4096
+    w = np.float32(window_s)
+    thr = np.float32(1e6)
+    now = rng.uniform(5, 50, r).astype(np.float32)
+    start = (now - rng.uniform(0.01, 0.99, r) * w).astype(np.float32)
+    prev = rng.integers(100_000, 900_000, r).astype(np.float32)
+    # the reference's overlap, then the count that puts its estimate on
+    # the threshold: est = fma(prev, overlap, pps) == thr
+    frac = np.clip((now - start) * np.float32(1 / w), 0, 1).astype(np.float32)
+    p = prev.astype(np.float64) * (np.float32(1) - frac).astype(np.float64)
+    pps = (thr - p).astype(np.float32)
+    est = (p + pps).astype(np.float32)
+    pps = np.where(est == thr, pps, np.float32(0))   # off the edge: idle
+    kw = dict(pps_threshold=float(thr), bps_threshold=1e30,
+              window_s=window_s)
+    jcfg = jconfig.LimiterConfig(kind=jconfig.LimiterKind.SLIDING_WINDOW,
+                                 **kw)
+    tcfg = config.LimiterConfig(kind=config.LimiterKind.SLIDING_WINDOW, **kw)
+    zeros = np.zeros(r, np.float32)
+    cols = (start, pps, zeros, prev, zeros)
+    want = jax.jit(lambda st, dp, db, t: jlim.sliding_window(
+        jcfg, st, dp, db, t))(jlim.WindowState(*map(jnp.asarray, cols)),
+                              jnp.asarray(zeros), jnp.asarray(zeros),
+                              jnp.asarray(now))
+    got = limiters.sliding_window(
+        tcfg, limiters.WindowState(*map(torch.from_numpy, cols)),
+        torch.from_numpy(zeros), torch.from_numpy(zeros),
+        torch.from_numpy(now))
+    assert int((pps > 0).sum()) > r // 2       # most lanes sit on the edge
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for g, wnt in zip(got[0], want[0]):
+        np.testing.assert_array_equal(g.numpy().view(np.uint32),
+                                      np.asarray(wnt).view(np.uint32))

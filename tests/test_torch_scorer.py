@@ -5,6 +5,7 @@ The Pallas kernel runs in interpret mode here, as the reference's own
 tests run it on the CPU.  The CUDA kernel itself is held to the plain
 version on the card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``)."""
 
+import ctypes
 from pathlib import Path
 
 import numpy as np
@@ -17,6 +18,7 @@ from flowsentryx_tpu.core import schema as jschema
 from flowsentryx_tpu.models import logreg as jlogreg
 from flowsentryx_tpu.ops import pallas_kernels as pk
 from flowsentryx_tpu_torch.core import schema
+from flowsentryx_tpu_torch.core.device import fma32
 from flowsentryx_tpu_torch.models import logreg, registry
 from flowsentryx_tpu_torch.ops import kernels
 
@@ -100,3 +102,28 @@ def test_registry_lanes():
     with pytest.raises(KeyError, match="unknown model"):
         registry.get_model("nope")
 
+
+
+@pytest.mark.parametrize("name", ["golden", "log1p"])
+def test_kernel_arithmetic_from_packed_params_matches_plain(name):
+    """The CUDA kernel's arithmetic, written out in numpy from the packed
+    argument struct (per-lane quantize, the integer dot, one fma, one
+    division, rint, then the output table), equals the plain scorer."""
+    _, tp = _pair(name)
+    a = kernels.pack_score_params(tp)
+    assert ctypes.sizeof(a.args) == 1060
+    rng = np.random.default_rng(17)
+    x = np.concatenate([rng.uniform(0, 2e6, (1 << 14, 8)),
+                        rng.uniform(0, 10, (1 << 12, 8))]).astype(np.float32)
+    f = np.float32
+    w = np.frombuffer(np.array([a.args.w_lo, a.args.w_hi], "<u4").tobytes(),
+                      np.int8).astype(np.int64)
+    v = torch.log1p(torch.from_numpy(x)).numpy() if a.args.log1p else x
+    q = np.clip(np.rint(v / f(a.args.in_scale)) + f(a.args.in_zp), 0, 255)
+    acc = ((q.astype(np.int64) - int(a.args.in_zp)) * w).sum(axis=1)
+    y = fma32(torch.from_numpy(acc.astype(f)), a.args.s, a.args.bias).numpy()
+    q_y = np.clip(np.rint(y / f(a.args.out_scale)) + f(a.args.out_zp), 0,
+                  255).astype(np.int64)
+    got = np.array(a.args.table, f)[q_y]
+    want = kernels.score_int8_plain(tp, torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)

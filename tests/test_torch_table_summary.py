@@ -75,3 +75,50 @@ def test_report_dict_matches_reference(rng):
     assert kernels.table_summary(schema.make_table(2048), now=5.0) == {
         "tracked": 0, "blocked": 0, "stale": 0, "newest_seen_s": 0.0}
 
+
+
+def _kernel_tiling_model(key, state, now, stale_s):
+    """``csrc/table_summary.cu``'s tiling written out in numpy: warp steps
+    of two 128-row tiles; lane ``l`` reads the keys of rows ``4l..4l+3``
+    of a tile, four ballots spread the tracked bits, and lane ``l`` then
+    loads the state of rows ``32 i + l`` whose bit ``8 i + l // 4`` is set
+    in the ballot of component ``l % 4``.  Returns what the kernel sums,
+    and how often each row's state was read."""
+    n = key.shape[0]
+    f = np.float32
+    now, stale_s = f(now), f(stale_s)
+    lanes = np.arange(32)
+    reads = np.zeros(n, np.int64)
+    tracked = blocked = stale = 0
+    newest = f(0)
+    for tile in range(0, n, 128):
+        rows = tile + 4 * lanes[:, None] + np.arange(4)         # [lane, c]
+        k = np.where(rows < n, key[np.minimum(rows, n - 1)], 0)
+        tracked += int((k != 0).sum())
+        ballots = [int(((k[:, c] != 0).astype(np.int64) << lanes).sum())
+                   for c in range(4)]
+        for i in range(4):
+            bit = np.array([(ballots[l % 4] >> (8 * i + l // 4)) & 1
+                            for l in lanes], bool)
+            row = tile + 32 * i + lanes[bit]
+            reads[row] += 1
+            seen = state[row, int(jschema.TableCol.LAST_SEEN)]
+            until = state[row, int(jschema.TableCol.BLOCKED_UNTIL)]
+            blocked += int((until > now).sum())
+            stale += int((f(now) - seen > stale_s).sum())
+            newest = max(newest, seen.max(initial=f(0)))
+    return np.array([tracked, blocked, stale]), f(newest), reads
+
+
+@pytest.mark.parametrize("cap,n_fill", [(1, 1), (255, 90), (4097, 2000),
+                                        (8192, 40)])
+def test_kernel_tiling_reads_each_tracked_row_once(rng, cap, n_fill):
+    """The kernel's lane layout reads the state of every tracked row
+    exactly once and of no other row, at any N, and sums the reference's
+    answer."""
+    key, state = _fill(rng, cap, n_fill, n_fill // 3)
+    counts, newest, reads = _kernel_tiling_model(key, state, 90.0, 30.0)
+    np.testing.assert_array_equal(reads, (key != 0).astype(np.int64))
+    want_c, want_n = _ref(key, state, 90.0, 30.0, use_pallas=False)
+    np.testing.assert_array_equal(counts, want_c)
+    assert newest.view(np.uint32) == want_n.view(np.uint32)
