@@ -20,14 +20,37 @@ final ``{"ok": true, ...}`` line is never printed):
 3. ``table_summary`` kernel vs plain, exact: an empty 2^20-row table, a
    random fill at 2^20 rows, a row count that is no multiple of 1024,
    and (after phase 4) the real table the served run left.
-4. Serve: ``Engine(device="cuda")`` at capacity 2^20, B=2048 over
-   ``syn_benign_mix`` and ``mixed_l34_1m``; launch counters are zeroed
-   just before and read just after, and each kernel must have launched.
-5. Cross-check: a shorter corpus of each scenario through the CUDA
-   engine and through ``Engine(device="cpu")`` (the plain versions):
-   stats, blacklist and a digest of the whole table must be equal; and
-   the XLA:CPU rounding helpers (``xla_exp``, ``xla_exp2``, ``fma32``,
-   ``recip_mul``) give the same bits on the card as on the host.
+4. Serve: ``Engine(device="cuda")`` (singles, every dispatch one CUDA
+   graph replay) at capacity 2^20, B=2048 over ``syn_benign_mix`` and
+   ``mixed_l34_1m``; launch counters are zeroed just before and read
+   just after: ``score_int8`` launched once per batch served,
+   ``table_summary`` once per report.
+5. ``step_graph_vs_eager``: a multi-batch stream of each scenario at
+   2^20 rows / B=2048 through the captured single step and through the
+   eager step on a second table (the eager step's first batch run under
+   ``torch.cuda.set_sync_debug_mode("error")``): outputs, table bytes and
+   stats equal after every batch.
+6. ``megastep_vs_singles``: each rung g in {2, 4, 8} captured and
+   replayed twice (a ``mixed_l34_1m`` group, then a multi-source flood
+   group whose merged K=8 wire overflows) against 2g eager singles:
+   table, stats, stacked verdicts and block arrays equal, and the merged
+   wire equals ``merge_verdict_wires`` of the singles' wires.
+7. ``serve_mega_auto``: both scenarios through ``Engine(mega_n="auto")``
+   at full width from a deep backlog whose tail fills smaller rungs
+   (``MEGA_BATCHES`` = 23 x 8 + 6): group histogram, records/s, stage
+   times, ``score_int8`` launches equal to the batches served, and the
+   device memory held after ``warm()`` by singles and by the four graphs
+   of ``auto``.
+8. ``overflow_under_graphs``: the multi-source flood at ``verdict_k=8``
+   and ``readback_depth=8`` through singles and ``mega_n=4`` on the card
+   against the CPU engine: blacklist with untils, stats and table digest
+   equal, and overflowed wires fell back (``fallback_sinks > 0``).
+9. Cross-check: a shorter pregenerated corpus of each scenario through
+   the CUDA engine (singles and ``mega_n="auto"``) and through
+   ``Engine(device="cpu")`` (the plain versions): stats, blacklist and a
+   digest of the whole table must be equal; and the XLA:CPU rounding
+   helpers (``xla_exp``, ``xla_exp2``, ``fma32``, ``recip_mul``) give the
+   same bits on the card as on the host.
 
 Then the timing line per kernel: ``ms`` (CUDA events, host launch gaps
 included), ``device_ms`` (the kernel's own time from ``torch.profiler``),
@@ -44,6 +67,8 @@ last the ``ok`` line.  The script imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -60,6 +85,9 @@ TABLE_CAP = 1 << 20
 BATCH = 2048
 SERVE_BATCHES = 384
 CROSS_BATCHES = 48
+GRAPH_BATCHES = 24
+MEGA_BATCHES = 23 * 8 + 6      # top-rung groups, then a 4 and a 2
+OVERFLOW_BATCHES = 24
 RAGGED_B = (1, 15, 2047, 2049)
 
 FAILED: list[str] = []
@@ -114,10 +142,11 @@ def main() -> int:
         BatchConfig, FsxConfig, TableConfig,
     )
     from flowsentryx_tpu_torch.engine import (
-        CollectSink, Engine, Scenario, TrafficSource, TrafficSpec,
+        ArraySource, CollectSink, Engine, Scenario, TrafficGen,
+        TrafficSource, TrafficSpec,
     )
     from flowsentryx_tpu_torch.models import logreg
-    from flowsentryx_tpu_torch.ops import kernels
+    from flowsentryx_tpu_torch.ops import fused, graph, kernels
 
     dev = torch.device("cuda")
     card = smi_line()
@@ -262,15 +291,19 @@ def main() -> int:
     scenarios = (("syn_benign_mix", "logreg_int8"),
                  ("mixed_l34_1m", "logreg_int8_pallas"))
 
-    def engine_for(scen, model, total, device, params=None):
-        import dataclasses
-
-        c = dataclasses.replace(cfg, model=dataclasses.replace(
+    def engine_for(scen, model, total, device, params=None, records=None,
+                   mega_n=0, c=None):
+        """An engine over ``total`` generated records of ``scen``, or
+        over a pregenerated ``records`` array (the generator's draws
+        depend on the poll size, and a grouping engine polls more)."""
+        c = dataclasses.replace(c or cfg, model=dataclasses.replace(
             cfg.model, name=model))
-        src = TrafficSource(TrafficSpec(scenario=Scenario(scen),
-                                        rate_pps=1e6, seed=SEED),
-                            total=total)
-        return Engine(c, src, CollectSink(), params=params, device=device)
+        src = (ArraySource(records.copy()) if records is not None
+               else TrafficSource(TrafficSpec(scenario=Scenario(scen),
+                                              rate_pps=1e6, seed=SEED),
+                                  total=total))
+        return Engine(c, src, CollectSink(), params=params, device=device,
+                      mega_n=mega_n)
 
     served: dict = {}
 
@@ -297,7 +330,10 @@ def main() -> int:
         checks += [r.stats["allowed"] + r.stats["dropped"] == r.records
                    for r in reports]
         checks += [r.table["tracked"] > 0 for r in reports]
-        checks += [launches[k] > 0 for k in launches]
+        checks += [r.dispatch["graphs"] == 1 for r in reports]
+        # one score_int8 per batch served, one table_summary per report
+        checks += [launches["score_int8"] == sum(r.batches for r in reports),
+                   launches["table_summary"] == len(reports)]
         return {"ok": all(checks), **out}
 
     serve_phase()
@@ -317,27 +353,239 @@ def main() -> int:
         k, st = schema.table_to_numpy(e.table)
         return hashlib.sha256(k.tobytes() + st.tobytes()).hexdigest()[:16]
 
+    def same_state(t1, s1, t2, s2):
+        return (torch.equal(t1.key, t2.key)
+                and torch.equal(t1.state.view(torch.int32),
+                                t2.state.view(torch.int32))
+                and s1.to_dict() == s2.to_dict())
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def stream(scen, n, params, **spec):
+        """``n`` compact16 wire buffers of ``scen`` in the params' model
+        mode, ragged fills included (as the batcher seals them)."""
+        quant = schema.wire_quant_for(logreg.LogRegParams(
+            **logreg.params_to_numpy(params)))
+        gen = TrafficGen(TrafficSpec(scenario=Scenario(scen), seed=SEED,
+                                     **{"rate_pps": 1e6, **spec}))
+        raws, t0 = [], None
+        for i in range(n):
+            rec = gen.next_records(BATCH - (i % 5) * 131)
+            t0 = int(rec["ts_ns"][0]) if t0 is None else t0
+            raws.append(schema.encode_compact(rec, BATCH, t0, **quant))
+        return raws, quant
+
+    def classify_for(params):
+        return functools.partial(kernels.score_int8,
+                                 packed=kernels.pack_score_params(params))
+
+    def to_dev(raw):
+        return schema.wire_to_tensor(raw).to(dev)
+
+    @phase("step_graph_vs_eager")
+    def graph_phase():
+        res = {}
+        ok = True
+        for scen, _ in scenarios:
+            params = logreg.golden_params(dev)
+            raws, quant = stream(scen, GRAPH_BATCHES, params)
+            step = fused.make_compact_step(cfg, classify_for(params), **quant)
+            # a capture fails on any host sync: the eager step runs clean
+            # with syncs turned into errors (on a throwaway table)
+            tx, sx = schema.make_table(TABLE_CAP, dev), schema.make_stats(dev)
+            x0 = to_dev(raws[0])      # a blocking upload, before the mode
+            torch.cuda.synchronize()
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                step(tx, sx, params, x0)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+            del tx, sx, x0
+            tg, sg = schema.make_table(TABLE_CAP, dev), schema.make_stats(dev)
+            te, se = schema.make_table(TABLE_CAP, dev), schema.make_stats(dev)
+            gr = graph.StepGraph(step, tg, sg, params, (BATCH + 1, 4))
+            bad = [] if same_state(tg, sg, te, se) else ["capture"]
+            for i, raw in enumerate(raws):
+                gr.input.copy_(to_dev(raw), non_blocking=True)
+                gr.replay()
+                _, _, oe = step(te, se, params, to_dev(raw))
+                outs_eq = all(torch.equal(bits(getattr(gr.out, f)),
+                                          bits(getattr(oe, f)))
+                              for f in ("verdict", "block_key",
+                                        "block_until", "now", "wire"))
+                if not (outs_eq and same_state(tg, sg, te, se)):
+                    bad.append(i)
+            ok &= not bad
+            res[scen] = {"batches": len(raws), "mismatched_batches": bad,
+                         "stats": se.to_dict(),
+                         "tracked": int((te.key != 0).sum()),
+                         "launches_per_replay": gr.launches,
+                         "sync_debug_error_mode": "clean"}
+            del gr, tg, sg, te, se
+        return {"ok": ok, "tolerance": "byte-equal", **res}
+
+    graph_phase()
+
+    @phase("megastep_vs_singles")
+    def mega_phase():
+        c8 = dataclasses.replace(cfg, batch=dataclasses.replace(
+            cfg.batch, verdict_k=8), limiter=dataclasses.replace(
+                cfg.limiter, pps_threshold=200.0))
+        params = logreg.golden_params(dev)
+        res = {}
+        ok = True
+        for g in (2, 4, 8):
+            mixed, quant = stream("mixed_l34_1m", g, params)
+            flood, _ = stream("udp_flood_multi", g, params, rate_pps=1e7,
+                              n_attack_ips=64)
+            step = fused.make_compact_step(c8, classify_for(params), **quant)
+            mega = fused.make_compact_megastep(c8, classify_for(params), g,
+                                               **quant)
+            tg, sg = schema.make_table(TABLE_CAP, dev), schema.make_stats(dev)
+            te, se = schema.make_table(TABLE_CAP, dev), schema.make_stats(dev)
+            gr = graph.StepGraph(mega, tg, sg, params, (g, BATCH + 1, 4))
+            rows = []
+            for group in (mixed, flood):
+                gr.input.copy_(to_dev(np.stack(group)), non_blocking=True)
+                gr.replay()
+                outs = [step(te, se, params, to_dev(raw))[2]
+                        for raw in group]
+                eq = {f: torch.equal(bits(getattr(gr.out, f)), bits(
+                    torch.stack([getattr(o, f) for o in outs])))
+                    for f in ("verdict", "block_key", "block_until", "now")}
+                eq["merged_wire"] = torch.equal(
+                    gr.out.wire, fused.merge_verdict_wires(
+                        torch.stack([o.wire for o in outs])))
+                eq["table_and_stats"] = same_state(tg, sg, te, se)
+                wire = gr.out.wire.cpu().numpy()
+                rows.append({"equal": eq, "wire_count": int(wire[16]),
+                             "wire_overflow": int(wire[17])})
+                ok &= all(eq.values())
+            res[f"rung_{g}"] = {"replays": rows,
+                                "launches_per_replay": gr.launches}
+            ok &= gr.launches["score_int8"] == g
+            del gr, tg, sg, te, se
+        ok &= any(r["wire_overflow"] for v in res.values()
+                  for r in v["replays"])
+        return {"ok": ok, "tolerance": "byte-equal", **res}
+
+    mega_phase()
+
+    @phase("serve_mega_auto")
+    def mega_serve_phase():
+        # device memory after warm(): singles (one graph) and auto (four)
+        memory = {}
+        for label, mega_n in (("single", 0), ("auto", "auto")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            e = engine_for("mixed_l34_1m", "logreg_int8_pallas", BATCH,
+                           "cuda", mega_n=mega_n)
+            built = torch.cuda.memory_allocated()
+            e.warm()
+            torch.cuda.synchronize()
+            memory[label] = {
+                "engine_bytes": built - base,
+                "graphs_bytes": torch.cuda.memory_allocated() - built,
+                "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                "graphs": len(e._graphs)}
+            del e
+        engines = [engine_for(s, m, MEGA_BATCHES * BATCH, "cuda",
+                              mega_n="auto") for s, m in scenarios]
+        for e in engines:
+            e.warm()
+        kernels.reset_launches()          # this path's window opens
+        reports = [e.run() for e in engines]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)  # ... and closes
+        served["launches_mega_auto"] = launches
+        out = {"card": card, "launches": launches, "graph_memory": memory}
+        checks = [launches["score_int8"] == sum(r.batches for r in reports),
+                  launches["table_summary"] == len(reports)]
+        for (s, m), r in zip(scenarios, reports):
+            hist = r.dispatch["group_hist"]
+            out[s] = {"model": m, "batches": r.batches,
+                      "records": r.records, "wall_s": r.wall_s,
+                      "records_per_s": r.records_per_s,
+                      "stages_ms": r.stages_ms, "dispatch": r.dispatch,
+                      "stats": r.stats, "readback": r.readback}
+            checks += [r.records == MEGA_BATCHES * BATCH,
+                       r.stats["allowed"] + r.stats["dropped"] == r.records,
+                       sum(int(g) * n for g, n in hist.items()) == r.batches,
+                       len([g for g in hist if int(g) > 1]) >= 2,
+                       r.dispatch["graphs"] == 4]
+        return {"ok": all(checks), **out}
+
+    mega_serve_phase()
+
+    @phase("overflow_under_graphs")
+    def overflow_phase():
+        c = dataclasses.replace(
+            cfg, batch=dataclasses.replace(cfg.batch, verdict_k=8,
+                                           readback_depth=8),
+            limiter=dataclasses.replace(cfg.limiter, pps_threshold=200.0,
+                                        bps_threshold=1e9))
+        recs = TrafficGen(TrafficSpec(
+            scenario=Scenario.UDP_FLOOD_MULTI, rate_pps=1e7,
+            n_attack_ips=64, attack_fraction=0.8, seed=SEED)
+        ).next_records(OVERFLOW_BATCHES * BATCH)
+        runs = {}
+        for label, device, mega_n in (("cuda_single", "cuda", 0),
+                                      ("cuda_mega4", "cuda", 4),
+                                      ("cpu_single", "cpu", 0)):
+            e = engine_for("udp_flood_multi", "logreg_int8", None, device,
+                           records=recs, mega_n=mega_n, c=c)
+            e.warm()
+            r = e.run()
+            runs[label] = {"stats": r.stats,
+                           "blacklist": sorted(e.sink.blocked.items()),
+                           "digest": digest(e),
+                           "readback": r.readback,
+                           "group_hist": r.dispatch["group_hist"]}
+        want = runs["cpu_single"]
+        res = {}
+        ok = True
+        for label in ("cuda_single", "cuda_mega4"):
+            got = runs[label]
+            same = {k: got[k] == want[k]
+                    for k in ("stats", "blacklist", "digest")}
+            ok &= all(same.values()) and got["readback"]["fallback_sinks"] > 0
+            res[label] = {"equal": same, "readback": got["readback"],
+                          "group_hist": got["group_hist"]}
+        ok &= len(want["blacklist"]) > 8
+        return {"ok": ok, "blocked": len(want["blacklist"]),
+                "stats": want["stats"], **res}
+
     @phase("cross_check_cpu")
     def cross_phase():
         res = {}
         ok = True
         for s, m in scenarios:
+            recs = TrafficGen(TrafficSpec(scenario=Scenario(s), rate_pps=1e6,
+                                          seed=SEED)
+                              ).next_records(CROSS_BATCHES * BATCH)
             for label, params in (("golden", None),
                                   ("log1p_artifact", "artifact")):
                 runs = {}
                 tables = {}
-                for device in ("cuda", "cpu"):
+                for run, device, mega_n in (("cuda", "cuda", 0),
+                                            ("cuda_auto", "cuda", "auto"),
+                                            ("cpu", "cpu", 0)):
                     p = (logreg.load_params(artifact, device)
                          if params else None)
-                    e = engine_for(s, m, CROSS_BATCHES * BATCH, device, p)
+                    e = engine_for(s, m, None, device, p, records=recs,
+                                   mega_n=mega_n)
                     r = e.run()
-                    runs[device] = (r.stats, sorted(e.sink.blocked.items()),
-                                    digest(e), r.table)
-                    tables[device] = schema.table_to_numpy(e.table)
+                    runs[run] = (r.stats, sorted(e.sink.blocked.items()),
+                                 digest(e), r.table)
+                    tables[run] = schema.table_to_numpy(e.table)
                 same = {"stats": runs["cuda"][0] == runs["cpu"][0],
                         "blacklist": runs["cuda"][1] == runs["cpu"][1],
                         "table_digest": runs["cuda"][2] == runs["cpu"][2],
-                        "table_summary": runs["cuda"][3] == runs["cpu"][3]}
+                        "table_summary": runs["cuda"][3] == runs["cpu"][3],
+                        "auto_equals_cpu": runs["cuda_auto"] == runs["cpu"]}
                 ok &= all(same.values())
                 res[f"{s}/{label}"] = {
                     "equal": same, "stats": runs["cuda"][0],
@@ -379,6 +627,7 @@ def main() -> int:
             ok &= mism == 0
         return {"ok": ok, "batches": CROSS_BATCHES, **res}
 
+    overflow_phase()
     cross_phase()
 
     def time_ms(fn, reps, flush=None):
@@ -438,6 +687,7 @@ def main() -> int:
     def timing_phase():
         engines = served.get("engines")
         launches = served.get("launches", {})
+        mega_launches = served.get("launches_mega_auto", {})
         e = engines[0] if engines else engine_for(
             "syn_benign_mix", "logreg_int8", BATCH, "cuda")
         params, packed = e.params, e.score_params
@@ -467,6 +717,10 @@ def main() -> int:
             "source": "flowsentryx_tpu_torch/csrc/score_int8.cu",
             "replaces": "flowsentryx_tpu/ops/pallas_kernels.py:101",
             "launches": launches.get("score_int8", 0),
+            # the serve_mega_auto path's window, and launches per graph
+            # replay (the wrapper's host code runs once, at capture)
+            "launches_serve_mega_auto": mega_launches.get("score_int8", 0),
+            "launches_per_replay": "1 per single, g per rung g",
             "max_abs_err": errs["score_int8"], "ms": s_ms,
             "plain_ms": s_plain, "bound_ms": sb, "bound_by": sby,
             "library_ms": s_lib, "device_ms": s_dev / 1e3,
@@ -528,6 +782,8 @@ def main() -> int:
             "source": "flowsentryx_tpu_torch/csrc/table_summary.cu",
             "replaces": "flowsentryx_tpu/ops/pallas_kernels.py:166",
             "launches": launches.get("table_summary", 0),
+            "launches_serve_mega_auto": mega_launches.get("table_summary", 0),
+            "launches_per_replay": "0 (once per report, outside graphs)",
             "max_abs_err": errs["table_summary"],
             **{k: main.get(k) for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",

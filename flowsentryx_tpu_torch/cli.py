@@ -2,7 +2,8 @@
 
 Counterpart of the reference's ``fsx serve`` on its synthetic-scenario
 path: builds an :class:`~.engine.Engine` on the card (or on the CPU with
-``--device cpu``), serves a scenario, and prints the report as JSON.
+``--device cpu``), serves a scenario, and prints the report as JSON;
+``--mega N|auto`` groups backlogged batches as the reference's does.
 """
 
 from __future__ import annotations
@@ -13,6 +14,18 @@ import secrets
 import sys
 
 from flowsentryx_tpu_torch.core.config import FsxConfig, ModelConfig, TableConfig
+
+
+def _mega_arg(s: str) -> int | str:
+    """``--mega``: a fixed group size or ``auto``, the adaptive
+    power-of-two coalescing ladder (``Engine(mega_n="auto")``)."""
+    if s == "auto":
+        return "auto"
+    try:
+        return int(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--mega takes an integer or 'auto', got {s!r}") from None
 
 
 def _cmd_serve(args: argparse.Namespace) -> int:
@@ -38,7 +51,8 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     source = TrafficSource(TrafficSpec(scenario=Scenario(args.scenario),
                                        rate_pps=1e6),
                            total=args.packets or None)
-    eng = Engine(cfg, source, NullSink(), params=params, device=device)
+    eng = Engine(cfg, source, NullSink(), params=params, device=device,
+                 mega_n=args.mega)
     eng.warm()
     rep = eng.run(max_batches=args.batches or None,
                   max_seconds=args.seconds or None)
@@ -66,6 +80,11 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--model", default="logreg_int8",
                    help="model name (logreg_int8 or logreg_int8_pallas)")
     s.add_argument("--artifact", help="trained .npz artifact to serve")
+    s.add_argument("--mega", type=_mega_arg, default=0,
+                   help="group N backlogged batches into one megastep "
+                        "dispatch (one CUDA graph replay on the card); "
+                        "'auto' = adaptive coalescing: every power-of-two "
+                        "group size up to 8, the largest the backlog fills")
     s.add_argument("--device", default=None,
                    help="torch device; default the card (raises without one)")
     s.add_argument("--json", action="store_true",

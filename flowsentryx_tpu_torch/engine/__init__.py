@@ -1,9 +1,11 @@
-from flowsentryx_tpu_torch.engine.engine import Engine, EngineReport
-from flowsentryx_tpu_torch.engine.sources import TrafficSource
+from flowsentryx_tpu_torch.engine.engine import (
+    MEGA_AUTO_MAX, Engine, EngineReport,
+)
+from flowsentryx_tpu_torch.engine.sources import ArraySource, TrafficSource
 from flowsentryx_tpu_torch.engine.traffic import Scenario, TrafficGen, TrafficSpec
 from flowsentryx_tpu_torch.engine.writeback import CollectSink, NullSink
 
 __all__ = [
-    "CollectSink", "Engine", "EngineReport", "NullSink",
-    "Scenario", "TrafficGen", "TrafficSource", "TrafficSpec",
+    "ArraySource", "CollectSink", "Engine", "EngineReport", "MEGA_AUTO_MAX",
+    "NullSink", "Scenario", "TrafficGen", "TrafficSource", "TrafficSpec",
 ]

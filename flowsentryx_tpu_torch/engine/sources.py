@@ -1,7 +1,8 @@
 """Record sources: where the engine's packets come from.
 
 Counterpart of ``flowsentryx_tpu/engine/sources.py`` (the in-process
-producers; the shared-memory ring source is not ported yet).
+producers ``TrafficSource`` and ``ArraySource``; the shared-memory ring
+source is not ported yet).
 """
 
 from __future__ import annotations
@@ -37,4 +38,24 @@ class TrafficSource:
 
     def exhausted(self) -> bool:
         return self.remaining is not None and self.remaining <= 0
+
+
+class ArraySource:
+    """Replays a pre-built record array once, in ``poll``-sized slices.
+
+    The generator's draws depend on the poll size, and a grouping engine
+    polls group-sized chunks: feeding one pregenerated stream is how two
+    engines with different dispatch policies see the same records."""
+
+    def __init__(self, records: np.ndarray):
+        self.records = records
+        self.pos = 0
+
+    def poll(self, max_records: int) -> np.ndarray:
+        out = self.records[self.pos: self.pos + max_records]
+        self.pos += len(out)
+        return out
+
+    def exhausted(self) -> bool:
+        return self.pos >= len(self.records)
 

@@ -3,7 +3,9 @@
 Counterpart of ``flowsentryx_tpu/ops/fused.py`` (single device, the
 single-sort pipeline): decode -> score -> per-packet probe -> ONE sort
 -> segment reductions -> blacklist/limiter/ML-vote core -> state
-scatter -> stats fold -> compact verdict wire.
+scatter -> stats fold -> compact verdict wire; and the megastep ladder
+(``ops/fused.py:521-542,769-879`` there): N sealed batches in one
+dispatch with their wires merged into one.
 
 What changes from the reference, and why:
 
@@ -20,8 +22,8 @@ What changes from the reference, and why:
   summed quantity on the compact16 wire is an exact small integer in
   float32 (see :mod:`.agg`), so the sums do not depend on order.
 * **No host sync.**  Nothing in the step reads a device value on the
-  host (no ``.item()``/``.cpu()``), so a later change can capture it in
-  a CUDA graph.
+  host (no ``.item()``/``.cpu()``), so the engine serves it as a
+  captured CUDA graph (:mod:`.graph`).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 from flowsentryx_tpu_torch.core import schema
 from flowsentryx_tpu_torch.core.config import FsxConfig
 from flowsentryx_tpu_torch.core.device import (
-    LN2_F32, as_i32, f32, fma32, xla_exp,
+    LN2_F32, as_i32, f32, fma32, u32, xla_exp,
 )
 from flowsentryx_tpu_torch.core.schema import (
     GlobalStats, IpTableState, TableCol, Verdict,
@@ -235,6 +237,31 @@ def pack_verdict_wire(block_key: torch.Tensor, block_until: torch.Tensor,
     return torch.cat([as_i32(ck), cu.view(torch.int32), as_i32(scalars)])
 
 
+def merge_verdict_wires(wires: torch.Tensor) -> torch.Tensor:
+    """Fold a ``[N, 2K+4]`` stack of per-chunk verdict wires (a
+    megastep's outputs) into ONE wire, so a group dispatch still costs a
+    single O(K) readback.
+
+    Counts and route_drop sum, ``now`` takes the f32 max, and the
+    ``N*K`` key/until slots re-compact in chunk order with
+    :func:`compact_blocklist` (last wins per key downstream).  The
+    merged overflow flag derives from the summed TRUE counts: any lost
+    entry, a chunk's own overflow or more than K in all, implies a total
+    above K, so the flag is exact."""
+    k = (wires.shape[1] - VERDICT_WIRE_SCALARS) // 2
+    keys = u32(wires[:, :k].reshape(-1))
+    untils = wires[:, k:2 * k].reshape(-1).view(torch.float32)
+    count = u32(wires[:, 2 * k]).sum()
+    rd = u32(wires[:, 2 * k + 2]).sum()
+    now = wires[:, 2 * k + 3].view(torch.float32).max()
+    ck, cu, _ = compact_blocklist(keys, untils, k)
+    scalars = torch.stack([
+        count, (count > k).long(), rd,
+        now.reshape(1).view(torch.int32)[0].long(),
+    ])
+    return torch.cat([as_i32(ck), cu.view(torch.int32), as_i32(scalars)])
+
+
 def make_step(
     cfg: FsxConfig,
     classify_batch: Callable[[Any, torch.Tensor], torch.Tensor],
@@ -344,3 +371,96 @@ def make_compact_step(
         return base(table, stats, params, schema.decode_compact(raw, **quant))
 
     return step
+
+
+def pow2_group_sizes(mega_n: int) -> tuple[int, ...]:
+    """The adaptive coalescing ladder: every power-of-two group size in
+    ``[2, mega_n]``, LARGEST first (the dispatch loop picks the first
+    size the backlog fills, so order encodes preference).  Any backlog
+    ``b`` then dispatches in at most ``popcount(b)`` groups and singles,
+    with one captured graph per rung."""
+    sizes: list[int] = []
+    g = 2
+    while g <= mega_n:
+        sizes.append(g)
+        g *= 2
+    return tuple(reversed(sizes))
+
+
+def rung_for_volume(volume: int, sizes: tuple[int, ...]) -> int:
+    """The ladder's rung-selection policy: the largest rung of ``sizes``
+    (largest first, :func:`pow2_group_sizes` order) that ``volume``
+    sealed batches fill, else 1 (a single)."""
+    return next((s for s in sizes if s <= volume), 1)
+
+
+def wrap_megastep(base, n_chunks: int):
+    """``mega(table, stats, params, raws)``: ``base`` run over the
+    ``n_chunks`` leading slices of a ``[N, B+1, 4]`` stacked wire group,
+    in order, updating table and stats in place (the reference's
+    ``lax.scan`` carry).  ``outs`` fields are stacked ``[N, B]``
+    (``now``: ``[N]``), except ``outs.wire``, the N chunks' verdict wires
+    merged into ONE by :func:`merge_verdict_wires`.
+
+    On the CPU this is the plain loop; on the card the same function is
+    what :class:`~.graph.StepGraph` captures, one graph per rung."""
+
+    def mega(table, stats, params, raws):
+        if raws.shape[0] != n_chunks:
+            raise ValueError(
+                f"mega-step built for {n_chunks} chunks, got a "
+                f"[{raws.shape[0]}, ...] group (its captured graph has "
+                "that many chunks baked in)")
+        outs = [base(table, stats, params, raw)[2] for raw in raws.unbind(0)]
+
+        def stacked(field):
+            vals = [getattr(o, field) for o in outs]
+            return None if vals[0] is None else torch.stack(vals)
+
+        wires = stacked("wire")
+        out = StepOutput(
+            verdict=stacked("verdict"), score=stacked("score"),
+            block_key=stacked("block_key"),
+            block_until=stacked("block_until"), now=stacked("now"),
+            wire=None if wires is None else merge_verdict_wires(wires))
+        return table, stats, out
+
+    return mega
+
+
+def make_compact_megastep(cfg: FsxConfig, classify_batch, n_chunks: int,
+                          **quant):
+    """N micro-batches in ONE dispatch over a ``[N, B+1, 4]`` stacked
+    compact16 group (counterpart of the reference's
+    ``make_jitted_compact_megastep``; on the card the dispatch is one
+    CUDA graph replay, :mod:`.graph`)."""
+    return wrap_megastep(make_compact_step(cfg, classify_batch, **quant),
+                         n_chunks)
+
+
+def make_compact_megastep_family(cfg: FsxConfig, classify_batch,
+                                 sizes: tuple[int, ...], **quant) -> dict:
+    """One megastep per group size, sharing one base step (``{n: mega}``,
+    keys sorted descending): the adaptive ladder's rungs."""
+    base = make_compact_step(cfg, classify_batch, **quant)
+    return {n: wrap_megastep(base, n) for n in sorted(sizes, reverse=True)}
+
+
+def block_record(out: StepOutput) -> torch.Tensor:
+    """A step's (or megastep's) block arrays and clock as ONE flat int32
+    buffer: every ``block_key``, every ``block_until`` (f32 bits), every
+    ``now`` (f32 bits).  The engine keeps one copy per in-flight dispatch
+    and reads it when that dispatch's wire overflowed (or when there is
+    no wire); :func:`split_block_record` undoes it on the host."""
+    return torch.cat([out.block_key.reshape(-1),
+                      out.block_until.reshape(-1).view(torch.int32),
+                      out.now.reshape(-1).view(torch.int32)])
+
+
+def split_block_record(rec, n_chunks: int):
+    """Host side of :func:`block_record` (numpy int32 ``rec`` of
+    ``n_chunks`` chunks) -> ``(keys u32, untils f32, nows f32)``."""
+    b = (rec.shape[0] - n_chunks) // (2 * n_chunks)
+    keys = rec[:n_chunks * b].view("<u4")
+    untils = rec[n_chunks * b:2 * n_chunks * b].view("<f4")
+    return keys, untils, rec[2 * n_chunks * b:].view("<f4")

@@ -6,6 +6,7 @@ a machine with the card alone:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import functools
 import hashlib
 from pathlib import Path
 
@@ -15,10 +16,11 @@ import torch
 
 from flowsentryx_tpu_torch.core import config, schema
 from flowsentryx_tpu_torch.engine import (
-    CollectSink, Engine, Scenario, TrafficSource, TrafficSpec,
+    ArraySource, CollectSink, Engine, Scenario, TrafficGen, TrafficSource,
+    TrafficSpec,
 )
 from flowsentryx_tpu_torch.models import logreg
-from flowsentryx_tpu_torch.ops import kernels
+from flowsentryx_tpu_torch.ops import fused, graph, kernels
 
 ARTIFACT = str(Path(__file__).resolve().parents[1] / "artifacts"
                / "logreg_int8.npz")
@@ -142,6 +144,216 @@ def test_table_summary_kernel_matches_plain(cuda, n):
 def _digest(e):
     k, st = schema.table_to_numpy(e.table)
     return hashlib.sha256(k.tobytes() + st.tobytes()).hexdigest()
+
+
+def _compact_batches(params, n, b, scenario="mixed_l34_1m", seed=3):
+    """``n`` compact16 ``[B+1, 4]`` wire buffers of a scenario, in the
+    params' model mode, with ragged fills."""
+    quant = schema.wire_quant_for(logreg.LogRegParams(
+        **logreg.params_to_numpy(params)))
+    gen = TrafficGen(TrafficSpec(scenario=Scenario(scenario), seed=seed,
+                                 rate_pps=1e6))
+    out, t0 = [], None
+    for i in range(n):
+        rec = gen.next_records(b - (i % 5) * 131)
+        t0 = int(rec["ts_ns"][0]) if t0 is None else t0
+        out.append(schema.encode_compact(rec, b, t0, **quant))
+    return out, quant
+
+
+def _step_fixture(cuda, cap=1 << 14, b=2048, verdict_k=64, pps=300.0):
+    cfg = config.FsxConfig(
+        limiter=config.LimiterConfig(pps_threshold=pps),
+        table=config.TableConfig(capacity=cap, salt=0x5EED),
+        batch=config.BatchConfig(max_batch=b, verdict_k=verdict_k))
+    params = logreg.load_params(ARTIFACT, cuda)
+    packed = kernels.pack_score_params(params)
+    classify = functools.partial(kernels.score_int8, packed=packed)
+    return cfg, params, classify
+
+
+def _same_state(t1, s1, t2, s2):
+    assert torch.equal(t1.key, t2.key)
+    assert torch.equal(t1.state.view(torch.int32), t2.state.view(torch.int32))
+    assert s1.to_dict() == s2.to_dict()
+
+
+def _same_out(o1, o2):
+    for f in ("verdict", "block_key", "block_until", "now", "wire"):
+        a, b = getattr(o1, f), getattr(o2, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+
+
+def test_eager_step_runs_without_a_host_sync(cuda):
+    """A capture fails on any host sync: the eager step must run clean
+    under ``set_sync_debug_mode("error")`` (masked and real batches)."""
+    cfg, params, classify = _step_fixture(cuda)
+    step = fused.make_compact_step(cfg, classify, **_compact_batches(
+        params, 1, 2048)[1])
+    table, stats = schema.make_table(1 << 14, cuda), schema.make_stats(cuda)
+    raws, _ = _compact_batches(params, 2, 2048)
+    raws.insert(0, np.zeros_like(raws[0]))
+    devs = [schema.wire_to_tensor(r).to(cuda) for r in raws]
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for d in devs:
+            step(table, stats, params, d)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    assert stats.to_dict()["batches"] == 2
+
+
+def test_step_graph_replay_equals_eager_step(cuda):
+    """One captured single step replayed over a 12-batch stream against
+    the eager step on a second table: every output, the table and the
+    stats equal after each batch."""
+    cfg, params, classify = _step_fixture(cuda)
+    raws, quant = _compact_batches(params, 12, 2048)
+    step = fused.make_compact_step(cfg, classify, **quant)
+    tg, sg = schema.make_table(1 << 14, cuda), schema.make_stats(cuda)
+    te, se = schema.make_table(1 << 14, cuda), schema.make_stats(cuda)
+    gr = graph.StepGraph(step, tg, sg, params, (2049, 4))
+    _same_state(tg, sg, te, se)      # warm-ups and capture changed nothing
+    for raw in raws:
+        gr.input.copy_(schema.wire_to_tensor(raw).to(cuda))
+        gr.replay()
+        _, _, oe = step(te, se, params, schema.wire_to_tensor(raw).to(cuda))
+        _same_out(gr.out, oe)
+        _same_state(tg, sg, te, se)
+    assert se.to_dict()["dropped"] > 0
+
+
+@pytest.mark.parametrize("g", [2, 4, 8])
+def test_rung_graph_equals_singles(cuda, g):
+    """Rung ``g`` replayed twice against 2g eager singles: table, stats,
+    the stacked verdicts and block arrays, and the merged wire equal to
+    ``merge_verdict_wires`` of the singles' wires."""
+    cfg, params, classify = _step_fixture(cuda, verdict_k=8)
+    raws, quant = _compact_batches(params, 2 * g, 2048, "udp_flood_multi")
+    step = fused.make_compact_step(cfg, classify, **quant)
+    mega = fused.make_compact_megastep(cfg, classify, g, **quant)
+    tg, sg = schema.make_table(1 << 14, cuda), schema.make_stats(cuda)
+    te, se = schema.make_table(1 << 14, cuda), schema.make_stats(cuda)
+    gr = graph.StepGraph(mega, tg, sg, params, (g, 2049, 4))
+    for r in range(2):
+        group = np.stack(raws[r * g:(r + 1) * g])
+        gr.input.copy_(schema.wire_to_tensor(group).to(cuda))
+        gr.replay()
+        outs = [step(te, se, params, schema.wire_to_tensor(raw).to(cuda))[2]
+                for raw in raws[r * g:(r + 1) * g]]
+        for f in ("verdict", "block_key", "block_until", "now"):
+            want = torch.stack([getattr(o, f) for o in outs])
+            got = getattr(gr.out, f)
+            if got.dtype == torch.float32:
+                got, want = got.view(torch.int32), want.view(torch.int32)
+            assert torch.equal(got, want), f
+        merged = fused.merge_verdict_wires(torch.stack([o.wire for o in outs]))
+        assert torch.equal(gr.out.wire, merged)
+        _same_state(tg, sg, te, se)
+
+
+@pytest.mark.parametrize("g", [0, 1, 2, 8])
+def test_graph_launch_counts(cuda, g):
+    """A replay counts one ``score_int8`` launch per batch it holds; the
+    capture itself counts none (its warm-ups are real launches)."""
+    cfg, params, classify = _step_fixture(cuda)
+    quant = _compact_batches(params, 1, 2048)[1]
+    fn = (fused.make_compact_step(cfg, classify, **quant) if g == 0
+          else fused.make_compact_megastep(cfg, classify, g, **quant))
+    shape = (2049, 4) if g == 0 else (g, 2049, 4)
+    table, stats = schema.make_table(1 << 14, cuda), schema.make_stats(cuda)
+    n0 = dict(kernels.LAUNCHES)
+    gr = graph.StepGraph(fn, table, stats, params, shape)
+    per = max(g, 1)
+    assert gr.launches == {"score_int8": per, "table_summary": 0}
+    assert kernels.LAUNCHES["score_int8"] == (n0["score_int8"]
+                                              + graph.WARMUPS * per)
+    n1 = kernels.LAUNCHES["score_int8"]
+    for _ in range(3):
+        gr.replay()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["score_int8"] == n1 + 3 * per
+    assert kernels.LAUNCHES["table_summary"] == n0["table_summary"]
+
+
+def test_warm_captures_every_rung_and_changes_nothing(cuda):
+    cfg = config.FsxConfig(table=config.TableConfig(capacity=1 << 14),
+                           batch=config.BatchConfig(max_batch=2048))
+    e = Engine(cfg, TrafficSource(TrafficSpec(), total=2048), CollectSink(),
+               device=cuda, mega_n="auto")
+    e.warm()
+    assert sorted(e._graphs) == [0, 2, 4, 8]
+    assert e.stats.to_dict() == schema.make_stats().to_dict()
+    assert not e.table.key.any() and not e.table.state.any()
+    n0 = kernels.LAUNCHES["score_int8"]
+    r = e.run()
+    assert r.dispatch["graphs"] == 4 and r.dispatch["group_hist"] == {"1": 1}
+    assert kernels.LAUNCHES["score_int8"] == n0 + 1
+    assert r.stats["allowed"] + r.stats["dropped"] == 2048
+
+
+@pytest.mark.parametrize("mega_n", [0, 4, "auto"])
+def test_overflow_fallback_under_graphs(cuda, mega_n):
+    """The multi-source flood at ``verdict_k=2`` with ``readback_depth=4``:
+    overflowed wires are reaped after later replays have overwritten the
+    graphs' static outputs, so the fallback must read the dispatch's own
+    copy of its block arrays.  Blacklist (keys and untils), stats and
+    table equal the CPU engine's."""
+    cfg = config.FsxConfig(
+        limiter=config.LimiterConfig(pps_threshold=200.0, bps_threshold=1e9),
+        table=config.TableConfig(capacity=1 << 12),
+        batch=config.BatchConfig(max_batch=512, verdict_k=2,
+                                 readback_depth=4))
+    recs = TrafficGen(TrafficSpec(
+        scenario=Scenario.UDP_FLOOD_MULTI, rate_pps=1e7, n_attack_ips=32,
+        attack_fraction=0.8, seed=17)).next_records(512 * 24)
+    out = {}
+    for device in ("cuda", "cpu"):
+        e = Engine(cfg, ArraySource(recs.copy()), CollectSink(),
+                   device=device, mega_n=mega_n)
+        e.warm()
+        r = e.run()
+        out[device] = (r.stats, e.sink.blocked, _digest(e), r.table,
+                       r.readback["fallback_sinks"], r.dispatch["group_hist"])
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][4] > 0 and len(out["cuda"][1]) > 2
+
+
+@pytest.mark.parametrize("mega_n", [0, 4])
+def test_overflow_fallback_reads_each_dispatchs_own_blocks(cuda, mega_n):
+    """Twelve overflowing dispatches enqueued back to back before any is
+    sunk (``readback_depth=4``), so every overflowed dispatch is read
+    after at least four later replays of the same graph: a sink that
+    read the graph's static block arrays would apply later batches'
+    blocks.  The blacklist and stats equal the CPU engine's."""
+    cfg = config.FsxConfig(
+        limiter=config.LimiterConfig(pps_threshold=200.0, bps_threshold=1e9),
+        table=config.TableConfig(capacity=1 << 14),
+        batch=config.BatchConfig(max_batch=2048, verdict_k=2,
+                                 readback_depth=4))
+    params = logreg.load_params(ARTIFACT)
+    raws, _ = _compact_batches(params, 12 * max(mega_n, 1), 2048,
+                               "udp_flood_multi", seed=17)
+    out = {}
+    for device in ("cuda", "cpu"):
+        e = Engine(cfg, ArraySource(np.empty(0)), CollectSink(),
+                   params=params, device=device, mega_n=mega_n)
+        e.warm()
+        for i in range(12):
+            if mega_n:
+                e._dispatch_mega(raws[i * mega_n:(i + 1) * mega_n])
+            else:
+                e._dispatch(raws[i])
+        e._reap(0)
+        out[device] = (e.stats.to_dict(), e.sink.blocked, _digest(e),
+                       e._sink_fallback)
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][3] >= 4
 
 
 @pytest.mark.parametrize("scenario", ["syn_benign_mix", "mixed_l34_1m"])
