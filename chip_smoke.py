@@ -7,53 +7,87 @@ plain versions.
 Phases (each prints one JSON line; any failure exits non-zero and the
 final ``{"ok": true, ...}`` line is never printed):
 
-1. ``nvidia-smi`` name and power limit; build both kernels from
+1. ``nvidia-smi`` name and power limit; build the three kernels from
    ``flowsentryx_tpu_torch/csrc/`` (one ``nvcc`` per source, in
    parallel) into ``build/kernels/``.
 2. ``score_int8`` kernel vs its plain version on the card, exact:
    golden params over the model-mode decode grid (every u8 code of every
-   feature) plus 2^16 random rows, then the log1p artifact
+   feature) plus 2^16 random rows and 2^16 heavy-tailed raw48 rows (up
+   to ~2^32: the kernel's log1p is XLA's), then the log1p artifact
    ``artifacts/logreg_int8.npz`` the same way; and for each params the
    decoded B=2048 serving batches of both scenarios, the shape the main
    path hands the scorer; ragged batches of 1, 15, 2047 and 2049 rows;
    and the packed output table against the plain output stage.
 3. ``table_summary`` kernel vs plain, exact: an empty 2^20-row table, a
    random fill at 2^20 rows, a row count that is no multiple of 1024,
-   and (after phase 4) the real table the served run left.
-4. Serve: ``Engine(device="cuda")`` (singles, every dispatch one CUDA
+   and (after phase 5) the real table the served run left.
+4. ``raw_decode_and_sum``: ``segment_sum_seq`` vs its plain version,
+   exact, on the byte lanes of a crafted raw48 batch (one source with
+   300 records of 65,535 B, whose lane-order f32 sum differs from the
+   exact sum), of a served ``mixed_l34_1m`` batch and of ragged random
+   segments; the scorer's device ``log1p`` vs ``xla_log1p`` on the card
+   over every non-negative float32; ``xla_log1p``,
+   ``xla_sigmoid`` and the ``mlp``/``multiclass``/``logreg_float``
+   scorers give the same bits on the card as on the host.
+5. Serve: ``Engine(device="cuda")`` (singles, every dispatch one CUDA
    graph replay) at capacity 2^20, B=2048 over ``syn_benign_mix`` and
    ``mixed_l34_1m``; launch counters are zeroed just before and read
    just after: ``score_int8`` launched once per batch served,
    ``table_summary`` once per report.
-5. ``step_graph_vs_eager``: a multi-batch stream of each scenario at
+6. ``step_graph_vs_eager``: a multi-batch stream of each scenario at
    2^20 rows / B=2048 through the captured single step and through the
    eager step on a second table (the eager step's first batch run under
    ``torch.cuda.set_sync_debug_mode("error")``): outputs, table bytes and
    stats equal after every batch.
-6. ``megastep_vs_singles``: each rung g in {2, 4, 8} captured and
+7. ``megastep_vs_singles``: each rung g in {2, 4, 8} captured and
    replayed twice (a ``mixed_l34_1m`` group, then a multi-source flood
    group whose merged K=8 wire overflows) against 2g eager singles:
    table, stats, stacked verdicts and block arrays equal, and the merged
    wire equals ``merge_verdict_wires`` of the singles' wires.
-7. ``serve_mega_auto``: both scenarios through ``Engine(mega_n="auto")``
+8. ``serve_mega_auto``: both scenarios through ``Engine(mega_n="auto")``
    at full width from a deep backlog whose tail fills smaller rungs
    (``MEGA_BATCHES`` = 23 x 8 + 6): group histogram, records/s, stage
    times, ``score_int8`` launches equal to the batches served, and the
    device memory held after ``warm()`` by singles and by the four graphs
    of ``auto``.
-8. ``overflow_under_graphs``: the multi-source flood at ``verdict_k=8``
-   and ``readback_depth=8`` through singles and ``mega_n=4`` on the card
-   against the CPU engine: blacklist with untils, stats and table digest
-   equal, and overflowed wires fell back (``fallback_sinks > 0``).
-9. Cross-check: a shorter pregenerated corpus of each scenario through
-   the CUDA engine (singles and ``mega_n="auto"``) and through
-   ``Engine(device="cpu")`` (the plain versions): stats, blacklist and a
-   digest of the whole table must be equal; and the XLA:CPU rounding
-   helpers (``xla_exp``, ``xla_exp2``, ``fma32``, ``recip_mul``) give the
-   same bits on the card as on the host.
+9. ``raw48_graph_vs_eager``: the captured raw48 single step with
+   ``artifacts/mlp_robust.npz`` and the eviction sweep on (a 10 ms ttl,
+   so the stream frees rows) against the eager step at 2^20 rows /
+   B=2048, the batch counter set to 2^32 - 3 so that its u32 wrap falls
+   inside the stream: outputs, table bytes and stats after every batch.
+10. ``serve_raw48_mlp``: ``Engine(device="cuda")`` with the ``mlp``
+    artifact (the default wire rule picks raw48) at 2^20 rows / B=2048
+    over ``mixed_l34_1m`` and ``syn_benign_mix``, eviction at ttl 0.25 s
+    every 32 batches (32,768-row windows); launches in this path's own
+    window: ``segment_sum_seq`` once per batch, ``score_int8`` never,
+    ``table_summary`` once per report; ``evicted > 0`` on
+    ``mixed_l34_1m`` (``syn_benign_mix``'s sources never idle past the
+    ttl).  Then the captured raw48 step with and without the sweep:
+    device ops and busy ms per batch (``torch.profiler``), the largest
+    ops, event ms per batch.
+11. ``overflow_under_graphs``: the multi-source flood at ``verdict_k=8``
+    and ``readback_depth=8`` through singles and ``mega_n=4`` on the card
+    against the CPU engine: blacklist with untils, stats and table digest
+    equal, and overflowed wires fell back (``fallback_sinks > 0``).
+12. Cross-check: a shorter pregenerated corpus of each scenario through
+    the CUDA engine (singles and ``mega_n="auto"``) and through
+    ``Engine(device="cpu")`` (the plain versions): stats, blacklist and a
+    digest of the whole table must be equal; and the XLA:CPU rounding
+    helpers (``xla_exp``, ``xla_exp2``, ``fma32``, ``recip_mul``) give the
+    same bits on the card as on the host.
+13. ``cross_check_families``: a 24-batch multi-source flood at 10 M
+    records/s (blocks) with the sweep on at a 1 ms ttl (evictions)
+    through the CUDA and the CPU engine for ``mlp`` and
+    ``multiclass`` (raw48), ``logreg_float`` (compact16, singles and
+    ``auto``) and ``logreg_int8`` with ``wire="raw48"``: stats
+    (``evicted`` > 0 included), blacklist with untils (more than 8
+    blocked), table digest and summary equal.
 
-Then the timing line per kernel: ``ms`` (CUDA events, host launch gaps
-included), ``device_ms`` (the kernel's own time from ``torch.profiler``),
+Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
+of a served raw48 batch, ``index_add_`` its library call; the scorer
+also with the log1p artifact on raw48 rows): ``ms`` (CUDA events, host
+launch gaps included), ``device_ms`` (the kernel's own time from
+``torch.profiler``),
 ``host_us_per_call`` (the wrapper's enqueue time), the plain version,
 one library call where one exists (event and profiler time), and the
 bound from this run's inputs (for ``table_summary``: every key plus the
@@ -145,8 +179,10 @@ def main() -> int:
         ArraySource, CollectSink, Engine, Scenario, TrafficGen,
         TrafficSource, TrafficSpec,
     )
-    from flowsentryx_tpu_torch.models import logreg
-    from flowsentryx_tpu_torch.ops import fused, graph, kernels
+    from flowsentryx_tpu_torch.core import device as fdev
+    from flowsentryx_tpu_torch.models import logreg, mlp, multiclass
+    from flowsentryx_tpu_torch.models.registry import load_artifact
+    from flowsentryx_tpu_torch.ops import agg, fused, graph, kernels
 
     dev = torch.device("cuda")
     card = smi_line()
@@ -155,7 +191,9 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0)})
     artifact = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "artifacts", "logreg_int8.npz")
-    errs = {"score_int8": 0.0, "table_summary": 0.0}
+    mlp_path = os.path.join(os.path.dirname(artifact), "mlp_robust.npz")
+    mc_path = os.path.join(os.path.dirname(artifact), "multiclass.npz")
+    errs = {"score_int8": 0.0, "table_summary": 0.0, "segment_sum_seq": 0.0}
 
     @phase("build")
     def build():
@@ -218,12 +256,19 @@ def main() -> int:
             grid = decoded_grid(params, 1 << 16)
             raw_x = torch.from_numpy(rng.uniform(
                 0, 2e6, (1 << 16, 8)).astype(np.float32)).to(dev)
+            # raw48 feature words as the scorer meets them undecoded:
+            # heavy-tailed values up to ~2^32 (XLA's log1p, not log1pf)
+            heavy_x = torch.from_numpy(np.exp(rng.uniform(
+                0, 22, (1 << 16, 8))).astype(np.float32)).to(dev)
             res[name] = {"grid_rows": grid.shape[0],
                          "grid_mismatches": compare_scores(params, grid),
                          "raw_rows": raw_x.shape[0],
-                         "raw_mismatches": compare_scores(params, raw_x)}
+                         "raw_mismatches": compare_scores(params, raw_x),
+                         "raw_heavy_mismatches": compare_scores(params,
+                                                                heavy_x)}
             mismatches += [res[name]["grid_mismatches"],
-                           res[name]["raw_mismatches"]]
+                           res[name]["raw_mismatches"],
+                           res[name]["raw_heavy_mismatches"]]
             # the main path's shape: decoded [2048, 8] serving batches
             for scen in ("syn_benign_mix", "mixed_l34_1m"):
                 x = serving_batch(params, scen)
@@ -285,6 +330,131 @@ def main() -> int:
 
     score_phase()
     summary_phase()
+
+    def heavy_records():
+        """One B = 2048 raw48 batch: source 1 sends 300 records of
+        65,535 B (its f32 byte sum passes 2^24 and depends on the order),
+        the other sources ragged runs of random sizes."""
+        r = np.random.default_rng(SEED + 1)
+        rec = np.zeros(BATCH, schema.FLOW_RECORD_DTYPE)
+        rec["ts_ns"] = 5 * 10 ** 9 + np.arange(BATCH) * 100
+        keys = r.integers(2, 200, BATCH)
+        keys[r.choice(BATCH, 300, replace=False)] = 1
+        rec["saddr"] = keys
+        rec["pkt_len"] = np.where(keys == 1, 65535, r.integers(40, 65536,
+                                                               BATCH))
+        rec["feat"] = r.integers(0, 1 << 32, (BATCH, 8), dtype=np.uint64)
+        return rec
+
+    def raw_wire(rec):
+        return schema.wire_to_tensor(schema.encode_raw(
+            rec, BATCH, int(rec["ts_ns"][0]))).to(dev)
+
+    def byte_segments(raw):
+        """The raw step's byte lanes and segment ids of a wire batch on
+        the card: decode, the records sorted by source (the step's sort
+        puts each flow's records in one run, in lane order), dense
+        segment ids from 0."""
+        fb = schema.decode_raw(raw)
+        key = torch.where(fb.valid, fb.key, agg.INVALID_KEY)
+        key_s, order = torch.sort(key, stable=True)
+        seg = torch.cumsum(agg.run_heads(key_s), 0) - 1
+        v = torch.where(fb.valid[order], fb.pkt_len[order], 0.0)
+        return v.contiguous(), seg.contiguous(), fb.key[order]
+
+    def ragged_segments(b, seed):
+        r = np.random.default_rng(seed)
+        lens = r.integers(1, 60, b)
+        seg = np.repeat(np.arange(b), lens)[:b]
+        v = r.integers(40, 1 << 16, b).astype(np.float32)
+        return (torch.from_numpy(v).to(dev),
+                torch.from_numpy(seg.astype(np.int64)).to(dev))
+
+    def compare_segsum(v, seg, n):
+        got = kernels.segment_sum_seq(v, seg, n)
+        want = agg.segment_sum_seq_plain(v, seg, n)
+        torch.cuda.synchronize()
+        errs["segment_sum_seq"] = max(errs["segment_sum_seq"],
+                                      float((got - want).abs().max()))
+        return got, int((got.view(torch.int32) != want.view(torch.int32))
+                        .sum())
+
+    def same_bits(fn, x):
+        """``fn`` on the card and on the host over the same inputs:
+        mismatching values (float results by their bits)."""
+        a, b_ = fn(x.to(dev)).cpu(), fn(x.cpu())
+        if a.dtype == torch.float32:
+            a, b_ = a.view(torch.int32), b_.view(torch.int32)
+        return int((a != b_).sum())
+
+    @phase("raw_decode_and_sum")
+    def raw_phase():
+        res = {"tolerance": "exact (0 mismatches)"}
+        bad = []
+        # segment_sum_seq against its plain version: the crafted heavy
+        # batch, a served mixed_l34_1m batch, and ragged random segments
+        mixed = TrafficSource(TrafficSpec(
+            scenario=Scenario.MIXED_L34_1M, rate_pps=1e6, seed=SEED),
+            total=BATCH).poll(BATCH)
+        seg_cases = {"heavy_300x65535": byte_segments(raw_wire(
+            heavy_records()))[:2],
+            "mixed_l34_1m": byte_segments(raw_wire(mixed))[:2]}
+        for b in (1, 255, 2048, 4099):
+            seg_cases[f"ragged_{b}"] = ragged_segments(b, b)
+        res["segment_sum_seq"] = {}
+        for label, (v, seg) in seg_cases.items():
+            got, m = compare_segsum(v, seg, v.shape[0])
+            res["segment_sum_seq"][label] = {
+                "lanes": v.shape[0], "segments": int(seg[-1]) + 1,
+                "longest": int(torch.bincount(seg).max()), "mismatches": m}
+            bad.append(m)
+        # the order is visible: source 1's lane-order sum is not its
+        # exact sum
+        v, seg, keys = byte_segments(raw_wire(heavy_records()))
+        got = kernels.segment_sum_seq(v, seg, BATCH)
+        s1 = int(seg[keys == 1][0])
+        exact = float(v[seg == s1].double().sum())
+        res["heavy_source"] = {"lane_order_f32": float(got[s1]),
+                               "exact": exact,
+                               "differs": float(got[s1]) != exact}
+        bad.append(int(float(got[s1]) == exact))
+        # the scorer's log1p (a device function of score_int8.cu) against
+        # the plain xla_log1p on the card, every non-negative float32
+        chunk, n_all, mism = 1 << 26, 1 << 31, 0
+        for lo in range(0, n_all, chunk):
+            x = torch.arange(lo, lo + chunk, device=dev).to(
+                torch.int32).view(torch.float32)
+            mism += int((kernels.score_log1p(x).view(torch.int32)
+                         != fdev.xla_log1p(x).view(torch.int32)).sum())
+        res["score_log1p_vs_plain"] = {"values": n_all, "mismatches": mism}
+        bad.append(mism)
+        # the XLA:CPU helpers and the model families give the same bits
+        # on the card as on the host
+        wide = torch.from_numpy(np.concatenate([
+            np.exp(rng.uniform(0, 22, 1 << 21)), rng.uniform(0, 1, 1 << 20),
+            rng.uniform(-30, 30, 1 << 20)]).astype(np.float32))
+        host_card = {
+            "xla_log1p": same_bits(fdev.xla_log1p, wide.abs()),
+            "xla_sigmoid": same_bits(fdev.xla_sigmoid, wide),
+        }
+        feats = torch.from_numpy(np.where(
+            rng.random((1 << 15, 8)) < 0.2, 0.0,
+            np.exp(rng.uniform(0, 22, (1 << 15, 8)))).astype(np.float32))
+        for fam, path, mod, fns in (
+                ("mlp", mlp_path, mlp, ("logits", "classify_batch")),
+                ("multiclass", mc_path, multiclass,
+                 ("class_probs", "classify_batch", "attack_class")),
+                ("logreg_float", artifact, logreg, ("classify_float",))):
+            p = {d: load_artifact(fam, path, d) for d in ("cuda", "cpu")}
+            for fn in fns:
+                f = getattr(mod, fn)
+                host_card[f"{fam}.{fn}"] = same_bits(
+                    lambda x, f=f: f(p[x.device.type], x), feats)
+        res["card_vs_host"] = host_card
+        bad += list(host_card.values())
+        return {"ok": not any(bad), **res}
+
+    raw_phase()
 
     cfg = FsxConfig(table=TableConfig(capacity=TABLE_CAP, salt=SEED & 0xFFFFFFFF),
                     batch=BatchConfig(max_batch=BATCH))
@@ -520,6 +690,203 @@ def main() -> int:
 
     mega_serve_phase()
 
+    # -- the raw48 wire: MLP scorer, eviction sweep, lane-order byte sums --
+
+    #: ``fsx serve --model mlp`` with eviction as the reference sizes it
+    #: (``ops/fused.py:394-406`` there): ttl 0.25 s, a 32-batch cycle of
+    #: 32,768-row windows, ~ttl/4 at the synthetic 1e6 records/s
+    raw_cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, name="mlp"),
+        table=dataclasses.replace(cfg.table, evict_ttl_s=0.25,
+                                  evict_every=32))
+    # a short ttl, so that a 24-batch stream (48 ms) frees rows; and for
+    # the 10 M records/s flood (24 batches in 4.9 ms) a shorter one
+    short_ttl = dict(evict_ttl_s=0.01, evict_every=8)
+    flood_ttl = dict(evict_ttl_s=0.001, evict_every=8)
+
+    def raw_stream(scen, n, **spec):
+        """``n`` raw48 wire buffers of ``scen``, ragged fills included."""
+        gen = TrafficGen(TrafficSpec(scenario=Scenario(scen), seed=SEED,
+                                     **{"rate_pps": 1e6, **spec}))
+        raws, t0 = [], None
+        for i in range(n):
+            rec = gen.next_records(BATCH - (i % 5) * 131)
+            t0 = int(rec["ts_ns"][0]) if t0 is None else t0
+            raws.append(schema.encode_raw(rec, BATCH, t0))
+        return raws
+
+    @phase("raw48_graph_vs_eager")
+    def raw_graph_phase():
+        c = dataclasses.replace(raw_cfg, table=dataclasses.replace(
+            raw_cfg.table, **short_ttl))
+        params = mlp.load_params(mlp_path, dev)
+        step = fused.make_raw_step(c, mlp.classify_batch)
+        raws = raw_stream("mixed_l34_1m", GRAPH_BATCHES)
+        tx, sx = schema.make_table(TABLE_CAP, dev), schema.make_stats(dev)
+        x0 = to_dev(raws[0])
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(tx, sx, params, x0)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        del tx, sx, x0
+        tg, sg = schema.make_table(TABLE_CAP, dev), schema.make_stats(dev)
+        te, se = schema.make_table(TABLE_CAP, dev), schema.make_stats(dev)
+        gr = graph.StepGraph(step, tg, sg, params,
+                             (BATCH + 1, schema.RECORD_WORDS))
+        bad = [] if same_state(tg, sg, te, se) else ["capture"]
+        # the u32 batch counter wraps inside the stream
+        for st in (sg, se):
+            st.batches.fill_((1 << 32) - 3)
+        for i, raw in enumerate(raws):
+            gr.input.copy_(to_dev(raw), non_blocking=True)
+            gr.replay()
+            _, _, oe = step(te, se, params, to_dev(raw))
+            outs_eq = all(torch.equal(bits(getattr(gr.out, f)),
+                                      bits(getattr(oe, f)))
+                          for f in ("verdict", "block_key", "block_until",
+                                    "now", "wire"))
+            if not (outs_eq and same_state(tg, sg, te, se)):
+                bad.append(i)
+        st = se.to_dict()
+        out = {"batches": len(raws), "mismatched_batches": bad,
+               "table": {"capacity": TABLE_CAP, **short_ttl,
+                         "window_rows": fused.evict_window(
+                             TABLE_CAP, short_ttl["evict_every"])},
+               "stats": st, "tracked": int((te.key != 0).sum()),
+               "launches_per_replay": gr.launches,
+               "sync_debug_error_mode": "clean"}
+        del gr, tg, sg, te, se
+        return {"ok": not bad and st["evicted"] > 0
+                and st["batches"] > 1 << 32, "tolerance": "byte-equal",
+                **out}
+
+    raw_graph_phase()
+
+    def top_ops(prof, n, k=10):
+        """Device ms per batch by kernel or copy name, largest first."""
+        by = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name[:60]
+                t, c = by.get(name, (0.0, 0))
+                by[name] = (t + e.time_range.elapsed_us(), c + 1)
+        top = sorted(by.items(), key=lambda kv: -kv[1][0])[:k]
+        return [{"op": name, "ms_per_batch": t / n / 1e3,
+                 "calls_per_batch": c / n} for name, (t, c) in top]
+
+    def busy_and_ops(prof):
+        """Device busy µs (the union of the kernels' and copies'
+        intervals) and their count, from a ``torch.profiler`` run."""
+        ev = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy, cur = 0.0, None
+        for a, b_ in ev:
+            if cur is None or a > cur[1]:
+                busy += 0.0 if cur is None else cur[1] - cur[0]
+                cur = [a, b_]
+            else:
+                cur[1] = max(cur[1], b_)
+        busy += 0.0 if cur is None else cur[1] - cur[0]
+        return busy, len(ev)
+
+    def raw_step_profile(n_warm=16, n_prof=16):
+        """The captured raw48 MLP step on a 2^20-row table with and
+        without the sweep: device ops and busy ms per replay
+        (``torch.profiler``) and event ms per replay (unprofiled), over
+        ``mixed_l34_1m`` batches already on the card, after ``n_warm``
+        replays that fill the table."""
+        from torch.profiler import ProfilerActivity, profile
+
+        params = mlp.load_params(mlp_path, dev)
+        xs = [to_dev(r) for r in raw_stream("mixed_l34_1m",
+                                            n_warm + 2 * n_prof)]
+        out = {}
+        for label, ttl in (("evict", raw_cfg.table.evict_ttl_s),
+                           ("no_evict", 0.0)):
+            c = dataclasses.replace(raw_cfg, table=dataclasses.replace(
+                raw_cfg.table, evict_ttl_s=ttl))
+            t, st = schema.make_table(TABLE_CAP, dev), schema.make_stats(dev)
+            gr = graph.StepGraph(fused.make_raw_step(c, mlp.classify_batch),
+                                 t, st, params,
+                                 (BATCH + 1, schema.RECORD_WORDS))
+
+            def run(batch):
+                gr.input.copy_(batch)
+                gr.replay()
+
+            for x in xs[:n_warm]:
+                run(x)
+            torch.cuda.synchronize()
+            a, b_ = torch.cuda.Event(True), torch.cuda.Event(True)
+            a.record()
+            for x in xs[n_warm:n_warm + n_prof]:
+                run(x)
+            b_.record()
+            b_.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for x in xs[n_warm + n_prof:]:
+                    run(x)
+                torch.cuda.synchronize()
+            busy, ops = busy_and_ops(prof)
+            out[label] = {"device_ops_per_batch": ops / n_prof,
+                          "device_busy_ms_per_batch": busy / n_prof / 1e3,
+                          "event_ms_per_batch": a.elapsed_time(b_) / n_prof,
+                          "graph_launches_per_replay": gr.launches,
+                          "top_ops": top_ops(prof, n_prof)}
+            del gr, t, st
+        kernels.reset_launches()
+        return out
+
+    @phase("serve_raw48_mlp")
+    def raw_serve_phase():
+        scens = ("mixed_l34_1m", "syn_benign_mix")
+        engines = [Engine(raw_cfg, TrafficSource(TrafficSpec(
+            scenario=Scenario(s), rate_pps=1e6, seed=SEED),
+            total=SERVE_BATCHES * BATCH), CollectSink(),
+            params=load_artifact("mlp", mlp_path, "cuda"), device="cuda")
+            for s in scens]
+        for e in engines:
+            e.warm()
+        kernels.reset_launches()          # this path's window opens
+        reports = [e.run() for e in engines]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)  # ... and closes
+        served["launches_raw48_mlp"] = launches
+        out = {"card": card, "launches": launches,
+               "table": {"capacity": TABLE_CAP,
+                         "evict_ttl_s": raw_cfg.table.evict_ttl_s,
+                         "evict_every": raw_cfg.table.evict_every,
+                         "window_rows": fused.evict_window(
+                             TABLE_CAP, raw_cfg.table.evict_every)}}
+        checks = [launches["segment_sum_seq"] == sum(r.batches
+                                                     for r in reports),
+                  launches["score_int8"] == 0,
+                  launches["table_summary"] == len(reports)]
+        for s, e, r in zip(scens, engines, reports):
+            out[s] = {"model": "mlp", "wire": r.dispatch["wire"],
+                      "batches": r.batches, "records": r.records,
+                      "wall_s": r.wall_s, "records_per_s": r.records_per_s,
+                      "stages_ms": r.stages_ms, "stats": r.stats,
+                      "evicted": r.stats["evicted"],
+                      "blocked_sources": r.blocked_sources, "table": r.table,
+                      "readback": r.readback}
+            checks += [e.wire == r.dispatch["wire"] == schema.WIRE_RAW48,
+                       r.records == SERVE_BATCHES * BATCH,
+                       r.stats["allowed"] + r.stats["dropped"] == r.records,
+                       r.dispatch["graphs"] == 1]
+        # mixed_l34_1m's one-shot sources idle past the ttl and are
+        # freed; syn_benign_mix's 5,120 sources all stay active
+        checks.append(out["mixed_l34_1m"]["evicted"] > 0)
+        del engines
+        out["step_profile"] = raw_step_profile()
+        return {"ok": all(checks), **out}
+
+    raw_serve_phase()
+
     @phase("overflow_under_graphs")
     def overflow_phase():
         c = dataclasses.replace(
@@ -604,8 +971,6 @@ def main() -> int:
                             for c in range(ulp.shape[1]) if ulp[:, c].any()}}
         # XLA:CPU's rounding rules (vote decay, limiter, minifloat decode)
         # give the same bits on the card as on the host
-        from flowsentryx_tpu_torch.core import device as fdev
-
         x = torch.from_numpy(np.concatenate([
             rng.uniform(-100.0, 0.0, 1 << 22),
             rng.uniform(-88.8, -86.0, 1 << 18)]).astype(np.float32))
@@ -629,6 +994,59 @@ def main() -> int:
 
     overflow_phase()
     cross_phase()
+
+    @phase("cross_check_families")
+    def families_phase():
+        """A shorter corpus through the CUDA engine and the CPU engine for
+        every family the port adds, each with the sweep on (a short ttl,
+        so rows are freed inside the corpus): stats with ``evicted``,
+        blacklist with untils, table digest and summary equal."""
+        c = dataclasses.replace(cfg, table=dataclasses.replace(
+            cfg.table, **flood_ttl), limiter=dataclasses.replace(
+                cfg.limiter, pps_threshold=200.0, bps_threshold=1e9))
+        recs = TrafficGen(TrafficSpec(
+            scenario=Scenario.UDP_FLOOD_MULTI, rate_pps=1e7,
+            n_attack_ips=64, attack_fraction=0.8, seed=SEED)
+        ).next_records(CROSS_BATCHES // 2 * BATCH)
+        cases = (
+            ("mlp", lambda d: load_artifact("mlp", mlp_path, d), None,
+             (0,)),
+            ("multiclass", lambda d: load_artifact("multiclass", mc_path, d),
+             None, (0,)),
+            ("logreg_float", lambda d: None, None, (0, "auto")),
+            ("logreg_int8", lambda d: logreg.load_params(artifact, d),
+             schema.WIRE_RAW48, (0,)),
+        )
+        res = {}
+        ok = True
+        for model, load, wire, megas in cases:
+            cm = dataclasses.replace(c, model=dataclasses.replace(
+                c.model, name=model))
+            runs = {}
+            for device, mega_n in ([("cuda", m) for m in megas]
+                                   + [("cpu", 0)]):
+                e = Engine(cm, ArraySource(recs.copy()), CollectSink(),
+                           params=load(device), device=device,
+                           mega_n=mega_n, wire=wire)
+                r = e.run()
+                runs[f"{device}_{mega_n}"] = {
+                    "wire": e.wire, "stats": r.stats,
+                    "blacklist": sorted(e.sink.blocked.items()),
+                    "digest": digest(e), "table": r.table}
+            want = runs.pop("cpu_0")
+            same = {k: {f: v[f] == want[f] for f in want}
+                    for k, v in runs.items()}
+            ok &= all(all(d.values()) for d in same.values())
+            ok &= want["stats"]["evicted"] > 0 and len(want["blacklist"]) > 8
+            res[model] = {"wire": want["wire"], "equal": same,
+                          "stats": want["stats"],
+                          "blocked": len(want["blacklist"]),
+                          "digest": want["digest"]}
+        ok &= [res[m]["wire"] for m, *_ in cases] == [
+            "raw48", "raw48", "compact16", "raw48"]
+        return {"ok": ok, "batches": CROSS_BATCHES // 2, **flood_ttl, **res}
+
+    families_phase()
 
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
@@ -726,6 +1144,70 @@ def main() -> int:
             "library_ms": s_lib, "device_ms": s_dev / 1e3,
             "host_us_per_call": s_host, "library_device_ms": s_lib_dev / 1e3,
             "shape": [b, 8]}
+        # the log1p artifact on undecoded raw48 feature rows: the kernel's
+        # XLA log1p runs on every lane
+        lp = logreg.load_params(artifact, dev)
+        lp_packed = kernels.pack_score_params(lp)
+        xr = torch.from_numpy(np.exp(rng.uniform(0, 22, (b, 8))).astype(
+            np.float32)).to(dev)
+
+        def score_raw():
+            kernels.score_int8(lp, xr, lp_packed)
+
+        score_row.update({
+            "launches_serve_raw48_mlp": served.get(
+                "launches_raw48_mlp", {}).get("score_int8", 0),
+            "log1p_raw48_rows": {
+                "ms": time_ms(score_raw, 200),
+                "device_ms": device_us(score_raw, 50,
+                                       "score_int8_kernel") / 1e3,
+                "plain_ms": time_ms(
+                    lambda: kernels.score_int8_plain(lp, xr), 50)}})
+        # segment_sum_seq on the byte lanes of a served raw48 batch (the
+        # main path's input), and on the crafted heavy batch
+        mixed = TrafficSource(TrafficSpec(
+            scenario=Scenario.MIXED_L34_1M, rate_pps=1e6, seed=SEED),
+            total=BATCH).poll(BATCH)
+        v, seg, _ = byte_segments(raw_wire(mixed))
+        hv, hseg, _ = byte_segments(raw_wire(heavy_records()))
+        acc = torch.zeros(BATCH, dtype=torch.float32, device=dev)
+
+        def segsum():
+            kernels.segment_sum_seq(v, seg, BATCH)
+
+        def seglib():
+            acc.index_add_(0, seg, v)
+
+        def heavy():
+            kernels.segment_sum_seq(hv, hseg, BATCH)
+
+        gb, gby = bound(BATCH * (4 + 8) + BATCH * 4, BATCH)
+        seg_row = {
+            "name": "segment_sum_seq", "route": "cuda",
+            "source": "flowsentryx_tpu_torch/csrc/segment_sum_seq.cu",
+            "replaces": None,
+            "launches": served.get("launches_raw48_mlp", {}).get(
+                "segment_sum_seq", 0),
+            "launches_per_replay": "1 per raw48 single replay",
+            "max_abs_err": errs["segment_sum_seq"],
+            "ms": time_ms(segsum, 200),
+            "plain_ms": time_ms(lambda: agg.segment_sum_seq_plain(
+                v, seg, BATCH), 20),
+            "bound_ms": gb, "bound_by": gby,
+            "library_ms": time_ms(seglib, 200),
+            "library_call": "Tensor.index_add_ (atomic adds in no fixed "
+                            "order: not the lane order's bits)",
+            "device_ms": device_us(segsum, 50,
+                                   "segment_sum_seq_kernel") / 1e3,
+            "host_us_per_call": host_us(segsum, 200),
+            "library_device_ms": device_us(seglib, 50) / 1e3,
+            "shape": [BATCH], "segments": int(seg[-1]) + 1,
+            "longest_segment": int(torch.bincount(seg).max()),
+            "heavy_300x65535": {
+                "ms": time_ms(heavy, 200),
+                "device_ms": device_us(heavy, 50,
+                                       "segment_sum_seq_kernel") / 1e3,
+                "longest_segment": int(torch.bincount(hseg).max())}}
         # the report's scan over both served tables, cold: evict the
         # 50 MB L2 before each call by reading 256 MB (a read leaves L2
         # clean; a zero fill would leave dirty lines for the timed call
@@ -783,18 +1265,21 @@ def main() -> int:
             "replaces": "flowsentryx_tpu/ops/pallas_kernels.py:166",
             "launches": launches.get("table_summary", 0),
             "launches_serve_mega_auto": mega_launches.get("table_summary", 0),
+            "launches_serve_raw48_mlp": served.get(
+                "launches_raw48_mlp", {}).get("table_summary", 0),
             "launches_per_replay": "0 (once per report, outside graphs)",
             "max_abs_err": errs["table_summary"],
             **{k: main.get(k) for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
                 "host_us_per_call", "sector_floor_ms")},
             "library_ms": None, "tables": tables}
-        rows = [score_row, summary_row]
+        rows = [score_row, summary_row, seg_row]
         served["kernels"] = rows
         return {"ok": bool(tables), "card": card,
                 "library_call": {"score_int8": "torch.nn.functional.linear "
                                  "(float logistic-regression matvec)",
-                                 "table_summary": None},
+                                 "table_summary": None,
+                                 "segment_sum_seq": "Tensor.index_add_"},
                 "kernels": rows}
 
     timing_phase()

@@ -1,14 +1,22 @@
 """Configuration: typed, validated, frozen dataclasses.
 
-Counterpart of ``flowsentryx_tpu/core/config.py`` (the subset the
-serving path reads: limiter, model, table and batch policy), with the
-same defaults and the same validation.
+Counterpart of ``flowsentryx_tpu/core/config.py``: the same sections,
+defaults and validation, and the same JSON round trip
+(:meth:`FsxConfig.from_json`, unknown keys refused), so every config
+file the reference reads parses here.  The kernel-map packing
+(``pack_kernel_config``) belongs to the BPF plane and is not copied.  A
+value the port cannot serve yet is refused by name where an engine is
+built (:func:`unsupported`), never dropped silently.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
+import json
+import typing
 from dataclasses import dataclass, field
+from typing import Any
 
 
 class LimiterKind(enum.Enum):
@@ -44,6 +52,45 @@ class LimiterConfig:
                 "zero (byte dimension off) or both positive")
 
 
+#: L4 protocol names accepted in rules (number literals also work).
+_PROTO_CODES = {"any": 0, "icmp": 1, "tcp": 6, "udp": 17, "icmpv6": 58}
+#: At most this many stateless rules (the kernel rule map's size).
+MAX_RULES = 1024
+
+
+@dataclass(frozen=True)
+class RuleConfig:
+    """One stateless-firewall drop rule of the kernel data plane:
+    ``proto``/``dport`` of 0 (or ``"any"``) are wildcards, at least one
+    must be concrete."""
+
+    proto: str | int = "any"
+    dport: int = 0
+    action: str = "drop"
+
+    def __post_init__(self) -> None:
+        if self.action != "drop":
+            raise ValueError(f"unknown rule action {self.action!r}")
+        if not 0 <= self.dport <= 65535:
+            raise ValueError("dport must be 0..65535")
+        if self.proto_code() == 0 and self.dport == 0:
+            raise ValueError("a rule needs a concrete proto or dport")
+
+    def proto_code(self) -> int:
+        if isinstance(self.proto, int):
+            if not 0 <= self.proto <= 255:
+                raise ValueError("proto number must be 0..255")
+            return self.proto
+        try:
+            return _PROTO_CODES[self.proto.lower()]
+        except KeyError:
+            raise ValueError(f"unknown protocol {self.proto!r}") from None
+
+    def key(self) -> int:
+        """Rule-map key ``(l4_proto << 16) | dport``."""
+        return ((self.proto_code() & 0xFF) << 16) | (self.dport & 0xFFFF)
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     """Classifier selection and decision policy (young-flow vote:
@@ -52,6 +99,7 @@ class ModelConfig:
 
     name: str = "logreg_int8"
     threshold: float = 0.5
+    quantized: bool = True
     ml_block_s: float = 10.0
     vote_k: int = 4
     vote_m: int = 2
@@ -69,13 +117,18 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TableConfig:
     """State-table sizing; the default 2^20 rows is the reference's
-    production size.  The reference's in-step eviction sweep
-    (``evict_ttl_s``) is not ported yet (ROADMAP queue 1)."""
+    production size.  ``evict_ttl_s > 0`` turns on the in-step eviction
+    sweep (:func:`~flowsentryx_tpu_torch.ops.fused.evict_idle_epoch`):
+    each batch opens by freeing the rows idle longer than the ttl in one
+    ``ceil(capacity / evict_every)``-row window, the window advancing
+    with the batch counter; 0 leaves the step as it was without it."""
 
     capacity: int = 1 << 20
     probes: int = 8
     stale_s: float = 30.0
     salt: int = 0
+    evict_ttl_s: float = 0.0
+    evict_every: int = 64
 
     def __post_init__(self) -> None:
         if self.capacity & (self.capacity - 1) or self.capacity <= 0:
@@ -88,6 +141,10 @@ class TableConfig:
             raise ValueError("probes must be >= 1")
         if not 0 <= self.salt < 1 << 32:
             raise ValueError("salt must fit in u32")
+        if self.evict_ttl_s < 0:
+            raise ValueError("evict_ttl_s must be >= 0 (0 disables)")
+        if self.evict_every < 1:
+            raise ValueError("evict_every must be >= 1")
 
 
 @dataclass(frozen=True)
@@ -119,9 +176,84 @@ class BatchConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout: ``ip_axis`` devices shard the table rows by
+    IP hash.  The port serves one device (:func:`unsupported`)."""
+
+    ip_axis: int = 1
+    axis_name: str = "ip"
+
+
+@dataclass(frozen=True)
 class FsxConfig:
     limiter: LimiterConfig = field(default_factory=LimiterConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     table: TableConfig = field(default_factory=TableConfig)
     batch: BatchConfig = field(default_factory=BatchConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    #: Stateless firewall rules (kernel plane; RuleConfig docstring)
+    rules: tuple[RuleConfig, ...] = ()
+    interface: str = "eth0"             # XDP attach point
+
+    def __post_init__(self) -> None:
+        if len(self.rules) > MAX_RULES:
+            raise ValueError(f"at most {MAX_RULES} rules")
+        keys = [r.key() for r in self.rules]
+        if len(set(keys)) != len(keys):
+            raise ValueError("duplicate (proto, dport) rule")
+
+    # -- JSON round trip ----------------------------------------------------
+
+    def to_dict(self) -> dict[str, Any]:
+        def enc(obj: Any) -> Any:
+            if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+                return {f.name: enc(getattr(obj, f.name))
+                        for f in dataclasses.fields(obj)}
+            if isinstance(obj, enum.Enum):
+                return obj.value
+            if isinstance(obj, (list, tuple)):
+                return [enc(x) for x in obj]
+            return obj
+
+        return enc(self)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "FsxConfig":
+        def dec(tp: type, v: Any) -> Any:
+            origin = typing.get_origin(tp)
+            if origin in (tuple, list):
+                elem = typing.get_args(tp)[0]
+                return tuple(dec(elem, x) for x in v)
+            if dataclasses.is_dataclass(tp):
+                hints = typing.get_type_hints(tp)
+                names = {f.name for f in dataclasses.fields(tp)}
+                kwargs = {}
+                for k, val in v.items():
+                    if k not in names:
+                        raise KeyError(
+                            f"unknown config key {k!r} for {tp.__name__}")
+                    kwargs[k] = dec(hints[k], val)
+                return tp(**kwargs)
+            if isinstance(tp, type) and issubclass(tp, enum.Enum):
+                return tp(v)
+            return v
+
+        return dec(cls, d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "FsxConfig":
+        return cls.from_dict(json.loads(s))
+
+
+DEFAULT_CONFIG = FsxConfig()
+
+
+def unsupported(cfg: FsxConfig) -> list[str]:
+    """The settings of ``cfg`` this port cannot serve yet, by name (an
+    engine refuses such a config rather than dropping the setting)."""
+    out = []
+    if cfg.mesh.ip_axis > 1:
+        out.append(f"mesh.ip_axis={cfg.mesh.ip_axis}: the sharded "
+                   "multi-device step is not ported (one device only)")
+    return out
 

@@ -145,6 +145,106 @@ def xla_exp2(x: torch.Tensor) -> torch.Tensor:
     return xla_exp(x.float() * LN2_F32)
 
 
+def xla_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` of a traced float32 ``x`` as XLA:CPU computes
+    it: ``1 / (1 + exp(-x))`` with :func:`xla_exp` and a true division,
+    a subnormal quotient (``x < -87.33``) flushed to zero
+    (``torch.sigmoid`` differs on ~0.4 % of random inputs)."""
+    s = 1.0 / (xla_exp(-x.float()) + 1.0)
+    return torch.where(s < _F32_TINY, 0.0, s)
+
+
+def _daz(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal inputs read as a zero of their sign, as XLA:CPU reads
+    them (denormals-are-zero)."""
+    return torch.where(x.abs() < _F32_TINY, x * 0.0, x)
+
+
+# XLA:CPU's float32 log: the Cephes logf polynomial, split in three
+# chains, each multiply-add fused (its intrinsic library, from Eigen)
+_LOG_P = tuple(f32(c) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1 = f32(-2.12194440e-4)
+_LOG_Q2 = 0.693359375
+_SQRTHF = f32(0.707106781186547524)
+# log1p below sqrt(2) - 1: the Cephes rational approximation
+_LOG1P_SMALL = f32(0.41421356237309504880)
+_LOG1P_N = tuple(f32(c) for c in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+_LOG1P_D = tuple(f32(c) for c in (
+    1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1))
+#: The NaN XLA:CPU's log returns below zero (all bits set).
+_NAN_BITS = -1
+
+
+def _log_positive(u: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's ``log`` of float32 ``u`` (inputs already DAZ-read), as
+    its compiled code rounds it, each fused multiply-add one
+    :func:`fma32`:
+
+    * ``m, e = frexp(max(u, 2^-126))``, ``m`` in [0.5, 1); below
+      ``sqrt(1/2)``: ``x = (m - 1) + m``, ``e -= 1``; else ``x = m - 1``;
+    * ``x2 = x*x``, ``x3 = x2*x``; three chains ``fma(x, P0, P1)`` ->
+      ``fma(x, ., P2)``, ``(P3, P4, P5)``, ``(P6, P7, P8)``, joined by
+      ``y = fma(x3, fma(x3, y0, y1), y2)``, then
+      ``y = fma(x3, y, f32(e * Q1))``;
+    * ``fma(e, Q2, (x - 0.5 x2) + y)``, the ``x - 0.5 x2`` itself fused;
+    * 0 gives -inf, inf gives inf, below zero or NaN gives the all-ones
+      NaN."""
+    bits = torch.clamp(u, min=_F32_TINY).view(torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    e = ((bits >> 23) - 126).float()
+    low = m < _SQRTHF
+    x = (m - 1.0) + torch.where(low, m, 0.0)
+    e = torch.where(low, e - 1.0, e)
+    x2 = x * x
+    x3 = x2 * x
+    p = _LOG_P
+    y0 = fma32(x, fma32(x, p[0], p[1]), p[2])
+    y1 = fma32(x, fma32(x, p[3], p[4]), p[5])
+    y2 = fma32(x, fma32(x, p[6], p[7]), p[8])
+    y = fma32(x3, fma32(x3, y0, y1), y2)
+    y = fma32(x3, y, e * _LOG_Q1)
+    r = fma32(e, _LOG_Q2, fma32(x2, -0.5, x) + y)
+    nan = torch.full_like(bits, _NAN_BITS).view(torch.float32)
+    return torch.where(u == 0, float("-inf"), torch.where(
+        u == float("inf"), float("inf"), torch.where(u > 0, r, nan)))
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log1p`` of a traced float32 ``x``, bit for bit as XLA:CPU
+    computes it, on any device.  Two branches, selected by
+    ``|x| < f32(sqrt(2) - 1)``:
+
+    * small: the Cephes rational ``x + (x^3 N(x)/D(x) - x^2/2)``: ``N``
+      and ``D`` by Horner with fused multiply-adds (degree 6 each, ``D``
+      monic), one true division, ``t = fma(x2, -0.5, (x*x2) * (N/D))``,
+      then ``x + t``;
+    * large: XLA's ``log`` (:func:`_log_positive`) of ``f32(1 + x)``.
+
+    Subnormal inputs read as zero.  ``torch.log1p`` differs from it on
+    up to a third of inputs below 1 and in the heavy tail; exhaustive
+    over every non-negative float32 by ``scripts/xla_log1p_check.py``."""
+    x = _daz(x.float())
+    x2 = x * x
+    d = x + _LOG1P_D[0]
+    for c in _LOG1P_D[1:]:
+        d = fma32(x, d, c)
+    n = fma32(x, _LOG1P_N[0], _LOG1P_N[1])
+    for c in _LOG1P_N[2:]:
+        n = fma32(x, n, c)
+    small = x + fma32(x2, -0.5, (x * x2) * (n / d))
+    return torch.where(x.abs() < _LOG1P_SMALL, small,
+                       _log_positive(x + 1.0))
+
+
 U32_MASK = 0xFFFFFFFF
 
 

@@ -215,6 +215,66 @@ class FeatureBatch(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
+# The raw48 wire
+# ---------------------------------------------------------------------------
+
+#: Wire formats of the host -> device hop.
+WIRE_RAW48 = "raw48"
+WIRE_COMPACT16 = "compact16"
+
+#: 32-bit words per flow record (48 B / 4).
+RECORD_WORDS = FLOW_RECORD_DTYPE.itemsize // 4
+#: The u16 ``pkt_len`` in raw word 3, bits 0-15.
+RANGE_PKT_LEN_MAX = 0xFFFF
+
+
+def encode_raw(buf: np.ndarray, batch_size: int, t0_ns: int) -> np.ndarray:
+    """Records -> the raw48 wire ``[B+1, 12]`` uint32: the 48-byte
+    records verbatim as 12 little-endian words, row ``B`` the metadata
+    row ``(n_valid, t0 lo, t0 hi, 0, ...)``."""
+    n = min(len(buf), batch_size)
+    out = np.zeros((batch_size + 1, RECORD_WORDS), np.uint32)
+    if n:
+        out[:n] = buf[:n].view(np.uint32).reshape(n, RECORD_WORDS)
+    out[batch_size, 0] = n
+    out[batch_size, 1] = t0_ns & 0xFFFFFFFF
+    out[batch_size, 2] = (t0_ns >> 32) & 0xFFFFFFFF
+    return out
+
+
+_NS = f32(1e-9)
+_TS_HI_NS = f32(4.294967296)   # 2^32 ns in seconds
+
+
+def decode_raw(raw: torch.Tensor) -> FeatureBatch:
+    """Device-side decode of the raw48 wire (``raw``: ``[B+1, 12]`` int32
+    bit patterns of the uint32 words).
+
+    Words 4-11 (features) and the ``pkt_len`` field are u32 and convert
+    to f32 as unsigned (a feature word of 2^31 or more stays positive).
+    The timestamp ``dhi * 4.294967296 + (lo * 1e-9 - t0_lo * 1e-9)``,
+    ``dhi`` the wrapped u32 difference of the high words read as int32,
+    rounds as the reference's XLA:CPU build does: ``t0_lo * 1e-9`` is
+    rounded, ``lo * 1e-9`` fuses into the subtraction, and the
+    ``dhi`` term fuses into the final add (:func:`fma32`)."""
+    words = u32(raw[:-1])
+    meta = u32(raw[-1])
+    n = meta[0]
+    t0_lo = meta[1].float()
+    dhi = (words[:, 1] - meta[2]) & 0xFFFFFFFF
+    dhi = torch.where(dhi >= 1 << 31, dhi - (1 << 32), dhi).float()
+    inner = fma32(words[:, 0].float(), _NS, -(t0_lo * _NS))
+    b = words.shape[0]
+    return FeatureBatch(
+        key=words[:, 2],
+        feat=words[:, 4:12].float(),
+        pkt_len=(words[:, 3] & RANGE_PKT_LEN_MAX).float(),
+        ts=fma32(dhi, _TS_HI_NS, inner),
+        valid=torch.arange(b, device=raw.device) < n,
+    )
+
+
+# ---------------------------------------------------------------------------
 # The compact16 wire
 # ---------------------------------------------------------------------------
 

@@ -38,9 +38,15 @@
 // for acc * (in_scale * w_scale) + bias, which is how the reference's
 // compiled graph rounds it.  The plain version flushes a subnormal y to
 // zero (XLA:CPU does); the kernel does not, and for any out_scale >=
-// 2^-125 both give rint(y / out_scale) = 0, so q_y is the same.  The
-// file keeps nvcc's default -fmad so that log1pf is the library code
-// PyTorch's own torch.log1p runs on the card.
+// 2^-125 both give rint(y / out_scale) = 0, so q_y is the same.
+//
+// The optional log1p is XLA:CPU's, not CUDA's log1pf: on the raw48 wire
+// the scorer sees any float32, and log1pf differs from XLA's on a third
+// of the values below 1.  xla_log1p below mirrors core/device.py
+// xla_log1p operation for operation (the same roundings, each fused
+// multiply-add one __fmaf_rn, the same flushes); fsx_xla_log1p exposes
+// it elementwise so that it can be held to the plain version over every
+// non-negative float32 on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,6 +55,62 @@ namespace {
 
 constexpr int kThreads = 128;   // 16 rows of 8 lanes
 constexpr int kLanes = 8;
+constexpr float kTiny = 1.17549435e-38f;   // 2^-126
+
+// fma32 of core/device.py: one rounding, a result below 2^-126 flushed to
+// a zero of its sign
+__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
+  const float r = __fmaf_rn(a, b, c);
+  return fabsf(r) < kTiny ? __fmul_rn(r, 0.0f) : r;
+}
+
+// core/device.py _log_positive: XLA:CPU's logf of u (u read with DAZ)
+__device__ float xla_log_positive(float u) {
+  const int bits = __float_as_int(fmaxf(u, kTiny));
+  const float m = __int_as_float((bits & 0x7FFFFF) | 0x3F000000);
+  float e = static_cast<float>((bits >> 23) - 126);
+  const bool low = m < 0.707106769f;
+  const float x = __fadd_rn(__fadd_rn(m, -1.0f), low ? m : 0.0f);
+  if (low) e = __fadd_rn(e, -1.0f);
+  const float x2 = __fmul_rn(x, x);
+  const float x3 = __fmul_rn(x2, x);
+  const float y0 = fma_ftz(x, fma_ftz(x, 7.0376836292e-2f, -1.1514610310e-1f),
+                           1.1676998740e-1f);
+  const float y1 = fma_ftz(x, fma_ftz(x, -1.2420140846e-1f, 1.4249322787e-1f),
+                           -1.6668057665e-1f);
+  const float y2 = fma_ftz(x, fma_ftz(x, 2.0000714765e-1f, -2.4999993993e-1f),
+                           3.3333331174e-1f);
+  float y = fma_ftz(x3, fma_ftz(x3, y0, y1), y2);
+  y = fma_ftz(x3, y, __fmul_rn(e, -2.12194440e-4f));
+  const float r = fma_ftz(e, 0.693359375f,
+                          __fadd_rn(fma_ftz(x2, -0.5f, x), y));
+  if (u == 0.0f) return -INFINITY;
+  if (u == INFINITY) return INFINITY;
+  return u > 0.0f ? r : __int_as_float(-1);   // the all-ones NaN
+}
+
+// core/device.py xla_log1p: XLA:CPU's log1pf, bit for bit
+__device__ float xla_log1p(float x) {
+  if (fabsf(x) < kTiny) x = __fmul_rn(x, 0.0f);   // DAZ
+  if (!(fabsf(x) < 0.414213568f)) return xla_log_positive(__fadd_rn(x, 1.0f));
+  const float x2 = __fmul_rn(x, x);
+  float d = __fadd_rn(x, 1.5062909083469192043167e1f);
+  d = fma_ftz(x, d, 8.3047565967967209469434e1f);
+  d = fma_ftz(x, d, 2.2176239823732856465394e2f);
+  d = fma_ftz(x, d, 3.0909872225312059774938e2f);
+  d = fma_ftz(x, d, 2.1642788614495947685003e2f);
+  d = fma_ftz(x, d, 6.0118660497603843919306e1f);
+  float n = fma_ftz(x, 4.5270000862445199635215e-5f,
+                    4.9854102823193375972212e-1f);
+  n = fma_ftz(x, n, 6.5787325942061044846969e0f);
+  n = fma_ftz(x, n, 2.9911919328553073277375e1f);
+  n = fma_ftz(x, n, 6.0949667980987787057556e1f);
+  n = fma_ftz(x, n, 5.7112963590585538103336e1f);
+  n = fma_ftz(x, n, 2.0039553499201281259648e1f);
+  const float t = fma_ftz(x2, -0.5f,
+                          __fmul_rn(__fmul_rn(x, x2), __fdiv_rn(n, d)));
+  return __fadd_rn(x, t);
+}
 
 // Mirrored by ops/kernels.py _ScoreArgs (checked by fsx_score_args_size).
 struct ScoreArgs {
@@ -72,7 +134,7 @@ score_int8_kernel(const float* __restrict__ x, float* __restrict__ out,
   int prod = 0;
   if (row < b) {
     float v = __ldg(x + t);
-    if (a.log1p) v = log1pf(v);
+    if (a.log1p) v = xla_log1p(v);
     const float q = clip_u8(__fadd_rn(rintf(__fdiv_rn(v, a.in_scale)),
                                       a.in_zp));
     const uint32_t word = k < 4 ? a.w_lo : a.w_hi;
@@ -92,7 +154,26 @@ score_int8_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
+__global__ void xla_log1p_kernel(const float* __restrict__ x,
+                                 float* __restrict__ out, long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (i < n) out[i] = xla_log1p(__ldg(x + i));
+}
+
 }  // namespace
+
+// The scorer's log1p alone, elementwise over [n] f32 (a check entry: the
+// serving path runs it inside score_int8_kernel).
+extern "C" int fsx_xla_log1p(const void* x, void* out, long long n,
+                             void* stream) {
+  if (n > 0) {
+    xla_log1p_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int fsx_score_args_size() {
   return static_cast<int>(sizeof(ScoreArgs));

@@ -1,13 +1,15 @@
 """The serving engine: one device, inline record path, singles and the
-megastep ladder.
+megastep ladder, both wires.
 
-Counterpart of ``flowsentryx_tpu/engine/engine.py`` — construction,
-:meth:`Engine.warm` and :meth:`Engine.run` over the inline loop
-(``_run_inline``: poll -> batch -> dispatch -> reap), with single-batch
-dispatch and backlog-triggered grouping (``mega_n=N`` or ``"auto"``: the
-pending list, ``_drain_pending``, group dispatch and the merged-wire
-sink).  Not ported yet: the drain ring, SLO mode, the predictive
-governor and the sink thread (ROADMAP queue 1 orders what follows).
+Counterpart of ``flowsentryx_tpu/engine/engine.py`` — construction (the
+wire rule: compact16 only for params carrying an input observer
+``in_scale``, raw48 otherwise), :meth:`Engine.warm` and
+:meth:`Engine.run` over the inline loop (``_run_inline``: poll -> batch
+-> dispatch -> reap), with single-batch dispatch and backlog-triggered
+grouping (``mega_n=N`` or ``"auto"``, compact16 only: the pending list,
+``_drain_pending``, group dispatch and the merged-wire sink).  Not
+ported yet: the drain ring, SLO mode, the predictive governor and the
+sink thread (ROADMAP queue 1 orders what follows).
 
 On the card every dispatch is ONE CUDA graph replay (:mod:`..ops.graph`):
 :meth:`Engine.warm` captures the single step and every staged rung, and
@@ -15,11 +17,13 @@ a capture or launch failure raises — there is no eager path on the card.
 On the CPU the same step functions run eagerly.  The host<->device
 boundary on the card:
 
-* a dispatch stages its sealed ``[B+1, 4]`` wire buffers into a pinned
-  ``[g, B+1, 4]`` slot, copies it into the graph's static input with
-  ``non_blocking=True`` and replays; a slot is reused only
+* a compact16 dispatch stages its sealed ``[B+1, 4]`` wire buffers into
+  a pinned ``[g, B+1, 4]`` slot, copies it into the graph's static input
+  with ``non_blocking=True`` and replays; a slot is reused only
   ``readback_depth + 2`` dispatches later, by which time its dispatch has
-  been reaped (so its upload has completed);
+  been reaped (so its upload has completed).  On raw48 the batcher's own
+  buffers are pinned and uploaded directly (no staging copy), under the
+  same reuse rule;
 * right after the replay, on the same stream, the ``[2K+4]`` verdict
   wire is copied into that slot's pinned host buffer and the block
   arrays with the clock (:func:`~..ops.fused.block_record`) into that
@@ -44,7 +48,7 @@ import numpy as np
 import torch
 
 from flowsentryx_tpu_torch.core import schema
-from flowsentryx_tpu_torch.core.config import FsxConfig
+from flowsentryx_tpu_torch.core.config import FsxConfig, unsupported
 from flowsentryx_tpu_torch.core.device import resolve_device
 from flowsentryx_tpu_torch.engine.batcher import MicroBatcher
 from flowsentryx_tpu_torch.engine.writeback import (
@@ -116,7 +120,14 @@ class Engine:
     (or ``mega_auto=True`` with a cap) stages every power-of-two rung up
     to the cap and dispatches the largest one the backlog fills.
     Grouping is dispatch granularity only: verdicts, stats, blacklist
-    and table are byte-identical to singles."""
+    and table are byte-identical to singles.
+
+    ``wire``: ``None`` picks the reference's default, compact16 only for
+    params carrying an input observer (``in_scale``, the logreg
+    families; bit-exact in model mode), raw48 otherwise (``mlp``,
+    ``multiclass``); ``"compact16"`` for an observer-less model
+    quantizes features to the minifloat wire.  Grouping needs compact16,
+    as in the reference."""
 
     def __init__(
         self,
@@ -127,7 +138,12 @@ class Engine:
         device: str | torch.device | None = None,
         mega_n: int | str = 0,
         mega_auto: bool = False,
+        wire: str | None = None,
     ):
+        bad = unsupported(cfg)
+        if bad:
+            raise ValueError("config not servable by this port: "
+                             + "; ".join(bad))
         self.device = resolve_device(device)
         self.cfg = cfg
         self.source = source
@@ -155,19 +171,39 @@ class Engine:
         spec = get_model(cfg.model.name)
         if params is None:
             params = spec.init(self.device)
-        self.params = logreg.LogRegParams(
-            *(t.to(self.device) for t in params))
-        # compact16 in model mode: the wire carries the model's own input
-        # quantization, so scores are bit-exact to the 48-byte records
-        host_params = logreg.LogRegParams(**logreg.params_to_numpy(
-            self.params))
-        self.quant = schema.wire_quant_for(host_params)
+        # params go to the device once
+        self.params = type(params)(*(t.to(self.device) for t in params))
+        if wire is None:
+            wire = (schema.WIRE_COMPACT16 if hasattr(self.params, "in_scale")
+                    else schema.WIRE_RAW48)
+        if wire not in (schema.WIRE_COMPACT16, schema.WIRE_RAW48):
+            raise ValueError(f"unknown wire format {wire!r}")
+        self.wire = wire
+        compact = wire == schema.WIRE_COMPACT16
+        if sizes and not compact:
+            raise ValueError("mega_n requires the compact16 wire")
+        if not compact:
+            self.quant = {}          # raw48 carries the records verbatim
+        elif isinstance(self.params, logreg.LogRegParams):
+            # model mode: the wire carries the model's own input
+            # quantization, so scores are bit-exact to the 48-byte records
+            self.quant = schema.wire_quant_for(logreg.LogRegParams(
+                **logreg.params_to_numpy(self.params)))
+        else:
+            self.quant = {"feat_mode": "minifloat"}
         self.verdict_k = cfg.batch.verdict_k
-        # the scorer's kernel arguments and output table, packed once
-        self.score_params = kernels.pack_score_params(self.params)
-        classify = functools.partial(spec.classify_batch,
-                                     packed=self.score_params)
-        self.step = fused.make_compact_step(cfg, classify, **self.quant)
+        # the int8 scorer's kernel arguments and output table, packed once
+        self.score_params = None
+        classify = spec.classify_batch
+        if classify is kernels.score_int8:
+            self.score_params = kernels.pack_score_params(self.params)
+            classify = functools.partial(classify, packed=self.score_params)
+        if compact:
+            self.step = fused.make_compact_step(cfg, classify, **self.quant)
+        else:
+            self.step = fused.make_raw_step(cfg, classify)
+        self._words = (schema.COMPACT_RECORD_WORDS if compact
+                       else schema.RECORD_WORDS)
         self.megasteps = (fused.make_compact_megastep_family(
             cfg, classify, sizes, **self.quant) if sizes else {})
         # in place, and captured by address on the card: never rebound
@@ -181,20 +217,23 @@ class Engine:
         self._pending_cap = self.mega_n
         # a batcher buffer may be reused only after its batch is staged:
         # keep more buffers than in-flight batches + the pending group
+        self._cuda = self.device.type == "cuda"
         self.batcher = MicroBatcher(
             cfg.batch, n_buffers=self.readback_depth + 2 + self._pending_cap,
-            quant=self.quant)
+            quant=self.quant, wire=wire, pinned=self._cuda and not compact)
         self._t0_auto = True
-        self._cuda = self.device.type == "cuda"
         b = cfg.batch.max_batch
         self._group_max = max(sizes, default=1)
         # per-dispatch slots, reused readback_depth + 2 dispatches later:
-        # staging rows (pinned on the card), and on the card the copies
-        # of the graph outputs that must outlive the next replay
+        # compact16 staging rows (pinned on the card; raw48 uploads from
+        # the batcher's pinned buffers), and on the card the copies of
+        # the graph outputs that must outlive the next replay
         n_slots = self.readback_depth + 2
+        self._n_slots = n_slots
         self._stage = [torch.empty(
-            (self._group_max, b + 1, schema.COMPACT_RECORD_WORDS),
-            dtype=torch.int32, pin_memory=self._cuda) for _ in range(n_slots)]
+            (self._group_max, b + 1, self._words),
+            dtype=torch.int32, pin_memory=self._cuda)
+            for _ in range(n_slots if compact else 0)]
         self._stage_np = [s.numpy().view(np.uint32) for s in self._stage]
         rec_words = self._group_max * (2 * b + 1)
         if self._cuda:
@@ -231,7 +270,7 @@ class Engine:
         staged rung (the reference's ``warm()`` compiling every rung)."""
         kernels.build_all()
         b = self.cfg.batch.max_batch
-        words = schema.COMPACT_RECORD_WORDS
+        words = self._words
         self._graphs[_SINGLE] = StepGraph(
             self.step, self.table, self.stats, self.params,
             (b + 1, words))
@@ -247,17 +286,21 @@ class Engine:
         ``raws[0]``, or the rung-``len(raws)`` megastep over the group."""
         t = time.perf_counter()
         n = max(rung, 1)
-        n_slots = len(self._stage)
+        n_slots = self._n_slots
         # a slot is free once the dispatch that used it is sunk; the
         # batch-counted reaps keep this a no-op except at exit flushes
         while len(self._inflight) > n_slots - 2:
             self._sink_one(self._inflight.popleft())
         slot = self._n_dispatched % n_slots
-        rows = self._stage_np[slot]
-        for i, raw in enumerate(raws):
-            rows[i] = raw
-        stage = self._stage[slot]
-        x = stage[0] if rung == _SINGLE else stage[:n]
+        if self._stage:
+            rows = self._stage_np[slot]
+            for i, raw in enumerate(raws):
+                rows[i] = raw
+            stage = self._stage[slot]
+            x = stage[0] if rung == _SINGLE else stage[:n]
+        else:
+            # raw48 (singles only): the sealed batcher buffer itself
+            x = torch.from_numpy(raws[0].view(np.int32))
         if self._cuda:
             gr = self._graphs[rung]
             gr.input.copy_(x, non_blocking=True)
@@ -372,8 +415,8 @@ class Engine:
         be called with batches in flight."""
         if self._cuda and not self._graphs:
             self._capture()
-        warm = np.zeros((self.cfg.batch.max_batch + 1,
-                         schema.COMPACT_RECORD_WORDS), np.uint32)
+        warm = np.zeros((self.cfg.batch.max_batch + 1, self._words),
+                        np.uint32)
         self._dispatch(warm)
         self._reap(0)
         for g in self._mega_sizes:
@@ -461,6 +504,7 @@ class Engine:
                            if self._cuda else "cpu")}
         dispatches = sum(self._group_hist.values())
         dispatch = {
+            "wire": self.wire,
             "mode": ("adaptive" if self.mega_auto
                      else "fixed" if self.mega_n else "single"),
             "mega_n": self.mega_n,

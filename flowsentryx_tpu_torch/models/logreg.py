@@ -1,10 +1,14 @@
 """Int8-quantized logistic regression (the serving classifier).
 
 Counterpart of ``flowsentryx_tpu/models/logreg.py``: the same params,
-the same npz artifact format, and the plain PyTorch versions of the
-int8 scoring pipeline.  The CUDA kernel that serves it on the card is
-:func:`flowsentryx_tpu_torch.ops.kernels.score_int8`; the functions here
-are its plain versions (CPU tests, and the on-card comparison).
+the same npz artifact format, the plain PyTorch versions of the int8
+scoring pipeline, and the float lane :func:`classify_float`
+(``logreg_float``).  The CUDA kernel that serves the int8 lane on the
+card is :func:`flowsentryx_tpu_torch.ops.kernels.score_int8`; the int8
+functions here are its plain versions (CPU tests, and the on-card
+comparison).  The optional ``log1p`` and the sigmoid are XLA's
+(``core/device.py``): on the raw48 wire the scorer sees any float32, not
+only the 256 values a compact16 code decodes to.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from flowsentryx_tpu_torch.core.device import fma32
+from flowsentryx_tpu_torch.core.device import fma32, xla_log1p, xla_sigmoid
 
 
 class LogRegParams(NamedTuple):
@@ -132,7 +136,7 @@ def score_from_code(params: LogRegParams, q_y: torch.Tensor) -> torch.Tensor:
     CUDA kernel reads this function's values from a table
     (:func:`flowsentryx_tpu_torch.ops.kernels.pack_score_params`)."""
     y_dq = (q_y - params.out_zp.float()) * params.out_scale
-    p = torch.sigmoid(y_dq)
+    p = xla_sigmoid(y_dq)
     return torch.clamp(torch.round(p * 256.0), 0.0, 255.0) * (1.0 / 256.0)
 
 
@@ -142,11 +146,15 @@ def score_from_acc(params: LogRegParams, acc: torch.Tensor) -> torch.Tensor:
     return score_from_code(params, requant_acc(params, acc))
 
 
+def _maybe_log1p(params: LogRegParams, x: torch.Tensor) -> torch.Tensor:
+    """The artifact's feature-domain transform (XLA's ``log1p``)."""
+    return torch.where(params.log1p > 0, xla_log1p(x), x)
+
+
 def int8_acc(params: LogRegParams, x: torch.Tensor) -> torch.Tensor:
     """``[B, 8]`` f32 features -> ``[B]`` int32 accumulators (optional
     log1p, input quantization, the K=8 int8 dot)."""
-    x = x.float()
-    x = torch.where(params.log1p > 0, torch.log1p(x), x)
+    x = _maybe_log1p(params, x.float())
     q_x = _quantize_u8(x, params.in_scale, params.in_zp).to(torch.int32)
     return ((q_x - params.in_zp) * params.w_int8.to(torch.int32)).sum(
         dim=1, dtype=torch.int32)
@@ -158,3 +166,17 @@ def classify_batch_int8_matmul(params: LogRegParams,
     reference lane of the same name (all intermediates are exact small
     integers up to the requant)."""
     return score_from_acc(params, int8_acc(params, x))
+
+
+def classify_float(params: LogRegParams, x: torch.Tensor) -> torch.Tensor:
+    """The float lane ``sigmoid(x @ w_dequant + bias)``, ``[B, 8] -> [B]``,
+    rounded as the reference's compiled graph rounds it: ``w_dequant =
+    f32(w_int8 * w_scale)``, the dot one rounded product then seven
+    fused multiply-adds in feature order, the bias a separate add, and
+    XLA's sigmoid."""
+    x = _maybe_log1p(params, x.float())
+    w = params.w_int8.float() * params.w_scale
+    acc = x[:, 0] * w[0]
+    for k in range(1, x.shape[1]):
+        acc = fma32(x[:, k], w[k], acc)
+    return xla_sigmoid(acc + params.bias)

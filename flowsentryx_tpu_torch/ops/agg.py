@@ -1,11 +1,19 @@
 """Per-flow aggregation of a micro-batch: one stable sort + segment ops.
 
 Counterpart of ``flowsentryx_tpu/ops/agg.py``.  Segment reductions are
-``index_add_`` / ``scatter_reduce``; on the serving wire every summed
-quantity is an integer exactly representable in float32 (counts, and
-``pkt_len`` in multiples of 8 up to 16376 per record), so the sums are
-the same in any order — including the atomic, unordered order of CUDA's
-``index_add_``.  Segment maxima are order-independent by nature.
+``index_add_`` / ``scatter_reduce`` where the order cannot matter:
+counts, and on the compact16 wire the byte sums too (``pkt_len`` in
+multiples of 8 up to 16376 per record, so a 2048-record flow stays below
+2^27 and every partial sum is exact in float32), so the sums are the
+same in any order, the atomic, unordered order of CUDA's ``index_add_``
+included.  Segment maxima are order-independent by nature.
+
+On the raw48 wire ``pkt_len`` goes up to 65535 and one flow's bytes can
+pass 2^24, where the f32 sum depends on its order.  The reference's
+``segment_sum`` adds the sorted lanes one after another (an XLA:CPU
+scatter-add), so the raw48 step sums bytes in that order
+(:func:`segment_sum_seq_plain`, and the CUDA kernel
+``ops/kernels.py::segment_sum_seq`` on the card).
 """
 
 from __future__ import annotations
@@ -56,6 +64,31 @@ def segment_sum(v: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     """Exact-integer float sums per segment (module docstring)."""
     return torch.zeros(n, dtype=v.dtype, device=v.device).index_add_(
         0, seg, v)
+
+
+def segment_sum_seq_plain(v: torch.Tensor, seg: torch.Tensor, n: int
+                          ) -> torch.Tensor:
+    """``[n]`` f32 sums of ``v`` per segment, each segment added left to
+    right from 0 in f32 (``seg`` non-decreasing).  One pass per position
+    within a segment: pass ``j`` adds the ``j``-th lane of every segment
+    at once (distinct targets), so each add rounds once, in lane order.
+    Reads the longest segment's length on the host."""
+    out = torch.zeros(n, dtype=torch.float32, device=v.device)
+    b = v.shape[0]
+    if b == 0:
+        return out
+    lane = torch.arange(b, device=v.device)
+    start = torch.cummax(torch.where(run_heads(seg), lane, 0), 0).values
+    pos = lane - start
+    by_pos = torch.sort(pos, stable=True).indices
+    ends = torch.bincount(pos).cumsum(0).tolist()
+    lo = 0
+    for hi in ends:
+        sl = by_pos[lo:hi]
+        idx = seg[sl]
+        out[idx] = out[idx] + v[sl].float()
+        lo = hi
+    return out
 
 
 def segment_max(v: torch.Tensor, seg: torch.Tensor, n: int,

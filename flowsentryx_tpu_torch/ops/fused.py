@@ -1,9 +1,10 @@
 """The fused per-micro-batch serving step.
 
 Counterpart of ``flowsentryx_tpu/ops/fused.py`` (single device, the
-single-sort pipeline): decode -> score -> per-packet probe -> ONE sort
--> segment reductions -> blacklist/limiter/ML-vote core -> state
-scatter -> stats fold -> compact verdict wire; and the megastep ladder
+single-sort pipeline): decode (compact16 or raw48) -> the eviction sweep
+when ``evict_ttl_s > 0`` -> score -> per-packet probe -> ONE sort ->
+segment reductions -> blacklist/limiter/ML-vote core -> state scatter ->
+stats fold -> compact verdict wire; and the megastep ladder
 (``ops/fused.py:521-542,769-879`` there): N sealed batches in one
 dispatch with their wires merged into one.
 
@@ -20,7 +21,12 @@ What changes from the reference, and why:
   lanes to the table's park row (:class:`~..core.schema.IpTableState`).
 * **Segment reductions** are ``index_add_``/``scatter_reduce``; every
   summed quantity on the compact16 wire is an exact small integer in
-  float32 (see :mod:`.agg`), so the sums do not depend on order.
+  float32 (see :mod:`.agg`), so the sums do not depend on order.  The
+  raw48 step sums bytes in the reference's lane order instead
+  (``segment_sum_seq``, a CUDA kernel on the card).
+* **The eviction window offset** is read from the device counter
+  ``stats.batches`` inside the step, so a captured graph sweeps a new
+  window at every replay.
 * **No host sync.**  Nothing in the step reads a device value on the
   host (no ``.item()``/``.cpu()``), so the engine serves it as a
   captured CUDA graph (:mod:`.graph`).
@@ -35,12 +41,12 @@ import torch
 from flowsentryx_tpu_torch.core import schema
 from flowsentryx_tpu_torch.core.config import FsxConfig
 from flowsentryx_tpu_torch.core.device import (
-    LN2_F32, as_i32, f32, fma32, u32, xla_exp,
+    LN2_F32, U32_MASK, as_i32, f32, fma32, u32, xla_exp,
 )
 from flowsentryx_tpu_torch.core.schema import (
     GlobalStats, IpTableState, TableCol, Verdict,
 )
-from flowsentryx_tpu_torch.ops import agg, hashtable, limiters
+from flowsentryx_tpu_torch.ops import agg, hashtable, kernels, limiters
 
 _INT32_MIN = -(1 << 31)
 
@@ -262,16 +268,58 @@ def merge_verdict_wires(wires: torch.Tensor) -> torch.Tensor:
     return torch.cat([as_i32(ck), cu.view(torch.int32), as_i32(scalars)])
 
 
+def evict_window(capacity: int, evict_every: int) -> int:
+    """Rows swept per batch: one full pass every ``evict_every`` batches
+    (a ragged last window re-sweeps a few tail rows).  The reference's
+    sizing rule: pick ``evict_every`` so one pass takes about ``ttl/4``
+    at the batch rate."""
+    return -(-capacity // evict_every)
+
+
+def evict_idle_epoch(tcfg, table: IpTableState, stats: GlobalStats,
+                     now: torch.Tensor) -> torch.Tensor:
+    """One rolling-sweep step, in place: free the rows of this batch's
+    window idle longer than ``evict_ttl_s`` (a still-valid blacklist
+    entry survives), and return the ``[]`` int64 count freed.
+
+    The window starts at ``(batches mod 2^32) % evict_every * window``,
+    clamped so a ragged last window stays in bounds: the reference's u32
+    counter wraps, so the offset reads the low 32 bits of the port's
+    int64 ``batches``, on the device (a captured graph must not replay
+    one offset).  The window is read with a gather and only victims are
+    written; the other lanes write the park row.  A warm or all-masked
+    batch has ``now == 0`` and frees nothing.  Callers gate on
+    ``evict_ttl_s > 0`` statically."""
+    C = TableCol
+    cap = table.capacity
+    chunk = evict_window(cap, tcfg.evict_every)
+    off = (stats.batches & U32_MASK) % tcfg.evict_every * chunk
+    off = torch.clamp(off, max=cap - chunk)
+    idx = off + torch.arange(chunk, device=now.device)
+    keys = table.key_rows[idx]
+    rows = table.state_rows[idx]
+    idle = now - rows[:, C.LAST_SEEN] > f32(tcfg.evict_ttl_s)
+    live_block = rows[:, C.BLOCKED_UNTIL] > now
+    victim = (keys != hashtable.EMPTY_KEY) & idle & ~live_block
+    vidx = torch.where(victim, idx, cap)
+    table.key_rows.index_put_((vidx,), torch.zeros_like(keys))
+    table.state_rows.index_put_((vidx,), torch.zeros_like(rows))
+    return victim.sum()
+
+
 def make_step(
     cfg: FsxConfig,
     classify_batch: Callable[[Any, torch.Tensor], torch.Tensor],
     emit_score: bool = False,
+    ordered_bytes: bool = False,
 ) -> Callable[..., tuple[IpTableState, GlobalStats, StepOutput]]:
     """``step(table, stats, params, batch) -> (table, stats, out)`` over a
     decoded :class:`~..core.schema.FeatureBatch`; table and stats are
-    updated in place and returned."""
+    updated in place and returned.  ``ordered_bytes`` sums each flow's
+    bytes in lane order (the raw48 wire, where the sum can pass 2^24)."""
     k_max = cfg.batch.verdict_k
     threshold = f32(cfg.model.threshold)
+    evict = cfg.table.evict_ttl_s > 0
 
     def step(table: IpTableState, stats: GlobalStats, params: Any,
              batch: schema.FeatureBatch):
@@ -279,6 +327,10 @@ def make_step(
         n = table.capacity
         valid = batch.valid
         now = torch.where(valid, batch.ts, 0.0).max()
+        # the sweep opens the step, so freed rows are claimable by this
+        # batch's inserts; absent from the graph when disabled
+        n_evicted = (evict_idle_epoch(cfg.table, table, stats, now)
+                     if evict else None)
         score = classify_batch(params, batch.feat)
         mal = (score > threshold) & valid
 
@@ -300,13 +352,16 @@ def make_step(
         inv = torch.empty_like(seg).scatter_(0, order, seg)
         sv = valid[order]
 
-        # exact-integer f32 sums: packets, bytes, malicious-scored records
-        sums = agg.segment_sum_cols(torch.stack([
-            sv.float(),
-            torch.where(sv, batch.pkt_len[order], 0.0),
-            mal[order].float(),
-        ], dim=1), seg, b)
-        pkts, bytes_, ml_count = sums.unbind(1)
+        # exact-integer f32 sums: packets, malicious-scored records, and
+        # bytes unless they are summed in lane order
+        byte_lanes = torch.where(sv, batch.pkt_len[order], 0.0)
+        cols = [sv.float(), mal[order].float()]
+        if not ordered_bytes:
+            cols.append(byte_lanes)
+        sums = agg.segment_sum_cols(torch.stack(cols, dim=1), seg, b)
+        pkts, ml_count = sums[:, 0], sums[:, 1]
+        bytes_ = (kernels.segment_sum_seq(byte_lanes, seg, b)
+                  if ordered_bytes else sums[:, 2])
         ts_max = agg.segment_max(
             torch.where(sv, batch.ts[order], float("-inf")), seg, b,
             float("-inf"))
@@ -337,6 +392,8 @@ def make_step(
 
         verdict = resolve_record_verdicts(dec.flow_verdict, inv, mal, valid)
         update_stats_from_counts(stats, count_verdicts(verdict, valid))
+        if n_evicted is not None:
+            stats.evicted.add_(n_evicted)
 
         block_key = torch.where(dec.newly_blocked, rep_key, agg.INVALID_KEY)
         block_until = torch.where(dec.newly_blocked, dec.new_blocked_until,
@@ -369,6 +426,24 @@ def make_compact_step(
 
     def step(table, stats, params, raw):
         return base(table, stats, params, schema.decode_compact(raw, **quant))
+
+    return step
+
+
+def make_raw_step(
+    cfg: FsxConfig,
+    classify_batch: Callable[[Any, torch.Tensor], torch.Tensor],
+    emit_score: bool = False,
+) -> Callable[..., tuple[IpTableState, GlobalStats, StepOutput]]:
+    """The fused step over the raw48 wire: ``step(table, stats, params,
+    raw)`` with ``raw`` the ``[B+1, 12]`` int32 bit patterns of a sealed
+    batch (:func:`~..core.schema.decode_raw`), bytes summed in lane
+    order."""
+    base = make_step(cfg, classify_batch, emit_score=emit_score,
+                     ordered_bytes=True)
+
+    def step(table, stats, params, raw):
+        return base(table, stats, params, schema.decode_raw(raw))
 
     return step
 

@@ -1,18 +1,21 @@
-"""The port's two hand-written CUDA kernels, their wrappers, their plain
+"""The port's hand-written CUDA kernels, their wrappers, their plain
 PyTorch versions, and the build.
 
-=================  ===============================================  ==========================
-kernel             replaces (Pallas TPU kernel)                     source
-=================  ===============================================  ==========================
-``score_int8``     ``flowsentryx_tpu/ops/pallas_kernels.py:54-116``  ``csrc/score_int8.cu``
-``table_summary``  ``flowsentryx_tpu/ops/pallas_kernels.py:126-262`` ``csrc/table_summary.cu``
-=================  ===============================================  ==========================
+===================  ===============================================  ============================
+kernel               replaces (Pallas TPU kernel)                     source
+===================  ===============================================  ============================
+``score_int8``       ``flowsentryx_tpu/ops/pallas_kernels.py:54-116``  ``csrc/score_int8.cu``
+``table_summary``    ``flowsentryx_tpu/ops/pallas_kernels.py:126-262`` ``csrc/table_summary.cu``
+``segment_sum_seq``  none (the reference's in-order scatter-add)       ``csrc/segment_sum_seq.cu``
+===================  ===============================================  ============================
 
 ``score_int8`` runs eight lanes per row with its parameters and a
 256-entry output table passed by value (:func:`pack_score_params`);
 ``table_summary`` reads keys as 16-byte words, four rows per lane, then
 spreads the tracked bits across the warp with ballots so that its
 predicated state loads are coalesced, all issued before any is consumed.
+``segment_sum_seq`` sums each sorted segment left to right, the order the
+reference's ``segment_sum`` adds in (the raw48 byte sums, ``ops/agg.py``).
 Each source's header says what bounds it on the card and what its design
 does about it.
 
@@ -44,9 +47,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from flowsentryx_tpu_torch.core.device import f32
+from flowsentryx_tpu_torch.core.device import f32, xla_log1p
 from flowsentryx_tpu_torch.core.schema import NUM_TABLE_COLS, TableCol
 from flowsentryx_tpu_torch.models import logreg
+from flowsentryx_tpu_torch.ops import agg
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: Build output, at the repository root (listed in .gitignore).
@@ -55,9 +59,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
-LAUNCHES: dict[str, int] = {"score_int8": 0, "table_summary": 0}
+LAUNCHES: dict[str, int] = {"score_int8": 0, "table_summary": 0,
+                            "segment_sum_seq": 0}
 
-_SOURCES = {"score_int8": "score_int8.cu", "table_summary": "table_summary.cu"}
+_SOURCES = {"score_int8": "score_int8.cu", "table_summary": "table_summary.cu",
+            "segment_sum_seq": "segment_sum_seq.cu"}
 _ARGTYPES = {
     # x, out, b, &ScoreArgs, stream
     "score_int8": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -66,6 +72,12 @@ _ARGTYPES = {
     "table_summary": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                       ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    # v, seg, b, out, n, stream
+    "segment_sum_seq": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
+    # x, out, n, stream: score_int8.cu's log1p alone (a check entry)
+    "fsx_xla_log1p": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_void_p],
 }
 _FNS: dict[str, ctypes._CFuncPtr] = {}
 
@@ -135,24 +147,26 @@ def build_all(names=None) -> dict[str, dict]:
     return info
 
 
-def _fn(name: str):
-    """The kernel's ctypes entry point, built and loaded at first use."""
-    fn = _FNS.get(name)
+def _fn(name: str, symbol: str | None = None):
+    """The kernel's ctypes entry point (``fsx_<name>``, or ``symbol`` of
+    the same library), built and loaded at first use."""
+    key = symbol or name
+    fn = _FNS.get(key)
     if fn is None:
         path = _lib_path(name)
         if not path.exists():
             build_all([name])
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, f"fsx_{name}")
+        fn = getattr(lib, key if symbol else f"fsx_{name}")
         fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = _ARGTYPES[key]
         if name == "score_int8":
             size = lib.fsx_score_args_size()
             if size != ctypes.sizeof(_ScoreArgs):
                 raise RuntimeError(f"score_int8: kernel argument struct is "
                                    f"{size} B, the wrapper's "
                                    f"{ctypes.sizeof(_ScoreArgs)} B")
-        _FNS[name] = fn
+        _FNS[key] = fn
     return fn
 
 
@@ -251,6 +265,25 @@ def score_int8(params: logreg.LogRegParams, x: torch.Tensor,
     return out
 
 
+def score_log1p(x: torch.Tensor) -> torch.Tensor:
+    """The ``score_int8`` kernel's ``log1p`` alone, elementwise over a
+    contiguous float32 tensor: XLA:CPU's ``log1p``, whose plain version
+    is :func:`~..core.device.xla_log1p`.  A check entry (the serving path
+    runs the same device function inside :func:`score_int8`), so it is
+    not counted in :data:`LAUNCHES`."""
+    if x.device.type == "cpu":
+        return xla_log1p(x)
+    if (x.device.type != "cuda" or x.dtype != torch.float32
+            or not x.is_contiguous()):
+        raise ValueError(f"score_log1p: want a contiguous float32 CUDA "
+                         f"tensor, got {x.dtype} on {x.device}")
+    out = torch.empty_like(x)
+    fn = _FNS.get("fsx_xla_log1p") or _fn("score_int8", "fsx_xla_log1p")
+    _check(fn(x.data_ptr(), out.data_ptr(), x.numel(), _stream(x)),
+           "score_log1p")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # table_summary
 # ---------------------------------------------------------------------------
@@ -317,3 +350,37 @@ def table_summary(table, now: float, stale_s: float = 30.0) -> dict:
         "stale": int(c[2]),
         "newest_seen_s": float(np.float32(newest.cpu())),
     }
+
+
+# ---------------------------------------------------------------------------
+# segment_sum_seq
+# ---------------------------------------------------------------------------
+
+
+def segment_sum_seq(v: torch.Tensor, seg: torch.Tensor, n: int
+                    ) -> torch.Tensor:
+    """``[n]`` f32 per-segment sums of a ``[B]`` f32 ``v``, each segment
+    added left to right (:func:`~.agg.segment_sum_seq_plain`).  On the
+    card ``seg`` must be contiguous int64, non-decreasing and dense from
+    0 (the step's ``cumsum(run_heads) - 1``), and ``n >= seg[-1] + 1``;
+    the kernel trusts that contract (checking it would read ``seg`` on
+    the host)."""
+    dev = v.device
+    if dev.type == "cpu":
+        return agg.segment_sum_seq_plain(v, seg, n)
+    if dev.type != "cuda":
+        raise ValueError(f"segment_sum_seq: unsupported device {dev}")
+    if (v.dtype != torch.float32 or seg.dtype != torch.int64 or v.dim() != 1
+            or seg.shape != v.shape or not v.is_contiguous()
+            or not seg.is_contiguous() or seg.device != dev
+            or n < min(v.shape[0], 1)):
+        raise ValueError(
+            f"segment_sum_seq: want contiguous [B] float32 v and [B] int64 "
+            f"seg on one device and n >= 1, got {v.dtype} {tuple(v.shape)} "
+            f"and {seg.dtype} {tuple(seg.shape)} on {seg.device}, n={n}")
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    fn = _FNS.get("segment_sum_seq") or _fn("segment_sum_seq")
+    LAUNCHES["segment_sum_seq"] += 1
+    _check(fn(v.data_ptr(), seg.data_ptr(), v.shape[0], out.data_ptr(), n,
+              _stream(v)), "segment_sum_seq")
+    return out

@@ -19,11 +19,12 @@ from flowsentryx_tpu_torch.engine import (
     ArraySource, CollectSink, Engine, Scenario, TrafficGen, TrafficSource,
     TrafficSpec,
 )
-from flowsentryx_tpu_torch.models import logreg
-from flowsentryx_tpu_torch.ops import fused, graph, kernels
+from flowsentryx_tpu_torch.core.device import xla_log1p
+from flowsentryx_tpu_torch.models import logreg, mlp
+from flowsentryx_tpu_torch.ops import agg, fused, graph, kernels
 
-ARTIFACT = str(Path(__file__).resolve().parents[1] / "artifacts"
-               / "logreg_int8.npz")
+ART = Path(__file__).resolve().parents[1] / "artifacts"
+ARTIFACT = str(ART / "logreg_int8.npz")
 pytestmark = pytest.mark.cuda
 
 
@@ -270,7 +271,8 @@ def test_graph_launch_counts(cuda, g):
     n0 = dict(kernels.LAUNCHES)
     gr = graph.StepGraph(fn, table, stats, params, shape)
     per = max(g, 1)
-    assert gr.launches == {"score_int8": per, "table_summary": 0}
+    assert gr.launches == {"score_int8": per, "table_summary": 0,
+                           "segment_sum_seq": 0}
     assert kernels.LAUNCHES["score_int8"] == (n0["score_int8"]
                                               + graph.WARMUPS * per)
     n1 = kernels.LAUNCHES["score_int8"]
@@ -371,3 +373,148 @@ def test_cuda_engine_equals_cpu_engine(cuda, scenario):
         r = e.run()
         out[device] = (r.stats, e.sink.blocked, _digest(e), r.table)
     assert out["cuda"] == out["cpu"]
+
+
+# -- the raw48 slice: segment_sum_seq, the scorer's log1p, the raw step ------
+
+
+def _ragged_segments(rng, b, heavy=300):
+    """Sorted segment ids with ragged lengths and one ``heavy``-lane
+    segment of 65,535-byte records (its f32 sum passes 2^24 and depends
+    on the order), dense from 0 as the step makes them."""
+    lens = [heavy]
+    while sum(lens) < b:
+        lens.append(int(rng.integers(1, 60)))
+    lens[-1] -= sum(lens) - b
+    lens = [n for n in lens if n > 0]
+    rng.shuffle(lens)
+    seg = np.repeat(np.arange(len(lens)), lens)
+    v = rng.integers(40, 1 << 16, b).astype(np.float32)
+    v[seg == np.bincount(seg).argmax()] = 65535.0
+    return torch.from_numpy(v), torch.from_numpy(seg.astype(np.int64))
+
+
+@pytest.mark.parametrize("b", [1, 255, 2048, 4097])
+def test_segment_sum_seq_kernel_matches_plain(cuda, b):
+    """Lane-order f32 sums per segment, bit for bit with the plain
+    version, the empty tail ``[S, n)`` zeroed, one launch counted."""
+    v, seg = _ragged_segments(np.random.default_rng(b), b,
+                              heavy=min(300, b))
+    n = b + 5
+    want = agg.segment_sum_seq_plain(v, seg, n)
+    n0 = kernels.LAUNCHES["segment_sum_seq"]
+    got = kernels.segment_sum_seq(v.to(cuda), seg.to(cuda), n)
+    assert kernels.LAUNCHES["segment_sum_seq"] == n0 + 1
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    # garbage in the output buffer's tail is overwritten
+    assert not got[int(seg[-1]) + 1:].any()
+
+
+def test_segment_sum_seq_order_is_visible(cuda):
+    """On the heavy segment the lane-order sum differs from the exact
+    sum and from ``index_add_`` in another order: the kernel gives the
+    lane order's bits."""
+    v, seg = _ragged_segments(np.random.default_rng(0), 2048)
+    got = kernels.segment_sum_seq(v.to(cuda), seg.to(cuda), 2048).cpu()
+    exact = torch.zeros(2048, dtype=torch.float64).index_add_(
+        0, seg, v.double()).float()
+    assert (got != exact).any()
+    assert torch.equal(got, agg.segment_sum_seq_plain(v, seg, 2048))
+
+
+def test_segment_sum_seq_wrapper_refuses_bad_inputs(cuda):
+    v, seg = _ragged_segments(np.random.default_rng(1), 512)
+    v, seg = v.to(cuda), seg.to(cuda)
+    with pytest.raises(ValueError):
+        kernels.segment_sum_seq(v.double(), seg, 512)
+    with pytest.raises(ValueError):
+        kernels.segment_sum_seq(v, seg.int(), 512)
+    with pytest.raises(ValueError):
+        kernels.segment_sum_seq(v[::2], seg[::2], 512)
+
+
+def test_score_log1p_matches_plain_log1p(cuda):
+    """The scorer's device ``log1p`` against :func:`xla_log1p` run by
+    torch on the card, over 2^24 consecutive float32 bit patterns around
+    each branch point and 2^22 random non-negative ones."""
+    rng = np.random.default_rng(4)
+    starts = np.array([0.0, 1e-3, 0.41421354, 1.0, 65535.0, 2.0 ** 31],
+                      np.float32).view(np.uint32)
+    bits = np.concatenate(
+        [np.arange(s, s + (1 << 21), dtype=np.uint32) for s in starts]
+        + [rng.integers(0, 1 << 31, 1 << 22, dtype=np.uint32)])
+    x = torch.from_numpy(bits.view(np.float32)).to(cuda)
+    got = kernels.score_log1p(x)
+    want = xla_log1p(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _raw_batches(n, b, scenario="mixed_l34_1m", seed=3):
+    gen = TrafficGen(TrafficSpec(scenario=Scenario(scenario), seed=seed,
+                                 rate_pps=1e6))
+    out, t0 = [], None
+    for i in range(n):
+        rec = gen.next_records(b - (i % 5) * 131)
+        t0 = int(rec["ts_ns"][0]) if t0 is None else t0
+        out.append(schema.encode_raw(rec, b, t0))
+    return out
+
+
+@pytest.mark.parametrize("family", ["mlp", "logreg_int8"])
+def test_raw_step_graph_with_eviction_equals_eager(cuda, family):
+    """The captured raw48 single step with the eviction sweep on, across
+    the u32 wrap of ``batches``, against the eager step: outputs, table
+    and stats after every batch."""
+    cfg = config.FsxConfig(
+        limiter=config.LimiterConfig(pps_threshold=300.0),
+        table=config.TableConfig(capacity=1 << 14, salt=0x5EED,
+                                 evict_ttl_s=0.002, evict_every=4),
+        batch=config.BatchConfig(max_batch=2048),
+        model=config.ModelConfig(name=family))
+    if family == "mlp":
+        params = mlp.load_params(str(ART / "mlp_robust.npz"), cuda)
+        classify = mlp.classify_batch
+    else:
+        params = logreg.load_params(ARTIFACT, cuda)
+        classify = functools.partial(
+            kernels.score_int8, packed=kernels.pack_score_params(params))
+    step = fused.make_raw_step(cfg, classify)
+    tg, sg = schema.make_table(1 << 14, cuda), schema.make_stats(cuda)
+    te, se = schema.make_table(1 << 14, cuda), schema.make_stats(cuda)
+    gr = graph.StepGraph(step, tg, sg, params, (2049, 12))
+    assert gr.launches["segment_sum_seq"] == 1
+    for s in (sg, se):
+        s.batches.fill_((1 << 32) - 3)
+    for raw in _raw_batches(10, 2048):
+        gr.input.copy_(schema.wire_to_tensor(raw).to(cuda))
+        gr.replay()
+        _, _, oe = step(te, se, params, schema.wire_to_tensor(raw).to(cuda))
+        _same_out(gr.out, oe)
+        _same_state(tg, sg, te, se)
+    assert se.to_dict()["evicted"] > 0
+
+
+@pytest.mark.parametrize("family", ["mlp", "multiclass"])
+def test_raw48_cuda_engine_equals_cpu_engine(cuda, family):
+    from flowsentryx_tpu_torch.models.registry import load_artifact
+
+    path = str(ART / ("mlp_robust.npz" if family == "mlp"
+                      else "multiclass.npz"))
+    cfg = config.FsxConfig(
+        table=config.TableConfig(capacity=1 << 14, salt=99,
+                                 evict_ttl_s=0.003, evict_every=8),
+        batch=config.BatchConfig(max_batch=2048),
+        model=config.ModelConfig(name=family))
+    out = {}
+    for device in ("cuda", "cpu"):
+        # 24 ms of stream at 1e6 records/s: rows idle past the 3 ms ttl
+        src = TrafficSource(TrafficSpec(scenario=Scenario.MIXED_L34_1M,
+                                        seed=5, rate_pps=1e6),
+                            total=12 * 2048)
+        e = Engine(cfg, src, CollectSink(),
+                   params=load_artifact(family, path, device), device=device)
+        assert e.wire == schema.WIRE_RAW48
+        r = e.run()
+        out[device] = (r.stats, e.sink.blocked, _digest(e), r.table)
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][0]["evicted"] > 0

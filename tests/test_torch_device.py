@@ -4,7 +4,8 @@
 compiled graphs compute: a fused multiply-add with flush-to-zero
 (``fma32``), division by a constant as a multiply by its float32
 reciprocal (``recip_mul``), and XLA:CPU's float32 ``exp``/``exp2``
-(``xla_exp``/``xla_exp2``).  Each is held bit for bit against
+(``xla_exp``/``xla_exp2``), ``log1p`` (``xla_log1p``) and
+``jax.nn.sigmoid`` (``xla_sigmoid``).  Each is held bit for bit against
 ``jax.jit`` of the plain ``jnp`` expression on the same numpy inputs,
 made from a seed."""
 
@@ -16,7 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from flowsentryx_tpu_torch.core.device import (
-    LN2_F32, f32, fma32, recip_mul, xla_exp, xla_exp2,
+    LN2_F32, f32, fma32, recip_mul, xla_exp, xla_exp2, xla_log1p, xla_sigmoid,
 )
 
 F32 = np.float32
@@ -119,3 +120,55 @@ def test_fma32_matches_jitted_multiply_add():
     _assert_bits_equal(got, want)
     flushed = (np.asarray(want) == 0) & (a.astype(np.float64) * b + c != 0)
     assert flushed.sum() > 1000
+
+
+def _log_inputs(seed: int) -> dict[str, np.ndarray]:
+    """Seeded float32 samples of each range where XLA's ``log1p``
+    branches differ from torch's, plus the special values."""
+    rng = np.random.default_rng(seed)
+    n = 1 << 18
+    return {
+        "below_1e-3": rng.uniform(0, 1e-3, n).astype(F32),
+        "unit": rng.uniform(0, 1, n).astype(F32),
+        "1_to_1e3": rng.uniform(1, 1e3, n).astype(F32),
+        "heavy_tail": np.exp(rng.uniform(0, 17, n)).astype(F32),
+        "u32_counts": rng.integers(0, 1 << 32, n, dtype=np.uint64
+                                   ).astype(F32),
+        "negative": rng.uniform(-1, 0, n).astype(F32),
+        "special": np.array([
+            0.0, -0.0, 1e-45, -1e-45, 1e-39, 2.0 ** -126, np.inf, -np.inf,
+            np.nan, -1.0, -2.0, 3e38, 0.41421354, 0.41421357, -0.41421357,
+            0.29289323, 1.0, 2.0 ** 31, 2.0 ** 32], F32),
+    }
+
+
+@pytest.mark.parametrize("rng_name", ["below_1e-3", "unit", "1_to_1e3",
+                                      "heavy_tail", "u32_counts", "negative",
+                                      "special"])
+def test_xla_log1p_matches_jitted_log1p(rng_name):
+    """``jnp.log1p`` bit for bit (``scripts/xla_log1p_check.py`` runs
+    every non-negative float32); ``torch.log1p`` does not give its bits
+    on most of these ranges."""
+    x = _log_inputs(5)[rng_name]
+    want = jax.jit(jnp.log1p)(x)
+    _assert_bits_equal(xla_log1p(torch.from_numpy(x)), want)
+    if rng_name in ("unit", "heavy_tail"):
+        off = torch.log1p(torch.from_numpy(x)).numpy().view(np.uint32)
+        assert (off != np.asarray(want).view(np.uint32)).sum() > 100
+
+
+def test_xla_sigmoid_matches_jitted_sigmoid():
+    """``jax.nn.sigmoid`` over 2^20 wide-range logits, the saturation
+    bands on both sides, and the special values; ``torch.sigmoid``
+    differs on thousands of the same inputs."""
+    rng = np.random.default_rng(8)
+    x = np.concatenate([
+        rng.uniform(-20, 20, 1 << 20),
+        rng.standard_normal(1 << 18) * 10.0 ** rng.integers(-8, 3, 1 << 18),
+        rng.uniform(-104, -80, 1 << 16), rng.uniform(14, 20, 1 << 16),
+        [0.0, -0.0, np.inf, -np.inf, np.nan, -87.33655, -88.0, 88.7, 1e-40],
+    ]).astype(F32)
+    want = jax.jit(jax.nn.sigmoid)(x)
+    _assert_bits_equal(xla_sigmoid(torch.from_numpy(x)), want)
+    off = torch.sigmoid(torch.from_numpy(x)).numpy().view(np.uint32)
+    assert (off != np.asarray(want).view(np.uint32)).sum() > 1000
