@@ -1,12 +1,24 @@
 """Command line of the port: ``python -m flowsentryx_tpu_torch.cli serve``.
 
-Counterpart of the reference's ``fsx serve`` on its in-process sources:
-builds an :class:`~.engine.Engine` on the card (or on the CPU with
-``--device cpu``) from ``--config`` (the reference's JSON config file),
-serves a synthetic scenario at ``--rate`` or a ``--records`` file of
-48-byte flow records, and prints the report as JSON; ``--mega N|auto``
-groups backlogged batches as the reference's does (compact16 only: it is
-refused before boot for a model served over raw48).
+Counterpart of the reference's ``fsx serve``: builds an
+:class:`~.engine.Engine` on the card (or on the CPU with ``--device
+cpu``) from ``--config`` (the reference's JSON config file) and serves
+
+* the daemon's shared-memory feature ring (``--feature-ring``, 48-byte
+  records or ``fsxd --compact``'s 16-byte ones), writing blocks to its
+  verdict ring (``--verdict-ring``), inline or through
+  ``--ingest-workers N`` spawned drain workers over ``fsxd --shards N``
+  ring shards (``--strict-ingest``, ``--quarantine-dir``);
+* or a synthetic scenario at ``--rate``, or a ``--records`` file of
+  48-byte flow records;
+
+and prints the report as JSON.  ``--mega N|auto`` groups backlogged
+batches as the reference's does (compact16 only: refused before boot for
+a model served over raw48).  ``--checkpoint`` saves table, stats and
+clock at exit (and every ``--checkpoint-every`` seconds); ``--restore``
+resumes from a checkpoint, adopting its salt and (unless a capacity is
+given) its capacity before the engine is built.  Flag combinations are
+refused before boot, as the reference refuses them.
 """
 
 from __future__ import annotations
@@ -33,8 +45,116 @@ def _mega_arg(s: str) -> int | str:
             f"--mega takes an integer or 'auto', got {s!r}") from None
 
 
+def _refuse(args: argparse.Namespace) -> str | None:
+    """The reference's pre-boot refusals of flag combinations."""
+    if args.checkpoint_every < 0:
+        return "--checkpoint-every must be >= 0 (0 disables)"
+    if args.checkpoint_every and not args.checkpoint:
+        return "--checkpoint-every requires --checkpoint PATH"
+    if args.ingest_workers < 0:
+        return "--ingest-workers must be >= 0 (0 = inline)"
+    if args.ingest_workers and not args.feature_ring:
+        return ("--ingest-workers requires --feature-ring (the sharded "
+                "drain fronts the daemon's shm rings)")
+    if args.strict_ingest and not args.ingest_workers:
+        return ("--strict-ingest requires --ingest-workers N (>= 1): the "
+                "crash posture governs the sharded drain fleet")
+    if args.quarantine_dir and not args.ingest_workers:
+        return ("--quarantine-dir requires --ingest-workers N (>= 1): "
+                "sealed-slot validation happens on the sharded-ingest "
+                "dequeue path")
+    if args.verdict_ring and not args.feature_ring:
+        return "--verdict-ring requires --feature-ring"
+    if args.feature_ring and args.records:
+        return "--feature-ring and --records are exclusive"
+    return None
+
+
+def _restore_geometry(args, cfg):
+    """``--restore``: read the checkpoint's header before boot, adopt its
+    salt and (when no capacity was asked for) its capacity, validated as
+    an explicit ``--table-capacity`` would be.  A corrupt checkpoint
+    validates against its ``.prev`` generation, which the engine will
+    load instead.  Returns ``(cfg, None)`` or ``(None, message)``."""
+    import zipfile
+
+    from flowsentryx_tpu_torch.engine.checkpoint import (
+        CheckpointCorrupt, peek_header, prev_path,
+    )
+    from flowsentryx_tpu_torch.engine.table import validate_capacity
+
+    try:
+        hdr = peek_header(args.restore)
+    except CheckpointCorrupt as e:
+        prev = prev_path(args.restore)
+        try:
+            hdr = peek_header(prev)
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+            return None, (f"checkpoint {args.restore!r} is corrupt ({e}) "
+                          "and no restorable previous generation exists "
+                          "— refusing to boot from garbage")
+        print(f"serve: checkpoint {args.restore!r} REFUSED ({e}); the "
+              f"retained previous generation {prev} will be restored "
+              "instead", file=sys.stderr)
+    except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
+        return None, f"cannot read checkpoint {args.restore!r}: {e}"
+    if cfg.table.salt and cfg.table.salt != hdr["hash_salt"]:
+        return None, (f"config salt {cfg.table.salt:#x} != checkpoint salt "
+                      f"{hdr['hash_salt']:#x} — refusing to restore (the "
+                      "table's slot layout is bound to the salt it was "
+                      "built under)")
+    if not args.table_capacity and not args.config:
+        problems = validate_capacity(hdr["capacity"], cfg.batch.max_batch)
+        if problems:
+            return None, ("checkpoint capacity: " + "; ".join(problems)
+                          + " (pass --table-capacity to reshard)")
+        cfg = dataclasses.replace(cfg, table=dataclasses.replace(
+            cfg.table, capacity=hdr["capacity"]))
+    if hdr["hash_salt"] == 0:
+        print("serve: WARNING restoring a pre-salt checkpoint - running "
+              "with the UNSALTED public hash", file=sys.stderr)
+    if hdr["capacity"] != cfg.table.capacity or hdr["n_shards"] != 1:
+        print(f"serve: checkpoint geometry {hdr['capacity']} rows x "
+              f"{hdr['n_shards']} shard(s) != boot geometry "
+              f"{cfg.table.capacity} rows x 1 shard: occupied rows will "
+              "be resharded at restore", file=sys.stderr)
+    return dataclasses.replace(cfg, table=dataclasses.replace(
+        cfg.table, salt=hdr["hash_salt"])), None
+
+
 def _cmd_serve(args: argparse.Namespace) -> int:
-    # imports after argument parsing: a bad flag must not pay torch's boot
+    bad = _refuse(args)
+    if bad:
+        print(f"serve: {bad}", file=sys.stderr)
+        return 1
+    cfg = (FsxConfig.from_json(Path(args.config).read_text())
+           if args.config else DEFAULT_CONFIG)
+    if args.model:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, name=args.model))
+    if args.table_capacity:
+        from flowsentryx_tpu_torch.engine.table import validate_capacity
+
+        problems = validate_capacity(args.table_capacity,
+                                     cfg.batch.max_batch)
+        if problems:
+            print("serve: --table-capacity: " + "; ".join(problems),
+                  file=sys.stderr)
+            return 1
+        cfg = dataclasses.replace(cfg, table=dataclasses.replace(
+            cfg.table, capacity=args.table_capacity))
+    if args.restore:
+        cfg, bad = _restore_geometry(args, cfg)
+        if bad:
+            print(f"serve: {bad}", file=sys.stderr)
+            return 1
+    elif cfg.table.salt == 0:
+        # a random boot-time hash salt, as the reference's serve draws:
+        # slot collisions cannot be precomputed by an attacker
+        cfg = dataclasses.replace(cfg, table=dataclasses.replace(
+            cfg.table, salt=secrets.randbits(32)))
+
+    # imports after argument checks: a bad flag must not pay torch's boot
     import numpy as np
 
     from flowsentryx_tpu_torch.core import schema
@@ -42,22 +162,10 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     from flowsentryx_tpu_torch.engine import (
         ArraySource, Engine, NullSink, TrafficSource,
     )
+    from flowsentryx_tpu_torch.engine.checkpoint import CheckpointCorrupt
     from flowsentryx_tpu_torch.engine.traffic import Scenario, TrafficSpec
     from flowsentryx_tpu_torch.models.registry import get_model, load_artifact
 
-    cfg = (FsxConfig.from_json(Path(args.config).read_text())
-           if args.config else DEFAULT_CONFIG)
-    if args.model:
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, name=args.model))
-    if args.table_capacity:
-        cfg = dataclasses.replace(cfg, table=dataclasses.replace(
-            cfg.table, capacity=args.table_capacity))
-    if cfg.table.salt == 0:
-        # a random boot-time hash salt, as the reference's serve draws:
-        # slot collisions cannot be precomputed by an attacker
-        cfg = dataclasses.replace(cfg, table=dataclasses.replace(
-            cfg.table, salt=secrets.randbits(32)))
     try:
         spec = get_model(cfg.model.name)
     except KeyError as e:
@@ -74,14 +182,23 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     except ValueError as e:
         print(f"serve: {e}", file=sys.stderr)
         return 1
-    if args.mega and not hasattr(params, "in_scale"):
-        # the engine's wire rule, checked before boot
-        print("serve: --mega requires the compact16 wire, but the selected "
-              "model exposes no input observer so the engine would serve "
-              "raw48; pass an observer-carrying artifact (e.g. --artifact "
-              "artifacts/logreg_int8.npz) or drop --mega", file=sys.stderr)
-        return 1
-    if args.records:
+    sink = NullSink()
+    if args.feature_ring:
+        from flowsentryx_tpu_torch.engine.shm import (
+            ShmRingSource, ShmVerdictSink,
+        )
+
+        if args.ingest_workers:
+            from flowsentryx_tpu_torch.ingest import ShardedIngest
+
+            source = ShardedIngest(args.feature_ring, args.ingest_workers,
+                                   strict=args.strict_ingest,
+                                   quarantine_dir=args.quarantine_dir)
+        else:
+            source = ShmRingSource(args.feature_ring)
+        if args.verdict_ring:
+            sink = ShmVerdictSink(args.verdict_ring)
+    elif args.records:
         rec = np.frombuffer(Path(args.records).read_bytes(),
                             schema.FLOW_RECORD_DTYPE)
         source = ArraySource(rec[:args.packets] if args.packets else rec)
@@ -89,14 +206,68 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         source = TrafficSource(TrafficSpec(scenario=Scenario(args.scenario),
                                            rate_pps=args.rate),
                                total=args.packets or None)
-    eng = Engine(cfg, source, NullSink(), params=params, device=device,
-                 mega_n=args.mega)
-    eng.warm()
-    rep = eng.run(max_batches=args.batches or None,
-                  max_seconds=args.seconds or None)
-    out = rep._asdict()
-    print(json.dumps(out, indent=None if args.json else 2))
+    if args.mega and not (getattr(source, "precompact", False)
+                          or hasattr(params, "in_scale")):
+        # the engine's wire rule, checked before boot
+        print("serve: --mega requires the compact16 wire, but the selected "
+              "model exposes no input observer so the engine would serve "
+              "raw48; pass an observer-carrying artifact (e.g. --artifact "
+              "artifacts/logreg_int8.npz) or drop --mega", file=sys.stderr)
+        return 1
+    try:
+        eng = Engine(cfg, source, sink, params=params, device=device,
+                     mega_n=args.mega)
+        if args.restore:
+            try:
+                eng.restore(args.restore)
+            except CheckpointCorrupt as e:
+                print(f"serve: cannot restore: {e} — refusing to serve "
+                      "from garbage", file=sys.stderr)
+                return 1
+        eng.warm()
+        rep = _serve(eng, args)
+    finally:
+        if hasattr(source, "close"):
+            source.close()   # stop and join the ingest worker fleet
+    if rep.ingest is not None:
+        # close() counts the drain-on-shutdown losses: report them
+        rep = rep._replace(ingest=source.ingest_stats())
+    print(json.dumps(rep._asdict(), indent=None if args.json else 2))
     return 0
+
+
+def _serve(eng, args):
+    """Run the engine under the CLI's bounds; with ``--checkpoint-every``
+    in chunks of that many seconds, snapshotting between chunks (the
+    engine's counters and the batch bound accumulate across runs, so
+    chunking changes no result); the report spans the whole wall."""
+    import time
+
+    batches = args.batches or None
+    if not (args.checkpoint and args.checkpoint_every):
+        rep = eng.run(max_batches=batches, max_seconds=args.seconds or None)
+        if args.checkpoint:
+            eng.checkpoint(args.checkpoint)
+        return rep
+    t0 = time.perf_counter()
+    rep = None
+    while True:
+        sec = float(args.checkpoint_every)
+        if args.seconds:
+            left = args.seconds - (time.perf_counter() - t0)
+            if left <= 0:
+                break
+            sec = min(sec, left)
+        rep = eng.run(max_batches=batches, max_seconds=sec)
+        eng.checkpoint(args.checkpoint)
+        if (batches and rep.batches >= batches) or eng.source.exhausted():
+            break
+    if rep is None:   # a non-positive --seconds: nothing served
+        rep = eng.run(max_batches=0)
+        eng.checkpoint(args.checkpoint)
+    wall = time.perf_counter() - t0
+    return rep._replace(wall_s=round(wall, 4), records_per_s=round(
+        rep.records / max(wall, 1e-9), 1))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -132,6 +303,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "dispatch (one CUDA graph replay on the card); "
                         "'auto' = adaptive coalescing: every power-of-two "
                         "group size up to 8, the largest the backlog fills")
+    s.add_argument("--feature-ring", help="the daemon's shm feature ring "
+                   "(48-byte records, or fsxd --compact's 16-byte ones)")
+    s.add_argument("--verdict-ring", help="the daemon's shm verdict ring "
+                   "(blocked sources and their expiry go back to it)")
+    s.add_argument("--ingest-workers", type=int, default=0,
+                   help="drain the feature ring with N spawned worker "
+                        "processes that hand the engine sealed batches "
+                        "(pair with fsxd --shards N; N=1 fronts an "
+                        "unsharded daemon; 0 = the inline drain)")
+    s.add_argument("--strict-ingest", action="store_true",
+                   help="raise on an ingest-worker crash (after its queue "
+                        "drains) instead of the default per-shard "
+                        "fail-open")
+    s.add_argument("--quarantine-dir", metavar="DIR",
+                   help="spool refused sealed batches here (count-only "
+                        "without it)")
+    s.add_argument("--checkpoint", help="save table, stats and clock here "
+                                        "on exit")
+    s.add_argument("--checkpoint-every", type=float, default=0,
+                   help="also checkpoint every S seconds while serving "
+                        "(requires --checkpoint)")
+    s.add_argument("--restore", help="resume from a checkpoint file "
+                                     "(either package's)")
     s.add_argument("--device", default=None,
                    help="torch device; default the card (raises without one)")
     s.add_argument("--json", action="store_true",

@@ -1,5 +1,6 @@
-"""Shared schemas of the port: record layout, verdicts, device state,
-and the compact16 wire.
+"""Shared schemas of the port: verdicts, device state, and the device
+side of both wires (the host side and the shared-memory layout live in
+:mod:`.wire`, numpy only, and are re-exported here).
 
 Counterpart of ``flowsentryx_tpu/core/schema.py`` (the subset the
 serving path needs), kept as this package's own copy — the port imports
@@ -27,12 +28,32 @@ import numpy as np
 import torch
 
 from flowsentryx_tpu_torch.core.device import f32, fma32, u32, xla_exp2
+# the host half of the wires and the shm layout (numpy only), re-exported
+from flowsentryx_tpu_torch.core.wire import (  # noqa: F401
+    BATCHQ_FILL_DUR_US_WORD, BATCHQ_N_RECORDS_WORD, BATCHQ_RESERVED_WORD,
+    BATCHQ_SEAL_NS_HI_WORD, BATCHQ_SEAL_NS_LO_WORD, BATCHQ_SEQ_HI_WORD,
+    BATCHQ_SEQ_LO_WORD, BATCHQ_SLOT_HDR_WORDS, BATCHQ_WIRE_ID_WORD,
+    COMPACT_RECORD_DTYPE, COMPACT_RECORD_SIZE, COMPACT_RECORD_WORDS,
+    FLAG_ICMP, FLAG_IPV6, FLAG_TCP, FLAG_TCP_SYN, FLAG_UDP,
+    FLOW_RECORD_DTYPE, FLOW_RECORD_SIZE, NUM_FEATURES,
+    RANGE_DEPLOY_HORIZON_S, RANGE_DT_US_MAX, RANGE_FEAT_Q8_MAX,
+    RANGE_FLAGS_MAX, RANGE_LEN8_MAX, RANGE_PKT_LEN_MAX, RECORD_WORDS,
+    SHM_BATCHQ_MAGIC, SHM_CAPACITY_OFFSET, SHM_EMIT_DROP_OFFSET,
+    SHM_FIRST_TS_OFFSET, SHM_HBEAT_OFFSET, SHM_HDR_SIZE, SHM_HEAD_OFFSET,
+    SHM_IDLE_US_OFFSET, SHM_MAGIC, SHM_RECORD_SIZE_OFFSET,
+    SHM_SPIN_US_OFFSET, SHM_STOP_OFFSET, SHM_T0_OFFSET, SHM_TAIL_OFFSET,
+    SHM_WSTATE_OFFSET, VERDICT_RECORD_DTYPE, VERDICT_RECORD_SIZE,
+    WIRE_COMPACT16, WIRE_ID_COMPACT16, WIRE_ID_RAW48, WIRE_RAW48,
+    WSTATE_DONE, WSTATE_FAILED, WSTATE_RUNNING, WSTATE_SPAWNING,
+    _minifloat_lut, _minifloat_q8, _minifloat_ref, compact_pack,
+    encode_compact, encode_raw, model_quant_args, quantize_feat_minifloat,
+    quantize_feat_model, shard_of, shard_ring_path, unwrap_kernel_ts16,
+    wire_id_of, wire_quant_for,
+)
 
 # ---------------------------------------------------------------------------
-# Feature vector and flow record
+# Feature vector and verdicts
 # ---------------------------------------------------------------------------
-
-NUM_FEATURES: int = 8
 
 
 class Feature(enum.IntEnum):
@@ -46,23 +67,6 @@ class Feature(enum.IntEnum):
     FWD_IAT_MEAN = 5
     FWD_IAT_STD = 6
     FWD_IAT_MAX = 7
-
-
-FLAG_TCP_SYN = 1 << 1
-FLAG_TCP = 1 << 2
-
-#: One feature-ring entry (packed, 48 bytes) — the same layout as the
-#: reference's ``FLOW_RECORD_DTYPE`` and the kernel's C struct.
-FLOW_RECORD_DTYPE = np.dtype(
-    [
-        ("ts_ns", "<u8"),
-        ("saddr", "<u4"),
-        ("pkt_len", "<u2"),
-        ("ip_proto", "u1"),
-        ("flags", "u1"),
-        ("feat", "<u4", (NUM_FEATURES,)),
-    ]
-)
 
 
 class Verdict(enum.IntEnum):
@@ -218,30 +222,6 @@ class FeatureBatch(NamedTuple):
 # The raw48 wire
 # ---------------------------------------------------------------------------
 
-#: Wire formats of the host -> device hop.
-WIRE_RAW48 = "raw48"
-WIRE_COMPACT16 = "compact16"
-
-#: 32-bit words per flow record (48 B / 4).
-RECORD_WORDS = FLOW_RECORD_DTYPE.itemsize // 4
-#: The u16 ``pkt_len`` in raw word 3, bits 0-15.
-RANGE_PKT_LEN_MAX = 0xFFFF
-
-
-def encode_raw(buf: np.ndarray, batch_size: int, t0_ns: int) -> np.ndarray:
-    """Records -> the raw48 wire ``[B+1, 12]`` uint32: the 48-byte
-    records verbatim as 12 little-endian words, row ``B`` the metadata
-    row ``(n_valid, t0 lo, t0 hi, 0, ...)``."""
-    n = min(len(buf), batch_size)
-    out = np.zeros((batch_size + 1, RECORD_WORDS), np.uint32)
-    if n:
-        out[:n] = buf[:n].view(np.uint32).reshape(n, RECORD_WORDS)
-    out[batch_size, 0] = n
-    out[batch_size, 1] = t0_ns & 0xFFFFFFFF
-    out[batch_size, 2] = (t0_ns >> 32) & 0xFFFFFFFF
-    return out
-
-
 _NS = f32(1e-9)
 _TS_HI_NS = f32(4.294967296)   # 2^32 ns in seconds
 
@@ -277,158 +257,6 @@ def decode_raw(raw: torch.Tensor) -> FeatureBatch:
 # ---------------------------------------------------------------------------
 # The compact16 wire
 # ---------------------------------------------------------------------------
-
-COMPACT_RECORD_WORDS = 4
-
-RANGE_FEAT_Q8_MAX = 255
-RANGE_FLAGS_MAX = 0x1F
-RANGE_LEN8_MAX = 0x7FF
-RANGE_DT_US_MAX = 0xFFFF
-
-
-def quantize_feat_model(
-    feat: np.ndarray, in_scale: float, in_zp: int, log1p: bool
-) -> np.ndarray:
-    """u32 -> u8 with the classifier's own input quantizer (host, numpy;
-    round half to even)."""
-    x = feat.astype(np.float32)
-    if log1p:
-        x = np.log1p(x)
-    q = np.rint(x / np.float32(in_scale)) + in_zp
-    return np.clip(q, 0, RANGE_FEAT_Q8_MAX).astype(np.uint32)
-
-
-def _minifloat_ref(feat: np.ndarray) -> np.ndarray:
-    """Reference e5m3 encoder: values <= 8 verbatim; above,
-    ``q = 8·e + m̂`` with ``feat ≈ (8 + m̂)·2^(e-1)``."""
-    f = feat.astype(np.uint64)
-    bl = np.zeros(f.shape, np.int64)
-    tmp = f.copy()
-    for s in (32, 16, 8, 4, 2, 1):
-        big = tmp >= (np.uint64(1) << np.uint64(s))
-        bl = np.where(big, bl + s, bl)
-        tmp = np.where(big, tmp >> np.uint64(s), tmp)
-    bl += (tmp > 0)
-    e = np.maximum(bl - 4, 0).astype(np.uint64)
-    safe = np.maximum(e, np.uint64(1)) - np.uint64(1)
-    r = np.where(e > 0, (f >> safe) + np.uint64(1), f * 2) >> 1
-    e = np.where(r == 16, e + 1, e)
-    r = np.where(r == 16, np.uint64(8), r)
-    q = np.where(bl <= 3, f, (e + np.uint64(1)) * 8 + (r - 8))
-    return np.minimum(q, RANGE_FEAT_Q8_MAX).astype(np.uint32)
-
-
-_MINIFLOAT_LUT: np.ndarray | None = None
-
-
-def _minifloat_lut() -> np.ndarray:
-    """``[0, 2^16)`` maps f directly, ``[2^16, 2^16 + 2^20)`` maps
-    ``f >> 12`` (the rounding bit sits at or above bit 12 there)."""
-    global _MINIFLOAT_LUT
-    if _MINIFLOAT_LUT is None:
-        lo = _minifloat_ref(np.arange(1 << 16, dtype=np.uint64))
-        hi = _minifloat_ref(np.arange(1 << 20, dtype=np.uint64) << 12)
-        _MINIFLOAT_LUT = np.concatenate([lo, hi]).astype(np.uint8)
-    return _MINIFLOAT_LUT
-
-
-def _minifloat_q8(f: np.ndarray) -> np.ndarray:
-    f = np.asarray(f).astype(np.uint64)
-    big = f >= np.uint64(1 << 32)
-    safe = np.minimum(f, np.uint64((1 << 32) - 1))
-    idx = np.where(safe < np.uint64(1 << 16), safe,
-                   (safe >> np.uint64(12)) + np.uint64(1 << 16))
-    out = _minifloat_lut()[idx]
-    if big.any():
-        out = out.copy()
-        out[big] = _minifloat_ref(f[big]).astype(np.uint8)
-    return out
-
-
-def quantize_feat_minifloat(feat: np.ndarray) -> np.ndarray:
-    """u32 -> u8 e5m3, round to nearest."""
-    return _minifloat_q8(np.asarray(feat)).astype(np.uint32)
-
-
-def model_quant_args(params) -> dict:
-    """Wire-quantizer kwargs for ``model`` mode from a params object
-    carrying ``in_scale``/``in_zp``/``log1p``."""
-    return dict(
-        feat_mode="model",
-        in_scale=float(np.asarray(params.in_scale)),
-        in_zp=int(np.asarray(params.in_zp)),
-        log1p=bool(int(np.asarray(getattr(params, "log1p", 0)))),
-    )
-
-
-def wire_quant_for(params) -> dict:
-    """The model's own input observer when the artifact has one
-    (bit-exact), else the model-independent minifloat."""
-    if hasattr(params, "in_scale"):
-        return model_quant_args(params)
-    return dict(feat_mode="minifloat")
-
-
-def compact_pack(
-    rec: np.ndarray,
-    base_ns: int,
-    *,
-    feat_mode: str = "minifloat",
-    in_scale: float = 1.0,
-    in_zp: int = 0,
-    log1p: bool = False,
-) -> np.ndarray:
-    """Flow records -> ``[n, 4]`` compact words (host, numpy)."""
-    n = len(rec)
-    out = np.empty((n, COMPACT_RECORD_WORDS), np.uint32)
-    if feat_mode == "model":
-        q8 = quantize_feat_model(
-            rec["feat"], in_scale, in_zp, log1p).astype(np.uint8)
-    elif feat_mode == "minifloat":
-        q8 = _minifloat_q8(rec["feat"])
-    else:
-        raise ValueError(f"unknown feat_mode {feat_mode!r}")
-    out[:, 0] = rec["saddr"]
-    # [n, 8] u8 viewed as [n, 2] u32 is the little-endian byte pack
-    qw = np.ascontiguousarray(q8).view(np.uint32)
-    out[:, 1] = qw[:, 0]
-    out[:, 2] = qw[:, 1]
-    len8 = np.minimum((rec["pkt_len"].astype(np.uint32) + 4) >> 3,
-                      RANGE_LEN8_MAX)
-    dt = rec["ts_ns"].astype(np.int64) - np.int64(base_ns)
-    dt_us = np.clip(dt // 1000, 0, RANGE_DT_US_MAX).astype(np.uint32)
-    out[:, 3] = (len8
-                 | (rec["flags"].astype(np.uint32) & RANGE_FLAGS_MAX) << 11
-                 | dt_us << 16)
-    return out
-
-
-def encode_compact(
-    buf: np.ndarray,
-    batch_size: int,
-    t0_ns: int,
-    *,
-    feat_mode: str = "minifloat",
-    in_scale: float = 1.0,
-    in_zp: int = 0,
-    log1p: bool = False,
-) -> np.ndarray:
-    """Records -> the compact wire ``[B+1, 4]`` uint32; row ``B`` is the
-    metadata row ``(n_valid, base_rel_us lo, base_rel_us hi, 0)``."""
-    n = min(len(buf), batch_size)
-    out = np.zeros((batch_size + 1, COMPACT_RECORD_WORDS), np.uint32)
-    base_ns = int(t0_ns)
-    if n:
-        rec = buf[:n]
-        base_ns = int(rec["ts_ns"].min())
-        out[:n] = compact_pack(rec, base_ns, feat_mode=feat_mode,
-                               in_scale=in_scale, in_zp=in_zp, log1p=log1p)
-    base_rel_us = max(0, (base_ns - int(t0_ns))) // 1000
-    out[batch_size, 0] = n
-    out[batch_size, 1] = base_rel_us & 0xFFFFFFFF
-    out[batch_size, 2] = (base_rel_us >> 32) & 0xFFFFFFFF
-    return out
-
 
 _TS_HI_S = f32(4294.967296)   # 2^32 µs in seconds
 _US = f32(1e-6)

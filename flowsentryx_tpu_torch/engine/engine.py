@@ -1,15 +1,17 @@
-"""The serving engine: one device, inline record path, singles and the
-megastep ladder, both wires.
+"""The serving engine: one device, both wires, singles and the megastep
+ladder, fed inline from records or by sealed-batch ingest workers.
 
 Counterpart of ``flowsentryx_tpu/engine/engine.py`` — construction (the
-wire rule: compact16 only for params carrying an input observer
-``in_scale``, raw48 otherwise), :meth:`Engine.warm` and
-:meth:`Engine.run` over the inline loop (``_run_inline``: poll -> batch
--> dispatch -> reap), with single-batch dispatch and backlog-triggered
-grouping (``mega_n=N`` or ``"auto"``, compact16 only: the pending list,
-``_drain_pending``, group dispatch and the merged-wire sink).  Not
-ported yet: the drain ring, SLO mode, the predictive governor and the
-sink thread (ROADMAP queue 1 orders what follows).
+wire rule: compact16 for params carrying an input observer ``in_scale``
+or for a compact-emit source, raw48 otherwise), :meth:`Engine.warm` and
+:meth:`Engine.run` over the inline record loop (``_run_inline``: poll ->
+batch -> dispatch -> reap) or the sealed-batch loop (``_run_sealed``:
+stage -> dispatch -> reap, for :class:`~flowsentryx_tpu_torch.ingest
+.ShardedIngest`), single-batch dispatch and backlog-triggered grouping
+(``mega_n=N`` or ``"auto"``, compact16 only), and
+:meth:`Engine.checkpoint` / :meth:`Engine.restore`.  Not ported yet: the
+drain ring, SLO mode, the predictive governor and the sink thread
+(ROADMAP queue 1 orders what follows).
 
 On the card every dispatch is ONE CUDA graph replay (:mod:`..ops.graph`):
 :meth:`Engine.warm` captures the single step and every staged rung, and
@@ -17,29 +19,37 @@ a capture or launch failure raises — there is no eager path on the card.
 On the CPU the same step functions run eagerly.  The host<->device
 boundary on the card:
 
-* a compact16 dispatch stages its sealed ``[B+1, 4]`` wire buffers into
-  a pinned ``[g, B+1, 4]`` slot, copies it into the graph's static input
-  with ``non_blocking=True`` and replays; a slot is reused only
-  ``readback_depth + 2`` dispatches later, by which time its dispatch has
-  been reaped (so its upload has completed).  On raw48 the batcher's own
-  buffers are pinned and uploaded directly (no staging copy), under the
-  same reuse rule;
+* a compact16 batch (and every sealed batch) is copied once into a slot
+  of the pinned dispatch arena (:mod:`.arena`; from the batcher buffer,
+  or from the shm queue slot view, which is released right after that
+  copy), and a dispatch uploads the contiguous ``[g, B+1, words]`` slice
+  into the graph's static input with ``non_blocking=True`` and replays.
+  A slot is claimed again only after the event of the last dispatch
+  staged in it has fired, so its upload is complete (with at most
+  ``readback_depth`` batches in flight and ``readback_depth + 2`` slots
+  that wait is a no-op).  Inline raw48 uploads straight from the
+  batcher's pinned buffers, reused ``readback_depth + 2`` seals later;
 * right after the replay, on the same stream, the ``[2K+4]`` verdict
-  wire is copied into that slot's pinned host buffer and the block
-  arrays with the clock (:func:`~..ops.fused.block_record`) into that
-  slot's device buffer, then an event is recorded: the next replay
-  overwrites the graph's static outputs, the slot copies survive until
-  the dispatch is reaped;
+  wire is copied into that dispatch's pinned host buffer and the block
+  arrays with the clock (:func:`~..ops.fused.block_record`) into its
+  device buffer, then an event is recorded: the next replay overwrites
+  the graph's static outputs, the copies survive until the dispatch is
+  reaped;
 * up to ``readback_depth`` BATCHES stay in flight (a group counts as its
   size), reaped oldest first when their event has fired (or blocking,
   when the pipe is full);
-* a wire whose overflow flag is set is replaced by the slot's copy of
-  the dispatch's full block arrays, so no block is lost.
+* a wire whose overflow flag is set is replaced by the dispatch's copy
+  of its full block arrays, so no block is lost.
+
+The table and stats are captured into every graph by address, so
+:meth:`Engine.restore` copies a checkpoint INTO them rather than
+rebinding them (the reference rebinds).
 """
 
 from __future__ import annotations
 
 import functools
+import sys
 import time
 from collections import deque
 from typing import Any, NamedTuple
@@ -50,6 +60,9 @@ import torch
 from flowsentryx_tpu_torch.core import schema
 from flowsentryx_tpu_torch.core.config import FsxConfig, unsupported
 from flowsentryx_tpu_torch.core.device import resolve_device
+from flowsentryx_tpu_torch.engine import checkpoint as ckpt
+from flowsentryx_tpu_torch.engine import table as tbl
+from flowsentryx_tpu_torch.engine.arena import DispatchArena
 from flowsentryx_tpu_torch.engine.batcher import MicroBatcher
 from flowsentryx_tpu_torch.engine.writeback import (
     BlacklistUpdate, decode_verdict_wire, extract_updates,
@@ -83,6 +96,12 @@ class EngineReport(NamedTuple):
     readback: dict
     device: dict
     dispatch: dict
+    #: Sharded-ingest block (per-worker batches, records, seq gaps,
+    #: drops, refused slots); None on the inline record path.
+    ingest: dict | None = None
+    #: Compact-emit drains whose poll gap made the 16-bit kernel stamps
+    #: ambiguous (``MicroBatcher.add_precompact``).
+    ts_wrap_risk_polls: int = 0
 
 
 class _InFlight(NamedTuple):
@@ -112,8 +131,18 @@ class Engine:
     """Owns the device state (table, stats, params) and runs the loop.
 
     ``device=None`` is the card and raises without one; pass
-    ``device="cpu"`` for the plain-PyTorch path.  The stream epoch is
-    the first record's timestamp, as in the reference's default.
+    ``device="cpu"`` for the plain-PyTorch path.  ``t0_ns`` fixes the
+    stream epoch; None takes the first record's timestamp, as in the
+    reference.  A sink with a ``t0_ns`` attribute (the verdict ring's)
+    is given the epoch at construction when it is explicit, else at the
+    first record.
+
+    ``source``: a record source (``poll``/``exhausted``); one with
+    ``precompact = True`` delivers the kernel's 16-byte compact records
+    and forces the compact16 wire with minifloat features; one with
+    ``provides_sealed = True`` (:class:`~flowsentryx_tpu_torch.ingest
+    .ShardedIngest`) delivers sealed batches and is started here, with
+    this engine's wire and quantizer.
 
     ``mega_n``: 0 dispatches every sealed batch singly; ``N >= 1`` groups
     a backlog of N sealed batches into one megastep dispatch; ``"auto"``
@@ -139,6 +168,7 @@ class Engine:
         mega_n: int | str = 0,
         mega_auto: bool = False,
         wire: str | None = None,
+        t0_ns: int | None = None,
     ):
         bad = unsupported(cfg)
         if bad:
@@ -173,7 +203,13 @@ class Engine:
             params = spec.init(self.device)
         # params go to the device once
         self.params = type(params)(*(t.to(self.device) for t in params))
-        if wire is None:
+        # a compact-emit data plane (fsxd --compact) delivers records the
+        # kernel already quantized to the minifloat wire: the engine
+        # speaks compact16/minifloat whatever was asked for
+        self.precompact = bool(getattr(source, "precompact", False))
+        if self.precompact:
+            wire = schema.WIRE_COMPACT16
+        elif wire is None:
             wire = (schema.WIRE_COMPACT16 if hasattr(self.params, "in_scale")
                     else schema.WIRE_RAW48)
         if wire not in (schema.WIRE_COMPACT16, schema.WIRE_RAW48):
@@ -184,6 +220,14 @@ class Engine:
             raise ValueError("mega_n requires the compact16 wire")
         if not compact:
             self.quant = {}          # raw48 carries the records verbatim
+        elif self.precompact:
+            self.quant = {"feat_mode": "minifloat"}
+            if hasattr(self.params, "in_scale"):
+                print("fsx engine: compact-emit data plane delivers "
+                      "kernel-quantized minifloat features (<=6.25% "
+                      "relative error); the artifact's own input observer "
+                      "is bypassed. Serve a 48B plane for bit-exact "
+                      "model-mode quantization.", file=sys.stderr)
         elif isinstance(self.params, logreg.LogRegParams):
             # model mode: the wire carries the model's own input
             # quantization, so scores are bit-exact to the 48-byte records
@@ -191,6 +235,10 @@ class Engine:
                 **logreg.params_to_numpy(self.params)))
         else:
             self.quant = {"feat_mode": "minifloat"}
+            print("fsx engine: params expose no input observer; compact16 "
+                  "wire uses minifloat feature quantization (<=6.25% "
+                  "relative error). Pass wire='raw48' for full fidelity.",
+                  file=sys.stderr)
         self.verdict_k = cfg.batch.verdict_k
         # the int8 scorer's kernel arguments and output table, packed once
         self.score_params = None
@@ -219,22 +267,38 @@ class Engine:
         # keep more buffers than in-flight batches + the pending group
         self._cuda = self.device.type == "cuda"
         self.batcher = MicroBatcher(
-            cfg.batch, n_buffers=self.readback_depth + 2 + self._pending_cap,
+            cfg.batch, t0_ns=t0_ns or 0,
+            n_buffers=self.readback_depth + 2 + self._pending_cap,
             quant=self.quant, wire=wire, pinned=self._cuda and not compact)
-        self._t0_auto = True
+        self._t0_auto = t0_ns is None
+        if t0_ns is not None and hasattr(sink, "t0_ns"):
+            sink.t0_ns = t0_ns   # sinks translate engine seconds to ns
+        # sealed-batch sources deliver finished wire buffers: the fleet
+        # starts HERE, once the wire and quantizer are fixed, so the
+        # workers seal exactly as the inline path would
+        self.sealed = bool(getattr(source, "provides_sealed", False))
+        if self.sealed:
+            source.start(cfg.batch, self.wire, self.quant or None)
         b = cfg.batch.max_batch
         self._group_max = max(sizes, default=1)
-        # per-dispatch slots, reused readback_depth + 2 dispatches later:
-        # compact16 staging rows (pinned on the card; raw48 uploads from
-        # the batcher's pinned buffers), and on the card the copies of
-        # the graph outputs that must outlive the next replay
+        # per-dispatch output slots, reused readback_depth + 2 dispatches
+        # later: on the card the copies of the graph outputs that must
+        # outlive the next replay
         n_slots = self.readback_depth + 2
         self._n_slots = n_slots
-        self._stage = [torch.empty(
-            (self._group_max, b + 1, self._words),
-            dtype=torch.int32, pin_memory=self._cuda)
-            for _ in range(n_slots if compact else 0)]
-        self._stage_np = [s.numpy().view(np.uint32) for s in self._stage]
+        # the dispatch arena: pinned staging rows on the card (compact16
+        # dispatches and every sealed batch; inline raw48 uploads from
+        # the batcher's pinned buffers).  Sealed loops stage a few
+        # batches per slot even for singles.
+        self._arena = (DispatchArena(
+            DispatchArena.ring_safe_slots(self.readback_depth, 1),
+            max(self._group_max, 4) if self.sealed else self._group_max,
+            b, self._words, pinned=self._cuda)
+            if compact or self.sealed else None)
+        #: Per arena slot, the event of the last dispatch staged in it:
+        #: the slot is claimed again only once it has fired.
+        self._arena_event: list = [None] * (self._arena.slots
+                                            if self._arena else 0)
         rec_words = self._group_max * (2 * b + 1)
         if self._cuda:
             k = self.verdict_k
@@ -256,6 +320,7 @@ class Engine:
         self._blocked: set[int] = set()
         self._device_now = 0.0
         self._timers = {k: _StageTimer() for k in ("fill", "step", "sink")}
+        self._restore_fallbacks = 0
         self._d2h_bytes = 0
         self._sink_compact = 0
         self._sink_fallback = 0
@@ -281,26 +346,31 @@ class Engine:
 
     # -- dispatch and reap ---------------------------------------------------
 
-    def _launch(self, rung: int, raws: list[np.ndarray]) -> None:
-        """One dispatch: the single step (``rung == _SINGLE``) over
-        ``raws[0]``, or the rung-``len(raws)`` megastep over the group."""
+    def _claim(self) -> int:
+        """The next arena slot, once the last dispatch staged in it has
+        finished reading it (its event fired: the upload is complete)."""
+        slot = self._arena.claim()
+        ev = self._arena_event[slot]
+        if ev is not None:
+            ev.synchronize()
+            self._arena_event[slot] = None
+        return slot
+
+    def _launch(self, rung: int, x: torch.Tensor,
+                arena_slot: int | None = None) -> None:
+        """One dispatch of the staged ``x``: the single step
+        (``rung == _SINGLE``, ``x`` one ``[B+1, words]`` batch) or the
+        rung-``g`` megastep (``x`` ``[g, B+1, words]``).  ``arena_slot``
+        is the arena slot ``x`` lies in, gated by this dispatch's
+        event."""
         t = time.perf_counter()
         n = max(rung, 1)
         n_slots = self._n_slots
-        # a slot is free once the dispatch that used it is sunk; the
-        # batch-counted reaps keep this a no-op except at exit flushes
+        # an output slot is free once the dispatch that used it is sunk;
+        # the batch-counted reaps keep this a no-op except at exit flushes
         while len(self._inflight) > n_slots - 2:
             self._sink_one(self._inflight.popleft())
         slot = self._n_dispatched % n_slots
-        if self._stage:
-            rows = self._stage_np[slot]
-            for i, raw in enumerate(raws):
-                rows[i] = raw
-            stage = self._stage[slot]
-            x = stage[0] if rung == _SINGLE else stage[:n]
-        else:
-            # raw48 (singles only): the sealed batcher buffer itself
-            x = torch.from_numpy(raws[0].view(np.int32))
         if self._cuda:
             gr = self._graphs[rung]
             gr.input.copy_(x, non_blocking=True)
@@ -313,6 +383,8 @@ class Engine:
             blocks.copy_(gr.keep, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
+            if arena_slot is not None:
+                self._arena_event[arena_slot] = event
         else:
             fn = self.step if rung == _SINGLE else self.megasteps[rung]
             _, _, out = fn(self.table, self.stats, self.params, x)
@@ -322,13 +394,28 @@ class Engine:
         self._inflight.append(_InFlight(n, wire, blocks, event))
         self._timers["step"].add(time.perf_counter() - t)
 
+    def _stage(self, raws: list[np.ndarray]) -> tuple[int, torch.Tensor]:
+        """Copy sealed wire buffers into a freshly claimed arena slot:
+        ``(slot, its int32 rows)``."""
+        slot = self._claim()
+        rows = self._arena.rows(slot)
+        for i, raw in enumerate(raws):
+            rows[i] = raw
+        return slot, self._arena.tensor(slot)
+
     def _dispatch(self, raw: np.ndarray) -> None:
-        self._launch(_SINGLE, [raw])
+        if self._arena is None:
+            # inline raw48: the sealed batcher buffer itself
+            self._launch(_SINGLE, torch.from_numpy(raw.view(np.int32)))
+        else:
+            slot, x = self._stage([raw])
+            self._launch(_SINGLE, x[0], slot)
 
     def _dispatch_mega(self, group: list[np.ndarray]) -> None:
         """Group dispatch of pending buffers: staged into one slot, one
         megastep (one graph replay on the card)."""
-        self._launch(len(group), group)
+        slot, x = self._stage(group)
+        self._launch(len(group), x[:len(group)], slot)
 
     def _drain_pending(self, short: bool) -> None:
         """Apply the coalescing ladder to the pending list.
@@ -431,11 +518,11 @@ class Engine:
 
     def run(self, max_batches: int | None = None,
             max_seconds: float | None = None) -> EngineReport:
-        """Serve until the source is exhausted or a bound trips."""
+        """Serve until the source is exhausted or a bound trips.  A live
+        source (a shm ring) is never exhausted: bound the run."""
         if self._cuda and not self._graphs:
             self._capture()
         t_start = time.perf_counter()
-        cfg_b = self.cfg.batch
 
         def bounded() -> bool:
             if (max_batches is not None
@@ -444,6 +531,30 @@ class Engine:
             return (max_seconds is not None
                     and time.perf_counter() - t_start >= max_seconds)
 
+        if self.sealed:
+            self._run_sealed(bounded)
+        else:
+            self._run_inline(bounded)
+        # a bounded exit can leave sealed group candidates pending: their
+        # records are already counted, so dispatch them singly
+        for raw in self._pending:
+            self._dispatch(raw)
+            self._reap(self.readback_depth)
+        self._pending.clear()
+        self._reap(0)
+        return self._build_report(time.perf_counter() - t_start)
+
+    def _set_t0(self, t0_ns: int) -> None:
+        """Fix the stream epoch: the batcher seals against it, the sink
+        translates engine seconds to absolute ns with it."""
+        self.batcher.t0_ns = t0_ns
+        if hasattr(self.sink, "t0_ns"):
+            self.sink.t0_ns = t0_ns
+        self._t0_auto = False
+
+    def _run_inline(self, bounded) -> None:
+        """The record-source loop: poll -> batch -> dispatch -> reap."""
+        cfg_b = self.cfg.batch
         while not bounded():
             t = time.perf_counter()
             # grouping polls up to the remaining group capacity, so a
@@ -453,9 +564,22 @@ class Engine:
             records = self.source.poll(requested)
             n_polled = len(records)
             if self._t0_auto and n_polled:
-                self.batcher.t0_ns = int(records["ts_ns"][0])
-                self._t0_auto = False
-            sealed = self.batcher.add(records) if n_polled else []
+                if self.precompact:
+                    self._set_t0(int(schema.unwrap_kernel_ts16(
+                        records["w3"][:1],
+                        time.clock_gettime_ns(time.CLOCK_MONOTONIC))[0]))
+                else:
+                    self._set_t0(int(records["ts_ns"][0]))
+            if not n_polled:
+                sealed = []
+                if self.precompact:
+                    # a drain opportunity with no records: the wrap-risk
+                    # count keys on drain cadence, not traffic cadence
+                    self.batcher.note_poll()
+            elif self.precompact:
+                sealed = self.batcher.add_precompact(records)
+            else:
+                sealed = self.batcher.add(records)
             # deadline flush only into an idle pipe
             if not sealed and not self._inflight and self.batcher.flush_due():
                 sealed = [self.batcher.take()]
@@ -476,14 +600,168 @@ class Engine:
                 break
             if not sealed and not n_polled and not self._inflight:
                 time.sleep(_IDLE_SLEEP_S)
-        # a bounded exit can leave sealed group candidates pending: their
-        # records are already counted, so dispatch them singly
-        for raw in self._pending:
-            self._dispatch(raw)
+
+    def _run_sealed(self, bounded) -> None:
+        """The sealed-batch loop: stage -> dispatch -> reap.
+
+        Everything per record already happened in the ingest workers.
+        One arena slot is live at a time: ``poll_batches_into`` copies
+        sealed payloads from the shm queue slot views into its rows at
+        ``fill`` and releases the queue slots right away; the ladder
+        dispatches contiguous ``rows[done:done+g]`` slices; a fresh slot
+        is claimed only after the current one has fully dispatched,
+        never on an empty poll.  Deadlines belong to the workers."""
+        src = self.source
+        if not self._t0_auto and hasattr(src, "set_t0"):
+            # a fixed epoch (explicit t0_ns, or a restored checkpoint's)
+            # must reach the fleet before its first-timestamp handshake
+            # resolves: the workers seal against theirs, the sink
+            # translates with ours
+            src.set_t0(self.batcher.t0_ns)
+        top = self._mega_sizes[0] if self._mega_sizes else 0
+        slot = None
+        fill = done = 0
+
+        def flush(g: int) -> None:
+            nonlocal done
+            x = self._arena.tensor(slot)
+            if g > 1:
+                self._launch(g, x[done:done + g], slot)
+            else:
+                self._launch(_SINGLE, x[done], slot)
+            done += g
             self._reap(self.readback_depth)
-        self._pending.clear()
-        self._reap(0)
-        return self._build_report(time.perf_counter() - t_start)
+
+        while not bounded():
+            t = time.perf_counter()
+            if slot is None or (fill and fill == done):
+                slot = self._claim()
+                fill = done = 0
+            rows = self._arena.rows(slot)
+            want = len(rows) - fill
+            if top:
+                want = min(want, max(top - (fill - done), 0))
+            batches = (src.poll_batches_into(rows[fill:], want)
+                       if want > 0 else [])
+            if self._t0_auto and batches and src.t0_ns:
+                self._set_t0(src.t0_ns)   # the fleet's handshake epoch
+            for sb in batches:
+                # the workers sealed these: mirror them into the counters
+                # the report and the bounds read
+                self.batcher.batches_emitted += 1
+                self.batcher.records_emitted += sb.n_records
+            fill += len(batches)
+            self._timers["fill"].add(time.perf_counter() - t)
+            # want == 0 (slot rows exhausted under a pending carry) must
+            # flush, not poll: treat it as a short poll
+            short = len(batches) < want or want == 0
+            while top and fill - done >= top:
+                flush(top)
+            if short or not top:
+                while fill - done:
+                    flush(fused.rung_for_volume(fill - done,
+                                                self._mega_sizes))
+            self._reap_ready()
+            if not batches:
+                if src.exhausted():
+                    break
+                if not self._inflight:
+                    time.sleep(_IDLE_SLEEP_S)
+        # bounded exit with staged rows: dispatch them singly (their
+        # records are already counted)
+        while fill - done:
+            flush(1)
+
+    # -- checkpoint / restore ------------------------------------------------
+
+    def checkpoint(self, path) -> str:
+        """Snapshot table, stats and clock (the reference's file format,
+        :mod:`.checkpoint`) so a restarted engine resumes with every
+        tracked flow and blacklist expiry.  Call it between runs."""
+        if self._inflight or self._pending:
+            raise RuntimeError("checkpoint with batches in flight")
+        return str(ckpt.save_state(path, self.table, self.stats,
+                                   self.batcher.t0_ns,
+                                   hash_salt=self.cfg.table.salt,
+                                   n_shards=1))
+
+    def restore(self, path) -> dict:
+        """Resume from a snapshot, IN PLACE: the rows and counters are
+        copied into the engine's own table and stats tensors, which every
+        captured graph holds by address (the park row is reset).  A
+        snapshot of another geometry (capacity, or a sharded reference
+        engine's row layout) is re-placed for this engine's capacity on
+        the host first (:func:`.table.reshard_rows`, announced, unplaced
+        rows counted).  A salt mismatch is refused.  A corrupt snapshot
+        (:class:`~.checkpoint.CheckpointCorrupt`) is never loaded: the
+        retained ``.prev`` generation is, announced and counted; with no
+        ``.prev`` (or a corrupt one) it raises.  Returns a summary
+        (``resharded``/``dropped_rows``/``from``/``to``/
+        ``fallback_from``).  Call it between runs."""
+        if self._inflight or self._pending:
+            raise RuntimeError("restore with batches in flight")
+        fallback_from = None
+        try:
+            ck = ckpt.load_checkpoint(path)
+        except ckpt.CheckpointCorrupt as e:
+            prev = ckpt.prev_path(path)
+            if not prev.exists():
+                raise
+            print(f"fsx engine: checkpoint {path} REFUSED ({e}); falling "
+                  f"back to the retained previous generation {prev}",
+                  file=sys.stderr)
+            ck = ckpt.load_checkpoint(prev)   # corrupt too -> raises
+            fallback_from = str(path)
+            self._restore_fallbacks += 1
+        tcfg = self.cfg.table
+        if ck.hash_salt != tcfg.salt:
+            # another salt relocates every slot: refuse; the caller
+            # adopts the checkpoint's salt before building the engine
+            raise ValueError(
+                f"checkpoint hash salt {ck.hash_salt} != configured "
+                f"{tcfg.salt}; rebuild the engine with "
+                "TableConfig(salt=<checkpoint salt>)")
+        key, state = ck.key, ck.state
+        if ("tok_bytes" in ck.missing_columns
+                and self.cfg.limiter.bucket_burst_bytes > 0):
+            # a snapshot from before the byte bucket: occupied rows start
+            # with the full burst, as a flow's first sighting does
+            state = state.copy()
+            state[:, int(schema.TableCol.TOK_BYTES)] = np.where(
+                key != 0, np.float32(self.cfg.limiter.bucket_burst_bytes),
+                np.float32(0.0))
+        info = {
+            "resharded": False, "dropped_rows": 0,
+            "from": {"capacity": ck.capacity, "n_shards": ck.n_shards},
+            "to": {"capacity": tcfg.capacity, "n_shards": 1},
+            "crc_checked": ck.crc_checked,
+            "fallback_from": fallback_from,
+        }
+        if ck.capacity != tcfg.capacity or ck.n_shards != 1:
+            plan = tbl.TablePlan(capacity=tcfg.capacity, n_shards=1,
+                                 salt=tcfg.salt, probes=tcfg.probes)
+            key, state, dropped = tbl.reshard_rows(key, state, plan)
+            info["resharded"] = True
+            info["dropped_rows"] = dropped
+            print(f"fsx engine: resharding checkpoint {ck.capacity} rows "
+                  f"x {ck.n_shards} shard(s) -> {plan.capacity} rows x 1 "
+                  "shard" + (f"; {dropped} row(s) dropped (probe sequences "
+                             "exhausted - table too full for the new "
+                             "geometry)" if dropped else ""),
+                  file=sys.stderr)
+        self.table.key.copy_(torch.from_numpy(
+            np.ascontiguousarray(key, np.uint32).view(np.int32)))
+        self.table.state.copy_(torch.from_numpy(
+            np.ascontiguousarray(state, np.float32)))
+        self.table.key_rows[-1:].zero_()
+        self.table.state_rows[-1:].zero_()
+        for f in schema.GlobalStats._fields:
+            lo, hi = (int(v) for v in ck.stats[f])
+            getattr(self.stats, f).fill_(lo | hi << 32)
+        if self._cuda:
+            torch.cuda.synchronize(self.device)
+        self._set_t0(ck.t0_ns)
+        return info
 
     def _build_report(self, wall: float) -> EngineReport:
         table_sum = kernels.table_summary(self.table, now=self._device_now,
@@ -515,7 +793,11 @@ class Engine:
             "dispatch_hz": round(dispatches / max(wall, 1e-9), 1),
             # captured CUDA graphs (single + rungs); 0 on the CPU
             "graphs": len(self._graphs),
+            "arena": self._arena.info() if self._arena else None,
         }
+        ingest = (self.source.ingest_stats()
+                  if self.sealed and hasattr(self.source, "ingest_stats")
+                  else None)
         return EngineReport(
             batches=self.batcher.batches_emitted,
             records=self.batcher.records_emitted,
@@ -529,4 +811,6 @@ class Engine:
             readback=readback,
             device=device,
             dispatch=dispatch,
+            ingest=ingest,
+            ts_wrap_risk_polls=self.batcher.ts_wrap_risk_polls,
         )

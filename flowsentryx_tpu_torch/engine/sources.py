@@ -1,8 +1,10 @@
 """Record sources: where the engine's packets come from.
 
 Counterpart of ``flowsentryx_tpu/engine/sources.py`` (the in-process
-producers ``TrafficSource`` and ``ArraySource``; the shared-memory ring
-source is not ported yet).
+producers ``TrafficSource`` and ``ArraySource``; the daemon's feature
+ring is :class:`~flowsentryx_tpu_torch.engine.shm.ShmRingSource`, the
+sealed-batch ingest fleet
+:class:`~flowsentryx_tpu_torch.ingest.ShardedIngest`).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Verdict writeback: decode the step's verdict wire on the host (numpy).
 
 Counterpart of ``flowsentryx_tpu/engine/writeback.py`` (the in-process
-sinks; the shared-memory verdict sink is not ported yet).
+sinks; the daemon's verdict ring is
+:class:`~flowsentryx_tpu_torch.engine.shm.ShmVerdictSink`).
 """
 
 from __future__ import annotations

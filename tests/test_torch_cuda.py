@@ -8,6 +8,7 @@ a machine with the card alone:
 
 import functools
 import hashlib
+import os
 from pathlib import Path
 
 import numpy as np
@@ -518,3 +519,182 @@ def test_raw48_cuda_engine_equals_cpu_engine(cuda, family):
         out[device] = (r.stats, e.sink.blocked, _digest(e), r.table)
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][0]["evicted"] > 0
+
+
+# -- the production serve path: rings, sealed batches, checkpoint/restore --
+
+
+class _ListSealed:
+    """A sealed-batch source over prepared wire buffers (in process)."""
+
+    provides_sealed = True
+    t0_ns = 1
+
+    def __init__(self, bufs):
+        self.bufs, self.i = bufs, 0
+
+    def start(self, *a):
+        pass
+
+    def poll_batches_into(self, dst, max_batches):
+        out = []
+        while len(out) < min(max_batches, len(dst)) and self.i < len(
+                self.bufs):
+            dst[len(out)] = self.bufs[self.i]
+            out.append(type("SB", (), {"n_records": int(
+                self.bufs[self.i][-1, 0])})())
+            self.i += 1
+        return out
+
+    def exhausted(self):
+        return self.i >= len(self.bufs)
+
+
+def _ring_cfg(**batch):
+    return config.FsxConfig(
+        limiter=config.LimiterConfig(pps_threshold=200.0, bps_threshold=1e9),
+        table=config.TableConfig(capacity=1 << 14, salt=77),
+        batch=config.BatchConfig(max_batch=2048, **batch))
+
+
+def test_restore_in_place_under_captured_graphs(cuda, tmp_path):
+    """A checkpoint restored into an engine whose graphs are already
+    captured: the table and stats tensors keep their addresses, and the
+    next replays see the restored rows — the run ends equal to the CPU
+    engine uninterrupted."""
+    params = logreg.load_params(ARTIFACT)
+    rec = TrafficGen(TrafficSpec(scenario=Scenario.UDP_FLOOD_MULTI,
+                                 rate_pps=1e7, n_attack_ips=32,
+                                 seed=23)).next_records(12 * 2048)
+    cfg = _ring_cfg()
+    half = 6 * 2048
+    e1 = Engine(cfg, ArraySource(rec[:half].copy()), CollectSink(),
+                params=params, device="cpu")
+    e1.run()
+    path = e1.checkpoint(str(tmp_path / "c.npz"))
+    e2 = Engine(cfg, ArraySource(rec[half:].copy()), CollectSink(),
+                params=params, device="cuda")
+    e2.warm()
+    assert e2._graphs
+    ptrs = [t.data_ptr() for t in (e2.table.key_rows, e2.table.state_rows,
+                                   *e2.stats)]
+    e2.restore(path)
+    assert ptrs == [t.data_ptr() for t in (
+        e2.table.key_rows, e2.table.state_rows, *e2.stats)]
+    assert e2.stats.to_dict()["batches"] == 6
+    r2 = e2.run()
+    e0 = Engine(cfg, ArraySource(rec.copy()), CollectSink(), params=params,
+                device="cpu")
+    r0 = e0.run()
+    assert r2.stats == r0.stats
+    assert {**e1.sink.blocked, **e2.sink.blocked} == e0.sink.blocked
+    assert _digest(e2) == _digest(e0)
+
+
+def test_sealed_stage_slot_reuse_waits_for_its_event(cuda):
+    """The sealed loop stages each batch into a pinned arena slot and
+    claims a slot again only once the last dispatch staged there has
+    finished with it.  With two arena slots and eight batches in flight
+    the gate is hit for real: every reclaimed slot's event has fired,
+    and the results equal the CPU engine's on the same batches."""
+    params = logreg.load_params(ARTIFACT)
+    raws, _ = _compact_batches(params, 24, 2048, "udp_flood_multi", seed=5)
+    cfg = _ring_cfg(readback_depth=8)
+    out = {}
+    for device in ("cuda", "cpu"):
+        e = Engine(cfg, _ListSealed([r.copy() for r in raws]), CollectSink(),
+                   params=params, device=device)
+        e._arena = type(e._arena)(2, e._arena.group_max, 2048, 4,
+                                  pinned=device == "cuda")
+        e._arena_event = [None, None]
+        gated = []
+        claim = e._claim
+
+        def checked_claim(e=e, claim=claim, gated=gated):
+            nxt = (e._arena._cur + 1) % e._arena.slots
+            ev = e._arena_event[nxt]
+            slot = claim()
+            if ev is not None:
+                gated.append(ev.query())
+            assert e._arena_event[slot] is None
+            return slot
+
+        e._claim = checked_claim
+        r = e.run()
+        out[device] = (r.stats, e.sink.blocked, _digest(e))
+        if device == "cuda":
+            assert gated and all(gated)
+            assert r.dispatch["arena"]["pinned"]
+    assert out["cuda"] == out["cpu"]
+
+
+def test_card_ring_path_equals_cpu(cuda, tmp_path):
+    """48-byte records through a shm feature ring into the card engine
+    (singles and ``auto``), blocks into a verdict ring: the same stats,
+    table and verdict-ring records as the CPU engine over the records."""
+    from flowsentryx_tpu_torch.engine.shm import (
+        ShmRing, ShmRingSource, ShmVerdictSink,
+    )
+
+    rec = TrafficGen(TrafficSpec(scenario=Scenario.UDP_FLOOD_MULTI,
+                                 rate_pps=1e7, n_attack_ips=32,
+                                 seed=29)).next_records(16 * 2048)
+    got = {}
+    for label, device, mega_n in (("single", "cuda", 0),
+                                  ("auto", "cuda", "auto"),
+                                  ("cpu", "cpu", 0)):
+        f, v = tmp_path / f"{label}.f", tmp_path / f"{label}.v"
+        ShmRing.create(f, 1 << 15, schema.FLOW_RECORD_DTYPE).produce(rec)
+        vr = ShmRing.create(v, 1 << 12, schema.VERDICT_RECORD_DTYPE)
+        sink = ShmVerdictSink(v)
+        e = Engine(_ring_cfg(), ShmRingSource(f), sink,
+                   params=logreg.load_params(ARTIFACT), device=device,
+                   mega_n=mega_n)
+        e.warm()    # the capture's eager warm-ups count launches too
+        n0 = kernels.LAUNCHES["score_int8"]
+        r = e.run(max_batches=16)
+        got[label] = (r.stats, _digest(e), vr.consume(1 << 12).tobytes())
+        if device == "cuda":
+            assert kernels.LAUNCHES["score_int8"] - n0 == 16
+        assert sink.dropped == 0
+    assert got["single"] == got["cpu"] == got["auto"]
+    assert got["cpu"][2]                      # verdicts were written
+
+
+def _maps(pid):
+    with open(f"/proc/{pid}/maps") as f:
+        return f.read()
+
+
+def test_spawned_worker_never_initialises_cuda(cuda, tmp_path):
+    """Workers spawned by a process that already holds a CUDA context:
+    while they drain, none has libcuda or libtorch mapped (their import
+    closure is numpy only), and the card engine serves their batches
+    equal to the CPU engine over the same records."""
+    from flowsentryx_tpu_torch.engine.shm import ShmRing
+    from flowsentryx_tpu_torch.ingest import ShardedIngest
+
+    torch.zeros(1, device=cuda)                # this process: CUDA is up
+    assert "libcuda" in _maps(os.getpid())
+    rec = TrafficGen(TrafficSpec(scenario=Scenario.UDP_FLOOD_MULTI,
+                                 rate_pps=1e7, n_attack_ips=32,
+                                 seed=31)).next_records(8 * 2048)
+    base = str(tmp_path / "ring")
+    ShmRing.create(base, 1 << 15, schema.FLOW_RECORD_DTYPE).produce(rec)
+    src = ShardedIngest(base, 1, strict=True, precompact=False)
+    params = logreg.load_params(ARTIFACT)
+    try:
+        e = Engine(_ring_cfg(), src, CollectSink(), params=params,
+                   device="cuda")
+        src.wait_ready()
+        maps = [_maps(p.pid) for p in src._procs]
+        r = e.run(max_batches=8)
+    finally:
+        src.close()
+    assert all("libcuda" not in m and "libtorch" not in m for m in maps)
+    e0 = Engine(_ring_cfg(), ArraySource(rec.copy()), CollectSink(),
+                params=params, device="cpu")
+    r0 = e0.run()
+    assert r.stats == r0.stats and e.sink.blocked == e0.sink.blocked
+    assert _digest(e) == _digest(e0)
+    assert r.ingest["workers"]["0"]["batches"] == 8

@@ -150,3 +150,59 @@ def test_port_never_imports_jax_or_reference_at_runtime():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+def test_new_host_modules_are_checked():
+    """The import-boundary checks above walk every module of the port:
+    the shared-memory transport, the ingest fleet and worker, the arena,
+    the checkpoint, table and durable-write modules are among them."""
+    names = {".".join(p.relative_to(REPO).with_suffix("").parts)
+             for p in _port_sources()}
+    for m in ("core.wire", "core.durable", "engine.shm", "engine.arena",
+              "engine.checkpoint", "engine.table", "ingest.sharded",
+              "ingest.worker", "ingest.__init__"):
+        assert f"flowsentryx_tpu_torch.{m}" in names, m
+
+
+def test_engine_over_fsxd_sim_blocks_attackers(tmp_path):
+    """The port's CPU engine in the daemon loop: ``fsxd --sim`` floods a
+    48-byte feature ring for 4 s at a paced 2e5 records/s (unpaced it
+    would spin a core for nothing), the engine serves it and writes
+    blocks to the verdict ring, and the daemon suppresses the blocked
+    sources.
+    Bounded on its own: the daemon's ``--duration``, the engine's
+    ``max_seconds`` and a 30 s cap on the daemon's exit."""
+    from flowsentryx_tpu_torch.engine.shm import ShmRingSource, ShmVerdictSink
+
+    # the Makefile's build into a directory of this test's own (a
+    # concurrent test may be building daemon/build/ at the same time)
+    r = subprocess.run(["make", "-C", str(REPO / "daemon"),
+                        f"BUILD={tmp_path / 'build'}"],
+                       capture_output=True, text=True, timeout=300)
+    fsxd = tmp_path / "build" / "fsxd"
+    assert r.returncode == 0 and fsxd.exists(), r.stderr
+    fring, vring = str(tmp_path / "fring"), str(tmp_path / "vring")
+    proc = subprocess.Popen(
+        [str(fsxd), "--sim", "--pace", "--duration", "4", "--rate", "2e5",
+         "--attack-ips", "16", "--attack-fraction", "0.8",
+         "--feature-ring", fring, "--verdict-ring", vring, "--seed", "7"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        cfg = config.FsxConfig(
+            table=config.TableConfig(capacity=1 << 12),
+            batch=config.BatchConfig(max_batch=512, deadline_us=2000,
+                                     readback_depth=2),
+            limiter=config.LimiterConfig(pps_threshold=300.0,
+                                         bps_threshold=1e12, block_s=1e6))
+        sink = ShmVerdictSink(vring)
+        eng = Engine(cfg, ShmRingSource(fring), sink, device="cpu")
+        rep = eng.run(max_seconds=5)
+    finally:
+        out, _ = proc.communicate(timeout=30)
+    stats = json.loads(out.strip().splitlines()[-1])
+    assert rep.stats["dropped"] > 0
+    assert stats["verdicts"] > 0 and stats["blacklisted"] > 0
+    assert stats["suppressed"] > 0
+    assert sink.dropped == 0
+    assert 0 < rep.records < stats["produced"]
+    assert sink.t0_ns == eng.batcher.t0_ns > 0
