@@ -5,7 +5,9 @@ plain versions.
     python3 chip_smoke.py            # from the repository root, one card
 
 Phases (each prints one JSON line; any failure exits non-zero and the
-final ``{"ok": true, ...}`` line is never printed):
+final ``{"ok": true, ...}`` line is never printed).  Engines run with
+the defaults a user gets: the sink thread where the host has 3 cores or
+more.
 
 1. ``nvidia-smi`` name and power limit; build the three kernels from
    ``flowsentryx_tpu_torch/csrc/`` (one ``nvcc`` per source, in
@@ -116,6 +118,34 @@ final ``{"ok": true, ...}`` line is never printed):
     CPU; the ``.prev`` checkpoint loads with the reference's ``(lo,
     hi)`` stats pairs; after a flipped byte the restore falls back to
     ``.prev`` and still ends equal.
+19. ``latency_plane``: both scenarios through the 48-byte shm ring
+    (``logreg_int8.npz``, 2^20 rows, B=2048, 384 batches), singles and
+    ``auto``, each with the sink thread on and off: stats, table digest,
+    blacklist and verdict-ring bytes equal the CPU engine's;
+    ``latency.negatives == 0``; the seal -> verdict histogram counts
+    every record; ``score_int8`` launches equal the batches.  Then one
+    spawned ingest worker (the seal stamp from the slot header), equal
+    to the inline ring.  Prints p50/p99/p99.9 and the stage split.
+20. ``slo_pulse``: the reference's pulse tier — ``PacedSource`` pulses
+    of 96 records every 7.5 ms (12.8 k records/s mean, each pulse
+    released at once), a drain-tuned 5 ms deadline, ``mega_n="auto"`` —
+    ``slo_us`` 0 and 2,000 in turns, 4 pairs of 1 s trials on two warm
+    engines: each arm ends equal to the CPU engine fed the batches it
+    dispatched, and arms that dispatched the same batch partition (a
+    host stall can merge two pulses into one batch) end byte-equal;
+    each arm's arrival -> verdict p50/p99/p99.9 and the share of records
+    past 2 ms; then a saturated drain from the ring, ``slo_us`` 2,000
+    against 0 (0, 2000, 2000, 0): the records/s ratio, equal state.
+21. ``predict_pulse``: the same pulse with ``--predict --slo-us 2000``,
+    4 trials: the state equals the CPU replay of its batches, and the
+    ``slo_us=0`` arm's where the partitions match; the governor
+    locks a forecast; its report per trial (onset hits and misses,
+    holds, pre-warms).
+22. ``watchdog_stall``: ``torch.cuda._sleep`` (~5 s) enqueued on the
+    step's stream ahead of a run with ``watchdog_s=0.5``, with the sink
+    thread and without: a soft trip, then ``WatchdogStall`` within 4 s,
+    health ``failed``; a run with the default watchdog is byte-equal to
+    one with it off.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -1131,12 +1161,12 @@ def main() -> int:
         def start_log(self):
             self.log, self.wires = [], []
 
-        def _launch(self, rung, x, arena_slot=None):
+        def _launch(self, rung, x, *a, **kw):
             if getattr(self, "log", None) is not None:
                 rows = x.cpu().numpy().view(np.uint32)
                 self.log += [r.copy() for r in (rows if rows.ndim == 3
                                                  else rows[None])]
-            super()._launch(rung, x, arena_slot)
+            super()._launch(rung, x, *a, **kw)
 
         def _sink_one(self, g):
             if getattr(self, "wires", None) is not None and g.wire is not None:
@@ -1158,13 +1188,14 @@ def main() -> int:
         def start(self, *a):
             pass
 
-        def poll_batches_into(self, dst, max_batches):
+        def poll_batches_into(self, dst, max_batches, **timers):
             out = []
             while (len(out) < min(max_batches, len(dst))
                    and self.i < len(self.bufs)):
                 b = self.bufs[self.i]
                 dst[len(out)] = b
-                out.append(types.SimpleNamespace(n_records=int(b[-1, 0])))
+                out.append(types.SimpleNamespace(
+                    n_records=int(b[-1, 0]), t_enqueue=time.perf_counter()))
                 self.i += 1
             return out
 
@@ -1198,10 +1229,11 @@ def main() -> int:
         return path
 
     def per_batch(r):
-        """Host ms per batch of each stage, and records/s."""
+        """Host ms per batch of each stage (its mean times its count over
+        the batches), and records/s."""
         return {"records_per_s": r.records_per_s, "wall_s": r.wall_s,
-                **{f"{k}_ms_per_batch": v["total_ms"] / max(r.batches, 1)
-                   for k, v in r.stages_ms.items()}}
+                **{f"{k}_ms_per_batch": v["mean"] * v["n"] / max(r.batches, 1)
+                   for k, v in r.stages_ms.items() if v}}
 
     def cpu_ring_run(label, c, params, recs, **kw):
         vpath, vring = verdict_ring(label)
@@ -1640,6 +1672,298 @@ def main() -> int:
 
     checkpoint_phase()
 
+    # -- the latency plane, latency-budget dispatch, the watchdog -------------
+
+    from flowsentryx_tpu_torch.benchmarks import (
+        paced_latency_run, summarize_latencies,
+    )
+    from flowsentryx_tpu_torch.engine import PacedSource, health
+    from flowsentryx_tpu_torch.engine.watchdog import WatchdogStall
+
+    def lat_summary(r):
+        """The engine's seal -> verdict block: µs percentiles, the stage
+        split's p50/p99, negatives (and the budget's misses)."""
+        lat = r.latency
+        return {"seal_to_verdict_us": lat["seal_to_verdict"],
+                "stages_us": {k: {q: v.get(q) for q in ("p50", "p99")}
+                              for k, v in lat["stages"].items()},
+                "negatives": lat["negatives"],
+                "compute_is_wall": lat["compute_is_wall"],
+                **({"slo": lat["slo"]} if "slo" in lat else {})}
+
+    def chunks(r):
+        """Batches the run dispatched, masked pre-warms included (each
+        launches the scorer once per batch)."""
+        return sum(int(g) * c for g, c in r.dispatch["group_hist"].items())
+
+    @phase("latency_plane")
+    def latency_phase():
+        params = logreg.load_params(artifact, "cuda")
+        out, checks = {"card": card, "batches": SERVE_BATCHES}, []
+        served["launches_latency"] = {}
+        for scen in ring_scen:
+            cpu = served.get("ring_cpu", {}).get(scen)
+            recs = ring_recs[scen]
+            out[scen] = {}
+            for label, mega_n in (("single", 0), ("auto", "auto")):
+                for st in (True, False):
+                    tag = f"{label}/{'sink_thread' if st else 'inline_sink'}"
+                    fpath = feature_ring(f"lat_{label}", recs)
+                    vpath, vring = verdict_ring(f"lat_{label}")
+                    sink = TeeSink(vpath)
+                    e = Engine(ring_cfg, ShmRingSource(fpath), sink,
+                               params=params, device="cuda", mega_n=mega_n,
+                               sink_thread=st)
+                    e.warm()
+                    kernels.reset_launches()      # this path's window opens
+                    r = e.run(max_batches=SERVE_BATCHES)
+                    torch.cuda.synchronize()
+                    launches = dict(kernels.LAUNCHES)   # ... and closes
+                    served["launches_latency"][f"{scen}/{tag}"] = launches
+                    verdicts = vring.consume(1 << 18)
+                    same = {"stats": cpu is not None
+                            and r.stats == cpu["stats"],
+                            "table_digest": cpu is not None
+                            and digest(e) == cpu["digest"],
+                            "blacklist": cpu is not None
+                            and sorted(sink.collect.blocked.items())
+                            == cpu["blocked"],
+                            "verdict_ring": cpu is not None
+                            and verdicts.tobytes() == cpu["verdicts"]}
+                    lat = r.latency
+                    checks += [*same.values(), lat["negatives"] == 0,
+                               lat["seal_to_verdict"]["n"] == r.records,
+                               r.records == SERVE_BATCHES * BATCH,
+                               launches["score_int8"] == r.batches,
+                               launches["table_summary"] == 1,
+                               r.readback["sink_thread"] is st,
+                               r.health["state"] == "healthy"]
+                    out[scen][tag] = {
+                        **per_batch(r), "equal_cpu": same,
+                        "launches": launches, **lat_summary(r),
+                        "sink_occupancy": r.readback["sink_occupancy"],
+                        "group_hist": r.dispatch["group_hist"]}
+        # one spawned worker: the batches carry the worker's shm seal
+        # stamp (CLOCK_MONOTONIC, the perf_counter clock) minus its fill
+        r1, e1, s1, v1, l1 = sealed_run("lat_ingest1", 1, ring_recs[blk])
+        inline = served.get("ring_single", {}).get(blk)
+        same1 = {"stats": inline is not None
+                 and r1.stats == inline["report"].stats,
+                 "table_digest": inline is not None
+                 and digest(e1) == inline["digest"],
+                 "verdict_ring": inline is not None
+                 and v1.tobytes() == inline["verdicts"].tobytes()}
+        lat = r1.latency
+        checks += [*same1.values(), lat["negatives"] == 0,
+                   lat["seal_to_verdict"]["n"] == r1.records,
+                   l1["score_int8"] == r1.batches]
+        served["launches_latency"]["ingest_1"] = l1
+        out["ingest_1_worker"] = {"scenario": blk, **per_batch(r1),
+                                  "equal_inline_ring": same1,
+                                  "launches": l1, **lat_summary(r1),
+                                  "health": r1.health}
+        return {"ok": all(checks), **out}
+
+    latency_phase()
+
+    #: The reference's pulse tier: 96-record pulses every 7.5 ms (12.8 k
+    #: records/s mean), each pulse's records released at once, a
+    #: drain-tuned 5 ms batcher deadline against a 2 ms budget.
+    PULSE_PERIOD_S, PULSE_RECORDS, PULSE_TRIAL_S = 0.0075, 96, 1.0
+    SLO_US = 2000
+    pulse_cfg = dataclasses.replace(ring_cfg, batch=dataclasses.replace(
+        ring_cfg.batch, deadline_us=5000))
+    pulse_pool = ring_recs[blk]
+
+    def pulse_engine(slo_us, predict=False):
+        e = Recording(pulse_cfg, ArraySource(pulse_pool[:0]), CollectSink(),
+                      params=logreg.load_params(artifact, "cuda"),
+                      device="cuda", mega_n="auto", slo_us=slo_us,
+                      predict=predict)
+        e.warm()
+        e.start_log()
+        return e
+
+    def partition(e):
+        """The valid-record count of every batch the engine dispatched,
+        in order (the governor's masked pre-warms left out)."""
+        return [n for n in (int(b[-1, 0]) for b in e.log) if n]
+
+    def arm_checks(arms):
+        """The batch partition of a paced arm is the host's timing (a
+        host stall past the 2.5 ms between the 5 ms deadline and the
+        next pulse merges two pulses into one batch).  Each arm must
+        equal the CPU engine fed the batches it dispatched; arms that
+        dispatched the same partition must be byte-equal."""
+        out, checks = {}, []
+        for k, e in arms.items():
+            rc, ec = replay_cpu(e.log, c=pulse_cfg)
+            same = {"stats": e.stats.to_dict() == ec.stats.to_dict(),
+                    "table_digest": digest(e) == digest(ec),
+                    "blacklist": sorted(e.sink.blocked.items())
+                    == sorted(ec.sink.blocked.items())}
+            checks += same.values()
+            out[str(k)] = {"equal_cpu_replay": same,
+                           "batches": len(e.log)}
+        keys = list(arms)
+        for a in keys[1:]:
+            ident = partition(arms[keys[0]]) == partition(arms[a])
+            equal = pulse_state(arms[keys[0]]) == pulse_state(arms[a])
+            out[f"{keys[0]}_vs_{a}"] = {"partition_identical": ident,
+                                        "state_equal": equal}
+            if ident:
+                checks.append(equal)
+        return out, checks
+
+    def pulse_trial(e):
+        n = PULSE_RECORDS * int(PULSE_TRIAL_S / PULSE_PERIOD_S)
+        src = PacedSource(pulse_pool, rate_pps=PULSE_RECORDS / PULSE_PERIOD_S,
+                          total=n, burst_period_s=PULSE_PERIOD_S,
+                          duty_cycle=1e-7)
+        lats, wall, r = paced_latency_run(e, src, max_seconds=30.0)
+        s = summarize_latencies(lats)
+        s["miss_fraction_2ms"] = float((lats > SLO_US * 1e-6).mean())
+        return r, s
+
+    def pulse_state(e):
+        return (e.stats.to_dict(), digest(e), sorted(e.sink.blocked.items()))
+
+    @phase("slo_pulse")
+    def slo_phase():
+        arms = {0: pulse_engine(0), SLO_US: pulse_engine(SLO_US)}
+        trials = {k: [] for k in arms}
+        batches = {k: [] for k in arms}
+        served_chunks = 0
+        kernels.reset_launches()                  # this path's window opens
+        for pair in range(4):
+            order = (0, SLO_US) if pair % 2 == 0 else (SLO_US, 0)
+            for k in order:
+                r, s = pulse_trial(arms[k])
+                served_chunks += chunks(r)
+                batches[k].append(r.batches)
+                trials[k].append({**s, "engine": lat_summary(r),
+                                  "batches": r.batches,
+                                  "group_hist": r.dispatch["group_hist"]})
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)          # ... and closes
+        served["launches_slo_pulse"] = launches
+        served["pulse_arm_slo0"] = arms[0]
+        equal, checks = arm_checks(arms)
+        med = {k: {q: float(np.median([t[q] for t in v]))
+                   for q in ("p50_ms", "p99_ms", "p999_ms",
+                             "miss_fraction_2ms")}
+               for k, v in trials.items()}
+        checks += [launches["score_int8"] == served_chunks,
+                  all(t["engine"]["negatives"] == 0
+                      for v in trials.values() for t in v),
+                  all(t["n"] == t["engine"]["seal_to_verdict_us"]["n"]
+                      for v in trials.values() for t in v)]
+        # the saturated drain: an existing backlog is never capped
+        recs = ring_recs[blk]
+        steady, steady_state = {0: [], SLO_US: []}, {}
+        for k in (0, SLO_US, SLO_US, 0):
+            fpath = feature_ring(f"steady_{k}", recs)
+            e = Engine(ring_cfg, ShmRingSource(fpath), CollectSink(),
+                       params=logreg.load_params(artifact, "cuda"),
+                       device="cuda", mega_n="auto", slo_us=k)
+            e.warm()
+            r = e.run(max_batches=SERVE_BATCHES)
+            steady[k].append(r.records_per_s)
+            steady_state.setdefault(k, (r.stats, digest(e)))
+        ratio = float(np.mean(steady[SLO_US]) / np.mean(steady[0]))
+        checks.append(steady_state[0] == steady_state[SLO_US])
+        return {"ok": all(checks), "card": card, "slo_us": SLO_US,
+                "pulse": {"period_ms": PULSE_PERIOD_S * 1e3,
+                          "records": PULSE_RECORDS,
+                          "deadline_us": pulse_cfg.batch.deadline_us,
+                          "trial_s": PULSE_TRIAL_S},
+                "state": equal, "batches": batches,
+                "median_per_arm": med, "trials": trials,
+                "launches": launches, "dispatched_chunks": served_chunks,
+                "rung_ewma_ms": arms[SLO_US]._rung_ewma_s and {
+                    str(g): v * 1e3
+                    for g, v in arms[SLO_US]._rung_ewma_s.items()},
+                "steady_records_per_s": steady,
+                "steady_ratio_slo_over_0": ratio,
+                "steady_state_equal": steady_state[0] == steady_state[SLO_US]}
+
+    slo_phase()
+
+    @phase("predict_pulse")
+    def predict_phase():
+        e = pulse_engine(SLO_US, predict=True)
+        trials, served_chunks = [], 0
+        kernels.reset_launches()                  # this path's window opens
+        for _ in range(4):
+            r, s = pulse_trial(e)
+            served_chunks += chunks(r)
+            trials.append({**s, "engine": lat_summary(r),
+                           "batches": r.batches, "predict": r.predict,
+                           "group_hist": r.dispatch["group_hist"]})
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)          # ... and closes
+        served["launches_predict_pulse"] = launches
+        arm0 = served.get("pulse_arm_slo0")
+        equal, checks = arm_checks({0: arm0, "predict": e} if arm0
+                                   else {"predict": e})
+        checks += [arm0 is not None, launches["score_int8"] == served_chunks,
+                  all(t["engine"]["negatives"] == 0 for t in trials),
+                  any(t["predict"]["forecasts"] > 0 for t in trials)]
+        med = {q: float(np.median([t[q] for t in trials]))
+               for q in ("p50_ms", "p99_ms", "p999_ms", "miss_fraction_2ms")}
+        return {"ok": all(checks), "card": card, "slo_us": SLO_US,
+                "state": equal, "median": med, "trials": trials,
+                "launches": launches, "dispatched_chunks": served_chunks}
+
+    predict_phase()
+
+    @phase("watchdog_stall")
+    def watchdog_phase():
+        params = logreg.load_params(artifact, "cuda")
+        recs = ring_recs[blk][:96 * BATCH]
+        out, checks = {"card": card}, []
+        for st in (True, False):
+            e = Engine(ring_cfg, ArraySource(recs.copy()), CollectSink(),
+                       params=params, device="cuda", watchdog_s=0.5,
+                       sink_thread=st)
+            e.warm()
+            # wedge the step's stream: every replay queues behind ~5 s
+            torch.cuda._sleep(int(5.0 * 2e9))
+            t = time.perf_counter()
+            err = None
+            try:
+                e.run()
+            except WatchdogStall as exc:
+                err = exc
+            back_s = time.perf_counter() - t
+            wd = e._watchdog.to_dict()
+            state = health.engine_health(watchdog=wd)["state"]
+            torch.cuda.synchronize()
+            # the abandoned sink thread drains once the stream moves on
+            for th in threading.enumerate():
+                if th.name == "fsx-sink":
+                    th.join(timeout=30)
+            checks += [err is not None, wd["soft_trips"] == 1,
+                       wd["hard_tripped"], state == "failed",
+                       back_s < 4.0]
+            out["sink_thread" if st else "inline_sink"] = {
+                "raised": repr(err), "returned_after_s": back_s,
+                "watchdog": wd, "health": state}
+        res = {}
+        for wd in (None, 0.0):
+            e = Engine(ring_cfg, ArraySource(recs.copy()), CollectSink(),
+                       params=params, device="cuda", watchdog_s=wd)
+            e.warm()
+            r = e.run()
+            res[wd] = (r.stats, digest(e), sorted(e.sink.blocked.items()),
+                       r.health)
+        checks += [res[None] == res[0.0],
+                   res[None][3]["state"] == "healthy"]
+        out["defaults_equal_disabled"] = res[None] == res[0.0]
+        return {"ok": all(checks), **out}
+
+    watchdog_phase()
+
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
         ``flush`` runs between calls, outside the timed region."""
@@ -1873,7 +2197,11 @@ def main() -> int:
                served.get("launches_ring", {}).items()},
             "serve_raw48_ring": served.get("launches_raw48_ring", {}),
             **{f"serve_ingest_workers/{n}": w for n, w in
-               served.get("launches_ingest", {}).items()}}
+               served.get("launches_ingest", {}).items()},
+            **{f"latency_plane/{k}": w for k, w in
+               served.get("launches_latency", {}).items()},
+            "slo_pulse": served.get("launches_slo_pulse", {}),
+            "predict_pulse": served.get("launches_predict_pulse", {})}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}

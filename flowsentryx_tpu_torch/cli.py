@@ -14,7 +14,11 @@ cpu``) from ``--config`` (the reference's JSON config file) and serves
 
 and prints the report as JSON.  ``--mega N|auto`` groups backlogged
 batches as the reference's does (compact16 only: refused before boot for
-a model served over raw48).  ``--checkpoint`` saves table, stats and
+a model served over raw48).  ``--slo-us N`` bounds the feature -> verdict
+path at N µs (latency-budget dispatch; ``--predict`` adds the burst
+forecaster), ``--watchdog-s S`` sets the stall bound and
+``--no-sink-thread`` sinks on the dispatch thread; the report carries
+the latency, health and (with ``--predict``) predict blocks.  ``--checkpoint`` saves table, stats and
 clock at exit (and every ``--checkpoint-every`` seconds); ``--restore``
 resumes from a checkpoint, adopting its salt and (unless a capacity is
 given) its capacity before the engine is built.  Flag combinations are
@@ -63,6 +67,15 @@ def _refuse(args: argparse.Namespace) -> str | None:
         return ("--quarantine-dir requires --ingest-workers N (>= 1): "
                 "sealed-slot validation happens on the sharded-ingest "
                 "dequeue path")
+    if args.slo_us < 0:
+        return ("--slo-us must be >= 0 (0 = throughput-tuned serving, no "
+                "latency budget)")
+    if args.predict and not args.slo_us:
+        return ("--predict requires --slo-us > 0: the governor's flush, "
+                "hold and pre-warm decisions are all phrased against the "
+                "latency budget")
+    if args.watchdog_s is not None and args.watchdog_s < 0:
+        return "--watchdog-s must be >= 0 (0 disables)"
     if args.verdict_ring and not args.feature_ring:
         return "--verdict-ring requires --feature-ring"
     if args.feature_ring and args.records:
@@ -216,7 +229,9 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         return 1
     try:
         eng = Engine(cfg, source, sink, params=params, device=device,
-                     mega_n=args.mega)
+                     mega_n=args.mega, slo_us=args.slo_us,
+                     predict=args.predict, watchdog_s=args.watchdog_s,
+                     sink_thread=False if args.no_sink_thread else None)
         if args.restore:
             try:
                 eng.restore(args.restore)
@@ -303,6 +318,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "dispatch (one CUDA graph replay on the card); "
                         "'auto' = adaptive coalescing: every power-of-two "
                         "group size up to 8, the largest the backlog fills")
+    s.add_argument("--slo-us", type=int, default=0, metavar="N",
+                   help="latency-budget serving: bound the feature->verdict "
+                        "path at N µs — the oldest pending record's age and "
+                        "the warm-measured step time of each rung cap how "
+                        "long the engine holds for a deeper backlog, which "
+                        "rung it climbs to and when the batcher flushes. 0 "
+                        "(default) is the throughput-tuned engine. The "
+                        "report's latency block carries p50/p90/p99/p999 "
+                        "and budget misses either way")
+    s.add_argument("--predict", action="store_true",
+                   help="predictive dispatch governor (requires --slo-us): "
+                        "a burst forecaster over arrival stamps pre-warms "
+                        "the predicted rung before each onset and flushes "
+                        "at the forecast burst end, inside the budget; "
+                        "quiescent on aperiodic traffic. Counters in the "
+                        "report's predict block")
+    s.add_argument("--watchdog-s", type=float, default=None, metavar="S",
+                   help="dispatch-watchdog stall bound: batches in flight "
+                        "and no completion for S seconds dump every "
+                        "thread's stack (soft trip), for 2S fail the drain "
+                        "loudly (default 10; 0 disables)")
+    s.add_argument("--no-sink-thread", action="store_true",
+                   help="sink verdicts on the dispatch thread (default: a "
+                        "sink thread where the host has >= 3 cores)")
     s.add_argument("--feature-ring", help="the daemon's shm feature ring "
                    "(48-byte records, or fsxd --compact's 16-byte ones)")
     s.add_argument("--verdict-ring", help="the daemon's shm verdict ring "

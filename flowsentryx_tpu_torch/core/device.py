@@ -245,6 +245,92 @@ def xla_log1p(x: torch.Tensor) -> torch.Tensor:
                        _log_positive(x + 1.0))
 
 
+# XLA:CPU's float32 tanh: Eigen's rational approximation (odd numerator
+# of degree 13, even denominator of degree 6), highest power first
+_TANH_CLAMP = f32(7.99881172180175781)
+_TANH_TINY = f32(0.0004)
+_TANH_P = tuple(f32(c) for c in (
+    -2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+    5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+    4.89352455891786e-03))
+_TANH_Q = tuple(f32(c) for c in (
+    1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+    4.89352518554385e-03))
+
+
+def xla_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.tanh`` of a traced float32 ``x`` as XLA:CPU computes it
+    (Eigen's rational function): ``x`` clamped to +-7.998811721801758;
+    ``x`` itself where ``|x| < 0.0004``; otherwise ``x P(x^2) / Q(x^2)``,
+    ``P`` and ``Q`` by Horner with each step one :func:`fma32`, then a
+    true division.  ``scripts/xla_tanh_expm1_check.py`` runs it against
+    ``jax.jit(jnp.tanh)`` over every float32 below 0.5 in magnitude."""
+    x = x.float()
+    c = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = c * c
+    p = fma32(x2, _TANH_P[0], _TANH_P[1])
+    for k in _TANH_P[2:]:
+        p = fma32(x2, p, k)
+    q = fma32(x2, _TANH_Q[0], _TANH_Q[1])
+    for k in _TANH_Q[2:]:
+        q = fma32(x2, q, k)
+    return torch.where(x.abs() < _TANH_TINY, c, (c * p) / q)
+
+
+def xla_expm1(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.expm1`` of a traced float32 ``x`` as XLA:CPU computes it:
+    ``tanh(x/2) * (exp(x) + 1)`` where ``|x| <= 0.5``, else
+    ``exp(x) - 1``, with its own :func:`xla_exp` and :func:`xla_tanh`
+    (``torch.expm1`` differs on 49 of the 256 decoded codes of the log1p
+    artifact).  Exhaustive over ``|x| < 0.5`` by
+    ``scripts/xla_tanh_expm1_check.py``."""
+    x = x.float()
+    e = xla_exp(x)
+    h = x * 0.5
+    # below tanh's 0.0004 pass-through the halving folds into the
+    # product: x * ((e + 1) / 2), which is x itself where x/2 would be
+    # subnormal (XLA:CPU returns x there, neither flushed nor rounded)
+    small = torch.where(h.abs() < _TANH_TINY, x * ((e + 1.0) * 0.5),
+                        xla_tanh(h) * (e + 1.0))
+    return torch.where(x.abs() <= 0.5, small, e - 1.0)
+
+
+# XLA's float32 erf_inv (Giles' approximation), highest power first:
+# w = -log1p(-x^2) below 5, and above
+_ERFINV_LO = tuple(f32(c) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+    1.50140941))
+_ERFINV_HI = tuple(f32(c) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+    2.83297682))
+
+
+def xla_erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.erf_inv`` of a traced float32 ``x`` in (-1, 1) as
+    XLA:CPU computes it: ``w = -log1p(-x*x)`` (:func:`xla_log1p`); below
+    5 the polynomial in ``w - 2.5``, else in ``sqrt(w) - 3`` (nine
+    coefficients, each Horner step one :func:`fma32`), times ``x``,
+    flushed to zero below 2^-126; ``+-1`` give ``+-inf``.  Exhaustive over (-1, 1) by
+    ``scripts/xla_erf_inv_check.py``."""
+    x = x.float()
+    w = -xla_log1p(-(x * x))
+    lo = w < 5.0
+    # the square root correctly rounded (through float64: double
+    # rounding of a square root from 53 to 24 bits is innocuous), as
+    # XLA:CPU's is; torch's float32 CPU sqrt is not always
+    t = torch.where(lo, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    p = torch.where(lo, _ERFINV_LO[0], _ERFINV_HI[0])
+    for a, b in zip(_ERFINV_LO[1:], _ERFINV_HI[1:]):
+        p = fma32(p, t, torch.where(lo, a, b))
+    # p * x rounded once, flushed to zero below 2^-126 as XLA:CPU's
+    # product is (its inputs' subnormals included)
+    px = p.double() * x.double()
+    px = torch.where(px.abs() < _FTZ_BELOW, px * 0.0, px).float()
+    return torch.where(x.abs() == 1.0, x * float("inf"), px)
+
+
 U32_MASK = 0xFFFFFFFF
 
 

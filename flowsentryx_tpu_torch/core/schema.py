@@ -27,7 +27,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from flowsentryx_tpu_torch.core.device import f32, fma32, u32, xla_exp2
+from flowsentryx_tpu_torch.core.device import (
+    f32, fma32, u32, xla_exp2, xla_expm1,
+)
 # the host half of the wires and the shm layout (numpy only), re-exported
 from flowsentryx_tpu_torch.core.wire import (  # noqa: F401
     BATCHQ_FILL_DUR_US_WORD, BATCHQ_N_RECORDS_WORD, BATCHQ_RESERVED_WORD,
@@ -262,6 +264,27 @@ _TS_HI_S = f32(4294.967296)   # 2^32 µs in seconds
 _US = f32(1e-6)
 
 
+def feature_table(device, *, feat_mode: str = "minifloat",
+                  in_scale: float = 1.0, in_zp: int = 0,
+                  log1p: bool = False) -> torch.Tensor:
+    """The decoded float32 feature of each of the 256 compact16 codes:
+    model mode ``(q - zp) * scale`` (and XLA's ``expm1`` of it for a
+    log1p artifact), or the minifloat ``q < 8 ? q : (8 + q%8) *
+    exp2(q//8 - 1)`` with XLA's ``exp2``.  A feature depends on its code
+    alone, so the decode is one gather from this table, the same bits as
+    computing each feature (the table is that computation on every
+    code)."""
+    q = torch.arange(256, device=device)
+    if feat_mode == "model":
+        feat = (q.float() - f32(in_zp)) * f32(in_scale)
+        return xla_expm1(feat) if log1p else feat
+    if feat_mode == "minifloat":
+        e = torch.div(q, 8, rounding_mode="floor") - 1
+        big = (8.0 + (q % 8).float()) * xla_exp2(e.float())
+        return torch.where(q < 8, q.float(), big)
+    raise ValueError(f"unknown feat_mode {feat_mode!r}")
+
+
 def decode_compact(
     raw: torch.Tensor,
     *,
@@ -269,13 +292,19 @@ def decode_compact(
     in_scale: float = 1.0,
     in_zp: int = 0,
     log1p: bool = False,
+    table: torch.Tensor | None = None,
 ) -> FeatureBatch:
     """Device-side decode of the compact wire (``raw``: ``[B+1, 4]``
-    int32 bit patterns of the uint32 words).
+    int32 bit patterns of the uint32 words).  ``table`` is the
+    :func:`feature_table` of these quantizer arguments, built once by
+    the caller (None builds it here).
 
     The timestamp recombination ``hi·2^32·1e-6 + lo·1e-6 + dt·1e-6``
     rounds exactly as the reference's XLA:CPU build does, which fuses
     each multiply into the following add (:func:`fma32`)."""
+    if table is None:
+        table = feature_table(raw.device, feat_mode=feat_mode,
+                              in_scale=in_scale, in_zp=in_zp, log1p=log1p)
     words = u32(raw[:-1])
     meta = u32(raw[-1])
     n = meta[0]
@@ -289,21 +318,10 @@ def decode_compact(
         ],
         dim=1,
     )
-    if feat_mode == "model":
-        feat = (q.float() - f32(in_zp)) * f32(in_scale)
-        if log1p:
-            feat = torch.expm1(feat)
-    elif feat_mode == "minifloat":
-        e = torch.div(q, 8, rounding_mode="floor") - 1
-        m = q % 8
-        big = (8.0 + m.float()) * xla_exp2(e.float())
-        feat = torch.where(q < 8, q.float(), big)
-    else:
-        raise ValueError(f"unknown feat_mode {feat_mode!r}")
     b = words.shape[0]
     return FeatureBatch(
         key=words[:, 0],
-        feat=feat,
+        feat=table[q],
         pkt_len=((w3 & RANGE_LEN8_MAX) << 3).float(),
         ts=fma32((w3 >> 16).float(), _US, base),
         valid=torch.arange(b, device=raw.device) < n,

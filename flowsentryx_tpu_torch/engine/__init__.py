@@ -9,7 +9,8 @@ import importlib
 
 _EXPORTS = {
     "MEGA_AUTO_MAX": "engine", "Engine": "engine", "EngineReport": "engine",
-    "ArraySource": "sources", "TrafficSource": "sources",
+    "ArraySource": "sources", "PacedSource": "sources",
+    "RecordSource": "sources", "TrafficSource": "sources",
     "Scenario": "traffic", "TrafficGen": "traffic", "TrafficSpec": "traffic",
     "CollectSink": "writeback", "NullSink": "writeback",
     "ShmRing": "shm", "ShmRingSource": "shm", "ShmVerdictSink": "shm",

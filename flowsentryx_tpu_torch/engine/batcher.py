@@ -173,6 +173,14 @@ class MicroBatcher:
                 and (time.perf_counter() - self._first_add_t) * 1e6
                 >= self.cfg.deadline_us)
 
+    def pending_age_s(self) -> float:
+        """Age of the oldest unsealed record (0.0 when nothing is
+        pending): the engine's latency-budget mode bounds the batcher's
+        residency with it, beside :meth:`flush_due`'s fixed deadline."""
+        if self.fill == 0 or self._first_add_t is None:
+            return 0.0
+        return time.perf_counter() - self._first_add_t
+
     def take(self) -> np.ndarray | None:
         return self._seal() if self.fill else None
 

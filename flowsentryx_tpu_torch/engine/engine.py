@@ -1,5 +1,7 @@
 """The serving engine: one device, both wires, singles and the megastep
-ladder, fed inline from records or by sealed-batch ingest workers.
+ladder, fed inline from records or by sealed-batch ingest workers, with
+the latency plane, a sink thread, the watchdog and health ladder, and
+latency-budget dispatch.
 
 Counterpart of ``flowsentryx_tpu/engine/engine.py`` — construction (the
 wire rule: compact16 for params carrying an input observer ``in_scale``
@@ -8,10 +10,49 @@ or for a compact-emit source, raw48 otherwise), :meth:`Engine.warm` and
 batch -> dispatch -> reap) or the sealed-batch loop (``_run_sealed``:
 stage -> dispatch -> reap, for :class:`~flowsentryx_tpu_torch.ingest
 .ShardedIngest`), single-batch dispatch and backlog-triggered grouping
-(``mega_n=N`` or ``"auto"``, compact16 only), and
-:meth:`Engine.checkpoint` / :meth:`Engine.restore`.  Not ported yet: the
-drain ring, SLO mode, the predictive governor and the sink thread
+(``mega_n=N`` or ``"auto"``, compact16 only), :meth:`Engine.checkpoint`
+/ :meth:`Engine.restore` and :meth:`Engine.reset_stream`.  Not ported
+yet: the drain ring, the compile cache, hot swap and the cluster planes
 (ROADMAP queue 1 orders what follows).
+
+Two threads, as in the reference: the **dispatch thread** (the caller of
+:meth:`Engine.run`) polls, stages and launches; a **sink thread** waits
+on each dispatch's event, decodes its verdict wire and applies the
+blacklist updates, the latency record and the reap hook, so that none of
+that blocks dispatch.  All hand-off goes through one
+:class:`~flowsentryx_tpu_torch.sync.channel.SinkChannel`: the dispatch
+thread waits on it for backpressure (``readback_depth`` batches
+dispatched but unsunk), and a sink crash surfaces there as a
+:class:`~flowsentryx_tpu_torch.sync.channel.WorkerCrash`.
+``sink_thread=None`` is auto: on where the host has at least 3 cores.
+``sink_thread=False`` sinks on the dispatch thread, reaping what is
+ready each iteration.  Either way the results are the same bytes.
+
+**The latency plane** (``EngineReport.latency``): every batch carries
+the stamp of its oldest record — the batcher's first-record time
+inline, the ingest worker's shm seal stamp minus its fill time sealed
+(``CLOCK_MONOTONIC``, which is ``time.perf_counter`` on Linux) — and the
+sink charges each of its records seal -> verdict, split into staged
+wait, upload, compute and sink, in an HDR histogram
+(:class:`~.metrics.LatencyRecorder`).
+
+**Latency-budget dispatch** (``slo_us > 0``, ``serve --slo-us``): the
+oldest pending record's age and a per-rung step-time EWMA, seeded by a
+timed second pass of :meth:`Engine.warm`, bound how long the loops hold
+for a deeper backlog, which rung the greedy flush climbs to, and when
+the batcher's deadline flush fires.  On the card a replay returns before
+its work is done, so the EWMA is not refined online and the warm seed
+stands.  ``predict=True`` (``serve --predict``) adds the burst
+forecaster (:mod:`.predict`).  Grouping only changes dispatch
+granularity: verdicts, stats, blacklist and table are the same bytes at
+any budget.
+
+**The watchdog** (``watchdog_s``, :mod:`.watchdog`): work in flight and
+no completion for ``watchdog_s`` dumps every thread's stack, for twice
+that raises :class:`~.watchdog.WatchdogStall`.  Every wait of the
+dispatch thread — on the sink channel or on a CUDA event — polls and
+checks it between polls, so a wedged kernel fails the drain instead of
+hanging it.  ``EngineReport.health`` is the ladder of :mod:`.health`.
 
 On the card every dispatch is ONE CUDA graph replay (:mod:`..ops.graph`):
 :meth:`Engine.warm` captures the single step and every staged rung, and
@@ -25,21 +66,21 @@ boundary on the card:
   copy), and a dispatch uploads the contiguous ``[g, B+1, words]`` slice
   into the graph's static input with ``non_blocking=True`` and replays.
   A slot is claimed again only after the event of the last dispatch
-  staged in it has fired, so its upload is complete (with at most
-  ``readback_depth`` batches in flight and ``readback_depth + 2`` slots
-  that wait is a no-op).  Inline raw48 uploads straight from the
-  batcher's pinned buffers, reused ``readback_depth + 2`` seals later;
+  staged in it has fired, so its upload is complete.  Inline raw48
+  uploads straight from the batcher's pinned buffers, reused
+  ``readback_depth + 2`` seals later;
 * right after the replay, on the same stream, the ``[2K+4]`` verdict
   wire is copied into that dispatch's pinned host buffer and the block
   arrays with the clock (:func:`~..ops.fused.block_record`) into its
   device buffer, then an event is recorded: the next replay overwrites
   the graph's static outputs, the copies survive until the dispatch is
-  reaped;
-* up to ``readback_depth`` BATCHES stay in flight (a group counts as its
-  size), reaped oldest first when their event has fired (or blocking,
-  when the pipe is full);
+  sunk.  A dispatch's output slot is used again ``readback_depth + 2``
+  dispatches later, and a launch first waits (on the sink thread, when
+  there is one) until at most ``readback_depth`` batches are unsunk, so
+  no wire is overwritten while it is being decoded;
 * a wire whose overflow flag is set is replaced by the dispatch's copy
-  of its full block arrays, so no block is lost.
+  of its full block arrays, so no block is lost.  On the sink thread
+  that copy runs on the step's stream with the device set.
 
 The table and stats are captured into every graph by address, so
 :meth:`Engine.restore` copies a checkpoint INTO them rather than
@@ -49,7 +90,9 @@ rebinding them (the reference rebinds).
 from __future__ import annotations
 
 import functools
+import os
 import sys
+import threading
 import time
 from collections import deque
 from typing import Any, NamedTuple
@@ -61,9 +104,15 @@ from flowsentryx_tpu_torch.core import schema
 from flowsentryx_tpu_torch.core.config import FsxConfig, unsupported
 from flowsentryx_tpu_torch.core.device import resolve_device
 from flowsentryx_tpu_torch.engine import checkpoint as ckpt
+from flowsentryx_tpu_torch.engine import health
 from flowsentryx_tpu_torch.engine import table as tbl
 from flowsentryx_tpu_torch.engine.arena import DispatchArena
 from flowsentryx_tpu_torch.engine.batcher import MicroBatcher
+from flowsentryx_tpu_torch.engine.metrics import (
+    LatencyRecorder, PipelineMetrics,
+)
+from flowsentryx_tpu_torch.engine.predict import DispatchGovernor
+from flowsentryx_tpu_torch.engine.watchdog import DispatchWatchdog
 from flowsentryx_tpu_torch.engine.writeback import (
     BlacklistUpdate, decode_verdict_wire, extract_updates,
 )
@@ -71,8 +120,11 @@ from flowsentryx_tpu_torch.models import logreg
 from flowsentryx_tpu_torch.models.registry import get_model
 from flowsentryx_tpu_torch.ops import fused, kernels
 from flowsentryx_tpu_torch.ops.graph import StepGraph
+from flowsentryx_tpu_torch.sync import tuning
+from flowsentryx_tpu_torch.sync.channel import SinkChannel
 
-#: Idle-link backoff of the inline loop (a fraction of the deadline).
+#: Idle-link backoff of the serving loops, past the spin window
+#: (``tuning.IDLE_SPIN_S``).
 _IDLE_SLEEP_S = 50e-6
 
 #: ``Engine(mega_n="auto")`` / ``serve --mega auto``: the largest group
@@ -90,6 +142,9 @@ class EngineReport(NamedTuple):
     wall_s: float
     records_per_s: float
     stats: dict
+    #: Per-stage host ms percentiles (``fill``, ``pop``, ``stage``,
+    #: ``dispatch``, ``readback``, ``e2e``; :class:`~.metrics
+    #: .PipelineMetrics`).
     stages_ms: dict
     blocked_sources: int
     table: dict
@@ -102,6 +157,15 @@ class EngineReport(NamedTuple):
     #: Compact-emit drains whose poll gap made the 16-bit kernel stamps
     #: ambiguous (``MicroBatcher.add_precompact``).
     ts_wrap_risk_polls: int = 0
+    #: The seal -> verdict latency plane (:class:`~.metrics
+    #: .LatencyRecorder`): percentiles in µs, the stage split, the
+    #: mergeable bucket counts, ``negatives``, and under ``slo_us`` the
+    #: budget-miss accounting.
+    latency: dict | None = None
+    #: The health ladder (:func:`~.health.engine_health`).
+    health: dict | None = None
+    #: The predictive governor's report; None unless ``predict=True``.
+    predict: dict | None = None
 
 
 class _InFlight(NamedTuple):
@@ -109,22 +173,22 @@ class _InFlight(NamedTuple):
     wire: Any              # host [2K+4] wire tensor, None when K == 0
     blocks: torch.Tensor   # block_record of the dispatch (device or host)
     event: Any             # torch.cuda.Event behind the copies, or None
+    # the latency plane's stamps: the oldest record's arrival, the
+    # valid records, when the launch began, its upload and replay walls
+    t_enqueue: float = 0.0
+    n_records: int = 0
+    t_launch: float = 0.0
+    put_s: float = 0.0
+    launch_s: float = 0.0
 
 
-class _StageTimer:
-    """Host wall per pipeline stage (``EngineReport.stages_ms``)."""
-
-    def __init__(self) -> None:
-        self.total = 0.0
-        self.n = 0
-
-    def add(self, dt: float) -> None:
-        self.total += dt
-        self.n += 1
-
-    def to_dict(self) -> dict:
-        return {"n": self.n, "total_ms": round(self.total * 1e3, 3),
-                "mean_ms": round(self.total * 1e3 / max(self.n, 1), 4)}
+def _host_cpus() -> int:
+    """Cores this process may run on (affinity, not ``cpu_count``: a
+    container pinned to 2 cores of a large host must read as 2)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:
+        return os.cpu_count() or 1
 
 
 class Engine:
@@ -156,7 +220,15 @@ class Engine:
     families; bit-exact in model mode), raw48 otherwise (``mlp``,
     ``multiclass``); ``"compact16"`` for an observer-less model
     quantizes features to the minifloat wire.  Grouping needs compact16,
-    as in the reference."""
+    as in the reference.
+
+    ``readback_depth``: batches dispatched but unsunk before the
+    dispatch thread waits (None = the config's).  ``sink_thread``: sink
+    on a thread of its own (None = auto, on with >= 3 cores).
+    ``slo_us``: the feature -> verdict budget of latency-budget dispatch
+    (0 = off).  ``predict``: the burst forecaster (needs ``slo_us``).
+    ``watchdog_s``: the stall bound (None = ``tuning.WATCHDOG_STALL_S``,
+    0 disables)."""
 
     def __init__(
         self,
@@ -169,11 +241,26 @@ class Engine:
         mega_auto: bool = False,
         wire: str | None = None,
         t0_ns: int | None = None,
+        readback_depth: int | None = None,
+        sink_thread: bool | None = None,
+        slo_us: int = 0,
+        predict: bool = False,
+        watchdog_s: float | None = None,
     ):
         bad = unsupported(cfg)
         if bad:
             raise ValueError("config not servable by this port: "
                              + "; ".join(bad))
+        self.slo_us = int(slo_us)
+        if self.slo_us < 0:
+            raise ValueError(f"slo_us must be >= 0, got {slo_us}")
+        if predict and not self.slo_us:
+            # every actuation of the governor is phrased in budget
+            # headroom: without a budget there is nothing to govern
+            raise ValueError(
+                "predict=True requires slo_us > 0: the governor actuates "
+                "the latency-budget machinery (early flush, holds and "
+                "pre-warms are all phrased in budget headroom)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.source = source
@@ -257,19 +344,20 @@ class Engine:
         # in place, and captured by address on the card: never rebound
         self.table = schema.make_table(cfg.table.capacity, self.device)
         self.stats = schema.make_stats(self.device)
-        self.readback_depth = cfg.batch.readback_depth
-        #: Sealed-but-undispatched wire buffers (group candidates).
-        self._pending: list[np.ndarray] = []
+        self.readback_depth = (cfg.batch.readback_depth
+                               if readback_depth is None
+                               else int(readback_depth))
+        if self.readback_depth < 0:
+            raise ValueError(
+                f"readback_depth must be >= 0, got {readback_depth}")
+        #: Sealed-but-undispatched ``(wire buffer, oldest-record stamp)``
+        #: group candidates.
+        self._pending: list[tuple[np.ndarray, float]] = []
         #: How many pending batches the loop accumulates before the
         #: coalescing policy must fire: one top-rung group.
         self._pending_cap = self.mega_n
-        # a batcher buffer may be reused only after its batch is staged:
-        # keep more buffers than in-flight batches + the pending group
         self._cuda = self.device.type == "cuda"
-        self.batcher = MicroBatcher(
-            cfg.batch, t0_ns=t0_ns or 0,
-            n_buffers=self.readback_depth + 2 + self._pending_cap,
-            quant=self.quant, wire=wire, pinned=self._cuda and not compact)
+        self.batcher = self._new_batcher(t0_ns or 0)
         self._t0_auto = t0_ns is None
         if t0_ns is not None and hasattr(sink, "t0_ns"):
             sink.t0_ns = t0_ns   # sinks translate engine seconds to ns
@@ -279,11 +367,83 @@ class Engine:
         self.sealed = bool(getattr(source, "provides_sealed", False))
         if self.sealed:
             source.start(cfg.batch, self.wire, self.quant or None)
-        b = cfg.batch.max_batch
         self._group_max = max(sizes, default=1)
-        # per-dispatch output slots, reused readback_depth + 2 dispatches
-        # later: on the card the copies of the graph outputs that must
-        # outlive the next replay
+        self._alloc_slots()
+        #: The step's stream on the card (the sink thread's overflow
+        #: copy runs on it).
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self._cuda else None)
+        #: Captured graphs on the card: ``_SINGLE`` and each rung size.
+        self._graphs: dict[int, StepGraph] = {}
+        self._n_dispatched = 0
+        self._inflight: deque[_InFlight] = deque()
+        self._blocked: set[int] = set()
+        self._device_now = 0.0
+        self.metrics = PipelineMetrics()
+        self._lat = LatencyRecorder()
+        self._restore_fallbacks = 0
+        self._d2h_bytes = 0
+        self._sink_compact = 0
+        self._sink_fallback = 0
+        self._sunk_batches = 0
+        #: Dispatches per group size since warm() (singles under 1).
+        self._group_hist: dict[int, int] = {}
+        #: Optional per-dispatch reap hook ``(n_records, t_done)``, called
+        #: after a dispatch's verdicts are sunk, in record order (a
+        #: :class:`~.sources.PacedSource` caller pairs it with
+        #: ``pop_scheduled`` for exact per-record latencies).
+        self.on_reap = None
+        # -- the sink thread ------------------------------------------------
+        if sink_thread is None:
+            # auto: a sink thread needs a core of its own; on 1-2 cores
+            # it only contends with the dispatch thread
+            sink_thread = _host_cpus() >= 3
+        self.sink_thread = bool(sink_thread)
+        #: The only state the dispatch and sink threads share.
+        self._chan = SinkChannel("sink thread")
+        self._sink_active = False
+        self._sink_thread_obj: threading.Thread | None = None
+        #: Marks the sink thread (``worker``), whose event waits block.
+        self._sink_local = threading.local()
+        # single-thread ready-reap coalescing: each sink has a fixed host
+        # cost, so a shallow pipe sinks at most every MIN_SINK_GAP_S, and
+        # never less often than half the flush deadline
+        self._last_sink_t = 0.0
+        #: When the loop last polled records (the idle spin window).
+        self._last_arrival_t = 0.0
+        self._min_sink_gap_s = min(tuning.MIN_SINK_GAP_S,
+                                   cfg.batch.deadline_us * 1e-6 / 2)
+        # -- latency-budget dispatch ---------------------------------------
+        self._slo_budget_s = self.slo_us * 1e-6
+        #: Per-group-size step-time EWMA (seconds), keyed by the chunk
+        #: count (1 and each rung), seeded by warm()'s timed pass when
+        #: ``slo_us`` is set; read advisorily (a stale value can only
+        #: mis-size a group, never change a result).
+        self._rung_ewma_s: dict[int, float] = {}
+        self._gov = (DispatchGovernor(rung_sizes=self._mega_sizes,
+                                      batch_records=cfg.batch.max_batch)
+                     if predict else None)
+        #: Lazily built masked batch of the governor's pre-warms.
+        self._warm_buf: np.ndarray | None = None
+        if watchdog_s is None:
+            watchdog_s = tuning.WATCHDOG_STALL_S
+        self._watchdog = DispatchWatchdog(watchdog_s)
+
+    def _new_batcher(self, t0_ns: int) -> MicroBatcher:
+        # a batcher buffer may be reused only after its batch is staged:
+        # keep more buffers than in-flight batches + the pending group
+        return MicroBatcher(
+            self.cfg.batch, t0_ns=t0_ns,
+            n_buffers=self.readback_depth + 2 + self._pending_cap,
+            quant=self.quant, wire=self.wire,
+            pinned=self._cuda and self.wire != schema.WIRE_COMPACT16)
+
+    def _alloc_slots(self) -> None:
+        """The arena and the per-dispatch output slots for this
+        ``readback_depth``: ``readback_depth + 2`` of each, so a slot is
+        reused only after its dispatch is sunk."""
+        compact = self.wire == schema.WIRE_COMPACT16
+        b = self.cfg.batch.max_batch
         n_slots = self.readback_depth + 2
         self._n_slots = n_slots
         # the dispatch arena: pinned staging rows on the card (compact16
@@ -299,9 +459,9 @@ class Engine:
         #: the slot is claimed again only once it has fired.
         self._arena_event: list = [None] * (self._arena.slots
                                             if self._arena else 0)
-        rec_words = self._group_max * (2 * b + 1)
         if self._cuda:
             k = self.verdict_k
+            rec_words = self._group_max * (2 * b + 1)
             self._wire_host = ([torch.empty(fused.verdict_wire_words(k),
                                             dtype=torch.int32,
                                             pin_memory=True)
@@ -313,20 +473,6 @@ class Engine:
                 if k else torch.empty(rec_words, dtype=torch.int32,
                                       pin_memory=True)
                 for _ in range(n_slots)]
-        #: Captured graphs on the card: ``_SINGLE`` and each rung size.
-        self._graphs: dict[int, StepGraph] = {}
-        self._n_dispatched = 0
-        self._inflight: deque[_InFlight] = deque()
-        self._blocked: set[int] = set()
-        self._device_now = 0.0
-        self._timers = {k: _StageTimer() for k in ("fill", "step", "sink")}
-        self._restore_fallbacks = 0
-        self._d2h_bytes = 0
-        self._sink_compact = 0
-        self._sink_fallback = 0
-        self._sunk_batches = 0
-        #: Dispatches per group size since warm() (singles under 1).
-        self._group_hist: dict[int, int] = {}
 
     # -- graphs --------------------------------------------------------------
 
@@ -344,7 +490,21 @@ class Engine:
                 mega, self.table, self.stats, self.params,
                 (g, b + 1, words))
 
-    # -- dispatch and reap ---------------------------------------------------
+    # -- waits of the dispatch thread ----------------------------------------
+
+    def _wait_event(self, ev) -> None:
+        """Wait for a CUDA event.  The sink thread blocks in
+        ``synchronize``; the dispatch thread polls ``query``, yielding
+        and checking the watchdog between polls, so a wedged kernel
+        trips it instead of hanging the thread."""
+        if ev is None or ev.query():
+            return
+        if getattr(self._sink_local, "worker", False):
+            ev.synchronize()
+            return
+        while not ev.query():
+            self._watchdog.check(self._busy_depth())
+            time.sleep(tuning.GIL_YIELD_S)
 
     def _claim(self) -> int:
         """The next arena slot, once the last dispatch staged in it has
@@ -352,28 +512,32 @@ class Engine:
         slot = self._arena.claim()
         ev = self._arena_event[slot]
         if ev is not None:
-            ev.synchronize()
+            self._wait_event(ev)
             self._arena_event[slot] = None
         return slot
 
-    def _launch(self, rung: int, x: torch.Tensor,
-                arena_slot: int | None = None) -> None:
+    # -- dispatch ------------------------------------------------------------
+
+    def _launch(self, rung: int, x: torch.Tensor, arena_slot: int | None,
+                t_enqueue: float, n_records: int) -> None:
         """One dispatch of the staged ``x``: the single step
         (``rung == _SINGLE``, ``x`` one ``[B+1, words]`` batch) or the
         rung-``g`` megastep (``x`` ``[g, B+1, words]``).  ``arena_slot``
-        is the arena slot ``x`` lies in, gated by this dispatch's
-        event."""
-        t = time.perf_counter()
+        is the arena slot ``x`` lies in, gated by this dispatch's event;
+        ``t_enqueue`` the oldest record's stamp, ``n_records`` the valid
+        records (the latency plane's)."""
+        # an output slot is free once the dispatch that used it is sunk:
+        # at most readback_depth batches unsunk leaves the slot of
+        # readback_depth + 2 dispatches ago sunk (a no-op except at exit
+        # flushes: every dispatch site already reaps to that depth)
+        self._reap(self._n_slots - 2)
+        t_l = time.perf_counter()
         n = max(rung, 1)
-        n_slots = self._n_slots
-        # an output slot is free once the dispatch that used it is sunk;
-        # the batch-counted reaps keep this a no-op except at exit flushes
-        while len(self._inflight) > n_slots - 2:
-            self._sink_one(self._inflight.popleft())
-        slot = self._n_dispatched % n_slots
+        slot = self._n_dispatched % self._n_slots
         if self._cuda:
             gr = self._graphs[rung]
             gr.input.copy_(x, non_blocking=True)
+            t_p = time.perf_counter()
             gr.replay()
             wire = None
             if self.verdict_k:
@@ -386,65 +550,199 @@ class Engine:
             if arena_slot is not None:
                 self._arena_event[arena_slot] = event
         else:
+            t_p = t_l
             fn = self.step if rung == _SINGLE else self.megasteps[rung]
             _, _, out = fn(self.table, self.stats, self.params, x)
             wire, blocks, event = out.wire, fused.block_record(out), None
+        t_d = time.perf_counter()
         self._n_dispatched += 1
         self._group_hist[n] = self._group_hist.get(n, 0) + 1
-        self._inflight.append(_InFlight(n, wire, blocks, event))
-        self._timers["step"].add(time.perf_counter() - t)
+        self.metrics.dispatch.add(t_d - t_l)
+        self._note_step_s(n, t_d - t_p, event)
+        self._inflight.append(_InFlight(
+            n, wire, blocks, event, t_enqueue=t_enqueue,
+            n_records=n_records, t_launch=t_l, put_s=t_p - t_l,
+            launch_s=t_d - t_p))
+
+    def _note_step_s(self, key: int, dt: float, event) -> None:
+        """Online refinement of the per-rung step-time EWMA, under a
+        budget only, and only when the launch absorbed the compute (the
+        output ready the moment the call returned: the eager CPU step).
+        A graph replay returns before its work is done, so on the card
+        the warm seed stands; no host sync is added to refine it."""
+        if not self._slo_budget_s or (event is not None
+                                      and not event.query()):
+            return
+        prev = self._rung_ewma_s.get(key)
+        self._rung_ewma_s[key] = (
+            dt if prev is None
+            else prev + tuning.SLO_EWMA_ALPHA * (dt - prev))
 
     def _stage(self, raws: list[np.ndarray]) -> tuple[int, torch.Tensor]:
         """Copy sealed wire buffers into a freshly claimed arena slot:
         ``(slot, its int32 rows)``."""
         slot = self._claim()
+        t = time.perf_counter()
         rows = self._arena.rows(slot)
         for i, raw in enumerate(raws):
             rows[i] = raw
+        self.metrics.stage.add(time.perf_counter() - t)
         return slot, self._arena.tensor(slot)
 
-    def _dispatch(self, raw: np.ndarray) -> None:
+    def _n_valid(self, raw: np.ndarray) -> int:
+        return int(raw[self.cfg.batch.max_batch, 0])
+
+    def _dispatch(self, raw: np.ndarray,
+                  t_enqueue: float | None = None) -> None:
+        """Dispatch one sealed batch singly; ``t_enqueue`` is its oldest
+        record's stamp (now, when not given)."""
+        if t_enqueue is None:
+            t_enqueue = time.perf_counter()
+        n = self._n_valid(raw)
         if self._arena is None:
             # inline raw48: the sealed batcher buffer itself
-            self._launch(_SINGLE, torch.from_numpy(raw.view(np.int32)))
+            self._launch(_SINGLE, torch.from_numpy(raw.view(np.int32)),
+                         None, t_enqueue, n)
         else:
             slot, x = self._stage([raw])
-            self._launch(_SINGLE, x[0], slot)
+            self._launch(_SINGLE, x[0], slot, t_enqueue, n)
 
-    def _dispatch_mega(self, group: list[np.ndarray]) -> None:
-        """Group dispatch of pending buffers: staged into one slot, one
-        megastep (one graph replay on the card)."""
-        slot, x = self._stage(group)
-        self._launch(len(group), x[:len(group)], slot)
+    def _dispatch_mega(self, group: list[tuple[np.ndarray, float]]) -> None:
+        """Group dispatch of ``(buffer, stamp)`` pending pairs: staged
+        into one slot, one megastep (one graph replay on the card),
+        stamped with the oldest member's stamp."""
+        slot, x = self._stage([raw for raw, _ in group])
+        self._launch(len(group), x[:len(group)], slot,
+                     min(t for _, t in group),
+                     sum(self._n_valid(raw) for raw, _ in group))
+
+    def _prewarm_dispatch(self, rung: int) -> None:
+        """The governor's pre-warm (:mod:`.predict`): ONE all-masked
+        dispatch through ``rung`` (n_valid = 0: table, stats and verdicts
+        untouched, no latency sample), reaped to empty before returning,
+        so the pipe reads idle again before the burst arrives."""
+        if self._warm_buf is None:
+            self._warm_buf = np.zeros(
+                (self.cfg.batch.max_batch + 1, self._words), np.uint32)
+        t0 = time.perf_counter()
+        if rung > 1 and self._arena is not None:
+            self._dispatch_mega([(self._warm_buf, t0)] * rung)
+        else:
+            self._dispatch(self._warm_buf, t0)
+        self._reap(0)
+
+    # -- latency-budget policy -----------------------------------------------
+    # Advisory predicates over the warm-seeded step-time EWMA, no-ops at
+    # slo_us = 0.  They bound COALESCING, never results.
+
+    def _slo_cap(self, t_oldest: float) -> int:
+        """The largest rung whose expected completion — the oldest
+        pending record's age plus the rung's EWMA — still fits the
+        budget; 1 when none does.  A record already past its budget
+        gets no cap: a late record cannot be saved by a rung choice,
+        and the greedy flush at full amortization drains the backlog
+        soonest.  A rung without a measurement is taken as free."""
+        headroom = self._slo_budget_s - (time.perf_counter() - t_oldest)
+        if headroom <= 0.0:
+            return self._mega_sizes[0] if self._mega_sizes else 1
+        for s in self._mega_sizes:
+            if self._rung_ewma_s.get(s, 0.0) <= headroom:
+                return s
+        return 1
+
+    def _slo_pressed(self, t_oldest: float) -> bool:
+        """Stop holding for a deeper backlog once a top-rung step no
+        longer fits the oldest pending record's headroom (a late record
+        included): flush now, through :meth:`_slo_cap`'s choice."""
+        top = self._mega_sizes[0] if self._mega_sizes else 1
+        headroom = self._slo_budget_s - (time.perf_counter() - t_oldest)
+        return self._rung_ewma_s.get(top, 0.0) >= headroom
 
     def _drain_pending(self, short: bool) -> None:
         """Apply the coalescing ladder to the pending list.
 
         Full TOP-rung groups always dispatch (a deep backlog keeps
-        amortization maximal); a short poll — no backlog left behind the
-        pending batches — flushes the remainder greedily through the
-        largest rung it still fills, then singles.  With a fixed
+        amortization maximal, under a budget too: the step's time is
+        sub-linear in the group size, so the largest rung finishes every
+        record of an existing backlog soonest); a short poll — no
+        backlog left behind the pending batches — flushes the remainder
+        greedily through the largest rung it still fills, then singles.
+        Under ``slo_us`` the hold is also broken once the budget says
+        holding is no longer free (:meth:`_slo_pressed`), and the greedy
+        flush climbs no higher than :meth:`_slo_cap`.  With a fixed
         ``mega_n`` the ladder is one rung: all or nothing."""
+        slo = self._slo_budget_s
         top = self._mega_sizes[0]
         while len(self._pending) >= top:
             self._dispatch_mega(self._pending[:top])
             del self._pending[:top]
             self._reap(self.readback_depth)
-        if not self._pending or not short:
+        if not self._pending or not (short or (
+                slo and self._slo_pressed(self._pending[0][1]))):
             return
         while self._pending:
             g = fused.rung_for_volume(len(self._pending), self._mega_sizes)
+            if slo:
+                g = min(g, self._slo_cap(self._pending[0][1]))
             if g > 1:
                 self._dispatch_mega(self._pending[:g])
                 del self._pending[:g]
             else:
-                self._dispatch(self._pending.pop(0))
+                raw, t = self._pending.pop(0)
+                self._dispatch(raw, t)
             self._reap(self.readback_depth)
 
+    def _busy_depth(self) -> int:
+        """Batches dispatched but not yet sunk (staged here, queued to
+        the sink thread, or being sunk)."""
+        return sum(g.n_chunks for g in self._inflight) + self._chan.pending
+
+    def _deadline_flush_due(self) -> bool:
+        """The batcher's deadline flush, only into an idle pipe: while
+        batches are in flight (queued to the sink thread included) an
+        early flush cannot cut latency, only burn a padded step.  Under
+        ``slo_us`` the batcher's residency is also bounded by the budget:
+        the flush fires once the oldest record's age plus the single
+        step's EWMA reaches it, but never before half the budget (an
+        inflated estimate must not become flush-every-poll).  With the
+        governor, a confident forecast may hold or advance that point
+        inside the budget (:meth:`~.predict.DispatchGovernor
+        .flush_decision`)."""
+        if self._busy_depth() != 0:
+            return False
+        if self.batcher.flush_due():
+            return True
+        if not self._slo_budget_s:
+            return False
+        age = self.batcher.pending_age_s()
+        if age <= 0.0:
+            return False
+        if self._gov is not None:
+            d = self._gov.flush_decision(
+                time.perf_counter(), age, self._rung_ewma_s.get(1, 0.0),
+                self._slo_budget_s)
+            if d is not None:
+                return d
+        return age >= max(self._slo_budget_s - self._rung_ewma_s.get(1, 0.0),
+                          self._slo_budget_s / 2)
+
+    # -- the sink section ----------------------------------------------------
+
+    def _fetch_blocks(self, g: _InFlight) -> np.ndarray:
+        """The dispatch's block record on the host.  From device memory
+        (the overflow fallback) the copy runs on the step's stream with
+        the device set, whichever thread asks."""
+        if g.blocks.device.type != "cuda":
+            return g.blocks.numpy()
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            return g.blocks.to("cpu").numpy()
+
     def _sink_one(self, g: _InFlight) -> None:
-        t = time.perf_counter()
-        if g.event is not None:
-            g.event.synchronize()
+        """Sink one dispatch: wait for its event, decode its wire (or its
+        block record), apply the updates, then the latency record, the
+        reap hook and the watchdog's progress stamp."""
+        t_fetch = time.perf_counter()
+        self._wait_event(g.event)
         if self.verdict_k:
             wire = g.wire.numpy()
             self._d2h_bytes += wire.nbytes
@@ -453,7 +751,7 @@ class Engine:
                 # more newly-blocked flows than wire slots: take this
                 # dispatch's full block arrays so no block is lost
                 keys, untils, _ = fused.split_block_record(
-                    g.blocks.cpu().numpy(), g.n_chunks)
+                    self._fetch_blocks(g), g.n_chunks)
                 self._d2h_bytes += keys.nbytes + untils.nbytes
                 self._sink_fallback += 1
                 upd = extract_updates(keys, untils)
@@ -463,21 +761,54 @@ class Engine:
             now = vw.now
         else:
             keys, untils, nows = fused.split_block_record(
-                g.blocks.numpy(), g.n_chunks)
+                self._fetch_blocks(g), g.n_chunks)
             self._d2h_bytes += keys.nbytes + untils.nbytes
             self._sink_fallback += 1
             upd = extract_updates(keys, untils)
             now = float(nows.max())
+        self.metrics.readback.add(time.perf_counter() - t_fetch)
         self.sink.apply(upd)
         self._blocked.update(upd.key.tolist())
         self._device_now = max(self._device_now, now)
         self._sunk_batches += g.n_chunks
-        self._timers["sink"].add(time.perf_counter() - t)
+        t_done = time.perf_counter()
+        self._last_sink_t = t_done
+        self.metrics.e2e.add(t_done - g.t_enqueue)
+        # every record of the dispatch is charged its OLDEST record's
+        # path (a conservative per-record bound, as in the reference)
+        self._lat.record(
+            total_s=t_done - g.t_enqueue,
+            staged_s=g.t_launch - g.t_enqueue,
+            upload_s=g.put_s, compute_s=g.launch_s,
+            sink_s=t_done - t_fetch, n=g.n_records,
+            budget_s=self._slo_budget_s)
+        if self.on_reap is not None:
+            self.on_reap(g.n_records, t_done)
+        self._watchdog.note_progress()
+
+    @staticmethod
+    def _ready(g: _InFlight) -> bool:
+        return g.event is None or g.event.query()
+
+    def _handoff(self) -> None:
+        """Move the staged in-flight entries to the sink thread."""
+        if self._inflight:
+            self._chan.submit_many(list(self._inflight), lambda g: g.n_chunks)
+            self._inflight.clear()
 
     def _reap(self, down_to: int) -> None:
-        """At most ``down_to`` BATCHES stay in flight (blocking).  Counted
-        in batches, not dispatches: a group of g counts g, or grouping
-        would multiply the configured pipe depth."""
+        """At most ``down_to`` BATCHES stay dispatched but unsunk
+        (blocking).  Counted in batches, not dispatches: a group of g
+        counts g, or grouping would multiply the configured pipe depth.
+        With the sink thread: hand over and wait on the channel, checking
+        the watchdog each quantum; without: sink here, oldest first."""
+        if self._sink_active:
+            self._handoff()
+            self._chan.wait_below(
+                down_to,
+                on_wait=lambda: self._watchdog.check(self._chan.pending))
+            self._chan.check()
+            return
         total = sum(g.n_chunks for g in self._inflight)
         while self._inflight and total > down_to:
             g = self._inflight.popleft()
@@ -485,11 +816,80 @@ class Engine:
             self._sink_one(g)
 
     def _reap_ready(self) -> None:
-        """Sink every dispatch the device has already finished, oldest
-        first."""
-        while self._inflight and (self._inflight[0].event is None
-                                  or self._inflight[0].event.query()):
+        """Once per loop iteration: the watchdog's poll, the governor's
+        heartbeat, then (with a sink thread) the hand-over and a crash
+        check, or (without) a sink of every dispatch the device has
+        finished, oldest first — coalesced: a shallow pipe sinks at most
+        every ``_min_sink_gap_s``."""
+        self._watchdog.check(self._busy_depth())
+        if self._gov is not None:
+            now = time.perf_counter()
+            self._gov.update(now)
+            age = self.batcher.pending_age_s()
+            if self._pending:
+                age = max(age, now - self._pending[0][1])
+            # computed and counted; nothing in the port consumes it yet
+            self._gov.pressure(age, self._slo_budget_s)
+        if self._sink_active:
+            self._handoff()
+            self._chan.check()
+            return
+        if not self._inflight or not self._ready(self._inflight[0]):
+            return
+        if (len(self._inflight) < 2 and time.perf_counter()
+                - self._last_sink_t < self._min_sink_gap_s):
+            return
+        while self._inflight and self._ready(self._inflight[0]):
             self._sink_one(self._inflight.popleft())
+
+    # -- the sink thread -----------------------------------------------------
+
+    def _start_sink_thread(self) -> None:
+        if self._sink_active or not self.sink_thread:
+            return
+        self._chan.reset()
+        self._sink_thread_obj = threading.Thread(
+            target=self._sink_worker, name="fsx-sink", daemon=True)
+        self._sink_active = True
+        self._sink_thread_obj.start()
+
+    def _stop_sink_thread(self) -> None:
+        """Drain-preserving shutdown: the worker sinks everything queued,
+        then exits.  After a hard watchdog trip the worker is wedged, so
+        the join is bounded and the daemon thread abandoned (the
+        ``WatchdogStall`` is the loud failure).  Never raises."""
+        if not self._sink_active:
+            return
+        self._chan.request_stop()
+        self._sink_thread_obj.join(
+            timeout=2.0 if self._watchdog.tripped else None)
+        self._sink_thread_obj = None
+        self._sink_active = False
+
+    def _sink_worker(self) -> None:
+        """Sink-thread main: pop the oldest dispatch with every following
+        one already finished, sink them in order, account the group (a
+        crash recorded with it, atomically), repeat.  One worker popping
+        in FIFO order keeps ``on_reap`` in record order."""
+        self._sink_local.worker = True
+        try:
+            while True:
+                group = self._chan.pop(coalesce=self._ready)
+                if group is None:
+                    return       # stop requested and queue drained
+                t0 = time.perf_counter()
+                exc: BaseException | None = None
+                try:
+                    for g in group:
+                        self._sink_one(g)
+                except BaseException as e:  # noqa: BLE001 — surfaced
+                    exc = e
+                self._chan.complete(sum(g.n_chunks for g in group),
+                                    time.perf_counter() - t0, exc)
+                if exc is not None:
+                    return
+        except BaseException as e:  # noqa: BLE001 — surfaced by check()
+            self._chan.record_exc(e)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -498,30 +898,87 @@ class Engine:
         and every staged rung; then run one all-masked batch through the
         single step and each rung (n_valid = 0: table, stats and
         verdicts are unchanged), so neither the build, the capture nor
-        first-launch setup lands in the first served window.  Must not
-        be called with batches in flight."""
+        first-launch setup lands in the first served window.  Under
+        ``slo_us`` the ladder runs a second, timed time and seeds the
+        step-time EWMA of the single step and of every rung with the
+        wall of one dispatch plus its sink (on the card: one replay and
+        its event wait).  Must not be called with batches in flight."""
         if self._cuda and not self._graphs:
             self._capture()
         warm = np.zeros((self.cfg.batch.max_batch + 1, self._words),
                         np.uint32)
-        self._dispatch(warm)
-        self._reap(0)
-        for g in self._mega_sizes:
-            self._dispatch_mega([warm] * g)
+        for timed in (False, True) if self._slo_budget_s else (False,):
+            if timed:
+                self._rung_ewma_s.clear()
+            t0 = time.perf_counter()
+            self._dispatch(warm, t0)
             self._reap(0)
-        self._sunk_batches = self._sink_compact = self._sink_fallback = 0
-        self._d2h_bytes = 0
-        self._timers = {k: _StageTimer() for k in self._timers}
-        self._group_hist = {}
+            if timed:
+                self._rung_ewma_s[1] = time.perf_counter() - t0
+            for g in self._mega_sizes:
+                t0 = time.perf_counter()
+                self._dispatch_mega([(warm, t0)] * g)
+                self._reap(0)
+                if timed:
+                    self._rung_ewma_s[g] = time.perf_counter() - t0
+        self._reset_counters()
         if self._cuda:
             torch.cuda.synchronize(self.device)
+
+    def _reset_counters(self) -> None:
+        """Per-stream report counters (warm dispatches are not traffic)."""
+        self._sunk_batches = self._sink_compact = self._sink_fallback = 0
+        self._d2h_bytes = 0
+        self.metrics = PipelineMetrics()
+        self._lat = LatencyRecorder()
+        self._group_hist = {}
+
+    def reset_stream(self, source, sink=None,
+                     readback_depth: int | None = None,
+                     t0_ns: int | None = None) -> None:
+        """Rebind the engine to a new stream without recapturing (the
+        reference's ``reset_stream``): new source (and sink, and pipe
+        depth), a new batcher, per-stream counters reset.  The table,
+        stats, clock epoch (``t0_ns=None`` keeps it), step-time EWMA and
+        the governor's learned arrival window persist; the reap hook
+        does not.  Must not be called with batches in flight."""
+        if self._inflight or self._pending:
+            raise RuntimeError("reset_stream with batches in flight")
+        self.source = source
+        sealed = bool(getattr(source, "provides_sealed", False))
+        if sealed and not getattr(source, "started", False):
+            source.start(self.cfg.batch, self.wire, self.quant or None)
+        if sink is not None:
+            self.sink = sink
+        depth = (self.readback_depth if readback_depth is None
+                 else int(readback_depth))
+        if depth != self.readback_depth or sealed != self.sealed:
+            self.readback_depth, self.sealed = depth, sealed
+            self._alloc_slots()
+        keep_t0 = self.batcher.t0_ns if t0_ns is None else t0_ns
+        self.batcher = self._new_batcher(keep_t0)
+        if t0_ns is not None:
+            self._t0_auto = False
+            if hasattr(self.sink, "t0_ns"):
+                self.sink.t0_ns = t0_ns
+        elif not self._t0_auto and hasattr(self.sink, "t0_ns"):
+            self.sink.t0_ns = keep_t0   # a swapped-in sink needs the epoch
+        self._reset_counters()
+        self._blocked = set()
+        if self._gov is not None:
+            self._gov.reset_counters()
+        self.on_reap = None
 
     def run(self, max_batches: int | None = None,
             max_seconds: float | None = None) -> EngineReport:
         """Serve until the source is exhausted or a bound trips.  A live
-        source (a shm ring) is never exhausted: bound the run."""
+        source (a shm ring) is never exhausted: bound the run.  With a
+        sink thread it runs for the duration of this call: started here,
+        drained and joined before the report is built; its crash raises
+        :class:`~flowsentryx_tpu_torch.sync.channel.WorkerCrash`."""
         if self._cuda and not self._graphs:
             self._capture()
+        self._watchdog.note_progress()     # an idle pipe re-arms the clock
         t_start = time.perf_counter()
 
         def bounded() -> bool:
@@ -531,17 +988,22 @@ class Engine:
             return (max_seconds is not None
                     and time.perf_counter() - t_start >= max_seconds)
 
-        if self.sealed:
-            self._run_sealed(bounded)
-        else:
-            self._run_inline(bounded)
-        # a bounded exit can leave sealed group candidates pending: their
-        # records are already counted, so dispatch them singly
-        for raw in self._pending:
-            self._dispatch(raw)
-            self._reap(self.readback_depth)
-        self._pending.clear()
-        self._reap(0)
+        self._start_sink_thread()
+        try:
+            if self.sealed:
+                self._run_sealed(bounded)
+            else:
+                self._run_inline(bounded)
+            # a bounded exit can leave sealed group candidates pending:
+            # their records are already counted, so dispatch them singly
+            for raw, t in self._pending:
+                self._dispatch(raw, t)
+                self._reap(self.readback_depth)
+            self._pending.clear()
+            self._reap(0)
+        finally:
+            self._stop_sink_thread()
+        self._chan.check()         # a crash in the very last group
         return self._build_report(time.perf_counter() - t_start)
 
     def _set_t0(self, t0_ns: int) -> None:
@@ -551,6 +1013,18 @@ class Engine:
         if hasattr(self.sink, "t0_ns"):
             self.sink.t0_ns = t0_ns
         self._t0_auto = False
+
+    def _idle(self) -> None:
+        """An iteration with nothing to do: yield (the GIL to the sink
+        thread, the core to the scheduler) while work is in flight, a
+        batch is forming or records arrived in the last
+        ``tuning.IDLE_SPIN_S``; sleep on a link idle for longer."""
+        if (self._busy_depth() or self.batcher.fill
+                or time.perf_counter() - self._last_arrival_t
+                < tuning.IDLE_SPIN_S):
+            time.sleep(tuning.GIL_YIELD_S)
+        else:
+            time.sleep(_IDLE_SLEEP_S)
 
     def _run_inline(self, bounded) -> None:
         """The record-source loop: poll -> batch -> dispatch -> reap."""
@@ -570,6 +1044,10 @@ class Engine:
                         time.clock_gettime_ns(time.CLOCK_MONOTONIC))[0]))
                 else:
                     self._set_t0(int(records["ts_ns"][0]))
+            if n_polled:
+                self._last_arrival_t = time.perf_counter()
+                if self._gov is not None:
+                    self._gov.note_arrivals(self._last_arrival_t, n_polled)
             if not n_polled:
                 sealed = []
                 if self.precompact:
@@ -580,26 +1058,40 @@ class Engine:
                 sealed = self.batcher.add_precompact(records)
             else:
                 sealed = self.batcher.add(records)
-            # deadline flush only into an idle pipe
-            if not sealed and not self._inflight and self.batcher.flush_due():
-                sealed = [self.batcher.take()]
-            self._timers["fill"].add(time.perf_counter() - t)
+            if not sealed and self._deadline_flush_due():
+                took = self.batcher.take()
+                sealed = [took] if took is not None else []
+            # each sealed buffer with its first record's arrival
+            sealed = [(raw, self.batcher.pop_seal_time()) for raw in sealed]
+            self.metrics.fill.add(time.perf_counter() - t)
             if self.mega_n > 0:
                 # backlog-triggered grouping: a short poll (no backlog
                 # behind the pending batches) flushes them down the ladder
                 self._pending.extend(sealed)
                 self._drain_pending(short=n_polled < requested)
             else:
-                for raw in sealed:
-                    self._dispatch(raw)
+                for raw, t_seal in sealed:
+                    self._dispatch(raw, t_seal)
                     self._reap(self.readback_depth)
             self._reap_ready()
             if not sealed and self.source.exhausted():
                 if self.batcher.fill:
-                    self._dispatch(self.batcher.take())
+                    raw = self.batcher.take()
+                    self._dispatch(raw, self.batcher.pop_seal_time())
                 break
-            if not sealed and not n_polled and not self._inflight:
-                time.sleep(_IDLE_SLEEP_S)
+            if not sealed and not n_polled:
+                if self._gov is not None and self._busy_depth() == 0:
+                    # inside the lead window before a forecast onset: one
+                    # masked dispatch through the predicted rung refreshes
+                    # its path (idle iterations only)
+                    rung = self._gov.prewarm_rung(
+                        time.perf_counter(), self._rung_ewma_s.get(1, 0.0))
+                    if rung:
+                        self._prewarm_dispatch(
+                            fused.rung_for_volume(rung, self._mega_sizes)
+                            if rung > 1 else rung)
+                        continue
+                self._idle()
 
     def _run_sealed(self, bounded) -> None:
         """The sealed-batch loop: stage -> dispatch -> reap.
@@ -610,7 +1102,9 @@ class Engine:
         ``fill`` and releases the queue slots right away; the ladder
         dispatches contiguous ``rows[done:done+g]`` slices; a fresh slot
         is claimed only after the current one has fully dispatched,
-        never on an empty poll.  Deadlines belong to the workers."""
+        never on an empty poll.  Deadlines belong to the workers; under
+        ``slo_us`` a held remainder is flushed once the budget presses,
+        through budget-capped rungs."""
         src = self.source
         if not self._t0_auto and hasattr(src, "set_t0"):
             # a fixed epoch (explicit t0_ns, or a restored checkpoint's)
@@ -619,30 +1113,35 @@ class Engine:
             # translates with ours
             src.set_t0(self.batcher.t0_ns)
         top = self._mega_sizes[0] if self._mega_sizes else 0
+        slo = self._slo_budget_s
         slot = None
         fill = done = 0
+        metas: list[tuple[float, int]] = []   # (t_enqueue, n_records)/row
 
         def flush(g: int) -> None:
             nonlocal done
             x = self._arena.tensor(slot)
+            t_e = min(m[0] for m in metas[done:done + g])
+            n = sum(m[1] for m in metas[done:done + g])
             if g > 1:
-                self._launch(g, x[done:done + g], slot)
+                self._launch(g, x[done:done + g], slot, t_e, n)
             else:
-                self._launch(_SINGLE, x[done], slot)
+                self._launch(_SINGLE, x[done], slot, t_e, n)
             done += g
             self._reap(self.readback_depth)
 
         while not bounded():
-            t = time.perf_counter()
             if slot is None or (fill and fill == done):
                 slot = self._claim()
                 fill = done = 0
+                metas = []
             rows = self._arena.rows(slot)
             want = len(rows) - fill
             if top:
                 want = min(want, max(top - (fill - done), 0))
-            batches = (src.poll_batches_into(rows[fill:], want)
-                       if want > 0 else [])
+            batches = (src.poll_batches_into(
+                rows[fill:], want, pop_timer=self.metrics.pop,
+                stage_timer=self.metrics.stage) if want > 0 else [])
             if self._t0_auto and batches and src.t0_ns:
                 self._set_t0(src.t0_ns)   # the fleet's handshake epoch
             for sb in batches:
@@ -650,23 +1149,31 @@ class Engine:
                 # the report and the bounds read
                 self.batcher.batches_emitted += 1
                 self.batcher.records_emitted += sb.n_records
+                metas.append((sb.t_enqueue, sb.n_records))
             fill += len(batches)
-            self._timers["fill"].add(time.perf_counter() - t)
+            if batches:
+                self._last_arrival_t = time.perf_counter()
+                if self._gov is not None:
+                    self._gov.note_arrivals(
+                        self._last_arrival_t,
+                        sum(sb.n_records for sb in batches))
             # want == 0 (slot rows exhausted under a pending carry) must
             # flush, not poll: treat it as a short poll
             short = len(batches) < want or want == 0
             while top and fill - done >= top:
                 flush(top)
-            if short or not top:
+            if short or not top or (slo and fill - done
+                                    and self._slo_pressed(metas[done][0])):
                 while fill - done:
-                    flush(fused.rung_for_volume(fill - done,
-                                                self._mega_sizes))
+                    g = fused.rung_for_volume(fill - done, self._mega_sizes)
+                    if slo:
+                        g = min(g, self._slo_cap(metas[done][0]))
+                    flush(g)
             self._reap_ready()
             if not batches:
                 if src.exhausted():
                     break
-                if not self._inflight:
-                    time.sleep(_IDLE_SLEEP_S)
+                self._idle()
         # bounded exit with staged rows: dispatch them singly (their
         # records are already counted)
         while fill - done:
@@ -776,6 +1283,10 @@ class Engine:
             "d2h_bytes": self._d2h_bytes,
             "bytes_per_batch": round(
                 self._d2h_bytes / max(self._sunk_batches, 1), 1),
+            "sink_thread": self.sink_thread,
+            # the sink thread's busy share of the run's wall
+            "sink_occupancy": (round(self._chan.busy_s / max(wall, 1e-9), 4)
+                               if self.sink_thread else None),
         }
         device = {"type": self.device.type,
                   "name": (torch.cuda.get_device_name(self.device)
@@ -794,6 +1305,12 @@ class Engine:
             # captured CUDA graphs (single + rungs); 0 on the CPU
             "graphs": len(self._graphs),
             "arena": self._arena.info() if self._arena else None,
+            # latency-budget dispatch: the budget and the step-time EWMA
+            # the policy read; None without a budget
+            "slo": ({"slo_us": self.slo_us,
+                     "rung_ewma_ms": {str(g): round(v * 1e3, 4) for g, v in
+                                      sorted(self._rung_ewma_s.items())}}
+                    if self.slo_us else None),
         }
         ingest = (self.source.ingest_stats()
                   if self.sealed and hasattr(self.source, "ingest_stats")
@@ -805,7 +1322,7 @@ class Engine:
             records_per_s=round(
                 self.batcher.records_emitted / max(wall, 1e-9), 1),
             stats=self.stats.to_dict(),
-            stages_ms={k: t.to_dict() for k, t in self._timers.items()},
+            stages_ms=self.metrics.to_dict(),
             blocked_sources=len(self._blocked),
             table=table_sum,
             readback=readback,
@@ -813,4 +1330,12 @@ class Engine:
             dispatch=dispatch,
             ingest=ingest,
             ts_wrap_risk_polls=self.batcher.ts_wrap_risk_polls,
+            # the eager CPU step's call wall is its compute; a replay's
+            # is its enqueue (the compute lands in the sink's wait)
+            latency=self._lat.to_dict(self.slo_us,
+                                      compute_is_wall=not self._cuda),
+            health=health.engine_health(
+                ingest=ingest, watchdog=self._watchdog.to_dict(),
+                restore_fallbacks=self._restore_fallbacks),
+            predict=self._gov.report() if self._gov is not None else None,
         )

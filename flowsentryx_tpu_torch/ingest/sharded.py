@@ -45,7 +45,9 @@ from typing import NamedTuple
 import numpy as np
 
 from flowsentryx_tpu_torch.core import wire as schema
+from flowsentryx_tpu_torch.engine.metrics import WorkerIngestMetrics
 from flowsentryx_tpu_torch.engine.shm import SealedBatchQueue
+from flowsentryx_tpu_torch.sync.channel import WorkerCrash
 
 #: Cap on spooled quarantine payloads (and on per-event stderr lines)
 #: per fleet: slot contents are adversarial, so a poisoned stream must
@@ -63,61 +65,6 @@ IDLE_US = 200
 TIMEOUT_S = 10.0
 #: A live worker whose heartbeat is older than this is reported stalled.
 HEARTBEAT_TIMEOUT_S = 2.0
-
-
-class WorkerCrash(RuntimeError):
-    """A pipeline worker died; raised on the DISPATCH side so the engine
-    fails loudly instead of serving on with a shard silently unserved."""
-
-
-class StageTimer:
-    """Rolling record of one stage's per-batch durations (seconds): a
-    ring of the most recent ``keep`` samples; ``n`` and ``max`` are
-    all-time."""
-
-    def __init__(self, name: str, keep: int = 100_000):
-        self.name = name
-        self.keep = keep
-        self._samples: list[float] = []
-        self._n = 0
-        self._max = 0.0
-
-    def add(self, seconds: float) -> None:
-        if len(self._samples) < self.keep:
-            self._samples.append(seconds)
-        else:
-            self._samples[self._n % self.keep] = seconds
-        self._n += 1
-        self._max = max(self._max, seconds)
-
-    def percentiles_ms(self) -> dict[str, float]:
-        if not self._n:
-            return {}
-        a = np.asarray(self._samples) * 1e3
-        return {
-            "p50": round(float(np.percentile(a, 50)), 4),
-            "p99": round(float(np.percentile(a, 99)), 4),
-            "max": round(self._max * 1e3, 4),
-            "mean": round(float(a.mean()), 4),
-            "n": self._n,
-        }
-
-
-class WorkerIngestMetrics:
-    """Per-worker stage timers: ``fill`` is first-record arrival -> seal
-    inside the worker, ``queue`` is seal -> engine dequeue (queue
-    residency)."""
-
-    def __init__(self, worker: int):
-        self.worker = worker
-        self.fill = StageTimer(f"w{worker}.fill")
-        self.queue = StageTimer(f"w{worker}.queue")
-
-    def to_dict(self) -> dict:
-        return {
-            "fill_ms": self.fill.percentiles_ms(),
-            "queue_ms": self.queue.percentiles_ms(),
-        }
 
 
 class SealedBatch(NamedTuple):
@@ -601,8 +548,9 @@ class ShardedIngest:
         self._rr = wid
         return out
 
-    def poll_batches_into(self, dst: np.ndarray,
-                          max_batches: int) -> list[SealedBatch]:
+    def poll_batches_into(self, dst: np.ndarray, max_batches: int,
+                          pop_timer=None,
+                          stage_timer=None) -> list[SealedBatch]:
         """Zero-copy-staging twin of :meth:`poll_batches`: peek the
         oldest sealed slot per queue (round-robin), copy the payload
         VIEW straight into the next row of ``dst`` — the dispatch
@@ -612,13 +560,20 @@ class ShardedIngest:
         array (a dispatch-arena slice); each returned
         :class:`SealedBatch`'s ``raw`` is the ``dst`` row it was staged
         into, NOT shm memory — a producer overwrite of the released slot
-        can never reach it."""
+        can never reach it.
+
+        ``pop_timer``/``stage_timer`` are optional
+        :class:`~flowsentryx_tpu_torch.engine.metrics.StageTimer` hooks:
+        the per-batch staging copy goes to ``stage``, the rest of a
+        non-empty call (peek, header decode, bookkeeping) to ``pop``."""
         if not self._started:
             raise RuntimeError("ShardedIngest.start() was never called")
         self._check_health()
         self._surface_crash()
         if not self._ensure_t0():
             return []
+        t_call = time.perf_counter()
+        stage_s = 0.0
         out: list[SealedBatch] = []
         room = min(max_batches, len(dst))
         n_q = self.n_workers
@@ -633,7 +588,9 @@ class ShardedIngest:
                 empty_streak = 0
                 hdr, payload = peeked[0]
                 row = dst[len(out)]
+                t_copy = time.perf_counter()
                 row.reshape(-1)[:] = payload     # THE one host copy
+                stage_s += time.perf_counter() - t_copy
                 q.release(1)                     # slot back to the worker
                 prob = self._slot_problem(
                     hdr, row.reshape(self._payload_shape)[self._max_batch])
@@ -657,6 +614,12 @@ class ShardedIngest:
                 ))
             wid = (wid + 1) % n_q
         self._rr = wid
+        if out:
+            if stage_timer is not None:
+                stage_timer.add(stage_s / len(out))
+            if pop_timer is not None:
+                pop_timer.add(
+                    max(0.0, time.perf_counter() - t_call - stage_s))
         return out
 
     def exhausted(self) -> bool:

@@ -14,10 +14,9 @@ reference's compiled XLA:CPU graph rounds it:
 
 ``torch.matmul`` fixes no summation order (a sequential CPU sum differs
 on up to 1 % of layer outputs), so the layers are written as explicit
-accumulations.  The reference draws its default init from a JAX PRNG key
-that the port cannot reproduce without JAX: a port engine serving this
-family takes params from an artifact (:func:`load_params`) or carried
-across from the reference (:func:`params_from_numpy`).
+accumulations.  The default params are the reference's
+``init_params(PRNGKey(0))``, drawn by the port's own threefry
+(:func:`init_params`, :mod:`~flowsentryx_tpu_torch.core.prng`).
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from flowsentryx_tpu_torch.core import prng
 from flowsentryx_tpu_torch.core.device import xla_log1p, xla_sigmoid
 
 
@@ -122,10 +122,33 @@ def classify_batch(params: MlpParams, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Artifact I/O and weights carried across
+# Init, artifact I/O and weights carried across
 # ---------------------------------------------------------------------------
 
 ARTIFACT_SCHEMA_VERSION = 1
+NUM_FEATURES = 8
+
+
+def init_params(key=None, hidden: int = 32,
+                device: str | torch.device = "cpu", cls=MlpParams,
+                n_out: int = 1):
+    """The reference's ``init_params(key, hidden)``: ``key`` (a
+    :func:`~..core.prng.prng_key`; None = ``PRNGKey(0)``) split in three,
+    each weight ``normal(k, shape) * sqrt(2 / fan_in)`` in float32 (the
+    scale a power of two for fan-ins 8 and 32, so the product is exact)
+    rounded to bfloat16, every bias zero.  ``n_out`` is the head's
+    width (``multiclass`` passes its class count)."""
+    k1, k2, k3 = prng.split(prng.prng_key(0) if key is None else key, 3)
+
+    def he(k, fan_in, shape):
+        scale = np.float32(np.sqrt(np.float32(2.0) / np.float32(fan_in)))
+        return prng.normal(k, shape) * scale
+
+    z = np.zeros
+    return params_from_numpy(dict(
+        w1=he(k1, NUM_FEATURES, (NUM_FEATURES, hidden)), b1=z(hidden),
+        w2=he(k2, hidden, (hidden, hidden)), b2=z(hidden),
+        w3=he(k3, hidden, (hidden, n_out)), b3=z(n_out)), device, cls=cls)
 
 
 def _npz_path(path: str) -> str:

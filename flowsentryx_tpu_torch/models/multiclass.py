@@ -64,6 +64,14 @@ def attack_class(params: MulticlassParams, x: torch.Tensor) -> torch.Tensor:
 ARTIFACT_SCHEMA_VERSION = 1
 
 
+def init_params(key=None, hidden: int = 32,
+                device: str | torch.device = "cpu") -> MulticlassParams:
+    """The reference's ``init_params(key, hidden)`` (``key`` None =
+    ``PRNGKey(0)``): :func:`~.mlp.init_params` with a ``[H, 4]`` head."""
+    return mlp.init_params(key, hidden, device, cls=MulticlassParams,
+                           n_out=NUM_CLASSES)
+
+
 def params_from_numpy(d, device: str | torch.device = "cpu"
                       ) -> MulticlassParams:
     return mlp.params_from_numpy(d, device, cls=MulticlassParams)

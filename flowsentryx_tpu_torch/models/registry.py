@@ -67,26 +67,17 @@ def load_artifact(name: str, path: str, device="cpu"):
             "family the artifact was trained as") from e
 
 
-def _no_default_init(name: str):
-    def init(device=None):
-        raise ValueError(
-            f"model {name!r} has no default params in this port: the "
-            "reference draws them from jax.random.PRNGKey(0), which needs "
-            "JAX. Serve an artifact (--artifact PATH, "
-            f"registry.load_artifact({name!r}, path)) or carry the "
-            f"reference's params across ({name}.params_from_numpy)")
-    return init
-
-
 for _name in ("logreg_int8", "logreg_int8_pallas"):
     register_model(ModelSpec(name=_name, init=logreg.golden_params,
                              classify_batch=kernels.score_int8))
 register_model(ModelSpec(name="logreg_float", init=logreg.golden_params,
                          classify_batch=logreg.classify_float))
-register_model(ModelSpec(name="mlp", init=_no_default_init("mlp"),
-                         classify_batch=mlp.classify_batch,
-                         load=mlp.load_params))
-register_model(ModelSpec(name="multiclass",
-                         init=_no_default_init("multiclass"),
-                         classify_batch=multiclass.classify_batch,
-                         load=multiclass.load_params))
+# the reference's defaults: init_params(jax.random.PRNGKey(0)), drawn by
+# the port's threefry (core/prng.py)
+register_model(ModelSpec(
+    name="mlp", init=lambda device="cpu": mlp.init_params(device=device),
+    classify_batch=mlp.classify_batch, load=mlp.load_params))
+register_model(ModelSpec(
+    name="multiclass",
+    init=lambda device="cpu": multiclass.init_params(device=device),
+    classify_batch=multiclass.classify_batch, load=multiclass.load_params))

@@ -423,9 +423,18 @@ def make_compact_step(
     sealed batch (``**quant``: :func:`~..core.schema.model_quant_args`
     for model mode, else minifloat)."""
     base = make_step(cfg, classify_batch, emit_score=emit_score)
+    #: The 256-entry feature table per device, built at the first call
+    #: (on the card: in the first eager warm-up, before any capture,
+    #: which then holds it by address).
+    tables: dict = {}
 
     def step(table, stats, params, raw):
-        return base(table, stats, params, schema.decode_compact(raw, **quant))
+        ft = tables.get(raw.device)
+        if ft is None:
+            ft = tables[raw.device] = schema.feature_table(raw.device,
+                                                           **quant)
+        return base(table, stats, params,
+                    schema.decode_compact(raw, table=ft, **quant))
 
     return step
 

@@ -78,7 +78,11 @@ class StepGraph:
         before = dict(kernels.LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph):
+            # thread-local: another thread's CUDA calls (another
+            # engine's sink thread waiting on its events) must not
+            # invalidate this capture
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
                 _, _, self.out = fn(table, stats, params, self.input)
                 self.keep = fused.block_record(self.out)
         finally:

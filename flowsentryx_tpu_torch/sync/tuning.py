@@ -1,0 +1,102 @@
+"""The timing constants of the host pipeline that this port reads.
+
+Counterpart of ``flowsentryx_tpu/sync/tuning.py``: the same values,
+with the reason for each.  All values are seconds unless the name says
+otherwise.  Standard library only (a spawned ingest worker may import
+it).
+"""
+
+from __future__ import annotations
+
+#: Dispatch-thread GIL yield while the pipe is busy but nothing new is
+#: sealable: a spinning dispatch loop holds the interpreter for whole
+#: switch intervals and starves the sink thread's pure-Python decode
+#: and writeback.  The reference sleeps 20 µs; on an H100 host measured
+#: for this port any positive ``time.sleep`` lasts at least ~1 ms
+#: (``sleep(20e-6)`` p50 0.97 ms, ``sleep(0)`` p50 19 µs), so the port
+#: yields with ``sleep(0)``, which releases the GIL for a scheduler pass.
+GIL_YIELD_S = 0.0
+
+#: How long the serving loops keep yielding (``sleep(0)``) instead of
+#: sleeping after the last record arrived: a positive sleep costs ~1 ms
+#: on the card's host, a whole budget at ``--slo-us 1000``, so a link
+#: that was busy in the last 10 ms (a pulse train, a bursty daemon ring)
+#: is polled within tens of µs; an idle one falls back to
+#: ``Engine``'s idle sleep.
+IDLE_SPIN_S = 10e-3
+
+#: Backpressure wait quantum of ``SinkChannel.wait_below``: every state
+#: change notifies the condition variable, so this only bounds how
+#: stale a missed wake-up could get.  It is also the watchdog's polling
+#: period while the dispatch thread waits on the sink.
+BACKPRESSURE_WAIT_S = 0.05
+
+#: Worker-side pop wait quantum (``SinkChannel.pop``): the same
+#: liveness bound, twice as long (an idle worker waking is cheaper than
+#: a dispatch thread stalling).
+POP_WAIT_S = 0.1
+
+#: Single-thread mode's ready-reap coalescing: the least gap between
+#: two sink groups while the pipe is shallow, capped at half the batch
+#: deadline so that a small ``deadline_us`` keeps its budget.
+MIN_SINK_GAP_S = 0.3e-3
+
+#: Per-rung step-time EWMA smoothing of the latency-budget mode
+#: (``serve --slo-us``): 0.2 follows ~90 % of a shift in ~10
+#: observations without chasing single-step noise.  Applied only to a
+#: launch whose call absorbed the compute; on the card's graph replays
+#: the warm seed stands.
+SLO_EWMA_ALPHA = 0.2
+
+#: Dispatch-watchdog stall bound (``engine/watchdog.py``): batches in
+#: flight and no completion for this long soft-trips (every thread's
+#: stack dumped, a DEGRADED reason), for twice this long hard-trips (the
+#: drain fails loudly instead of hanging).  Orders of magnitude above a
+#: healthy gap between completions, so a trip means wedged, not slow.
+WATCHDOG_STALL_S = 10.0
+
+# -- predictive dispatch governor (engine/predict.py) -------------------------
+
+#: Arrival-histogram bin width of the burst period estimator: pulse
+#: periods of a few batch deadlines (single-digit ms) get 15-30 bins per
+#: period, and a full estimator pass stays in the tens of µs.
+PREDICT_BIN_S = 0.25e-3
+
+#: Estimator observation window: ~40 periods of a 7.5 ms pulse, and it
+#: follows a regime change within one window.
+PREDICT_WINDOW_S = 0.3
+
+#: Confidence gate: the normalized autocorrelation peak a forecast must
+#: reach before any actuation.  A clean pulse wave scores above 0.7
+#: within a few periods, steady or Poisson traffic near 0; below the
+#: gate the governor is quiescent and the engine is the reactive one.
+PREDICT_CONF_MIN = 0.5
+
+#: Once a forecast is locked, tracking estimates keep it alive down to
+#: ``PREDICT_CONF_MIN * this`` (hysteresis): arrivals observed at poll
+#: times leave a real pulse wave's confidence hovering around the entry
+#: gate.  Entry still needs the full gate.
+PREDICT_CONF_EXIT_FRAC = 0.6
+
+#: Box-smoothing width (bins) before the period search: a burst lands
+#: as 1-3 clumps jittered by a dispatch-and-reap pass.  1 disables.
+PREDICT_SMOOTH_BINS = 6
+
+#: Least number of whole periods the window must span at the estimated
+#: period for the estimate to count.
+PREDICT_MIN_PERIODS = 4
+
+#: Re-estimation cadence (the pass runs on the dispatch thread).
+PREDICT_REESTIMATE_S = 0.05
+
+#: Onset tolerance: arrivals within this of a predicted onset make it a
+#: hit; an onset that passes by more than this with none is a miss.
+PREDICT_ONSET_TOL_S = 2 * PREDICT_BIN_S
+
+#: Pre-warm lead margin added to the predicted rung's step-time EWMA,
+#: so that the masked dispatch retires before the burst lands.
+PREDICT_PREWARM_MARGIN_S = PREDICT_BIN_S
+
+#: Budget-pressure threshold: the pressure signal is on while the
+#: oldest staged work's remaining headroom fraction is below this.
+PREDICT_SHED_HEADROOM = 0.25

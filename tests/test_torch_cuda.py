@@ -9,6 +9,8 @@ a machine with the card alone:
 import functools
 import hashlib
 import os
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -349,7 +351,8 @@ def test_overflow_fallback_reads_each_dispatchs_own_blocks(cuda, mega_n):
         e.warm()
         for i in range(12):
             if mega_n:
-                e._dispatch_mega(raws[i * mega_n:(i + 1) * mega_n])
+                e._dispatch_mega([(r, 0.0) for r in
+                                  raws[i * mega_n:(i + 1) * mega_n]])
             else:
                 e._dispatch(raws[i])
         e._reap(0)
@@ -536,13 +539,14 @@ class _ListSealed:
     def start(self, *a):
         pass
 
-    def poll_batches_into(self, dst, max_batches):
+    def poll_batches_into(self, dst, max_batches, **timers):
         out = []
         while len(out) < min(max_batches, len(dst)) and self.i < len(
                 self.bufs):
             dst[len(out)] = self.bufs[self.i]
-            out.append(type("SB", (), {"n_records": int(
-                self.bufs[self.i][-1, 0])})())
+            out.append(type("SB", (), {
+                "n_records": int(self.bufs[self.i][-1, 0]),
+                "t_enqueue": time.perf_counter()})())
             self.i += 1
         return out
 
@@ -698,3 +702,122 @@ def test_spawned_worker_never_initialises_cuda(cuda, tmp_path):
     assert r.stats == r0.stats and e.sink.blocked == e0.sink.blocked
     assert _digest(e) == _digest(e0)
     assert r.ingest["workers"]["0"]["batches"] == 8
+
+
+class _WireLog(Engine):
+    """Keeps a host copy of every verdict wire it sinks, in order."""
+
+    def _sink_one(self, g):
+        if g.wire is not None:
+            if g.event is not None:
+                g.event.synchronize()
+            self.wires.append(g.wire.numpy().copy())
+        super()._sink_one(g)
+
+
+def test_sink_thread_never_decodes_an_overwritten_wire(cuda):
+    """The sink thread with two arena slots and eight batches in flight
+    (``readback_depth=8``): the dispatch thread waits for the sink to
+    free an output slot before a replay reuses it, so every wire the
+    sink decodes equals the CPU engine's for the same batch, and the
+    results are equal."""
+    params = logreg.load_params(ARTIFACT)
+    raws, _ = _compact_batches(params, 24, 2048, "udp_flood_multi", seed=5)
+    cfg = _ring_cfg(readback_depth=8)
+    out = {}
+    for device in ("cuda", "cpu"):
+        e = _WireLog(cfg, _ListSealed([r.copy() for r in raws]),
+                     CollectSink(), params=params, device=device,
+                     sink_thread=device == "cuda")
+        e.wires = []
+        e._arena = type(e._arena)(2, e._arena.group_max, 2048, 4,
+                                  pinned=device == "cuda")
+        e._arena_event = [None, None]
+        r = e.run()
+        out[device] = (r.stats, e.sink.blocked, _digest(e), e.wires)
+        if device == "cuda":
+            assert r.readback["sink_thread"] is True
+            assert r.latency["negatives"] == 0
+            assert r.latency["seal_to_verdict"]["n"] == r.records
+    assert out["cuda"][:3] == out["cpu"][:3]
+    assert len(out["cuda"][3]) == len(out["cpu"][3]) == 24
+    for a, b in zip(out["cuda"][3], out["cpu"][3]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mega_n", [0, 4])
+def test_overflow_fallback_with_sink_thread(cuda, mega_n):
+    """Overflowing wires (``verdict_k=2``) sunk on the sink thread: the
+    block records come back from device memory on the step's stream,
+    and blacklist, stats and table equal the CPU engine's."""
+    cfg = config.FsxConfig(
+        limiter=config.LimiterConfig(pps_threshold=200.0, bps_threshold=1e9),
+        table=config.TableConfig(capacity=1 << 14),
+        batch=config.BatchConfig(max_batch=2048, verdict_k=2,
+                                 readback_depth=4))
+    params = logreg.load_params(ARTIFACT)
+    rec = TrafficGen(TrafficSpec(scenario=Scenario.UDP_FLOOD_MULTI,
+                                 rate_pps=1e7, n_attack_ips=64,
+                                 seed=17)).next_records(16 * 2048)
+    out = {}
+    for device in ("cuda", "cpu"):
+        e = Engine(cfg, ArraySource(rec.copy()), CollectSink(),
+                   params=params, device=device, mega_n=mega_n,
+                   sink_thread=device == "cuda")
+        e.warm()
+        r = e.run()
+        out[device] = (r.stats, e.sink.blocked, _digest(e))
+        if device == "cuda":
+            assert r.readback["fallback_sinks"] > 0
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("sink_thread", [False, True])
+def test_watchdog_trips_on_a_wedged_stream(cuda, sink_thread):
+    """A ``torch.cuda._sleep`` of ~6 s enqueued on the step's stream
+    wedges every replay behind it; with ``watchdog_s=0.5`` the dispatch
+    thread (polling its events, or waiting on the sink thread) soft-
+    trips, then raises :class:`WatchdogStall`, and shutdown gives the
+    wedged sink thread at most 2 s: the run returns well before the
+    sleep ends.  The health ladder reads failed."""
+    from flowsentryx_tpu_torch.engine import health
+    from flowsentryx_tpu_torch.engine.watchdog import WatchdogStall
+
+    params = logreg.load_params(ARTIFACT)
+    rec = TrafficGen(TrafficSpec(seed=3)).next_records(32 * 2048)
+    e = Engine(_ring_cfg(readback_depth=2), ArraySource(rec), CollectSink(),
+               params=params, device="cuda", watchdog_s=0.5,
+               sink_thread=sink_thread)
+    e.warm()
+    torch.cuda._sleep(int(6.0 * 2e9))     # cycles: >= 6 s at <= 2 GHz
+    t = time.perf_counter()
+    with pytest.raises(WatchdogStall):
+        e.run()
+    assert time.perf_counter() - t < 4.5
+    wd = e._watchdog.to_dict()
+    assert wd["soft_trips"] == 1 and wd["hard_tripped"]
+    assert health.engine_health(watchdog=wd)["state"] == "failed"
+    torch.cuda.synchronize()
+    for th in threading.enumerate():      # the abandoned sink thread
+        if th.name == "fsx-sink":
+            th.join(timeout=30)
+
+
+def test_warm_seeds_ewma_for_every_captured_rung(cuda):
+    """Under a budget, ``warm()`` seeds the step-time EWMA of the single
+    step and of every captured rung with a timed replay plus its event
+    wait; a run does not refine it (a replay's output is never ready
+    when the call returns)."""
+    params = logreg.load_params(ARTIFACT)
+    e = Engine(_ring_cfg(), ArraySource(np.empty(0)), CollectSink(),
+               params=params, device="cuda", mega_n="auto", slo_us=2000)
+    e.warm()
+    assert set(e._graphs) == {0, 2, 4, 8}
+    assert set(e._rung_ewma_s) == {1, 2, 4, 8}
+    assert all(0 < v < 0.1 for v in e._rung_ewma_s.values())
+    seed = dict(e._rung_ewma_s)
+    rec = TrafficGen(TrafficSpec(seed=3)).next_records(16 * 2048)
+    e.reset_stream(ArraySource(rec))
+    r = e.run()
+    assert r.dispatch["slo"]["rung_ewma_ms"] == {
+        str(k): round(v * 1e3, 4) for k, v in sorted(seed.items())}

@@ -4,8 +4,9 @@
 compiled graphs compute: a fused multiply-add with flush-to-zero
 (``fma32``), division by a constant as a multiply by its float32
 reciprocal (``recip_mul``), and XLA:CPU's float32 ``exp``/``exp2``
-(``xla_exp``/``xla_exp2``), ``log1p`` (``xla_log1p``) and
-``jax.nn.sigmoid`` (``xla_sigmoid``).  Each is held bit for bit against
+(``xla_exp``/``xla_exp2``), ``log1p`` (``xla_log1p``),
+``jax.nn.sigmoid`` (``xla_sigmoid``), ``tanh`` (``xla_tanh``), ``expm1``
+(``xla_expm1``) and ``erf_inv`` (``xla_erf_inv``).  Each is held bit for bit against
 ``jax.jit`` of the plain ``jnp`` expression on the same numpy inputs,
 made from a seed."""
 
@@ -17,10 +18,21 @@ import jax
 import jax.numpy as jnp
 
 from flowsentryx_tpu_torch.core.device import (
-    LN2_F32, f32, fma32, recip_mul, xla_exp, xla_exp2, xla_log1p, xla_sigmoid,
+    LN2_F32, f32, fma32, recip_mul, xla_erf_inv, xla_exp, xla_exp2,
+    xla_expm1, xla_log1p, xla_sigmoid, xla_tanh,
 )
 
 F32 = np.float32
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The float64 emulation is many small elementwise ops: one torch
+    thread runs them ~10x faster than a thread per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _assert_bits_equal(got: torch.Tensor, want) -> None:
@@ -172,3 +184,58 @@ def test_xla_sigmoid_matches_jitted_sigmoid():
     _assert_bits_equal(xla_sigmoid(torch.from_numpy(x)), want)
     off = torch.sigmoid(torch.from_numpy(x)).numpy().view(np.uint32)
     assert (off != np.asarray(want).view(np.uint32)).sum() > 1000
+
+
+@pytest.mark.parametrize("lo,hi", [(-0.25, 0.25), (-1e-3, 1e-3), (-9.0, 9.0)])
+def test_xla_tanh_matches_jitted_tanh(lo, hi):
+    """2^20 seeded inputs per range: the rational branch, the
+    ``|x| < 0.0004`` pass-through and the clamp at +-7.9988."""
+    x = np.random.default_rng(11).uniform(lo, hi, 1 << 20).astype(F32)
+    _assert_bits_equal(xla_tanh(torch.from_numpy(x)), jax.jit(jnp.tanh)(x))
+
+
+@pytest.mark.parametrize("lo,hi", [(-0.5, 0.5), (-20.0, 20.0), (0, 0)])
+def test_xla_expm1_matches_jitted_expm1(lo, hi):
+    """2^20 seeded inputs per range (the ``tanh`` form up to 0.5 in
+    magnitude, ``exp - 1`` above; ``(0, 0)``: random bit patterns of
+    both signs below 0.0008, subnormals included, where tanh passes its
+    input through), with the boundary and special values."""
+    rng = np.random.default_rng(12)
+    if lo == hi:
+        bits = rng.integers(0, 0x3A51B717, 1 << 20, dtype=np.uint32)
+        x = (bits | (rng.integers(0, 2, 1 << 20, dtype=np.uint32)
+                     << np.uint32(31))).view(F32)
+    else:
+        x = rng.uniform(lo, hi, 1 << 20).astype(F32)
+    x = np.concatenate([
+        x,
+        np.array([0.5, -0.5, np.nextafter(F32(0.5), F32(0)), 0.0, -0.0,
+                  1e-30, -1e-30, 89.0, -100.0], F32)])
+    _assert_bits_equal(xla_expm1(torch.from_numpy(x)),
+                       jax.jit(jnp.expm1)(x))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "tail", "tiny"])
+def test_xla_erf_inv_matches_jitted_erf_inv(kind):
+    """2^20 seeded inputs in (-1, 1); 2^20 in the tail ``|x| > 0.999``
+    where ``w = -log1p(-x^2) >= 5`` takes the ``sqrt(w) - 3`` branch (a
+    not correctly rounded square root differs there on ~0.5 % of
+    inputs); 2^20 random bit patterns of both signs below 2^-122, where
+    the product is flushed to zero below 2^-126 (subnormal inputs
+    included); with +-1 (+-inf)."""
+    rng = np.random.default_rng(13)
+    if kind == "tiny":
+        bits = rng.integers(0, 0x02800000, 1 << 20, dtype=np.uint32)
+        x = (bits | (rng.integers(0, 2, 1 << 20, dtype=np.uint32)
+                     << np.uint32(31))).view(F32)
+    elif kind == "tail":
+        x = np.concatenate([rng.uniform(0.999, 1.0, 1 << 19),
+                            -rng.uniform(0.999, 1.0, 1 << 19)]).astype(F32)
+        x = x[np.abs(x) < 1]
+        w = -np.log1p(-(x.astype(np.float64) ** 2))
+        assert (w >= 5).mean() > 0.9
+    else:
+        x = rng.uniform(-1.0, 1.0, 1 << 20).astype(F32)
+    x = np.concatenate([x, np.array([1.0, -1.0, 0.0, -0.0], F32)])
+    _assert_bits_equal(xla_erf_inv(torch.from_numpy(x)),
+                       jax.jit(jax.lax.erf_inv)(x))

@@ -155,12 +155,18 @@ def test_port_never_imports_jax_or_reference_at_runtime():
 def test_new_host_modules_are_checked():
     """The import-boundary checks above walk every module of the port:
     the shared-memory transport, the ingest fleet and worker, the arena,
-    the checkpoint, table and durable-write modules are among them."""
+    the checkpoint, table and durable-write modules, the latency plane,
+    the sink channel and its timing table, the watchdog, the health
+    ladder, the governor, the methodology module and the threefry are
+    among them."""
     names = {".".join(p.relative_to(REPO).with_suffix("").parts)
              for p in _port_sources()}
     for m in ("core.wire", "core.durable", "engine.shm", "engine.arena",
               "engine.checkpoint", "engine.table", "ingest.sharded",
-              "ingest.worker", "ingest.__init__"):
+              "ingest.worker", "ingest.__init__", "core.prng",
+              "engine.metrics", "engine.watchdog", "engine.health",
+              "engine.predict", "sync.__init__", "sync.channel",
+              "sync.tuning", "benchmarks"):
         assert f"flowsentryx_tpu_torch.{m}" in names, m
 
 

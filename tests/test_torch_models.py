@@ -135,13 +135,21 @@ def test_logreg_float_scores(source, b):
     _check(jfn, logreg.classify_float, jp, tp, b, seed=6)
 
 
+@pytest.mark.parametrize("artifact", [False, True])
 @pytest.mark.parametrize("scenario", ["syn_benign_mix", "udp_flood_multi"])
-def test_logreg_float_compact_step_stream(scenario):
-    """``logreg_float`` with the golden params over the compact16 wire,
-    the reference's default for it: the step's outputs, table and stats
-    byte-equal over a generator stream."""
-    jp = jlogreg.golden_params()
-    tp = logreg.golden_params()
+def test_logreg_float_compact_step_stream(scenario, artifact):
+    """``logreg_float`` over the compact16 wire, the reference's default
+    for it: the step's outputs, table and stats byte-equal over a
+    generator stream, with the golden params (8 batches) and with the
+    log1p artifact ``logreg_int8.npz`` (16 batches: the float lane takes
+    ``log1p`` of the decode's ``expm1`` without re-quantizing, so every
+    decoded feature must be XLA:CPU's)."""
+    if artifact:
+        jp = jlogreg.load_params(str(ART / "logreg_int8.npz"))
+        tp = logreg.load_params(str(ART / "logreg_int8.npz"))
+    else:
+        jp = jlogreg.golden_params()
+        tp = logreg.golden_params()
     quant = jschema.model_quant_args(jp)
     kw = dict(table=dict(capacity=1 << 12, salt=7), batch=dict(max_batch=256),
               model=dict(name="logreg_float", threshold=0.3),
@@ -165,7 +173,7 @@ def test_logreg_float_compact_step_stream(scenario):
     gen = JTrafficGen(JTrafficSpec(scenario=JScenario(scenario), seed=8,
                                    rate_pps=4e4, n_attack_ips=64))
     t0 = None
-    for i in range(8):
+    for i in range(16 if artifact else 8):
         rec = gen.next_records(256 - 31 * (i % 3))
         t0 = int(rec["ts_ns"][0]) if t0 is None else t0
         raw = jschema.encode_compact(rec, 256, t0, **quant)
@@ -178,7 +186,7 @@ def test_logreg_float_compact_step_stream(scenario):
         np.testing.assert_array_equal(key, np.asarray(jt.key))
         np.testing.assert_array_equal(state.view(np.uint32),
                                       _bits(jt.state))
-    assert ts.to_dict()["batches"] == 8
+    assert ts.to_dict()["batches"] == (16 if artifact else 8)
 
 
 # -- artifacts and the registry -----------------------------------------------
@@ -215,9 +223,13 @@ def test_registry_serves_every_reference_family():
     assert registry.NOT_PORTED == ()
     assert sorted(registry._REGISTRY) == registered_models()
     assert registry.get_model("mlp").classify_batch is mlp.classify_batch
+    # the reference's default init_params(PRNGKey(0)), byte for byte
     for name in ("mlp", "multiclass"):
-        with pytest.raises(ValueError, match="PRNGKey"):
-            registry.get_model(name).init("cpu")
+        jp = jget_model(name).init()
+        tp = registry.get_model(name).init("cpu")
+        for k in jp._fields:
+            np.testing.assert_array_equal(
+                getattr(tp, k).numpy(), np.asarray(getattr(jp, k), F32), k)
     with pytest.raises(ValueError, match="not a multiclass artifact"):
         registry.load_artifact("multiclass", str(ART / "mlp_robust.npz"))
     # the reference's mlp loader refuses a logreg npz by its version
