@@ -146,6 +146,38 @@ more.
     thread and without: a soft trip, then ``WatchdogStall`` within 4 s,
     health ``failed``; a run with the default watchdog is byte-equal to
     one with it off.
+23. ``hot_swap_live``: ``logreg_int8.npz`` swapped for a second artifact
+    derived here with numpy (the same input observer, other weights and
+    bias) after 192 of 384 batches from the 48-byte ring, singles and
+    ``auto``: stats, table digest, blacklist and verdict-ring bytes equal
+    the CPU engine swapped at the same batch index; the graphs are the
+    same objects, none captured again, the params and the scorer's
+    buffer keep their addresses, and the kernel with the swapped-in pack
+    equals its plain version; the host µs of a swap on the dispatch
+    thread.  Then ``watch_artifact`` over a 768-batch drain whose
+    watched file is replaced atomically mid-drain (exactly one swap,
+    equal to the CPU replay at its index), in turns with drains that
+    swap nothing (records/s); and raw48 ``mlp_robust.npz`` swapped for
+    the family's default ``PRNGKey(0)`` params against the CPU engine.
+24. ``sim_kernel_tier``: ``mixed_l34_1m`` through the simulated kernel
+    tier of the committed plan ``artifacts/logreg_int8_plan.npz``: the
+    escalation block equals the CPU engine's with the tier, the state
+    equals the CPU engine fed the batches the card dispatched,
+    ``score_int8`` launches equal those batches; records/s and the
+    escalation ratio beside the same stream without the tier.
+25. ``pcap_serve``: a classic pcap of 100,000 frames built here with
+    ``struct``, ``cli pcap`` into a record file, then ``cli serve
+    --records`` on the card and on the CPU: equal stats, blacklist size
+    and table summary.
+26. ``verdict_k_full_fetch``: ``verdict_k`` 0 (the full block arrays every
+    batch) and 4 (a wire that overflows) under graphs, singles and
+    ``auto``, against the CPU engine; D2H bytes per batch.
+27. ``profile_trace``: ``cli serve --profile DIR --batches 64`` on the card;
+    the trace names ``table_summary_kernel`` and ``score_int8_kernel``
+    (or the graph launches that hold it).
+28. ``restore_2p20``: ``Engine.restore`` of the served ``mixed_l34_1m``
+    table's checkpoint into a card engine whose graphs are captured, at
+    2^20 rows, timed three times; equal to the source, pointers kept.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -1964,6 +1996,535 @@ def main() -> int:
 
     watchdog_phase()
 
+    # -- the live model swap, the simulated kernel tier, pcap,
+    # -- --verdict-k, the profiler, a restore at 2^20 rows --------------------
+
+    from flowsentryx_tpu_torch import cli
+    from flowsentryx_tpu_torch.distill import SimKernelTier, load_plan
+    from flowsentryx_tpu_torch.models.registry import get_model
+
+    plan_path = os.path.join(os.path.dirname(artifact),
+                             "logreg_int8_plan.npz")
+
+    def derived_params(device="cpu"):
+        """A second int8 artifact made from the seed with numpy:
+        ``logreg_int8.npz``'s input observer (``in_scale``, ``in_zp``,
+        ``log1p``), other weights and bias."""
+        h = dict(np.load(artifact))
+        r = np.random.default_rng(SEED + 7)
+        h["w_int8"] = r.integers(-127, 128, 8).astype(np.int8)
+        h["bias"] = np.float32(h["bias"] + r.normal())
+        return logreg.params_from_numpy(h, device)
+
+    def state_of(e):
+        """Stats, table digest and blacklist (a tee sink's collector)."""
+        sink = getattr(e.sink, "collect", e.sink)
+        return {"stats": e.stats.to_dict(), "digest": digest(e),
+                "blocked": sorted(sink.blocked.items())}
+
+    def cpu_swapped(c, recs, boot, new, k, label=None, **kw):
+        """The CPU engine over the same records, swapped after batch
+        ``k`` (with a verdict ring when ``label`` names one)."""
+        vring, sink = None, CollectSink()
+        if label:
+            vpath, vring = verdict_ring(label)
+            sink = TeeSink(vpath)
+        e = Engine(c, ArraySource(recs.copy()), sink, params=boot,
+                   device="cpu", **kw)
+        with cpu_threads():
+            e.run(max_batches=k)
+            e.hot_swap(new)
+            e.run()
+        out = state_of(e)
+        if label:
+            out["verdicts"] = vring.consume(1 << 18).tobytes()
+        return out
+
+    WATCH_BATCHES, WATCH_AT = 768, 256
+
+    @phase("hot_swap_live")
+    def hot_swap_phase():
+        boot, new = logreg.load_params(artifact), derived_params()
+        new_dev = derived_params("cuda")
+        recs = ring_recs[blk]
+        half = SERVE_BATCHES // 2
+        out = {"card": card, "scenario": blk, "batches": SERVE_BATCHES,
+               "artifacts": "logreg_int8.npz -> derived (same observer)"}
+        checks = []
+        served["launches_hot_swap"] = {}
+        cpu_at: dict = {}
+        x = serving_batch(new_dev, blk)
+        codes = torch.arange(256, dtype=torch.float32, device=dev)
+        # 1. a swap at a batch index, from the 48-byte ring, singles and
+        #    auto, against the CPU engine swapped at the same index
+        for label, mega_n in (("single", 0), ("auto", "auto")):
+            fpath = feature_ring(f"swap_{label}", recs)
+            vpath, vring = verdict_ring(f"swap_{label}")
+            sink = TeeSink(vpath)
+            e = Engine(ring_cfg, ShmRingSource(fpath), sink, params=boot,
+                       device="cuda", mega_n=mega_n)
+            e.warm()
+            graphs, n_cap = dict(e._graphs), graph.CAPTURES
+            ptrs = [t.data_ptr() for t in e.params]
+            args_ptr = e.score_params.args_ptr
+            kernels.reset_launches()          # this path's window opens
+            e.run(max_batches=half)
+            t = time.perf_counter()
+            e.hot_swap(new)
+            swap_host_us = (time.perf_counter() - t) * 1e6
+            r = e.run(max_batches=SERVE_BATCHES)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)  # ... and closes
+            served["launches_hot_swap"][label] = launches
+            verdicts = vring.consume(1 << 18)
+            k = e._swap_at[0]
+            if k not in cpu_at:
+                cpu_at[k] = cpu_swapped(ring_cfg, recs, boot, new, k,
+                                        label="swap_cpu")
+            cpu = cpu_at[k]
+            got = state_of(e)
+            same = {"stats": got["stats"] == cpu["stats"],
+                    "table_digest": got["digest"] == cpu["digest"],
+                    "blacklist": got["blocked"] == cpu["blocked"],
+                    "verdict_ring": verdicts.tobytes() == cpu["verdicts"]}
+            kept = {"graphs_same_objects": e._graphs == graphs,
+                    "captures_unchanged": graph.CAPTURES == n_cap,
+                    "params_pointers": ptrs == [t.data_ptr()
+                                                for t in e.params],
+                    "args_pointer": e.score_params.args_ptr == args_ptr}
+            # the swapped-in pack is the new model's, kernel == plain
+            pack_ok = {
+                "table": torch.equal(e.score_params.table,
+                                     logreg.score_from_code(new_dev, codes)),
+                "kernel_equals_plain": torch.equal(
+                    kernels.score_int8(e.params, x, e.score_params),
+                    kernels.score_int8_plain(new_dev, x))}
+            checks += [*same.values(), *kept.values(), *pack_ok.values(),
+                       e._hot_swaps == 1, r.records == SERVE_BATCHES * BATCH,
+                       launches["score_int8"] == r.batches,
+                       sink.ring.dropped == 0]
+            # idle engine: the host cost of a swap, alternating models
+            ts = []
+            for i in range(20):
+                t = time.perf_counter()
+                e.hot_swap(new if i % 2 == 0 else boot)
+                ts.append((time.perf_counter() - t) * 1e6)
+            torch.cuda.synchronize()
+            out[label] = {
+                "swap_at_batch": k, "equal_cpu": same, "kept": kept,
+                "swapped_pack": pack_ok, "launches": launches,
+                "swap_host_us_mid_drain": swap_host_us,
+                "swap_host_us_idle_p50": sorted(ts)[10],
+                "swap_host_us_idle_max": max(ts),
+                "group_hist": r.dispatch["group_hist"]}
+        nosw = served.get("ring_cpu", {}).get(blk, {})
+        out["swap_changed_state"] = (
+            bool(cpu_at) and nosw.get("digest")
+            not in {c["digest"] for c in cpu_at.values()})
+        checks.append(out["swap_changed_state"])
+        # 2. a live swap through watch_artifact: the watched file is
+        #    replaced atomically mid-drain (the throttle skipped), in
+        #    turns with drains that watch nothing
+        big = TrafficGen(TrafficSpec(scenario=Scenario(blk), rate_pps=1e6,
+                                     seed=SEED + 3)).next_records(
+                                         WATCH_BATCHES * BATCH)
+        live = os.path.join(shm_dir, "live_artifact.npz")
+        rates = {"none": [], "swap": []}
+        watch = {}
+        for turn, swap in enumerate((False, True, True, False)):
+            e = Engine(ring_cfg, ArraySource(big.copy()), CollectSink(),
+                       params=boot, device="cuda")
+            e.warm()
+            th = None
+            if swap:
+                logreg.save_params(boot, live)
+                e.watch_artifact(live)
+
+                def push(e=e):
+                    # a pusher that naps, not spins: a spinning thread
+                    # would take the GIL from the dispatch and sink
+                    # threads and slow the drain it is compared on
+                    while e._batches_launched < WATCH_AT:
+                        time.sleep(1e-3)
+                    tmp = logreg.save_params(new, live + ".tmp.npz")
+                    os.replace(tmp, live)
+                    t_ns = time.time_ns() + 10**9
+                    os.utime(live, ns=(t_ns, t_ns))
+                    e._watch_next = 0.0       # skip the 0.5 s throttle
+
+                th = threading.Thread(target=push)
+                th.start()
+            r = e.run()
+            if th is not None:
+                th.join()
+            rates["swap" if swap else "none"].append(r.records_per_s)
+            if swap and turn == 1:
+                k = e._swap_at[0] if e._swap_at else -1
+                cpu = cpu_swapped(ring_cfg, big, boot, new, k)
+                got = state_of(e)
+                same = {f: got[f] == cpu[f]
+                        for f in ("stats", "digest", "blocked")}
+                checks += [*same.values(), e._hot_swaps == 1,
+                           WATCH_AT <= k < WATCH_BATCHES]
+                watch = {"swaps": e._hot_swaps, "swap_at_batch": k,
+                         "equal_cpu": same}
+        out["watch_artifact"] = {
+            **watch, "batches": WATCH_BATCHES,
+            "records_per_s_in_turns": rates,
+            "rate_ratio_swap_over_none": (
+                sum(rates["swap"]) / max(sum(rates["none"]), 1e-9))}
+        # 3. raw48: mlp_robust.npz swapped for the family's default
+        #    PRNGKey(0) params (the same shapes), against the CPU engine
+        c_mlp = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, name="mlp"))
+        recs48 = ring_recs["mixed_l34_1m"][:48 * BATCH]
+        m_boot = load_artifact("mlp", mlp_path)
+        m_new = get_model("mlp").init("cpu")
+        e = Engine(c_mlp, ArraySource(recs48.copy()), CollectSink(),
+                   params=m_boot, device="cuda")
+        e.warm()
+        n_cap = graph.CAPTURES
+        e.run(max_batches=24)
+        e.hot_swap(m_new)
+        e.run()
+        cpu = cpu_swapped(c_mlp, recs48, m_boot, m_new, e._swap_at[0])
+        got = state_of(e)
+        same = {f: got[f] == cpu[f] for f in ("stats", "digest", "blocked")}
+        checks += [*same.values(), e.wire == schema.WIRE_RAW48,
+                   graph.CAPTURES == n_cap]
+        out["raw48_mlp"] = {"swap_at_batch": e._swap_at[0],
+                            "equal_cpu": same, "wire": e.wire}
+        return {"ok": all(checks), **out}
+
+    hot_swap_phase()
+
+    class LoggedTier(SimKernelTier):
+        """The simulated tier, logging the size of every drain it
+        filters: its counters depend on that partition (a source
+        dropped in one drain is a blacklist hit only in later drains)."""
+
+        def filter(self, records):
+            self.polls.append(len(records))
+            return super().filter(records)
+
+    class PolledAs(ArraySource):
+        """An array source that hands out the logged drain sizes, in
+        order: a second engine drains exactly as the first did."""
+
+        def __init__(self, records, sizes):
+            super().__init__(records)
+            self.sizes = list(sizes)
+
+        def poll(self, max_records):
+            return super().poll(self.sizes.pop(0) if self.sizes
+                                else max_records)
+
+    @phase("sim_kernel_tier")
+    def tier_phase():
+        scen = "mixed_l34_1m"
+        recs = ring_recs[scen]
+        plan = load_plan(plan_path)
+        params = logreg.load_params(artifact)
+
+        def tier():
+            t = LoggedTier(plan, block_s=ring_cfg.model.ml_block_s)
+            t.polls = []
+            return t
+
+        out = {"card": card, "scenario": scen, "input_records": len(recs),
+               "plan": "artifacts/logreg_int8_plan.npz"}
+        e0 = Engine(ring_cfg, ArraySource(recs.copy()), CollectSink(),
+                    params=params, device="cuda")
+        e0.warm()
+        r0 = e0.run()
+        e = Recording(ring_cfg, ArraySource(recs.copy()), CollectSink(),
+                      params=params, device="cuda", kernel_tier=tier())
+        e.warm()
+        e.start_log()
+        kernels.reset_launches()              # this path's window opens
+        r = e.run()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)      # ... and closes
+        served["launches_sim_tier"] = launches
+        esc = r.escalation
+        # the CPU engine with the tier, drained in the card's drain sizes
+        # (the deadline flush makes the card's partition the host's
+        # timing): the same escalation block; the step's state equals the
+        # CPU engine fed the batches the card dispatched
+        c = Engine(ring_cfg, PolledAs(recs.copy(), e.kernel_tier.polls),
+                   CollectSink(), params=params, device="cpu",
+                   kernel_tier=tier())
+        with cpu_threads():
+            rc = c.run()
+        rr, er = replay_cpu(e.log)
+
+        def no_hz(d):
+            return {k: v for k, v in d.items() if k != "kernel_drop_hz"}
+
+        same = {"escalation": no_hz(esc) == no_hz(rc.escalation),
+                "drains": c.kernel_tier.polls == e.kernel_tier.polls,
+                "stats": e.stats.to_dict() == er.stats.to_dict(),
+                "table_digest": digest(e) == digest(er),
+                "blacklist": sorted(e.sink.blocked.items())
+                == sorted(er.sink.blocked.items())}
+        checks = [*same.values(), esc["records_in"] == len(recs),
+                  esc["escalated"] == r.records,
+                  launches["score_int8"] == chunks(r) == len(e.log)]
+        polls = e.kernel_tier.polls
+        out.update({
+            "equal": same, "escalation": esc,
+            "cpu_escalation": rc.escalation, "launches": launches,
+            "drains": len(polls),
+            "with_tier": {**per_batch(r),
+                          "input_records_per_s": esc["records_in"]
+                          / max(r.wall_s, 1e-9),
+                          "batches": r.batches},
+            "without_tier": {**per_batch(r0), "batches": r0.batches}})
+        return {"ok": all(checks), **out}
+
+    tier_phase()
+
+    def pcap_frames(n, seed):
+        """A classic capture's frames, built with ``struct``: 48 UDP
+        flood sources at most of the packets, 2,000 benign UDP and TCP
+        SYN sources, and IPv6 flows (the fold of the source words)."""
+        import struct
+
+        r = np.random.default_rng(seed)
+
+        def eth(proto=0x0800):
+            return b"\x02" * 6 + b"\x04" * 6 + struct.pack(">H", proto)
+
+        def ip4(saddr, proto, l4, plen):
+            hdr = bytes([0x45, 0]) + struct.pack(">H", plen - 14) \
+                + b"\x00" * 4 + bytes([64, proto]) + b"\x00\x00" \
+                + struct.pack("<I", saddr) + b"\x01\x02\x03\x04"
+            p = eth() + hdr + l4
+            return p + b"X" * max(0, plen - len(p))
+
+        out = []
+        for _ in range(n):
+            u = r.random()
+            if u < 0.7:
+                plen = int(r.integers(60, 1400))
+                out.append(ip4(0x0A000000 + int(r.integers(0, 48)), 17,
+                               struct.pack(">HHHH", 1234, 53, plen - 34, 0),
+                               plen))
+            elif u < 0.85:
+                plen = int(r.integers(60, 600))
+                out.append(ip4(0x0B000000 + int(r.integers(0, 2000)), 17,
+                               struct.pack(">HHHH", 999, 443, plen - 34, 0),
+                               plen))
+            elif u < 0.95:
+                out.append(ip4(0x0C000000 + int(r.integers(0, 2000)), 6,
+                               struct.pack(">HH", 1234, 80) + b"\x00" * 9
+                               + b"\x02" + b"\x00" * 6, 74))
+            else:
+                words = [int(w) for w in r.integers(0, 1 << 32, 3)]
+                words.append(int(r.integers(0, 64)))
+                plen = 120
+                hdr = b"\x60\x00\x00\x00" + struct.pack(">H", plen - 54) \
+                    + bytes([17, 64]) + b"".join(
+                        struct.pack("<I", w) for w in words) + b"\xaa" * 16
+                p = eth(0x86DD) + hdr + struct.pack(">HHHH", 1, 443,
+                                                    plen - 54, 0)
+                out.append(p + b"X" * (plen - len(p)))
+        blob = struct.pack("<IHHiIII", 0xA1B2C3D4, 2, 4, 0, 0, 65535, 1)
+        parts = [blob]
+        for i, f in enumerate(out):       # 2 µs apart
+            us = i * 2
+            parts.append(struct.pack("<IIII", 1000 + us // 10**6,
+                                     us % 10**6, len(f), len(f)) + f)
+        return b"".join(parts)
+
+    def cli_json(argv):
+        """``cli.main(argv)`` in this process; its JSON stdout."""
+        import io
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        lines = buf.getvalue().strip().splitlines()
+        return rc, (json.loads(lines[-1]) if lines else None)
+
+    PCAP_FRAMES = 100_000
+
+    @phase("pcap_serve")
+    def pcap_phase():
+        cap = os.path.join(shm_dir, "capture.pcap")
+        rec_path = os.path.join(shm_dir, "capture.records")
+        t = time.perf_counter()
+        with open(cap, "wb") as f:
+            f.write(pcap_frames(PCAP_FRAMES, SEED + 11))
+        build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        rc, meta = cli_json(["pcap", cap, rec_path, "--emit-all"])
+        pcap_s = time.perf_counter() - t
+        conf = os.path.join(shm_dir, "pcap_fsx.json")
+        with open(conf, "w") as f:
+            json.dump({"table": {"capacity": TABLE_CAP,
+                                 "salt": SEED & 0xFFFFFFFF},
+                       "batch": {"max_batch": BATCH},
+                       "limiter": {"pps_threshold": 200.0,
+                                   "bps_threshold": 1e9}}, f)
+        argv = ["serve", "--records", rec_path, "--config", conf,
+                "--artifact", artifact, "--json"]
+        warm = Engine.warm
+
+        def warm_then_open(self):
+            warm(self)
+            kernels.reset_launches()          # this path's window opens
+            # (after the CLI's warm: the capture's eager warm-ups and the
+            # masked warm dispatch are not traffic)
+
+        Engine.warm = warm_then_open
+        try:
+            rc_card, card_rep = cli_json(argv)
+        finally:
+            Engine.warm = warm
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)      # ... and closes
+        served["launches_pcap"] = launches
+        with cpu_threads():
+            rc_cpu, cpu_rep = cli_json(argv + ["--device", "cpu"])
+        same = {k: card_rep[k] == cpu_rep[k]
+                for k in ("stats", "blocked_sources", "table", "records")}
+        checks = [rc == 0, rc_card == 0, rc_cpu == 0, *same.values(),
+                  meta["packets_emitted"] == PCAP_FRAMES,
+                  card_rep["device"]["type"] == "cuda",
+                  card_rep["blocked_sources"] > 0,
+                  launches["score_int8"] == card_rep["batches"]]
+        return {"ok": all(checks), "card": card, "frames": PCAP_FRAMES,
+                "capture_bytes": os.path.getsize(cap),
+                "build_s": build_s, "cli_pcap_s": pcap_s, "pcap": meta,
+                "equal_cpu": same, "launches": launches,
+                "card_serve": {k: card_rep[k] for k in (
+                    "batches", "records", "records_per_s", "stats",
+                    "blocked_sources")}}
+
+    pcap_phase()
+
+    @phase("verdict_k_full_fetch")
+    def verdict_k_phase():
+        recs = TrafficGen(TrafficSpec(
+            scenario=Scenario.UDP_FLOOD_MULTI, rate_pps=1e7,
+            n_attack_ips=64, attack_fraction=0.8, seed=SEED + 5)
+        ).next_records(OVERFLOW_BATCHES * BATCH)
+        out, checks = {"card": card, "batches": OVERFLOW_BATCHES}, []
+        served["launches_verdict_k"] = {}
+        for k in (0, 4):
+            c = dataclasses.replace(
+                ring_cfg, batch=dataclasses.replace(ring_cfg.batch,
+                                                    verdict_k=k),
+                limiter=dataclasses.replace(ring_cfg.limiter,
+                                            pps_threshold=200.0,
+                                            bps_threshold=1e9))
+            runs = {}
+            for label, device, mega_n in (("cuda_single", "cuda", 0),
+                                          ("cuda_auto", "cuda", "auto"),
+                                          ("cpu_single", "cpu", 0)):
+                e = Engine(c, ArraySource(recs.copy()), CollectSink(),
+                           params=logreg.load_params(artifact),
+                           device=device, mega_n=mega_n)
+                e.warm()
+                kernels.reset_launches()
+                with (cpu_threads() if device == "cpu"
+                      else contextlib.nullcontext()):
+                    r = e.run()
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    served["launches_verdict_k"][f"k{k}/{label}"] = dict(
+                        kernels.LAUNCHES)
+                runs[label] = {"state": state_of(e), "readback": r.readback,
+                               "batches": r.batches,
+                               "group_hist": r.dispatch["group_hist"]}
+            want = runs["cpu_single"]["state"]
+            res = {}
+            for label in ("cuda_single", "cuda_auto"):
+                rb = runs[label]["readback"]
+                same = {f: runs[label]["state"][f] == want[f]
+                        for f in ("stats", "digest", "blocked")}
+                checks += [*same.values(), rb["fallback_sinks"] > 0]
+                if k == 0:
+                    checks += [rb["mode"] == "full",
+                               rb["compact_sinks"] == 0]
+                res[label] = {"equal_cpu": same,
+                              "d2h_bytes_per_batch": rb["bytes_per_batch"],
+                              "fallback_sinks": rb["fallback_sinks"],
+                              "compact_sinks": rb["compact_sinks"],
+                              "group_hist": runs[label]["group_hist"]}
+            checks.append(len(want["blocked"]) > 8)
+            out[f"verdict_k_{k}"] = {**res, "blocked": len(want["blocked"])}
+        return {"ok": all(checks), **out}
+
+    verdict_k_phase()
+
+    @phase("profile_trace")
+    def profile_phase():
+        import glob
+
+        pdir = os.path.join(REPO, "build", "profile")
+        shutil.rmtree(pdir, ignore_errors=True)
+        rc, rep = cli_json(["serve", "--profile", pdir, "--batches", "64",
+                            "--table-capacity", str(TABLE_CAP), "--json"])
+        traces = sorted(glob.glob(os.path.join(pdir, "*.pt.trace.json")))
+        seen: dict = {}
+        size = 0
+        if traces:
+            size = os.path.getsize(traces[-1])
+            with open(traces[-1]) as f:
+                events = json.load(f).get("traceEvents", [])
+            kern = [ev.get("name", "") for ev in events
+                    if ev.get("cat") == "kernel"]
+            seen = {"kernel_events": len(kern),
+                    "table_summary_kernel": sum(
+                        "table_summary_kernel" in n for n in kern),
+                    "score_int8_kernel": sum(
+                        "score_int8_kernel" in n for n in kern),
+                    "graph_launches": sum(
+                        ev.get("name", "") == "cudaGraphLaunch"
+                        for ev in events)}
+        ok = (rc == 0 and bool(traces) and rep["batches"] == 64
+              and seen.get("table_summary_kernel", 0) >= 1
+              and (seen.get("score_int8_kernel", 0) >= 64
+                   or seen.get("graph_launches", 0) >= 64))
+        return {"ok": ok, "card": card, "trace": traces[-1:],
+                "trace_bytes": size, "seen": seen,
+                "score_int8_named": seen.get("score_int8_kernel", 0) > 0}
+
+    profile_phase()
+
+    @phase("restore_2p20")
+    def restore_phase():
+        engines = served.get("engines") or []
+        src = engines[-1]                     # mixed_l34_1m: the fuller table
+        path = os.path.join(shm_dir, "restore_2p20.npz")
+        t = time.perf_counter()
+        src.checkpoint(path)
+        save_s = time.perf_counter() - t
+        e = Engine(src.cfg, ArraySource(ring_recs["mixed_l34_1m"][:0]),
+                   CollectSink(), device="cuda")
+        e.warm()                              # graphs captured first
+        n_cap = graph.CAPTURES
+        ptrs = (e.table.key_rows.data_ptr(), e.table.state_rows.data_ptr())
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            info = e.restore(path)
+            times.append(time.perf_counter() - t)
+        checks = [digest(e) == digest(src),
+                  e.stats.to_dict() == src.stats.to_dict(),
+                  ptrs == (e.table.key_rows.data_ptr(),
+                           e.table.state_rows.data_ptr()),
+                  graph.CAPTURES == n_cap, info["crc_checked"]]
+        return {"ok": all(checks), "card": card,
+                "rows": src.cfg.table.capacity,
+                "tracked": int((src.table.key != 0).sum()),
+                "file_bytes": os.path.getsize(path), "save_s": save_s,
+                "restore_s": times, "equal_source": checks[0]}
+
+    restore_phase()
+
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
         ``flush`` runs between calls, outside the timed region."""
@@ -2044,11 +2605,15 @@ def main() -> int:
         s_host = host_us(score, 200)
         s_dev = device_us(score, 50, "score_int8_kernel")
         s_lib_dev = device_us(library, 50)
-        s_bytes = b * 8 * 4 + 16 * 4 + b * 4   # x, the params, out
+        # x, the ScoreArgs struct (read from device memory), out
+        s_bytes = b * 8 * 4 + kernels.SCORE_ARGS_WORDS * 4 + b * 4
         sb, sby = bound(s_bytes, b * 64)
         score_row = {
             "name": "score_int8", "route": "cuda",
             "source": "flowsentryx_tpu_torch/csrc/score_int8.cu",
+            "design": "parameters, weights and output table in a device "
+                      "buffer (ScorePack), staged per block into shared "
+                      "memory",
             "replaces": "flowsentryx_tpu/ops/pallas_kernels.py:101",
             "launches": launches.get("score_int8", 0),
             # the serve_mega_auto path's window, and launches per graph
@@ -2201,7 +2766,13 @@ def main() -> int:
             **{f"latency_plane/{k}": w for k, w in
                served.get("launches_latency", {}).items()},
             "slo_pulse": served.get("launches_slo_pulse", {}),
-            "predict_pulse": served.get("launches_predict_pulse", {})}
+            "predict_pulse": served.get("launches_predict_pulse", {}),
+            **{f"hot_swap_live/{k}": w for k, w in
+               served.get("launches_hot_swap", {}).items()},
+            "sim_kernel_tier": served.get("launches_sim_tier", {}),
+            "pcap_serve": served.get("launches_pcap", {}),
+            **{f"verdict_k_full_fetch/{k}": w for k, w in
+               served.get("launches_verdict_k", {}).items()}}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}

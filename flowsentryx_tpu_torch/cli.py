@@ -1,4 +1,5 @@
-"""Command line of the port: ``python -m flowsentryx_tpu_torch.cli serve``.
+"""Command line of the port: ``python -m flowsentryx_tpu_torch.cli serve``
+and ``... cli pcap``.
 
 Counterpart of the reference's ``fsx serve``: builds an
 :class:`~.engine.Engine` on the card (or on the CPU with ``--device
@@ -21,8 +22,19 @@ forecaster), ``--watchdog-s S`` sets the stall bound and
 the latency, health and (with ``--predict``) predict blocks.  ``--checkpoint`` saves table, stats and
 clock at exit (and every ``--checkpoint-every`` seconds); ``--restore``
 resumes from a checkpoint, adopting its salt and (unless a capacity is
-given) its capacity before the engine is built.  Flag combinations are
-refused before boot, as the reference refuses them.
+given) its capacity before the engine is built.  ``--artifact-reload``
+hot-swaps ``--artifact`` whenever its file changes (no drain, no new
+capture); ``--verdict-k K`` sets the compact verdict wire's slots (0:
+the full block arrays every batch); ``--sim-kernel-tier PLAN`` puts the
+simulated kernel tier of a distill plan in front of the engine (the
+report's ``escalation`` block); ``--profile DIR`` writes a
+``torch.profiler`` trace of the serve (host and card) that Perfetto or
+TensorBoard opens.  Flag combinations are refused before boot, as the
+reference refuses them.
+
+``pcap CAPTURE OUT`` turns a classic pcap into a file of 48-byte flow
+records (the kernel's parse and streaming features, :mod:`.engine.pcap`)
+that ``serve --records`` replays.
 """
 
 from __future__ import annotations
@@ -67,6 +79,9 @@ def _refuse(args: argparse.Namespace) -> str | None:
         return ("--quarantine-dir requires --ingest-workers N (>= 1): "
                 "sealed-slot validation happens on the sharded-ingest "
                 "dequeue path")
+    if args.verdict_k is not None and args.verdict_k < 0:
+        return ("--verdict-k must be >= 0 (0 disables the compact verdict "
+                "wire)")
     if args.slo_us < 0:
         return ("--slo-us must be >= 0 (0 = throughput-tuned serving, no "
                 "latency budget)")
@@ -74,6 +89,13 @@ def _refuse(args: argparse.Namespace) -> str | None:
         return ("--predict requires --slo-us > 0: the governor's flush, "
                 "hold and pre-warm decisions are all phrased against the "
                 "latency budget")
+    if args.sim_kernel_tier and args.ingest_workers:
+        return ("--sim-kernel-tier needs the inline record path; "
+                "sealed-batch ingest bypasses the record stream (deploy "
+                "the real tier via fsx distill --pin instead)")
+    if args.artifact_reload and not args.artifact:
+        return ("--artifact-reload requires --artifact PATH (it hot-swaps "
+                "that file when its mtime changes)")
     if args.watchdog_s is not None and args.watchdog_s < 0:
         return "--watchdog-s must be >= 0 (0 disables)"
     if args.verdict_ring and not args.feature_ring:
@@ -145,6 +167,13 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     if args.model:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, name=args.model))
+    if args.verdict_k is not None:
+        try:
+            cfg = dataclasses.replace(cfg, batch=dataclasses.replace(
+                cfg.batch, verdict_k=args.verdict_k))
+        except ValueError as e:
+            print(f"serve: --verdict-k: {e}", file=sys.stderr)
+            return 1
     if args.table_capacity:
         from flowsentryx_tpu_torch.engine.table import validate_capacity
 
@@ -228,10 +257,16 @@ def _cmd_serve(args: argparse.Namespace) -> int:
               "artifacts/logreg_int8.npz) or drop --mega", file=sys.stderr)
         return 1
     try:
+        kernel_tier = None
+        if args.sim_kernel_tier:
+            kernel_tier = _load_kernel_tier(args, cfg, source)
+            if kernel_tier is None:
+                return 1
         eng = Engine(cfg, source, sink, params=params, device=device,
                      mega_n=args.mega, slo_us=args.slo_us,
                      predict=args.predict, watchdog_s=args.watchdog_s,
-                     sink_thread=False if args.no_sink_thread else None)
+                     sink_thread=False if args.no_sink_thread else None,
+                     kernel_tier=kernel_tier)
         if args.restore:
             try:
                 eng.restore(args.restore)
@@ -239,8 +274,12 @@ def _cmd_serve(args: argparse.Namespace) -> int:
                 print(f"serve: cannot restore: {e} — refusing to serve "
                       "from garbage", file=sys.stderr)
                 return 1
+        if args.artifact_reload:
+            # live model swap: re-stat the artifact and swap it in
+            # mid-serve when its mtime changes
+            eng.watch_artifact(args.artifact)
         eng.warm()
-        rep = _serve(eng, args)
+        rep = _profiled(eng, args, device)
     finally:
         if hasattr(source, "close"):
             source.close()   # stop and join the ingest worker fleet
@@ -249,6 +288,53 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         rep = rep._replace(ingest=source.ingest_stats())
     print(json.dumps(rep._asdict(), indent=None if args.json else 2))
     return 0
+
+
+def _load_kernel_tier(args, cfg, source):
+    """``--sim-kernel-tier PLAN``: the simulated kernel tier of a distill
+    plan, or None after announcing why it cannot be built."""
+    import zipfile
+
+    from flowsentryx_tpu_torch.distill import SimKernelTier, load_plan
+
+    if getattr(source, "precompact", False):
+        print("serve: --sim-kernel-tier cannot rescore a compact-emit "
+              "feature ring (records arrive kernel-quantized); serve a "
+              "48 B ring or deploy the real tier via fsx distill --pin",
+              file=sys.stderr)
+        return None
+    try:
+        return SimKernelTier(load_plan(args.sim_kernel_tier),
+                             block_s=cfg.model.ml_block_s)
+    # ValueError covers DistillError and np.load's complaints about a
+    # corrupt or pickled payload; BadZipFile is what a non-zip raises
+    except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
+        print(f"serve: cannot load the distill plan "
+              f"{args.sim_kernel_tier!r}: {e} (generate one with fsx "
+              "distill ARTIFACT --out PLAN.npz)", file=sys.stderr)
+        return None
+
+
+def _profiled(eng, args, device):
+    """:func:`_serve`, under ``torch.profiler`` with ``--profile DIR``
+    (host activity, and the card's kernels when serving on it): the
+    trace lands in DIR as ``<host>_<pid>.<ms>.pt.trace.json``, a Chrome
+    trace that Perfetto opens and TensorBoard's profiler plugin reads."""
+    if not args.profile:
+        return _serve(eng, args)
+    from torch.profiler import (
+        ProfilerActivity, profile, tensorboard_trace_handler,
+    )
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(args.profile)):
+        rep = _serve(eng, args)
+    print(f"serve: profiler trace written to {args.profile}",
+          file=sys.stderr)
+    return rep
 
 
 def _serve(eng, args):
@@ -283,6 +369,25 @@ def _serve(eng, args):
     wall = time.perf_counter() - t0
     return rep._replace(wall_s=round(wall, 4), records_per_s=round(
         rep.records / max(wall, 1e-9), 1))
+
+
+def _cmd_pcap(args: argparse.Namespace) -> int:
+    """Convert a capture to flow records (the kernel's parse and its
+    streaming features).  The output file holds raw 48-byte
+    ``fsx_flow_record`` structs, which ``serve --records`` replays."""
+    from flowsentryx_tpu_torch.engine import pcap
+
+    tracker = pcap.FlowTracker(emit_all=args.emit_all)
+    rec = pcap.pcap_to_records(args.pcap, emit_all=args.emit_all,
+                               limit=args.limit or None, tracker=tracker)
+    Path(args.out).write_bytes(rec.tobytes())
+    print(json.dumps({
+        "packets_emitted": int(len(rec)),
+        "flows": len(tracker.flows),  # (saddr, dport) flow keys
+        "out": args.out,
+        "bytes": len(rec) * rec.dtype.itemsize,
+    }))
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -358,6 +463,33 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--quarantine-dir", metavar="DIR",
                    help="spool refused sealed batches here (count-only "
                         "without it)")
+    s.add_argument("--artifact-reload", action="store_true",
+                   help="watch --artifact's mtime and hot-swap the model "
+                        "live when the file changes: no drain, no new "
+                        "capture, in-flight dispatches finish on the old "
+                        "model (the same family and shapes, and on the "
+                        "compact16 wire the same input observer; a bad "
+                        "push is announced and serving continues on the "
+                        "incumbent)")
+    s.add_argument("--verdict-k", type=int, default=None, metavar="K",
+                   help="compact verdict-wire slots per batch (overrides "
+                        "the config's batch.verdict_k, default 64): the "
+                        "step compacts newly blocked flows into a K-slot "
+                        "readback, falling back to the full block arrays "
+                        "only on overflow; 0 fetches the full block "
+                        "arrays every batch")
+    s.add_argument("--sim-kernel-tier", metavar="PLAN",
+                   help="simulate the distilled kernel tier in front of the "
+                        "engine with this fsx-distill plan (.npz): "
+                        "confident-attack records drop (plus a simulated "
+                        "blacklist TTL), confident-benign records are "
+                        "suppressed, only the uncertain band reaches the "
+                        "step; per-band counters land in the report's "
+                        "escalation block. Record path only (no "
+                        "--ingest-workers / compact-emit rings)")
+    s.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler trace of the serve (host "
+                        "and, on the card, its kernels) to this directory")
     s.add_argument("--checkpoint", help="save table, stats and clock here "
                                         "on exit")
     s.add_argument("--checkpoint-every", type=float, default=0,
@@ -370,6 +502,16 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--json", action="store_true",
                    help="print the report as one JSON line")
     s.set_defaults(fn=_cmd_serve)
+
+    pc = sub.add_parser("pcap", help="convert a capture to flow records")
+    pc.add_argument("pcap", help="classic-pcap capture file")
+    pc.add_argument("out", help="output file (raw fsx_flow_record structs)")
+    pc.add_argument("--emit-all", action="store_true",
+                    help="emit every packet (default: kernel gating — "
+                         "every packet while young, then every 16th)")
+    pc.add_argument("--limit", type=int, default=0,
+                    help="stop after N emitted records")
+    pc.set_defaults(fn=_cmd_pcap)
     return ap
 
 

@@ -37,7 +37,11 @@ from flowsentryx_tpu_torch.core.wire import (  # noqa: F401
     BATCHQ_SEQ_LO_WORD, BATCHQ_SLOT_HDR_WORDS, BATCHQ_WIRE_ID_WORD,
     COMPACT_RECORD_DTYPE, COMPACT_RECORD_SIZE, COMPACT_RECORD_WORDS,
     FLAG_ICMP, FLAG_IPV6, FLAG_TCP, FLAG_TCP_SYN, FLAG_UDP,
-    FLOW_RECORD_DTYPE, FLOW_RECORD_SIZE, NUM_FEATURES,
+    FLOW_RECORD_DTYPE, FLOW_RECORD_SIZE, ML_BAND_DISABLED, ML_BAND_DROP,
+    ML_BAND_ESCALATE, ML_BAND_PASS, ML_BOUNDS_PER_FEATURE,
+    ML_MODEL_ACC_DROP_OFFSET, ML_MODEL_ACC_PASS_OFFSET,
+    ML_MODEL_BOUNDS_OFFSET, ML_MODEL_FLAGS_OFFSET, ML_MODEL_QBASE_OFFSET,
+    ML_MODEL_SIZE, ML_MODEL_VALID_OFFSET, ML_MODEL_W_OFFSET, NUM_FEATURES,
     RANGE_DEPLOY_HORIZON_S, RANGE_DT_US_MAX, RANGE_FEAT_Q8_MAX,
     RANGE_FLAGS_MAX, RANGE_LEN8_MAX, RANGE_PKT_LEN_MAX, RECORD_WORDS,
     SHM_BATCHQ_MAGIC, SHM_CAPACITY_OFFSET, SHM_EMIT_DROP_OFFSET,

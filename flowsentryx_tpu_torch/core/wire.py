@@ -88,6 +88,31 @@ RANGE_DT_US_MAX = 0xFFFF
 RANGE_DEPLOY_HORIZON_S = 1 << 22
 
 
+# ---------------------------------------------------------------------------
+# The kernel tier's model map (the distilled classifier, ``fsx distill``)
+# ---------------------------------------------------------------------------
+# ``struct fsx_ml_model``: the packed plan the XDP scorer bands packets
+# with (:mod:`flowsentryx_tpu_torch.distill.plan`).  The accumulator
+# thresholds fold the input zero point in, so the kernel compares the raw
+# weighted rank sum.
+
+ML_BOUNDS_PER_FEATURE = 255  # one boundary per reachable quant step
+ML_MODEL_VALID_OFFSET = 0
+ML_MODEL_FLAGS_OFFSET = 4
+ML_MODEL_ACC_DROP_OFFSET = 8
+ML_MODEL_ACC_PASS_OFFSET = 16
+ML_MODEL_W_OFFSET = 24
+ML_MODEL_QBASE_OFFSET = 56
+ML_MODEL_BOUNDS_OFFSET = 88
+ML_MODEL_SIZE = ML_MODEL_BOUNDS_OFFSET + 4 * 8 * ML_BOUNDS_PER_FEATURE  # 8248
+
+#: The kernel scorer's band codes (``FSX_ML_BAND_*`` in C).
+ML_BAND_PASS = 0       # confident benign: XDP_PASS, emit suppressed
+ML_BAND_ESCALATE = 1   # uncertain: emit the record, the engine decides
+ML_BAND_DROP = 2       # confident attack: blacklist + XDP_DROP
+ML_BAND_DISABLED = 3   # no model pushed: behave exactly pre-ML
+
+
 def quantize_feat_model(
     feat: np.ndarray, in_scale: float, in_zp: int, log1p: bool
 ) -> np.ndarray:

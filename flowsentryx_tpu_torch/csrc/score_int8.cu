@@ -18,17 +18,21 @@
 //   dot is summed across the row's eight lanes with __shfl_xor_sync.
 // * 128-thread blocks of 16 rows: 128 blocks at B=2048, on 128 SMs.
 // * The output stage is a 256-entry table indexed by q_y, the only value
-//   the sigmoid sees.  ops/kernels.py pack_score_params builds it once
-//   with the plain version's own arithmetic on the params' device, so it
-//   equals the plain version by construction; the group leader does one
-//   fma, one division, one rint, a clip and the lookup (no expf and two
-//   divisions fewer than a per-row sigmoid).
-// * Parameters, weights and table travel by value in one
-//   __grid_constant__ argument struct (1,060 B, in the constant bank): no
-//   dependent first loads from global memory.  The weights are two packed
-//   words read uniformly and unpacked in registers, so the eight lanes do
-//   not make divergent constant-bank reads; the table is read by the four
-//   leaders of a warp only (at most four addresses).
+//   the sigmoid sees.  ops/kernels.py pack_score_params builds it with the
+//   plain version's own arithmetic, so it equals the plain version by
+//   construction; the group leader does one fma, one division, one rint,
+//   a clip and the lookup (no expf and two divisions fewer than a
+//   per-row sigmoid).
+// * Parameters, weights and table (one ScoreArgs, 1,060 B) live in a
+//   device buffer that the pack owns for the engine's life, and the
+//   kernel takes its address.  A captured CUDA graph holds only that
+//   address, so a live model swap rewrites the buffer in place (one
+//   async copy on the step's stream, between two replays) and no graph
+//   is captured again.  Each block stages the struct into shared memory
+//   once, after issuing its own batch load: one dependent 1 KB read per
+//   block, from L2 after the first block.  The weights are two packed
+//   words read uniformly and unpacked in registers; the table is read by
+//   the four leaders of a warp only (at most four addresses).
 //
 // Bit-exactness is the design constraint (the plain PyTorch version and
 // the reference must agree to the bit).  Every rounding step is written
@@ -124,16 +128,30 @@ __device__ __forceinline__ float clip_u8(float v) {
   return fminf(fmaxf(v, 0.0f), 255.0f);
 }
 
+constexpr int kArgsWords = sizeof(ScoreArgs) / 4;
+static_assert(sizeof(ScoreArgs) % 4 == 0, "ScoreArgs is staged by words");
+
 __global__ void __launch_bounds__(kThreads)
 score_int8_kernel(const float* __restrict__ x, float* __restrict__ out,
-                  long long b, const __grid_constant__ ScoreArgs a) {
+                  long long b, const ScoreArgs* __restrict__ args) {
+  __shared__ ScoreArgs a;
   const long long t = static_cast<long long>(blockIdx.x) * kThreads
                       + threadIdx.x;
   const long long row = t / kLanes;
   const int k = static_cast<int>(t % kLanes);
+  // the batch load first, so it is in flight while the block stages
+  // the parameters
+  float v = row < b ? __ldg(x + t) : 0.0f;
+  {
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(args);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(&a);
+    for (int i = threadIdx.x; i < kArgsWords; i += kThreads) {
+      dst[i] = __ldg(src + i);
+    }
+  }
+  __syncthreads();
   int prod = 0;
   if (row < b) {
-    float v = __ldg(x + t);
     if (a.log1p) v = xla_log1p(v);
     const float q = clip_u8(__fadd_rn(rintf(__fdiv_rn(v, a.in_scale)),
                                       a.in_zp));
@@ -179,7 +197,8 @@ extern "C" int fsx_score_args_size() {
   return static_cast<int>(sizeof(ScoreArgs));
 }
 
-// args: host pointer to a ScoreArgs, copied into the launch by value.
+// args: device pointer to a ScoreArgs (the pack's buffer, 4-byte
+// aligned), read by every block of the launch.
 extern "C" int fsx_score_int8(const void* x, void* out, long long b,
                               const void* args, void* stream) {
   if (b > 0) {
@@ -187,7 +206,7 @@ extern "C" int fsx_score_int8(const void* x, void* out, long long b,
     score_int8_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<float*>(out), b,
-        *static_cast<const ScoreArgs*>(args));
+        static_cast<const ScoreArgs*>(args));
   }
   return static_cast<int>(cudaGetLastError());
 }

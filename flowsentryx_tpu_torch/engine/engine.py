@@ -11,8 +11,10 @@ batch -> dispatch -> reap) or the sealed-batch loop (``_run_sealed``:
 stage -> dispatch -> reap, for :class:`~flowsentryx_tpu_torch.ingest
 .ShardedIngest`), single-batch dispatch and backlog-triggered grouping
 (``mega_n=N`` or ``"auto"``, compact16 only), :meth:`Engine.checkpoint`
-/ :meth:`Engine.restore` and :meth:`Engine.reset_stream`.  Not ported
-yet: the drain ring, the compile cache, hot swap and the cluster planes
+/ :meth:`Engine.restore`, :meth:`Engine.reset_stream`, the live model
+swap (:meth:`Engine.hot_swap`, :meth:`Engine.watch_artifact`) and the
+simulated kernel tier (``kernel_tier=``, ``EngineReport.escalation``).
+Not ported yet: the drain ring, the compile cache and the cluster planes
 (ROADMAP queue 1 orders what follows).
 
 Two threads, as in the reference: the **dispatch thread** (the caller of
@@ -85,6 +87,22 @@ boundary on the card:
 The table and stats are captured into every graph by address, so
 :meth:`Engine.restore` copies a checkpoint INTO them rather than
 rebinding them (the reference rebinds).
+
+**Live model swap** (:meth:`Engine.hot_swap`, ``serve
+--artifact-reload``): the reference's swap is one reference assignment,
+because its jitted step takes the params as an argument.  On the card
+the graphs hold the params tensors and the int8 scorer's argument buffer
+(:class:`~..ops.kernels.ScorePack`) by address, so a swap copies the new
+values INTO them, on the step's stream, between two launches (it takes
+the launch lock): a dispatch launched before it scores with the old
+model and one launched after it with the new, by stream order, and no
+graph is captured again.  The copies go from pinned staging, so the host
+waits for no work in flight.  Every value a captured step derives from
+the params on the host — the compact16 wire's input observer, which the
+batcher, the ingest workers and the step's decode table were built from,
+and the leaves' shapes and dtypes — is held fixed by
+:func:`~..models.registry.validate_swap`.  On the CPU the swap rebinds
+the params, as the reference does.
 """
 
 from __future__ import annotations
@@ -94,6 +112,7 @@ import os
 import sys
 import threading
 import time
+import zipfile
 from collections import deque
 from typing import Any, NamedTuple
 
@@ -117,7 +136,9 @@ from flowsentryx_tpu_torch.engine.writeback import (
     BlacklistUpdate, decode_verdict_wire, extract_updates,
 )
 from flowsentryx_tpu_torch.models import logreg
-from flowsentryx_tpu_torch.models.registry import get_model
+from flowsentryx_tpu_torch.models.registry import (
+    get_model, load_artifact, validate_swap,
+)
 from flowsentryx_tpu_torch.ops import fused, kernels
 from flowsentryx_tpu_torch.ops.graph import StepGraph
 from flowsentryx_tpu_torch.sync import tuning
@@ -166,6 +187,10 @@ class EngineReport(NamedTuple):
     health: dict | None = None
     #: The predictive governor's report; None unless ``predict=True``.
     predict: dict | None = None
+    #: The simulated kernel tier's band counters (``kernel_drops``,
+    #: ``blacklist_hits``, ``kernel_passes``, ``escalated``, the
+    #: escalation ratio) and ``kernel_drop_hz``; None without a tier.
+    escalation: dict | None = None
 
 
 class _InFlight(NamedTuple):
@@ -228,7 +253,13 @@ class Engine:
     ``slo_us``: the feature -> verdict budget of latency-budget dispatch
     (0 = off).  ``predict``: the burst forecaster (needs ``slo_us``).
     ``watchdog_s``: the stall bound (None = ``tuning.WATCHDOG_STALL_S``,
-    0 disables)."""
+    0 disables).
+
+    ``kernel_tier``: a simulated kernel tier
+    (:class:`~flowsentryx_tpu_torch.distill.sim.SimKernelTier`:
+    ``filter(records) -> records`` and ``report() -> dict``) that
+    band-splits the drained records before the batcher, where the XDP
+    stage splits them; record path only."""
 
     def __init__(
         self,
@@ -246,6 +277,7 @@ class Engine:
         slo_us: int = 0,
         predict: bool = False,
         watchdog_s: float | None = None,
+        kernel_tier: Any | None = None,
     ):
         bad = unsupported(cfg)
         if bad:
@@ -265,6 +297,18 @@ class Engine:
         self.cfg = cfg
         self.source = source
         self.sink = sink
+        self.kernel_tier = kernel_tier
+        if kernel_tier is not None:
+            if getattr(source, "provides_sealed", False):
+                raise ValueError(
+                    "kernel_tier needs the inline record path; sealed-"
+                    "batch ingest bypasses the record stream (run the "
+                    "real kernel tier via fsx distill --pin instead)")
+            if getattr(source, "precompact", False):
+                raise ValueError(
+                    "kernel_tier cannot rescore a compact-emit ring: "
+                    "records arrive kernel-quantized; the distilled "
+                    "bands are defined on raw u32 features")
         if mega_n == "auto":
             mega_auto = True
             mega_n = MEGA_AUTO_MAX
@@ -428,6 +472,20 @@ class Engine:
         if watchdog_s is None:
             watchdog_s = tuning.WATCHDOG_STALL_S
         self._watchdog = DispatchWatchdog(watchdog_s)
+        # -- the live model swap -------------------------------------------
+        #: Held by every launch and by hot_swap: a swap from another
+        #: thread lands between two dispatches, never inside one.
+        self._launch_lock = threading.Lock()
+        #: Real batches launched (masked warm-ups not counted), and the
+        #: count at each swap: the batch index the swap landed at.
+        self._batches_launched = 0
+        self._swap_at: list[int] = []
+        self._hot_swaps = 0
+        #: Pinned sources of the last swap's copies, with their event.
+        self._swap_staging: tuple | None = None
+        self._watch_path: str | None = None
+        self._watch_mtime = 0
+        self._watch_next = 0.0
 
     def _new_batcher(self, t0_ns: int) -> MicroBatcher:
         # a batcher buffer may be reused only after its batch is staged:
@@ -534,26 +592,29 @@ class Engine:
         t_l = time.perf_counter()
         n = max(rung, 1)
         slot = self._n_dispatched % self._n_slots
-        if self._cuda:
-            gr = self._graphs[rung]
-            gr.input.copy_(x, non_blocking=True)
-            t_p = time.perf_counter()
-            gr.replay()
-            wire = None
-            if self.verdict_k:
-                wire = self._wire_host[slot]
-                wire.copy_(gr.out.wire, non_blocking=True)
-            blocks = self._blocks_slot[slot][:gr.keep.shape[0]]
-            blocks.copy_(gr.keep, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            if arena_slot is not None:
-                self._arena_event[arena_slot] = event
-        else:
-            t_p = t_l
-            fn = self.step if rung == _SINGLE else self.megasteps[rung]
-            _, _, out = fn(self.table, self.stats, self.params, x)
-            wire, blocks, event = out.wire, fused.block_record(out), None
+        with self._launch_lock:
+            if self._cuda:
+                gr = self._graphs[rung]
+                gr.input.copy_(x, non_blocking=True)
+                t_p = time.perf_counter()
+                gr.replay()
+                wire = None
+                if self.verdict_k:
+                    wire = self._wire_host[slot]
+                    wire.copy_(gr.out.wire, non_blocking=True)
+                blocks = self._blocks_slot[slot][:gr.keep.shape[0]]
+                blocks.copy_(gr.keep, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                if arena_slot is not None:
+                    self._arena_event[arena_slot] = event
+            else:
+                t_p = t_l
+                fn = self.step if rung == _SINGLE else self.megasteps[rung]
+                _, _, out = fn(self.table, self.stats, self.params, x)
+                wire, blocks, event = out.wire, fused.block_record(out), None
+            if n_records:
+                self._batches_launched += n
         t_d = time.perf_counter()
         self._n_dispatched += 1
         self._group_hist[n] = self._group_hist.get(n, 0) + 1
@@ -820,7 +881,9 @@ class Engine:
         heartbeat, then (with a sink thread) the hand-over and a crash
         check, or (without) a sink of every dispatch the device has
         finished, oldest first — coalesced: a shallow pipe sinks at most
-        every ``_min_sink_gap_s``."""
+        every ``_min_sink_gap_s``.  Every serving loop passes here, so
+        the artifact watcher's throttled check runs first."""
+        self._maybe_reload_artifact()
         self._watchdog.check(self._busy_depth())
         if self._gov is not None:
             now = time.perf_counter()
@@ -841,6 +904,84 @@ class Engine:
             return
         while self._inflight and self._ready(self._inflight[0]):
             self._sink_one(self._inflight.popleft())
+
+    # -- the live model swap --------------------------------------------------
+
+    def hot_swap(self, params) -> None:
+        """Serve ``params`` (the same family, leaf shapes and dtypes, and
+        on a compact16 ``model``-mode wire the same input observer:
+        :func:`~..models.registry.validate_swap`, which raises
+        ``ValueError`` otherwise) from the next launch on, without a
+        drain and without a new capture.  Dispatches launched before the
+        swap finish on the old model.  Safe from any thread: it takes the
+        launch lock, so it lands between two dispatches.
+
+        On the card every params tensor and the int8 scorer's argument
+        buffer are rewritten in place on the step's stream from pinned
+        staging (:func:`~..ops.kernels.repack_score_params`); the graphs,
+        which hold them by address, replay the new model.  On the CPU
+        the params are rebound, as in the reference."""
+        validate_swap(self.params, params, self.quant)
+        with self._launch_lock:
+            if self._cuda:
+                with torch.cuda.device(self.device), \
+                        torch.cuda.stream(self._stream):
+                    staged = [t.detach().to("cpu").pin_memory()
+                              for t in params]
+                    for dst, src in zip(self.params, staged):
+                        dst.copy_(src, non_blocking=True)
+                    if self.score_params is not None:
+                        kernels.repack_score_params(self.score_params,
+                                                    params, self._stream)
+                    event = torch.cuda.Event()
+                    event.record()
+                self._swap_staging = (staged, event)
+            else:
+                self.params = type(params)(*(t.to(self.device)
+                                             for t in params))
+                if self.score_params is not None:
+                    kernels.repack_score_params(self.score_params,
+                                                self.params)
+            self._hot_swaps += 1
+            self._swap_at.append(self._batches_launched)
+
+    def watch_artifact(self, path: str) -> None:
+        """Live artifact reload (``serve --artifact-reload``): the serving
+        loops re-stat ``path`` at most twice a second and
+        :meth:`hot_swap` it when its mtime changes.  A failed reload (a
+        half-written file, another family) is announced on stderr and
+        serving continues on the incumbent model: fail-open."""
+        self._watch_path = str(path)
+        try:
+            self._watch_mtime = os.stat(self._watch_path).st_mtime_ns
+        except OSError:
+            self._watch_mtime = 0
+        self._watch_next = 0.0
+
+    def _maybe_reload_artifact(self) -> None:
+        if self._watch_path is None:
+            return
+        t = time.monotonic()
+        if t < self._watch_next:
+            return
+        self._watch_next = t + 0.5
+        try:
+            m = os.stat(self._watch_path).st_mtime_ns
+        except OSError:
+            return  # mid-replace or gone; try again next tick
+        if m == self._watch_mtime:
+            return
+        self._watch_mtime = m
+        try:
+            self.hot_swap(load_artifact(self.cfg.model.name,
+                                        self._watch_path))
+            print(f"fsx engine: hot-swapped artifact {self._watch_path} "
+                  f"(swap #{self._hot_swaps})", file=sys.stderr)
+        # BadZipFile: a non-atomic deploy caught mid-write hands np.load
+        # a partial zip (a later poll picks up the finished file)
+        except (ValueError, KeyError, OSError, zipfile.BadZipFile) as e:
+            print("fsx engine: artifact reload failed (serving continues "
+                  f"on the incumbent model): {e}", file=sys.stderr)
 
     # -- the sink thread -----------------------------------------------------
 
@@ -1045,10 +1186,16 @@ class Engine:
                 else:
                     self._set_t0(int(records["ts_ns"][0]))
             if n_polled:
+                # the idle backoff and the governor see the link's
+                # arrivals, before the kernel tier drops any
                 self._last_arrival_t = time.perf_counter()
                 if self._gov is not None:
                     self._gov.note_arrivals(self._last_arrival_t, n_polled)
-            if not n_polled:
+                if self.kernel_tier is not None:
+                    # the (simulated) kernel tier splits records where
+                    # XDP would: after the drain, before the batcher
+                    records = self.kernel_tier.filter(records)
+            if not len(records):
                 sealed = []
                 if self.precompact:
                     # a drain opportunity with no records: the wrap-risk
@@ -1066,7 +1213,9 @@ class Engine:
             self.metrics.fill.add(time.perf_counter() - t)
             if self.mega_n > 0:
                 # backlog-triggered grouping: a short poll (no backlog
-                # behind the pending batches) flushes them down the ladder
+                # behind the pending batches) flushes them down the
+                # ladder; judged pre-filter: a flood the kernel tier
+                # mostly drops is still a deep backlog
                 self._pending.extend(sealed)
                 self._drain_pending(short=n_polled < requested)
             else:
@@ -1315,6 +1464,13 @@ class Engine:
         ingest = (self.source.ingest_stats()
                   if self.sealed and hasattr(self.source, "ingest_stats")
                   else None)
+        escalation = None
+        if self.kernel_tier is not None:
+            escalation = self.kernel_tier.report()
+            escalation["kernel_drop_hz"] = round(
+                (escalation.get("kernel_drops", 0)
+                 + escalation.get("blacklist_hits", 0)) / max(wall, 1e-9),
+                1)
         return EngineReport(
             batches=self.batcher.batches_emitted,
             records=self.batcher.records_emitted,
@@ -1338,4 +1494,5 @@ class Engine:
                 ingest=ingest, watchdog=self._watchdog.to_dict(),
                 restore_fallbacks=self._restore_fallbacks),
             predict=self._gov.report() if self._gov is not None else None,
+            escalation=escalation,
         )

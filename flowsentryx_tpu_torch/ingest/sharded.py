@@ -55,15 +55,18 @@ from flowsentryx_tpu_torch.sync.channel import WorkerCrash
 #: counting; the dumps and prints stop.
 QUARANTINE_SPOOL_CAP = 32
 
-#: Worker busy-spin budget after its ring goes empty, µs (only spent
-#: when the host has cores for it: ``n_cpus >= n_workers + 2``), and
-#: its sleep per empty poll after that (the daemon's 200 µs).
+#: Worker busy-spin budget after its ring goes empty, µs (the default
+#: of ``spin_us=None`` where the host has cores for it: ``n_cpus >=
+#: n_workers + 2``), and its sleep per empty poll after that (the
+#: daemon's 200 µs, the default ``idle_us``).
 SPIN_US_DEFAULT = 150
 IDLE_US = 200
 
-#: How long the engine and a worker wait for a ring or queue to appear.
+#: Default ``timeout_s``: how long the engine and a worker wait for a
+#: ring or queue to appear.
 TIMEOUT_S = 10.0
-#: A live worker whose heartbeat is older than this is reported stalled.
+#: Default ``heartbeat_timeout_s``: a live worker whose heartbeat is
+#: older than this is reported stalled.
 HEARTBEAT_TIMEOUT_S = 2.0
 
 
@@ -123,26 +126,37 @@ class ShardedIngest:
         n_workers: int,
         *,
         queue_slots: int = 8,
+        timeout_s: float = TIMEOUT_S,
+        heartbeat_timeout_s: float = HEARTBEAT_TIMEOUT_S,
         t0_grace_s: float = 0.5,
         precompact: bool | None = None,
+        spin_us: int | None = None,
+        idle_us: int = IDLE_US,
         strict: bool = False,
         quarantine_dir: str | Path | None = None,
     ):
         if n_workers < 1:
             raise ValueError("n_workers must be >= 1")
+        if spin_us is None:
+            # AUTO: a spinning worker needs a core to burn; with fewer
+            # cores than workers + engine + one spare the spin only
+            # steals cycles from the dispatch it is trying to feed
+            n_cpus = len(os.sched_getaffinity(0))
+            spin_us = SPIN_US_DEFAULT if n_cpus >= n_workers + 2 else 0
+        if spin_us < 0 or idle_us < 0:
+            raise ValueError("spin_us/idle_us must be >= 0")
         if platform.system() != "Linux":
             # seal/e2e accounting assumes perf_counter == CLOCK_MONOTONIC
             raise RuntimeError("ShardedIngest requires Linux")
         self.ring_base = str(ring_base)
         self.n_workers = n_workers
         self.queue_slots = queue_slots
-        # the worker's idle policy (``worker._Backoff``), written into
-        # each queue's ctl block before the worker spawns: a spinning
-        # worker needs a core to burn, so it spins only where the host
-        # has one for each worker, the engine and a spare
-        n_cpus = len(os.sched_getaffinity(0))
-        self.spin_us = SPIN_US_DEFAULT if n_cpus >= n_workers + 2 else 0
-        self.idle_us = IDLE_US
+        #: The worker's idle policy (``worker._Backoff``), written into
+        #: each queue's ctl block before the worker spawns.
+        self.spin_us = int(spin_us)
+        self.idle_us = int(idle_us)
+        self.timeout_s = timeout_s
+        self.heartbeat_timeout_s = heartbeat_timeout_s
         self.t0_grace_s = t0_grace_s
         #: Crash posture.  False — the reference's documented default —
         #: is per-shard fail-open: a dead worker's queue drains to
@@ -163,7 +177,7 @@ class ShardedIngest:
         # the probe so a harness can spawn the fleet BEFORE its
         # producer exists and measure from a ready state.
         self.precompact = (
-            self._probe_record_size(self.ring_paths[0], TIMEOUT_S)
+            self._probe_record_size(self.ring_paths[0], timeout_s)
             == schema.COMPACT_RECORD_SIZE
         ) if precompact is None else bool(precompact)
         self._queues: list[SealedBatchQueue] = []
@@ -272,7 +286,7 @@ class ShardedIngest:
                 "deadline_us": batch_cfg.deadline_us,
                 "wire": wire,
                 "quant": dict(quant) if quant else None,
-                "timeout_s": TIMEOUT_S,
+                "timeout_s": self.timeout_s,
             }
             p = ctx.Process(
                 target=worker_main, args=(spec,),
@@ -372,7 +386,7 @@ class ShardedIngest:
                 continue
             hbeat = q.ctl_get("hbeat")
             if (p.is_alive() and hbeat
-                    and now_ns - hbeat > HEARTBEAT_TIMEOUT_S * 1e9):
+                    and now_ns - hbeat > self.heartbeat_timeout_s * 1e9):
                 self._stalled.add(k)
             else:
                 self._stalled.discard(k)

@@ -106,6 +106,20 @@ def load_params(path: str, device: str | torch.device = "cpu"
         return params_from_numpy({k: z[k] for k in z.files}, device)
 
 
+#: The artifact schema :func:`save_params` writes (the reference's).
+ARTIFACT_SCHEMA_VERSION = 2
+
+
+def save_params(params: LogRegParams, path: str) -> str:
+    """Write ``params`` as a reference ``.npz`` artifact (schema v2, the
+    reference's ``save_params`` layout); returns the path written
+    (``.npz`` appended if missing)."""
+    path = path if path.endswith(".npz") else path + ".npz"
+    np.savez(path, **params_to_numpy(params),
+             schema_version=ARTIFACT_SCHEMA_VERSION)
+    return path
+
+
 # ---------------------------------------------------------------------------
 # Scoring (plain PyTorch)
 # ---------------------------------------------------------------------------

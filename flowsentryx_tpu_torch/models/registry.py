@@ -7,7 +7,8 @@ form) and ``logreg_int8_pallas`` (its Pallas kernel) are bit-identical by
 test, so one kernel serves the pair.  ``logreg_float``, ``mlp`` and
 ``multiclass`` are plain torch ops rounded as the reference's XLA:CPU
 graph rounds them (``models/logreg.py::classify_float``,
-``models/mlp.py``, ``models/multiclass.py``).
+``models/mlp.py``, ``models/multiclass.py``).  :func:`validate_swap`
+holds a live model swap to the reference's refusals.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
+from flowsentryx_tpu_torch.core import wire
 from flowsentryx_tpu_torch.models import logreg, mlp, multiclass
 from flowsentryx_tpu_torch.ops import kernels
 
@@ -65,6 +68,49 @@ def load_artifact(name: str, path: str, device="cpu"):
             f"{path!r} is not a {name!r} artifact (fields don't match the "
             f"family's schema: {e}); set model.name in the config to the "
             "family the artifact was trained as") from e
+
+
+def _leaf_dtype(leaf) -> str:
+    """A leaf's dtype by its numpy name (``int8``, ``float32``, ...)."""
+    if isinstance(leaf, torch.Tensor):
+        return str(leaf.dtype).removeprefix("torch.")
+    return np.dtype(getattr(leaf, "dtype", type(leaf))).name
+
+
+def validate_swap(served, params, quant: dict | None) -> None:
+    """The reference's ``Engine.hot_swap`` refusals
+    (``flowsentryx_tpu/engine/engine.py:2323-2353``), in its words:
+    ``params`` may replace the ``served`` model only as a
+    re-parameterization of what the engine has built.  Raises
+    ``ValueError`` on a different family (params type), on a leaf whose
+    shape or dtype differs, and — when ``quant`` is a ``model``-mode
+    compact16 quantizer, which the batcher, the ingest workers and the
+    step's decode table were built from — on any drift of the input
+    observer (``in_scale``, ``in_zp``, ``log1p``)."""
+    if type(params) is not type(served):
+        raise ValueError(
+            "hot_swap: artifact tree structure differs from the "
+            "served model (different family?); boot a fresh engine")
+    for i, (a, b) in enumerate(zip(served, params)):
+        sa, sb = tuple(np.shape(a)), tuple(np.shape(b))
+        da, db = _leaf_dtype(a), _leaf_dtype(b)
+        if sa != sb or da != db:
+            raise ValueError(
+                f"hot_swap: params leaf {i} is {db}{list(sb)}, "
+                f"served model has {da}{list(sa)} — a shape/dtype "
+                "change would retrace the step mid-serve")
+    if quant and quant.get("feat_mode") == "model":
+        nq = wire.model_quant_args(type(params)(*(
+            t.cpu() if isinstance(t, torch.Tensor) else t for t in params)))
+        drift = {k: (quant.get(k), nq[k])
+                 for k in ("in_scale", "in_zp", "log1p")
+                 if nq[k] != quant.get(k)}
+        if drift:
+            raise ValueError(
+                "hot_swap: the compact16 wire quantizes with the "
+                "boot artifact's input observer, but the new "
+                f"artifact's differs: {drift}; serve raw48 or "
+                "reboot with the new artifact")
 
 
 for _name in ("logreg_int8", "logreg_int8_pallas"):

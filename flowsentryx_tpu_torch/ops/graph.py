@@ -23,10 +23,16 @@ caller must respect:
   same stream.
 * **Addresses are fixed at capture.**  The table, stats and params
   tensors are captured by address: the owner must never rebind them.
-* **Scorer arguments are fixed at capture.**  ``score_int8`` passes its
-  ``ScoreArgs`` struct by value (``ops/kernels.py``), so the weights and
-  the output table are baked into the graph's kernel node: new params
-  mean a new capture.
+* **Params are read by address too.**  The float scorers read their
+  params tensors, and ``score_int8`` reads its weights, scalars and
+  output table from the engine's :class:`~.kernels.ScorePack` buffer,
+  whose address is the only thing the kernel node holds.  New params are
+  copied INTO those tensors and that buffer on the replay stream
+  (``Engine.hot_swap``): a replay enqueued after the copy scores with
+  them, and no graph is captured again.  What the step derives from the
+  params on the host at capture (the wire's input observer, the leaves'
+  shapes) must not change; ``models/registry.py::validate_swap`` refuses
+  a swap that would change it.
 * **Launch counting.**  A kernel wrapper counts a launch in its host
   code, which runs once, at capture.  The capture's counts are taken
   back and recorded as :attr:`StepGraph.launches`; each :meth:`replay`
@@ -45,6 +51,9 @@ from flowsentryx_tpu_torch.ops import fused, kernels
 
 #: Warm-up runs of the eager function before a capture.
 WARMUPS = 3
+
+#: Graphs captured in this process (a swap or a restore must add none).
+CAPTURES = 0
 
 
 class StepGraph:
@@ -76,6 +85,8 @@ class StepGraph:
                 fn(table, stats, params, self.input)
         torch.cuda.current_stream(dev).wait_stream(side)
         before = dict(kernels.LAUNCHES)
+        global CAPTURES
+        CAPTURES += 1
         self.graph = torch.cuda.CUDAGraph()
         try:
             # thread-local: another thread's CUDA calls (another

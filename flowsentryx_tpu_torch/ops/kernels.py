@@ -9,8 +9,9 @@ kernel               replaces (Pallas TPU kernel)                     source
 ``segment_sum_seq``  none (the reference's in-order scatter-add)       ``csrc/segment_sum_seq.cu``
 ===================  ===============================================  ============================
 
-``score_int8`` runs eight lanes per row with its parameters and a
-256-entry output table passed by value (:func:`pack_score_params`);
+``score_int8`` runs eight lanes per row and reads its parameters and a
+256-entry output table from a device buffer whose address is fixed for
+its owner's life (:class:`ScorePack`, :func:`repack_score_params`);
 ``table_summary`` reads keys as 16-byte words, four rows per lane, then
 spreads the tracked bits across the warp with ballots so that its
 predicated state loads are coalesced, all issued before any is consumed.
@@ -65,7 +66,7 @@ LAUNCHES: dict[str, int] = {"score_int8": 0, "table_summary": 0,
 _SOURCES = {"score_int8": "score_int8.cu", "table_summary": "table_summary.cu",
             "segment_sum_seq": "segment_sum_seq.cu"}
 _ARGTYPES = {
-    # x, out, b, &ScoreArgs, stream
+    # x, out, b, device ScoreArgs*, stream
     "score_int8": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_void_p],
     # key, state, n, row_stride, now, stale_s, counts, newest_bits, stream
@@ -186,8 +187,8 @@ def _check(rc: int, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 class _ScoreArgs(ctypes.Structure):
-    """``ScoreArgs`` of ``csrc/score_int8.cu``, passed to the kernel by
-    value (1,060 B, in the constant bank)."""
+    """``ScoreArgs`` of ``csrc/score_int8.cu`` (1,060 B): the kernel
+    reads it from a device buffer (:class:`ScorePack`)."""
 
     _fields_ = [("in_scale", ctypes.c_float), ("in_zp", ctypes.c_float),
                 ("s", ctypes.c_float), ("bias", ctypes.c_float),
@@ -196,38 +197,101 @@ class _ScoreArgs(ctypes.Structure):
                 ("w_hi", ctypes.c_uint32), ("table", ctypes.c_float * 256)]
 
 
-class ScorePack(NamedTuple):
-    """:func:`score_int8`'s parameters, packed once per params."""
-
-    args: _ScoreArgs       # the kernel's argument struct (host memory)
-    args_ptr: int          # its address, passed to every launch
-    table: torch.Tensor    # [256] f32 score per output code q_y
-    device: torch.device   # the params' device
+#: ``ScoreArgs`` in 32-bit words, and the word its output table starts at.
+SCORE_ARGS_WORDS = ctypes.sizeof(_ScoreArgs) // 4
+_TABLE_WORD = _ScoreArgs.table.offset // 4
 
 
-def pack_score_params(params: logreg.LogRegParams) -> ScorePack:
-    """Pack ``params`` for the kernel: the scalars, the eight int8
-    weights as two little-endian words, ``s = in_scale * w_scale`` in
-    f32, and the output table — :func:`~..models.logreg.score_from_code`
-    of every code 0..255, computed on the params' device with the plain
-    version's own arithmetic, so a lookup equals the plain output there.
-    Reads the params on the host (one copy); the owner of the params
-    packs once (the engine, at construction) and passes the pack to
-    :func:`score_int8`."""
-    device = params.out_scale.device
-    table = logreg.score_from_code(
-        params, torch.arange(256, dtype=torch.float32, device=device))
+class ScorePack:
+    """:func:`score_int8`'s parameters in device memory, owned for the
+    life of their user (the engine).
+
+    :attr:`buf` is the ``ScoreArgs`` struct as ``[265]`` int32 words on
+    the params' device; every launch passes its address
+    (:attr:`args_ptr`), which never changes, so a captured graph reads
+    whatever the buffer holds when it replays.  :func:`repack_score_params`
+    rewrites the contents in place.  :attr:`args` is the host image of
+    the last packing (a ctypes view of its staging words) and
+    :attr:`table` the ``[256]`` f32 output table inside :attr:`buf`.  On
+    the CPU (the plain path, which never reads it) the buffer is a host
+    tensor.
+
+    Why a buffer and not the launch: with the struct passed by value,
+    every captured graph held the boot model in its kernel node, and a
+    live swap would have to capture every graph again (the counterpart
+    of the recompile the reference's swap avoids) or patch the nodes
+    with ``cudaGraphExecKernelNodeSetParams`` (PyTorch's ``CUDAGraph``
+    does not reliably hand out the nodes of its executable graph)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._cuda = device.type == "cuda"
+        self.buf = torch.zeros(SCORE_ARGS_WORDS, dtype=torch.int32,
+                               device=device)
+        self.args_ptr = self.buf.data_ptr()
+        self.table = self.buf[_TABLE_WORD:].view(torch.float32)
+        self.args: _ScoreArgs | None = None
+        #: The last packing's host words, and the event of their copy.
+        self._staging: torch.Tensor | None = None
+        self.event = None
+
+
+def _pack_words(params: logreg.LogRegParams, cuda: bool) -> torch.Tensor:
+    """``ScoreArgs`` of ``params`` as ``[265]`` int32 host words (pinned
+    for a copy to the card): the scalars, the eight int8 weights as two
+    little-endian words, ``s = in_scale * w_scale`` in f32, and the
+    output table — :func:`~..models.logreg.score_from_code` of every
+    code 0..255 with the plain version's own arithmetic, on the host
+    (the same bits as on the card: it is IEEE float32 and float64 ops
+    only, each rounded once)."""
     h = logreg.params_to_numpy(params)
-    words = np.ascontiguousarray(h["w_int8"].astype(np.int8)).view("<u4")
-    args = _ScoreArgs(
-        in_scale=float(h["in_scale"]), in_zp=float(h["in_zp"]),
-        s=float(np.float32(h["in_scale"]) * np.float32(h["w_scale"])),
-        bias=float(h["bias"]), out_scale=float(h["out_scale"]),
-        out_zp=float(h["out_zp"]), log1p=int(h["log1p"] > 0),
-        w_lo=int(words[0]), w_hi=int(words[1]))
-    args.table[:] = table.cpu().tolist()
-    return ScorePack(args=args, args_ptr=ctypes.addressof(args), table=table,
-                     device=device)
+    host = logreg.params_from_numpy(h)
+    table = logreg.score_from_code(host, torch.arange(256,
+                                                      dtype=torch.float32))
+    words = torch.zeros(SCORE_ARGS_WORDS, dtype=torch.int32,
+                        pin_memory=cuda)
+    a = _ScoreArgs.from_address(words.data_ptr())
+    w = np.ascontiguousarray(h["w_int8"].astype(np.int8)).view("<u4")
+    a.in_scale, a.in_zp = float(h["in_scale"]), float(h["in_zp"])
+    a.s = float(np.float32(h["in_scale"]) * np.float32(h["w_scale"]))
+    a.bias, a.out_scale = float(h["bias"]), float(h["out_scale"])
+    a.out_zp, a.log1p = float(h["out_zp"]), int(h["log1p"] > 0)
+    a.w_lo, a.w_hi = int(w[0]), int(w[1])
+    words[_TABLE_WORD:].view(torch.float32).copy_(table)
+    return words
+
+
+def repack_score_params(pack: ScorePack, params: logreg.LogRegParams,
+                        stream=None) -> None:
+    """Write ``params`` into ``pack``'s buffer IN PLACE: packed on the
+    host into fresh pinned staging, then ONE async copy on ``stream``
+    (default: the current stream), so launches enqueued before it read
+    the old contents and launches after it the new, by stream order, and
+    the host waits for nothing.  The staging is kept (with the copy's
+    event) until the next repack; the pinned allocator also holds it
+    until the event fires.  :attr:`ScorePack.args_ptr` never changes."""
+    words = _pack_words(params, pack._cuda)
+    if pack._cuda:
+        with torch.cuda.device(pack.device), torch.cuda.stream(
+                stream or torch.cuda.current_stream(pack.device)):
+            pack.buf.copy_(words, non_blocking=True)
+            pack.event = torch.cuda.Event()
+            pack.event.record()
+    else:
+        pack.buf.copy_(words)
+    pack._staging = words
+    pack.args = _ScoreArgs.from_address(words.data_ptr())
+
+
+def pack_score_params(params: logreg.LogRegParams,
+                      stream=None) -> ScorePack:
+    """A new :class:`ScorePack` on the params' device holding ``params``
+    (:func:`repack_score_params`).  Reads the params on the host (one
+    copy); the owner of the params packs once (the engine, at
+    construction) and passes the pack to :func:`score_int8`."""
+    pack = ScorePack(params.out_scale.device)
+    repack_score_params(pack, params, stream)
+    return pack
 
 
 def score_int8_plain(params: logreg.LogRegParams,

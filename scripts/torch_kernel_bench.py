@@ -9,9 +9,10 @@ checkout), so the same script times another revision of the kernels and
 their wrappers: unpack that revision with ``git archive`` into a
 directory that ``.gitignore`` lists and pass it as ``--tree``.  Runs of
 two trees in one call, in turns (A, B, B, A), compare the designs on
-one card.  Only the wrappers' public API is used
-(``build_all``, ``pack_score_params``, ``score_int8``,
-``table_summary_counts``), which both designs share.
+one card.  Only what both designs share is used: the wrappers' public
+API (``build_all``, ``pack_score_params``, ``score_int8``,
+``table_summary_counts``) and the engine's captured single step
+(``Engine._graphs[0]``, ``StepGraph.replay``).
 
 Per kernel, at the shapes the served path gives it:
 
@@ -28,7 +29,10 @@ it prints ``device_ms`` (the kernel's own time, ``torch.profiler``),
 ``event_ms`` (CUDA events per call: back to back for the scorer, one
 flushed call at a time for the summary; launch gaps included),
 ``host_us_per_call`` (the wrapper's enqueue time) and whether the result
-equals the plain version.  Needs a CUDA device; exits 2 without one.
+equals the plain version; and, beside each table, the engine's captured
+single step replayed back to back on a batch of that scenario (device
+busy ms per batch from ``torch.profiler``, event ms per batch).  Needs a
+CUDA device; exits 2 without one.
 Imports nothing of JAX.
 """
 
@@ -194,6 +198,38 @@ def main() -> int:
             "event_ms": flushed_time(summary, 30, flush),
             "host_us_per_call": host_us(summary, 100),
         }
+        # the captured single step (golden params on syn_benign_mix, the
+        # pallas lane's on mixed_l34_1m) replayed back to back on a real
+        # batch of the scenario: the step's device ms per batch, and its
+        # event ms (launch gaps included)
+        gr = e._graphs[0]
+        srec = TrafficSource(TrafficSpec(scenario=Scenario(scen),
+                                         rate_pps=1e6, seed=SEED + 1),
+                             total=BATCH).poll(BATCH)
+        gr.input.copy_(schema.wire_to_tensor(schema.encode_compact(
+            srec, BATCH, int(srec["ts_ns"][0]), **e.quant)).to(dev))
+
+        def replay():
+            gr.replay()
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                replay()
+            torch.cuda.synchronize()
+        spans = sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in prof.events()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA)
+        busy, hi = 0, None
+        for a, b in spans:
+            if hi is None or a > hi:
+                busy += b - a
+                hi = b
+            elif b > hi:
+                busy += b - hi
+                hi = b
+        out["table_summary"][scen]["step"] = {
+            "device_busy_ms_per_batch": busy / 20 / 1e3,
+            "event_ms_per_batch": back_to_back(replay, 100)}
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

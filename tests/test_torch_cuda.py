@@ -821,3 +821,147 @@ def test_warm_seeds_ewma_for_every_captured_rung(cuda):
     r = e.run()
     assert r.dispatch["slo"]["rung_ewma_ms"] == {
         str(k): round(v * 1e3, 4) for k, v in sorted(seed.items())}
+
+
+# -- the live model swap: the scorer's parameters in device memory ----------
+
+
+def _derived_params(seed=5, device="cpu"):
+    """``logreg_int8.npz``'s input observer with other weights and bias
+    (a second artifact the compact16 model wire accepts as a swap)."""
+    h = dict(np.load(ARTIFACT))
+    rng = np.random.default_rng(seed)
+    h["w_int8"] = rng.integers(-127, 128, 8).astype(np.int8)
+    h["bias"] = np.float32(h["bias"] + rng.normal())
+    return logreg.params_from_numpy(h, device)
+
+
+@pytest.mark.parametrize("name", ["golden", "log1p"])
+def test_score_int8_repacked_in_place_matches_plain(cuda, name):
+    """The kernel reads the pack's device buffer: after a repack with
+    other params (same buffer, same address) it equals the plain
+    version of the new params, and after a repack back the old."""
+    tp = (logreg.golden_params(cuda) if name == "golden"
+          else logreg.load_params(ARTIFACT, cuda))
+    new = _derived_params(device=cuda)
+    packed = kernels.pack_score_params(tp)
+    ptr = packed.args_ptr
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 2e6, (4099, 8)).astype(np.float32)).to(cuda)
+    assert torch.equal(kernels.score_int8(tp, x, packed),
+                       kernels.score_int8_plain(tp, x))
+    for p in (new, tp, new):
+        kernels.repack_score_params(packed, p)
+        assert packed.args_ptr == ptr == packed.buf.data_ptr()
+        assert torch.equal(kernels.score_int8(p, x, packed),
+                           kernels.score_int8_plain(p, x))
+        codes = torch.arange(256, dtype=torch.float32, device=cuda)
+        assert torch.equal(packed.table, logreg.score_from_code(p, codes))
+
+
+def test_swap_between_rung_replays_recaptures_nothing(cuda):
+    """``mega_n="auto"``: serve, swap, serve on.  The engine's graphs are
+    the same objects, none is captured again, the scorer's buffer and the
+    params tensors keep their addresses, and the result equals the CPU
+    engine (singles) swapped at the same batch index."""
+    rec = TrafficGen(TrafficSpec(scenario=Scenario.UDP_FLOOD_MULTI,
+                                 rate_pps=1e7, n_attack_ips=32,
+                                 seed=29)).next_records(40 * 2048)
+    cfg = _ring_cfg()
+    e = Engine(cfg, ArraySource(rec.copy()), CollectSink(),
+               params=logreg.load_params(ARTIFACT), device="cuda",
+               mega_n="auto")
+    e.warm()
+    graphs = dict(e._graphs)
+    n_captures = graph.CAPTURES
+    ptrs = [t.data_ptr() for t in e.params] + [e.score_params.args_ptr]
+    e.run(max_batches=17)          # whole rung-8 groups: 24 batches
+    e.hot_swap(_derived_params())
+    r = e.run()
+    assert e._hot_swaps == 1 and len(e._swap_at) == 1
+    assert e._graphs == graphs and graph.CAPTURES == n_captures
+    assert ptrs == [t.data_ptr() for t in e.params] + [
+        e.score_params.args_ptr]
+    assert r.dispatch["group_hist"].get("8", 0) > 0
+    c = Engine(cfg, ArraySource(rec.copy()), CollectSink(),
+               params=logreg.load_params(ARTIFACT), device="cpu")
+    c.run(max_batches=e._swap_at[0])
+    c.hot_swap(_derived_params())
+    rc = c.run()
+    assert (r.stats, e.sink.blocked, _digest(e)) == (
+        rc.stats, c.sink.blocked, _digest(c))
+
+
+def test_dispatch_before_a_swap_scores_with_the_old_model(cuda):
+    """The step's stream is held by a ``torch.cuda._sleep`` while one
+    batch is dispatched, the model swapped, and a second batch
+    dispatched: the first (still queued at the swap) scores with the old
+    model and the second with the new, by stream order.  The card's
+    wires and state equal the CPU engine's for that sequence, which
+    differs both from swapping before the first batch and from never
+    swapping (each batch's model shows in the result)."""
+    params = logreg.load_params(ARTIFACT)
+    raws, _ = _compact_batches(params, 2, 2048, "udp_flood_multi", seed=7)
+    cfg = _ring_cfg()
+    out = {}
+    for device, swap_at in (("cuda", 1), ("cpu", 1), ("cpu", 0),
+                            ("cpu", None)):
+        e = _WireLog(cfg, ArraySource(np.zeros(0, schema.FLOW_RECORD_DTYPE)),
+                     CollectSink(), params=params, device=device,
+                     sink_thread=False)
+        e.wires = []
+        e.warm()
+        if device == "cuda":
+            torch.cuda._sleep(int(1e9))       # ~0.5 s of the stream
+        for i, raw in enumerate(raws):
+            if swap_at == i:
+                if device == "cuda":
+                    # the first batch is still queued behind the sleep
+                    assert not e._inflight[0].event.query()
+                e.hot_swap(_derived_params())
+            e._dispatch(raw.copy())
+        e._reap(0)
+        out[(device, swap_at)] = (e.stats.to_dict(), e.sink.blocked,
+                                  _digest(e), e.wires)
+    assert out[("cuda", 1)][:3] == out[("cpu", 1)][:3]
+    for a, b in zip(out[("cuda", 1)][3], out[("cpu", 1)][3]):
+        np.testing.assert_array_equal(a, b)
+    assert out[("cpu", 1)][:3] != out[("cpu", 0)][:3]
+    assert out[("cpu", 1)][:3] != out[("cpu", None)][:3]
+
+
+def test_swap_from_a_second_thread_mid_drain_equals_cpu_replay(cuda):
+    """An operator thread swaps while the card engine drains (sink
+    thread on): the swap lands between two dispatches, at the batch
+    index it records, and the run equals the CPU engine swapped at that
+    index."""
+    rec = TrafficGen(TrafficSpec(scenario=Scenario.UDP_FLOOD_MULTI,
+                                 rate_pps=1e7, n_attack_ips=32,
+                                 seed=31)).next_records(48 * 2048)
+    cfg = _ring_cfg()
+    new = _derived_params()
+    e = Engine(cfg, ArraySource(rec.copy()), CollectSink(),
+               params=logreg.load_params(ARTIFACT), device="cuda",
+               sink_thread=True)
+    e.warm()
+
+    def operator():
+        while e._batches_launched < 12:
+            time.sleep(0)
+        e.hot_swap(new)
+
+    t = threading.Thread(target=operator)
+    t.start()
+    r = e.run()
+    t.join()
+    assert e._hot_swaps == 1 and len(e._swap_at) == 1
+    k = e._swap_at[0]
+    assert 12 <= k < 48
+    c = Engine(cfg, ArraySource(rec.copy()), CollectSink(),
+               params=logreg.load_params(ARTIFACT), device="cpu",
+               sink_thread=False)
+    c.run(max_batches=k)
+    c.hot_swap(new)
+    rc = c.run()
+    assert (r.stats, e.sink.blocked, _digest(e)) == (
+        rc.stats, c.sink.blocked, _digest(c))

@@ -157,8 +157,9 @@ def test_new_host_modules_are_checked():
     the shared-memory transport, the ingest fleet and worker, the arena,
     the checkpoint, table and durable-write modules, the latency plane,
     the sink channel and its timing table, the watchdog, the health
-    ladder, the governor, the methodology module and the threefry are
-    among them."""
+    ladder, the governor, the methodology module, the threefry, the
+    distill plan loader, the simulated kernel tier and the pcap reader
+    are among them."""
     names = {".".join(p.relative_to(REPO).with_suffix("").parts)
              for p in _port_sources()}
     for m in ("core.wire", "core.durable", "engine.shm", "engine.arena",
@@ -166,7 +167,8 @@ def test_new_host_modules_are_checked():
               "ingest.worker", "ingest.__init__", "core.prng",
               "engine.metrics", "engine.watchdog", "engine.health",
               "engine.predict", "sync.__init__", "sync.channel",
-              "sync.tuning", "benchmarks"):
+              "sync.tuning", "benchmarks", "distill.__init__",
+              "distill.plan", "distill.sim", "engine.pcap"):
         assert f"flowsentryx_tpu_torch.{m}" in names, m
 
 

@@ -525,3 +525,46 @@ def test_cli_serves_feature_ring_through_workers(tmp_path, capsys):
             (["--verdict-ring", vpath], "requires --feature-ring")):
         assert cli.main(["serve", "--device", "cpu"] + argv) == 1
         assert msg in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_idle_policy_and_timeouts_reach_the_fleet(tmp_path, pkg):
+    """``spin_us``, ``idle_us``, ``timeout_s`` and
+    ``heartbeat_timeout_s`` are the fleet's parameters: the idle policy
+    is in each queue's ctl block before its worker spawns, and both
+    packages hold the same values (and refuse a negative one alike)."""
+    base = str(tmp_path / "r")
+    shard_rings(shm, base, make_records(64), 2)
+    ing = fleet(pkg, base, 2, wire.WIRE_RAW48, spin_us=7, idle_us=11,
+                timeout_s=3.5, heartbeat_timeout_s=0.25)
+    try:
+        assert (ing.spin_us, ing.idle_us) == (7, 11)
+        assert (ing.timeout_s, ing.heartbeat_timeout_s) == (3.5, 0.25)
+        for q in ing._queues:
+            assert q.ctl_get("spin_us") == 7 and q.ctl_get("idle_us") == 11
+    finally:
+        ing.request_stop()
+        ing.close()
+    cls = PKGS[pkg][1]
+    for kw in ({"spin_us": -1}, {"idle_us": -1}):
+        with pytest.raises(ValueError, match="spin_us/idle_us must be >= 0"):
+            cls(base, 2, precompact=False, **kw)
+
+
+def test_spin_auto_matches_reference(tmp_path, monkeypatch):
+    """``spin_us=None`` is AUTO in both packages: the spin budget only
+    where the host has a core for each worker, the engine and a spare."""
+    import os
+
+    base = str(tmp_path / "r")
+    shard_rings(shm, base, make_records(64), 2)
+    for cpus in (2, 3, 4, 16):
+        monkeypatch.setattr(os, "sched_getaffinity",
+                            lambda _pid, n=cpus: set(range(n)))
+        port = ShardedIngest(base, 2, precompact=False)
+        ref = JShardedIngest(base, 2, precompact=False)
+        assert port.spin_us == ref.spin_us
+        assert port.idle_us == ref.idle_us == 200
+        assert (port.timeout_s, port.heartbeat_timeout_s) == (
+            ref.timeout_s, ref.heartbeat_timeout_s)
+    assert port.spin_us > 0
