@@ -9,7 +9,7 @@ final ``{"ok": true, ...}`` line is never printed).  Engines run with
 the defaults a user gets: the sink thread where the host has 3 cores or
 more.
 
-1. ``nvidia-smi`` name and power limit; build the three kernels from
+1. ``nvidia-smi`` name and power limit; build the four kernels from
    ``flowsentryx_tpu_torch/csrc/`` (one ``nvcc`` per source, in
    parallel) into ``build/kernels/``.
 2. ``score_int8`` kernel vs its plain version on the card, exact:
@@ -179,9 +179,48 @@ more.
     table's checkpoint into a card engine whose graphs are captured, at
     2^20 rows, timed three times; equal to the source, pointers kept.
 
+29. ``score_stages``: the scorer's input stage (``score_quant_u8``) and
+    tail (``score_tail``), check entries built from the kernel's own
+    device functions, against their plain versions on the card, exactly:
+    golden params and ``logreg_int8.npz`` over the model-mode decode
+    grid, 2^20 random u32 values and ``compile_plan``'s replay edges; the
+    tail over each params' whole reachable accumulator range; and
+    ``score_int8`` at the evaluation shapes B = 65,536 and 45,407.
+30. ``train_qat_deployed``: the deployed recipe (``fsx train --data
+    fixture --slow-weight 4``) at full size on the card: the 2,520,798-row
+    fixture (its sha256 pinned to the reference's), QAT 200 epochs on
+    2,016,639 rows (``gemv_seq`` once per epoch: the weight gradient's
+    FMA chain, held to its plain version at that shape); the artifact
+    within the reference's cross-trainer tolerances of
+    ``artifacts/logreg_int8.npz``, test F1 within 0.003 of
+    its recorded 0.938693 (``artifacts/logreg_int8.json``), the test
+    split scored through ``score_int8`` in 8 launches, byte-equal to the
+    plain version; fixture, train, epoch and evaluate times, an epoch's
+    device ops and busy ms (``torch.profiler``), and host ms per epoch
+    with and without the per-epoch ``float(loss)``.
+31. ``train_mlp_robust`` and 32. ``train_multiclass``: ``stress``'s robust
+    MLP (v2 fixture 300,000 rows plus two shift-augmented copies, 80
+    epochs) and expert heads (60 epochs) on the card, held to
+    ``MODEL_METRICS_r05.json`` (clean F1 within 0.01; binary F1 and
+    per-class recall within 0.02); ms per step and total seconds.
+33. ``distill_compile``: ``compile_plan`` on the card through the stage
+    entries for golden params, ``logreg_int8.npz`` (equal to the
+    committed ``artifacts/logreg_int8_plan.npz``) and the artifact phase
+    30 trained, each equal to the CPU compile; the served lane
+    (``score_int8``) bands the reference's ``--emulate`` corpus as each
+    plan does (0 mismatches); card and CPU compile seconds.
+34. ``train_distill_serve``: the trained artifact served on the card
+    (2^20 rows, B = 2048, ``syn_benign_mix``, 64 batches of records)
+    behind the simulated kernel tier of its fresh plan: escalation,
+    stats, blacklist and table digest equal the CPU engine on the same
+    drains; ``score_int8`` once per batch, ``table_summary`` once.
+
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
-also with the log1p artifact on raw48 rows): ``ms`` (CUDA events, host
+also with the log1p artifact on raw48 rows, and at the training path's
+evaluation chunk, B = 65,536 rows, with the trained artifact;
+``gemv_seq`` on the QAT epoch's operands at 2,016,639 rows, its plain
+version on the host, ``torch.mv`` its library call): ``ms`` (CUDA events, host
 launch gaps included), ``device_ms`` (the kernel's own time from
 ``torch.profiler``),
 ``host_us_per_call`` (the wrapper's enqueue time), the plain version,
@@ -294,7 +333,8 @@ def main() -> int:
                             "artifacts", "logreg_int8.npz")
     mlp_path = os.path.join(os.path.dirname(artifact), "mlp_robust.npz")
     mc_path = os.path.join(os.path.dirname(artifact), "multiclass.npz")
-    errs = {"score_int8": 0.0, "table_summary": 0.0, "segment_sum_seq": 0.0}
+    errs = {"score_int8": 0.0, "table_summary": 0.0, "segment_sum_seq": 0.0,
+            "gemv_seq": 0.0}
 
     @phase("build")
     def build():
@@ -2525,6 +2565,370 @@ def main() -> int:
 
     restore_phase()
 
+    # -- training and the distill compiler ------------------------------------
+
+    from flowsentryx_tpu_torch.distill import parity
+    from flowsentryx_tpu_torch.distill import plan as dplan
+    from flowsentryx_tpu_torch.train import (
+        data as tdata, evaluate, fixture as tfixture, qat, stress,
+    )
+
+    chip_dir = os.path.join(REPO, "build", "chip")
+    os.makedirs(chip_dir, exist_ok=True)
+    with open(os.path.join(REPO, "MODEL_METRICS_r05.json")) as f:
+        metrics_r05 = json.load(f)
+    with open(os.path.join(os.path.dirname(artifact),
+                           "logreg_int8.json")) as f:
+        deployed_meta = json.load(f)
+
+    def on_host(params):
+        return logreg.params_from_numpy(logreg.params_to_numpy(params))
+
+    @phase("score_stages")
+    def stages_phase():
+        """The scorer's input stage and tail alone (check entries) against
+        their plain versions on the card, and the kernel at the
+        evaluation shapes."""
+        out, checks = {"card": card}, []
+        saved = dict(kernels.LAUNCHES)
+        for name, params in (("golden", logreg.golden_params(dev)),
+                             ("logreg_int8.npz",
+                              logreg.load_params(artifact, dev))):
+            packed = kernels.pack_score_params(params)
+            grid = decoded_grid(params, 1 << 14).reshape(-1)
+            u32 = torch.from_numpy(rng.integers(
+                0, 1 << 32, 1 << 20, dtype=np.int64)).to(dev).float()
+            edges = torch.from_numpy(dplan.validation_edges(
+                dplan.compile_plan(on_host(params), validate=False)
+            ).astype(np.int64)).to(dev).float()
+            row = {}
+            for label, x in (("decode_grid", grid), ("u32_random", u32),
+                             ("validate_edges", edges)):
+                got = kernels.score_quant_u8(params, x.contiguous(), packed)
+                want = kernels.score_quant_u8_plain(params, x)
+                row[label] = {"n": x.numel(),
+                              "mismatches": int((got != want).sum())}
+            w = params.w_int8.cpu().numpy().astype(np.int64)
+            contrib = (np.arange(256)[None, :] - int(params.in_zp)) * w[:, None]
+            acc = torch.arange(int(contrib.min(1).sum()),
+                               int(contrib.max(1).sum()) + 1,
+                               dtype=torch.int32, device=dev)
+            got = kernels.score_tail(params, acc, packed)
+            row["tail_acc_range"] = {
+                "n": acc.numel(), "range": [int(acc[0]), int(acc[-1])],
+                "mismatches": int((got.view(torch.int32) != logreg
+                                   .score_from_acc(params, acc)
+                                   .view(torch.int32)).sum())}
+            for b in (65_536, 45_407):
+                X, _ = tfixture.cicids_fixture(n=b, seed=b)
+                x = torch.from_numpy(X).to(dev)
+                got = kernels.score_int8(params, x, packed)
+                want = kernels.score_int8_plain(params, x)
+                row[f"score_int8_b{b}"] = {
+                    "mismatches": int((got.view(torch.int32)
+                                       != want.view(torch.int32)).sum())}
+            torch.cuda.synchronize()
+            out[name] = row
+            checks += [v["mismatches"] == 0 for v in row.values()]
+        kernels.LAUNCHES.update(saved)     # comparisons do not count
+        return {"ok": all(checks), **out}
+
+    stages_phase()
+
+    #: sha256 of the deployed recipe's fixture (X, y, y_class bytes of
+    #: ``cicids_fixture(N_CLEANED, seed=0, return_classes=True)``), as
+    #: the reference's numpy builds it.
+    FIXTURE_SHA256 = ("419dca72e3dff66385a6252122ffb05de317c4f25125082d17"
+                      "0bcf447edd4e8d")
+    trained_path = os.path.join(chip_dir, "trained_logreg_int8.npz")
+
+    @phase("train_qat_deployed")
+    def qat_phase():
+        """``fsx train --data fixture --slow-weight 4`` at full size on the
+        card, against the committed ``artifacts/logreg_int8.npz``."""
+        out, checks = {"card": card}, []
+        t = time.perf_counter()
+        X, y, yc = tfixture.cicids_fixture(tfixture.N_CLEANED, seed=0,
+                                           return_classes=True)
+        out["fixture_s"] = time.perf_counter() - t
+        h = hashlib.sha256()
+        for a in (X, y, yc):
+            h.update(a.tobytes())
+        out["fixture_sha256"] = h.hexdigest()
+        if h.hexdigest() != FIXTURE_SHA256:
+            out["fixture_error"] = ("this numpy builds another fixture "
+                                    f"(numpy {np.__version__}): the artifact "
+                                    "comparison below is not meaningful")
+        checks.append(h.hexdigest() == FIXTURE_SHA256)
+        Xtr, Xte, ytr, yte = tdata.train_test_split(X, y)
+        ctr = tdata.train_test_split(yc, y)[0]
+        sw = 1.0 + (ctr == tfixture.CLASS_SLOW) * 3.0
+        out.update(train_n=len(Xtr), test_n=len(Xte))
+        torch.cuda.synchronize()
+        kernels.reset_launches()           # the training path's window
+        t = time.perf_counter()
+        res = qat.train_logreg_qat(Xtr, ytr, epochs=200, sample_weight=sw,
+                                   device=dev)
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t
+        served["launches_train_qat"] = dict(kernels.LAUNCHES)   # closes
+        out["launches"] = served["launches_train_qat"]
+        checks.append(out["launches"]["gemv_seq"] == 200)
+        served["train_qat_epochs"] = len(res.losses)
+        out["epoch_host_ms"] = out["train_s"] / len(res.losses) * 1e3
+        out["final_loss"] = float(res.losses[-1])
+        p = logreg.params_to_numpy(res.params)
+        ref = logreg.params_to_numpy(logreg.load_params(artifact))
+        dw = int(np.abs(p["w_int8"].astype(int)
+                        - ref["w_int8"].astype(int)).max())
+        out["artifact"] = {k: v.tolist() for k, v in p.items()}
+        out["vs_committed"] = {
+            "w_int8_max_code_diff": dw,
+            "in_scale_rel": float(abs(p["in_scale"] - ref["in_scale"])
+                                  / ref["in_scale"]),
+            "out_scale_rel": float(abs(p["out_scale"] - ref["out_scale"])
+                                   / ref["out_scale"]),
+            "in_zp": [int(p["in_zp"]), int(ref["in_zp"])],
+            "out_zp": [int(p["out_zp"]), int(ref["out_zp"])]}
+        checks += [dw <= 1, out["vs_committed"]["in_scale_rel"] <= 1e-6,
+                   out["vs_committed"]["out_scale_rel"] <= 1e-2]
+        logreg.save_params(res.params, trained_path)
+        # evaluation: the test split through score_int8, 65,536-row chunks
+        served_p = logreg.load_params(trained_path, dev)
+        kernels.reset_launches()           # this path's window opens
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        scores = evaluate.score_chunks(evaluate.int8_classify(served_p),
+                                       served_p, Xte)
+        out["evaluate_s"] = time.perf_counter() - t
+        served["launches_train_eval"] = dict(kernels.LAUNCHES)  # closes
+        m = evaluate.confusion(scores, yte)
+        want_f1 = deployed_meta["fixture_test_metrics"]["f1"]
+        out["test"] = m
+        out["reference_f1"] = want_f1
+        checks.append(abs(m["f1"] - want_f1) <= 0.003)
+        checks.append(served["launches_train_eval"]["score_int8"]
+                      == -(-len(Xte) // 65536))
+        # the card's scores byte-equal to the plain version's on the card
+        saved = dict(kernels.LAUNCHES)
+        xd = torch.from_numpy(Xte).to(dev)
+        plain = np.concatenate([
+            kernels.score_int8_plain(served_p, xd[s:s + 65536]).cpu().numpy()
+            for s in range(0, len(Xte), 65536)])
+        kernels.LAUNCHES.update(saved)
+        out["scores_bytes_equal_plain"] = scores.tobytes() == plain.tobytes()
+        checks.append(out["scores_bytes_equal_plain"])
+        # one epoch of each phase under the profiler: device ops and busy
+        # ms; then 20 quantize epochs with and without the per-epoch
+        # float(loss) (the reference's one host sync per epoch)
+        from torch.profiler import ProfilerActivity, profile
+
+        Xd = fdev.xla_log1p(torch.from_numpy(Xtr).to(dev))
+        yd = torch.from_numpy(ytr).to(dev)
+        swd = torch.from_numpy(sw.astype(np.float32)).to(dev)
+        st = qat.new_state(dev)
+        st, _ = qat.qat_epoch(st, Xd, yd, False, swd)
+        st, _ = qat.qat_epoch(st, Xd, yd, True, swd)
+        torch.cuda.synchronize()
+        prof_out = {}
+        for quantize in (False, True):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                st, loss = qat.qat_epoch(st, Xd, yd, quantize, swd)
+                float(loss)
+            evs = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            prof_out["quantize" if quantize else "warmup"] = {
+                "device_ops": len(evs),
+                "device_busy_ms": sum(e.time_range.elapsed_us()
+                                      for e in evs) / 1e3}
+        out["epoch_profile"] = prof_out
+        # gemv_seq against its plain version at the path's shape: the
+        # quantize epoch's dL/dy and quantized inputs, 2,016,639 rows
+        saved = dict(kernels.LAUNCHES)
+        p_, xq, _, _ = qat._forward(st.w, st.b, st.obs_in, st.obs_out, Xd,
+                                    True)
+        gy = qat.loss_terms(p_, yd, swd)[1]
+        xq = xq.contiguous()
+        got = kernels.gemv_seq(gy, xq)
+        t = time.perf_counter()
+        want = kernels.gemv_seq_plain(gy.cpu(), xq.cpu())
+        plain_s = time.perf_counter() - t
+        kernels.LAUNCHES.update(saved)
+        errs["gemv_seq"] = float((got.cpu() - want).abs().max())
+        out["gemv_seq_vs_plain"] = {
+            "rows": int(xq.shape[0]), "bits_equal": torch.equal(
+                got.cpu().view(torch.int32), want.view(torch.int32)),
+            "plain_host_s": plain_s}
+        checks.append(out["gemv_seq_vs_plain"]["bits_equal"])
+        served["gemv_inputs"] = (gy, xq, plain_s)
+        for sync in (True, False):
+            losses = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(20):
+                st, loss = qat.qat_epoch(st, Xd, yd, True, swd)
+                losses.append(float(loss) if sync else loss)
+            torch.cuda.synchronize()
+            out[f"epoch_host_ms_{'with' if sync else 'without'}_sync"] = (
+                (time.perf_counter() - t) / 20 * 1e3)
+        return {"ok": all(checks), **out}
+
+    qat_phase()
+
+    Xt9, yt9, ct9 = stress.fixture_variant("v2", 300_000, seed=9)
+    Xe8, ye8, ce8 = stress.fixture_variant("v2", 300_000, seed=8)
+
+    @phase("train_mlp_robust")
+    def mlp_phase():
+        """``stress``'s robust detector recipe on the card: v2 fixture
+        (300,000 rows, seed 9) plus two shift-augmented copies, 80 epochs;
+        clean F1 on seed 8 against MODEL_METRICS_r05.json."""
+        steps = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, cell = stress.robust_mlp(Xt9, yt9, Xe8, ye8, ce8, device=dev,
+                                    step_log=steps)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+        want = metrics_r05["robust_detector_mlp"]["clean"]["f1"]
+        return {"ok": abs(cell["f1"] - want) <= 0.01, "card": card,
+                "clean": cell, "reference_f1": want, "steps": len(steps),
+                "total_s": total, "ms_per_step": total / len(steps) * 1e3}
+
+    mlp_phase()
+
+    @phase("train_multiclass")
+    def mc_phase():
+        """The expert heads of the slow-recall headline (60 epochs) on the
+        card: binary F1 and per-class recall within 0.02 of the
+        reference's."""
+        steps = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, rep = stress.expert_heads(Xt9, ct9, Xe8, ce8, device=dev,
+                                     step_log=steps)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+        want = metrics_r05["slow_recall_headline"]["models"]["expert_heads"]
+        diffs = {"binary_f1": abs(rep["binary"]["f1"]
+                                  - want["binary"]["f1"])}
+        for c, v in want["per_class"].items():
+            diffs[f"recall_{c}"] = abs(rep["per_class"][c]["recall"]
+                                       - v["recall"])
+        return {"ok": max(diffs.values()) <= 0.02, "card": card,
+                "report": {k: rep[k] for k in ("per_class", "macro_f1",
+                                               "binary")},
+                "diff_vs_reference": diffs, "steps": len(steps),
+                "total_s": total, "ms_per_step": total / len(steps) * 1e3}
+
+    mc_phase()
+
+    trained_plan_path = os.path.join(chip_dir, "trained_plan.npz")
+
+    def same_plan(a, b):
+        strip = lambda m: {k: v for k, v in m.items() if k != "backend"}  # noqa
+        return (dplan.pack_blob(a) == dplan.pack_blob(b)
+                and all(np.array_equal(getattr(a, f), getattr(b, f))
+                        for f in ("w", "qbase", "bounds_m1"))
+                and all(getattr(a, f) == getattr(b, f)
+                        for f in ("acc_drop", "acc_pass", "t_lo", "t_hi",
+                                  "in_zp", "w_sum"))
+                and strip(a.meta) == strip(b.meta))
+
+    @phase("distill_compile")
+    def distill_phase():
+        """``compile_plan`` on the card (the scorer's stage entries)
+        against the committed plan and the CPU compile, and the served
+        lane's bands against each plan over the reference's corpus."""
+        out, checks = {"card": card}, []
+        committed = dplan.load_plan(plan_path)
+        saved = dict(kernels.LAUNCHES)
+        cases = (("golden", logreg.golden_params(dev), None),
+                 ("logreg_int8.npz", logreg.load_params(artifact, dev),
+                  committed),
+                 ("trained", logreg.load_params(trained_path, dev), None))
+        for name, params, want in cases:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p_card = dplan.compile_plan(params)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t
+            t = time.perf_counter()
+            with cpu_threads():
+                p_cpu = dplan.compile_plan(on_host(params))
+            cpu_s = time.perf_counter() - t
+            chk = parity.served_band_check(params, p_card,
+                                           parity.corpus(p_card))
+            row = {"compile_s_card": card_s, "compile_s_cpu": cpu_s,
+                   "backend": p_card.meta["backend"],
+                   "equal_cpu_compile": same_plan(p_card, p_cpu),
+                   "band_check": chk}
+            if want is not None:
+                row["equal_committed_plan"] = same_plan(p_card, want)
+                checks.append(row["equal_committed_plan"])
+            checks += [row["equal_cpu_compile"], chk["ok"],
+                       p_card.meta["backend"].startswith("cuda")]
+            if name == "trained":
+                dplan.save_plan(p_card, trained_plan_path)
+            out[name] = row
+        kernels.LAUNCHES.update(saved)     # the band checks do not count
+        return {"ok": all(checks), **out}
+
+    distill_phase()
+
+    @phase("train_distill_serve")
+    def tds_phase():
+        """The trained artifact served on the card behind the simulated
+        kernel tier of its fresh plan: ``syn_benign_mix``, 64 batches of
+        records at 2^20 rows, B = 2048, against the CPU engine on the same
+        drains."""
+        recs = TrafficGen(TrafficSpec(
+            scenario=Scenario.SYN_BENIGN_MIX, rate_pps=1e6, seed=SEED + 8)
+        ).next_records(64 * BATCH)
+        tplan = load_plan(trained_plan_path)
+
+        def tier():
+            t = LoggedTier(tplan, block_s=ring_cfg.model.ml_block_s)
+            t.polls = []
+            return t
+
+        params = logreg.load_params(trained_path, dev)
+        e = Recording(ring_cfg, ArraySource(recs.copy()), CollectSink(),
+                      params=params, device="cuda", kernel_tier=tier())
+        e.warm()
+        e.start_log()
+        kernels.reset_launches()              # this path's window opens
+        r = e.run()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)      # ... and closes
+        served["launches_train_distill_serve"] = launches
+        host = logreg.load_params(trained_path, "cpu")
+        c = Engine(ring_cfg, PolledAs(recs.copy(), e.kernel_tier.polls),
+                   CollectSink(), params=host, device="cpu",
+                   kernel_tier=tier())
+        with cpu_threads():
+            rc = c.run()
+        rr, er = replay_cpu(e.log, params=host)
+
+        def no_hz(d):
+            return {k: v for k, v in d.items() if k != "kernel_drop_hz"}
+
+        same = {"escalation": no_hz(r.escalation) == no_hz(rc.escalation),
+                "drains": c.kernel_tier.polls == e.kernel_tier.polls,
+                "stats": e.stats.to_dict() == er.stats.to_dict(),
+                "table_digest": digest(e) == digest(er),
+                "blacklist": sorted(e.sink.blocked.items())
+                == sorted(er.sink.blocked.items())}
+        checks = [*same.values(), r.records > 0,
+                  launches["score_int8"] == chunks(r) == len(e.log),
+                  launches["table_summary"] == 1]
+        return {"ok": all(checks), "card": card, "equal": same,
+                "escalation": r.escalation, "launches": launches,
+                "batches": r.batches, "records": r.records,
+                "stats": r.stats, **per_batch(r)}
+
+    tds_phase()
+
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
         ``flush`` runs between calls, outside the timed region."""
@@ -2560,18 +2964,34 @@ def main() -> int:
         torch.cuda.synchronize()
         return us
 
-    def device_us(calls, reps, name=None):
-        """The kernels' own device time per call from ``torch.profiler``:
-        kernels whose name holds ``name`` (all kernels when None)."""
+    def dev_ms(calls, reps, name=None):
+        """The kernels' own device time per call (ms) from
+        ``torch.profiler``: kernels whose name holds ``name`` (all kernels
+        when None); None when the trace holds none of them (not
+        measured).  A torch kernel closes the window: without one, the
+        trace has dropped the last launches of a library loaded with
+        ``ctypes``.  Only that closing kernel, the last one on the
+        stream, is left out, so every kernel of ``calls`` counts whatever
+        its name; a window whose last kernel is not the closing one is
+        not measured."""
         from torch.profiler import ProfilerActivity, profile
 
+        tail = torch.zeros(1, device=dev)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 calls()
+            tail.add_(1)                  # CUDAFunctorOnSelf_add
             torch.cuda.synchronize()
-        return sum(ev.time_range.elapsed_us() for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and (name is None or name in ev.name)) / reps
+        evs = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if not evs:
+            return None
+        last = max(evs, key=lambda ev: ev.time_range.start)
+        if "CUDAFunctorOnSelf_add" not in last.name:
+            return None
+        evs = [ev.time_range.elapsed_us() for ev in evs if ev is not last
+               and (name is None or name in ev.name)]
+        return sum(evs) / reps / 1e3 if evs else None
 
     def bound(nbytes, ops):
         tb = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2603,8 +3023,8 @@ def main() -> int:
         s_plain = time_ms(lambda: kernels.score_int8_plain(params, x), 200)
         s_lib = time_ms(library, 200)
         s_host = host_us(score, 200)
-        s_dev = device_us(score, 50, "score_int8_kernel")
-        s_lib_dev = device_us(library, 50)
+        s_dev = dev_ms(score, 50, "score_int8_kernel")
+        s_lib_dev = dev_ms(library, 50)
         # x, the ScoreArgs struct (read from device memory), out
         s_bytes = b * 8 * 4 + kernels.SCORE_ARGS_WORDS * 4 + b * 4
         sb, sby = bound(s_bytes, b * 64)
@@ -2622,8 +3042,8 @@ def main() -> int:
             "launches_per_replay": "1 per single, g per rung g",
             "max_abs_err": errs["score_int8"], "ms": s_ms,
             "plain_ms": s_plain, "bound_ms": sb, "bound_by": sby,
-            "library_ms": s_lib, "device_ms": s_dev / 1e3,
-            "host_us_per_call": s_host, "library_device_ms": s_lib_dev / 1e3,
+            "library_ms": s_lib, "device_ms": s_dev,
+            "host_us_per_call": s_host, "library_device_ms": s_lib_dev,
             "shape": [b, 8]}
         # the log1p artifact on undecoded raw48 feature rows: the kernel's
         # XLA log1p runs on every lane
@@ -2640,10 +3060,43 @@ def main() -> int:
                 "launches_raw48_mlp", {}).get("score_int8", 0),
             "log1p_raw48_rows": {
                 "ms": time_ms(score_raw, 200),
-                "device_ms": device_us(score_raw, 50,
-                                       "score_int8_kernel") / 1e3,
+                "device_ms": dev_ms(score_raw, 50, "score_int8_kernel"),
                 "plain_ms": time_ms(
                     lambda: kernels.score_int8_plain(lp, xr), 50)}})
+        # the evaluation chunk of the training path: B = 65,536 fixture
+        # rows through the trained (log1p) artifact
+        ep = logreg.load_params(trained_path if os.path.exists(trained_path)
+                                else artifact, dev)
+        ep_packed = kernels.pack_score_params(ep)
+        x65 = torch.from_numpy(tfixture.cicids_fixture(
+            n=65_536, seed=65_536)[0]).to(dev)
+        w65 = (ep.w_int8.float() * ep.w_scale)[None, :]
+
+        def score65():
+            kernels.score_int8(ep, x65, ep_packed)
+
+        def library65():
+            torch.nn.functional.linear(x65, w65, ep.bias.reshape(1))
+
+        b65 = x65.shape[0]
+        # x read once, the ScoreArgs struct once, out written once; ops:
+        # per row 8 quantizations (log1p ~40 flops, a division) + the dot
+        e65, e65by = bound(b65 * 8 * 4 + kernels.SCORE_ARGS_WORDS * 4
+                           + b65 * 4, b65 * 8 * 48)
+        score_row["b65536"] = {
+            "shape": [b65, 8], "params": os.path.basename(
+                trained_path if os.path.exists(trained_path) else artifact),
+            "launches_train_eval": served.get(
+                "launches_train_eval", {}).get("score_int8", 0),
+            "ms": time_ms(score65, 200),
+            "device_ms": dev_ms(score65, 50, "score_int8_kernel"),
+            "host_us_per_call": host_us(score65, 200),
+            "plain_ms": time_ms(lambda: kernels.score_int8_plain(ep, x65),
+                                20),
+            "bound_ms": e65, "bound_by": e65by,
+            "peak": "H100 SXM data sheet: 3.35 TB/s HBM, 67 TFLOP/s fp32",
+            "library_ms": time_ms(library65, 200),
+            "library_device_ms": dev_ms(library65, 50)}
         # segment_sum_seq on the byte lanes of a served raw48 batch (the
         # main path's input), and on the crafted heavy batch
         mixed = TrafficSource(TrafficSpec(
@@ -2678,16 +3131,14 @@ def main() -> int:
             "library_ms": time_ms(seglib, 200),
             "library_call": "Tensor.index_add_ (atomic adds in no fixed "
                             "order: not the lane order's bits)",
-            "device_ms": device_us(segsum, 50,
-                                   "segment_sum_seq_kernel") / 1e3,
+            "device_ms": dev_ms(segsum, 50, "segment_sum_seq_kernel"),
             "host_us_per_call": host_us(segsum, 200),
-            "library_device_ms": device_us(seglib, 50) / 1e3,
+            "library_device_ms": dev_ms(seglib, 50),
             "shape": [BATCH], "segments": int(seg[-1]) + 1,
             "longest_segment": int(torch.bincount(seg).max()),
             "heavy_300x65535": {
                 "ms": time_ms(heavy, 200),
-                "device_ms": device_us(heavy, 50,
-                                       "segment_sum_seq_kernel") / 1e3,
+                "device_ms": dev_ms(heavy, 50, "segment_sum_seq_kernel"),
                 "longest_segment": int(torch.bincount(hseg).max())}}
         # the report's scan over both served tables, cold: evict the
         # 50 MB L2 before each call by reading 256 MB (a read leaves L2
@@ -2726,8 +3177,7 @@ def main() -> int:
                 "ms": time_ms(summary, 30, flush),
                 "plain_ms": time_ms(lambda: kernels.table_summary_plain(
                     tbl.key, tbl.state, now, 30.0), 30, flush),
-                "device_ms": device_us(flushed, 20,
-                                       "table_summary_kernel") / 1e3,
+                "device_ms": dev_ms(flushed, 20, "table_summary_kernel"),
                 "host_us_per_call": host_us(summary, 50),
                 "bound_ms": tb, "bound_by": tby,
                 "state_sectors": sectors,
@@ -2754,7 +3204,43 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
                 "host_us_per_call", "sector_floor_ms")},
             "library_ms": None, "tables": tables}
-        rows = [score_row, summary_row, seg_row]
+        # gemv_seq on the training path's operands (the quantize epoch's
+        # dL/dy and quantized inputs, 2,016,639 rows)
+        gemv_row = {"name": "gemv_seq", "route": "cuda",
+                    "source": "flowsentryx_tpu_torch/csrc/gemv_seq.cu",
+                    "replaces": None,
+                    "launches": served.get("launches_train_qat", {}).get(
+                        "gemv_seq", 0),
+                    "launches_per_epoch": served.get(
+                        "launches_train_qat", {}).get("gemv_seq", 0)
+                    / max(served.get("train_qat_epochs", 0), 1),
+                    "max_abs_err": errs["gemv_seq"]}
+        if "gemv_inputs" in served:
+            gy, xq, plain_s = served["gemv_inputs"]
+            n_rows = xq.shape[0]
+
+            def gemv():
+                kernels.gemv_seq(gy, xq)
+
+            def gemv_lib():
+                torch.mv(xq.t(), gy)
+
+            gb2, gby2 = bound(n_rows * 9 * 4 + 8 * 4, n_rows * 8 * 2)
+            gemv_row.update({
+                "ms": time_ms(gemv, 10), "plain_ms": plain_s * 1e3,
+                "plain_where": "host numpy (the serial chain)",
+                "bound_ms": gb2, "bound_by": gby2,
+                "library_ms": time_ms(gemv_lib, 20),
+                "library_call": "torch.mv(xq.t(), gy) (another order: not "
+                                "the reference's bits)",
+                "device_ms": dev_ms(gemv, 5, "gemv_seq_kernel"),
+                "host_us_per_call": host_us(gemv, 10),
+                "shape": [int(n_rows), 8]})
+        else:
+            gemv_row.update({"ms": None, "plain_ms": None, "bound_ms": None,
+                             "bound_by": None, "library_ms": None})
+        kernels.LAUNCHES.update(saved)
+        rows = [score_row, summary_row, seg_row, gemv_row]
         # launches on the production serve paths, each counted in its
         # own window (zeroed just before the run, read just after)
         windows = {
@@ -2772,7 +3258,13 @@ def main() -> int:
             "sim_kernel_tier": served.get("launches_sim_tier", {}),
             "pcap_serve": served.get("launches_pcap", {}),
             **{f"verdict_k_full_fetch/{k}": w for k, w in
-               served.get("launches_verdict_k", {}).items()}}
+               served.get("launches_verdict_k", {}).items()},
+            "train_qat_deployed/train": served.get(
+                "launches_train_qat", {}),
+            "train_qat_deployed/evaluate": served.get(
+                "launches_train_eval", {}),
+            "train_distill_serve": served.get(
+                "launches_train_distill_serve", {})}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}
@@ -2781,7 +3273,8 @@ def main() -> int:
                 "library_call": {"score_int8": "torch.nn.functional.linear "
                                  "(float logistic-regression matvec)",
                                  "table_summary": None,
-                                 "segment_sum_seq": "Tensor.index_add_"},
+                                 "segment_sum_seq": "Tensor.index_add_",
+                                 "gemv_seq": "torch.mv"},
                 "kernels": rows}
 
     timing_phase()

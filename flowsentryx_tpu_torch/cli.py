@@ -1,5 +1,5 @@
-"""Command line of the port: ``python -m flowsentryx_tpu_torch.cli serve``
-and ``... cli pcap``.
+"""Command line of the port: ``python -m flowsentryx_tpu_torch.cli serve``,
+``... cli pcap``, ``... cli train`` and ``... cli distill``.
 
 Counterpart of the reference's ``fsx serve``: builds an
 :class:`~.engine.Engine` on the card (or on the CPU with ``--device
@@ -35,6 +35,15 @@ reference refuses them.
 ``pcap CAPTURE OUT`` turns a classic pcap into a file of 48-byte flow
 records (the kernel's parse and streaming features, :mod:`.engine.pcap`)
 that ``serve --records`` replays.
+
+``train`` trains ``logreg_int8`` (QAT), ``mlp`` or ``multiclass`` on the
+CICIDS-calibrated fixture, CICIDS-format CSVs or the synthetic set and
+exports the artifact (:mod:`.train`); ``distill ARTIFACT`` compiles an
+int8 artifact into the kernel tier's plan (:func:`.distill.compile_plan`).
+Both take the reference's flags and refusals; ``distill`` refuses
+``--check``, ``--emulate``, ``--emulate-n`` and ``--pin`` by name (they
+need the eBPF plane, ``bpf/``, which the port does not have).  Every verb runs on the
+card unless ``--device cpu`` is given, and raises without one.
 """
 
 from __future__ import annotations
@@ -390,6 +399,196 @@ def _cmd_pcap(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_train(args: argparse.Namespace) -> int:
+    """Train a model and export the deployable artifact (the reference's
+    ``fsx train``).  ``--data`` globs CICIDS2017/CICDDoS2019 CSVs, or
+    ``fixture`` for the calibrated stand-in; without it, the synthetic
+    labelled set."""
+    if args.epochs < 1:
+        raise SystemExit("--epochs must be >= 1")
+    # recipe flags are family-specific: refuse silently-ignored combos
+    if args.slow_weight != 1.0 and args.model != "logreg_int8":
+        raise SystemExit("--slow-weight applies to --model logreg_int8 only")
+    if args.augment_shift and args.model != "mlp":
+        raise SystemExit("--augment-shift applies to --model mlp only")
+    if args.model == "multiclass" and args.data not in (None, "fixture"):
+        raise SystemExit(
+            "multiclass training needs subtype labels; use "
+            "--data fixture (CSV datasets are binary-labeled)")
+
+    import numpy as np
+
+    from flowsentryx_tpu_torch.core.device import resolve_device
+    from flowsentryx_tpu_torch.train import data, evaluate, fixture, qat
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"train: {e}") from None
+
+    if args.model == "multiclass":
+        from flowsentryx_tpu_torch.models import multiclass
+
+        n = args.synthetic if args.synthetic is not None else 200_000
+        X, _, y_class = fixture.cicids_fixture(n=n, seed=args.seed,
+                                               return_classes=True)
+        Xtr, Xte, ytr, yte = data.train_test_split(X, y_class)
+        params, losses = qat.train_multiclass(
+            Xtr, ytr, epochs=args.epochs, seed=args.seed, device=device)
+        out = {
+            "model": args.model, "train_n": len(Xtr), "test_n": len(Xte),
+            "final_loss": float(losses[-1]),
+            "test": evaluate.multiclass_report(params, Xte, yte),
+        }
+        if args.out:
+            out["artifact"] = multiclass.save_params(params, args.out)
+        print(json.dumps(out, indent=2))
+        return 0
+
+    y_class = None
+    if args.data == "fixture":
+        n = args.synthetic if args.synthetic is not None else fixture.N_CLEANED
+        X, y, y_class = fixture.cicids_fixture(n=n, seed=args.seed,
+                                               return_classes=True)
+    elif args.data:
+        X, y = data.load_csvs(args.data)
+    else:
+        n = args.synthetic if args.synthetic is not None else 50_000
+        X, y = data.synthetic_dataset(n, seed=args.seed)
+    Xtr, Xte, ytr, yte = data.train_test_split(X, y)
+
+    out: dict = {"model": args.model, "train_n": len(Xtr), "test_n": len(Xte)}
+    if args.model == "logreg_int8":
+        from flowsentryx_tpu_torch.models import logreg
+
+        sw = None
+        if args.slow_weight != 1.0:
+            # slow-attack BCE upweight: the fixture's subtype labels,
+            # split with the same seed so the permutation aligns
+            if y_class is None:
+                raise SystemExit("--slow-weight needs --data fixture "
+                                 "(CSV datasets carry no subtype labels)")
+            ctr, _cte, _, _ = data.train_test_split(y_class, y)
+            sw = 1.0 + (ctr == fixture.CLASS_SLOW) * (args.slow_weight - 1.0)
+        res = qat.train_logreg_qat(Xtr, ytr, epochs=args.epochs,
+                                   sample_weight=sw, device=device)
+        out["final_loss"] = float(res.losses[-1])
+        served = logreg.params_from_numpy(
+            logreg.params_to_numpy(res.params), device)
+        out["test"] = evaluate.evaluate_model(
+            evaluate.int8_classify(served), served, Xte, yte)
+        if args.out:
+            out["artifact"] = logreg.save_params(res.params, args.out)
+    elif args.model == "mlp":
+        from flowsentryx_tpu_torch.models import mlp
+        from flowsentryx_tpu_torch.train.stress import shift_augment
+
+        if args.augment_shift:
+            # sweep-matched domain randomization: the robust recipe
+            rng = np.random.default_rng(args.seed)
+            Xtr = np.concatenate(
+                [Xtr] + [shift_augment(Xtr, rng)
+                         for _ in range(args.augment_shift)])
+            ytr = np.concatenate([ytr] * (args.augment_shift + 1))
+        params, losses = qat.train_mlp(Xtr, ytr, epochs=args.epochs,
+                                       seed=args.seed, device=device)
+        out["final_loss"] = float(losses[-1])
+        out["test"] = evaluate.evaluate_model(mlp.classify_batch, params,
+                                              Xte, yte)
+        if args.out:
+            out["artifact"] = mlp.save_params(params, args.out)
+    else:
+        raise SystemExit(f"unknown trainable model {args.model!r}")
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+#: ``fsx distill`` flags of the reference that need the eBPF plane.
+_DISTILL_REFUSED = {
+    "check": "--check statically verifies the --ml XDP programs "
+             "(flowsentryx_tpu/bpf/verifier.py)",
+    "emulate": "--emulate runs the emitted eBPF scorer in the reference's "
+               "emulator (flowsentryx_tpu/distill/emulate.py)",
+    "emulate_n": "--emulate-n sizes the corpus of --emulate's eBPF "
+                 "emulator run",
+    "pin": "--pin pushes the blob into a pinned ml_model_map through the "
+           "bpf loader",
+}
+
+
+def _cmd_distill(args: argparse.Namespace) -> int:
+    """Compile a trained int8 artifact into the kernel tier's plan (the
+    reference's ``fsx distill``, less its eBPF legs)."""
+    import time
+
+    for flag, why in _DISTILL_REFUSED.items():
+        if getattr(args, flag) is not None:
+            name = flag.replace("_", "-")
+            print(f"fsx distill: refusing --{name}: {why}, which the port "
+                  "does not have (bpf/ is not ported); run the reference's "
+                  f"fsx distill --{name}", file=sys.stderr)
+            return 1
+    try:
+        t_lo_s, _, t_hi_s = args.thresholds.partition(",")
+        t_lo, t_hi = float(t_lo_s), float(t_hi_s)
+    except ValueError:
+        print(f"fsx distill: --thresholds wants LO,HI in [0,1], got "
+              f"{args.thresholds!r}", file=sys.stderr)
+        return 1
+    from flowsentryx_tpu_torch.core.device import resolve_device
+    from flowsentryx_tpu_torch.distill import plan as dplan
+    from flowsentryx_tpu_torch.models.registry import (
+        load_artifact, require_distillable,
+    )
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"fsx distill: {e}", file=sys.stderr)
+        return 1
+    try:
+        params = load_artifact(args.model, args.artifact, device)
+        require_distillable(args.model, params)
+    except (ValueError, KeyError, OSError) as e:
+        print(f"fsx distill: {e}", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    try:
+        plan = dplan.compile_plan(params, t_lo=t_lo, t_hi=t_hi)
+    except dplan.DistillError as e:
+        print(f"fsx distill: {e}", file=sys.stderr)
+        return 1
+    out: dict = {
+        "ok": True,
+        "artifact": args.artifact,
+        "model": args.model,
+        "compile_s": round(time.perf_counter() - t0, 3),
+        "plan": plan.to_json(),
+    }
+    blob = dplan.pack_blob(plan)
+    if args.out:
+        out["plan_file"] = dplan.save_plan(plan, args.out)
+    if args.blob:
+        Path(args.blob).write_bytes(blob)
+        out["blob_file"] = args.blob
+    if args.report:
+        Path(args.report).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.report).write_text(json.dumps(out, indent=2) + "\n")
+    if args.json:
+        print(json.dumps(out, indent=2))
+    else:
+        p = out["plan"]
+        print(f"fsx distill: {args.artifact} [{args.model}] -> "
+              f"{p['n_bounds'][0]} boundaries/feature, bands "
+              f"s<={p['acc_pass']} pass | s>={p['acc_drop']} drop "
+              f"(scores {args.thresholds})")
+        for key in ("plan_file", "blob_file"):
+            if key in out:
+                print(f"fsx distill: {key.replace('_', ' ')}: {out[key]}")
+        print("fsx distill: PASS")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m flowsentryx_tpu_torch.cli",
@@ -512,6 +711,70 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--limit", type=int, default=0,
                     help="stop after N emitted records")
     pc.set_defaults(fn=_cmd_pcap)
+
+    t = sub.add_parser("train", help="train a model, export the artifact")
+    t.add_argument("--model", default="logreg_int8",
+                   choices=["logreg_int8", "mlp", "multiclass"])
+    t.add_argument("--data",
+                   help="CSV glob (CICIDS2017/CICDDoS2019 format), or "
+                        "'fixture' for the CICIDS-calibrated stand-in")
+    t.add_argument("--synthetic", type=int, default=None,
+                   help="dataset size for synthetic/fixture data "
+                        "(default 50000 synthetic; full 2.52M fixture; "
+                        "200000 for multiclass)")
+    t.add_argument("--epochs", type=int, default=200)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--slow-weight", type=float, default=1.0,
+                   dest="slow_weight",
+                   help="BCE upweight for slow-attack rows (fixture "
+                        "data only; x4 is the deployed artifact's "
+                        "recipe)")
+    t.add_argument("--augment-shift", type=int, default=0,
+                   dest="augment_shift",
+                   help="add N domain-randomized training copies "
+                        "(stress.shift_augment; 2 is the robust-MLP "
+                        "recipe)")
+    t.add_argument("--out", help="artifact output path (.npz)")
+    t.add_argument("--device", default=None,
+                   help="torch device; default the card (raises without one)")
+    t.set_defaults(fn=_cmd_train)
+
+    di = sub.add_parser(
+        "distill",
+        help="compile a trained int8 artifact into the kernel tier's plan")
+    di.add_argument("artifact",
+                    help="trained model artifact (.npz), e.g. "
+                         "artifacts/logreg_int8.npz")
+    di.add_argument("--model", default="logreg_int8",
+                    help="model family the artifact was trained as "
+                         "(must be distillable; default logreg_int8)")
+    di.add_argument("--thresholds", default="0.1,0.9", metavar="LO,HI",
+                    help="escalation band edges in probability space: "
+                         "score<LO passes in-kernel, score>HI drops "
+                         "in-kernel, the band between escalates "
+                         "(default 0.1,0.9)")
+    di.add_argument("--out", metavar="PLAN.npz",
+                    help="write the compiled plan here (consumed by "
+                         "serve --sim-kernel-tier)")
+    di.add_argument("--blob", metavar="PATH",
+                    help="write the raw ml_model_map value bytes "
+                         "(struct fsx_ml_model) here")
+    di.add_argument("--check", action="store_true", default=None,
+                    help="refused: needs the eBPF verifier (bpf/)")
+    di.add_argument("--emulate", action="store_true", default=None,
+                    help="refused: needs the eBPF emulator (bpf/)")
+    di.add_argument("--emulate-n", type=int,
+                    help="refused: sizes the corpus of --emulate")
+    di.add_argument("--report", metavar="PATH",
+                    help="also write the JSON report here")
+    di.add_argument("--pin",
+                    help="refused: needs the bpf loader and a pinned "
+                         "ml_model_map")
+    di.add_argument("--json", action="store_true",
+                    help="machine-readable report")
+    di.add_argument("--device", default=None,
+                    help="torch device; default the card (raises without one)")
+    di.set_defaults(fn=_cmd_distill)
     return ap
 
 

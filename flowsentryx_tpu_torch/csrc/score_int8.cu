@@ -51,6 +51,14 @@
 // multiply-add one __fmaf_rn, the same flushes); fsx_xla_log1p exposes
 // it elementwise so that it can be held to the plain version over every
 // non-negative float32 on the card.
+//
+// The kernel's two float stages are device functions of their own, and
+// each has a check entry that runs it alone, elementwise, from the same
+// ScoreArgs buffer: quant_u8 (feature -> quint8 code; fsx_score_quant_u8)
+// and score_tail (int8 dot accumulator -> score; fsx_score_tail).  The
+// distill compiler (distill/plan.py compile_plan) bisects the first and
+// sweeps the second on the card, so the tables it builds come from the
+// code the served kernel runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,6 +136,24 @@ __device__ __forceinline__ float clip_u8(float v) {
   return fminf(fmaxf(v, 0.0f), 255.0f);
 }
 
+// Stage 1: one feature -> its quint8 code (0..255 as a float): the
+// optional log1p, true division by in_scale, rint (half to even), + zp,
+// clip.
+__device__ __forceinline__ float quant_u8(float v, const ScoreArgs& a) {
+  if (a.log1p) v = xla_log1p(v);
+  return clip_u8(__fadd_rn(rintf(__fdiv_rn(v, a.in_scale)), a.in_zp));
+}
+
+// Stage 3: the int8 dot's accumulator -> the score: one fused
+// multiply-add for acc * (in_scale * w_scale) + bias, the quint8
+// requant, and the output table at the code.
+__device__ __forceinline__ float score_tail(int acc, const ScoreArgs& a) {
+  const float y = __fmaf_rn(static_cast<float>(acc), a.s, a.bias);
+  const float q_y = clip_u8(__fadd_rn(rintf(__fdiv_rn(y, a.out_scale)),
+                                      a.out_zp));
+  return a.table[static_cast<int>(q_y)];
+}
+
 constexpr int kArgsWords = sizeof(ScoreArgs) / 4;
 static_assert(sizeof(ScoreArgs) % 4 == 0, "ScoreArgs is staged by words");
 
@@ -152,9 +178,7 @@ score_int8_kernel(const float* __restrict__ x, float* __restrict__ out,
   __syncthreads();
   int prod = 0;
   if (row < b) {
-    if (a.log1p) v = xla_log1p(v);
-    const float q = clip_u8(__fadd_rn(rintf(__fdiv_rn(v, a.in_scale)),
-                                      a.in_zp));
+    const float q = quant_u8(v, a);
     const uint32_t word = k < 4 ? a.w_lo : a.w_hi;
     const int w = static_cast<int8_t>((word >> (8 * (k & 3))) & 0xffu);
     prod = (static_cast<int>(q) - static_cast<int>(a.in_zp)) * w;
@@ -164,12 +188,23 @@ score_int8_kernel(const float* __restrict__ x, float* __restrict__ out,
   prod += __shfl_xor_sync(0xffffffffu, prod, 4);
   prod += __shfl_xor_sync(0xffffffffu, prod, 2);
   prod += __shfl_xor_sync(0xffffffffu, prod, 1);
-  if (k == 0 && row < b) {
-    const float y = __fmaf_rn(static_cast<float>(prod), a.s, a.bias);
-    const float q_y = clip_u8(__fadd_rn(rintf(__fdiv_rn(y, a.out_scale)),
-                                        a.out_zp));
-    out[row] = a.table[static_cast<int>(q_y)];
-  }
+  if (k == 0 && row < b) out[row] = score_tail(prod, a);
+}
+
+__global__ void quant_u8_kernel(const float* __restrict__ x,
+                                float* __restrict__ out, long long n,
+                                const ScoreArgs* __restrict__ args) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (i < n) out[i] = quant_u8(__ldg(x + i), *args);
+}
+
+__global__ void score_tail_kernel(const int* __restrict__ acc,
+                                  float* __restrict__ out, long long n,
+                                  const ScoreArgs* __restrict__ args) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (i < n) out[i] = score_tail(__ldg(acc + i), *args);
 }
 
 __global__ void xla_log1p_kernel(const float* __restrict__ x,
@@ -189,6 +224,32 @@ extern "C" int fsx_xla_log1p(const void* x, void* out, long long n,
     xla_log1p_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<float*>(out), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's input stage alone, elementwise over [n] f32 features ->
+// [n] f32 quint8 codes (a check entry; args as for fsx_score_int8).
+extern "C" int fsx_score_quant_u8(const void* x, void* out, long long n,
+                                  const void* args, void* stream) {
+  if (n > 0) {
+    quant_u8_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), n,
+        static_cast<const ScoreArgs*>(args));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's tail alone, elementwise over [n] int32 accumulators ->
+// [n] f32 scores (a check entry).
+extern "C" int fsx_score_tail(const void* acc, void* out, long long n,
+                              const void* args, void* stream) {
+  if (n > 0) {
+    score_tail_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(acc), static_cast<float*>(out), n,
+        static_cast<const ScoreArgs*>(args));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -281,3 +281,7 @@ class TrafficGen:
             self.now_ns += n * self._dt_ns
         self._emitted += n
         return buf
+
+    def labels_for(self, buf: np.ndarray) -> np.ndarray:
+        """Ground truth for a generated buffer (attack pool membership)."""
+        return buf["saddr"] < (1 << 24)

@@ -17,6 +17,15 @@ on up to 1 % of layer outputs), so the layers are written as explicit
 accumulations.  The default params are the reference's
 ``init_params(PRNGKey(0))``, drawn by the port's own threefry
 (:func:`init_params`, :mod:`~flowsentryx_tpu_torch.core.prng`).
+
+Training (``train/qat.py``) does not run that scorer: its fixed-order
+sums have no useful gradient and cost ~1,000 ops.  :func:`train_forward`
+is the differentiable forward over bfloat16 parameters (``torch``'s own
+bf16 matmuls, f32 accumulation), on inputs already passed through
+:func:`transform`; :func:`loss_fn` is the reference's mean stable BCE,
+:func:`xla_batch_sum` the reference's bf16 reduction over the batch (the
+bias gradients), and :func:`save_params` writes the reference's
+``.npz`` layout.
 """
 
 from __future__ import annotations
@@ -122,6 +131,62 @@ def classify_batch(params: MlpParams, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+
+def xla_batch_sum(g: torch.Tensor) -> torch.Tensor:
+    """``g.sum(0)`` in ``g``'s dtype, ordered as XLA:CPU orders a
+    reduction over a long axis: while more than 32 rows remain, zero-pad
+    to a multiple of 32 (half the padding in front, the odd row at the
+    end) and sum each block of 32 rows left to right; then sum the rest
+    left to right.  Every add is rounded to the dtype (the reference's
+    bf16 reducer converts after each add), so in bfloat16 this is not
+    torch's f32-accumulated ``sum``."""
+    while g.shape[0] > 32:
+        pad = (-g.shape[0]) % 32
+        if pad:
+            z = g.new_zeros((pad // 2, *g.shape[1:]))
+            g = torch.cat([z, g, g.new_zeros((pad - pad // 2,
+                                              *g.shape[1:]))])
+        blk = g.reshape(-1, 32, *g.shape[1:])
+        acc = torch.zeros_like(blk[:, 0])
+        for i in range(32):
+            acc = acc + blk[:, i]
+        g = acc
+    acc = torch.zeros_like(g[0])
+    for i in range(g.shape[0]):
+        acc = acc + g[i]
+    return acc
+
+
+def train_forward(params, xt: torch.Tensor):
+    """``[B, 8]`` bf16 :func:`transform` output -> ``([B, C]`` f32 logits,
+    the three bf16 pre-activations ``(a1, a2, a3))`` over bfloat16
+    ``params``, differentiable.  The trainer takes the bias gradients
+    from the pre-activations' gradients (:func:`xla_batch_sum`): torch's
+    own bias gradient is an f32-accumulated sum, the reference's a bf16
+    one."""
+    a1 = xt @ params.w1 + params.b1
+    a2 = torch.relu(a1) @ params.w2 + params.b2
+    a3 = torch.relu(a2) @ params.w3 + params.b3
+    return a3.float(), (a1, a2, a3)
+
+
+def bce_mean(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy of ``[B]`` logits (stable form)."""
+    losses = (torch.clamp(lg, min=0) - lg * labels
+              + torch.log1p(torch.exp(-lg.abs())))
+    return losses.mean()
+
+
+def loss_fn(params, xt: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy (numerically stable logit form) on
+    :func:`transform`-ed inputs."""
+    return bce_mean(train_forward(params, xt)[0][:, 0], labels)
+
+
+# ---------------------------------------------------------------------------
 # Init, artifact I/O and weights carried across
 # ---------------------------------------------------------------------------
 
@@ -172,7 +237,20 @@ def params_from_numpy(d, device: str | torch.device = "cpu",
 def params_to_numpy(p) -> dict:
     """The port's params -> ``{field: float32 array}`` (the npz layout;
     the values are bf16)."""
-    return {k: getattr(p, k).cpu().numpy() for k in p._fields}
+    return {k: getattr(p, k).detach().float().cpu().numpy()
+            for k in p._fields}
+
+
+def save_params(params, path: str, family: str | None = None) -> str:
+    """Write ``params`` as the reference's ``.npz`` artifact: each field
+    as float32 (the bf16 values), ``dtype="bfloat16"``, ``family`` where
+    the family records one (``multiclass``), then the schema version.
+    Returns the path written (``.npz`` appended if missing)."""
+    path = _npz_path(path)
+    extra = {} if family is None else {"family": family}
+    np.savez(path, **params_to_numpy(params), dtype="bfloat16", **extra,
+             schema_version=ARTIFACT_SCHEMA_VERSION)
+    return path
 
 
 def load_params(path: str, device: str | torch.device = "cpu") -> MlpParams:

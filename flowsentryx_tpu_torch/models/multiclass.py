@@ -4,7 +4,10 @@ Counterpart of ``flowsentryx_tpu/models/multiclass.py``: the binary
 serving contract ``1 - P(benign)``, and :func:`attack_class` for
 attribution.  The trunk is :func:`~.mlp.trunk`, rounded as the
 reference's compiled graph rounds it; the softmax is XLA:CPU's
-(:func:`class_probs`).
+(:func:`class_probs`).  Training uses :func:`~.mlp.train_forward` and
+:func:`loss_fn` (the reference's mean softmax cross-entropy) over
+bfloat16 params; :func:`save_params` writes the reference's layout with
+``family="multiclass"``.
 """
 
 from __future__ import annotations
@@ -78,6 +81,24 @@ def params_from_numpy(d, device: str | torch.device = "cpu"
 
 
 params_to_numpy = mlp.params_to_numpy
+
+
+def loss_fn(params, xt: torch.Tensor, y_class: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy over integer class labels, on
+    :func:`~.mlp.transform`-ed inputs."""
+    return softmax_ce_mean(mlp.train_forward(params, xt)[0], y_class)
+
+
+def softmax_ce_mean(lg: torch.Tensor, y_class: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy of ``[B, C]`` logits."""
+    logp = torch.log_softmax(lg, dim=-1)
+    return -logp.gather(1, y_class.long()[:, None]).mean()
+
+
+def save_params(params, path: str) -> str:
+    """Persist as the reference's ``.npz`` (bf16 stored as f32 with the
+    dtype recorded, ``family="multiclass"``)."""
+    return mlp.save_params(params, path, family="multiclass")
 
 
 def load_params(path: str, device: str | torch.device = "cpu"

@@ -33,6 +33,10 @@ class ModelSpec:
     classify_batch: Callable[..., torch.Tensor]
     #: The family's npz loader ``(path, device) -> params``.
     load: Callable[..., Any] = logreg.load_params
+    #: ``fsx distill`` can compile this family's artifacts into the
+    #: kernel tier: only the int8 logreg lane (monotone accumulator ->
+    #: score tail) has bands the distiller inverts exactly.
+    distillable: bool = False
 
 
 _REGISTRY: dict[str, ModelSpec] = {}
@@ -57,10 +61,44 @@ def get_model(name: str) -> ModelSpec:
         ) from None
 
 
+def registered_models() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def distillable_models() -> list[str]:
+    return sorted(n for n, s in _REGISTRY.items() if s.distillable)
+
+
+def require_distillable(name: str, params: Any) -> None:
+    """Refuse a (model, artifact) pair the distiller cannot compile,
+    before any work, with the reference's messages: the family must
+    serve the int8 logreg lane, and the artifact must carry that
+    family's quantization fields."""
+    spec = get_model(name)
+    if not spec.distillable:
+        raise ValueError(
+            f"model {name!r} is not distillable: fsx distill compiles "
+            "the int8 logistic-regression lane (quantize -> int8 dot -> "
+            "requant -> sigmoid) into eBPF, and this family serves a "
+            "different function. Supported families: "
+            f"{distillable_models()}")
+    missing = [f for f in ("w_int8", "bias", "w_scale", "in_scale",
+                           "in_zp", "out_scale", "out_zp")
+               if not hasattr(params, f)]
+    if missing:
+        raise ValueError(
+            f"artifact is not a {name!r} params pytree: missing "
+            f"quantization fields {missing} (is this an artifact from "
+            "another model family?)")
+
+
 def load_artifact(name: str, path: str, device="cpu"):
     """Load a trained ``.npz`` artifact as the params for ``name``,
-    through its family's loader (as the reference dispatches)."""
-    spec = get_model(name)
+    through its family's loader (as the reference dispatches; an
+    unregistered name has no loader, in the reference's words)."""
+    if name not in _REGISTRY:
+        raise KeyError(f"no artifact loader for model family {name!r}")
+    spec = _REGISTRY[name]
     try:
         return spec.load(path, device)
     except (TypeError, KeyError) as e:
@@ -115,7 +153,8 @@ def validate_swap(served, params, quant: dict | None) -> None:
 
 for _name in ("logreg_int8", "logreg_int8_pallas"):
     register_model(ModelSpec(name=_name, init=logreg.golden_params,
-                             classify_batch=kernels.score_int8))
+                             classify_batch=kernels.score_int8,
+                             distillable=True))
 register_model(ModelSpec(name="logreg_float", init=logreg.golden_params,
                          classify_batch=logreg.classify_float))
 # the reference's defaults: init_params(jax.random.PRNGKey(0)), drawn by

@@ -7,16 +7,22 @@ kernel               replaces (Pallas TPU kernel)                     source
 ``score_int8``       ``flowsentryx_tpu/ops/pallas_kernels.py:54-116``  ``csrc/score_int8.cu``
 ``table_summary``    ``flowsentryx_tpu/ops/pallas_kernels.py:126-262`` ``csrc/table_summary.cu``
 ``segment_sum_seq``  none (the reference's in-order scatter-add)       ``csrc/segment_sum_seq.cu``
+``gemv_seq``         none (the reference's QAT weight-gradient dot)   ``csrc/gemv_seq.cu``
 ===================  ===============================================  ============================
 
 ``score_int8`` runs eight lanes per row and reads its parameters and a
 256-entry output table from a device buffer whose address is fixed for
-its owner's life (:class:`ScorePack`, :func:`repack_score_params`);
+its owner's life (:class:`ScorePack`, :func:`repack_score_params`); its
+input stage and its tail also run alone, elementwise, as check entries
+(:func:`score_quant_u8`, :func:`score_tail`: the distill compiler's
+chain on the card);
 ``table_summary`` reads keys as 16-byte words, four rows per lane, then
 spreads the tracked bits across the warp with ballots so that its
 predicated state loads are coalesced, all issued before any is consumed.
 ``segment_sum_seq`` sums each sorted segment left to right, the order the
-reference's ``segment_sum`` adds in (the raw48 byte sums, ``ops/agg.py``).
+reference's ``segment_sum`` adds in (the raw48 byte sums, ``ops/agg.py``);
+``gemv_seq`` sums ``g^T M`` row by row with one FMA per row, the order of
+the reference's compiled QAT backward (``train/qat.py``).
 Each source's header says what bounds it on the card and what its design
 does about it.
 
@@ -61,10 +67,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: dict[str, int] = {"score_int8": 0, "table_summary": 0,
-                            "segment_sum_seq": 0}
+                            "segment_sum_seq": 0, "gemv_seq": 0}
 
 _SOURCES = {"score_int8": "score_int8.cu", "table_summary": "table_summary.cu",
-            "segment_sum_seq": "segment_sum_seq.cu"}
+            "segment_sum_seq": "segment_sum_seq.cu", "gemv_seq": "gemv_seq.cu"}
 _ARGTYPES = {
     # x, out, b, device ScoreArgs*, stream
     "score_int8": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -76,9 +82,19 @@ _ARGTYPES = {
     # v, seg, b, out, n, stream
     "segment_sum_seq": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
+    # g, m, n, k, out, stream
+    "gemv_seq": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     # x, out, n, stream: score_int8.cu's log1p alone (a check entry)
     "fsx_xla_log1p": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                       ctypes.c_void_p],
+    # x or acc, out, n, device ScoreArgs*, stream: score_int8.cu's input
+    # stage and its tail alone (check entries)
+    "fsx_score_quant_u8": [ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_void_p,
+                           ctypes.c_void_p],
+    "fsx_score_tail": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_void_p],
 }
 _FNS: dict[str, ctypes._CFuncPtr] = {}
 
@@ -348,6 +364,58 @@ def score_log1p(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def score_quant_u8_plain(params: logreg.LogRegParams,
+                         x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's input stage: ``[n]`` f32 features
+    -> ``[n]`` f32 quint8 codes (0..255)."""
+    return logreg._quantize_u8(logreg._maybe_log1p(params, x.float()),
+                               params.in_scale, params.in_zp)
+
+
+def _stage(symbol: str, params, t: torch.Tensor, dtype: torch.dtype,
+           packed: ScorePack | None) -> torch.Tensor:
+    """Launch one of ``score_int8.cu``'s check entries elementwise over
+    the contiguous 1-D ``t`` with ``params``' ``ScoreArgs``."""
+    if (t.device.type != "cuda" or t.dtype != dtype or t.dim() != 1
+            or not t.is_contiguous()):
+        raise ValueError(f"{symbol}: want a contiguous 1-D {dtype} CUDA "
+                         f"tensor, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    p = pack_score_params(params) if packed is None else packed
+    if p.device != t.device:
+        raise ValueError(f"{symbol}: params on {p.device}, input on "
+                         f"{t.device}")
+    out = torch.empty(t.shape[0], dtype=torch.float32, device=t.device)
+    fn = _FNS.get(symbol) or _fn("score_int8", symbol)
+    _check(fn(t.data_ptr(), out.data_ptr(), t.shape[0], p.args_ptr,
+              _stream(t)), symbol)
+    return out
+
+
+def score_quant_u8(params: logreg.LogRegParams, x: torch.Tensor,
+                   packed: ScorePack | None = None) -> torch.Tensor:
+    """The ``score_int8`` kernel's input stage alone (optional XLA
+    ``log1p``, true division by ``in_scale``, rint, ``+ in_zp``, clip),
+    elementwise: ``[n]`` f32 -> ``[n]`` f32 codes.  A check entry built
+    from the device function the kernel runs, so not counted in
+    :data:`LAUNCHES`; on the CPU its plain version."""
+    if x.device.type == "cpu":
+        return score_quant_u8_plain(params, x)
+    return _stage("fsx_score_quant_u8", params, x, torch.float32, packed)
+
+
+def score_tail(params: logreg.LogRegParams, acc: torch.Tensor,
+               packed: ScorePack | None = None) -> torch.Tensor:
+    """The ``score_int8`` kernel's tail alone (the FMA requant, division,
+    rint, clip and output-table lookup), elementwise: ``[n]`` int32
+    accumulators -> ``[n]`` f32 scores; its plain version is
+    :func:`~..models.logreg.score_from_acc`.  A check entry, not counted
+    in :data:`LAUNCHES`."""
+    if acc.device.type == "cpu":
+        return logreg.score_from_acc(params, acc)
+    return _stage("fsx_score_tail", params, acc, torch.int32, packed)
+
+
 # ---------------------------------------------------------------------------
 # table_summary
 # ---------------------------------------------------------------------------
@@ -448,3 +516,83 @@ def segment_sum_seq(v: torch.Tensor, seg: torch.Tensor, n: int
     _check(fn(v.data_ptr(), seg.data_ptr(), v.shape[0], out.data_ptr(), n,
               _stream(v)), "segment_sum_seq")
     return out
+
+
+# ---------------------------------------------------------------------------
+# gemv_seq
+# ---------------------------------------------------------------------------
+
+_TINY = 2.0 ** -126
+_MID = 1 << 28                  # an f64 whose low 29 bits are this is an f32 tie
+_LOW29 = (1 << 29) - 1
+
+
+def gemv_seq_plain(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gemv_seq`: ``[K]`` float32, each
+    ``sum_n g[n] * m[n, k]`` as a chain of float32 fused multiply-adds in
+    row order, a result below 2^-126 flushed to zero.
+
+    Row by row in numpy: each product is exact in float64 (24 x 24 bits)
+    and each step's sum is rounded to float64 and then to float32.  That
+    double rounding differs from one correct rounding only where the
+    float64 sum lands exactly on a float32 midpoint and is inexact; those
+    steps (and any flush) are found after the pass and redone from there
+    with the sum's exact error (round to odd), so every step is one
+    correct rounding.  Slow (~2 µs a row): the chain is serial."""
+    gd = g.detach().cpu().numpy().astype(np.float64)
+    md = m.detach().cpu().numpy().astype(np.float64)
+    prods = gd[:, None] * md
+    n, k = md.shape
+    sums = np.empty((n, k))
+    acc = np.zeros(k, np.float32)
+    i = 0
+    while i < n:
+        a = acc
+        for j in range(i, n):
+            np.add(a, prods[j], out=sums[j])
+            a = sums[j].astype(np.float32)
+        rounded = sums[i:].astype(np.float32)
+        prev = np.concatenate([acc[None].astype(np.float64),
+                               rounded[:-1].astype(np.float64)])
+        s = sums[i:]
+        bb = s - prev
+        err = (prev - (s - bb)) + (prods[i:] - bb)
+        tie = ((s.view(np.int64) & _LOW29) == _MID) & (err != 0)
+        tiny = (np.abs(rounded) < _TINY) & (rounded != 0)
+        bad = np.nonzero((tie | tiny).any(axis=1))[0]
+        if not len(bad):
+            return torch.from_numpy(rounded[-1].copy())
+        j = i + int(bad[0])
+        r = j - i
+        trunc = s[r].view(np.int64) - ((err[r] * s[r]) < 0)
+        fixed = (trunc | (err[r] != 0)).view(np.float64).astype(np.float32)
+        acc = np.where(np.abs(fixed) < _TINY, fixed * 0, fixed).astype(
+            np.float32)
+        i = j + 1
+    return torch.from_numpy(acc.copy())
+
+
+def gemv_seq(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``g^T m`` for a ``[N]`` float32 ``g`` and ``[N, K]`` float32 ``m``
+    (``K <= 8``) -> ``[K]``, each output one float32 FMA chain in row
+    order (the reference's QAT weight gradient, :func:`gemv_seq_plain`)."""
+    dev = g.device
+    if dev.type == "cpu":
+        return gemv_seq_plain(g, m)
+    if dev.type != "cuda":
+        raise ValueError(f"gemv_seq: unsupported device {dev}")
+    if (g.dtype != torch.float32 or m.dtype != torch.float32
+            or g.dim() != 1 or m.dim() != 2 or m.shape[0] != g.shape[0]
+            or not 1 <= m.shape[1] <= 8 or not g.is_contiguous()
+            or not m.is_contiguous() or m.device != dev):
+        raise ValueError(
+            f"gemv_seq: want contiguous [N] and [N, K<=8] float32 on one "
+            f"device, got {g.dtype} {tuple(g.shape)} and {m.dtype} "
+            f"{tuple(m.shape)} on {m.device}")
+    out = torch.empty(m.shape[1], dtype=torch.float32, device=dev)
+    fn = _FNS.get("gemv_seq") or _fn("gemv_seq")
+    LAUNCHES["gemv_seq"] += 1
+    _check(fn(g.data_ptr(), m.data_ptr(), g.shape[0], m.shape[1],
+              out.data_ptr(), _stream(g)), "gemv_seq")
+    return out
+

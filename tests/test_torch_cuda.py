@@ -275,7 +275,7 @@ def test_graph_launch_counts(cuda, g):
     gr = graph.StepGraph(fn, table, stats, params, shape)
     per = max(g, 1)
     assert gr.launches == {"score_int8": per, "table_summary": 0,
-                           "segment_sum_seq": 0}
+                           "segment_sum_seq": 0, "gemv_seq": 0}
     assert kernels.LAUNCHES["score_int8"] == (n0["score_int8"]
                                               + graph.WARMUPS * per)
     n1 = kernels.LAUNCHES["score_int8"]
@@ -965,3 +965,139 @@ def test_swap_from_a_second_thread_mid_drain_equals_cpu_replay(cuda):
     rc = c.run()
     assert (r.stats, e.sink.blocked, _digest(e)) == (
         rc.stats, c.sink.blocked, _digest(c))
+
+
+# ---------------------------------------------------------------------------
+# The scorer's stage entries, the evaluation shapes, training and distill
+# ---------------------------------------------------------------------------
+
+
+def _u32_probe(params, n_random, seed):
+    """u32 feature values as float32: 0..4095, powers of two and their
+    neighbours, the distill replay's edges, and uniform u32 draws."""
+    from flowsentryx_tpu_torch.distill import plan as dplan
+
+    p = dplan.compile_plan(logreg.params_from_numpy(
+        logreg.params_to_numpy(params)), validate=False)
+    pw = np.array([1 << k for k in range(32)], np.int64)
+    v = np.concatenate([
+        np.arange(4096), pw - 1, pw, pw + 1,
+        dplan.validation_edges(p).astype(np.int64),
+        np.random.default_rng(seed).integers(0, 1 << 32, n_random)])
+    v = v[(v >= 0) & (v <= dplan.U32_MAX)]
+    return torch.from_numpy(v).float()
+
+
+@pytest.mark.parametrize("name", ["golden", "log1p"])
+def test_score_quant_u8_entry_matches_plain(cuda, name):
+    """The kernel's input stage alone equals its plain version
+    (``_quantize_u8`` of ``_maybe_log1p``), exactly, and launches count
+    nothing."""
+    tp = (logreg.golden_params(cuda) if name == "golden"
+          else logreg.load_params(ARTIFACT, cuda))
+    x = _u32_probe(tp, 1 << 20, 5).to(cuda)
+    n0 = dict(kernels.LAUNCHES)
+    got = kernels.score_quant_u8(tp, x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == n0
+    assert torch.equal(got, kernels.score_quant_u8_plain(tp, x))
+    assert torch.equal(got.cpu(), kernels.score_quant_u8(
+        logreg.params_from_numpy(logreg.params_to_numpy(tp)), x.cpu()))
+
+
+@pytest.mark.parametrize("name", ["golden", "log1p"])
+def test_score_tail_entry_matches_plain(cuda, name):
+    """The kernel's tail alone over the whole reachable accumulator
+    range equals ``score_from_acc``, exactly."""
+    tp = (logreg.golden_params(cuda) if name == "golden"
+          else logreg.load_params(ARTIFACT, cuda))
+    w = tp.w_int8.cpu().numpy().astype(np.int64)
+    zp = int(tp.in_zp)
+    contrib = (np.arange(256)[None, :] - zp) * w[:, None]
+    acc = torch.arange(int(contrib.min(1).sum()), int(contrib.max(1).sum())
+                       + 1, dtype=torch.int32, device=cuda)
+    got = kernels.score_tail(tp, acc)
+    assert torch.equal(got, logreg.score_from_acc(tp, acc))
+    assert torch.equal(got.cpu(), logreg.score_from_acc(
+        logreg.params_from_numpy(logreg.params_to_numpy(tp)), acc.cpu()))
+
+
+@pytest.mark.parametrize("b", [65_536, 45_407])
+def test_score_int8_at_evaluation_shapes(cuda, b):
+    """``evaluate_model``'s chunk and the fixture test split's last
+    chunk: the kernel equals its plain version."""
+    from flowsentryx_tpu_torch.train import fixture
+
+    tp = logreg.load_params(ARTIFACT, cuda)
+    X, _ = fixture.cicids_fixture(n=b, seed=1)
+    x = torch.from_numpy(X).to(cuda)
+    assert torch.equal(kernels.score_int8(tp, x),
+                       kernels.score_int8_plain(tp, x))
+
+
+def test_qat_epochs_on_card_match_cpu(cuda):
+    """Two warmup and two quantize epochs of ``train_logreg_qat`` on the
+    card against the same epochs on the CPU: observers, gradients and
+    weights exactly (every sum runs in the reference's order on both:
+    ``gemv_seq``, ``xla_batch_sum``); the loss rtol 1e-5 (its per-row
+    ``log`` is torch's, whose last bit differs between the two)."""
+    from flowsentryx_tpu_torch.train import fixture, qat
+
+    X, y = fixture.cicids_fixture(n=200_000, seed=6)
+    states = {}
+    for dev in ("cpu", cuda):
+        Xd = xla_log1p(torch.from_numpy(X).to(dev))
+        yd = torch.from_numpy(y).to(dev)
+        st = qat.new_state(dev)
+        out = []
+        for quantize in (False, False, True, True):
+            st, loss = qat.qat_epoch(st, Xd, yd, quantize)
+            out.append((st.obs_in.lo.item(), st.obs_in.hi.item(),
+                        st.obs_out.lo.item(), st.obs_out.hi.item(),
+                        st.b.grad.item(), st.b.item(),
+                        st.w.grad.cpu().numpy().copy(),
+                        st.w.cpu().numpy().copy(), loss.item()))
+        states[str(dev)] = out
+    for c, g in zip(states["cpu"], states[str(cuda)]):
+        assert c[:6] == g[:6]
+        np.testing.assert_array_equal(g[6], c[6])
+        np.testing.assert_array_equal(g[7], c[7])
+        np.testing.assert_allclose(g[8], c[8], rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["golden", "log1p"])
+def test_compile_plan_on_card_equals_cpu(cuda, name):
+    """``compile_plan`` through the kernel's stage entries equals the
+    compile through their plain versions (blob, arrays, meta but
+    ``backend``), and the served lane bands the parity corpus as the
+    plan does."""
+    from flowsentryx_tpu_torch.distill import parity
+    from flowsentryx_tpu_torch.distill import plan as dplan
+
+    tp = (logreg.golden_params(cuda) if name == "golden"
+          else logreg.load_params(ARTIFACT, cuda))
+    cpu = logreg.params_from_numpy(logreg.params_to_numpy(tp))
+    a, b = dplan.compile_plan(tp), dplan.compile_plan(cpu)
+    assert dplan.pack_blob(a) == dplan.pack_blob(b)
+    assert a.meta["backend"].startswith("cuda") and b.meta["backend"] == "cpu"
+    assert {k: v for k, v in a.meta.items() if k != "backend"} == \
+        {k: v for k, v in b.meta.items() if k != "backend"}
+    chk = parity.served_band_check(tp, a, parity.corpus(a))
+    assert chk["ok"], chk
+
+
+@pytest.mark.parametrize("n,k", [(0, 8), (1, 8), (511, 8), (512, 8),
+                                 (513, 8), (100_000, 8), (4099, 3)])
+def test_gemv_seq_kernel_matches_plain(cuda, n, k):
+    """The QAT weight gradient's FMA chain on the card equals its plain
+    version bit for bit (tile edges, a ragged last tile, K < 8)."""
+    rng = np.random.default_rng(n + k)
+    g = torch.from_numpy((rng.standard_normal(n) * 10.0 ** rng.uniform(
+        -3, 3, n)).astype(np.float32))
+    m = torch.from_numpy((rng.standard_normal((n, k)) * 3).astype(np.float32))
+    n0 = kernels.LAUNCHES["gemv_seq"]
+    got = kernels.gemv_seq(g.to(cuda), m.to(cuda))
+    assert kernels.LAUNCHES["gemv_seq"] == n0 + 1
+    want = kernels.gemv_seq_plain(g, m)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+

@@ -1,15 +1,18 @@
 """The distilled kernel tier's host side in the port against the JAX
-package's: the plan loader, the integer scorer, the packing, the
-simulated tier in front of the engine, and ``serve --sim-kernel-tier``.
+package's: the plan compiler and loader, the integer scorer, the
+packing, the served-lane band check, the simulated tier in front of the
+engine, ``serve --sim-kernel-tier`` and ``fsx distill``.
 
 The plan is the reference's ``compile_plan`` of
-``artifacts/logreg_int8.npz`` (the port has no plan compiler yet); both
-packages load it, band ≥ 10k feature rows (every quantization boundary
-and its neighbours included) to the same codes, and write the same
-bytes (``pack_blob``, every ``.npz`` entry of ``save_plan``).  The
-committed ``artifacts/logreg_int8_plan.npz``, which the card reads
-(it has no JAX), is recompiled here and must equal that. All
-comparisons are exact.  Capacity 2^12, B = 256.
+``artifacts/logreg_int8.npz``; both packages load it, band ≥ 10k feature
+rows (every quantization boundary and its neighbours included) to the
+same codes, and write the same bytes (``pack_blob``, every ``.npz``
+entry of ``save_plan``).  The committed
+``artifacts/logreg_int8_plan.npz`` is recompiled here and must equal
+that.  The port's own ``compile_plan`` (on the CPU: the plain versions of
+the scorer's stages) must give the reference's plan: the same blob and
+every ``meta`` key but ``backend``.  All comparisons are exact.
+Capacity 2^12, B = 256.
 """
 
 import json
@@ -305,3 +308,181 @@ def test_cli_sim_kernel_tier_refusals(tmp_path, capsys):
                           "--feature-ring", str(ring), "--seconds", "0.1")
     assert rc == 1 and not out
     assert "cannot rescore a compact-emit" in err
+
+
+# ---------------------------------------------------------------------------
+# The compiler and fsx distill
+# ---------------------------------------------------------------------------
+
+
+def _same_plan(port, ref):
+    """Trap-free plan equality: the blob, every array and scalar entry,
+    and every ``meta`` key except ``backend`` (the device that ran the
+    chain)."""
+    assert plan.pack_blob(port) == jplan.pack_blob(ref)
+    for f in ("w", "qbase", "bounds_m1"):
+        a, b = getattr(port, f), getattr(ref, f)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for f in ("acc_drop", "acc_pass", "t_lo", "t_hi", "in_zp", "w_sum"):
+        assert getattr(port, f) == getattr(ref, f), f
+    strip = lambda m: {k: v for k, v in m.items() if k != "backend"}  # noqa
+    assert strip(port.meta) == strip(ref.meta)
+    assert port.meta["backend"] == "cpu"
+
+
+@pytest.fixture(scope="module")
+def trained_artifact(tmp_path_factory):
+    """An artifact the port's trainer just produced (CPU, 40 epochs on a
+    6,000-row fixture)."""
+    from flowsentryx_tpu_torch.train import fixture, qat
+
+    X, y = fixture.cicids_fixture(n=6000, seed=4)
+    res = qat.train_logreg_qat(X, y, epochs=40, device="cpu")
+    return logreg.save_params(res.params, str(
+        tmp_path_factory.mktemp("trained") / "trained.npz"))
+
+
+@pytest.mark.parametrize("thresholds", [(0.1, 0.9), (0.05, 0.95),
+                                        (0.3, 0.7)])
+@pytest.mark.parametrize("which", ["golden", "int8", "trained"])
+def test_compile_plan_equals_reference(which, thresholds, trained_artifact):
+    if which == "golden":
+        jp, tp = jlogreg.golden_params(), logreg.golden_params()
+    else:
+        path = INT8 if which == "int8" else trained_artifact
+        jp, tp = jlogreg.load_params(path), logreg.load_params(path)
+    ref = jplan.compile_plan(jp, *thresholds)
+    _same_plan(plan.compile_plan(tp, *thresholds), ref)
+
+
+def test_compile_plan_errors_match_reference():
+    jp, tp = jlogreg.load_params(INT8), logreg.load_params(INT8)
+    for th in ((0.9, 0.1), (0.5, 0.5), (-0.1, 0.5), (0.2, 1.5)):
+        with pytest.raises(plan.DistillError) as e:
+            plan.compile_plan(tp, *th)
+        with pytest.raises(jplan.DistillError) as je:
+            jplan.compile_plan(jp, *th)
+        assert str(e.value) == str(je.value)
+    # a negative weight scale makes the tail decreasing in acc
+    neg = dict(logreg.params_to_numpy(tp), w_scale=np.float32(-0.01))
+    with pytest.raises(plan.DistillError) as e:
+        plan.compile_plan(logreg.params_from_numpy(neg))
+    with pytest.raises(jplan.DistillError) as je:
+        jplan.compile_plan(jlogreg.make_params(**{
+            k: v for k, v in neg.items()}))
+    assert "not monotone" in str(e.value)
+    assert str(e.value) == str(je.value)
+
+
+@pytest.mark.parametrize("name", ["mlp", "multiclass", "logreg_float",
+                                  "wrong_pytree"])
+def test_require_distillable_matches_reference(name):
+    from flowsentryx_tpu.models import mlp as jmlp
+    from flowsentryx_tpu.models import registry as jregistry
+    from flowsentryx_tpu_torch.core import prng
+    from flowsentryx_tpu_torch.models import mlp, registry
+
+    model = "logreg_int8" if name == "wrong_pytree" else name
+    tparams = (mlp.init_params(prng.prng_key(0))
+               if name == "wrong_pytree" else object())
+    jparams = (jmlp.init_params(jax_key(0))
+               if name == "wrong_pytree" else object())
+    with pytest.raises(ValueError) as e:
+        registry.require_distillable(model, tparams)
+    with pytest.raises(ValueError) as je:
+        jregistry.require_distillable(model, jparams)
+    assert str(e.value) == str(je.value)
+    assert registry.distillable_models() == jregistry.distillable_models()
+    assert registry.registered_models() == jregistry.registered_models()
+
+
+def jax_key(seed):
+    import jax
+
+    return jax.random.PRNGKey(seed)
+
+
+def _distill(main, argv, capsys):
+    rc = main(["distill", *argv])
+    cap = capsys.readouterr()
+    return rc, cap.out, cap.err
+
+
+def test_cli_distill_json_matches_reference(tmp_path, capsys):
+    from flowsentryx_tpu import cli as jcli
+
+    argv = [INT8, "--thresholds", "0.2,0.8", "--json"]
+    rc_j, out_j, _ = _distill(jcli.main, argv + [
+        "--out", str(tmp_path / "j"), "--blob", str(tmp_path / "j.bin"),
+        "--report", str(tmp_path / "j.json")], capsys)
+    rc_t, out_t, _ = _distill(cli.main, argv + [
+        "--device", "cpu", "--out", str(tmp_path / "t"),
+        "--blob", str(tmp_path / "t.bin"),
+        "--report", str(tmp_path / "t.json")], capsys)
+    assert rc_j == rc_t == 0
+    j, t = json.loads(out_j), json.loads(out_t)
+    for d in (j, t):
+        d.pop("compile_s")
+        d["plan"]["meta"].pop("backend")
+        for k in ("plan_file", "blob_file"):
+            d[k] = Path(d[k]).name[1:]
+    assert t == j
+    assert (tmp_path / "t.bin").read_bytes() == \
+        (tmp_path / "j.bin").read_bytes()
+    tj = json.loads((tmp_path / "t.json").read_text())
+    assert tj["plan"] == json.loads(out_t)["plan"]
+    _same_plan(plan.load_plan(str(tmp_path / "t.npz")),
+               jplan.load_plan(str(tmp_path / "j.npz")))
+
+
+@pytest.mark.parametrize("argv", [
+    ["--thresholds", "0.9,0.1"], ["--thresholds", "x"],
+    ["--model", "mlp"], ["--model", "nope"]])
+def test_cli_distill_refusals_match_reference(argv, capsys):
+    from flowsentryx_tpu import cli as jcli
+
+    rc_j, _, err_j = _distill(jcli.main, [INT8, *argv], capsys)
+    rc_t, _, err_t = _distill(cli.main, [INT8, *argv, "--device", "cpu"],
+                              capsys)
+    assert rc_j == rc_t == 1
+    assert err_t == err_j
+
+
+@pytest.mark.parametrize("flag", [["--check"], ["--emulate"],
+                                  ["--emulate-n", "100"],
+                                  ["--pin", "/sys/fs/bpf/fsx"]])
+def test_cli_distill_refuses_bpf_flags_by_name(flag, capsys):
+    rc, out, err = _distill(cli.main, [INT8, *flag, "--device", "cpu"],
+                            capsys)
+    assert rc == 1 and not out
+    assert f"refusing {flag[0]}" in err and "bpf/" in err
+
+
+def test_cli_distill_without_card_fails(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out, err = _distill(cli.main, [INT8], capsys)
+    assert rc == 1 and not out and "no CUDA device" in err
+
+
+@pytest.mark.parametrize("which", ["golden", "int8"])
+def test_served_band_check_matches_reference_emulate(which):
+    """The reference's ``_distill_emulate`` corpus, rebuilt by the port:
+    the served int8 lane bands every row as the plan does (0
+    mismatches, the reference's acceptance), and the split equals the
+    reference's emulator run over its own corpus."""
+    from flowsentryx_tpu import cli as jcli
+    from flowsentryx_tpu_torch.distill import parity
+
+    if which == "golden":
+        jp, tp = jlogreg.golden_params(), logreg.golden_params()
+    else:
+        jp, tp = jlogreg.load_params(INT8), logreg.load_params(INT8)
+    ref_plan = jplan.compile_plan(jp)
+    ref = jcli._distill_emulate(jp, ref_plan, jplan.pack_blob(ref_plan),
+                                n=4000)
+    p = plan.compile_plan(tp)
+    got = parity.served_band_check(tp, p, parity.corpus(p, n=4000))
+    assert got["ok"] and got["served_mismatches"] == 0
+    assert got["vectors"] == ref["vectors"] and got["split"] == ref["split"]
+

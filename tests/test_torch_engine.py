@@ -120,7 +120,7 @@ def _port_sources():
 
 
 def test_port_never_imports_jax_or_reference_ast():
-    banned = {"jax", "jaxlib", "flowsentryx_tpu"}
+    banned = {"jax", "jaxlib", "flowsentryx_tpu", "optax", "pandas"}
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -143,7 +143,7 @@ def test_port_never_imports_jax_or_reference_at_runtime():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flowsentryx_tpu')]\n"
+        "('jax', 'jaxlib', 'flowsentryx_tpu', 'optax', 'pandas')]\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -158,8 +158,10 @@ def test_new_host_modules_are_checked():
     the checkpoint, table and durable-write modules, the latency plane,
     the sink channel and its timing table, the watchdog, the health
     ladder, the governor, the methodology module, the threefry, the
-    distill plan loader, the simulated kernel tier and the pcap reader
-    are among them."""
+    distill plan compiler and loader, the served-lane parity check, the
+    simulated kernel tier, the pcap reader and the training plane
+    (fixture, data, optimizers, QAT, evaluation, stress) are among
+    them."""
     names = {".".join(p.relative_to(REPO).with_suffix("").parts)
              for p in _port_sources()}
     for m in ("core.wire", "core.durable", "engine.shm", "engine.arena",
@@ -168,7 +170,10 @@ def test_new_host_modules_are_checked():
               "engine.metrics", "engine.watchdog", "engine.health",
               "engine.predict", "sync.__init__", "sync.channel",
               "sync.tuning", "benchmarks", "distill.__init__",
-              "distill.plan", "distill.sim", "engine.pcap"):
+              "distill.plan", "distill.sim", "engine.pcap",
+              "distill.parity", "train.__init__", "train.fixture",
+              "train.data", "train.optim", "train.qat", "train.evaluate",
+              "train.stress"):
         assert f"flowsentryx_tpu_torch.{m}" in names, m
 
 
