@@ -215,6 +215,42 @@ more.
     stats, blacklist and table digest equal the CPU engine on the same
     drains; ``score_int8`` once per batch, ``table_summary`` once.
 
+35. ``device_loop_serve``: both scenarios from the 48-byte ring
+    (``logreg_int8.npz``, 2^20 rows, B=2048, 384 batches) through
+    ``mega_n="auto"`` with the drain ring at depths 2 and 4, in turns with
+    ``auto`` (auto, 2, 4, 4, 2, auto): stats, table digest and
+    verdict-ring bytes equal the CPU engine's and ``auto``'s without the
+    ring; ``score_int8`` launches equal the batches; at least 2 full
+    rounds; the report's ``device_loop`` block, the graphs' node counts
+    and capture seconds, the uploads' overlap with the replays measured
+    on the card (CUDA events on both streams), and each graph's launch
+    (single, rungs, round): host µs of a launch into an idle card and
+    back to back, device ms per launch and per batch, beside its node
+    count.  Then the reference's oracle: a round's per-slot wires equal
+    sequential top-rung megasteps' over the same slots (and the state);
+    and the flood at ``verdict_k=8`` through ``mega_n=4`` and a depth-2
+    ring, equal to the CPU engine with wires overflowing inside rounds.
+36. ``device_loop_sealed``: one spawned worker (a 32-slot sealed
+    queue) into the ring (``auto``, depth 2): one host copy per batch, the upload overlap
+    (the report's and the card's) above 0, equal to the inline singles
+    ring path.
+37. ``device_loop_auto``: ``calibrate_ring_depth`` at full width
+    (candidates 2, 4, 8): each candidate's measurement, the depth chosen,
+    and the card memory back at its level once the throwaway engines are
+    gone.
+38. ``boot_cold_cached``: two fresh ``cli serve --mega auto
+    --device-loop 2 --compile-cache DIR`` processes over the same record
+    file, each with an empty kernel build directory
+    (``FSX_KERNEL_BUILD``): a cold boot (every library built and stored)
+    and a cached ``--tiered-warm`` boot (every library loaded from the
+    cache, no nvcc, the fill complete with no ``fill_error``); the same
+    signature digest, stats and table; import s, boot-to-serving s, time
+    to first verdict and the fill's end for both.
+39. ``tiered_partial_ladder``: the fill held, both scenarios from the
+    ring through the single step and the top rung only, equal to
+    ``auto`` and the CPU engine (stats, digest, verdict-ring bytes), in
+    turns with full-warm ``auto`` engines (records/s).
+
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
 also with the log1p artifact on raw48 rows, and at the training path's
@@ -1065,6 +1101,7 @@ def main() -> int:
             res[label] = {"equal": same, "readback": got["readback"],
                           "group_hist": got["group_hist"]}
         ok &= len(want["blacklist"]) > 8
+        served["overflow"] = (c, recs, want)
         return {"ok": ok, "blocked": len(want["blacklist"]),
                 "stats": want["stats"], **res}
 
@@ -1357,6 +1394,7 @@ def main() -> int:
                        "model": "logreg_int8 + artifacts/logreg_int8.npz",
                        "step_busy_ms_per_batch": busy}, []
         served["ring_cpu"], served["ring_single"] = {}, {}
+        served["ring_auto"] = {}
         for scen in ring_scen:
             recs = ring_recs[scen]
             res = {}
@@ -1384,6 +1422,7 @@ def main() -> int:
                                logreg.load_params(artifact, "cpu"), recs)
             served["ring_cpu"][scen] = cpu
             served["ring_single"][scen] = res["single"]
+            served["ring_auto"][scen] = res["auto"]
             gen = served.get("serve_reports", {}).get(scen)
             out[scen] = {"generator_serve": (
                 {**per_batch(gen), "idle_share": idle_share(gen, busy),
@@ -1443,11 +1482,15 @@ def main() -> int:
 
     raw_ring_phase()
 
-    def sealed_run(label, n_workers, recs, record=False, mega_n=0):
+    def sealed_run(label, n_workers, recs, record=False, mega_n=0,
+                   trace=False, queue_slots=8, **kw):
         """Serve ``recs`` split by ``shard_of`` over ``n_workers`` shard
         rings through spawned workers (strict) into the card engine,
         drain-on-stop; returns the report, the engine, the sink, the
-        verdict records and the launches of this path's window."""
+        verdict records and the launches of this path's window.  ``kw``
+        goes to the engine (``device_loop``); ``trace`` turns its H2D
+        trace on for the run; ``queue_slots`` sizes each worker's sealed
+        queue."""
         base = os.path.join(shm_dir, label)
         sh = schema.shard_of(recs["saddr"], n_workers)
         for k in range(n_workers):
@@ -1456,11 +1499,12 @@ def main() -> int:
             assert ring.produce(recs[sh == k]) == int((sh == k).sum())
         vpath, vring = verdict_ring(label)
         sink = TeeSink(vpath)
-        src = ShardedIngest(base, n_workers, strict=True, precompact=False)
+        src = ShardedIngest(base, n_workers, strict=True, precompact=False,
+                            queue_slots=queue_slots)
         cls = Recording if record else Engine
         try:
             e = cls(ring_cfg, src, sink, params=logreg.load_params(
-                artifact, "cuda"), device="cuda", mega_n=mega_n)
+                artifact, "cuda"), device="cuda", mega_n=mega_n, **kw)
             e.warm()
             src.wait_ready()
             deadline = time.monotonic() + 60
@@ -1471,6 +1515,8 @@ def main() -> int:
             src.request_stop()            # drain every ring, then exit
             if record:
                 e.start_log()
+            if trace:
+                e.trace_h2d = []
             kernels.reset_launches()      # this path's window opens
             r = e.run()
             torch.cuda.synchronize()
@@ -1547,6 +1593,336 @@ def main() -> int:
         return {"ok": all(checks), **out}
 
     ingest_phase()
+
+    # -- the drain ring and the boot path (device_loop, tiered warm,
+    # -- compile cache) -------------------------------------------------------
+
+    from flowsentryx_tpu_torch.engine.engine import calibrate_ring_depth
+
+    def h2d_overlap(trace):
+        """The H2D overlap measured on the card from an engine's
+        ``trace_h2d``: of the uploads' time on the copy stream, the share
+        that a replay on the step's stream covered (CUDA events)."""
+        iv = {"h2d": [], "compute": []}
+        if trace:
+            base = trace[0][1]
+            for kind, a, b_ in trace:
+                iv[kind].append((base.elapsed_time(a), base.elapsed_time(b_)))
+        tot = sum(b_ - a for a, b_ in iv["h2d"])
+        ov = sum(max(0.0, min(b_, c1) - max(a, c0))
+                 for a, b_ in iv["h2d"] for c0, c1 in iv["compute"])
+        return {"uploads": len(iv["h2d"]), "h2d_ms": tot,
+                "overlapped_ms": ov, "fraction": ov / tot if tot else 0.0}
+
+    def launch_costs(e, reps=10):
+        """Every graph of the served engine (after its checks) replayed
+        on its last input: host µs of one launch into an idle card
+        (synchronized before each), host µs per launch back to back
+        (where the launch queue can push back), and device ms per launch
+        and per batch (CUDA events around back-to-back replays), beside
+        the graph's node count: a round's launch against the R top-rung
+        launches it replaces."""
+        out = {}
+        for key, g in sorted(e._graphs.items()):
+            for _ in range(2):
+                g.replay()
+            torch.cuda.synchronize()
+            idle = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                g.replay()
+                idle.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+            hs = []
+            a, b_ = torch.cuda.Event(True), torch.cuda.Event(True)
+            a.record()
+            for _ in range(reps):
+                t = time.perf_counter()
+                g.replay()
+                hs.append(time.perf_counter() - t)
+            b_.record()
+            b_.synchronize()
+            ms = a.elapsed_time(b_) / reps
+            out[e._label(key)] = {
+                "nodes": g.nodes, "batches": e._chunks(key),
+                "idle_host_us_per_launch": float(np.median(idle)) * 1e6,
+                "host_us_per_launch": float(np.median(hs)) * 1e6,
+                "device_ms_per_launch": ms,
+                "device_ms_per_batch": ms / e._chunks(key)}
+        return out
+
+    def ring_engine(label, recs, depth, **kw):
+        fpath = feature_ring(label, recs)
+        vpath, vring = verdict_ring(label)
+        sink = ShmVerdictSink(vpath)
+        e = Engine(ring_cfg, ShmRingSource(fpath), sink,
+                   params=logreg.load_params(artifact, "cuda"),
+                   device="cuda", mega_n="auto", device_loop=depth, **kw)
+        return e, sink, vring
+
+    @phase("device_loop_serve")
+    def ring_serve_phase():
+        out, checks = {"card": card, "batches": SERVE_BATCHES,
+                       "model": "logreg_int8 + artifacts/logreg_int8.npz"}, []
+        busy = served.get("compact_busy_ms")
+        # in turns: auto, ring 2, ring 4, ring 4, ring 2, auto
+        order = (0, 2, 4, 4, 2, 0)
+        for scen in ring_scen:
+            cpu, auto = served["ring_cpu"][scen], served["ring_auto"][scen]
+            out[scen] = {"records_per_s_in_turns": {}}
+            for depth in order:
+                label = f"ring{depth}" if depth else "auto"
+                e, sink, vring = ring_engine(label, ring_recs[scen], depth)
+                e.warm()
+                e.trace_h2d = [] if depth else None
+                kernels.reset_launches()          # this path's window opens
+                r = e.run(max_batches=SERVE_BATCHES)
+                torch.cuda.synchronize()
+                launches = dict(kernels.LAUNCHES)  # ... and closes
+                trace, e.trace_h2d = e.trace_h2d, None
+                verdicts = vring.consume(1 << 18).tobytes()
+                same = {"stats_cpu": r.stats == cpu["stats"],
+                        "digest_cpu": digest(e) == cpu["digest"],
+                        "verdict_ring_cpu": verdicts == cpu["verdicts"],
+                        "stats_auto": r.stats == auto["report"].stats,
+                        "digest_auto": digest(e) == auto["digest"],
+                        "verdict_ring_auto":
+                            verdicts == auto["verdicts"].tobytes()}
+                checks += [*same.values(), r.batches == SERVE_BATCHES,
+                           launches["score_int8"] == r.batches,
+                           launches["table_summary"] == 1,
+                           sink.dropped == 0]
+                out[scen]["records_per_s_in_turns"].setdefault(
+                    label, []).append(r.records_per_s)
+                if depth:
+                    checks.append(r.dispatch["device_loop"]["rounds"] >= 2)
+                if label not in out[scen]:
+                    out[scen][label] = {
+                        **per_batch(r), "launches": launches,
+                        "equal": same,
+                        "device_loop": r.dispatch["device_loop"],
+                        "group_hist": r.dispatch["group_hist"],
+                        "graph_nodes": r.dispatch["graph_nodes"],
+                        "capture_s": {k: v["seconds"] for k, v in
+                                      r.boot["variants"].items()}}
+                    if depth:
+                        out[scen][label].update(
+                            device_h2d_overlap=h2d_overlap(trace),
+                            launch_cost=launch_costs(e))
+                    if busy:
+                        out[scen][label]["idle_share"] = idle_share(r, busy)
+                del e
+                torch.cuda.empty_cache()
+        # the reference's oracle: a round's per-slot wires equal those of
+        # sequential top-rung megasteps over the same slots
+        params = logreg.load_params(artifact, "cuda")
+        er, _, _ = ring_engine("oracle_r", ring_recs[blk][:0], 2)
+        em, _, _ = ring_engine("oracle_m", ring_recs[blk][:0], 0)
+        er.warm()
+        em.warm()
+        raws, _ = stream(blk, 32, params)
+        wires_equal, blocked = True, 0
+        for k in range(2):
+            slots = np.stack(raws[16 * k:16 * (k + 1)]).reshape(
+                2, 8, BATCH + 1, -1)
+            gr = er._graphs[-1]
+            gr.input.copy_(to_dev(slots))
+            gr.replay()
+            for s_ in range(2):
+                g8 = em._graphs[8]
+                g8.input.copy_(to_dev(slots[s_]))
+                g8.replay()
+                wires_equal &= torch.equal(gr.out.wire[s_], g8.out.wire)
+                blocked += int(g8.out.wire[2 * 64].item())
+        oracle = {"wires_equal": bool(wires_equal), "blocks": blocked,
+                  "state_equal": same_state(er.table, er.stats, em.table,
+                                            em.stats)}
+        checks += [oracle["wires_equal"], oracle["state_equal"]]
+        out["slot_wires_vs_megasteps"] = oracle
+        del er, em
+        # a wire that overflows inside a round: the flood at verdict_k=8
+        c, recs, want = served["overflow"]
+        e = Engine(c, ArraySource(recs.copy()), CollectSink(),
+                   params=logreg.golden_params("cuda"), device="cuda",
+                   mega_n=4, device_loop=2)
+        e.warm()
+        r = e.run()
+        same = {"stats": r.stats == want["stats"],
+                "blacklist": sorted(e.sink.blocked.items())
+                == want["blacklist"], "digest": digest(e) == want["digest"]}
+        checks += [*same.values(), r.readback["fallback_sinks"] > 0,
+                   r.dispatch["device_loop"]["rounds"] >= 1]
+        out["overflow_in_round"] = {"equal_cpu": same,
+                                    "readback": r.readback,
+                                    "device_loop": r.dispatch["device_loop"]}
+        return {"ok": all(checks), **out}
+
+    ring_serve_phase()
+
+    @phase("device_loop_sealed")
+    def ring_sealed_phase():
+        """One spawned worker (a 32-slot sealed queue) -> arena staging
+        -> the ring: one host copy per batch, the upload overlap on the
+        card, equal to the inline singles ring path."""
+        # a sealed queue of 32 slots: room for two rounds of backlog (a
+        # short poll flushes the uploaded slots, as in the reference)
+        r, e, sink, v, launches = sealed_run(
+            "ring_sealed", 1, ring_recs[blk], mega_n="auto",
+            device_loop=2, trace=True, queue_slots=32)
+        trace, e.trace_h2d = e.trace_h2d, None
+        ov = h2d_overlap(trace)
+        inline = served["ring_single"][blk]
+        same = {"stats": r.stats == inline["report"].stats,
+                "table_digest": digest(e) == inline["digest"],
+                "verdict_ring": v.tobytes()
+                == inline["verdicts"].tobytes()}
+        d = r.dispatch
+        checks = [*same.values(), d["host_copies_per_batch"] == 1.0,
+                  d["device_loop"]["rounds"] >= 1,
+                  d["device_loop"]["h2d"]["overlap_fraction"] > 0,
+                  ov["fraction"] > 0, launches["score_int8"] == r.batches,
+                  sink.ring.dropped == 0]
+        return {"ok": all(checks), "card": card, **per_batch(r),
+                "equal_inline_singles": same, "launches": launches,
+                "host_copies_per_batch": d["host_copies_per_batch"],
+                "device_loop": d["device_loop"],
+                "device_h2d_overlap": ov,
+                "group_hist": d["group_hist"],
+                "ingest": ingest_summary(r.ingest)}
+
+    ring_sealed_phase()
+
+    @phase("device_loop_auto")
+    def ring_auto_phase():
+        """``--device-loop auto``'s calibration at full width: each
+        candidate's drain and the depth chosen; the card's memory is
+        back where it was once the throwaway engines are gone."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        depth, detail = calibrate_ring_depth(
+            ring_cfg, params=logreg.load_params(artifact, "cuda"),
+            mega_n="auto", device="cuda")
+        wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - before
+        return {"ok": depth in (2, 4, 8) and left < (64 << 20),
+                "card": card, "depth": depth, "detail": detail,
+                "wall_s": wall, "bytes_left_allocated": left}
+
+    ring_auto_phase()
+
+    boot_dir = os.path.join(REPO, "build", "boot")
+    shutil.rmtree(boot_dir, ignore_errors=True)
+    os.makedirs(boot_dir)
+
+    @phase("boot_cold_cached")
+    def boot_phase():
+        """Fresh ``cli serve`` processes, each with an empty kernel build
+        directory: a cold boot into an empty cache directory, then a
+        cached ``--tiered-warm`` boot; the same records."""
+        rec_path = os.path.join(boot_dir, "records.bin")
+        with open(rec_path, "wb") as f:
+            f.write(ring_recs[blk][:96 * BATCH].tobytes())
+        cache_dir = os.path.join(boot_dir, "cache")
+        legs = {}
+        for leg, extra in (("cold", []), ("cached", ["--tiered-warm"])):
+            env = {**os.environ, "FSX_KERNEL_BUILD":
+                   os.path.join(boot_dir, leg, "kernels")}
+            argv = [sys.executable, "-m", "flowsentryx_tpu_torch.cli",
+                    "serve", "--records", rec_path, "--artifact", artifact,
+                    "--mega", "auto", "--device-loop", "2",
+                    "--compile-cache", cache_dir, "--json", *extra]
+            t = time.perf_counter()
+            p = subprocess.run(argv, capture_output=True, text=True,
+                               env=env, cwd=REPO, timeout=300)
+            wall = time.perf_counter() - t
+            if p.returncode != 0:
+                raise RuntimeError(f"{leg} boot exited {p.returncode}: "
+                                   f"{p.stderr[-2000:]}")
+            rep = json.loads(p.stdout.strip().splitlines()[-1])
+            legs[leg] = {"process_wall_s": wall, "boot": rep["boot"],
+                         "stats": rep["stats"], "table": rep["table"],
+                         "batches": rep["batches"],
+                         "records_per_s": rep["records_per_s"]}
+        cold, cached = legs["cold"]["boot"], legs["cached"]["boot"]
+        n = len(kernels.LAUNCHES)
+        checks = [cold["cache"]["misses"] == n, cold["cache"]["stores"] == n,
+                  cached["cache"]["hits"] == n,
+                  cached["cache"]["misses"] == 0,
+                  all(k["source"] == "cache"
+                      for k in cached["kernels"].values()),
+                  all(k["source"] == "build"
+                      for k in cold["kernels"].values()),
+                  cached["tiered"] is True, "fill_error" not in cached,
+                  cached["fill_pending"] == [],
+                  "fill_done_s" in cached,
+                  cold["cache"]["sig_digest"] == cached["cache"]["sig_digest"],
+                  legs["cold"]["stats"] == legs["cached"]["stats"],
+                  legs["cold"]["table"] == legs["cached"]["table"]]
+        summary = {leg: {"import_s": v["boot"]["import_s"],
+                         "serving_ready_s": v["boot"]["serving_ready_s"],
+                         "time_to_first_verdict_s":
+                             v["boot"]["time_to_first_verdict_s"],
+                         "fill_done_s": v["boot"].get("fill_done_s"),
+                         "process_wall_s": v["process_wall_s"],
+                         "kernel_s": max(k["seconds"] for k in
+                                         v["boot"]["kernels"].values())}
+                   for leg, v in legs.items()}
+        return {"ok": all(checks), "card": card, "summary": summary,
+                "legs": legs}
+
+    boot_phase()
+
+    @phase("tiered_partial_ladder")
+    def tiered_phase():
+        """The fill held: serving on the single step and the top rung
+        only, byte-identical to the full warm (``auto`` from the ring)
+        and the CPU engine; records/s in turns with full-warm ``auto``
+        engines."""
+        out, checks = {"card": card}, []
+        for scen in ring_scen:
+            out[scen] = {"records_per_s_in_turns": {}}
+            # in turns with the full warm: tiered, full, full, tiered
+            for tiered in (True, False, False, True):
+                label = "tiered_held" if tiered else "full_warm"
+                e, sink, vring = ring_engine(f"tiered_{scen}",
+                                             ring_recs[scen], 0)
+                if tiered:
+                    e._warm_worker = lambda: None
+                t = time.perf_counter()
+                e.warm(tiered=tiered)
+                ready_s = time.perf_counter() - t
+                kernels.reset_launches()          # this path's window opens
+                r = e.run(max_batches=SERVE_BATCHES)
+                torch.cuda.synchronize()
+                launches = dict(kernels.LAUNCHES)  # ... and closes
+                verdicts = vring.consume(1 << 18).tobytes()
+                auto, cpu = (served["ring_auto"][scen],
+                             served["ring_cpu"][scen])
+                hist = {int(g): n for g, n in
+                        r.dispatch["group_hist"].items()}
+                same = {"stats": r.stats == auto["report"].stats
+                        == cpu["stats"],
+                        "digest": digest(e) == auto["digest"]
+                        == cpu["digest"],
+                        "verdict_ring": verdicts == cpu["verdicts"]}
+                checks += [*same.values(),
+                           launches["score_int8"] == r.batches]
+                if tiered:
+                    checks += [set(hist) <= {1, 8},
+                               r.dispatch["graphs"] == 2]
+                out[scen]["records_per_s_in_turns"].setdefault(
+                    label, []).append(r.records_per_s)
+                out[scen].setdefault(label, {
+                    **per_batch(r), "equal": same, "group_hist": hist,
+                    "warm_s": ready_s, "launches": launches,
+                    "boot": r.boot})
+                del e
+        return {"ok": all(checks), **out}
+
+    tiered_phase()
 
     def build_daemon():
         """``make -C daemon`` (into ``daemon/build/``); if the compiler

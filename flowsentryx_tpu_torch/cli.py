@@ -15,7 +15,11 @@ cpu``) from ``--config`` (the reference's JSON config file) and serves
 
 and prints the report as JSON.  ``--mega N|auto`` groups backlogged
 batches as the reference's does (compact16 only: refused before boot for
-a model served over raw48).  ``--slo-us N`` bounds the feature -> verdict
+a model served over raw48); ``--device-loop N|auto`` adds the drain
+ring above the ladder; ``--tiered-warm`` opens serving on the serving
+tier while a background thread captures the rest; ``--compile-cache
+DIR`` keeps the built kernel libraries across boots (and pins the boot
+salt there).  ``--slo-us N`` bounds the feature -> verdict
 path at N µs (latency-budget dispatch; ``--predict`` adds the burst
 forecaster), ``--watchdog-s S`` sets the stall bound and
 ``--no-sink-thread`` sinks on the dispatch thread; the report carries
@@ -58,16 +62,63 @@ from pathlib import Path
 from flowsentryx_tpu_torch.core.config import DEFAULT_CONFIG, FsxConfig
 
 
-def _mega_arg(s: str) -> int | str:
-    """``--mega``: a fixed group size or ``auto``, the adaptive
-    power-of-two coalescing ladder (``Engine(mega_n="auto")``)."""
-    if s == "auto":
-        return "auto"
+def _int_or_auto(flag: str):
+    def parse(s: str) -> int | str:
+        if s == "auto":
+            return "auto"
+        try:
+            return int(s)
+        except ValueError:
+            raise argparse.ArgumentTypeError(
+                f"{flag} takes an integer or 'auto', got {s!r}") from None
+    return parse
+
+
+#: ``--mega``: a fixed group size or ``auto``, the adaptive power-of-two
+#: coalescing ladder (``Engine(mega_n="auto")``).
+_mega_arg = _int_or_auto("--mega")
+#: ``--device-loop``: a ring depth, or ``auto``, picked by a short
+#: calibration drain at boot (``engine.calibrate_ring_depth``).
+_device_loop_arg = _int_or_auto("--device-loop")
+
+
+def _boot_salt(cache_dir: str | None, label: str) -> int:
+    """The boot-time hash salt, compile-cache aware, as the reference
+    draws it.  Without a cache directory: a fresh random odd u32 per
+    boot.  With one (``--compile-cache``), the salt is drawn once and
+    pinned in ``DIR/boot_salt``, so that every boot of the same config
+    keys the same cache entries (the staged signature holds the config,
+    salt included); rotating it is wiping the directory or fixing
+    ``table.salt`` in the config."""
+    if not cache_dir:
+        return secrets.randbits(32) | 1
+    path = Path(cache_dir) / "boot_salt"
     try:
-        return int(s)
-    except ValueError:
-        raise argparse.ArgumentTypeError(
-            f"--mega takes an integer or 'auto', got {s!r}") from None
+        salt = int(path.read_text().strip(), 0)
+        if salt & 1 and 0 < salt < 1 << 32:
+            return salt
+        print(f"{label}: ignoring malformed {path} (value {salt:#x}); "
+              "drawing a fresh boot salt", file=sys.stderr)
+    except FileNotFoundError:
+        pass
+    except (OSError, ValueError) as e:
+        print(f"{label}: ignoring unreadable {path} ({e}); drawing a "
+              "fresh boot salt", file=sys.stderr)
+    salt = secrets.randbits(32) | 1
+    from flowsentryx_tpu_torch.core import durable
+
+    try:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        durable.atomic_write(path, f"{salt:#010x}\n".encode())
+    except OSError as e:
+        print(f"{label}: could not pin boot salt in {path} ({e}) — the "
+              "compile cache will miss on the next boot", file=sys.stderr)
+        return salt
+    print(f"{label}: --compile-cache: boot salt {salt:#x} pinned in "
+          f"{path} so cached entries stay valid across restarts; rotate "
+          "by wiping the cache dir or fixing table.salt in config",
+          file=sys.stderr)
+    return salt
 
 
 def _refuse(args: argparse.Namespace) -> str | None:
@@ -91,6 +142,24 @@ def _refuse(args: argparse.Namespace) -> str | None:
     if args.verdict_k is not None and args.verdict_k < 0:
         return ("--verdict-k must be >= 0 (0 disables the compact verdict "
                 "wire)")
+    if args.device_loop != "auto" and args.device_loop < 0:
+        return ("--device-loop must be >= 0 (0 = per-group dispatch, the "
+                "parity baseline) or 'auto'")
+    if args.device_loop and not args.mega:
+        return ("--device-loop requires --mega N|auto: each ring slot "
+                "carries one top-rung coalescing group (the deep scan is "
+                "a ring of megasteps)")
+    if args.device_loop and args.verdict_k == 0:
+        return ("--device-loop is incompatible with --verdict-k 0: the "
+                "ring's only steady-state readback is the per-slot compact "
+                "verdict wire, and without it every round would fetch full "
+                "[ring*mega, B] block arrays — the exact transfer the ring "
+                "exists to amortize")
+    if args.tiered_warm and not args.mega:
+        return ("--tiered-warm requires --mega N|auto: the serving tier IS "
+                "the top coalescing rung — with no ladder there is nothing "
+                "to tier (plain warm() already compiles the one staged "
+                "step)")
     if args.slo_us < 0:
         return ("--slo-us must be >= 0 (0 = throughput-tuned serving, no "
                 "latency budget)")
@@ -203,9 +272,12 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         # a random boot-time hash salt, as the reference's serve draws:
         # slot collisions cannot be precomputed by an attacker
         cfg = dataclasses.replace(cfg, table=dataclasses.replace(
-            cfg.table, salt=secrets.randbits(32)))
+            cfg.table, salt=_boot_salt(args.compile_cache, "serve")))
 
     # imports after argument checks: a bad flag must not pay torch's boot
+    import time
+
+    t_import = time.perf_counter()
     import numpy as np
 
     from flowsentryx_tpu_torch.core import schema
@@ -217,6 +289,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     from flowsentryx_tpu_torch.engine.traffic import Scenario, TrafficSpec
     from flowsentryx_tpu_torch.models.registry import get_model, load_artifact
 
+    import_s = time.perf_counter() - t_import
     try:
         spec = get_model(cfg.model.name)
     except KeyError as e:
@@ -271,11 +344,16 @@ def _cmd_serve(args: argparse.Namespace) -> int:
             kernel_tier = _load_kernel_tier(args, cfg, source)
             if kernel_tier is None:
                 return 1
+        device_loop = args.device_loop
+        if device_loop == "auto":
+            device_loop = _calibrate(cfg, params, args.mega, device)
         eng = Engine(cfg, source, sink, params=params, device=device,
                      mega_n=args.mega, slo_us=args.slo_us,
                      predict=args.predict, watchdog_s=args.watchdog_s,
                      sink_thread=False if args.no_sink_thread else None,
-                     kernel_tier=kernel_tier)
+                     kernel_tier=kernel_tier, device_loop=device_loop,
+                     compile_cache=args.compile_cache)
+        eng.boot_import_s = round(import_s, 4)
         if args.restore:
             try:
                 eng.restore(args.restore)
@@ -287,7 +365,12 @@ def _cmd_serve(args: argparse.Namespace) -> int:
             # live model swap: re-stat the artifact and swap it in
             # mid-serve when its mtime changes
             eng.watch_artifact(args.artifact)
-        eng.warm()
+        if args.tiered_warm:
+            # only the serving tier (singles, the top rung) blocks the
+            # boot; a background thread captures the rest
+            eng.warm(tiered=True)
+        else:
+            eng.warm()
         rep = _profiled(eng, args, device)
     finally:
         if hasattr(source, "close"):
@@ -297,6 +380,25 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         rep = rep._replace(ingest=source.ingest_stats())
     print(json.dumps(rep._asdict(), indent=None if args.json else 2))
     return 0
+
+
+def _calibrate(cfg, params, mega, device) -> int:
+    """``--device-loop auto``: a short calibration drain per candidate
+    depth, each with a throwaway engine that frees its graphs and table
+    before the next (and before the serving engine boots), judged on
+    the measured H2D overlap; announced on stderr."""
+    from flowsentryx_tpu_torch.engine.engine import calibrate_ring_depth
+
+    print("serve: --device-loop auto: calibrating ring depth (one short "
+          "drain and capture per candidate)...", file=sys.stderr)
+    depth, detail = calibrate_ring_depth(cfg, params=params, mega_n=mega,
+                                         device=device)
+    print(f"serve: --device-loop auto -> ring depth {depth} "
+          f"({detail['reason']}; measured: "
+          + ", ".join(f"ring {m['ring']}: overlap {m['overlap_fraction']}"
+                      for m in detail["candidates"]) + ")",
+          file=sys.stderr)
+    return depth
 
 
 def _load_kernel_tier(args, cfg, source):
@@ -622,6 +724,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "dispatch (one CUDA graph replay on the card); "
                         "'auto' = adaptive coalescing: every power-of-two "
                         "group size up to 8, the largest the backlog fills")
+    s.add_argument("--device-loop", type=_device_loop_arg, default=0,
+                   metavar="N",
+                   help="drain ring of depth N: a backlog of N top-rung "
+                        "--mega groups goes to the card as ONE captured "
+                        "round, each slot uploaded on a copy stream while "
+                        "the previous round computes; needs --mega; 0 = "
+                        "per-group dispatch. 'auto' picks the depth from "
+                        "a short boot-time calibration drain (announced)")
+    s.add_argument("--compile-cache", metavar="DIR",
+                   help="keep the nvcc-built kernel libraries here: a "
+                        "later boot of the same staged shape and toolchain "
+                        "loads them instead of running nvcc. Fail-open: a "
+                        "miss, drift or corrupt entry rebuilds, counted in "
+                        "the report's boot block")
+    s.add_argument("--tiered-warm", action="store_true",
+                   help="open serving once the single step and the top "
+                        "--mega rung are captured; a background thread "
+                        "captures the other rungs and the ring (the same "
+                        "verdicts throughout; needs --mega)")
     s.add_argument("--slo-us", type=int, default=0, metavar="N",
                    help="latency-budget serving: bound the feature->verdict "
                         "path at N µs — the oldest pending record's age and "

@@ -217,6 +217,9 @@ class FsxConfig:
 
         return enc(self)
 
+    def to_json(self, **kw: Any) -> str:
+        return json.dumps(self.to_dict(), indent=2, **kw)
+
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "FsxConfig":
         def dec(tp: type, v: Any) -> Any:

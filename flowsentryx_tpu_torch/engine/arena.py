@@ -18,12 +18,14 @@ rows each, ``[slots, group_max, max_batch+1, words]`` overall.  A group
 Reuse rule: a slot's rows may be overwritten only once every dispatch
 staged in it has finished reading them.  In the reference that holds by
 count (``slots >= readback_depth + 2``, with at most ``readback_depth``
-batches in flight; :meth:`ring_safe_slots` generalizes it to a drain
-ring).  The port keeps that count and adds the card's own proof: the
-engine records, per slot, the event of the last dispatch staged there
-and waits on it when it claims the slot again (a no-op when the count
-already guarantees it).  On the CPU a step reads its input before it
-returns, so the count alone suffices.
+batches in flight); :meth:`ring_safe_slots` generalizes it to a drain
+ring, and the engine sizes its arena with it for the ring's depth (1
+without a ring).  The port keeps that count and adds the card's own
+proof: the engine records, per slot, the event of the last dispatch
+staged there (for a ring slot, its round's, which follows the slot's
+upload) and waits on it when it claims the slot again (a no-op when the
+count already guarantees it).  On the CPU a step reads its input before
+it returns, so the count alone suffices.
 """
 
 from __future__ import annotations

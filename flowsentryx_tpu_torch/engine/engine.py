@@ -12,10 +12,12 @@ stage -> dispatch -> reap, for :class:`~flowsentryx_tpu_torch.ingest
 .ShardedIngest`), single-batch dispatch and backlog-triggered grouping
 (``mega_n=N`` or ``"auto"``, compact16 only), :meth:`Engine.checkpoint`
 / :meth:`Engine.restore`, :meth:`Engine.reset_stream`, the live model
-swap (:meth:`Engine.hot_swap`, :meth:`Engine.watch_artifact`) and the
-simulated kernel tier (``kernel_tier=``, ``EngineReport.escalation``).
-Not ported yet: the drain ring, the compile cache and the cluster planes
-(ROADMAP queue 1 orders what follows).
+swap (:meth:`Engine.hot_swap`, :meth:`Engine.watch_artifact`), the
+simulated kernel tier (``kernel_tier=``, ``EngineReport.escalation``),
+the drain ring (``device_loop=N``, :func:`calibrate_ring_depth`) and the
+boot path (``warm(tiered=True)``, ``compile_cache=``,
+``EngineReport.boot``).  Not ported yet: the sharded step and the
+cluster planes (ROADMAP queue 1 orders what follows).
 
 Two threads, as in the reference: the **dispatch thread** (the caller of
 :meth:`Engine.run`) polls, stages and launches; a **sink thread** waits
@@ -88,6 +90,39 @@ The table and stats are captured into every graph by address, so
 :meth:`Engine.restore` copies a checkpoint INTO them rather than
 rebinding them (the reference rebinds).
 
+**The drain ring** (``device_loop=R``, ``serve --device-loop``): a
+backlog of R top-rung groups (C batches each) goes to the device as ONE
+dispatch, a CUDA graph of the R*C steps (:mod:`..fused.device_loop`)
+carrying table and stats through the round and emitting one merged
+verdict wire per slot; the sink harvests the round as one ``[R, 2K+4]``
+buffer.  Each slot is uploaded the moment it is staged, on a copy stream
+of its own, from its pinned arena rows into one of ``2R`` device slot
+buffers, while the previous round computes; the round's launch makes the
+step's stream wait on those uploads' events and copies the slots into
+the graph's static input on the device.  A slot buffer is written again
+only after the round that read it has copied it out (an event on the
+step's stream that the copy stream waits on), and an arena slot is
+claimed again only after its round's event.  A backlog short of a round
+flushes its uploaded slots through the top-rung megastep and the rest
+down the ladder: the same bytes.  The reference runs the ring from a
+pipeline worker thread (``fsx-devpipe``) because XLA:CPU blocks on a
+launch; a graph replay returns at once, so here the dispatch thread
+launches the rounds and the sink thread stays as it is (the report's
+``mode`` and ``device_loop`` block are the reference's).
+``EngineReport.dispatch["device_loop"]["h2d"]`` keeps the reference's
+overlap measure: the host wall of the uploads issued while earlier work
+was still unsunk, over all uploads' wall.
+
+**Boot** (:meth:`Engine.warm`): the kernels are built (or loaded from a
+``compile_cache`` directory, :mod:`.compile_cache`), then the graphs are
+captured.  ``warm(tiered=True)`` captures only the serving tier (the
+single step and the top rung, and the ring under ``slo_us``) before it
+returns; a background thread captures the remaining rungs, largest
+first, then the ring, growing the ready set as each lands.  Until then
+the loops drain through the ready rungs: the same bytes.
+``EngineReport.boot`` holds the boot's story and the time from
+construction to the first verdict.
+
 **Live model swap** (:meth:`Engine.hot_swap`, ``serve
 --artifact-reload``): the reference's swap is one reference assignment,
 because its jitted step takes the params as an argument.  On the card
@@ -108,6 +143,7 @@ the params, as the reference does.
 from __future__ import annotations
 
 import functools
+import gc
 import os
 import sys
 import threading
@@ -122,10 +158,12 @@ import torch
 from flowsentryx_tpu_torch.core import schema
 from flowsentryx_tpu_torch.core.config import FsxConfig, unsupported
 from flowsentryx_tpu_torch.core.device import resolve_device
+from flowsentryx_tpu_torch.core.signature import staging_signature
 from flowsentryx_tpu_torch.engine import checkpoint as ckpt
 from flowsentryx_tpu_torch.engine import health
 from flowsentryx_tpu_torch.engine import table as tbl
 from flowsentryx_tpu_torch.engine.arena import DispatchArena
+from flowsentryx_tpu_torch.engine.compile_cache import CompileCache
 from flowsentryx_tpu_torch.engine.batcher import MicroBatcher
 from flowsentryx_tpu_torch.engine.metrics import (
     LatencyRecorder, PipelineMetrics,
@@ -135,6 +173,7 @@ from flowsentryx_tpu_torch.engine.watchdog import DispatchWatchdog
 from flowsentryx_tpu_torch.engine.writeback import (
     BlacklistUpdate, decode_verdict_wire, extract_updates,
 )
+from flowsentryx_tpu_torch.fused import device_loop as dl
 from flowsentryx_tpu_torch.models import logreg
 from flowsentryx_tpu_torch.models.registry import (
     get_model, load_artifact, validate_swap,
@@ -155,6 +194,8 @@ MEGA_AUTO_MAX = 8
 
 #: Graph key of the single step (rungs are keyed by their size >= 1).
 _SINGLE = 0
+#: Graph key of the drain ring's round.
+_RING = -1
 
 
 class EngineReport(NamedTuple):
@@ -191,6 +232,11 @@ class EngineReport(NamedTuple):
     #: ``blacklist_hits``, ``kernel_passes``, ``escalated``, the
     #: escalation ratio) and ``kernel_drop_hz``; None without a tier.
     escalation: dict | None = None
+    #: The boot's story (:meth:`Engine.warm`): the kernels' build or cache
+    #: load, each graph's capture, the tiered fill, the compile cache's
+    #: counters, seconds to serving and to the first verdict; None
+    #: before a warm.
+    boot: dict | None = None
 
 
 class _InFlight(NamedTuple):
@@ -205,6 +251,20 @@ class _InFlight(NamedTuple):
     t_launch: float = 0.0
     put_s: float = 0.0
     launch_s: float = 0.0
+    ring: int = 0          # slots of a drain-ring round (its wire [R, 2K+4])
+
+
+class _Uploaded(NamedTuple):
+    """One drain-ring slot on its way to the device."""
+
+    dev: torch.Tensor      # [C, B+1, words]: device buffer, or on the CPU
+    #                        the arena rows themselves
+    t_enqueue: float
+    n_records: int
+    put_s: float           # host wall of the upload call
+    event: Any             # the upload's event on the copy stream, or None
+    arena_slot: int
+    buf: int = -1          # index of the device slot buffer
 
 
 def _host_cpus() -> int:
@@ -259,7 +319,15 @@ class Engine:
     (:class:`~flowsentryx_tpu_torch.distill.sim.SimKernelTier`:
     ``filter(records) -> records`` and ``report() -> dict``) that
     band-splits the drained records before the batcher, where the XDP
-    stage splits them; record path only."""
+    stage splits them; record path only.
+
+    ``device_loop``: the drain ring's depth R (0 = off): a backlog of R
+    top-rung groups goes as one dispatch (module docstring).  It needs
+    grouping and the compact verdict wire; ``readback_depth`` grows to
+    one round when it was not given, and an explicit smaller value is
+    refused.  ``compile_cache``: a directory (or a
+    :class:`~.compile_cache.CompileCache`) that keeps the built kernel
+    libraries across boots."""
 
     def __init__(
         self,
@@ -278,7 +346,11 @@ class Engine:
         predict: bool = False,
         watchdog_s: float | None = None,
         kernel_tier: Any | None = None,
+        device_loop: int = 0,
+        compile_cache: Any | None = None,
     ):
+        #: Boot anchor: ``EngineReport.boot``'s walls count from here.
+        self._boot_t0 = time.perf_counter()
         bad = unsupported(cfg)
         if bad:
             raise ValueError("config not servable by this port: "
@@ -394,12 +466,46 @@ class Engine:
         if self.readback_depth < 0:
             raise ValueError(
                 f"readback_depth must be >= 0, got {readback_depth}")
+        # -- the drain ring ------------------------------------------------
+        self.ring = int(device_loop)
+        if self.ring < 0:
+            raise ValueError(
+                f"device_loop must be >= 0, got {device_loop}")
+        self._ring_chunks = 0
+        self.ring_step = None
+        if self.ring:
+            if not sizes:
+                raise ValueError(
+                    "device_loop requires mega grouping (mega_n >= 2 or "
+                    "'auto'): each ring slot carries one top-rung group")
+            if self.verdict_k < 1:
+                raise ValueError(
+                    "device_loop requires the compact verdict wire "
+                    "(verdict_k >= 1): the ring's steady-state readback "
+                    "is one [ring, 2K+4] buffer per round")
+            self._ring_chunks = max(sizes)
+            round_b = dl.ring_round_batches(self.ring, self._ring_chunks)
+            if readback_depth is not None and self.readback_depth < round_b:
+                raise ValueError(
+                    f"device_loop={self.ring} with readback_depth="
+                    f"{readback_depth} < {round_b} (one ring round of "
+                    f"{self.ring}x{self._ring_chunks} batches): the pipe "
+                    "could never keep a round in flight while the next "
+                    "stages, so every H2D upload would serialize behind "
+                    "the drain — raise readback_depth to >= "
+                    f"{round_b} or shrink the ring")
+            # a config-default depth grows to cover one full round
+            self.readback_depth = max(self.readback_depth, round_b)
+            self.ring_step = dl.make_compact_device_loop(
+                cfg, classify, self.ring, self._ring_chunks, **self.quant)
         #: Sealed-but-undispatched ``(wire buffer, oldest-record stamp)``
         #: group candidates.
         self._pending: list[tuple[np.ndarray, float]] = []
         #: How many pending batches the loop accumulates before the
-        #: coalescing policy must fire: one top-rung group.
-        self._pending_cap = self.mega_n
+        #: coalescing policy must fire: one ring round with the ring, one
+        #: top-rung group otherwise.
+        self._pending_cap = (self.ring * self._ring_chunks if self.ring
+                             else self.mega_n)
         self._cuda = self.device.type == "cuda"
         self.batcher = self._new_batcher(t0_ns or 0)
         self._t0_auto = t0_ns is None
@@ -417,8 +523,37 @@ class Engine:
         #: copy runs on it).
         self._stream = (torch.cuda.current_stream(self.device)
                         if self._cuda else None)
-        #: Captured graphs on the card: ``_SINGLE`` and each rung size.
+        #: Captured graphs on the card: ``_SINGLE``, each rung size and
+        #: ``_RING``.
         self._graphs: dict[int, StepGraph] = {}
+        #: The drain ring's upload side on the card: a copy stream, ``2R``
+        #: device slot buffers and, per buffer, the event after which the
+        #: round that read it no longer needs it.
+        self._copy_stream = None
+        self._ring_dev: list[torch.Tensor] = []
+        self._ring_dev_free: list = []
+        self._ring_dev_next = 0
+        if self.ring and self._cuda:
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._ring_dev = [torch.zeros(
+                (self._ring_chunks, cfg.batch.max_batch + 1, self._words),
+                dtype=torch.int32, device=self.device)
+                for _ in range(2 * self.ring)]
+            self._ring_dev_free = [None] * len(self._ring_dev)
+        #: Optional device-side trace of the ring (a list): each upload
+        #: and each launch appends ``(kind, start event, end event)``
+        #: with timing events on its stream (``chip_smoke.py`` measures
+        #: the H2D/compute overlap on the card from it).
+        self.trace_h2d: list | None = None
+        self._ring_rounds = 0
+        self._ring_partial_slots = 0
+        self._h2d_put_s = 0.0
+        self._h2d_overlap_s = 0.0
+        self._h2d_puts = 0
+        self._h2d_puts_overlapped = 0
+        #: Batches copied into the arena (the host copies per batch).
+        self._staged_batches = 0
+        self._staged_bytes = 0
         self._n_dispatched = 0
         self._inflight: deque[_InFlight] = deque()
         self._blocked: set[int] = set()
@@ -486,6 +621,31 @@ class Engine:
         self._watch_path: str | None = None
         self._watch_mtime = 0
         self._watch_next = 0.0
+        # -- boot (warm, the tiered fill, the compile cache) ----------------
+        if compile_cache is None or isinstance(compile_cache, CompileCache):
+            self._cache = compile_cache
+        else:
+            self._cache = CompileCache(compile_cache, staging_signature(
+                cfg, wire=self.wire, mega_sizes=self._mega_sizes,
+                device_loop=self.ring, params=self.params, donate=True))
+        #: The READY rungs: captured and safe to dispatch.  The whole
+        #: ladder unless a tiered warm shrank it to the serving tier;
+        #: its fill grows it back rung by rung.
+        self._ready_sizes: tuple[int, ...] = self._mega_sizes
+        #: Whether the ring may engage (captured, same story).
+        self._ring_ready = bool(self.ring)
+        #: Warm-seed floors of the ring-round EWMA keys (negated round
+        #: sizes): the online refinement never goes below them.
+        self._round_floor_s: dict[int, float] = {}
+        self._warm_plan: tuple = ()
+        self._warm_thread_obj: threading.Thread | None = None
+        #: ``EngineReport.boot``; the fill thread rebinds it whole.
+        self._boot: dict | None = None
+        #: Wall from construction to the first real verdict sunk.
+        self._first_verdict_s: float | None = None
+        #: Import wall of the engine stack, stamped by the caller that
+        #: measured it (the engine cannot observe its own import).
+        self.boot_import_s = 0.0
 
     def _new_batcher(self, t0_ns: int) -> MicroBatcher:
         # a batcher buffer may be reused only after its batch is staged:
@@ -498,8 +658,11 @@ class Engine:
 
     def _alloc_slots(self) -> None:
         """The arena and the per-dispatch output slots for this
-        ``readback_depth``: ``readback_depth + 2`` of each, so a slot is
-        reused only after its dispatch is sunk."""
+        ``readback_depth``: ``readback_depth + 2`` output slots, so a slot
+        is reused only after its dispatch is sunk, each sized for the
+        largest dispatch (a ring round with the ring); arena slots by
+        :meth:`~.arena.DispatchArena.ring_safe_slots` for the ring's
+        depth (``readback_depth + 2`` without one)."""
         compact = self.wire == schema.WIRE_COMPACT16
         b = self.cfg.batch.max_batch
         n_slots = self.readback_depth + 2
@@ -509,7 +672,8 @@ class Engine:
         # the batcher's pinned buffers).  Sealed loops stage a few
         # batches per slot even for singles.
         self._arena = (DispatchArena(
-            DispatchArena.ring_safe_slots(self.readback_depth, 1),
+            DispatchArena.ring_safe_slots(self.readback_depth,
+                                          self.ring or 1),
             max(self._group_max, 4) if self.sealed else self._group_max,
             b, self._words, pinned=self._cuda)
             if compact or self.sealed else None)
@@ -519,11 +683,12 @@ class Engine:
                                             if self._arena else 0)
         if self._cuda:
             k = self.verdict_k
-            rec_words = self._group_max * (2 * b + 1)
-            self._wire_host = ([torch.empty(fused.verdict_wire_words(k),
-                                            dtype=torch.int32,
-                                            pin_memory=True)
-                                for _ in range(n_slots)] if k else [])
+            most = max(self._group_max, self.ring * self._ring_chunks)
+            rec_words = most * (2 * b + 1)
+            self._wire_host = ([torch.empty(
+                max(self.ring, 1) * fused.verdict_wire_words(k),
+                dtype=torch.int32, pin_memory=True)
+                for _ in range(n_slots)] if k else [])
             # with a wire the block record is read only on overflow, so
             # it stays on the device; without one it is always fetched
             self._blocks_slot = [
@@ -534,19 +699,44 @@ class Engine:
 
     # -- graphs --------------------------------------------------------------
 
+    @staticmethod
+    def _label(key: int) -> str:
+        """A graph key's name in ``EngineReport.boot`` (the reference's
+        variant labels)."""
+        return ("single" if key == _SINGLE else "ring" if key == _RING
+                else f"mega{key}")
+
+    def _capture_one(self, key: int, warm_state: tuple | None = None
+                     ) -> dict:
+        """Capture one graph (``_SINGLE``, a rung, ``_RING``) and return
+        its boot entry.  ``warm_state`` (a scratch table and stats) makes
+        it a capture beside serving (:mod:`..ops.graph`)."""
+        b, words = self.cfg.batch.max_batch, self._words
+        kw = ({} if warm_state is None
+              else {"warm_state": warm_state, "sync_check": False})
+        if key == _SINGLE:
+            gr = StepGraph(self.step, self.table, self.stats, self.params,
+                           (b + 1, words), **kw)
+        elif key == _RING:
+            gr = StepGraph(self.ring_step, self.table, self.stats,
+                           self.params,
+                           (self.ring, self._ring_chunks, b + 1, words),
+                           slots=True, **kw)
+        else:
+            gr = StepGraph(self.megasteps[key], self.table, self.stats,
+                           self.params, (key, b + 1, words), **kw)
+        self._graphs[key] = gr
+        return {"source": "capture", "seconds": round(gr.capture_s, 4),
+                "nodes": gr.nodes}
+
     def _capture(self) -> None:
-        """Build the kernels and capture the single step and every
-        staged rung (the reference's ``warm()`` compiling every rung)."""
-        kernels.build_all()
-        b = self.cfg.batch.max_batch
-        words = self._words
-        self._graphs[_SINGLE] = StepGraph(
-            self.step, self.table, self.stats, self.params,
-            (b + 1, words))
-        for g, mega in self.megasteps.items():
-            self._graphs[g] = StepGraph(
-                mega, self.table, self.stats, self.params,
-                (g, b + 1, words))
+        """Build the kernels and capture every graph: the single step,
+        every staged rung and the ring (the reference's ``warm()``
+        compiling every variant)."""
+        kernels.build_all(cache=self._cache)
+        for key in ([_SINGLE] + list(self._mega_sizes)
+                    + ([_RING] if self.ring else [])):
+            self._capture_one(key)
 
     # -- waits of the dispatch thread ----------------------------------------
 
@@ -576,42 +766,74 @@ class Engine:
 
     # -- dispatch ------------------------------------------------------------
 
-    def _launch(self, rung: int, x: torch.Tensor, arena_slot: int | None,
-                t_enqueue: float, n_records: int) -> None:
-        """One dispatch of the staged ``x``: the single step
-        (``rung == _SINGLE``, ``x`` one ``[B+1, words]`` batch) or the
-        rung-``g`` megastep (``x`` ``[g, B+1, words]``).  ``arena_slot``
-        is the arena slot ``x`` lies in, gated by this dispatch's event;
-        ``t_enqueue`` the oldest record's stamp, ``n_records`` the valid
-        records (the latency plane's)."""
+    def _chunks(self, key: int) -> int:
+        """Batches one dispatch of graph ``key`` carries."""
+        return (self.ring * self._ring_chunks if key == _RING
+                else max(key, 1))
+
+    def _launch(self, key: int, x: torch.Tensor | None, arena_slots,
+                t_enqueue: float, n_records: int,
+                uploaded: list[_Uploaded] | None = None) -> None:
+        """One dispatch: the single step (``key == _SINGLE``, ``x`` one
+        ``[B+1, words]`` batch), the rung-``g`` megastep (``x`` ``[g,
+        B+1, words]``) or a ring round (``key == _RING``).  ``x`` is a
+        host tensor (pinned arena rows or a batcher buffer), uploaded
+        here on the step's stream; or ``uploaded`` holds slots already
+        on their way to the device (:meth:`_upload_slot`: a round's R,
+        or one slot flushed through the top rung), copied into the
+        graph's input on the device once their uploads have landed.
+        ``arena_slots`` are the arena slots the data lies in, gated by
+        this dispatch's event; ``t_enqueue`` the oldest record's stamp,
+        ``n_records`` the valid records (the latency plane's)."""
         # an output slot is free once the dispatch that used it is sunk:
         # at most readback_depth batches unsunk leaves the slot of
         # readback_depth + 2 dispatches ago sunk (a no-op except at exit
         # flushes: every dispatch site already reaps to that depth)
         self._reap(self._n_slots - 2)
         t_l = time.perf_counter()
-        n = max(rung, 1)
+        n = self._chunks(key)
         slot = self._n_dispatched % self._n_slots
         with self._launch_lock:
             if self._cuda:
-                gr = self._graphs[rung]
-                gr.input.copy_(x, non_blocking=True)
+                gr = self._graphs[key]
+                if uploaded is None:
+                    gr.input.copy_(x, non_blocking=True)
+                else:
+                    dst = gr.input if key == _RING else gr.input[None]
+                    for r, u in enumerate(uploaded):
+                        self._stream.wait_event(u.event)
+                        dst[r].copy_(u.dev, non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record()
+                    for u in uploaded:
+                        self._ring_dev_free[u.buf] = copied
                 t_p = time.perf_counter()
+                ev0 = self._trace_event()
                 gr.replay()
+                self._trace_end("compute", ev0)
                 wire = None
                 if self.verdict_k:
-                    wire = self._wire_host[slot]
-                    wire.copy_(gr.out.wire, non_blocking=True)
+                    w = gr.out.wire
+                    wire = self._wire_host[slot][:w.numel()].view(w.shape)
+                    wire.copy_(w, non_blocking=True)
                 blocks = self._blocks_slot[slot][:gr.keep.shape[0]]
                 blocks.copy_(gr.keep, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record()
-                if arena_slot is not None:
-                    self._arena_event[arena_slot] = event
+                for a in arena_slots:
+                    self._arena_event[a] = event
             else:
                 t_p = t_l
-                fn = self.step if rung == _SINGLE else self.megasteps[rung]
-                _, _, out = fn(self.table, self.stats, self.params, x)
+                if key == _RING:
+                    _, _, out = self.ring_step(
+                        self.table, self.stats, self.params,
+                        *(u.dev for u in uploaded))
+                else:
+                    fn = (self.step if key == _SINGLE
+                          else self.megasteps[key])
+                    _, _, out = fn(self.table, self.stats, self.params,
+                                   x if uploaded is None
+                                   else uploaded[0].dev)
                 wire, blocks, event = out.wire, fused.block_record(out), None
             if n_records:
                 self._batches_launched += n
@@ -619,11 +841,30 @@ class Engine:
         self._n_dispatched += 1
         self._group_hist[n] = self._group_hist.get(n, 0) + 1
         self.metrics.dispatch.add(t_d - t_l)
-        self._note_step_s(n, t_d - t_p, event)
+        put_s = (t_p - t_l if uploaded is None
+                 else sum(u.put_s for u in uploaded))
+        if key == _RING:
+            self._ring_rounds += 1
+            self._note_round_s(-n, t_d - t_l + put_s, event)
+        else:
+            self._note_step_s(n, t_d - t_p, event)
         self._inflight.append(_InFlight(
             n, wire, blocks, event, t_enqueue=t_enqueue,
-            n_records=n_records, t_launch=t_l, put_s=t_p - t_l,
-            launch_s=t_d - t_p))
+            n_records=n_records, t_launch=t_l, put_s=put_s,
+            launch_s=t_d - t_p, ring=self.ring if key == _RING else 0))
+
+    def _trace_event(self, stream=None):
+        """A timing event recorded now on ``stream`` (the current one by
+        default) while :attr:`trace_h2d` is on, else None."""
+        if self.trace_h2d is None:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        return ev
+
+    def _trace_end(self, kind: str, ev0, stream=None) -> None:
+        if ev0 is not None:
+            self.trace_h2d.append((kind, ev0, self._trace_event(stream)))
 
     def _note_step_s(self, key: int, dt: float, event) -> None:
         """Online refinement of the per-rung step-time EWMA, under a
@@ -639,6 +880,23 @@ class Engine:
             dt if prev is None
             else prev + tuning.SLO_EWMA_ALPHA * (dt - prev))
 
+    def _note_round_s(self, key: int, dt: float, event) -> None:
+        """Online refinement of a ring-round EWMA key (negated round
+        size), as the reference guards it: launch-absorbed rounds only
+        (the eager CPU step), ``dt`` the launch wall plus the round's
+        upload wall, the key never created here (:meth:`warm` seeds it),
+        and the value never below the warm seed, the only measurement
+        that saw the uploads and the reap."""
+        if not self._slo_budget_s or (event is not None
+                                      and not event.query()):
+            return
+        prev = self._rung_ewma_s.get(key)
+        if prev is None:
+            return
+        self._rung_ewma_s[key] = max(
+            prev + tuning.SLO_EWMA_ALPHA * (dt - prev),
+            self._round_floor_s.get(key, prev))
+
     def _stage(self, raws: list[np.ndarray]) -> tuple[int, torch.Tensor]:
         """Copy sealed wire buffers into a freshly claimed arena slot:
         ``(slot, its int32 rows)``."""
@@ -648,6 +906,8 @@ class Engine:
         for i, raw in enumerate(raws):
             rows[i] = raw
         self.metrics.stage.add(time.perf_counter() - t)
+        self._staged_batches += len(raws)
+        self._staged_bytes += int(rows[0].nbytes) * len(raws)
         return slot, self._arena.tensor(slot)
 
     def _n_valid(self, raw: np.ndarray) -> int:
@@ -663,19 +923,93 @@ class Engine:
         if self._arena is None:
             # inline raw48: the sealed batcher buffer itself
             self._launch(_SINGLE, torch.from_numpy(raw.view(np.int32)),
-                         None, t_enqueue, n)
+                         (), t_enqueue, n)
         else:
             slot, x = self._stage([raw])
-            self._launch(_SINGLE, x[0], slot, t_enqueue, n)
+            self._launch(_SINGLE, x[0], (slot,), t_enqueue, n)
 
     def _dispatch_mega(self, group: list[tuple[np.ndarray, float]]) -> None:
         """Group dispatch of ``(buffer, stamp)`` pending pairs: staged
         into one slot, one megastep (one graph replay on the card),
         stamped with the oldest member's stamp."""
         slot, x = self._stage([raw for raw, _ in group])
-        self._launch(len(group), x[:len(group)], slot,
+        self._launch(len(group), x[:len(group)], (slot,),
                      min(t for _, t in group),
                      sum(self._n_valid(raw) for raw, _ in group))
+
+    # -- the drain ring --------------------------------------------------------
+
+    def _upload_slot(self, arena_slot: int, x: torch.Tensor,
+                     t_enqueue: float, n_records: int) -> _Uploaded:
+        """Start the upload of one staged ring slot (``x``, its ``[C,
+        B+1, words]`` arena rows) the moment it is staged, so that it
+        overlaps whatever round is still computing.  On the card: on the
+        copy stream, into the next of the ``2R`` device slot buffers,
+        once the round that last read that buffer has copied it out; on
+        the CPU the arena rows are the slot (the eager step reads them
+        at the dispatch).  An upload issued while earlier work is
+        unsunk counts as overlapped (``EngineReport.dispatch
+        ["device_loop"]["h2d"]``, the reference's measure)."""
+        busy = self._busy_depth() > 0
+        t0 = time.perf_counter()
+        event, i, dev = None, -1, x
+        if self._cuda:
+            i = self._ring_dev_next
+            self._ring_dev_next = (i + 1) % len(self._ring_dev)
+            dev = self._ring_dev[i]
+            cs = self._copy_stream
+            with torch.cuda.stream(cs):
+                if self._ring_dev_free[i] is not None:
+                    cs.wait_event(self._ring_dev_free[i])
+                ev0 = self._trace_event(cs)
+                dev.copy_(x, non_blocking=True)
+                self._trace_end("h2d", ev0, cs)
+                event = torch.cuda.Event()
+                event.record(cs)
+        dt = time.perf_counter() - t0
+        self._h2d_put_s += dt
+        self._h2d_puts += 1
+        if busy:
+            self._h2d_overlap_s += dt
+            self._h2d_puts_overlapped += 1
+        return _Uploaded(dev, t_enqueue, n_records, dt, event, arena_slot, i)
+
+    def _dispatch_ring(self, uploaded: list[_Uploaded]) -> None:
+        """ONE dispatch of a full round of R uploaded slots: one
+        in-flight entry of R*C batches whose wire is R merged slot
+        wires, harvested by the sink as one ``[R, 2K+4]`` buffer."""
+        self._launch(_RING, None, [u.arena_slot for u in uploaded],
+                     min(u.t_enqueue for u in uploaded),
+                     sum(u.n_records for u in uploaded), uploaded=uploaded)
+
+    def _dispatch_group_dev(self, u: _Uploaded) -> None:
+        """An uploaded slot of a round that did not fill, through the
+        top-rung megastep: the same bytes, since the ring's slot body IS
+        that megastep."""
+        self._launch(self._ring_chunks, None, (u.arena_slot,), u.t_enqueue,
+                     u.n_records, uploaded=[u])
+        self._ring_partial_slots += 1
+
+    def _ring_from_pending(self) -> None:
+        """One full round out of the inline pending list: R arena slots of
+        C buffers each, each uploaded as soon as it is staged, then one
+        dispatch."""
+        c = self._ring_chunks
+        uploaded = []
+        for _ in range(self.ring):
+            group = self._pending[:c]
+            del self._pending[:c]
+            slot, x = self._stage([raw for raw, _ in group])
+            uploaded.append(self._upload_slot(
+                slot, x[:c], min(t for _, t in group),
+                sum(self._n_valid(raw) for raw, _ in group)))
+        self._dispatch_ring(uploaded)
+
+    def _rung_for(self, backlog: int) -> int:
+        """The coalescing policy over the READY rungs (a tiered warm's
+        fill may still be capturing the rest): the largest the backlog
+        fills, else 1."""
+        return fused.rung_for_volume(backlog, self._ready_sizes)
 
     def _prewarm_dispatch(self, rung: int) -> None:
         """The governor's pre-warm (:mod:`.predict`): ONE all-masked
@@ -705,8 +1039,9 @@ class Engine:
         soonest.  A rung without a measurement is taken as free."""
         headroom = self._slo_budget_s - (time.perf_counter() - t_oldest)
         if headroom <= 0.0:
+            # the top rung is always ready (a tiered warm's serving tier)
             return self._mega_sizes[0] if self._mega_sizes else 1
-        for s in self._mega_sizes:
+        for s in self._ready_sizes:
             if self._rung_ewma_s.get(s, 0.0) <= headroom:
                 return s
         return 1
@@ -718,6 +1053,19 @@ class Engine:
         top = self._mega_sizes[0] if self._mega_sizes else 1
         headroom = self._slo_budget_s - (time.perf_counter() - t_oldest)
         return self._rung_ewma_s.get(top, 0.0) >= headroom
+
+    def _slo_round_fits(self, t_oldest: float) -> bool:
+        """The ring's round sizer: whether waiting for a FULL round can
+        still land the oldest staged record inside the budget (its
+        negated round key, seeded by :meth:`warm`).  With less headroom
+        the loops flush through the megastep and the ladder; once the
+        record is late the ring is back on (it recovers a backlog
+        fastest, :meth:`_slo_cap`'s no-cap rule)."""
+        headroom = self._slo_budget_s - (time.perf_counter() - t_oldest)
+        if headroom <= 0.0:
+            return True
+        key = -(self.ring * self._ring_chunks)
+        return self._rung_ewma_s.get(key, 0.0) < headroom
 
     def _drain_pending(self, short: bool) -> None:
         """Apply the coalescing ladder to the pending list.
@@ -731,8 +1079,23 @@ class Engine:
         Under ``slo_us`` the hold is also broken once the budget says
         holding is no longer free (:meth:`_slo_pressed`), and the greedy
         flush climbs no higher than :meth:`_slo_cap`.  With a fixed
-        ``mega_n`` the ladder is one rung: all or nothing."""
+        ``mega_n`` the ladder is one rung: all or nothing.
+
+        The drain ring adds a rung above the ladder: a backlog of a whole
+        round goes as one round (once the ring is ready); anything less
+        falls through to the ladder, so the ring engages only on
+        backlogs that were queueing anyway."""
         slo = self._slo_budget_s
+        if self.ring and self._ring_ready:
+            while len(self._pending) >= self._pending_cap:
+                self._ring_from_pending()
+                self._reap(self.readback_depth)
+            if not short and not (
+                    slo and self._pending
+                    and self._slo_pressed(self._pending[0][1])):
+                # a full poll: the backlog is still building toward the
+                # next round, hold the remainder
+                return
         top = self._mega_sizes[0]
         while len(self._pending) >= top:
             self._dispatch_mega(self._pending[:top])
@@ -742,7 +1105,7 @@ class Engine:
                 slo and self._slo_pressed(self._pending[0][1]))):
             return
         while self._pending:
-            g = fused.rung_for_volume(len(self._pending), self._mega_sizes)
+            g = self._rung_for(len(self._pending))
             if slo:
                 g = min(g, self._slo_cap(self._pending[0][1]))
             if g > 1:
@@ -804,25 +1167,34 @@ class Engine:
         reap hook and the watchdog's progress stamp."""
         t_fetch = time.perf_counter()
         self._wait_event(g.event)
+        n_now = 1 if g.ring else None
         if self.verdict_k:
+            # one wire, or a ring round's [R, 2K+4]: one per slot
             wire = g.wire.numpy()
             self._d2h_bytes += wire.nbytes
-            vw = decode_verdict_wire(wire)
-            if vw.overflow:
+            rows = [decode_verdict_wire(w) for w in wire.reshape(
+                -1, wire.shape[-1])]
+            if any(vw.overflow for vw in rows):
                 # more newly-blocked flows than wire slots: take this
-                # dispatch's full block arrays so no block is lost
+                # dispatch's full block arrays (a whole round's, in chunk
+                # order) so no block is lost
                 keys, untils, _ = fused.split_block_record(
-                    self._fetch_blocks(g), g.n_chunks)
+                    self._fetch_blocks(g), g.n_chunks, n_now)
                 self._d2h_bytes += keys.nbytes + untils.nbytes
                 self._sink_fallback += 1
                 upd = extract_updates(keys, untils)
             else:
-                self._sink_compact += 1
-                upd = BlacklistUpdate(key=vw.key, until_s=vw.until_s)
-            now = vw.now
+                self._sink_compact += len(rows)
+                upd = (BlacklistUpdate(key=rows[0].key,
+                                       until_s=rows[0].until_s)
+                       if len(rows) == 1 else BlacklistUpdate(
+                           key=np.concatenate([vw.key for vw in rows]),
+                           until_s=np.concatenate([vw.until_s
+                                                   for vw in rows])))
+            now = max(vw.now for vw in rows)
         else:
             keys, untils, nows = fused.split_block_record(
-                self._fetch_blocks(g), g.n_chunks)
+                self._fetch_blocks(g), g.n_chunks, n_now)
             self._d2h_bytes += keys.nbytes + untils.nbytes
             self._sink_fallback += 1
             upd = extract_updates(keys, untils)
@@ -833,6 +1205,9 @@ class Engine:
         self._device_now = max(self._device_now, now)
         self._sunk_batches += g.n_chunks
         t_done = time.perf_counter()
+        if self._first_verdict_s is None and g.n_records:
+            # masked warm batches carry no records: the first REAL one
+            self._first_verdict_s = t_done - self._boot_t0
         self._last_sink_t = t_done
         self.metrics.e2e.add(t_done - g.t_enqueue)
         # every record of the dispatch is charged its OLDEST record's
@@ -1034,18 +1409,57 @@ class Engine:
 
     # -- lifecycle -----------------------------------------------------------
 
-    def warm(self) -> None:
-        """On the card, build the kernels and capture the single step
-        and every staged rung; then run one all-masked batch through the
-        single step and each rung (n_valid = 0: table, stats and
-        verdicts are unchanged), so neither the build, the capture nor
-        first-launch setup lands in the first served window.  Under
-        ``slo_us`` the ladder runs a second, timed time and seeds the
-        step-time EWMA of the single step and of every rung with the
-        wall of one dispatch plus its sink (on the card: one replay and
-        its event wait).  Must not be called with batches in flight."""
-        if self._cuda and not self._graphs:
-            self._capture()
+    def warm(self, tiered: bool = False) -> None:
+        """Build the kernels (or load them from the compile cache) and
+        capture every graph on the card; then run one all-masked batch
+        through the single step, each rung and the ring (n_valid = 0:
+        table, stats and verdicts are unchanged), so neither the build,
+        the capture nor first-launch setup lands in the first served
+        window.  Under ``slo_us`` the ladder runs a second, timed time
+        and seeds the step-time EWMA of the single step, every rung and
+        the ring's round (its negated key, which is also the floor of
+        its online refinement) with the wall of one dispatch plus its
+        sink (on the card: one replay and its event wait).  Must not be
+        called with batches in flight.
+
+        ``tiered=True`` (``serve --tiered-warm``) captures only the
+        SERVING tier here: the single step and the top rung, and the ring
+        under ``slo_us`` (its round key needs this quiescent pass).  The
+        engine serves the moment this returns; a background thread
+        (:meth:`_warm_worker`) captures the remaining rungs, largest
+        first, then the ring, and grows the ready set as each lands;
+        until then the loops drain through the ready rungs (the same
+        bytes).  Refused while a fill runs."""
+        if self.warm_fill_active():
+            raise RuntimeError(
+                "warm() called while a background warm fill is active "
+                "— warm_fill_join() first (nothing else may touch the "
+                "captured graphs while the fill thread captures)")
+        self._warm_thread_obj = None
+        serving = self._mega_sizes
+        ring_now = bool(self.ring)
+        fill_plan: list[int] = []
+        if tiered and self._mega_sizes:
+            serving = self._mega_sizes[:1]
+            ring_now = bool(self.ring) and bool(self._slo_budget_s)
+            fill_plan = list(self._mega_sizes[1:])
+            if self.ring and not ring_now:
+                fill_plan.append(_RING)
+        boot: dict[str, Any] = {
+            "tiered": bool(fill_plan),
+            "variants": {},
+            "fill_pending": [self._label(k) for k in fill_plan],
+        }
+        if self._cuda:
+            # from the compile cache where it has them; a miss, drift or
+            # corrupt entry builds with nvcc (counted), never a plain
+            # version
+            boot["kernels"] = kernels.build_all(cache=self._cache)
+            for key in ([_SINGLE] + list(serving)
+                        + ([_RING] if ring_now else [])):
+                if key not in self._graphs:
+                    boot["variants"][self._label(key)] = \
+                        self._capture_one(key)
         warm = np.zeros((self.cfg.batch.max_batch + 1, self._words),
                         np.uint32)
         for timed in (False, True) if self._slo_budget_s else (False,):
@@ -1056,15 +1470,94 @@ class Engine:
             self._reap(0)
             if timed:
                 self._rung_ewma_s[1] = time.perf_counter() - t0
-            for g in self._mega_sizes:
+            for g in serving:
                 t0 = time.perf_counter()
                 self._dispatch_mega([(warm, t0)] * g)
                 self._reap(0)
                 if timed:
                     self._rung_ewma_s[g] = time.perf_counter() - t0
+            if ring_now:
+                t0 = time.perf_counter()
+                self._pending = [(warm, t0)] * self._pending_cap
+                self._ring_from_pending()
+                self._reap(0)
+                if timed:
+                    key = -self._pending_cap
+                    self._rung_ewma_s[key] = time.perf_counter() - t0
+                    self._round_floor_s[key] = self._rung_ewma_s[key]
+        # publish the ready set LAST: every graph above is captured
+        self._ready_sizes = serving
+        self._ring_ready = ring_now
         self._reset_counters()
         if self._cuda:
             torch.cuda.synchronize(self.device)
+        boot["serving_ready_s"] = round(
+            time.perf_counter() - self._boot_t0, 4)
+        if self._cache is not None:
+            boot["cache"] = self._cache.report()
+        self._boot = boot
+        if fill_plan:
+            self._warm_plan = tuple(fill_plan)
+            self._warm_thread_obj = threading.Thread(
+                target=self._warm_worker, name="fsx-warm", daemon=True)
+            self._warm_thread_obj.start()
+
+    def _warm_worker(self) -> None:
+        """The tiered warm's background fill: capture the remaining
+        rungs, largest first, then the ring, and grow the ready set as
+        each lands.  It never dispatches.  Its warm-ups run on a scratch
+        table and stats (:mod:`..ops.graph`, capture beside serving).
+        Everything it publishes (graph, ready set, boot block) is one
+        rebind.  A failed capture is recorded as ``boot["fill_error"]``
+        and its rung stays unready: the ready rungs keep serving, and
+        nothing falls back to an eager step."""
+        scratch = None
+        try:
+            if self._cuda:
+                scratch = (schema.make_table(self.cfg.table.capacity,
+                                             self.device),
+                           schema.make_stats(self.device))
+            for key in self._warm_plan:
+                label = self._label(key)
+                entry = self._fill_one(key, scratch)
+                if key == _RING:
+                    self._ring_ready = True
+                else:
+                    self._ready_sizes = tuple(sorted(
+                        set(self._ready_sizes) | {key}, reverse=True))
+                boot = dict(self._boot or {})
+                boot["variants"] = {**boot.get("variants", {}),
+                                    label: entry}
+                boot["fill_pending"] = [
+                    v for v in boot.get("fill_pending", ()) if v != label]
+                self._boot = boot
+            self._boot = {**(self._boot or {}), "fill_done_s": round(
+                time.perf_counter() - self._boot_t0, 4)}
+        except Exception as e:  # noqa: BLE001 — recorded, never raised
+            self._boot = {**(self._boot or {}), "fill_error": repr(e)}
+        finally:
+            del scratch
+
+    def _fill_one(self, key: int, scratch) -> dict:
+        """One graph of the fill: captured beside serving on the card;
+        on the CPU there is nothing to capture."""
+        if not self._cuda:
+            return {"source": "ready", "seconds": 0.0}
+        return self._capture_one(key, warm_state=scratch)
+
+    def warm_fill_active(self) -> bool:
+        """Whether a tiered warm's background fill is still running."""
+        t = self._warm_thread_obj
+        return t is not None and t.is_alive()
+
+    def warm_fill_join(self, timeout: float | None = None) -> bool:
+        """Wait for the background fill; True once it is done (also when
+        none was started)."""
+        t = self._warm_thread_obj
+        if t is None:
+            return True
+        t.join(timeout)
+        return not t.is_alive()
 
     def _reset_counters(self) -> None:
         """Per-stream report counters (warm dispatches are not traffic)."""
@@ -1073,6 +1566,10 @@ class Engine:
         self.metrics = PipelineMetrics()
         self._lat = LatencyRecorder()
         self._group_hist = {}
+        self._staged_batches = self._staged_bytes = 0
+        self._ring_rounds = self._ring_partial_slots = 0
+        self._h2d_put_s = self._h2d_overlap_s = 0.0
+        self._h2d_puts = self._h2d_puts_overlapped = 0
 
     def reset_stream(self, source, sink=None,
                      readback_depth: int | None = None,
@@ -1116,7 +1613,13 @@ class Engine:
         source (a shm ring) is never exhausted: bound the run.  With a
         sink thread it runs for the duration of this call: started here,
         drained and joined before the report is built; its crash raises
-        :class:`~flowsentryx_tpu_torch.sync.channel.WorkerCrash`."""
+        :class:`~flowsentryx_tpu_torch.sync.channel.WorkerCrash`.  A
+        tiered warm's background fill is joined before it returns."""
+        if (self._slo_budget_s and self.ring
+                and -self._pending_cap not in self._rung_ewma_s):
+            # the round sizer's key is seeded only by warm()'s quiescent
+            # pass (it must include the uploads and the reap)
+            self.warm()
         if self._cuda and not self._graphs:
             self._capture()
         self._watchdog.note_progress()     # an idle pipe re-arms the clock
@@ -1144,6 +1647,12 @@ class Engine:
             self._reap(0)
         finally:
             self._stop_sink_thread()
+            # serving is over: hand no capturing thread to interpreter
+            # teardown (bounded: a capture always ends)
+            if not self.warm_fill_join(300.0):
+                print("fsx engine: warm fill still capturing 300 s after "
+                      "the drain finished — abandoning it (the report's "
+                      "fill_done_s will be missing)", file=sys.stderr)
         self._chan.check()         # a crash in the very last group
         return self._build_report(time.perf_counter() - t_start)
 
@@ -1237,7 +1746,7 @@ class Engine:
                         time.perf_counter(), self._rung_ewma_s.get(1, 0.0))
                     if rung:
                         self._prewarm_dispatch(
-                            fused.rung_for_volume(rung, self._mega_sizes)
+                            self._rung_for(rung)
                             if rung > 1 else rung)
                         continue
                 self._idle()
@@ -1261,6 +1770,9 @@ class Engine:
             # resolves: the workers seal against theirs, the sink
             # translates with ours
             src.set_t0(self.batcher.t0_ns)
+        if self.ring:
+            self._sealed_loop_ring(src, bounded)
+            return
         top = self._mega_sizes[0] if self._mega_sizes else 0
         slo = self._slo_budget_s
         slot = None
@@ -1273,9 +1785,9 @@ class Engine:
             t_e = min(m[0] for m in metas[done:done + g])
             n = sum(m[1] for m in metas[done:done + g])
             if g > 1:
-                self._launch(g, x[done:done + g], slot, t_e, n)
+                self._launch(g, x[done:done + g], (slot,), t_e, n)
             else:
-                self._launch(_SINGLE, x[done], slot, t_e, n)
+                self._launch(_SINGLE, x[done], (slot,), t_e, n)
             done += g
             self._reap(self.readback_depth)
 
@@ -1293,19 +1805,8 @@ class Engine:
                 stage_timer=self.metrics.stage) if want > 0 else [])
             if self._t0_auto and batches and src.t0_ns:
                 self._set_t0(src.t0_ns)   # the fleet's handshake epoch
-            for sb in batches:
-                # the workers sealed these: mirror them into the counters
-                # the report and the bounds read
-                self.batcher.batches_emitted += 1
-                self.batcher.records_emitted += sb.n_records
-                metas.append((sb.t_enqueue, sb.n_records))
+            self._note_sealed(batches, metas)
             fill += len(batches)
-            if batches:
-                self._last_arrival_t = time.perf_counter()
-                if self._gov is not None:
-                    self._gov.note_arrivals(
-                        self._last_arrival_t,
-                        sum(sb.n_records for sb in batches))
             # want == 0 (slot rows exhausted under a pending carry) must
             # flush, not poll: treat it as a short poll
             short = len(batches) < want or want == 0
@@ -1314,7 +1815,7 @@ class Engine:
             if short or not top or (slo and fill - done
                                     and self._slo_pressed(metas[done][0])):
                 while fill - done:
-                    g = fused.rung_for_volume(fill - done, self._mega_sizes)
+                    g = self._rung_for(fill - done)
                     if slo:
                         g = min(g, self._slo_cap(metas[done][0]))
                     flush(g)
@@ -1327,6 +1828,115 @@ class Engine:
         # records are already counted)
         while fill - done:
             flush(1)
+
+    def _note_sealed(self, batches, metas: list) -> None:
+        """Polled sealed batches: mirror them into the counters the report
+        and the bounds read (the workers sealed them), one arena copy
+        each, and note their arrival."""
+        row_bytes = 4 * self._arena.row_shape[0] * self._arena.row_shape[1]
+        for sb in batches:
+            self.batcher.batches_emitted += 1
+            self.batcher.records_emitted += sb.n_records
+            self._staged_batches += 1
+            self._staged_bytes += row_bytes
+            metas.append((sb.t_enqueue, sb.n_records))
+        if batches:
+            self._last_arrival_t = time.perf_counter()
+            if self._gov is not None:
+                self._gov.note_arrivals(
+                    self._last_arrival_t,
+                    sum(sb.n_records for sb in batches))
+
+    def _sealed_loop_ring(self, src, bounded) -> None:
+        """The sealed loop feeding the drain ring.  One arena slot at a
+        time fills to exactly C batches (the staging copy is still the
+        one host copy); the moment it fills it is uploaded, while the
+        previous round computes, and R uploaded slots launch as ONE
+        round.  A short poll flushes the uploaded slots through the
+        top-rung megastep and the partial slot down the ladder (the same
+        bytes); under ``slo_us`` the uploaded slots are flushed too once
+        a full round no longer fits the oldest one's budget
+        (:meth:`_slo_round_fits`).  A fresh slot is claimed only after
+        the current one is staged away, never on an empty poll."""
+        c = self._ring_chunks
+        slo = self._slo_budget_s
+        uploaded: list[_Uploaded] = []
+        slot = None
+        fill = 0
+        metas: list[tuple[float, int]] = []   # (t_enqueue, n_records)/row
+
+        def flush_uploaded() -> None:
+            for u in uploaded:
+                self._dispatch_group_dev(u)
+                self._reap(self.readback_depth)
+            uploaded.clear()
+
+        while not bounded():
+            if slot is None:
+                slot = self._claim()
+                fill = 0
+                metas = []
+            rows = self._arena.rows(slot)
+            want = c - fill
+            batches = src.poll_batches_into(
+                rows[fill:c], want, pop_timer=self.metrics.pop,
+                stage_timer=self.metrics.stage)
+            if self._t0_auto and batches and src.t0_ns:
+                self._set_t0(src.t0_ns)   # the fleet's handshake epoch
+            self._note_sealed(batches, metas)
+            fill += len(batches)
+            short = len(batches) < want
+            x = self._arena.tensor(slot)
+            if fill == c:
+                # slot full: upload NOW, overlapping in-flight compute
+                uploaded.append(self._upload_slot(
+                    slot, x[:c], min(m[0] for m in metas),
+                    sum(m[1] for m in metas)))
+                slot = None
+                if len(uploaded) == self.ring:
+                    if self._ring_ready:
+                        self._dispatch_ring(uploaded)
+                        uploaded = []
+                        self._reap(self.readback_depth)
+                    else:
+                        # a tiered warm still capturing the ring: the
+                        # round's slots go through the top rung
+                        flush_uploaded()
+            elif short:
+                # partial round: the uploaded slots first (arrival
+                # order), then the partial slot down the ladder
+                flush_uploaded()
+                done = 0
+                while fill - done:
+                    g = self._rung_for(fill - done)
+                    if slo:
+                        g = min(g, self._slo_cap(metas[done][0]))
+                    t_e = min(m[0] for m in metas[done:done + g])
+                    n = sum(m[1] for m in metas[done:done + g])
+                    if g > 1:
+                        self._launch(g, x[done:done + g], (slot,), t_e, n)
+                    else:
+                        self._launch(_SINGLE, x[done], (slot,), t_e, n)
+                    done += g
+                    self._reap(self.readback_depth)
+                if fill:
+                    slot = None
+            if (slo and uploaded
+                    and not self._slo_round_fits(uploaded[0].t_enqueue)):
+                flush_uploaded()
+            self._reap_ready()
+            if not batches:
+                if src.exhausted():
+                    break
+                self._idle()
+        # bounded exit: the uploaded slots, then the staged rows singly
+        flush_uploaded()
+        if slot is not None:
+            x = self._arena.tensor(slot)
+            for i in range(fill):
+                self._launch(_SINGLE, x[i], (slot,), metas[i][0],
+                             metas[i][1])
+                self._reap(self.readback_depth)
 
     # -- checkpoint / restore ------------------------------------------------
 
@@ -1441,24 +2051,62 @@ class Engine:
                   "name": (torch.cuda.get_device_name(self.device)
                            if self._cuda else "cpu")}
         dispatches = sum(self._group_hist.values())
+        device_loop = None
+        if self.ring:
+            full = self._ring_rounds * self.ring
+            staged_slots = full + self._ring_partial_slots
+            device_loop = {
+                "ring": self.ring,
+                "chunks_per_slot": self._ring_chunks,
+                "batches_per_round": self.ring * self._ring_chunks,
+                "rounds": self._ring_rounds,
+                "steps_per_round": self.ring,   # megasteps per round
+                "partial_slot_flushes": self._ring_partial_slots,
+                "ring_occupancy": round(full / staged_slots, 4)
+                if staged_slots else 0.0,
+                "h2d": {
+                    "puts": self._h2d_puts,
+                    "puts_overlapped": self._h2d_puts_overlapped,
+                    "put_s": round(self._h2d_put_s, 6),
+                    "overlap_s": round(self._h2d_overlap_s, 6),
+                    "overlap_fraction": round(
+                        self._h2d_overlap_s / self._h2d_put_s, 4)
+                    if self._h2d_put_s else 0.0,
+                },
+            }
+        chunks = sum(g * n for g, n in self._group_hist.items())
         dispatch = {
             "wire": self.wire,
-            "mode": ("adaptive" if self.mega_auto
+            "mode": ("device_loop" if self.ring
+                     else "adaptive" if self.mega_auto
                      else "fixed" if self.mega_n else "single"),
             "mega_n": self.mega_n,
+            "device_loop": device_loop,
             "group_sizes": list(self._mega_sizes),
             "group_hist": {str(g): n for g, n in
                            sorted(self._group_hist.items())},
             "dispatches": dispatches,
             "dispatch_hz": round(dispatches / max(wall, 1e-9), 1),
-            # captured CUDA graphs (single + rungs); 0 on the CPU
+            # host copies per dispatched batch: the arena staging copy
+            # (1.0 on the sealed path); 0.0 for inline raw48 singles,
+            # which upload the batcher's own buffer
+            "staged_batches": self._staged_batches,
+            "staged_bytes": self._staged_bytes,
+            "host_copies_per_batch": round(
+                self._staged_batches / max(chunks, 1), 3),
+            # captured CUDA graphs (single, rungs, ring); 0 on the CPU
             "graphs": len(self._graphs),
+            "graph_nodes": {self._label(k): g.nodes
+                            for k, g in sorted(self._graphs.items())},
             "arena": self._arena.info() if self._arena else None,
             # latency-budget dispatch: the budget and the step-time EWMA
-            # the policy read; None without a budget
+            # the policy read (negated keys are ring rounds); None
+            # without a budget
             "slo": ({"slo_us": self.slo_us,
-                     "rung_ewma_ms": {str(g): round(v * 1e3, 4) for g, v in
-                                      sorted(self._rung_ewma_s.items())}}
+                     "rung_ewma_ms": {
+                         (str(g) if g > 0 else f"round{-g}"):
+                             round(v * 1e3, 4)
+                         for g, v in sorted(self._rung_ewma_s.items())}}
                     if self.slo_us else None),
         }
         ingest = (self.source.ingest_stats()
@@ -1495,4 +2143,79 @@ class Engine:
                 restore_fallbacks=self._restore_fallbacks),
             predict=self._gov.report() if self._gov is not None else None,
             escalation=escalation,
+            boot=self._boot_report(),
         )
+
+    def _boot_report(self) -> dict | None:
+        """``EngineReport.boot``: one snapshot of the warm and fill story
+        (the fill thread rebinds the dict whole, so one read is
+        coherent), the cache's counters, the caller's import wall and
+        the sink's time to the first verdict."""
+        snap = self._boot
+        if snap is None:
+            return None
+        rep = dict(snap)
+        if self._cache is not None:
+            rep["cache"] = self._cache.report()
+        rep["import_s"] = round(self.boot_import_s, 4)
+        rep["time_to_first_verdict_s"] = (
+            round(self._first_verdict_s, 4)
+            if self._first_verdict_s is not None else None)
+        rep["fill_active"] = self.warm_fill_active()
+        return rep
+
+
+# ---------------------------------------------------------------------------
+# ring-depth autotuning (serve --device-loop auto)
+# ---------------------------------------------------------------------------
+
+def calibrate_ring_depth(cfg: FsxConfig, params: Any | None = None,
+                         mega_n: int | str = "auto",
+                         candidates: tuple[int, ...] = (2, 4, 8),
+                         batches: int = 48, seed: int = 17,
+                         device: str | torch.device | None = None
+                         ) -> tuple[int, dict]:
+    """Measure a short calibration drain at each candidate ring depth and
+    pick one (``serve --device-loop auto``): the drive half of the
+    autotuner, whose policy is :func:`~..fused.device_loop
+    .choose_ring_depth`.  Each candidate serves a deep prefilled
+    synthetic backlog with a throwaway engine of its own, captured for
+    its depth; the engine, its graphs and their memory pools are freed
+    before the next (each holds a full table), so the serving engine
+    boots into a clean card.  Table and stats never leak into
+    serving."""
+    from flowsentryx_tpu_torch.engine.sources import ArraySource
+    from flowsentryx_tpu_torch.engine.traffic import (
+        Scenario, TrafficGen, TrafficSpec,
+    )
+    from flowsentryx_tpu_torch.engine.writeback import NullSink
+
+    recs = TrafficGen(TrafficSpec(
+        scenario=Scenario.UDP_FLOOD_MULTI, rate_pps=1e7,
+        n_attack_ips=8, n_benign_ips=24, attack_fraction=0.8,
+        seed=seed)).next_records(batches * cfg.batch.max_batch)
+    measurements: list[dict] = []
+    for d in sorted(set(int(c) for c in candidates)):
+        eng = Engine(cfg, ArraySource(np.copy(recs)), NullSink(),
+                     params=params, device=device, mega_n=mega_n,
+                     device_loop=d, sink_thread=False)
+        eng.warm()
+        t0 = time.perf_counter()
+        rep = eng.run()
+        wall = time.perf_counter() - t0
+        cuda = eng._cuda
+        del eng
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        d_l = rep.dispatch["device_loop"]
+        measurements.append({
+            "ring": d,
+            "rounds": d_l["rounds"],
+            "ring_occupancy": d_l["ring_occupancy"],
+            "overlap_fraction": d_l["h2d"]["overlap_fraction"],
+            "records_per_s": round(rep.records / max(wall, 1e-9), 1),
+        })
+    depth, detail = dl.choose_ring_depth(measurements)
+    detail["calibration_batches"] = batches
+    return depth, detail

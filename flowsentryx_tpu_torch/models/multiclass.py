@@ -4,10 +4,10 @@ Counterpart of ``flowsentryx_tpu/models/multiclass.py``: the binary
 serving contract ``1 - P(benign)``, and :func:`attack_class` for
 attribution.  The trunk is :func:`~.mlp.trunk`, rounded as the
 reference's compiled graph rounds it; the softmax is XLA:CPU's
-(:func:`class_probs`).  Training uses :func:`~.mlp.train_forward` and
-:func:`loss_fn` (the reference's mean softmax cross-entropy) over
-bfloat16 params; :func:`save_params` writes the reference's layout with
-``family="multiclass"``.
+(:func:`class_probs`).  Training takes the reference's compiled gradient
+of its mean softmax cross-entropy, written out (:func:`train_grads`),
+over bfloat16 params; :func:`save_params` writes the reference's layout
+with ``family="multiclass"``.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from flowsentryx_tpu_torch.core.device import xla_exp
+from flowsentryx_tpu_torch.core.device import fma32, xla_exp
 from flowsentryx_tpu_torch.models import mlp
 
 #: Class 0 MUST be benign (classify_batch's binary contract relies on it).
@@ -93,6 +93,59 @@ def softmax_ce_mean(lg: torch.Tensor, y_class: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy of ``[B, C]`` logits."""
     logp = torch.log_softmax(lg, dim=-1)
     return -logp.gather(1, y_class.long()[:, None]).mean()
+
+
+def train_grads(params, xt: torch.Tensor, y_class: torch.Tensor):
+    """``(loss, grads)`` of the mean softmax cross-entropy over bfloat16
+    ``params`` and :func:`~.mlp.transform`-ed ``xt``, as the reference's
+    jitted ``value_and_grad`` computes them on XLA:CPU (its optimized
+    HLO, read op by op), the grads in the params' order, bfloat16:
+
+    * the forward rounds as the served model does (:func:`logits`): the
+      head's bias add stays f32, the logits are NOT rounded to bf16;
+    * the logits' cotangent is ``fma(f32(1/B) / sum(e), e, t)`` with
+      ``e = exp(lg - max)`` (XLA's ``exp``, the four terms summed left to
+      right) and ``t`` the one-hot of ``-f32(1/B)``, rounded to bf16;
+    * the back-propagated dots over the hidden width (``[B, C] @ [C,
+      H]``) sum in :data:`~.mlp.HIDDEN_ORDER`, rounded to bf16, then
+      masked by ``a > 0``;
+    * the weight gradients sum exact bf16 products over the batch (in
+      float64, rounded to f32, then bf16); the bias gradients are XLA's
+      blocked bf16 sums (:func:`~.mlp.xla_batch_sum`).
+
+    Autograd differs in two places, each enough to move a bf16 weight
+    after a few steps: it takes the cotangent from bf16-rounded logits
+    through torch's ``log_softmax`` backward, and it sums the hidden
+    dots in another order."""
+    w1, b1, w2, b2, w3, b3 = (t.float() for t in params)
+    xf = xt.float()
+    a1 = mlp._layer(xf, w1, b1, mlp.HIDDEN_ORDER)
+    h1 = torch.relu(a1)
+    a2 = mlp._layer(h1, w2, b2, mlp.HIDDEN_ORDER)
+    h2 = torch.relu(a2)
+    lg = mlp._layer(h2, w3, b3, mlp.HEAD_ORDER[w3.shape[1]],
+                    round_out=False)
+    n = lg.shape[0]
+    e = xla_exp(lg - lg.max(dim=1, keepdim=True).values)
+    total = e[:, 0]
+    for c in range(1, e.shape[1]):
+        total = total + e[:, c]
+    inv_n = torch.tensor(1.0 / n, dtype=torch.float32, device=lg.device)
+    t = torch.zeros_like(lg)
+    t[torch.arange(n, device=lg.device), y_class.long()] = -inv_n
+    g3 = mlp._bf16(fma32((inv_n / total)[:, None].expand_as(e), e, t))
+    g2 = torch.where(a2 > 0, mlp._bf16(mlp.fixed_order_dot(
+        g3, w3.T, *mlp.HIDDEN_ORDER)), 0.0)
+    g1 = torch.where(a1 > 0, mlp._bf16(mlp.fixed_order_dot(
+        g2, w2.T, *mlp.HIDDEN_ORDER)), 0.0)
+
+    def wgrad(h, g):
+        return (h.double().T @ g.double()).float().to(torch.bfloat16)
+
+    gb = mlp.xla_batch_sum(torch.cat([g1, g2, g3], dim=1).to(
+        torch.bfloat16)).split([b1.numel(), b2.numel(), b3.numel()])
+    return softmax_ce_mean(lg, y_class), (
+        wgrad(xf, g1), gb[0], wgrad(h1, g2), gb[1], wgrad(h2, g3), gb[2])
 
 
 def save_params(params, path: str) -> str:

@@ -530,8 +530,8 @@ def make_compact_megastep_family(cfg: FsxConfig, classify_batch,
     return {n: wrap_megastep(base, n) for n in sorted(sizes, reverse=True)}
 
 
-def block_record(out: StepOutput) -> torch.Tensor:
-    """A step's (or megastep's) block arrays and clock as ONE flat int32
+def block_record(out) -> torch.Tensor:
+    """A step's (megastep's, drain-ring round's) block arrays and clock as ONE flat int32
     buffer: every ``block_key``, every ``block_until`` (f32 bits), every
     ``now`` (f32 bits).  The engine keeps one copy per in-flight dispatch
     and reads it when that dispatch's wire overflowed (or when there is
@@ -541,10 +541,13 @@ def block_record(out: StepOutput) -> torch.Tensor:
                       out.now.reshape(-1).view(torch.int32)])
 
 
-def split_block_record(rec, n_chunks: int):
+def split_block_record(rec, n_chunks: int, n_now: int | None = None):
     """Host side of :func:`block_record` (numpy int32 ``rec`` of
-    ``n_chunks`` chunks) -> ``(keys u32, untils f32, nows f32)``."""
-    b = (rec.shape[0] - n_chunks) // (2 * n_chunks)
+    ``n_chunks`` chunks and ``n_now`` clocks, default one per chunk; a
+    drain-ring round carries one) -> ``(keys u32, untils f32, nows
+    f32)``."""
+    n_now = n_chunks if n_now is None else n_now
+    b = (rec.shape[0] - n_now) // (2 * n_chunks)
     keys = rec[:n_chunks * b].view("<u4")
     untils = rec[n_chunks * b:2 * n_chunks * b].view("<f4")
     return keys, untils, rec[2 * n_chunks * b:].view("<f4")

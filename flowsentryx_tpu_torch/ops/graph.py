@@ -34,15 +34,34 @@ caller must respect:
   shapes) must not change; ``models/registry.py::validate_swap`` refuses
   a swap that would change it.
 * **Launch counting.**  A kernel wrapper counts a launch in its host
-  code, which runs once, at capture.  The capture's counts are taken
-  back and recorded as :attr:`StepGraph.launches`; each :meth:`replay`
-  adds them again.
+  code, which runs once, at capture.  The warm-ups and the capture count
+  into dicts of their own thread (:func:`~.kernels.counting_into`): the
+  capture's counts become :attr:`StepGraph.launches`, which each
+  :meth:`replay` adds to ``kernels.LAUNCHES``, the warm-ups' are kept as
+  :attr:`StepGraph.warmup_launches`, and a capture on another thread
+  never touches the counts that replays add meanwhile.
+* **Capture beside serving** (a tiered warm's background fill,
+  ``Engine.warm(tiered=True)``).  The warm-ups run on ``warm_state``, a
+  scratch table and stats of the live shapes, so no read-modify-write
+  of the live state races the replays on the step's stream; the capture
+  itself executes nothing and records the live tensors' addresses.  The
+  first warm-up's sync check (``sync_check``) changes a process-wide
+  mode, so a background capture skips it: the foreground capture of the
+  same base step has already proved it free of host syncs.  Entering
+  ``torch.cuda.graph`` synchronizes the device, which stalls only the
+  capturing thread.
 
-Each graph keeps its own memory pool.
+Each graph keeps its own memory pool.  Where torch can keep the graph
+before instantiating it (``CUDAGraph(keep_graph=True)``), its node count
+is read with libcuda's ``cuGraphGetNodes`` (:attr:`StepGraph.nodes`,
+else None): a launch costs in proportion to it.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
+import time
 from typing import Callable
 
 import torch
@@ -54,53 +73,98 @@ WARMUPS = 3
 
 #: Graphs captured in this process (a swap or a restore must add none).
 CAPTURES = 0
+_CAPTURES_LOCK = threading.Lock()
+
+
+def _new_graph() -> tuple[torch.cuda.CUDAGraph, bool]:
+    """A graph that keeps its ``cudaGraph_t`` past the capture where
+    this torch can (so its nodes can be counted), else a plain one."""
+    try:
+        return torch.cuda.CUDAGraph(keep_graph=True), True
+    except TypeError:
+        return torch.cuda.CUDAGraph(), False
+
+
+def _node_count(graph: torch.cuda.CUDAGraph) -> int | None:
+    """Nodes of a kept, not yet instantiated graph (``cuGraphGetNodes``)."""
+    try:
+        raw = graph.raw_cuda_graph()
+        n = ctypes.c_size_t(0)
+        rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+            ctypes.c_void_p(int(raw)), None, ctypes.byref(n))
+        return int(n.value) if rc == 0 else None
+    except (AttributeError, OSError, RuntimeError, TypeError):
+        return None
 
 
 class StepGraph:
     """One captured ``fn(table, stats, params, raw) -> (table, stats,
-    out)`` over a static ``[*in_shape]`` int32 input on the card.
+    out)`` over a static ``[*in_shape]`` int32 input on the card; with
+    ``slots=True`` the function takes the input's leading slices as
+    separate arguments, ``fn(table, stats, params, *raws)`` (a drain-ring
+    round, :mod:`..fused.device_loop`).
 
-    ``out`` is the step's :class:`~.fused.StepOutput` of static tensors;
-    ``keep`` is :func:`~.fused.block_record` of it (block arrays and
-    clock as one flat buffer, so one copy per dispatch preserves them).
-    A failed capture raises; there is no eager fallback."""
+    ``out`` is the step's :class:`~.fused.StepOutput` (or the round's
+    ``RingOutput``) of static tensors; ``keep`` is
+    :func:`~.fused.block_record` of it (block arrays and clock as one
+    flat buffer, so one copy per dispatch preserves them).  ``warm_state``
+    is the ``(table, stats)`` the warm-ups run on (default the live
+    ones); ``sync_check`` runs the first warm-up under
+    ``set_sync_debug_mode("error")``.  A failed capture raises; there is
+    no eager fallback.  ``capture_s`` is the wall of warm-ups and
+    capture, ``nodes`` the graph's node count (None where not read)."""
 
     def __init__(self, fn: Callable, table, stats, params,
-                 in_shape: tuple[int, ...]):
+                 in_shape: tuple[int, ...], slots: bool = False,
+                 warm_state: tuple | None = None, sync_check: bool = True):
         dev = table.key_rows.device
         if dev.type != "cuda":
             raise ValueError(f"StepGraph: CUDA graphs need a CUDA table, "
                              f"got {dev}")
+        t0 = time.perf_counter()
         self.input = torch.zeros(in_shape, dtype=torch.int32, device=dev)
+
+        def call(tb, st):
+            if slots:
+                return fn(tb, st, params, *self.input.unbind(0))
+            return fn(tb, st, params, self.input)
+
+        wt, ws = warm_state if warm_state is not None else (table, stats)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            prev = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                fn(table, stats, params, self.input)
-            finally:
-                torch.cuda.set_sync_debug_mode(prev)
-            for _ in range(WARMUPS - 1):
-                fn(table, stats, params, self.input)
+        #: Kernel launches of the eager warm-ups (real launches, kept out
+        #: of ``kernels.LAUNCHES``: they serve no traffic).
+        self.warmup_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+        with torch.cuda.stream(side), kernels.counting_into(
+                self.warmup_launches):
+            if sync_check:
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    call(wt, ws)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+            for _ in range(WARMUPS - int(sync_check)):
+                call(wt, ws)
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = dict(kernels.LAUNCHES)
         global CAPTURES
-        CAPTURES += 1
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            # thread-local: another thread's CUDA calls (another
-            # engine's sink thread waiting on its events) must not
-            # invalidate this capture
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode="thread_local"):
-                _, _, self.out = fn(table, stats, params, self.input)
-                self.keep = fused.block_record(self.out)
-        finally:
-            #: Kernel launches one replay holds, per wrapper.
-            self.launches = {k: kernels.LAUNCHES[k] - before[k]
-                             for k in before}
-            kernels.LAUNCHES.update(before)
+        with _CAPTURES_LOCK:
+            CAPTURES += 1
+        self.graph, kept = _new_graph()
+        #: Kernel launches one replay holds, per wrapper.
+        self.launches = dict.fromkeys(kernels.LAUNCHES, 0)
+        # thread-local: another thread's CUDA calls (the dispatch and
+        # sink threads' launches and event waits) must not invalidate
+        # this capture
+        with kernels.counting_into(self.launches), torch.cuda.graph(
+                self.graph, capture_error_mode="thread_local"):
+            _, _, self.out = call(table, stats)
+            self.keep = fused.block_record(self.out)
+        self.nodes = None
+        if kept:
+            self.nodes = _node_count(self.graph)
+            self.graph.instantiate()
+        self.capture_s = time.perf_counter() - t0
 
     def replay(self) -> None:
         """Launch the graph on the current stream and count its kernels."""

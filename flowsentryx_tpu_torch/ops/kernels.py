@@ -35,18 +35,23 @@ stream, raises on a non-zero ``cudaGetLastError()``, and adds one to
 points are resolved once per process.
 
 The kernels are built at first use with ``nvcc`` into a shared library
-with a plain C interface per source (``build/kernels/``, keyed by a hash
-of the source), loaded with ``ctypes``.  :func:`build_all` starts one
-``nvcc`` per source, all at once.
+with a plain C interface per source (``build/kernels/`` of the checkout,
+or the directory ``FSX_KERNEL_BUILD`` names; keyed by a hash of the
+source), loaded with ``ctypes``.  :func:`build_all` starts one ``nvcc``
+per source, all at once; given a compile cache
+(:class:`~..engine.compile_cache.CompileCache`) it loads a library from
+the cache instead of building it, and stores what it builds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -60,8 +65,10 @@ from flowsentryx_tpu_torch.models import logreg
 from flowsentryx_tpu_torch.ops import agg
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-#: Build output, at the repository root (listed in .gitignore).
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+#: Build output: ``build/kernels/`` at the repository root (listed in
+#: .gitignore), or the directory ``FSX_KERNEL_BUILD`` names.
+BUILD_DIR = Path(os.environ.get("FSX_KERNEL_BUILD")
+                 or Path(__file__).resolve().parents[2] / "build" / "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -98,10 +105,36 @@ _ARGTYPES = {
 }
 _FNS: dict[str, ctypes._CFuncPtr] = {}
 
+#: Per thread: the counts of a graph capture in progress on it
+#: (:func:`counting_into`), so a capture on a background thread neither
+#: adds its launches to :data:`LAUNCHES` nor loses the launches that
+#: replays on another thread add meanwhile.
+_TLS = threading.local()
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of ``name``: into the capture in progress on this
+    thread, else into :data:`LAUNCHES`."""
+    counts = getattr(_TLS, "counts", None)
+    (LAUNCHES if counts is None else counts)[name] += 1
+
+
+@contextlib.contextmanager
+def counting_into(counts: dict):
+    """Count this thread's launches into ``counts`` (a dict keyed like
+    :data:`LAUNCHES`) instead of :data:`LAUNCHES` for the ``with`` body:
+    a capture's launches are the graph's, added by each replay."""
+    prev = getattr(_TLS, "counts", None)
+    _TLS.counts = counts
+    try:
+        yield counts
+    finally:
+        _TLS.counts = prev
 
 
 # ---------------------------------------------------------------------------
@@ -127,10 +160,15 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
-def build_all(names=None) -> dict[str, dict]:
+def build_all(names=None, cache=None) -> dict[str, dict]:
     """Build every missing kernel library in parallel (one ``nvcc`` per
-    source, started together).  Returns per-kernel ``{"seconds",
-    "cached", "ptxas"}``; raises if any build fails."""
+    source, started together).  With a ``cache`` a missing library is
+    first looked up there (by its file name, which carries the source
+    hash), and each one built is stored there.  Returns per kernel
+    ``{"source": "present" | "cache" | "build", "seconds", "cached",
+    "ptxas"}``; raises if any build fails.  A cache miss, drift or
+    corrupt entry builds (counted by the cache); there is no fallback to
+    a plain version."""
     names = list(names or _SOURCES)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -139,9 +177,18 @@ def build_all(names=None) -> dict[str, dict]:
     for name in names:
         out = _lib_path(name)
         if out.exists():
-            info[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
+            info[name] = {"source": "present", "seconds": 0.0,
+                          "cached": True, "ptxas": ""}
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        blob = cache.load(out.stem) if cache is not None else None
+        if blob is not None:
+            tmp.write_bytes(blob)
+            os.replace(tmp, out)
+            info[name] = {"source": "cache",
+                          "seconds": round(time.perf_counter() - t0, 3),
+                          "cached": True, "ptxas": ""}
+            continue
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / _SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -154,7 +201,10 @@ def build_all(names=None) -> dict[str, dict]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
-        info[name] = {"seconds": round(time.perf_counter() - t0, 3),
+        if cache is not None:
+            cache.store(out.stem, out.read_bytes())
+        info[name] = {"source": "build",
+                      "seconds": round(time.perf_counter() - t0, 3),
                       "cached": False,
                       "ptxas": " ".join(
                           ln.split("ptxas info    : ")[-1]
@@ -339,7 +389,7 @@ def score_int8(params: logreg.LogRegParams, x: torch.Tensor,
     b = x.shape[0]
     out = torch.empty(b, dtype=torch.float32, device=dev)
     fn = _FNS.get("score_int8") or _fn("score_int8")
-    LAUNCHES["score_int8"] += 1
+    _count("score_int8")
     _check(fn(ptr, out.data_ptr(), b, p.args_ptr, _stream(x)),
            "score_int8")
     return out
@@ -464,7 +514,7 @@ def table_summary_counts(key: torch.Tensor, state: torch.Tensor, now: float,
     out = torch.zeros(4, dtype=torch.int64, device=key.device)
     o = out.data_ptr()
     fn = _FNS.get("table_summary") or _fn("table_summary")
-    LAUNCHES["table_summary"] += 1
+    _count("table_summary")
     _check(fn(ptr, state.data_ptr(), key.shape[0], state.stride(0), f32(now),
               f32(stale_s), o, o + 24, _stream(key)), "table_summary")
     return out[:3], out[3:].view(torch.float32)[0]
@@ -512,7 +562,7 @@ def segment_sum_seq(v: torch.Tensor, seg: torch.Tensor, n: int
             f"and {seg.dtype} {tuple(seg.shape)} on {seg.device}, n={n}")
     out = torch.empty(n, dtype=torch.float32, device=dev)
     fn = _FNS.get("segment_sum_seq") or _fn("segment_sum_seq")
-    LAUNCHES["segment_sum_seq"] += 1
+    _count("segment_sum_seq")
     _check(fn(v.data_ptr(), seg.data_ptr(), v.shape[0], out.data_ptr(), n,
               _stream(v)), "segment_sum_seq")
     return out
@@ -591,7 +641,7 @@ def gemv_seq(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
             f"{tuple(m.shape)} on {m.device}")
     out = torch.empty(m.shape[1], dtype=torch.float32, device=dev)
     fn = _FNS.get("gemv_seq") or _fn("gemv_seq")
-    LAUNCHES["gemv_seq"] += 1
+    _count("gemv_seq")
     _check(fn(g.data_ptr(), m.data_ptr(), g.shape[0], m.shape[1],
               out.data_ptr(), _stream(g)), "gemv_seq")
     return out

@@ -339,7 +339,7 @@ def state_to_numpy(state: QatState) -> dict:
 
 
 def _minibatch_adam(family, loss_of_logits, X, labels, epochs, batch_size,
-                    lr, hidden, seed, device, step_log=None):
+                    lr, hidden, seed, device, step_log=None, grads_fn=None):
     """Minibatch Adam over bf16 params, the reference's batches: one
     ``default_rng(seed).permutation`` per epoch, chunks of
     ``batch_size`` in order.  ``family`` is ``models.mlp`` or
@@ -353,7 +353,9 @@ def _minibatch_adam(family, loss_of_logits, X, labels, epochs, batch_size,
     detached views of it as the leaves.  The weight gradients are
     autograd's; the bias gradients are the reference's bf16 sums of the
     pre-activations' gradients (:func:`~..models.mlp.xla_batch_sum`, the
-    three biases side by side in one call)."""
+    three biases side by side in one call).  ``grads_fn(p, xt, labels)
+    -> (loss, grads)`` replaces autograd with a written-out backward
+    (the multiclass family's, :func:`~..models.multiclass.train_grads`)."""
     from flowsentryx_tpu_torch.core import prng
     from flowsentryx_tpu_torch.models import mlp
 
@@ -373,16 +375,22 @@ def _minibatch_adam(family, loss_of_logits, X, labels, epochs, batch_size,
         order = torch.from_numpy(rng.permutation(n)).to(dev)
         for s in range(0, n, batch_size):
             idx = order[s:s + batch_size]
-            p = cls(*(v.view(shape).detach().requires_grad_()
-                      for v, shape in zip(flat.split(sizes), shapes)))
-            lg, acts = mlp.train_forward(p, xt[idx])
-            loss = loss_of_logits(lg, lab[idx])
-            gw1, gw2, gw3, *ga = torch.autograd.grad(
-                loss, [p.w1, p.w2, p.w3, *acts])
-            gb = mlp.xla_batch_sum(torch.cat(ga, dim=1)).split(
-                [p.b1.numel(), p.b2.numel(), p.b3.numel()])
-            flat.grad = torch.cat([gw1.reshape(-1), gb[0], gw2.reshape(-1),
-                                   gb[1], gw3.reshape(-1), gb[2]])
+            views = [v.view(shape) for v, shape in
+                     zip(flat.split(sizes), shapes)]
+            if grads_fn is not None:
+                loss, g = grads_fn(cls(*views), xt[idx], lab[idx])
+                flat.grad = torch.cat([t.reshape(-1) for t in g])
+            else:
+                p = cls(*(v.detach().requires_grad_() for v in views))
+                lg, acts = mlp.train_forward(p, xt[idx])
+                loss = loss_of_logits(lg, lab[idx])
+                gw1, gw2, gw3, *ga = torch.autograd.grad(
+                    loss, [p.w1, p.w2, p.w3, *acts])
+                gb = mlp.xla_batch_sum(torch.cat(ga, dim=1)).split(
+                    [p.b1.numel(), p.b2.numel(), p.b3.numel()])
+                flat.grad = torch.cat([gw1.reshape(-1), gb[0],
+                                       gw2.reshape(-1), gb[1],
+                                       gw3.reshape(-1), gb[2]])
             opt.step()
             if step_log is not None:
                 step_log.append(loss.detach())
@@ -413,4 +421,5 @@ def train_multiclass(X: np.ndarray, y_class: np.ndarray, epochs: int = 60,
 
     return _minibatch_adam(multiclass, multiclass.softmax_ce_mean, X,
                            np.asarray(y_class, np.int32), epochs, batch_size,
-                           lr, hidden, seed, device, step_log)
+                           lr, hidden, seed, device, step_log,
+                           grads_fn=multiclass.train_grads)

@@ -264,7 +264,8 @@ def test_rung_graph_equals_singles(cuda, g):
 @pytest.mark.parametrize("g", [0, 1, 2, 8])
 def test_graph_launch_counts(cuda, g):
     """A replay counts one ``score_int8`` launch per batch it holds; the
-    capture itself counts none (its warm-ups are real launches)."""
+    capture adds none to ``kernels.LAUNCHES`` (its warm-ups are real
+    launches, recorded on the graph as ``warmup_launches``)."""
     cfg, params, classify = _step_fixture(cuda)
     quant = _compact_batches(params, 1, 2048)[1]
     fn = (fused.make_compact_step(cfg, classify, **quant) if g == 0
@@ -276,8 +277,8 @@ def test_graph_launch_counts(cuda, g):
     per = max(g, 1)
     assert gr.launches == {"score_int8": per, "table_summary": 0,
                            "segment_sum_seq": 0, "gemv_seq": 0}
-    assert kernels.LAUNCHES["score_int8"] == (n0["score_int8"]
-                                              + graph.WARMUPS * per)
+    assert gr.warmup_launches["score_int8"] == graph.WARMUPS * per
+    assert kernels.LAUNCHES == n0
     n1 = kernels.LAUNCHES["score_int8"]
     for _ in range(3):
         gr.replay()
@@ -1101,3 +1102,109 @@ def test_gemv_seq_kernel_matches_plain(cuda, n, k):
     want = kernels.gemv_seq_plain(g, m)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
+
+
+# ---------------------------------------------------------------------------
+# the drain ring and the boot path
+# ---------------------------------------------------------------------------
+
+
+def _loop_cfg(verdict_k=64):
+    return config.FsxConfig(
+        table=config.TableConfig(capacity=1 << 14, salt=0x1CE),
+        batch=config.BatchConfig(max_batch=256, verdict_k=verdict_k),
+        limiter=config.LimiterConfig(pps_threshold=200.0,
+                                     bps_threshold=1e9))
+
+
+def _flood_recs(n_batches, seed=3):
+    return TrafficGen(TrafficSpec(
+        scenario=Scenario.UDP_FLOOD_MULTI, rate_pps=1e7, n_attack_ips=32,
+        attack_fraction=0.8, seed=seed)).next_records(256 * n_batches)
+
+
+def _state(e):
+    k, st = schema.table_to_numpy(e.table)
+    return (e.stats.to_dict(), hashlib.sha256(
+        k.tobytes() + st.tobytes()).hexdigest(),
+        sorted(e.sink.blocked.items()))
+
+
+@pytest.mark.parametrize("depth,verdict_k", [(2, 64), (3, 64), (2, 4)])
+def test_device_loop_on_card_equals_cpu(cuda, depth, verdict_k):
+    """Ring rounds on the card (the R*C steps as one graph, uploads on
+    the copy stream) against the CPU engine: equal state and blacklist,
+    ``score_int8`` launched once per batch, full rounds fired; at K=4
+    slot wires overflow and fall back."""
+    recs = _flood_recs(40)
+    e = Engine(_loop_cfg(verdict_k), ArraySource(recs.copy()),
+               CollectSink(), device="cuda", mega_n=4, device_loop=depth)
+    e.warm()
+    kernels.reset_launches()
+    r = e.run()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["score_int8"] == r.batches == 40
+    c = Engine(_loop_cfg(verdict_k), ArraySource(recs.copy()),
+               CollectSink(), device="cpu")
+    c.run()
+    assert _state(e) == _state(c)
+    assert r.dispatch["device_loop"]["rounds"] >= 2
+    assert r.dispatch["graph_nodes"]["ring"] is None or (
+        r.dispatch["graph_nodes"]["ring"]
+        > depth * r.dispatch["graph_nodes"]["mega4"] // 2)
+    if verdict_k == 4:
+        assert r.readback["fallback_sinks"] > 0
+
+
+def test_fill_thread_captures_while_replays_run(cuda):
+    """A tiered warm's fill captures the remaining rungs and the ring on
+    its own thread while the dispatch thread replays the serving tier:
+    the launch counts are exactly the served batches' (the fill's
+    warm-ups and captures count elsewhere), the state equals the CPU
+    engine's, and the fill completes with every graph ready."""
+    recs = _flood_recs(96, seed=5)
+    e = Engine(_loop_cfg(), ArraySource(recs.copy()), CollectSink(),
+               device="cuda", mega_n="auto", device_loop=2)
+    e.warm(tiered=True)
+    assert e._ready_sizes == (8,) and not e._ring_ready
+    kernels.reset_launches()
+    r = e.run()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["score_int8"] == r.batches == 96
+    assert kernels.LAUNCHES["table_summary"] == 1
+    c = Engine(_loop_cfg(), ArraySource(recs.copy()), CollectSink(),
+               device="cpu")
+    c.run()
+    assert _state(e) == _state(c)
+    assert "fill_error" not in r.boot and r.boot["fill_pending"] == []
+    assert e._ready_sizes == (8, 4, 2) and e._ring_ready
+    assert set(e._graphs) == {0, 8, 4, 2, -1}
+
+
+def test_compile_cache_hit_loads_a_real_library(cuda, tmp_path,
+                                                monkeypatch):
+    """A cold build stores each library; a second build directory is
+    filled from the cache without nvcc, and the loaded kernel equals its
+    plain version."""
+    from flowsentryx_tpu_torch.engine.compile_cache import CompileCache
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "k1")
+    cold = CompileCache(tmp_path / "cache", {"k": 1})
+    info = kernels.build_all(cache=cold)
+    assert all(v["source"] == "build" for v in info.values())
+    assert cold.stores == len(info) and cold.misses == len(info)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "k2")
+    monkeypatch.setattr(kernels, "_FNS", {})
+
+    def no_nvcc():
+        raise AssertionError("a cached boot must not run nvcc")
+
+    monkeypatch.setattr(kernels, "_nvcc", no_nvcc)
+    warm = CompileCache(tmp_path / "cache", {"k": 1})
+    info = kernels.build_all(cache=warm)
+    assert all(v["source"] == "cache" for v in info.values())
+    assert warm.hits == len(info) and warm.misses == 0
+    p = logreg.load_params(ARTIFACT, cuda)
+    x = torch.rand(2048, 8, device=cuda) * 1e5
+    got = kernels.score_int8(p, x)
+    assert torch.equal(got, kernels.score_int8_plain(p, x))

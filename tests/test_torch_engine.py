@@ -159,9 +159,9 @@ def test_new_host_modules_are_checked():
     the sink channel and its timing table, the watchdog, the health
     ladder, the governor, the methodology module, the threefry, the
     distill plan compiler and loader, the served-lane parity check, the
-    simulated kernel tier, the pcap reader and the training plane
-    (fixture, data, optimizers, QAT, evaluation, stress) are among
-    them."""
+    simulated kernel tier, the pcap reader, the training plane
+    (fixture, data, optimizers, QAT, evaluation, stress), the drain ring,
+    the staged-shape signature and the compile cache are among them."""
     names = {".".join(p.relative_to(REPO).with_suffix("").parts)
              for p in _port_sources()}
     for m in ("core.wire", "core.durable", "engine.shm", "engine.arena",
@@ -173,7 +173,8 @@ def test_new_host_modules_are_checked():
               "distill.plan", "distill.sim", "engine.pcap",
               "distill.parity", "train.__init__", "train.fixture",
               "train.data", "train.optim", "train.qat", "train.evaluate",
-              "train.stress"):
+              "train.stress", "fused.__init__", "fused.device_loop",
+              "core.signature", "engine.compile_cache"):
         assert f"flowsentryx_tpu_torch.{m}" in names, m
 
 
