@@ -250,6 +250,27 @@ more.
     ring through the single step and the top rung only, equal to
     ``auto`` and the CPU engine (stats, digest, verdict-ring bytes), in
     turns with full-warm ``auto`` engines (records/s).
+40. ``cluster_parity``: two rank processes (``cluster.runner.engine_main``
+    under ``ClusterSupervisor``, each its own CUDA context, ``auto``,
+    2^20 rows, B=2048) drain a prefilled 2-shard ``syn_benign_mix``
+    fan-out against the CPU engine with two workers on the same records
+    and epoch: stats and tracked rows additive, each rank's published
+    blacklist equal to the CPU engine's blocks it owns, merged digests
+    converged with no seq gaps; each rank's ``score_int8`` launches (its
+    own window, zeroed after warm, in its report) equal its batches.
+41. ``cluster_serve``: ``cli cluster --engines 2 --shards 2 --mega auto
+    --drain`` over each prefilled scenario (1,536 x 2,048 records), in
+    turns with one card engine with two workers (single, cluster,
+    cluster, single; ``--pin-cores off``), then once pinned (``auto``):
+    the fleet's records/s (total over the slowest rank's drain wall)
+    against the single engine's, each rank's device ms per batch and
+    idle share at the solo per-graph device times, card memory per
+    context (``nvidia-smi --query-compute-apps``) and each rank's boot.
+42. ``cluster_crash_restart``: two ranks serve a trickle-fed fan-out with
+    checkpoints every 0.25 s; rank 1's process group is SIGKILLed once it
+    has published blocks; its context's memory is released, gen 1
+    restores its checkpoint (kill -> SERVING seconds), the survivor
+    serves every record of its shard and merged gen 0's wires.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -1923,6 +1944,456 @@ def main() -> int:
         return {"ok": all(checks), **out}
 
     tiered_phase()
+
+    # -- the cluster: N engine processes on one card (cli cluster) ------------
+
+    from flowsentryx_tpu_torch.cluster import (
+        StatusBlock, VerdictMailbox, mailbox_path, status_path,
+    )
+    from flowsentryx_tpu_torch.core import wire
+    from flowsentryx_tpu_torch.cluster.supervisor import ClusterSupervisor
+    from flowsentryx_tpu_torch.cluster.gossip import map_digest
+    from flowsentryx_tpu_torch.parallel.layout import cluster_rank_of
+
+    cl_dir = os.path.join(REPO, "build", "cluster")
+    shutil.rmtree(cl_dir, ignore_errors=True)
+    os.makedirs(cl_dir)
+    cl_cfg_path = os.path.join(cl_dir, "cfg.json")
+    with open(cl_cfg_path, "w") as f:
+        f.write(ring_cfg.to_json())
+
+    def fan_out(base, recs, n_shards=2, slots=1 << 20):
+        """The daemon's IP-hash fan-out, prefilled: shard k of ``base``
+        holds the records ``shard_of`` routes there."""
+        sh = schema.shard_of(recs["saddr"], n_shards)
+        rings = []
+        for k in range(n_shards):
+            ring = ShmRing.create(schema.shard_ring_path(base, k, n_shards),
+                                  slots, schema.FLOW_RECORD_DTYPE)
+            assert ring.produce(recs[sh == k]) == int((sh == k).sum())
+            rings.append(ring)
+        return [int((sh == k).sum()) for k in range(n_shards)], rings
+
+    def compute_apps():
+        """``nvidia-smi --query-compute-apps``: ``[pid, used MiB]`` per
+        context (in a container every pid may read the same, so contexts
+        are told apart by count and memory, not by pid)."""
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout
+        apps = []
+        for line in out.strip().splitlines():
+            pid, _, mib = line.partition(",")
+            try:
+                apps.append([int(pid), float(mib)])
+            except ValueError:
+                continue
+        return sorted(apps)
+
+    def rank_specs(base, n=2, **extra):
+        return [{"device": "cuda", "cfg_json": ring_cfg.to_json(),
+                 "ring_base": base, "workers": 1, "total_shards": n,
+                 "artifact": artifact, "mega": "auto", **extra}
+                for _ in range(n)]
+
+    def single_two_workers(base):
+        """One card engine with two workers over the same prefilled
+        fan-out, drained in one timed run (the cluster's comparison)."""
+        src = ShardedIngest(base, 2, precompact=False)
+        sink = CollectSink()
+        try:
+            e = Engine(ring_cfg, src, sink, params=logreg.load_params(
+                artifact, "cuda"), device="cuda", mega_n="auto")
+            mem0 = torch.cuda.memory_reserved()
+            e.warm()
+            mem = torch.cuda.memory_reserved() - mem0
+            src.wait_ready()
+            deadline = time.monotonic() + 60
+            while src.t0_ns is None:      # the epoch handshake, then stop
+                src.poll_batches(0)
+                assert time.monotonic() < deadline, "no t0 handshake"
+                time.sleep(0.005)
+            src.request_stop()
+            kernels.reset_launches()      # this path's window opens
+            r = e.run()
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)   # ... and closes
+        finally:
+            src.close()
+        return r, e, sink, launches, mem
+
+    def busy_ms(hist, costs):
+        """Device ms a dispatch histogram needs at the solo per-graph
+        device times (CUDA events, back-to-back replays)."""
+        per = {1: costs.get("single", {}).get("device_ms_per_launch", 0.0)}
+        for label, c in costs.items():
+            if label.startswith("mega"):
+                per[c["batches"]] = c["device_ms_per_launch"]
+        return sum(n * per.get(int(g), 0.0) for g, n in hist.items())
+
+    @phase("cluster_parity")
+    def cluster_parity_phase():
+        """Two rank processes on the card (``engine_main``, drain mode,
+        each its own CUDA context) against the port's CPU engine with two
+        workers on the same prefilled fan-out and epoch."""
+        recs = ring_recs[blk]
+        t0 = int(recs["ts_ns"].min())
+        counts, _ = fan_out(os.path.join(cl_dir, "parity"), recs)
+        sup = ClusterSupervisor(
+            os.path.join(cl_dir, "parity.plane"),
+            rank_specs(os.path.join(cl_dir, "parity"), drain=True,
+                       gossip_quiesce_s=4.0), t0_ns=t0)
+        sup.boot()
+        agg = sup.run(max_seconds=300)
+        reps = {r["rank"]: r for r in agg["reports"]}
+        # the CPU engine with two workers, the same records and epoch
+        fan_out(os.path.join(cl_dir, "parity_cpu"), recs)
+        src = ShardedIngest(os.path.join(cl_dir, "parity_cpu"), 2,
+                            precompact=False)
+        sink = CollectSink()
+        try:
+            ec = Engine(ring_cfg, src, sink, params=logreg.load_params(
+                artifact, "cpu"), device="cpu", mega_n="auto", t0_ns=t0)
+            src.set_t0(t0)
+            src.request_stop()
+            with cpu_threads():
+                rc = ec.run()
+        finally:
+            src.close()
+        owner = cluster_rank_of(np.array(list(sink.blocked), np.uint32), 2)
+        checks = [agg["failed_ranks"] == [], agg["restarts"] == [0, 0],
+                  sorted(reps) == [0, 1], rc.records == len(recs)]
+        out = {"card": card, "records": len(recs), "per_shard": counts,
+               "scenario": blk, "ranks": {}}
+        for r in range(2):
+            rep = reps.get(r, {}).get("report", {})
+            cl = rep.get("cluster") or {}
+            peer = (reps.get(1 - r, {}).get("report", {}).get("cluster")
+                    or {})
+            part = {k: np.float32(u).view(np.uint32).item()
+                    for (k, u), o in zip(sink.blocked.items(), owner)
+                    if o == r}
+            launches = reps.get(r, {}).get("launches", {})
+            same = {"records": rep.get("records") == counts[r],
+                    "published_blacklist": cl.get("published_digest")
+                    == map_digest(part),
+                    "merged_converged": cl.get("merged_digest")
+                    == peer.get("published_digest"),
+                    "no_seq_gaps": cl.get("rx_seq_gaps") == 0,
+                    "score_int8_per_batch": launches.get("score_int8")
+                    == rep.get("batches"),
+                    "table_summary": launches.get("table_summary", 0) >= 1,
+                    "on_card": (rep.get("device") or {}).get("type")
+                    == "cuda"}
+            checks += same.values()
+            out["ranks"][r] = {"equal": same, "batches": rep.get("batches"),
+                               "launches": launches,
+                               "group_hist": (rep.get("dispatch") or {}).get(
+                                   "group_hist"),
+                               "gossip": cl, "pid": reps[r].get("pid")
+                               if r in reps else None}
+        stats_sum = {f: sum(reps[r]["report"]["stats"][f] for r in reps)
+                     for f in rc.stats} if len(reps) == 2 else {}
+        tracked = sum(reps[r]["report"]["table"]["tracked"] for r in reps)
+        checks += [stats_sum == rc.stats, tracked == rc.table["tracked"],
+                   bool(sink.blocked)]
+        out.update({"stats_additive": stats_sum == rc.stats,
+                    "tracked_additive": tracked == rc.table["tracked"],
+                    "cpu_blocked": len(sink.blocked)})
+        served["launches_cluster"] = {
+            f"cluster_parity/r{r}": out["ranks"][r]["launches"]
+            for r in range(2)}
+        return {"ok": all(checks), **out}
+
+    cluster_parity_phase()
+
+    @phase("cluster_serve")
+    def cluster_serve_phase():
+        """``cli cluster --engines 2 --shards 2 --mega auto --drain`` at
+        full width over each prefilled scenario, in turns with one card
+        engine with two workers over the same fan-out (single, cluster,
+        cluster, single; ``--pin-cores off``, the single engine being
+        unpinned too), then once with the default ``--pin-cores auto``
+        on ``mixed_l34_1m``: records/s (the fleet's: total records over
+        the slowest rank's drain wall), each rank's device ms per batch
+        and idle share at the solo per-graph device times, the card's
+        idle share, card memory per context, and each rank's boot."""
+        out = {"card": card, "turns": {}, "batches": 4 * SERVE_BATCHES}
+        checks = []
+        for scen in ring_scen:
+            # four times the ring phases' stream: the drain walls must
+            # dwarf the ranks' start skew (a 384-batch drain takes ~0.3 s)
+            long_recs = TrafficGen(TrafficSpec(
+                scenario=Scenario(scen), rate_pps=1e6, seed=SEED)
+            ).next_records(4 * SERVE_BATCHES * BATCH)
+            res = out["turns"][scen] = {"cluster": [], "single": []}
+            costs = None
+            legs = ["single", "cluster", "cluster", "single"]
+            if scen == "mixed_l34_1m":
+                legs.append("cluster_pin_auto")
+            for leg in legs:
+                recs = long_recs.copy()
+                base = os.path.join(cl_dir, f"serve_{scen}")
+                if leg == "single":
+                    counts, _ = fan_out(base, recs, slots=1 << 21)
+                    r, e, sink, launches, mem = single_two_workers(base)
+                    if costs is None:
+                        costs = launch_costs(e)
+                    busy = busy_ms(r.dispatch["group_hist"], costs)
+                    checks += [r.records == len(recs),
+                               launches["score_int8"] == r.batches]
+                    res["single"].append({
+                        "records_per_s": r.records_per_s,
+                        "wall_s": r.wall_s, "batches": r.batches,
+                        "group_hist": r.dispatch["group_hist"],
+                        "device_ms_per_batch": busy / max(r.batches, 1),
+                        "idle_share": 1 - busy / max(r.wall_s * 1e3, 1e-9),
+                        "allocator_mib_after_warm": mem / 2**20,
+                        "launches": launches})
+                    del e
+                    continue
+                # the fleet's epoch is stamped at its boot: records after it
+                recs["ts_ns"] += np.uint64(
+                    time.clock_gettime_ns(time.CLOCK_MONOTONIC)
+                    + 300 * 10**9 - int(recs["ts_ns"][0]))
+                counts, _ = fan_out(base, recs, slots=1 << 21)
+                plane = f"{base}.plane"
+                shutil.rmtree(plane, ignore_errors=True)
+                argv = [sys.executable, "-m", "flowsentryx_tpu_torch.cli",
+                        "cluster", "--engines", "2", "--shards", "2",
+                        "--mega", "auto", "--drain", "--feature-ring", base,
+                        "--artifact", artifact, "--config", cl_cfg_path,
+                        "--cluster-dir", plane, "--pin-cores",
+                        "auto" if leg == "cluster_pin_auto" else "off"]
+                free0 = torch.cuda.mem_get_info()[0]
+                t = time.perf_counter()
+                p = subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                apps, fleet_mib = [], None
+                ready = [os.path.join(plane, f"ready_r{r}") for r in (0, 1)]
+                while p.poll() is None:
+                    # card memory of the two contexts, once both are warm
+                    if not apps and all(map(os.path.exists, ready)):
+                        apps = compute_apps()
+                        fleet_mib = (free0 - torch.cuda.mem_get_info()[0]
+                                     ) / 2**20
+                    time.sleep(0.05)
+                so, se = p.communicate()
+                wall = time.perf_counter() - t
+                if p.returncode != 0:
+                    raise RuntimeError(f"cli cluster exited {p.returncode}: "
+                                       f"{se[-3000:]}")
+                agg = json.loads(so)
+                reps = {x["rank"]: x for x in agg["reports"]}
+                fleet_busy = 0.0
+                ranks = {}
+                for r in range(2):
+                    rep = reps[r]["report"]
+                    cl = rep["cluster"]
+                    hist = rep["dispatch"]["group_hist"]
+                    busy = busy_ms(hist, costs) if costs else None
+                    fleet_busy += busy or 0.0
+                    checks += [rep["records"] == counts[r],
+                               reps[r]["launches"]["score_int8"]
+                               == rep["batches"],
+                               reps[r]["launches"]["table_summary"] >= 1,
+                               cl["merged_digest"] == reps[1 - r]["report"][
+                                   "cluster"]["published_digest"],
+                               cl["rx_seq_gaps"] == 0,
+                               rep["device"]["type"] == "cuda"]
+                    b = rep["boot"] or {}
+                    ranks[r] = {
+                        "records": rep["records"], "wall_s": rep["wall_s"],
+                        "records_per_s": rep["records_per_s"],
+                        "batches": rep["batches"], "group_hist": hist,
+                        "device_ms_per_batch": (busy / max(rep["batches"], 1)
+                                                if busy is not None
+                                                else None),
+                        "idle_share": (1 - busy / max(rep["wall_s"] * 1e3,
+                                                      1e-9)
+                                       if busy is not None else None),
+                        "launches": reps[r]["launches"],
+                        "pid": reps[r]["pid"],
+                        "boot": {k: b.get(k) for k in (
+                            "import_s", "serving_ready_s",
+                            "time_to_first_verdict_s", "kernels",
+                            "captures")},
+                        "gossip": {k: cl[k] for k in (
+                            "published_sources", "merged_sources",
+                            "tx_wires", "rx_wires", "tx_dropped")}}
+                checks += [agg["failed_ranks"] == [],
+                           agg["records"] == len(recs)]
+                res.setdefault(leg, []).append({
+                    "records_per_s": agg["aggregate_records_per_s"],
+                    "max_wall_s": agg["max_wall_s"],
+                    "process_wall_s": wall,
+                    "card_idle_share": (1 - fleet_busy
+                                        / max(agg["max_wall_s"] * 1e3, 1e-9)
+                                        if costs else None),
+                    "compute_apps_mib": apps,
+                    "card_mib_per_context": (fleet_mib / 2
+                                             if fleet_mib is not None
+                                             else None),
+                    "ranks": ranks,
+                    "health": agg["health"]["state"]})
+                served.setdefault("launches_cluster", {})[
+                    f"cluster_serve/{scen}/{leg}/{len(res[leg])}"] = {
+                    k: sum(reps[r]["launches"][k] for r in (0, 1))
+                    for k in reps[0]["launches"]}
+            c = [x["records_per_s"] for x in res["cluster"]]
+            s = [x["records_per_s"] for x in res["single"]]
+            res["fleet_over_single"] = (sum(c) / len(c)) / (sum(s) / len(s))
+        return {"ok": all(checks), **out}
+
+    cluster_serve_phase()
+
+    @phase("cluster_crash_restart")
+    def crash_phase():
+        """Two rank processes serve a live, trickle-fed fan-out with
+        checkpoints every 0.25 s; rank 1's process group is SIGKILLed
+        mid-serve.  Its context's card memory is released, the
+        supervisor restarts it at gen 1 from its checkpoint (the time
+        from the kill to the new generation SERVING), the survivor
+        serves every record of its shard meanwhile, and still holds the
+        dead rank's blocks (it merged gen 0's wires: more than gen 1
+        ever sent)."""
+        recs = ring_recs[blk]
+        t0 = int(recs["ts_ns"].min())
+        base = os.path.join(cl_dir, "crash")
+        sh = schema.shard_of(recs["saddr"], 2)
+        parts = [recs[sh == k] for k in range(2)]
+        rings = [ShmRing.create(schema.shard_ring_path(base, k, 2), 1 << 20,
+                                schema.FLOW_RECORD_DTYPE) for k in range(2)]
+        plane = os.path.join(cl_dir, "crash.plane")
+        sup = ClusterSupervisor(plane, rank_specs(
+            base, chunk_s=0.1, gossip_quiesce_s=4.0, checkpoint_every=0.25),
+            t0_ns=t0)
+        for r, spec in enumerate(sup.specs):
+            spec["checkpoint"] = os.path.join(cl_dir, f"crash_ckpt_r{r}.npz")
+        sup.boot()
+        status = [StatusBlock(status_path(plane, r)) for r in range(2)]
+        produced, cursor = [0, 0], [0, 0]
+        pre_kill = [int(0.4 * len(p)) for p in parts]
+        checks, out = [], {"card": card, "scenario": blk}
+
+        def feed(n, cap=None):
+            for k, ring in enumerate(rings):
+                lim = len(parts[k]) if cap is None else cap[k]
+                part = parts[k][cursor[k]:min(cursor[k] + n, lim)]
+                if len(part):
+                    wrote = ring.produce(part)
+                    cursor[k] += wrote
+                    produced[k] += wrote
+
+        try:
+            feed(BATCH * 8, pre_kill)
+            ckpt1 = sup.specs[1]["checkpoint"]
+            deadline = time.monotonic() + 240
+            # killable: serving, its pre-kill budget served, blocks
+            # published to rank 0 and a checkpoint on disk
+            to_r0 = VerdictMailbox(mailbox_path(plane, 1, 0))
+            while not (status[1].ctl_get("c_state") == wire.CSTATE_SERVING
+                       and status[1].ctl_get("c_records") >= pre_kill[1]
+                       and to_r0.published() > 0
+                       and os.path.exists(ckpt1)):
+                assert time.monotonic() < deadline, "rank 1 never killable"
+                if (status[1].ctl_get("c_records") >= pre_kill[1]
+                        and not to_r0.published()):
+                    # no block yet: feed rank 1 on, up to 80% of its shard
+                    pre_kill[1] = min(len(parts[1]) * 4 // 5,
+                                      pre_kill[1] + 4 * BATCH)
+                sup.poll()
+                feed(BATCH, pre_kill)
+                time.sleep(0.05)
+            apps_before = compute_apps()
+            free_before = torch.cuda.mem_get_info()[0]
+            pid1 = status[1].ctl_get("c_pid")
+            r0_before = status[0].ctl_get("c_records")
+            t_kill = time.perf_counter()
+            sup.kill(1)
+            sup.poll()                    # the corpse seen, respawn queued
+            # the killed context gone from the card and its memory free
+            # again (before gen 1 creates its own)
+            apps_after, t_rel = apps_before, None
+            free_after = free_before
+            while time.perf_counter() - t_kill < 3.0:
+                apps_after = compute_apps()
+                free_after = torch.cuda.mem_get_info()[0]
+                if (len(apps_after) == len(apps_before) - 1
+                        and free_after > free_before):
+                    t_rel = time.perf_counter() - t_kill
+                    break
+                time.sleep(0.05)
+            # the survivor serves the outage window's traffic
+            t_serving = None
+            spawned = False
+            deadline = time.monotonic() + 240
+            while time.monotonic() < deadline:
+                sup.poll()
+                feed(BATCH)
+                st1 = status[1].ctl_get("c_state")
+                if (not spawned and sup.restarts[1] >= 1
+                        and status[1].ctl_get("c_gen") == 1
+                        and st1 == wire.CSTATE_SPAWNING):
+                    spawned = True
+                if spawned and st1 == wire.CSTATE_SERVING:
+                    t_serving = time.perf_counter() - t_kill
+                    break
+                time.sleep(0.01)
+            r0_during = status[0].ctl_get("c_records")
+            feed(len(recs))
+            deadline = time.monotonic() + 120
+            while (status[0].ctl_get("c_records") < produced[0]
+                   or rings[1].readable()) and time.monotonic() < deadline:
+                sup.poll()
+                time.sleep(0.05)
+            sup.request_stop()
+            agg = sup.run(drain_timeout_s=120)
+        finally:
+            sup.close()
+        reps = {(r["rank"], r["gen"]): r for r in agg["reports"]}
+        r0 = reps.get((0, 0), {}).get("report", {})
+        g1 = reps.get((1, 1), {})
+        cl0 = r0.get("cluster") or {}
+        cl1 = (g1.get("report") or {}).get("cluster") or {}
+        checks += [agg["restarts"] == [0, 1], agg["failed_ranks"] == [],
+                   t_serving is not None, t_rel is not None,
+                   bool(g1.get("restored")),
+                   (g1.get("report") or {}).get("records", 0) > 0,
+                   r0.get("records") == produced[0],
+                   r0_during > r0_before,
+                   rings[1].readable() == 0,
+                   cl0.get("merged_sources", 0) > 0,
+                   cl0.get("rx_wires", 0) > cl1.get("tx_wires", 0),
+                   r0.get("blocked_sources", 0) > 0]
+        out.update({
+            "produced": produced, "restarts": agg["restarts"],
+            "kill_to_serving_s": t_serving,
+            "kill_to_memory_released_s": t_rel,
+            "compute_apps_mib_before": apps_before,
+            "compute_apps_mib_after_kill": apps_after,
+            # nvidia-smi's per-process memory in a container may repeat
+            # one value per line; the card's free memory is the measure
+            "released_mib": (free_after - free_before) / 2**20,
+            "killed_pid": pid1,
+            "card_free_mib_before_kill": free_before / 2**20,
+            "card_free_mib_after_kill": free_after / 2**20,
+            "survivor_records": r0.get("records"),
+            "survivor_records_before_kill": r0_before,
+            "survivor_records_during_outage": r0_during - r0_before,
+            "gen1_restored": g1.get("restored"),
+            "gen1_records": (g1.get("report") or {}).get("records"),
+            "gen1_boot": {k: ((g1.get("report") or {}).get("boot") or {})
+                          .get(k) for k in ("import_s", "serving_ready_s",
+                                            "time_to_first_verdict_s")},
+            "survivor_gossip": cl0, "gen1_gossip": cl1})
+        served.setdefault("launches_cluster", {}).update({
+            f"cluster_crash_restart/r{r}g{g}": rep.get("launches", {})
+            for (r, g), rep in reps.items()})
+        return {"ok": all(checks), **out}
+
+    crash_phase()
 
     def build_daemon():
         """``make -C daemon`` (into ``daemon/build/``); if the compiler
@@ -3640,7 +4111,9 @@ def main() -> int:
             "train_qat_deployed/evaluate": served.get(
                 "launches_train_eval", {}),
             "train_distill_serve": served.get(
-                "launches_train_distill_serve", {})}
+                "launches_train_distill_serve", {}),
+            # each cluster rank's own window, read from its report
+            **served.get("launches_cluster", {})}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}

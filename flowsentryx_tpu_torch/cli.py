@@ -235,11 +235,67 @@ def _restore_geometry(args, cfg):
         cfg.table, salt=hdr["hash_salt"])), None
 
 
+def _cluster_member(args: argparse.Namespace):
+    """``serve --cluster-rank R/N --cluster-dir DIR``: the reference's
+    pre-boot refusals, then the rank's gossip plane and the fleet's
+    epoch.  Returns ``(rank, n, plane, t0_ns)`` or a refusal message."""
+    r_s, sep, n_s = args.cluster_rank.partition("/")
+    try:
+        rank, n = int(r_s), int(n_s)
+    except ValueError:
+        sep = ""
+    if not sep:
+        return (f"--cluster-rank wants R/N (e.g. 0/2), got "
+                f"{args.cluster_rank!r}")
+    if n < 2:
+        return (f"--cluster-rank {args.cluster_rank}: a {n}-engine cluster "
+                "is just fsx serve — drop the flag, or run >= 2 engines")
+    if not 0 <= rank < n:
+        return (f"--cluster-rank {args.cluster_rank}: rank must be in "
+                f"[0, {n})")
+    if not args.ingest_workers:
+        return ("--cluster-rank requires --ingest-workers W >= 1: rank R of "
+                "N owns ring shards [R*W, (R+1)*W) of the daemon's "
+                "N*W-shard IP-hash fan-out (pair with fsxd --shards N*W)")
+    if not args.cluster_dir:
+        return ("--cluster-rank requires --cluster-dir DIR: the gossip "
+                "mailboxes and status blocks live there (fsx cluster "
+                "creates them)")
+    from flowsentryx_tpu_torch.cluster import GossipPlane
+    from flowsentryx_tpu_torch.engine.shm import RingNotReady
+
+    try:
+        plane = GossipPlane(args.cluster_dir, rank, n)
+    except ValueError as e:
+        return str(e)   # the plane disagrees with the flags: it says how
+    except (OSError, RingNotReady) as e:
+        return (f"cluster dir {args.cluster_dir!r} is not an initialized "
+                f"gossip plane: {e} (fsx cluster creates the mailboxes and "
+                "status blocks before any engine boots)")
+    t0_ns = plane.status.ctl_get("c_t0")
+    if not t0_ns:
+        return ("cluster epoch not published (status c_t0 == 0): every "
+                "engine's device clock — and every gossiped blacklist "
+                "`until` — must share one t0; boot the fleet through fsx "
+                "cluster, which stamps it")
+    return rank, n, plane, t0_ns
+
+
 def _cmd_serve(args: argparse.Namespace) -> int:
     bad = _refuse(args)
     if bad:
         print(f"serve: {bad}", file=sys.stderr)
         return 1
+    # a cluster rank owns shards [R*W, (R+1)*W) of the N*W-shard fan-out
+    # end to end and shares only the gossip plane: every structural
+    # requirement is refused here, before torch boots
+    cluster_rank = cluster_n = gossip = t0_ns = None
+    if args.cluster_rank is not None:
+        member = _cluster_member(args)
+        if isinstance(member, str):
+            print(f"serve: {member}", file=sys.stderr)
+            return 1
+        cluster_rank, cluster_n, gossip, t0_ns = member
     cfg = (FsxConfig.from_json(Path(args.config).read_text())
            if args.config else DEFAULT_CONFIG)
     if args.model:
@@ -280,7 +336,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     t_import = time.perf_counter()
     import numpy as np
 
-    from flowsentryx_tpu_torch.core import schema
+    from flowsentryx_tpu_torch.core import schema, wire
     from flowsentryx_tpu_torch.core.device import resolve_device
     from flowsentryx_tpu_torch.engine import (
         ArraySource, Engine, NullSink, TrafficSource,
@@ -315,9 +371,15 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         if args.ingest_workers:
             from flowsentryx_tpu_torch.ingest import ShardedIngest
 
+            span = {}
+            if cluster_rank is not None:
+                span = dict(
+                    shard_offset=cluster_rank * args.ingest_workers,
+                    total_shards=cluster_n * args.ingest_workers)
             source = ShardedIngest(args.feature_ring, args.ingest_workers,
                                    strict=args.strict_ingest,
-                                   quarantine_dir=args.quarantine_dir)
+                                   quarantine_dir=args.quarantine_dir,
+                                   **span)
         else:
             source = ShmRingSource(args.feature_ring)
         if args.verdict_ring:
@@ -352,7 +414,8 @@ def _cmd_serve(args: argparse.Namespace) -> int:
                      predict=args.predict, watchdog_s=args.watchdog_s,
                      sink_thread=False if args.no_sink_thread else None,
                      kernel_tier=kernel_tier, device_loop=device_loop,
-                     compile_cache=args.compile_cache)
+                     compile_cache=args.compile_cache, t0_ns=t0_ns,
+                     gossip=gossip)
         eng.boot_import_s = round(import_s, 4)
         if args.restore:
             try:
@@ -371,7 +434,11 @@ def _cmd_serve(args: argparse.Namespace) -> int:
             eng.warm(tiered=True)
         else:
             eng.warm()
+        if gossip is not None:
+            gossip.set_state(wire.CSTATE_SERVING)
         rep = _profiled(eng, args, device)
+        if gossip is not None:
+            gossip.set_state(wire.CSTATE_DONE)
     finally:
         if hasattr(source, "close"):
             source.close()   # stop and join the ingest worker fleet
@@ -691,6 +758,226 @@ def _cmd_distill(args: argparse.Namespace) -> int:
     return 0
 
 
+#: ``cluster`` flags of the reference that the port refuses by name: the
+#: paths behind them are not ported (ROADMAP queue 1).
+_CLUSTER_REFUSED = {
+    "elastic": "the self-reshaping fleet (live shard handoffs, "
+               "cluster/rebalance.py and cluster/elastic.py)",
+    "min_engines": "the autoscaler's floor (--elastic)",
+    "max_engines": "the autoscaler's ceiling (--elastic)",
+    "adopt": "re-attaching to a live plane (the supervisor's adopt path)",
+    "hosts": "the multi-host gossip leg (cluster/transport.py)",
+    "host_id": "the multi-host gossip leg (cluster/transport.py)",
+    "gossip_listen": "the multi-host gossip leg (cluster/transport.py)",
+}
+
+
+def _has_observer(model: str, artifact: str | None) -> bool:
+    """Whether the served params carry an input observer (``in_scale``:
+    the compact16 wire ``--mega`` needs), read without torch: the
+    artifact's arrays, or the family's init (the logreg families)."""
+    if artifact:
+        import numpy as np
+
+        with np.load(artifact) as z:
+            return "in_scale" in z.files
+    return model.startswith("logreg")
+
+
+def _cmd_cluster(args: argparse.Namespace) -> int:
+    """Coordinator-less multi-engine scale-out on one host (the
+    reference's ``fsx cluster``, fixed fleet).  N full engine processes,
+    each owning ring shards ``[r*W, (r+1)*W)`` of the daemon's
+    ``N*W``-shard IP-hash fan-out end to end (``fsxd --shards N*W``),
+    sharing only the verdict-gossip blacklist plane.  This process is
+    the supervisor: it creates the plane, stamps the shared epoch,
+    spawns the engines and restarts any that die from their last
+    checkpoint; it imports neither torch nor CUDA.  ``--drain`` (a port
+    addition) serves prefilled shards to exhaustion, every rank starting
+    its timed run together once all are warm."""
+    for flag, what in _CLUSTER_REFUSED.items():
+        if getattr(args, flag) not in (None, False):
+            name = flag.replace("_", "-")
+            print(f"fsx cluster: refusing --{name}: {what} is not ported; "
+                  "run a fixed single-host fleet (or the reference's fsx "
+                  f"cluster --{name})", file=sys.stderr)
+            return 1
+    if args.engines < 2:
+        print(f"fsx cluster: --engines must be >= 2 (got "
+              f"{args.engines}): a 1-engine cluster is fsx serve "
+              "(unless --hosts makes it one rank of a multi-host "
+              "fleet)", file=sys.stderr)
+        return 1
+    n = args.engines
+    if args.shards < n:
+        print(f"fsx cluster: --shards {args.shards} cannot feed "
+              f"{n} provisioned engines: every engine needs "
+              "at least one ring shard to drain (pair with fsxd "
+              "--shards N*W)", file=sys.stderr)
+        return 1
+    if args.shards % n:
+        print(f"fsx cluster: --shards {args.shards} is not a multiple "
+              f"of {n} (the provisioned engine count: "
+              "--max-engines under --elastic, --engines otherwise): "
+              "each engine owns an equal contiguous span of the "
+              "ring-shard fan-out (rank r drains shards "
+              "[r*W, (r+1)*W), W = shards/provisioned)",
+              file=sys.stderr)
+        return 1
+    w = args.shards // n
+    if args.checkpoint:
+        # validate by formatting: only a {rank} placeholder, and one
+        try:
+            distinct = (args.checkpoint.format(rank=0)
+                        != args.checkpoint.format(rank=1))
+        except (KeyError, IndexError, ValueError) as e:
+            print(f"fsx cluster: --checkpoint {args.checkpoint!r} "
+                  f"does not format with rank= alone ({e!r}): the "
+                  "template may use only a {rank} placeholder",
+                  file=sys.stderr)
+            return 1
+        if not distinct:
+            print(f"fsx cluster: --checkpoint {args.checkpoint!r} has "
+                  "no {rank} placeholder: "
+                  + str(args.engines) + " engines "
+                  "checkpointing the same path would overwrite each "
+                  "other's flow memory (and a restart would restore "
+                  "the wrong shard's table)", file=sys.stderr)
+            return 1
+    refusal = None
+    if args.checkpoint_every < 0:
+        refusal = "--checkpoint-every must be >= 0 (0 disables)"
+    elif args.checkpoint_every and not args.checkpoint:
+        refusal = ("--checkpoint-every requires --checkpoint TEMPLATE "
+                   "(with a {rank} placeholder)")
+    elif args.device_loop < 0:
+        refusal = "--device-loop must be >= 0"
+    elif args.device_loop and not args.mega:
+        refusal = ("--device-loop requires --mega N|auto (each ring slot "
+                   "carries one top-rung coalescing group)")
+    elif args.verdict_k is not None and args.verdict_k < 0:
+        refusal = "--verdict-k must be >= 0"
+    elif args.device_loop and args.verdict_k == 0:
+        refusal = ("--device-loop is incompatible with --verdict-k 0 (the "
+                   "ring's steady-state readback is the per-slot compact "
+                   "wire)")
+    elif args.tiered_warm and not args.mega:
+        refusal = ("--tiered-warm requires --mega N|auto (the serving tier "
+                   "IS the top coalescing rung)")
+    elif args.slo_us < 0:
+        refusal = "--slo-us must be >= 0"
+    elif args.predict and not args.slo_us:
+        refusal = ("--predict requires --slo-us > 0 (the governor acts "
+                   "against each rank's latency budget)")
+    elif not args.feature_ring:
+        refusal = ("--feature-ring BASE is required: engines front the "
+                   f"daemon's ring shards (pair with fsxd --shards "
+                   f"{args.shards})")
+    if refusal:
+        print(f"fsx cluster: {refusal}", file=sys.stderr)
+        return 1
+    cfg = (FsxConfig.from_json(Path(args.config).read_text())
+           if args.config else DEFAULT_CONFIG)
+    if args.verdict_k is not None:
+        cfg = dataclasses.replace(cfg, batch=dataclasses.replace(
+            cfg.batch, verdict_k=args.verdict_k))
+    if args.table_capacity is not None:
+        from flowsentryx_tpu_torch.engine.table import validate_capacity
+
+        problems = validate_capacity(args.table_capacity,
+                                     cfg.batch.max_batch)
+        if problems:
+            for p in problems:
+                print(f"fsx cluster: --table-capacity: {p}",
+                      file=sys.stderr)
+            return 1
+        cfg = dataclasses.replace(cfg, table=dataclasses.replace(
+            cfg.table, capacity=args.table_capacity))
+    if cfg.table.salt == 0:
+        # one shared salt: every engine's table (and checkpoint) lives
+        # in one hash universe
+        cfg = dataclasses.replace(cfg, table=dataclasses.replace(
+            cfg.table, salt=_boot_salt(args.compile_cache, "fsx cluster")))
+    if args.mega and not _has_observer(cfg.model.name, args.artifact):
+        # the engines' wire rule, refused once here, not N times
+        print("fsx cluster: --mega requires the compact16 wire, "
+              "but the selected model exposes no input observer; "
+              "pass an observer-carrying artifact (e.g. "
+              "--artifact artifacts/logreg_int8.npz) or drop "
+              "--mega", file=sys.stderr)
+        return 1
+
+    from flowsentryx_tpu_torch.cluster.runner import pin_core_for
+    from flowsentryx_tpu_torch.cluster.supervisor import ClusterSupervisor
+
+    cluster_dir = args.cluster_dir or f"{args.feature_ring}.cluster"
+    specs = [{
+        # rank r owns core r when the fleet fits the host
+        "pin_core": pin_core_for(r, n, args.pin_cores),
+        "device": args.device or "cuda",
+        "cfg_json": cfg.to_json(),
+        "ring_base": args.feature_ring,
+        "workers": w,
+        "total_shards": args.shards,
+        "verdict_ring": (f"{args.verdict_ring}.r{r}"
+                         if args.verdict_ring else None),
+        "mega": args.mega or 0,
+        "device_loop": args.device_loop,
+        "slo_us": args.slo_us,
+        "predict": bool(args.predict),
+        "artifact": args.artifact,
+        # one cache directory for the fleet: every rank stages the same
+        # shape, so later boots load every kernel from it
+        "compile_cache": args.compile_cache,
+        "tiered_warm": bool(args.tiered_warm),
+        "checkpoint": (args.checkpoint.format(rank=r)
+                       if args.checkpoint else None),
+        "checkpoint_every": args.checkpoint_every,
+        "drain": bool(args.drain),
+    } for r in range(n)]
+    if args.drain:
+        for r, spec in enumerate(specs):
+            spec["ready_token"] = str(Path(cluster_dir) / f"ready_r{r}")
+            spec["start_token"] = str(Path(cluster_dir) / "start")
+        for p in Path(cluster_dir).glob("ready_r*"):
+            p.unlink()
+        Path(cluster_dir, "start").unlink(missing_ok=True)
+    sup = ClusterSupervisor(cluster_dir, specs,
+                            max_restarts=args.max_restarts)
+    try:
+        sup.boot()
+    except RuntimeError as e:
+        # a live fleet already owns this plane
+        print(f"fsx cluster: {e}", file=sys.stderr)
+        return 1
+    print(f"fsx cluster: {n} engines x {w} worker(s), "
+          f"shards 0..{args.shards - 1}, gossip plane {cluster_dir}",
+          file=sys.stderr)
+    try:
+        if args.drain:
+            _start_together(sup, specs)
+        agg = sup.run(max_seconds=args.seconds or None)
+    except KeyboardInterrupt:
+        sup.close()
+        agg = sup.aggregate()
+    print(json.dumps(agg, indent=2))
+    return 0 if not agg["failed_ranks"] else 1
+
+
+def _start_together(sup, specs, timeout_s: float = 600.0) -> None:
+    """``--drain``: supervise until every rank is warm (its ready token)
+    or one has failed for good, then release them all at once (the
+    start token), so that the fleet's timed drains overlap."""
+    import time
+
+    deadline = time.monotonic() + timeout_s
+    while (not all(Path(s["ready_token"]).exists() for s in specs)
+           and not sup._failed and time.monotonic() < deadline):
+        sup.poll()
+        time.sleep(0.05)
+    Path(specs[0]["start_token"]).touch()
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m flowsentryx_tpu_torch.cli",
@@ -817,6 +1104,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "(requires --checkpoint)")
     s.add_argument("--restore", help="resume from a checkpoint file "
                                      "(either package's)")
+    s.add_argument("--cluster-rank", metavar="R/N", default=None,
+                   help="serve as engine R of an N-engine cluster: own ring "
+                        "shards [R*W, (R+1)*W) of the daemon's N*W-shard "
+                        "fan-out end to end (W = --ingest-workers) and "
+                        "gossip verdicts with the peers; requires "
+                        "--ingest-workers and --cluster-dir (cli cluster "
+                        "is the supervised form)")
+    s.add_argument("--cluster-dir", default=None,
+                   help="the cluster's gossip and status plane directory "
+                        "(cli cluster creates it before any engine boots)")
     s.add_argument("--device", default=None,
                    help="torch device; default the card (raises without one)")
     s.add_argument("--json", action="store_true",
@@ -896,6 +1193,80 @@ def build_parser() -> argparse.ArgumentParser:
     di.add_argument("--device", default=None,
                     help="torch device; default the card (raises without one)")
     di.set_defaults(fn=_cmd_distill)
+
+    cl = sub.add_parser(
+        "cluster",
+        help="multi-engine scale-out on one host: N supervised engine "
+             "processes, each owning a shard span end to end, sharing "
+             "only the gossip blacklist plane")
+    cl.add_argument("--engines", type=int, default=2, metavar="N",
+                    help="engine processes (>= 2; each owns "
+                         "shards/engines ring shards end to end)")
+    cl.add_argument("--shards", type=int, default=2,
+                    help="TOTAL daemon ring shards (fsxd --shards); a "
+                         "multiple of --engines")
+    cl.add_argument("--config", help="JSON config file (shared)")
+    cl.add_argument("--feature-ring", default=None,
+                    help="the daemon's shm feature-ring base path")
+    cl.add_argument("--verdict-ring", default=None,
+                    help="verdict-ring base path: engine r produces "
+                         "BASE.r<r>; omit for NullSink engines")
+    cl.add_argument("--cluster-dir", default=None,
+                    help="gossip/status plane directory (default: "
+                         "<feature-ring>.cluster)")
+    cl.add_argument("--artifact", help="trained model artifact (.npz), "
+                    "served by every engine")
+    cl.add_argument("--mega", type=_mega_arg, default=0,
+                    help="per-engine coalescing ladder (serve --mega)")
+    cl.add_argument("--device-loop", type=int, default=0, metavar="N",
+                    help="per-engine drain-ring depth (explicit only; "
+                         "requires --mega)")
+    cl.add_argument("--compile-cache", metavar="DIR",
+                    help="the fleet's kernel-library cache (serve "
+                         "--compile-cache; every rank shares DIR)")
+    cl.add_argument("--tiered-warm", action="store_true",
+                    help="per-engine tiered warm (serve --tiered-warm; "
+                         "requires --mega)")
+    cl.add_argument("--verdict-k", type=int, default=None,
+                    help="compact verdict-wire slots (serve --verdict-k)")
+    cl.add_argument("--table-capacity", type=int, default=None,
+                    metavar="N", help="PER-ENGINE flow-table rows")
+    cl.add_argument("--seconds", type=float, default=0,
+                    help="serve for S seconds, then stop-drain every "
+                         "engine (0 = until ^C, or the end of --drain)")
+    cl.add_argument("--drain", action="store_true",
+                    help="the ring shards are prefilled: every rank serves "
+                         "its shards to exhaustion in one timed run, all "
+                         "ranks starting together once warm, then exits")
+    cl.add_argument("--checkpoint", metavar="TEMPLATE",
+                    help="per-engine checkpoint path template; MUST "
+                         "contain {rank} (restarts restore from it)")
+    cl.add_argument("--checkpoint-every", type=float, default=0,
+                    help="checkpoint every S seconds while serving "
+                         "(requires --checkpoint)")
+    cl.add_argument("--max-restarts", type=int, default=2,
+                    help="crash restarts per rank before it is parked as "
+                         "failed (default 2)")
+    cl.add_argument("--slo-us", type=int, default=0, metavar="N",
+                    help="per-engine latency budget (serve --slo-us)")
+    cl.add_argument("--predict", action="store_true",
+                    help="per-engine burst forecaster (serve --predict; "
+                         "requires --slo-us)")
+    cl.add_argument("--pin-cores", choices=("auto", "on", "off"),
+                    default="auto",
+                    help="pin rank r (and its drain workers) to core r "
+                         "with a one-thread torch pool (auto: only when "
+                         "the fleet fits the host's cores)")
+    cl.add_argument("--device", default=None,
+                    help="torch device of every engine; default the card "
+                         "(a rank without one fails, it never serves on "
+                         "the CPU unless asked)")
+    for flag, what in _CLUSTER_REFUSED.items():
+        cl.add_argument("--" + flag.replace("_", "-"),
+                        action="store_true" if flag in ("elastic", "adopt")
+                        else "store", default=None,
+                        help=f"refused: {what} is not ported")
+    cl.set_defaults(fn=_cmd_cluster)
     return ap
 
 

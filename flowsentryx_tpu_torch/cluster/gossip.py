@@ -1,0 +1,258 @@
+"""Engine-side verdict gossip: publish local blocks, merge the peers'.
+
+Counterpart of ``flowsentryx_tpu/cluster/gossip.py`` for a single-host
+fleet (the reference's multi-host ``net=`` leg, ``transport.py``, is not
+ported: a non-None ``net`` is refused).  Each engine owns one
+:class:`GossipPlane`: the engine's half of every pair mailbox
+(:mod:`.mailbox`) — N-1 TX queues it publishes to, N-1 RX queues it
+merges from — and its status block.
+
+Threading contract, as in the reference:
+
+* :meth:`GossipPlane.publish` runs in the engine's sink section (right
+  after the local ``sink.apply``), so every TX head cursor has one
+  writing thread, whichever thread owns the sink;
+* :meth:`GossipPlane.tick` runs on the dispatch thread (every loop
+  iteration, idle ones included), so every RX tail cursor has one
+  writing thread;
+* merged verdicts go to the plane's OWN sink, never the engine's (whose
+  producer is the sink section).
+
+Merged verdicts apply last-wins by key.  The supervisor gives every
+engine one t0 epoch, so the ``until`` an engine publishes is the same
+bits every peer enforces.  numpy only.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+from flowsentryx_tpu_torch.cluster.mailbox import (
+    StatusBlock, VerdictMailbox, mailbox_path, status_path,
+)
+from flowsentryx_tpu_torch.core import durable
+from flowsentryx_tpu_torch.engine.writeback import (
+    BlacklistUpdate, decode_verdict_wire,
+)
+from flowsentryx_tpu_torch.sync import tuning
+
+
+def create_plane(cluster_dir, n_engines: int, k_max: int = 64,
+                 slots: int = 256) -> None:
+    """Create every pair mailbox and status block (the supervisor, or a
+    test standing in for it, once, before any engine attaches), then
+    the geometry stamp ``plane.json`` last: its presence implies the
+    files exist."""
+    if n_engines < 2:
+        raise ValueError(
+            f"a gossip plane needs >= 2 engines, got {n_engines}")
+    Path(cluster_dir).mkdir(parents=True, exist_ok=True)
+    for src in range(n_engines):
+        StatusBlock.create(status_path(cluster_dir, src), src)
+        for dst in range(n_engines):
+            if dst != src:
+                VerdictMailbox.create(
+                    mailbox_path(cluster_dir, src, dst), slots, k_max)
+    durable.atomic_write(Path(cluster_dir) / "plane.json", json.dumps(
+        {"n_engines": n_engines, "k_max": k_max, "slots": slots,
+         "net": False}).encode())
+
+
+def map_digest(d: dict[int, int]) -> str:
+    """Order-insensitive digest of a ``key -> until-bits`` map, so two
+    processes can show the same blacklist through a JSON report (the
+    reference's ``transport.map_digest``)."""
+    items = np.array(sorted(d.items()), np.int64)
+    return f"{zlib.crc32(items.tobytes()):08x}.{len(d)}"
+
+
+class GossipPlane:
+    """One engine's verdict-gossip endpoint (module docstring)."""
+
+    def __init__(self, cluster_dir, rank: int, n_engines: int,
+                 sink=None,
+                 merge_interval_s: float = tuning.GOSSIP_MERGE_INTERVAL_S,
+                 net=None):
+        if net is not None:
+            raise ValueError(
+                "GossipPlane(net=...): the multi-host network leg "
+                "(cluster/transport.py) is not ported; a single-host "
+                "fleet gossips over the shm mailboxes only")
+        if not 0 <= rank < n_engines:
+            raise ValueError(f"rank {rank} not in [0, {n_engines})")
+        meta_path = Path(cluster_dir) / "plane.json"
+        if meta_path.exists():
+            stamped = json.loads(meta_path.read_text()).get("n_engines")
+            if stamped != n_engines:
+                raise ValueError(
+                    f"gossip plane at {cluster_dir} was created for "
+                    f"{stamped} engines, attaching with {n_engines}: "
+                    "a mismatched fleet size would silently exclude "
+                    "peers from gossip")
+        self.rank = rank
+        self.n_engines = n_engines
+        #: Where merged peer verdicts go (the engine's second path to its
+        #: kernel tier; a CollectSink in tests); None tracks only.
+        #: Dispatch-thread owned.
+        self.sink = sink
+        self.merge_interval_s = merge_interval_s
+        self.status = StatusBlock(status_path(cluster_dir, rank))
+        self._tx = {
+            peer: VerdictMailbox(mailbox_path(cluster_dir, rank, peer))
+            for peer in range(n_engines) if peer != rank
+        }
+        self._rx = {
+            peer: VerdictMailbox(mailbox_path(cluster_dir, peer, rank))
+            for peer in range(n_engines) if peer != rank
+        }
+        if not self._tx:
+            raise ValueError(
+                "a single-engine plane has no peer to gossip with")
+        self.k_max = next(iter(self._tx.values())).k_max
+        # -- publish side (engine sink section) ---------------------------
+        self._pub_seq = 0
+        self._published: dict[int, int] = {}   # key -> until f32 bits
+        self._tx_dropped = 0
+        self._tx_wires = 0
+        # -- merge side (dispatch thread) ---------------------------------
+        self._merged: dict[int, int] = {}      # key -> until f32 bits
+        self._rx_wires = 0
+        self._rx_seq_gaps = 0
+        self._rx_next_seq = {peer: 1 for peer in self._rx}
+        self._merge_ticks = 0
+        self._next_tick = 0.0
+        # budget-pressure shedding (the governor's pressure signal)
+        self._ticks_deferred = 0
+        self._defer_streak = 0
+
+    # -- publish side (engine sink section) ---------------------------------
+
+    def publish(self, upd: BlacklistUpdate, now: float) -> None:
+        """Republish one sink group's blacklist updates to every peer,
+        in ``[2K+4]`` compact verdict wires (a group larger than K ships
+        more wires; the overflow flag is never set)."""
+        n = len(upd.key)
+        if not n:
+            return
+        k = self.k_max
+        keys = np.asarray(upd.key, np.uint32)
+        untils = np.asarray(upd.until_s, np.float32)
+        self._published.update(
+            zip(keys.tolist(), untils.view(np.uint32).tolist()))
+        for lo in range(0, n, k):
+            ck = keys[lo:lo + k]
+            cu = untils[lo:lo + k]
+            w = np.zeros(2 * k + 4, np.uint32)
+            w[:len(ck)] = ck
+            w[k:k + len(cu)] = cu.view(np.uint32)
+            w[2 * k] = len(ck)
+            w[2 * k + 3] = np.float32(now).view(np.uint32)
+            self._pub_seq += 1
+            for mbx in self._tx.values():
+                if mbx.publish(w, self._pub_seq, len(ck)):
+                    self._tx_wires += 1
+                else:
+                    self._tx_dropped += 1
+
+    # -- merge side (dispatch thread) ---------------------------------------
+
+    def tick(self, force: bool = False, pressure: float = 0.0) -> int:
+        """Heartbeat, then merge every peer's pending wires into the
+        local view (and the plane's sink); throttled to the merge
+        interval.  Returns the verdicts merged by this call.
+
+        ``pressure > 0`` (the governor's budget-pressure signal) defers
+        a due tick by ``SHED_TICK_STRETCH`` intervals, at most
+        ``SHED_MAX_DEFER`` times in a row; deferrals are counted."""
+        t = time.monotonic()
+        if not force and t < self._next_tick:
+            return 0
+        if (pressure > 0.0 and not force
+                and self._defer_streak < tuning.SHED_MAX_DEFER):
+            self._defer_streak += 1
+            self._ticks_deferred += 1
+            self._next_tick = (
+                t + self.merge_interval_s * tuning.SHED_TICK_STRETCH)
+            return 0
+        self._defer_streak = 0
+        self._next_tick = t + self.merge_interval_s
+        self.status.ctl_set(
+            "c_hbeat", time.clock_gettime_ns(time.CLOCK_MONOTONIC))
+        merged_k: list[np.ndarray] = []
+        merged_u: list[np.ndarray] = []
+        for peer, mbx in self._rx.items():
+            while True:
+                got = mbx.pop_wires(64)
+                if not got:
+                    break
+                for seq, w in got:
+                    if seq != self._rx_next_seq[peer]:
+                        # a drop at a full mailbox or a torn restart
+                        # re-publishing old numbers: counted
+                        self._rx_seq_gaps += 1
+                    self._rx_next_seq[peer] = seq + 1
+                    vw = decode_verdict_wire(w)
+                    merged_k.append(vw.key)
+                    merged_u.append(vw.until_s)
+                    self._rx_wires += 1
+        if not merged_k:
+            return 0
+        self._merge_ticks += 1
+        keys = np.concatenate(merged_k)
+        untils = np.concatenate(merged_u)
+        # last-wins by key in arrival order: the kernel map's
+        # overwrite-on-update semantics
+        self._merged.update(
+            zip(keys.tolist(),
+                untils.astype(np.float32).view(np.uint32).tolist()))
+        if self.sink is not None:
+            self.sink.apply(BlacklistUpdate(key=keys, until_s=untils))
+        return int(len(keys))
+
+    def quiesce(self, timeout_s: float, peers_quiet=None) -> None:
+        """Converge on shutdown: force-tick until the RX mailboxes run
+        dry (3 idle ticks in a row) and, with ``peers_quiet``, until it
+        says every peer stopped publishing — bounded by ``timeout_s``
+        (a peer that serves on is a live cluster, not a drain)."""
+        idle = 0
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            idle = idle + 1 if self.tick(force=True) == 0 else 0
+            if idle >= 3 and (peers_quiet is None or peers_quiet()):
+                return
+            time.sleep(self.merge_interval_s)
+
+    def stop_requested(self) -> bool:
+        return self.status.ctl_get("c_stop") != 0
+
+    # -- lifecycle (engine runner, between runs) -----------------------------
+
+    def set_state(self, state: int) -> None:
+        self.status.ctl_set("c_state", state)
+
+    def note_progress(self, batches: int, records: int) -> None:
+        self.status.ctl_set("c_batches", batches)
+        self.status.ctl_set("c_records", records)
+
+    def report(self) -> dict:
+        return {
+            "rank": self.rank,
+            "n_engines": self.n_engines,
+            "k_max": self.k_max,
+            "merge_interval_s": self.merge_interval_s,
+            "published_sources": len(self._published),
+            "published_digest": map_digest(self._published),
+            "tx_wires": self._tx_wires,
+            "tx_dropped": self._tx_dropped,
+            "merged_sources": len(self._merged),
+            "merged_digest": map_digest(self._merged),
+            "rx_wires": self._rx_wires,
+            "rx_seq_gaps": self._rx_seq_gaps,
+            "merge_ticks": self._merge_ticks,
+            "ticks_deferred": self._ticks_deferred,
+        }

@@ -335,6 +335,43 @@ WIRE_ID_RAW48 = 0
 WIRE_ID_COMPACT16 = 1
 
 
+#: Cluster gossip mailbox (``cluster/mailbox.py``): the ring header
+#: geometry with verdict-wire slots.  Header: magic, slots, slot bytes
+#: (u64 each); each slot is a 4-word u32 header (seq lo/hi, entry count,
+#: 0) and one ``[2K+4]`` compact verdict wire.
+SHM_GOSSIP_MAGIC = 0x465358474F535331   # "FSXGOSS1"
+GOSSIP_SLOT_HDR_WORDS = 4
+
+#: Per-engine cluster status block (supervisor <-> engine lifecycle).
+#: One writer side per field, split by writer onto cache lines: the
+#: engine writes the line at 64.., the supervisor the line at 128...
+#: Offsets 104, 112, 160 and 168 belong to the reference's shard
+#: handoff (not ported) and are never written here.
+SHM_STATUS_MAGIC = 0x4653585354415431   # "FSXSTAT1"
+SHM_STATUS_SIZE = 192
+STATUS_RANK_OFFSET = 8                  # u64, creator-written geometry
+# engine-written line
+STATUS_HBEAT_OFFSET = 64                # u64 CLOCK_MONOTONIC ns
+STATUS_STATE_OFFSET = 72                # u64 CSTATE_*
+STATUS_BATCHES_OFFSET = 80              # u64 batches served
+STATUS_RECORDS_OFFSET = 88              # u64 records served
+STATUS_PID_OFFSET = 96                  # u64 engine process id
+# supervisor-written line
+STATUS_STOP_OFFSET = 128                # u64 drain-and-exit request
+STATUS_GEN_OFFSET = 136                 # u64 restart generation
+STATUS_T0_OFFSET = 144                  # u64 shared cluster epoch (ns)
+STATUS_T0_WALL_OFFSET = 152             # u64 CLOCK_REALTIME ns at t0
+
+CSTATE_SPAWNING = 1
+CSTATE_SERVING = 2
+CSTATE_DONE = 3
+CSTATE_FAILED = 4
+#: Local serving finished, gossip still quiescing: every publish of
+#: the engine happened before this store, so a peer that reads DRAINING
+#: and an empty mailbox has merged everything the engine will say.
+CSTATE_DRAINING = 5
+
+
 def wire_id_of(wire: str) -> int:
     return WIRE_ID_COMPACT16 if wire == WIRE_COMPACT16 else WIRE_ID_RAW48
 

@@ -16,8 +16,9 @@ swap (:meth:`Engine.hot_swap`, :meth:`Engine.watch_artifact`), the
 simulated kernel tier (``kernel_tier=``, ``EngineReport.escalation``),
 the drain ring (``device_loop=N``, :func:`calibrate_ring_depth`) and the
 boot path (``warm(tiered=True)``, ``compile_cache=``,
-``EngineReport.boot``).  Not ported yet: the sharded step and the
-cluster planes (ROADMAP queue 1 orders what follows).
+``EngineReport.boot``) and the cluster's gossip hooks (``gossip=``,
+``EngineReport.cluster``).  Not ported yet: the sharded step (ROADMAP
+queue 1).
 
 Two threads, as in the reference: the **dispatch thread** (the caller of
 :meth:`Engine.run`) polls, stages and launches; a **sink thread** waits
@@ -237,6 +238,9 @@ class EngineReport(NamedTuple):
     #: counters, seconds to serving and to the first verdict; None
     #: before a warm.
     boot: dict | None = None
+    #: The gossip plane's accounting (:meth:`~flowsentryx_tpu_torch
+    #: .cluster.gossip.GossipPlane.report`); None outside cluster serving.
+    cluster: dict | None = None
 
 
 class _InFlight(NamedTuple):
@@ -327,7 +331,14 @@ class Engine:
     one round when it was not given, and an explicit smaller value is
     refused.  ``compile_cache``: a directory (or a
     :class:`~.compile_cache.CompileCache`) that keeps the built kernel
-    libraries across boots."""
+    libraries across boots.
+
+    ``gossip``: a :class:`~flowsentryx_tpu_torch.cluster.gossip
+    .GossipPlane` (a cluster rank): the sink section publishes every
+    group's blacklist updates to the peers right after the local sink
+    applies them, and the dispatch thread merges the peers' verdicts
+    (``tick``) every loop iteration, idle ones included, deferring under
+    the governor's budget pressure."""
 
     def __init__(
         self,
@@ -348,6 +359,7 @@ class Engine:
         kernel_tier: Any | None = None,
         device_loop: int = 0,
         compile_cache: Any | None = None,
+        gossip: Any | None = None,
     ):
         #: Boot anchor: ``EngineReport.boot``'s walls count from here.
         self._boot_t0 = time.perf_counter()
@@ -369,6 +381,8 @@ class Engine:
         self.cfg = cfg
         self.source = source
         self.sink = sink
+        #: The cluster's gossip plane, or None outside a cluster.
+        self.gossip = gossip
         self.kernel_tier = kernel_tier
         if kernel_tier is not None:
             if getattr(source, "provides_sealed", False):
@@ -1201,6 +1215,11 @@ class Engine:
             now = float(nows.max())
         self.metrics.readback.add(time.perf_counter() - t_fetch)
         self.sink.apply(upd)
+        if self.gossip is not None:
+            # republish to every peer right where the local sink applied:
+            # the gossip TX mailboxes' single producer is the sink
+            # section, whichever thread owns it
+            self.gossip.publish(upd, now)
         self._blocked.update(upd.key.tolist())
         self._device_now = max(self._device_now, now)
         self._sunk_batches += g.n_chunks
@@ -1260,14 +1279,20 @@ class Engine:
         the artifact watcher's throttled check runs first."""
         self._maybe_reload_artifact()
         self._watchdog.check(self._busy_depth())
+        pressure = 0.0
         if self._gov is not None:
             now = time.perf_counter()
             self._gov.update(now)
             age = self.batcher.pending_age_s()
             if self._pending:
                 age = max(age, now - self._pending[0][1])
-            # computed and counted; nothing in the port consumes it yet
-            self._gov.pressure(age, self._slo_budget_s)
+            pressure = self._gov.pressure(age, self._slo_budget_s)
+        if self.gossip is not None:
+            # merge the peers' verdicts between dispatches, idle
+            # iterations too (RX mailboxes and the plane's own sink are
+            # this thread's); under budget pressure the plane defers the
+            # merge, never the publish
+            self.gossip.tick(pressure=pressure)
         if self._sink_active:
             self._handoff()
             self._chan.check()
@@ -2119,6 +2144,11 @@ class Engine:
                 (escalation.get("kernel_drops", 0)
                  + escalation.get("blacklist_hits", 0)) / max(wall, 1e-9),
                 1)
+        cluster = self.gossip.report() if self.gossip is not None else None
+        predict = self._gov.report() if self._gov is not None else None
+        if predict is not None and cluster is not None:
+            # the shed counter beside the actuation counters it motivates
+            predict["gossip_ticks_deferred"] = cluster["ticks_deferred"]
         return EngineReport(
             batches=self.batcher.batches_emitted,
             records=self.batcher.records_emitted,
@@ -2139,11 +2169,13 @@ class Engine:
             latency=self._lat.to_dict(self.slo_us,
                                       compute_is_wall=not self._cuda),
             health=health.engine_health(
-                ingest=ingest, watchdog=self._watchdog.to_dict(),
+                ingest=ingest, gossip=cluster,
+                watchdog=self._watchdog.to_dict(),
                 restore_fallbacks=self._restore_fallbacks),
-            predict=self._gov.report() if self._gov is not None else None,
+            predict=predict,
             escalation=escalation,
             boot=self._boot_report(),
+            cluster=cluster,
         )
 
     def _boot_report(self) -> dict | None:

@@ -133,10 +133,23 @@ class ShardedIngest:
         spin_us: int | None = None,
         idle_us: int = IDLE_US,
         strict: bool = False,
+        shard_offset: int = 0,
+        total_shards: int | None = None,
         quarantine_dir: str | Path | None = None,
     ):
         if n_workers < 1:
             raise ValueError("n_workers must be >= 1")
+        # a cluster rank (fsx cluster) fronts its contiguous span
+        # [shard_offset, shard_offset + n_workers) of the daemon's
+        # total_shards-ring fan-out; the defaults are the whole fan-out
+        if total_shards is None:
+            total_shards = n_workers
+        if shard_offset < 0 or shard_offset + n_workers > total_shards:
+            raise ValueError(
+                f"shard span [{shard_offset}, {shard_offset + n_workers})"
+                f" does not fit the {total_shards}-shard fan-out")
+        self.shard_offset = int(shard_offset)
+        self.total_shards = int(total_shards)
         if spin_us is None:
             # AUTO: a spinning worker needs a core to burn; with fewer
             # cores than workers + engine + one spare the spin only
@@ -168,7 +181,8 @@ class ShardedIngest:
         self.strict = bool(strict)
         self._crash: WorkerCrash | None = None
         self.ring_paths = [
-            schema.shard_ring_path(self.ring_base, k, n_workers)
+            schema.shard_ring_path(self.ring_base, self.shard_offset + k,
+                                   self.total_shards)
             for k in range(n_workers)
         ]
         # ``precompact=None`` probes the shard-0 ring header (blocks
@@ -503,7 +517,7 @@ class ShardedIngest:
                 os.makedirs(self.quarantine_dir, exist_ok=True)
                 self._quarantine_dumps += 1
                 dump = (Path(self.quarantine_dir)
-                        / f"quarantine_w{wid}"
+                        / f"quarantine_w{self.shard_offset + wid}"
                           f"_seq{seq}_{self._quarantine_dumps}.npy")
                 np.save(dump, np.asarray(payload).reshape(
                     self._payload_shape).copy())

@@ -100,3 +100,53 @@ PREDICT_PREWARM_MARGIN_S = PREDICT_BIN_S
 #: Budget-pressure threshold: the pressure signal is on while the
 #: oldest staged work's remaining headroom fraction is below this.
 PREDICT_SHED_HEADROOM = 0.25
+
+# -- the cluster (cluster/gossip.py, cluster/supervisor.py) --------------------
+
+#: Gossip merge and heartbeat cadence (``GossipPlane.tick``, called from
+#: the engine loop every iteration and throttled here): each tick stats
+#: N-1 peer mailboxes, so 5 ms costs nothing measurable on the dispatch
+#: thread, and a peer's block is enforced fleet-wide within one interval
+#: plus one loop iteration — three orders of magnitude under the default
+#: 10 s block time.
+GOSSIP_MERGE_INTERVAL_S = 5e-3
+
+#: Under the governor's budget pressure a due gossip tick is deferred by
+#: this many merge intervals (anti-entropy drops to 1/4 rate, it does
+#: not stop) ...
+SHED_TICK_STRETCH = 4
+
+#: ... and after this many consecutive deferrals it runs regardless:
+#: shedding bounds the rate of merges, never their occurrence.
+SHED_MAX_DEFER = 8
+
+#: Supervisor liveness-poll cadence (``ClusterSupervisor.run``): bounds
+#: how late a corpse is noticed, at a handful of u64 loads per rank.
+SUPERVISOR_POLL_S = 0.05
+
+#: A serving rank whose heartbeat (the gossip tick) is older than this
+#: is reported stalled: ~1000 missed beats at the merge cadence.  Booting
+#: over a plane refuses while any heartbeat is younger than twice this.
+SUPERVISOR_HEARTBEAT_TIMEOUT_S = 5.0
+
+#: Crash-loop respawn backoff: the k-th respawn inside the restart
+#: window waits ``BASE * 2**(k-1)``, capped at MAX, so a rank that dies
+#: at boot cannot burn its whole restart budget in milliseconds.
+RESPAWN_BACKOFF_BASE_S = 0.1
+RESPAWN_BACKOFF_MAX_S = 5.0
+
+#: Only deaths inside this sliding window count against ``max_restarts``
+#: (a crash after an hour of clean serving is a fresh incident).
+RESTART_WINDOW_S = 60.0
+
+#: Engine-exit gossip quiesce bound (``cluster/runner.py``): quiesce
+#: returns after 3 idle ticks once every peer left SERVING; this is the
+#: deadline for a backlogged plane.
+GOSSIP_QUIESCE_S = 2.0
+
+#: After a stop request every rank gets this long to serve its tail,
+#: quiesce gossip and checkpoint before it is declared wedged.
+SUPERVISOR_DRAIN_TIMEOUT_S = 60.0
+
+#: ``ClusterSupervisor.close``: join each child this long, then SIGKILL.
+SUPERVISOR_CLOSE_TIMEOUT_S = 10.0

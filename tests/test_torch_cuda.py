@@ -1208,3 +1208,51 @@ def test_compile_cache_hit_loads_a_real_library(cuda, tmp_path,
     x = torch.rand(2048, 8, device=cuda) * 1e5
     got = kernels.score_int8(p, x)
     assert torch.equal(got, kernels.score_int8_plain(p, x))
+
+
+def test_cluster_fleet_on_card_equals_cpu_fleet(cuda, tmp_path):
+    """Two rank processes on the card (``engine_main``, drain mode, each
+    its own CUDA context) against the same fleet on the CPU, over the
+    same prefilled 2-shard fan-out and epoch: per-rank stats, table
+    summaries and published/merged blacklist digests equal, gossip
+    converged, ``score_int8`` once per batch in each card rank."""
+    from flowsentryx_tpu_torch.cluster.supervisor import ClusterSupervisor
+    from flowsentryx_tpu_torch.core import wire
+    from flowsentryx_tpu_torch.engine.shm import ShmRing
+
+    cfg = config.FsxConfig(
+        table=config.TableConfig(capacity=1 << 16, salt=0x2F1),
+        batch=config.BatchConfig(max_batch=2048),
+        limiter=config.LimiterConfig(pps_threshold=200.0, bps_threshold=1e9))
+    recs = TrafficGen(TrafficSpec(
+        scenario=Scenario.UDP_FLOOD_MULTI, rate_pps=1e7, n_attack_ips=8,
+        n_benign_ips=24, attack_fraction=0.8, seed=13)).next_records(2048 * 12)
+    t0 = int(recs["ts_ns"][0])
+    sh = wire.shard_of(recs["saddr"], 2)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        base = str(tmp_path / f"{dev}_ring")
+        for k in range(2):
+            ring = ShmRing.create(wire.shard_ring_path(base, k, 2), 1 << 15,
+                                  wire.FLOW_RECORD_DTYPE)
+            assert ring.produce(recs[sh == k]) == int((sh == k).sum())
+        spec = {"device": dev, "cfg_json": cfg.to_json(), "ring_base": base,
+                "workers": 1, "total_shards": 2, "artifact": ARTIFACT,
+                "mega": "auto", "drain": True}
+        sup = ClusterSupervisor(tmp_path / f"{dev}_plane",
+                                [dict(spec), dict(spec)], t0_ns=t0)
+        sup.boot()
+        agg = sup.run(max_seconds=600)
+        assert agg["failed_ranks"] == [] and agg["restarts"] == [0, 0]
+        out[dev] = {r["rank"]: r for r in agg["reports"]}
+    for r in range(2):
+        card, cpu = out["cuda"][r], out["cpu"][r]
+        assert card["report"]["records"] == int((sh == r).sum())
+        for k in ("stats", "table", "batches", "blocked_sources"):
+            assert card["report"][k] == cpu["report"][k], k
+        for k in ("published_digest", "merged_digest", "rx_seq_gaps"):
+            assert card["report"]["cluster"][k] == cpu["report"]["cluster"][k]
+        assert card["report"]["cluster"]["merged_digest"] == out["cuda"][
+            1 - r]["report"]["cluster"]["published_digest"]
+        assert card["launches"]["score_int8"] == card["report"]["batches"]
+        assert card["report"]["device"]["type"] == "cuda"

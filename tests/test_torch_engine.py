@@ -161,7 +161,9 @@ def test_new_host_modules_are_checked():
     distill plan compiler and loader, the served-lane parity check, the
     simulated kernel tier, the pcap reader, the training plane
     (fixture, data, optimizers, QAT, evaluation, stress), the drain ring,
-    the staged-shape signature and the compile cache are among them."""
+    the staged-shape signature, the compile cache, the cluster (its
+    mailboxes, gossip plane, engine runner and supervisor) and the
+    cluster layout are among them."""
     names = {".".join(p.relative_to(REPO).with_suffix("").parts)
              for p in _port_sources()}
     for m in ("core.wire", "core.durable", "engine.shm", "engine.arena",
@@ -174,7 +176,10 @@ def test_new_host_modules_are_checked():
               "distill.parity", "train.__init__", "train.fixture",
               "train.data", "train.optim", "train.qat", "train.evaluate",
               "train.stress", "fused.__init__", "fused.device_loop",
-              "core.signature", "engine.compile_cache"):
+              "core.signature", "engine.compile_cache",
+              "cluster.__init__", "cluster.mailbox", "cluster.gossip",
+              "cluster.runner", "cluster.supervisor", "parallel.__init__",
+              "parallel.layout"):
         assert f"flowsentryx_tpu_torch.{m}" in names, m
 
 
