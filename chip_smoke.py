@@ -271,11 +271,34 @@ more.
     has published blocks; its context's memory is released, gen 1
     restores its checkpoint (kill -> SERVING seconds), the survivor
     serves every record of its shard and merged gen 0's wires.
+43. ``status_monitor_fleet``: ``cli status`` and ``cli monitor --count 2
+    --interval 0.1 --alert-p99-us 1 --alert-degraded`` (subprocesses)
+    over the rank reports of the last ``cluster_serve`` fleet: the merged
+    seal -> verdict count is the ranks' sum, the latency, predict, boot
+    and health merges equal the supervisor's ``aggregate()`` of that
+    fleet, the p99 alert fires, the degraded alert fires exactly when a
+    rank is not healthy, and the drained feature ring's backlog is 0.
+44. ``scenario_suite`` (after ``train_distill_serve``): the five BASELINE
+    configs (``benchmarks.run_suite(scale=1.0, names=[config])``, one
+    launch window per config: the token bucket at 2^14 rows, the
+    sliding window at 2^16, offline scoring at B=8192, the online mix,
+    1M sources at B=16,384 over 2^20 rows) on the card, every untimed
+    field equal to the CPU engine's at the same scale; in each config's
+    window ``score_int8`` launches equal its batches and
+    ``table_summary`` launches once (its one report); then per config a
+    warmed engine
+    on the same records: records/s, the captured step's device ms per
+    batch over the config's own batches, idle share, the fill's host ms
+    per batch and the generator's own records/s, memory after
+    ``warm()``, and ``score_int8`` (at B=8192 and 16,384) and
+    ``table_summary`` (at 2^14 and 2^16 rows) against their plain
+    versions.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
 also with the log1p artifact on raw48 rows, and at the training path's
-evaluation chunk, B = 65,536 rows, with the trained artifact;
+evaluation chunk, B = 65,536 rows, with the trained artifact, and at
+the suite's B = 8192 and 16,384 with ``logreg_int8.npz``;
 ``gemv_seq`` on the QAT epoch's operands at 2,016,639 rows, its plain
 version on the host, ``torch.mv`` its library call): ``ms`` (CUDA events, host
 launch gaps included), ``device_ms`` (the kernel's own time from
@@ -284,11 +307,10 @@ launch gaps included), ``device_ms`` (the kernel's own time from
 one library call where one exists (event and profiler time), and the
 bound from this run's inputs (for ``table_summary``: every key plus the
 two state words of each tracked row, which is what the kernel must
-read; beside it the sector-level floor, every key plus each distinct
-32-byte sector that holds a tracked row's two words, counted on this
-run's table), ``table_summary`` on both served tables; then the card
-line, and
-last the ``ok`` line.  The script imports nothing of JAX.
+read; beside it the counts of distinct 32-byte sectors and 64-byte
+chunks that hold those words, counted on this run's table),
+``table_summary`` on both served tables and on the suite's 2^14- and
+2^16-row tables; then the card line, and last the ``ok`` line.  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -368,6 +390,7 @@ def main() -> int:
         return 2
     import numpy as np
 
+    from flowsentryx_tpu_torch import benchmarks
     from flowsentryx_tpu_torch.core import schema
     from flowsentryx_tpu_torch.core.config import (
         BatchConfig, FsxConfig, TableConfig,
@@ -2185,6 +2208,8 @@ def main() -> int:
                     raise RuntimeError(f"cli cluster exited {p.returncode}: "
                                        f"{se[-3000:]}")
                 agg = json.loads(so)
+                # the last fleet's plane stays for status_monitor_fleet
+                served["fleet"] = {"plane": plane, "base": base, "agg": agg}
                 reps = {x["rank"]: x for x in agg["reports"]}
                 fleet_busy = 0.0
                 ranks = {}
@@ -2247,6 +2272,90 @@ def main() -> int:
         return {"ok": all(checks), **out}
 
     cluster_serve_phase()
+
+    @phase("status_monitor_fleet")
+    def fleet_read_phase():
+        """``cli status`` and ``cli monitor`` over the rank reports the
+        last ``cluster_serve`` fleet wrote (each a subprocess, as an
+        operator runs them): the merged seal -> verdict count equals the
+        sum of the ranks', the merges equal the supervisor's
+        ``aggregate()`` of that fleet, the p99 alert fires, and the
+        degraded alert fires exactly when a rank is not healthy."""
+        fleet = served["fleet"]
+        plane, agg = fleet["plane"], fleet["agg"]
+        glob = os.path.join(plane, "report_r*_g*.json")
+        ring0 = schema.shard_ring_path(fleet["base"], 0, 2)
+        cli_argv = [sys.executable, "-m", "flowsentryx_tpu_torch.cli"]
+        t = time.perf_counter()
+        st = subprocess.run(cli_argv + [
+            "status", "--engine-report", glob, "--feature-ring", ring0,
+            "--verdict-ring", os.path.join(plane, "no_verdict_ring")],
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+        status_s = time.perf_counter() - t
+        if st.returncode != 0:
+            raise RuntimeError(f"cli status exited {st.returncode}: "
+                               f"{st.stderr[-2000:]}")
+        status = json.loads(st.stdout)
+        history = os.path.join(plane, "monitor.jsonl")
+        t = time.perf_counter()
+        mo = subprocess.run(cli_argv + [
+            "monitor", "--count", "2", "--interval", "0.1",
+            "--alert-p99-us", "1", "--alert-degraded",
+            "--engine-report", glob, "--out", history],
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+        monitor_s = time.perf_counter() - t
+        if mo.returncode != 0:
+            raise RuntimeError(f"cli monitor exited {mo.returncode}: "
+                               f"{mo.stderr[-2000:]}")
+        records = [json.loads(x) for x in mo.stdout.splitlines()]
+        ranks = {r["rank"]: r["report"] for r in agg["reports"]}
+        rank_n = sum(rep["latency"]["seal_to_verdict"]["n"]
+                     for rep in ranks.values())
+        merged = status["latency"]["seal_to_verdict_us"]
+        boot = status.get("boot") or {}
+        degraded = status["health"]["state"] != "healthy"
+        with open(history) as f:
+            logged = [json.loads(x) for x in f]
+        same = {
+            "seal_to_verdict_n_is_ranks_sum": merged["n"] == rank_n,
+            "latency_equals_aggregate":
+                merged == agg["latency"]["seal_to_verdict"],
+            "predict_equals_aggregate": status.get("predict")
+            == agg["predict"],
+            "boot_equals_aggregate": list(boot.get("per_report", {})
+                                          .values())
+            == list((agg["boot"] or {}).get("per_rank", {}).values())
+            and all(boot.get(k) == agg["boot"][k] for k in (
+                "cache_hits", "cache_misses", "cache_stores",
+                "max_serving_ready_s")),
+            "health_equals_aggregate": status["health"]["state"]
+            == agg["health"]["state"],
+            "feature_ring_drained": status["feature_ring"]["backlog"] == 0
+            and status["feature_ring"]["produced"] > 0,
+            "two_records": len(records) == 2 and logged == records,
+            "p99_alert_fired": all(any(a.startswith("engine p99 latency")
+                                       for a in r.get("alerts", ()))
+                                   for r in records),
+            "degraded_alert_iff_degraded": all(
+                any(a.startswith("engine health") for a in r.get(
+                    "alerts", ())) == degraded for r in records),
+            "kernel_key_says_no_maps": all(
+                list(r["kernel"]) == ["error"] for r in records),
+            "monitor_equals_status": all(
+                r["latency"] == status["latency"]
+                and r["health"] == status["health"] for r in records)}
+        return {"ok": all(same.values()), "card": card, "checks": same,
+                "reports": sorted(os.path.basename(p) for p in
+                                  status["latency"]["per_report"]),
+                "merged_seal_to_verdict_us": merged,
+                "ranks_records": sum(rep["records"]
+                                     for rep in ranks.values()),
+                "per_rank_p99_us": agg["latency"]["per_rank_p99"],
+                "health": status["health"]["state"],
+                "alerts": records[0].get("alerts") if records else None,
+                "status_s": status_s, "monitor_s": monitor_s}
+
+    fleet_read_phase()
 
     @phase("cluster_crash_restart")
     def crash_phase():
@@ -3776,6 +3885,152 @@ def main() -> int:
 
     tds_phase()
 
+    # -- the BASELINE scenario suite at full scale ---------------------------
+
+    #: The untimed fields of a suite result (``wall_s``, ``mpps`` and
+    #: ``stages_ms`` are timings).
+    timing_fields = ("wall_s", "mpps", "stages_ms")
+
+    def untimed(res):
+        return {k: v for k, v in res.items() if k not in timing_fields}
+
+    def config_batch(sb, params, n):
+        """``n`` compact16 wire batches of the config's own traffic, at its
+        B, in the params' model mode, on the card (a fresh generator: the
+        run's first ``n`` batches)."""
+        b = sb.cfg.batch.max_batch
+        quant = schema.wire_quant_for(logreg.LogRegParams(
+            **logreg.params_to_numpy(params)))
+        src = TrafficSource(sb.traffic, total=n * b)
+        recs = [src.poll(b) for _ in range(n)]
+        t0 = int(recs[0]["ts_ns"][0])
+        return [to_dev(schema.encode_compact(r, b, t0, **quant))
+                for r in recs]
+
+    @phase("scenario_suite")
+    def scenario_phase():
+        """The five BASELINE configs through ``benchmarks.run_suite`` on
+        the card at full scale (the main path of ``bench --scenarios``),
+        against the CPU engine on the same records; then, per config, a
+        warmed engine: records/s, its single step's device ms per batch
+        over the config's own batches, idle share, memory after
+        ``warm()``, and the host's generator alone."""
+        suite = benchmarks.scenario_suite(1.0)
+        # each config through ``run_suite`` (``bench --scenarios --only``)
+        # in its own window, zeroed just before and read just after
+        card_res, per_config = [], {}
+        for sb in suite:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            card_res += benchmarks.run_suite(scale=1.0, names=[sb.name],
+                                             device="cuda")
+            torch.cuda.synchronize()
+            per_config[sb.name] = dict(kernels.LAUNCHES)
+        launches = {k: sum(w.get(k, 0) for w in per_config.values())
+                    for k in kernels.LAUNCHES}
+        with cpu_threads():
+            cpu_res = benchmarks.run_suite(scale=1.0, device="cpu")
+        batches = sum(r["batches"] for r in card_res)
+        checks = [len(card_res) == len(suite)]
+        checks += [per_config[r["scenario"]]["score_int8"] == r["batches"]
+                   and per_config[r["scenario"]]["table_summary"] == 1
+                   for r in card_res]
+        out = {"card": card, "scale": 1.0, "cpu_scale": 1.0,
+               "launches": launches, "launches_per_config": per_config,
+               "batches": batches,
+               "tolerance": "every untimed field equal (exact)",
+               "configs": {}}
+        params, _ = benchmarks._serving_params()
+        for sb, res, ref in zip(suite, card_res, cpu_res):
+            b = sb.cfg.batch.max_batch
+            same = untimed(res) == untimed(ref)
+            checks += [same, res["packets"] == sb.packets,
+                       res["stats"]["allowed"] + res["stats"]["dropped"]
+                       == res["packets"]]
+            # a warmed engine over the same records
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            e = Engine(sb.cfg, TrafficSource(sb.traffic, total=sb.packets),
+                       CollectSink(), params=params, readback_depth=32,
+                       device="cuda")
+            built = torch.cuda.memory_allocated()
+            e.warm()
+            torch.cuda.synchronize()
+            memory = {"engine_bytes": built - base,
+                      "graphs_bytes": torch.cuda.memory_allocated() - built,
+                      "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                      "reserved_bytes": torch.cuda.memory_reserved()}
+            kernels.reset_launches()      # this engine's window opens
+            r = e.run()
+            torch.cuda.synchronize()
+            w_launches = dict(kernels.LAUNCHES)   # ... and closes
+            checks += [r.stats == res["stats"], r.table == res["table"],
+                       w_launches["score_int8"] == r.batches,
+                       w_launches["table_summary"] == 1]
+            # the report's scan on this table, against its plain version
+            summary = compare_summary(e.table.key, e.table.state,
+                                      e._device_now, sb.cfg.table.stale_s)
+            checks.append(summary["equal"])
+            served.setdefault("scenario_tables", {})[sb.name] = (
+                e.table.key.clone(), e.table.state.clone(), e._device_now)
+            # the captured single step over the config's own batches
+            xs = config_batch(sb, e.params, min(r.batches, 16))
+            gr = e._graphs[0]
+            for x in xs[:4]:
+                gr.input.copy_(x)
+                gr.replay()
+            torch.cuda.synchronize()
+            a, b_ = torch.cuda.Event(True), torch.cuda.Event(True)
+            a.record()
+            for x in xs:
+                gr.input.copy_(x)
+                gr.replay()
+            b_.record()
+            b_.synchronize()
+            step_ms = a.elapsed_time(b_) / len(xs)
+            # the scorer at this B on a decoded batch, against its plain
+            # version
+            feat = schema.decode_compact(xs[0], **e.quant).feat.contiguous()
+            mism = compare_scores(e.params, feat)
+            checks.append(mism == 0)
+            if b != BATCH:    # the kernels line times the larger B
+                served.setdefault("scenario_feats", {})[b] = (
+                    e.params, e.score_params, feat, sb.name, res["batches"])
+            # the host's generator alone, at the engine's poll size
+            g = TrafficSource(sb.traffic, total=sb.packets)
+            t = time.perf_counter()
+            while not g.exhausted():
+                g.poll(b)
+            gen_s = time.perf_counter() - t
+            fill = r.stages_ms.get("fill") or {}
+            out["configs"][sb.name] = {
+                "suite_result": res, "equal_to_cpu": same,
+                "B": b, "table_rows": sb.cfg.table.capacity,
+                "warmed": {
+                    "records_per_s": r.records_per_s, "wall_s": r.wall_s,
+                    "batches": r.batches,
+                    "step_device_ms_per_batch": step_ms,
+                    "step_batches_timed": len(xs),
+                    "idle_share": idle_share(r, step_ms),
+                    "fill_ms_per_batch": fill.get("mean", 0.0)
+                    * fill.get("n", 0) / max(r.batches, 1),
+                    "dispatch": {k: r.dispatch[k] for k in (
+                        "graphs", "graph_nodes", "dispatches")},
+                    "readback": r.readback, "launches": w_launches,
+                    "stats_equal_suite": r.stats == res["stats"]},
+                "generator_records_per_s": sb.packets / max(gen_s, 1e-9),
+                "memory_after_warm": memory,
+                "table_summary_vs_plain": summary,
+                "score_int8_vs_plain": {"shape": list(feat.shape),
+                                        "mismatches": mism}}
+            del e, gr, xs
+        served["launches_scenario_suite"] = launches
+        served["launches_scenario_configs"] = per_config
+        return {"ok": all(checks), **out}
+
+    scenario_phase()
+
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
         ``flush`` runs between calls, outside the timed region."""
@@ -3944,6 +4199,38 @@ def main() -> int:
             "peak": "H100 SXM data sheet: 3.35 TB/s HBM, 67 TFLOP/s fp32",
             "library_ms": time_ms(library65, 200),
             "library_device_ms": dev_ms(library65, 50)}
+        # the suite's larger batches: B = 8192 (config 3) and 16,384
+        # (config 5), decoded from each config's own traffic
+        suite_launches = served.get("launches_scenario_suite", {})
+        config_launches = served.get("launches_scenario_configs", {})
+        for bs, (sp, spk, xs_, scen_name, n_batches) in sorted(served.get(
+                "scenario_feats", {}).items()):
+            ws = (sp.w_int8.float() * sp.w_scale)[None, :]
+
+            def score_b(sp=sp, spk=spk, xs_=xs_):
+                kernels.score_int8(sp, xs_, spk)
+
+            def library_b(xs_=xs_, ws=ws, sp=sp):
+                torch.nn.functional.linear(xs_, ws, sp.bias.reshape(1))
+
+            sbb, sbby = bound(bs * 8 * 4 + kernels.SCORE_ARGS_WORDS * 4
+                              + bs * 4, bs * 64)
+            score_row[f"b{bs}"] = {
+                "shape": [bs, 8], "scenario": scen_name,
+                "params": "logreg_int8.npz",
+                # this config's own window in the suite's run
+                "launches": config_launches.get(scen_name, {}).get(
+                    "score_int8", 0),
+                "batches": n_batches,
+                "mismatches_vs_plain": compare_scores(sp, xs_),
+                "ms": time_ms(score_b, 200),
+                "device_ms": dev_ms(score_b, 50, "score_int8_kernel"),
+                "host_us_per_call": host_us(score_b, 200),
+                "plain_ms": time_ms(lambda sp=sp, xs_=xs_:
+                                    kernels.score_int8_plain(sp, xs_), 50),
+                "bound_ms": sbb, "bound_by": sbby,
+                "library_ms": time_ms(library_b, 200),
+                "library_device_ms": dev_ms(library_b, 50)}
         # segment_sum_seq on the byte lanes of a served raw48 batch (the
         # main path's input), and on the crafted heavy batch
         mixed = TrafficSource(TrafficSpec(
@@ -3995,8 +4282,18 @@ def main() -> int:
         flush = scratch.sum
         flush()
         tables = {}
-        for (scen, _), te in zip(scenarios, engines or []):
-            tbl, now = te.table, te._device_now
+        # the served 2^20-row tables, then the suite's 2^14- and 2^16-row
+        # ones (configs 1 and 2) as their engines left them
+        scans = [(scen, te.table.key, te.table.state, te._device_now)
+                 for (scen, _), te in zip(scenarios, engines or [])]
+        for name, (k_, st_, now_) in served.get("scenario_tables",
+                                                 {}).items():
+            if name.startswith(("config1", "config2")):
+                scans.append((f"{name}_2^{k_.shape[0].bit_length() - 1}",
+                              k_, st_, now_))
+        for scen, key_t, state_t, now in scans:
+            tbl = types.SimpleNamespace(key=key_t, state=state_t,
+                                        capacity=key_t.shape[0])
             n = tbl.capacity
             tracked = int((tbl.key != 0).sum())
 
@@ -4009,8 +4306,9 @@ def main() -> int:
 
             # what this run's data needs: every key, the two state words
             # (LAST_SEEN, BLOCKED_UNTIL) of each tracked row, the outputs;
-            # at sector granularity, every distinct 32-byte sector holding
-            # one of those words (neighbouring rows share sectors)
+            # beside it the counts of distinct 32-byte sectors and 64-byte
+            # chunks that hold one of those words (neighbouring rows share
+            # them), counted on this run's table
             out_bytes = 3 * 8 + 4
             tb, tby = bound(n * 4 + tracked * 8 + out_bytes, n + tracked * 4)
             rows = torch.nonzero(tbl.key != 0).flatten()
@@ -4027,14 +4325,7 @@ def main() -> int:
                 "device_ms": dev_ms(flushed, 20, "table_summary_kernel"),
                 "host_us_per_call": host_us(summary, 50),
                 "bound_ms": tb, "bound_by": tby,
-                "state_sectors": sectors,
-                "sector_floor_ms": (n * 4 + sectors * 32 + out_bytes)
-                / HBM_BYTES_PER_S * 1e3,
-                "state_64b_chunks": chunks,
-                "chunk64_floor_ms": (n * 4 + chunks * 64 + out_bytes)
-                / HBM_BYTES_PER_S * 1e3,
-                "stream_floor_ms": (n * (4 + 48) + out_bytes)
-                / HBM_BYTES_PER_S * 1e3}
+                "state_sectors": sectors, "state_64b_chunks": chunks}
         kernels.LAUNCHES.update(saved)   # timing launches do not count
         main = tables.get("mixed_l34_1m", {})
         summary_row = {
@@ -4045,11 +4336,13 @@ def main() -> int:
             "launches_serve_mega_auto": mega_launches.get("table_summary", 0),
             "launches_serve_raw48_mlp": served.get(
                 "launches_raw48_mlp", {}).get("table_summary", 0),
+            "launches_scenario_suite": suite_launches.get(
+                "table_summary", 0),
             "launches_per_replay": "0 (once per report, outside graphs)",
             "max_abs_err": errs["table_summary"],
             **{k: main.get(k) for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
-                "host_us_per_call", "sector_floor_ms")},
+                "host_us_per_call")},
             "library_ms": None, "tables": tables}
         # gemv_seq on the training path's operands (the quantize epoch's
         # dL/dy and quantized inputs, 2,016,639 rows)
@@ -4112,13 +4405,17 @@ def main() -> int:
                 "launches_train_eval", {}),
             "train_distill_serve": served.get(
                 "launches_train_distill_serve", {}),
+            "scenario_suite": served.get("launches_scenario_suite", {}),
             # each cluster rank's own window, read from its report
             **served.get("launches_cluster", {})}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}
         served["kernels"] = rows
-        return {"ok": bool(tables), "card": card,
+        suite_equal = not any(v.get("mismatches_vs_plain") for k, v in
+                              score_row.items() if k.startswith("b")
+                              and isinstance(v, dict))
+        return {"ok": bool(tables) and suite_equal, "card": card,
                 "library_call": {"score_int8": "torch.nn.functional.linear "
                                  "(float logistic-regression matvec)",
                                  "table_summary": None,

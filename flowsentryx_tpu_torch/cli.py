@@ -1,5 +1,6 @@
 """Command line of the port: ``python -m flowsentryx_tpu_torch.cli serve``,
-``... cli pcap``, ``... cli train`` and ``... cli distill``.
+``... cli pcap``, ``... cli train``, ``... cli distill``, ``... cli
+cluster``, ``... cli status``, ``... cli monitor`` and ``... cli bench``.
 
 Counterpart of the reference's ``fsx serve``: builds an
 :class:`~.engine.Engine` on the card (or on the CPU with ``--device
@@ -46,8 +47,27 @@ exports the artifact (:mod:`.train`); ``distill ARTIFACT`` compiles an
 int8 artifact into the kernel tier's plan (:func:`.distill.compile_plan`).
 Both take the reference's flags and refusals; ``distill`` refuses
 ``--check``, ``--emulate``, ``--emulate-n`` and ``--pin`` by name (they
-need the eBPF plane, ``bpf/``, which the port does not have).  Every verb runs on the
-card unless ``--device cpu`` is given, and raises without one.
+need the eBPF plane, ``bpf/``, which the port does not have).
+
+``cluster`` runs N supervised engine processes over the daemon's shard
+fan-out, sharing the gossip blacklist plane (:mod:`.cluster`).
+
+``status`` reads the shm rings' cursors and, with ``--engine-report
+GLOB`` (repeatable), merges engine reports (``serve`` output, or a
+cluster dir's ``report_r*_g*.json``) into one seal -> verdict latency
+block, the health ladder with the gossip counters, and the governors'
+and boots' folds; ``monitor`` appends those merges every ``--interval``
+to stdout and ``--out`` (JSONL) and raises the reference's four
+engine-report alerts.  Both refuse ``--pin``, and ``monitor`` refuses
+``--alert-drop-pps`` and ``--alert-blacklist``, by name: they read the
+kernel maps, which the port does not.
+
+``bench --scenarios [--scale S] [--only NAME]`` runs the five BASELINE
+configs (:mod:`.benchmarks`), one JSON line each; a bare ``bench``,
+``--smoke``, ``--scaling`` and ``--cluster`` are refused by name.
+
+Every verb that runs an engine runs on the card unless ``--device cpu``
+is given, and raises without one.
 """
 
 from __future__ import annotations
@@ -978,6 +998,423 @@ def _start_together(sup, specs, timeout_s: float = 600.0) -> None:
     Path(specs[0]["start_token"]).touch()
 
 
+# -- the operator's read side: engine reports, rings -------------------------
+
+def _iter_engine_reports(globs: list):
+    """The engine-report walk shared by the ``--engine-report GLOB``
+    consumers: expand each (repeatable) glob, dedupe by realpath so that
+    overlapping globs never merge a report twice, and yield ``(path, doc,
+    error)``: ``doc`` the parsed JSON, or ``error`` a string when the
+    file cannot be read or parsed (the caller decides whether that is a
+    skip or a DEGRADED signal).  A pattern that matches nothing yields
+    itself as an unreadable entry: a mistyped path surfaces instead of
+    silently merging zero reports.  So does a file whose JSON is not an
+    object (the reference's merges raise on one)."""
+    import glob as _glob
+    import os
+
+    seen: set[str] = set()
+    for pat in globs:
+        for path in sorted(_glob.glob(pat)) or [pat]:
+            key = os.path.realpath(path)
+            if key in seen:
+                continue
+            seen.add(key)
+            try:
+                doc = json.loads(Path(path).read_text())
+            except (OSError, ValueError) as e:
+                yield path, None, str(e)
+                continue
+            if isinstance(doc, dict):
+                yield path, doc, None
+            else:
+                yield path, None, (f"not a JSON object: "
+                                   f"{type(doc).__name__}")
+
+
+def _merged_latency(reports: list) -> dict:
+    """Merge the ``latency`` blocks of engine-report JSONs (``serve``
+    output, or a cluster dir's per-rank ``report_r*_g*.json`` wrappers)
+    into ONE seal -> verdict percentile view: the HDR bucket counts are
+    mergeable by construction (:class:`~.engine.metrics.LatencyHist`).
+    ``reports`` is a materialized :func:`_iter_engine_reports` list, so
+    that one read pass feeds every merge; the cluster supervisor's
+    ``aggregate()`` applies the same fold to its ranks' reports."""
+    from flowsentryx_tpu_torch.engine.metrics import LatencyHist
+
+    merged = LatencyHist()
+    sources = []
+    per_report = {}
+    for path, doc, err in reports:
+        if err is not None:
+            per_report[path] = {"error": err}
+            continue
+        lat = (doc.get("latency")
+               or doc.get("report", {}).get("latency"))
+        if not lat or not lat.get("hist"):
+            per_report[path] = {"error": "no latency block"}
+            continue
+        try:
+            h = LatencyHist.from_counts(lat["hist"])
+        except ValueError as e:
+            per_report[path] = {"error": str(e)}
+            continue
+        merged.merge(h)
+        sources.append(path)
+        sv = lat.get("seal_to_verdict") or {}
+        per_report[path] = {
+            "n": sv.get("n", 0),
+            "p99_us": sv.get("p99"),
+        }
+    return {
+        "reports_merged": len(sources),
+        "per_report": per_report,
+        "seal_to_verdict_us": merged.to_dict(),
+    }
+
+
+def _report_body(doc: dict) -> dict:
+    """A bare report, or the ``report`` of a cluster rank's wrapper."""
+    return doc.get("report") if isinstance(doc.get("report"), dict) else doc
+
+
+#: The multi-host transport's counters a report's ``cluster.net`` block
+#: carries, passed through to the health view when present.
+_NET_KEYS = ("tx_wires", "tx_drop", "rx_wires", "rx_gap", "rx_dup",
+             "reorder_evict", "epoch_skew_dropped", "epoch_skew_max",
+             "net_digest")
+
+
+def _merged_engine_health(reports: list) -> dict:
+    """Merge the ``health`` and gossip-counter blocks of engine-report
+    JSONs into one operator view: each report's state and reasons, the
+    gossip plane's drop and seq-gap counters, and the worst-of fold
+    (:func:`~.engine.health.worst`).  A report that cannot be read folds
+    in as DEGRADED: the rank whose health cannot be read is not healthy,
+    and a report torn mid-write is most likely exactly when the fleet is
+    most broken.  The ``net`` and ``rebalance`` sub-blocks pass through
+    when a report carries them (each rebalance counter also summed)."""
+    from flowsentryx_tpu_torch.engine import health as health_mod
+
+    per_report: dict = {}
+    states: list[str] = []
+    rebalance_totals: dict = {}
+    for path, doc, err in reports:
+        if err is not None:
+            per_report[path] = {
+                "state": health_mod.DEGRADED,
+                "reasons": [f"report_unreadable:{err}"],
+                "error": err,
+            }
+            states.append(health_mod.DEGRADED)
+            continue
+        rep = _report_body(doc)
+        h = rep.get("health") or {}
+        g = rep.get("cluster") or {}
+        entry: dict = {
+            "state": h.get("state"),
+            "reasons": h.get("reasons", []),
+        }
+        if g:
+            entry["gossip"] = {
+                "tx_wires": g.get("tx_wires"),
+                "tx_dropped": g.get("tx_dropped"),
+                "rx_wires": g.get("rx_wires"),
+                "rx_seq_gaps": g.get("rx_seq_gaps"),
+                "merged_digest": g.get("merged_digest"),
+            }
+            net = g.get("net")
+            if net:
+                entry["gossip"]["net"] = {k: net.get(k) for k in _NET_KEYS}
+        rb = rep.get("rebalance")
+        if rb:
+            entry["rebalance"] = rb
+            for k, v in rb.items():
+                if isinstance(v, int):
+                    rebalance_totals[k] = rebalance_totals.get(k, 0) + v
+        per_report[path] = entry
+        if h.get("state"):
+            states.append(h["state"])
+    out = {
+        "state": (health_mod.worst(*states) if states else None),
+        "reports": per_report,
+    }
+    if rebalance_totals:
+        out["rebalance"] = rebalance_totals
+    return out
+
+
+def _merged_predict(reports: list) -> dict | None:
+    """Merge the ``predict`` blocks of engine-report JSONs (the dispatch
+    governor's counters) with :meth:`~.engine.predict.DispatchGovernor
+    .merge_reports`, the fold the cluster supervisor's ``aggregate()``
+    applies.  None when no report carries a predict block."""
+    blocks = [_report_body(doc)["predict"] for _path, doc, err in reports
+              if err is None and _report_body(doc).get("predict")]
+    if not blocks:
+        return None
+    from flowsentryx_tpu_torch.engine.predict import DispatchGovernor
+
+    return DispatchGovernor.merge_reports(blocks)
+
+
+def _merged_boot(reports: list) -> dict | None:
+    """Merge the ``boot`` blocks of engine-report JSONs (the compile
+    cache's hits, misses and stores, the slowest serving-ready wall) into
+    one fleet view, the fold the cluster supervisor's ``aggregate()``
+    applies.  None when no report carries a boot block."""
+    per_report: dict = {}
+    hits = misses = stores = 0
+    max_ready = 0.0
+    for path, doc, err in reports:
+        if err is not None:
+            continue
+        boot = _report_body(doc).get("boot")
+        if not boot:
+            continue
+        per_report[path] = boot
+        cache = boot.get("cache")
+        if isinstance(cache, dict):
+            hits += cache.get("hits", 0)
+            misses += cache.get("misses", 0)
+            stores += cache.get("stores", 0)
+        max_ready = max(max_ready, boot.get("serving_ready_s") or 0.0)
+    if not per_report:
+        return None
+    return {
+        "per_report": per_report,
+        "cache_hits": hits,
+        "cache_misses": misses,
+        "cache_stores": stores,
+        "max_serving_ready_s": round(max_ready, 4),
+    }
+
+
+def _ring_header(path: str) -> dict:
+    """Cursors and geometry of a shm ring file, read from its header."""
+    import mmap
+
+    import numpy as np
+
+    from flowsentryx_tpu_torch.core import wire
+
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0,
+                                          prot=mmap.PROT_READ) as m:
+        hdr = np.frombuffer(m[:wire.SHM_HDR_SIZE], np.uint64)
+    head = int(hdr[wire.SHM_HEAD_OFFSET // 8])
+    tail = int(hdr[wire.SHM_TAIL_OFFSET // 8])
+    return {
+        "present": True,
+        "magic_ok": int(hdr[0]) == wire.SHM_MAGIC,
+        "capacity": int(hdr[wire.SHM_CAPACITY_OFFSET // 8]),
+        "record_size": int(hdr[wire.SHM_RECORD_SIZE_OFFSET // 8]),
+        "produced": head,
+        "consumed": tail,
+        "backlog": head - tail,
+    }
+
+
+def _merged_reports(globs: list) -> dict:
+    """One read pass over the engine reports feeding all four merges:
+    ``latency`` and ``health`` always, ``predict`` and ``boot`` when a
+    report carries them."""
+    reports = list(_iter_engine_reports(globs))
+    out = {"latency": _merged_latency(reports),
+           "health": _merged_engine_health(reports)}
+    predict = _merged_predict(reports)
+    if predict is not None:
+        out["predict"] = predict
+    boot = _merged_boot(reports)
+    if boot is not None:
+        out["boot"] = boot
+    return out
+
+
+#: What the refused ``--pin`` and kernel-map alerts would read.
+_NO_KERNEL_MAPS = ("the eBPF plane's pinned maps (bpf/ is not ported: the "
+                   "port reads no kernel maps)")
+
+
+def _cmd_status(args: argparse.Namespace) -> int:
+    """Inspect the shm transport (ring cursors and backlog) and, with
+    ``--engine-report``, the merged engine reports."""
+    if args.pin is not None:
+        print(f"fsx status: refusing --pin: it reads {_NO_KERNEL_MAPS}; "
+              "run the reference's fsx status --pin", file=sys.stderr)
+        return 1
+    out = {}
+    for name, path in (("feature_ring", args.feature_ring),
+                       ("verdict_ring", args.verdict_ring)):
+        out[name] = (_ring_header(path) if Path(path).exists()
+                     else {"present": False})
+    if args.engine_report:
+        out.update(_merged_reports(args.engine_report))
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+#: ``monitor`` flags of the reference that read only the kernel maps.
+_MONITOR_REFUSED = ("pin", "alert_drop_pps", "alert_blacklist")
+
+#: The reference's refusals of an engine-report alert without a report.
+_MONITOR_NEEDS_REPORTS = {
+    "alert_degraded":
+        "fsx monitor: --alert-degraded requires --engine-report GLOB "
+        "(health rides the engine reports; the kernel maps cannot carry "
+        "it)",
+    "alert_p99_us":
+        "fsx monitor: --alert-p99-us requires --engine-report GLOB (the "
+        "p99 comes from merged engine reports; the kernel maps cannot "
+        "carry it)",
+    "alert_prewarm_miss":
+        "fsx monitor: --alert-prewarm-miss requires --engine-report GLOB "
+        "(the governor's pre-warm counters ride the engine reports; the "
+        "kernel maps cannot carry them)",
+    "alert_cold_boot":
+        "fsx monitor: --alert-cold-boot requires --engine-report GLOB "
+        "(the compile-cache hit/miss story rides the engine reports' boot "
+        "block; the kernel maps cannot carry it)",
+}
+
+
+def _monitor_alerts(args: argparse.Namespace, rec: dict) -> list[str]:
+    """The four engine-report alerts of one ``monitor`` record."""
+    alerts = []
+    p99 = rec["latency"]["seal_to_verdict_us"].get("p99", 0)
+    if args.alert_p99_us and p99 and p99 >= args.alert_p99_us:
+        alerts.append(f"engine p99 latency {p99:.0f} us >= "
+                      f"{args.alert_p99_us:.0f}")
+    hl = rec["health"]
+    if args.alert_degraded and hl["state"] and hl["state"] != "healthy":
+        reasons = sorted({r for e in hl["reports"].values()
+                          for r in e.get("reasons", [])})
+        # the fleet's reshaping friction gets its own line, so that
+        # "serving is degraded" reads apart from "reshaping is degraded"
+        reshape = [r for r in reasons
+                   if r.startswith(("rebalance_", "elastic_"))]
+        steady = [r for r in reasons if r not in reshape]
+        if steady or not reshape:
+            alerts.append(f"engine health {hl['state'].upper()}: "
+                          + (", ".join(steady) or "rank-level failure"))
+        if reshape:
+            alerts.append(f"fleet reshaping {hl['state'].upper()}: "
+                          + ", ".join(reshape))
+    boot = rec.get("boot")
+    if boot is not None and args.alert_cold_boot:
+        # a rank whose boot names a cache yet loaded nothing from it paid
+        # the full build the cache exists to prevent
+        cold = sorted(p for p, b in boot["per_report"].items()
+                      if isinstance(b.get("cache"), dict)
+                      and b["cache"].get("hits", 0) == 0)
+        if cold:
+            alerts.append("cold boot under a configured compile cache "
+                          "(zero hits): " + ", ".join(cold))
+    predict = rec.get("predict")
+    if predict is not None:
+        misses = predict.get("prewarm_misses", 0)
+        if args.alert_prewarm_miss and misses >= args.alert_prewarm_miss:
+            alerts.append(
+                f"governor prewarm misses {misses} >= "
+                f"{args.alert_prewarm_miss} (forecast pre-warmed rungs the "
+                "traffic never filled — compile/warm work wasted on a "
+                "stale or wrong burst model)")
+    return alerts
+
+
+def _cmd_monitor(args: argparse.Namespace) -> int:
+    """Periodic snapshots of the merged engine reports -> JSONL and
+    threshold alerts.  Each tick appends one JSON line with the merged
+    ``latency``, ``health``, ``boot`` and ``predict`` blocks; alerts
+    print to stderr and ride the record.  The record's ``kernel`` key
+    says that the port reads no kernel maps (the reference's counters,
+    their ``per_s`` deltas and the drop and blacklist alerts come from
+    them)."""
+    import time
+
+    for flag in _MONITOR_REFUSED:
+        if getattr(args, flag) is not None:
+            name = flag.replace("_", "-")
+            print(f"fsx monitor: refusing --{name}: it reads "
+                  f"{_NO_KERNEL_MAPS}; run the reference's fsx monitor "
+                  f"--{name}", file=sys.stderr)
+            return 1
+    if not args.engine_report:
+        for flag, msg in _MONITOR_NEEDS_REPORTS.items():
+            if getattr(args, flag):
+                print(msg, file=sys.stderr)
+                return 1
+        print("fsx monitor: requires --engine-report GLOB (the port reads "
+              "no kernel maps: the engine reports are its only source)",
+              file=sys.stderr)
+        return 1
+    kernel = {"error": "the port reads no kernel maps (bpf/ is not "
+                       "ported); kernel counters come from the "
+                       "reference's fsx monitor --pin"}
+    fh = open(args.out, "a") if args.out else None
+    try:
+        for tick in range(args.count) if args.count else iter(int, 1):
+            rec: dict = {"ts": round(time.time(), 3), "kernel": kernel,
+                         **_merged_reports(args.engine_report)}
+            alerts = _monitor_alerts(args, rec)
+            if alerts:
+                rec["alerts"] = alerts
+                for a in alerts:
+                    print(f"fsx monitor: ALERT {a}", file=sys.stderr)
+            line = json.dumps(rec)
+            print(line, flush=True)
+            if fh:
+                fh.write(line + "\n")
+                fh.flush()
+            if args.count and tick == args.count - 1:
+                break
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if fh:
+            fh.close()
+    return 0
+
+
+#: ``bench`` flags of the reference that the port refuses by name.
+_BENCH_REFUSED = {
+    "smoke": "the headline benchmark, bench.py, is the reference's JAX/TPU "
+             "harness; the port's card check is chip_smoke.py",
+    "scaling": "the step time over a device mesh needs the sharded step "
+               "(parallel/step.py), which is not ported",
+    "cluster": "the paced fleet comparison runs the reference's "
+               "scripts/cluster_bench.py against a pre-cluster checkout",
+    "baseline_repo": "it names the pre-cluster checkout of --cluster",
+}
+
+
+def _cmd_bench(args: argparse.Namespace) -> int:
+    """The five BASELINE configs (``--scenarios``), one JSON line each."""
+    for flag, why in _BENCH_REFUSED.items():
+        if getattr(args, flag) not in (None, False):
+            name = flag.replace("_", "-")
+            print(f"fsx bench: refusing --{name}: {why}", file=sys.stderr)
+            return 1
+    if not args.scenarios:
+        print("fsx bench: refusing a bare bench: "
+              f"{_BENCH_REFUSED['smoke']}; run bench --scenarios",
+              file=sys.stderr)
+        return 1
+    from flowsentryx_tpu_torch import benchmarks
+    from flowsentryx_tpu_torch.core.device import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"fsx bench: {e}", file=sys.stderr)
+        return 1
+    for result in benchmarks.run_suite(scale=args.scale,
+                                       names=args.only or None,
+                                       device=device):
+        print(json.dumps(result), flush=True)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m flowsentryx_tpu_torch.cli",
@@ -1267,6 +1704,75 @@ def build_parser() -> argparse.ArgumentParser:
                         else "store", default=None,
                         help=f"refused: {what} is not ported")
     cl.set_defaults(fn=_cmd_cluster)
+
+    reports_help = ("merge engine-report JSONs matching this glob (serve "
+                    "output, or a cluster dir's report_r*_g*.json); "
+                    "repeatable")
+    st = sub.add_parser("status", help="inspect the shm transport and the "
+                        "merged engine reports")
+    st.add_argument("--feature-ring", default="/tmp/fsx_feature_ring")
+    st.add_argument("--verdict-ring", default="/tmp/fsx_verdict_ring")
+    st.add_argument("--pin", default=None,
+                    help=f"refused: reads {_NO_KERNEL_MAPS}")
+    st.add_argument("--engine-report", action="append", default=None,
+                    metavar="GLOB",
+                    help=reports_help + ": one seal->verdict latency "
+                         "block (HDR bucket merge), the health ladder "
+                         "with the gossip counters, the governors' and "
+                         "the boots' folds")
+    st.set_defaults(fn=_cmd_status)
+
+    mo = sub.add_parser(
+        "monitor", help="periodic merged engine-report snapshots -> JSONL "
+                        "+ alerts",
+        description="Periodic merged engine-report snapshots -> JSONL + "
+                    "alerts.  The port reads no kernel maps: each record's "
+                    "'kernel' key says so, and the reference's per_s "
+                    "deltas and its drop-rate and blacklist-size alerts, "
+                    "which derive from the kernel counters, do not appear.")
+    mo.add_argument("--interval", type=float, default=2.0,
+                    help="seconds between snapshots")
+    mo.add_argument("--count", type=int, default=0,
+                    help="stop after N snapshots (0 = run until ^C)")
+    mo.add_argument("--out", help="append JSONL history to this file")
+    mo.add_argument("--engine-report", action="append", default=None,
+                    metavar="GLOB",
+                    help=reports_help + "; read every tick (required)")
+    mo.add_argument("--alert-p99-us", type=float, default=0,
+                    help="alert when the merged engine p99 seal->verdict "
+                         "latency reaches N µs")
+    mo.add_argument("--alert-degraded", action="store_true",
+                    help="alert when any merged report's health ladder "
+                         "reads DEGRADED or FAILED, naming the reasons; "
+                         "rebalance_*/elastic_* reasons get their own line")
+    mo.add_argument("--alert-prewarm-miss", type=int, default=0,
+                    metavar="N",
+                    help="alert when the merged governor prewarm-miss "
+                         "count reaches N")
+    mo.add_argument("--alert-cold-boot", action="store_true",
+                    help="alert when a report's boot block names a "
+                         "compile-cache dir yet loaded zero entries from it")
+    for flag in _MONITOR_REFUSED:
+        mo.add_argument("--" + flag.replace("_", "-"), default=None,
+                        help=f"refused: reads {_NO_KERNEL_MAPS}")
+    mo.set_defaults(fn=_cmd_monitor)
+
+    b = sub.add_parser("bench", help="run the five BASELINE configs "
+                       "(--scenarios)")
+    b.add_argument("--scenarios", action="store_true",
+                   help="run the five BASELINE configs, one JSON line each")
+    b.add_argument("--scale", type=float, default=1.0,
+                   help="packet-count multiplier for --scenarios")
+    b.add_argument("--only", action="append",
+                   help="substring filter on scenario names (repeatable)")
+    b.add_argument("--device", default=None,
+                   help="torch device; default the card (raises without one)")
+    for flag, why in _BENCH_REFUSED.items():
+        b.add_argument("--" + flag.replace("_", "-"),
+                       action=None if flag == "baseline_repo"
+                       else "store_true",
+                       default=None, help=f"refused: {why}")
+    b.set_defaults(fn=_cmd_bench)
     return ap
 
 

@@ -35,8 +35,6 @@ from flowsentryx_tpu_torch.core import wire
 # histogram the per-rank reports carry, the health ladder, the
 # governor's report merge
 from flowsentryx_tpu_torch.engine import health as health_mod
-from flowsentryx_tpu_torch.engine.metrics import LatencyHist
-from flowsentryx_tpu_torch.engine.predict import DispatchGovernor
 from flowsentryx_tpu_torch.sync import tuning
 
 _LIVE = (wire.CSTATE_SPAWNING, wire.CSTATE_SERVING, wire.CSTATE_DRAINING)
@@ -385,54 +383,34 @@ class ClusterSupervisor:
         walls = [r["report"].get("wall_s", 0.0)
                  for r in latest.values() if "report" in r]
         max_wall = max(walls) if walls else 0.0
-        # the per-rank HDR bucket counts merge into exact cluster
-        # percentiles (never an average of per-rank p99s)
+        # the latency, governor and boot folds are the ones ``fsx status
+        # --engine-report`` applies (one implementation), over each rank's
+        # latest generation keyed by rank: the HDR bucket counts merge
+        # into exact cluster percentiles (never an average of per-rank
+        # p99s), the governors' counters sum (each rank forecasts its own
+        # shard), the boot caches sum and the slowest serving-ready wins
+        from flowsentryx_tpu_torch import cli
+
+        ranked = [(str(r), rep, None) for r, rep in sorted(latest.items())]
+        lat = cli._merged_latency(ranked)
         latency = None
-        merged = LatencyHist()
-        per_rank_p99: dict[str, float] = {}
-        for r, rep in sorted(latest.items()):
-            lat = rep.get("report", {}).get("latency")
-            if not lat or not lat.get("hist"):
-                continue
-            try:
-                merged.merge(LatencyHist.from_counts(lat["hist"]))
-            except ValueError:
-                continue  # a foreign scheme: skipped, never mis-merged
-            per_rank_p99[str(r)] = (
-                lat.get("seal_to_verdict") or {}).get("p99")
-        if merged.n:
-            latency = {"unit": "us", "seal_to_verdict": merged.to_dict(),
-                       "per_rank_p99": per_rank_p99}
+        if lat["seal_to_verdict_us"].get("n"):
+            latency = {"unit": "us",
+                       "seal_to_verdict": lat["seal_to_verdict_us"],
+                       "per_rank_p99": {
+                           r: e["p99_us"] for r, e in
+                           lat["per_report"].items() if "error" not in e}}
         per_rank_health = {
             r: rep["report"]["health"] for r, rep in latest.items()
             if isinstance(rep.get("report"), dict)
             and rep["report"].get("health")}
         health = health_mod.cluster_health(
             per_rank_health, sorted(self._failed), sorted(self._stalled))
-        # the governors' counters sum; each rank forecasts its own shard
-        predict_blocks = [
-            rep["report"]["predict"] for _, rep in sorted(latest.items())
-            if isinstance(rep.get("report"), dict)
-            and rep["report"].get("predict")]
-        predict_block = (DispatchGovernor.merge_reports(predict_blocks)
-                         if predict_blocks else None)
-        boot_block = None
-        boots = {
-            str(r): rep["report"]["boot"] for r, rep in sorted(latest.items())
-            if isinstance(rep.get("report"), dict)
-            and rep["report"].get("boot")}
-        if boots:
-            caches = [b["cache"] for b in boots.values()
-                      if isinstance(b.get("cache"), dict)]
-            boot_block = {
-                "per_rank": boots,
-                "cache_hits": sum(c.get("hits", 0) for c in caches),
-                "cache_misses": sum(c.get("misses", 0) for c in caches),
-                "cache_stores": sum(c.get("stores", 0) for c in caches),
-                "max_serving_ready_s": round(max(
-                    (b.get("serving_ready_s") or 0.0
-                     for b in boots.values()), default=0.0), 4),
-            }
+        predict_block = cli._merged_predict(ranked)
+        boot_block = cli._merged_boot(ranked)
+        if boot_block is not None:
+            boot_block = {"per_rank": boot_block.pop("per_report"),
+                          **boot_block}
         return {
             "engines": self.n,
             "active_ranks": list(range(self.n)),

@@ -187,6 +187,11 @@ class TrafficGen:
         """Ground-truth attack source pool (stable for a given seed)."""
         return self._attack_ips
 
+    @property
+    def benign_ips(self) -> np.ndarray:
+        """Ground-truth benign source pool (stable for a given seed)."""
+        return self._benign_ips
+
     # -- feature synthesis (kernel-estimator statistics) --------------------
 
     def _attack_feat(self, n: int) -> np.ndarray:

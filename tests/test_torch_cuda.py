@@ -1256,3 +1256,23 @@ def test_cluster_fleet_on_card_equals_cpu_fleet(cuda, tmp_path):
             1 - r]["report"]["cluster"]["published_digest"]
         assert card["launches"]["score_int8"] == card["report"]["batches"]
         assert card["report"]["device"]["type"] == "cuda"
+
+
+@pytest.mark.parametrize("name", ["config1", "config2", "config3", "config4",
+                                  "config5"])
+def test_scenario_on_card_equals_cpu(cuda, name):
+    """A BASELINE config through ``run_suite`` on the card equals the CPU
+    engine's in every untimed field (both limiters included), with one
+    ``score_int8`` launch per batch and one ``table_summary`` per report."""
+    from flowsentryx_tpu_torch import benchmarks
+
+    kernels.reset_launches()
+    [got] = benchmarks.run_suite(scale=0.05, names=[name], device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    [want] = benchmarks.run_suite(scale=0.05, names=[name], device="cpu")
+    timing = ("wall_s", "mpps", "stages_ms")
+    assert ({k: v for k, v in got.items() if k not in timing}
+            == {k: v for k, v in want.items() if k not in timing})
+    assert launches["score_int8"] == got["batches"]
+    assert launches["table_summary"] == 1
