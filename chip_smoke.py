@@ -294,6 +294,32 @@ more.
     ``table_summary`` (at 2^14 and 2^16 rows) against their plain
     versions.
 
+45. ``chaos_campaign``: ``chaos.run_campaign(seed=17, quick=False,
+    device="cuda")`` at the campaign's own shapes (4,096 rows, B=64, 24
+    batches) and the same campaign on the CPU: every invariant of the
+    ten single-host faults holds, the three plants are caught by their
+    invariants with their controls holding, ``truncate_fraction``,
+    ``flip_offsets``, ``kill_at_s`` and the slot scenario's ``records``
+    equal the CPU campaign's, and in the phase's window ``score_int8``
+    launched once per batch the campaign's engine dispatched and
+    ``table_summary`` once per report; the campaign's and each
+    scenario's wall, ``recovery_s`` and the watchdog's ``elapsed_s``.
+46. ``chaos_engine_2p20``: the three engine-side scenarios at full
+    width (``chaos_engine_drive``): ``FsxConfig()`` (2^20 rows, B=2048,
+    K=64, the default ``logreg_int8`` params), a 1-worker
+    ``ShardedIngest`` over a ring of 64 x 2,048 ``mixed_l34_1m`` records
+    (BASELINE config 5's traffic, seed 17), ``readback_depth=4``, the
+    sink thread on.  A bad-magic, a poisoned and a seq-gapped sealed
+    slot in the drain, with exact record conservation; after it the
+    blacklist (keys and until bits), stats and table digest equal the
+    CPU engine's under the same corruptions; the ``.prev`` fallback
+    restore keeps the table's and the stats' device pointers and
+    captures nothing, and 8 more batches through the captured graph
+    equal the CPU engine's; then the wedged sink trips the watchdog
+    within 10 x 0.4 s and the engine is dropped.  The drain's records/s
+    and idle share, checkpoint and restore seconds, the trip time,
+    memory after ``warm()``, and launches against batches and reports.
+
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
 also with the log1p artifact on raw48 rows, and at the training path's
@@ -380,6 +406,151 @@ def smi_line() -> str:
         timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else (
         "nvidia-smi: " + out.stderr.strip())
+
+
+def track_runs(eng) -> dict:
+    """Wrap ``eng.run`` to keep each run's report and the batches it
+    dispatched (the engine's own group histogram, read also when the run
+    raises, as the watchdog's does)."""
+    seen = {"reports": [], "dispatched": []}
+    real = eng.run
+
+    def run(*a, **kw):
+        try:
+            rep = real(*a, **kw)
+            seen["reports"].append(rep)
+            return rep
+        finally:
+            seen["dispatched"].append(
+                sum(g * n for g, n in eng._group_hist.items()))
+
+    eng.run = run
+    return seen
+
+
+def join_sink_threads(timeout_s: float = 30.0) -> None:
+    """Join the sink threads a watchdog trip abandoned (released, they
+    drain their group and exit)."""
+    for th in threading.enumerate():
+        if th.name == "fsx-sink":
+            th.join(timeout=timeout_s)
+
+
+def chaos_engine_drive(device: str, cfg, recs, tail, root: str,
+                       watchdog: bool) -> dict:
+    """The chaos campaign's three engine-side scenarios on one engine of
+    ``cfg`` on ``device``, over a 1-worker ``ShardedIngest`` whose ring
+    holds ``recs``, in the campaign's order: the corrupted drain
+    (``scenario_slot_corruption``), the ``.prev`` fallback restore
+    (``scenario_ckpt_fallback``), then ``tail`` through the engine, and
+    with ``watchdog`` the wedged sink (``scenario_watchdog``), after which
+    the engine is dropped.  On the card the engine is warmed first and
+    the launch window opens after ``warm()``; returns the scenarios'
+    results with the state after each step."""
+    import hashlib
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from flowsentryx_tpu_torch.chaos import campaign as chaos
+    from flowsentryx_tpu_torch.core import schema, wire
+    from flowsentryx_tpu_torch.engine import ArraySource, CollectSink, Engine
+    from flowsentryx_tpu_torch.engine.shm import ShmRing
+    from flowsentryx_tpu_torch.ingest import ShardedIngest
+    from flowsentryx_tpu_torch.ops import graph, kernels
+
+    def state(e, sink):
+        k, st = schema.table_to_numpy(e.table)
+        black = sorted((int(key), int(np.float32(u).view(np.uint32)))
+                       for key, u in sink.blocked.items())
+        return {"digest": hashlib.sha256(k.tobytes() + st.tobytes())
+                .hexdigest()[:16], "stats": e.stats.to_dict(),
+                "tracked": int((k != 0).sum()), "blacklist": black}
+
+    cuda = torch.device(device).type == "cuda"
+    tmp = Path(root)
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    base = str(tmp / "fring")
+    ring = ShmRing.create(wire.shard_ring_path(base, 0, 1),
+                          1 << (2 * len(recs) - 1).bit_length(),
+                          wire.FLOW_RECORD_DTYPE)
+    assert ring.produce(recs) == len(recs)
+    src = ShardedIngest(base, 1, queue_slots=16, precompact=False,
+                        t0_grace_s=0.2, quarantine_dir=str(tmp / "quarantine"))
+    sink = CollectSink()
+    out = {}
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+        eng = Engine(cfg, src, sink, readback_depth=4, sink_thread=True,
+                     device=device)
+        runs = track_runs(eng)
+        if cuda:
+            built = torch.cuda.memory_allocated()
+            eng.warm()
+            torch.cuda.synchronize()
+            # this engine's own bytes: what the process held before it
+            # was built is not counted
+            out["memory_after_warm"] = {
+                "engine_bytes": built - base,
+                "graphs_bytes": torch.cuda.memory_allocated() - built}
+            kernels.reset_launches()          # the window opens
+        n_cap = graph.CAPTURES
+        ptrs = [eng.table.key_rows.data_ptr(), eng.table.state_rows.data_ptr(),
+                *(getattr(eng.stats, f).data_ptr()
+                  for f in schema.GlobalStats._fields)]
+        rng = np.random.default_rng(17)
+        out["slot"] = chaos.scenario_slot_corruption(eng, src, recs, rng, tmp)
+        slot_rep = runs["reports"][-1]
+        out["slot_run"] = {"records": slot_rep.records,
+                           "batches": slot_rep.batches,
+                           "wall_s": slot_rep.wall_s,
+                           "records_per_s": slot_rep.records_per_s}
+        out["after_slot"] = state(eng, sink)
+        # the fallback restore, its two checkpoints and restore timed
+        times = {"checkpoint_s": [], "restore_s": []}
+        for name, key in (("checkpoint", "checkpoint_s"),
+                          ("restore", "restore_s")):
+            real = getattr(eng, name)
+
+            def timed(path, real=real, key=key):
+                t = time.perf_counter()
+                res = real(path)
+                times[key].append(time.perf_counter() - t)
+                return res
+
+            setattr(eng, name, timed)
+        out["fallback"] = chaos.scenario_ckpt_fallback(eng, tmp, rng)
+        out["fallback_times"] = times
+        out["after_restore"] = state(eng, sink)
+        out["pointers_kept"] = ptrs == [
+            eng.table.key_rows.data_ptr(), eng.table.state_rows.data_ptr(),
+            *(getattr(eng.stats, f).data_ptr()
+              for f in schema.GlobalStats._fields)]
+        # more batches through the restored engine (on the card: the
+        # graphs captured before the restore)
+        tail_sink = CollectSink()
+        eng.reset_stream(ArraySource(tail.copy()), sink=tail_sink)
+        tail_rep = eng.run()
+        out["tail_run"] = {"records": tail_rep.records,
+                           "batches": tail_rep.batches}
+        out["after_tail"] = state(eng, tail_sink)
+        out["no_new_capture"] = graph.CAPTURES == n_cap
+        if watchdog:
+            out["watchdog"] = chaos.scenario_watchdog(eng, rng)
+        if cuda:
+            torch.cuda.synchronize()
+            out["launches"] = dict(kernels.LAUNCHES)   # ... and closes
+        out["dispatched"] = list(runs["dispatched"])
+        out["reports"] = len(runs["reports"])
+        del eng
+    finally:
+        src.close()
+        join_sink_threads()
+    return out
 
 
 def main() -> int:
@@ -2968,9 +3139,7 @@ def main() -> int:
             state = health.engine_health(watchdog=wd)["state"]
             torch.cuda.synchronize()
             # the abandoned sink thread drains once the stream moves on
-            for th in threading.enumerate():
-                if th.name == "fsx-sink":
-                    th.join(timeout=30)
+            join_sink_threads()
             checks += [err is not None, wd["soft_trips"] == 1,
                        wd["hard_tripped"], state == "failed",
                        back_s < 4.0]
@@ -4031,6 +4200,155 @@ def main() -> int:
 
     scenario_phase()
 
+    # -- the chaos campaign (fsx chaos) on the card ---------------------------
+
+    chaos_root = os.path.join(REPO, "build", "chaos")
+
+    @phase("chaos_campaign")
+    def chaos_campaign_phase():
+        """``run_campaign(seed=17, quick=False, device="cuda")`` at the
+        campaign's own shapes (4,096 rows, B=64, 24 batches), against the
+        same campaign with ``device="cpu"``: every invariant holds, every
+        plant is caught with its control holding, the seeded fields are
+        the CPU campaign's, and ``score_int8`` launched once per batch the
+        campaign's engine dispatched."""
+        from flowsentryx_tpu_torch.chaos import campaign as chaos
+
+        shutil.rmtree(chaos_root, ignore_errors=True)
+        fleet = {}
+        real = chaos.build_engine_fleet
+
+        def probe(*a, **kw):
+            built = real(*a, **kw)
+            fleet["runs"] = track_runs(built[0])
+            return built
+
+        chaos.build_engine_fleet = probe
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launches()          # the window opens
+            rep = chaos.run_campaign(seed=17, quick=False, device="cuda",
+                                     workdir=os.path.join(chaos_root, "card"))
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)   # ... and closes
+        finally:
+            chaos.build_engine_fleet = real
+            join_sink_threads()
+        with cpu_threads():
+            ref = chaos.run_campaign(seed=17, quick=False, device="cpu",
+                                     workdir=os.path.join(chaos_root, "cpu"))
+        seeded = {"ckpt_truncate": "truncate_fraction",
+                  "ckpt_bitflip": "flip_offsets", "engine_kill": "kill_at_s",
+                  "shm_bad_magic+poison_batch+shm_seq_gap": "records"}
+        by_fault = {r["fault"]: r for r in rep["faults"]}
+        ref_by_fault = {r["fault"]: r for r in ref["faults"]}
+        same_seeded = {f: by_fault[f][k] == ref_by_fault[f][k]
+                       for f, k in seeded.items()}
+        catchers = {"split_atomicity": "sink_crash_atomicity",
+                    "crc_skipped": "corrupt_ckpt_refused",
+                    "backoff_removed": "crash_loop_parks"}
+        plants = {p["plant"]: p["caught"] and p.get("control_holds", True)
+                  and p["caught_by"] == catchers[p["plant"]]
+                  for p in rep["planted_regressions"]}
+        dispatched = sum(fleet["runs"]["dispatched"])
+        reports = len(fleet["runs"]["reports"])
+        checks = [rep["ok"], ref["ok"], rep["device"] == "cuda",
+                  all(i["ok"] for r in rep["faults"]
+                      for i in r["invariants"]),
+                  len(plants) == 3 and all(plants.values()),
+                  all(same_seeded.values()), dispatched > 0,
+                  launches["score_int8"] == dispatched,
+                  launches["table_summary"] == reports]
+        served["launches_chaos_campaign"] = launches
+        served["batches_chaos"] = {"chaos_campaign": dispatched}
+        return {"ok": all(checks), "card": card, "rows": 1 << 12, "B": 64,
+                "wall_s": rep["wall_s"], "cpu_wall_s": ref["wall_s"],
+                "scenario_wall_s": {r["fault"]: r["wall_s"]
+                                    for r in rep["faults"]},
+                "recovery_s": by_fault["engine_kill"]["recovery_s"],
+                "watchdog_elapsed_s": by_fault["sink_wedge"]["elapsed_s"],
+                "invariants_checked": rep["invariants_checked"],
+                "plants_caught": plants, "seeded_equal_cpu": same_seeded,
+                "records": by_fault[
+                    "shm_bad_magic+poison_batch+shm_seq_gap"]["records"],
+                "launches": launches, "batches_dispatched": dispatched,
+                "dispatched_per_run": fleet["runs"]["dispatched"],
+                "reports": reports,
+                "not_ported": {k: sorted(v) for k, v in
+                               rep["not_ported"].items()}}
+
+    chaos_campaign_phase()
+
+    @phase("chaos_engine_2p20")
+    def chaos_engine_phase():
+        """The three engine-side scenarios at full width: ``FsxConfig()``
+        (2^20 rows, 8 probes, B=2048, K=64, the default ``logreg_int8``
+        params), a 1-worker ``ShardedIngest`` over a ring of 64 x 2,048
+        ``mixed_l34_1m`` records (BASELINE config 5's traffic, seed 17),
+        ``readback_depth=4``, the sink thread on; the same drive on the
+        CPU engine (no wedge) is the reference after each step."""
+        suite5 = next(sb for sb in benchmarks.scenario_suite(1.0)
+                      if sb.name.startswith("config5"))
+        spec = dataclasses.replace(suite5.traffic, seed=17)
+        recs_all = TrafficGen(spec).next_records(72 * BATCH)
+        recs, tail = recs_all[:64 * BATCH], recs_all[64 * BATCH:]
+        cfg = FsxConfig()
+        busy = step_busy_ms(cfg, None, recs)     # outside the window
+        got = chaos_engine_drive("cuda", cfg, recs, tail,
+                                 os.path.join(chaos_root, "e2p20_card"),
+                                 watchdog=True)
+        with cpu_threads():
+            want = chaos_engine_drive("cpu", cfg, recs, tail,
+                                      os.path.join(chaos_root, "e2p20_cpu"),
+                                      watchdog=False)
+        same = {k: got[k] == want[k] for k in (
+            "after_slot", "after_restore", "after_tail")}
+        wd = got["watchdog"]
+        launches = got["launches"]
+        dispatched = sum(got["dispatched"])
+        slot_run = got["slot_run"]
+        checks = [got["slot"]["ok"], got["fallback"]["ok"], wd["ok"],
+                  want["slot"]["ok"], want["fallback"]["ok"],
+                  got["slot"]["records"] == want["slot"]["records"],
+                  got["slot"]["records"]["produced"] == len(recs),
+                  *same.values(), got["pointers_kept"],
+                  got["no_new_capture"],
+                  got["tail_run"]["batches"] == 8,
+                  launches["score_int8"] == dispatched,
+                  launches["table_summary"] == got["reports"] == 2]
+        served["launches_chaos_engine_2p20"] = launches
+        served.setdefault("batches_chaos", {})["chaos_engine_2p20"] = (
+            dispatched)
+        slot_obj = types.SimpleNamespace(batches=slot_run["batches"],
+                                         wall_s=slot_run["wall_s"])
+        return {"ok": all(checks), "card": card, "rows": cfg.table.capacity,
+                "B": BATCH, "ring_records": len(recs),
+                "traffic": "mixed_l34_1m (BASELINE config 5), seed 17",
+                "invariants": {k: [(i["name"], i["ok"])
+                                   for i in got[k]["invariants"]]
+                               for k in ("slot", "fallback", "watchdog")},
+                "records": got["slot"]["records"],
+                "equal_cpu": same,
+                "blacklist_keys": len(got["after_tail"]["blacklist"]),
+                "tracked_after_slot": got["after_slot"]["tracked"],
+                "stats_after_tail": got["after_tail"]["stats"],
+                "corrupted_drain": {
+                    **slot_run, "step_busy_ms_per_batch": busy,
+                    "idle_share": idle_share(slot_obj, busy)},
+                "checkpoint_s": got["fallback_times"]["checkpoint_s"],
+                "restore_s": got["fallback_times"]["restore_s"],
+                "cpu_restore_s": want["fallback_times"]["restore_s"],
+                "pointers_kept": got["pointers_kept"],
+                "no_new_capture": got["no_new_capture"],
+                "watchdog_trip_s": wd["elapsed_s"],
+                "watchdog_bound_s": 10 * 0.4,
+                "memory_after_warm": got["memory_after_warm"],
+                "launches": launches, "batches_dispatched": dispatched,
+                "dispatched_per_run": got["dispatched"],
+                "reports": got["reports"]}
+
+    chaos_engine_phase()
+
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
         ``flush`` runs between calls, outside the timed region."""
@@ -4406,11 +4724,17 @@ def main() -> int:
             "train_distill_serve": served.get(
                 "launches_train_distill_serve", {}),
             "scenario_suite": served.get("launches_scenario_suite", {}),
+            "chaos_campaign": served.get("launches_chaos_campaign", {}),
+            "chaos_engine_2p20": served.get("launches_chaos_engine_2p20",
+                                            {}),
             # each cluster rank's own window, read from its report
             **served.get("launches_cluster", {})}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}
+        # the batches each chaos window's engine dispatched (score_int8
+        # launches once per batch there)
+        score_row["batches_chaos"] = served.get("batches_chaos", {})
         served["kernels"] = rows
         suite_equal = not any(v.get("mismatches_vs_plain") for k, v in
                               score_row.items() if k.startswith("b")

@@ -1,6 +1,7 @@
 """Command line of the port: ``python -m flowsentryx_tpu_torch.cli serve``,
 ``... cli pcap``, ``... cli train``, ``... cli distill``, ``... cli
-cluster``, ``... cli status``, ``... cli monitor`` and ``... cli bench``.
+cluster``, ``... cli status``, ``... cli monitor``, ``... cli bench`` and
+``... cli chaos``.
 
 Counterpart of the reference's ``fsx serve``: builds an
 :class:`~.engine.Engine` on the card (or on the CPU with ``--device
@@ -65,6 +66,11 @@ kernel maps, which the port does not.
 ``bench --scenarios [--scale S] [--only NAME]`` runs the five BASELINE
 configs (:mod:`.benchmarks`), one JSON line each; a bare ``bench``,
 ``--smoke``, ``--scaling`` and ``--cluster`` are refused by name.
+
+``chaos [--seed N] [--quick]`` runs the seeded fault-injection campaign
+(:mod:`.chaos`) over the port's engine, ingest fleet, supervisor and
+gossip plane, and names the reference's faults it does not run yet;
+``chaos --list`` prints the fault registry.
 
 Every verb that runs an engine runs on the card unless ``--device cpu``
 is given, and raises without one.
@@ -1415,6 +1421,63 @@ def _cmd_bench(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_chaos(args: argparse.Namespace) -> int:
+    """The deterministic fault-injection campaign over the port's stack
+    (:mod:`.chaos`), printed as the reference's ``fsx chaos`` prints it,
+    plus one line per fault or plant the port does not run yet.
+    ``--list`` prints the reference's registry and imports no torch."""
+    from flowsentryx_tpu_torch.chaos import faults as chaos_faults
+
+    if args.list:
+        for name, (cls, desc) in chaos_faults.FAULTS.items():
+            print(f"{name:20s} [{cls}]\n    {desc}")
+        return 0
+    from flowsentryx_tpu_torch.chaos import run_campaign
+    from flowsentryx_tpu_torch.core.device import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"fsx chaos: {e}", file=sys.stderr)
+        return 1
+    rep = run_campaign(seed=args.seed, quick=args.quick,
+                       workdir=args.workdir, out=args.out, device=device)
+    if args.json:
+        print(json.dumps(rep, indent=2))
+    else:
+        for r in rep["faults"]:
+            status = "OK" if r["ok"] else "FAILED"
+            invs = ", ".join(
+                f"{i['name']}{'' if i['ok'] else '!'}"
+                for i in r["invariants"])
+            print(f"fsx chaos: {r['fault']:40s} {status}  ({invs})")
+            if not r["ok"]:
+                for i in r["invariants"]:
+                    if not i["ok"]:
+                        print(f"  INVARIANT {i['name']}: {i['detail']}",
+                              file=sys.stderr)
+        for p in rep["planted_regressions"]:
+            status = "CAUGHT" if p["ok"] else "MISSED"
+            print(f"fsx chaos: plant {p['plant']:32s} {status}  "
+                  f"(by {p['caught_by']})")
+        for kind, names in rep["not_ported"].items():
+            for name, item in names.items():
+                what = "plant " if kind == "plants" else ""
+                print(f"fsx chaos: not ported {what + name:32s} ({item})")
+        print(f"fsx chaos: {rep['n_fault_classes']} fault classes, "
+              f"{rep['invariants_checked']} invariant checks, "
+              f"{len(rep['planted_regressions'])} planted regressions, "
+              f"seed {rep['seed']}, {rep['wall_s']}s")
+    if args.out and not args.json:
+        print(f"fsx chaos: report -> {args.out}")
+    if rep["ok"]:
+        if not args.json:
+            print("fsx chaos: PASS")
+        return 0
+    print("fsx chaos: FAIL", file=sys.stderr)
+    return 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m flowsentryx_tpu_torch.cli",
@@ -1773,6 +1836,33 @@ def build_parser() -> argparse.ArgumentParser:
                        else "store_true",
                        default=None, help=f"refused: {why}")
     b.set_defaults(fn=_cmd_bench)
+
+    ch = sub.add_parser(
+        "chaos",
+        help="deterministic fault-injection campaign over the port's "
+             "stack: kills, crash loops, corrupt checkpoints, shm slot "
+             "corruption, poisoned batches, gossip floods, clock jumps, "
+             "a wedged sink — judged by named invariants, with planted "
+             "regressions as negative controls")
+    ch.add_argument("--seed", type=int, default=17,
+                    help="campaign seed: fixes traffic, corruption "
+                         "offsets and kill schedule (default 17)")
+    ch.add_argument("--quick", action="store_true",
+                    help="trim traffic volume, keep full fault-class "
+                         "and plant coverage")
+    ch.add_argument("--workdir", metavar="DIR",
+                    help="scratch dir for rings/checkpoints/"
+                         "quarantine spools (default: a fresh tempdir)")
+    ch.add_argument("--list", action="store_true",
+                    help="print the fault registry and exit")
+    ch.add_argument("--json", action="store_true",
+                    help="machine-readable report")
+    ch.add_argument("--out", metavar="PATH",
+                    help="also write the JSON report here")
+    ch.add_argument("--device", default=None,
+                    help="torch device of the campaign's engine; default "
+                         "the card (refused without one)")
+    ch.set_defaults(fn=_cmd_chaos)
     return ap
 
 

@@ -1276,3 +1276,15 @@ def test_scenario_on_card_equals_cpu(cuda, name):
             == {k: v for k, v in want.items() if k not in timing})
     assert launches["score_int8"] == got["batches"]
     assert launches["table_summary"] == 1
+
+
+def test_chaos_campaign_on_card(cuda, tmp_path):
+    """The quick chaos campaign with its engine on the card: every
+    invariant holds and every ported plant is caught."""
+    from flowsentryx_tpu_torch.chaos import run_campaign
+
+    rep = run_campaign(seed=17, quick=True, device="cuda", workdir=tmp_path)
+    assert rep["device"] == "cuda"
+    assert rep["ok"], [(r["fault"], i) for r in rep["faults"]
+                       for i in r["invariants"] if not i["ok"]]
+    assert all(p["ok"] for p in rep["planted_regressions"])
