@@ -259,7 +259,8 @@ more.
     converged with no seq gaps; each rank's ``score_int8`` launches (its
     own window, zeroed after warm, in its report) equal its batches.
 41. ``cluster_serve``: ``cli cluster --engines 2 --shards 2 --mega auto
-    --drain`` over each prefilled scenario (1,536 x 2,048 records), in
+    --drain`` over each prefilled scenario (768 x 2,048 records, cut from
+    1,536 so the whole script stays under ~780 s), in
     turns with one card engine with two workers (single, cluster,
     cluster, single; ``--pin-cores off``), then once pinned (``auto``):
     the fleet's records/s (total over the slowest rank's drain wall)
@@ -297,10 +298,11 @@ more.
 45. ``chaos_campaign``: ``chaos.run_campaign(seed=17, quick=False,
     device="cuda")`` at the campaign's own shapes (4,096 rows, B=64, 24
     batches) and the same campaign on the CPU: every invariant of the
-    ten single-host faults holds, the three plants are caught by their
-    invariants with their controls holding, ``truncate_fraction``,
-    ``flip_offsets``, ``kill_at_s`` and the slot scenario's ``records``
-    equal the CPU campaign's, and in the phase's window ``score_int8``
+    thirteen single-host faults holds, the four plants are caught by
+    their invariants with their controls holding, ``truncate_fraction``,
+    ``flip_offsets``, ``kill_at_s``, ``kill_after_slots``, ``to_gen`` and
+    the slot scenario's ``records`` equal the CPU campaign's, and in the
+    phase's window ``score_int8``
     launched once per batch the campaign's engine dispatched and
     ``table_summary`` once per report; the campaign's and each
     scenario's wall, ``recovery_s`` and the watchdog's ``elapsed_s``.
@@ -319,6 +321,35 @@ more.
     within 10 x 0.4 s and the engine is dropped.  The drain's records/s
     and idle share, checkpoint and restore seconds, the trip time,
     memory after ``warm()``, and launches against batches and reports.
+47-50. The elastic fleet (``rebalance_phases``), at the production table
+    (2^20 rows), B=2048, K=64, the default ``logreg_int8`` params,
+    ``--mega auto``, 3 shards with one ring each (3 ranks provisioned, 2
+    live, shard 2 folded onto rank 0), config 5's traffic from seed 17,
+    routed by the shard assignment (``Feeder``, the producer-side
+    fence).  47. ``handoff_engine_2p20`` (``handoff_engine_drive``): a
+    donor (shards 0 and 2, ~205,000 rows) and a recipient (shard 1) on
+    the card hand shard 2 over in place, extract, adopt, drop, under the
+    graphs captured at ``warm()``; every table, count and 8 more
+    batches each equal the CPU engines', pointers kept, no capture, and
+    ``table_summary``'s ``tracked`` moves by the rows moved; the three
+    calls' ms.  48. ``rebalance_live`` (``rebalance_live_drive``): card
+    ranks, shard 2 from rank 0 to rank 1 under a trickle: rows shipped =
+    adopted, one flip, layout generation 1, both ranks serving during
+    it, every record served; fence -> lift, the donor's serving gap,
+    records/s before, during, after.  49. ``rebalance_grow``
+    (``rebalance_grow_drive``): an ``ElasticPolicy(2, 3)`` fleet with
+    ``--tiered-warm`` and a compile cache grows on a ring backlog; rank
+    2 (a third context) loads its kernels from the pre-warmed cache,
+    serves, takes shard 2, serves records routed to it; the decision's
+    signals, spawn -> SERVING, cache hits, its card memory.  50.
+    ``rebalance_kill_retry`` (``rebalance_kill_retry_drive``): the
+    donor dies mid-ship (``handoff_crash_midship``), the abort, gen 1
+    from its checkpoint, a retry; rank 1 SIGKILLed after the flip, a
+    second supervisor's ``boot(adopt=True)`` census, rank 1's new
+    generation adopting every shipped row from the spool, each
+    generation once at the stop-drain.  Each rank's launch window (its
+    report's): ``score_int8`` once per batch, ``table_summary`` once per
+    run.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -363,11 +394,20 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 TABLE_CAP = 1 << 20
 BATCH = 2048
 SERVE_BATCHES = 384
+#: ``cluster_serve``'s stream, in SERVE_BATCHES: short enough that the
+#: whole script, the elastic fleet's phases included, stays under ~780 s
+CLUSTER_SERVE_DEPTH = 2
 CROSS_BATCHES = 48
 GRAPH_BATCHES = 24
 MEGA_BATCHES = 23 * 8 + 6      # top-rung groups, then a 4 and a 2
 OVERFLOW_BATCHES = 24
 RAGGED_B = (1, 15, 2047, 2049)
+#: config 5's records the fleet phases serve before the handoff (the
+#: donor then tracks ~205,000 rows, half in the moving shard), and after
+RB_PRE = 192 * BATCH
+RB_MORE = 96 * BATCH
+#: the fleet phases' live load while a handoff or a restart is on
+TRICKLE_BATCHES_PER_S = 20
 
 FAILED: list[str] = []
 
@@ -426,6 +466,21 @@ def track_runs(eng) -> dict:
 
     eng.run = run
     return seen
+
+
+@contextlib.contextmanager
+def cpu_threads(n=2):
+    """The plain CPU reference runs with ``n`` threads: at this size
+    torch's default pool (one per core) costs ~5x in thread hand-offs
+    (66 vs 13 ms per 2,048-record batch, measured)."""
+    import torch
+
+    prev = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
 
 
 def join_sink_threads(timeout_s: float = 30.0) -> None:
@@ -551,6 +606,898 @@ def chaos_engine_drive(device: str, cfg, recs, tail, root: str,
         src.close()
         join_sink_threads()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the self-reshaping fleet: drives shared by the card phases and the CPU
+# tests (each on ``device``)
+# ---------------------------------------------------------------------------
+
+class Feeder:
+    """The daemon's fan-out, routed by the shard assignment: each record's
+    shard goes to the ring ``rebalance.assigned_ring_of`` names under the
+    layout published now (reloaded every round, so a flip reroutes the
+    next feed), and the records of a shard named by the handoff in flight
+    (``handoff.json``) are held back until it ends: the producer-side
+    fence.  A full ring keeps the rest back too (backpressure, no loss)."""
+
+    def __init__(self, cluster_dir: str, rings: list, recs, total: int):
+        import numpy as np
+
+        from flowsentryx_tpu_torch.core import wire
+
+        self.cluster_dir = cluster_dir
+        self.rings = rings
+        self.recs = recs
+        self.total = total
+        self.shard = wire.shard_of(recs["saddr"], total)
+        self.cursor = 0
+        self.produced = 0
+        self.deferred = np.zeros(0, dtype=recs.dtype)
+        self.deferred_shard = np.zeros(0, np.uint32)
+
+    def _route(self, part, shard) -> int:
+        import numpy as np
+
+        from flowsentryx_tpu_torch.cluster import rebalance as rb
+
+        asg = rb.ShardAssignment.load(self.cluster_dir)
+        owners = asg.owners if asg is not None else tuple(range(self.total))
+        moving: set = set()
+        hp = rb.handoff_json_path(self.cluster_dir)
+        if hp.exists():
+            try:
+                moving = set(json.loads(hp.read_text()).get("shards", ()))
+            except (OSError, ValueError):
+                pass   # mid-replace: the next round reads it whole
+        hold = np.isin(shard, np.fromiter(moving, np.uint32, len(moving)))
+        if hold.any():
+            self.deferred = np.concatenate([self.deferred, part[hold]])
+            self.deferred_shard = np.concatenate(
+                [self.deferred_shard, shard[hold]])
+            part, shard = part[~hold], shard[~hold]
+        wrote = 0
+        for s in sorted(set(int(x) for x in shard)):
+            ring = self.rings[rb.assigned_ring_of(s, owners, 1)]
+            sub = part[shard == np.uint32(s)]
+            n = ring.produce(sub)
+            if n < len(sub):
+                rest = sub[n:]
+                self.deferred = np.concatenate([self.deferred, rest])
+                self.deferred_shard = np.concatenate(
+                    [self.deferred_shard, np.full(len(rest), s, np.uint32)])
+            wrote += n
+        self.produced += wrote
+        return wrote
+
+    def feed(self, n: int, *, recycle: bool = False) -> int:
+        import numpy as np
+
+        wrote = 0
+        if len(self.deferred):
+            part, shard = self.deferred, self.deferred_shard
+            self.deferred = np.zeros(0, dtype=self.recs.dtype)
+            self.deferred_shard = np.zeros(0, np.uint32)
+            wrote += self._route(part, shard)
+        if len(self.deferred) >= n:
+            return wrote   # the rings are full: hold no more
+        if recycle and self.cursor >= len(self.recs):
+            self.cursor = 0   # a load phase replays the corpus
+        end = min(self.cursor + n, len(self.recs))
+        if end > self.cursor:
+            part = self.recs[self.cursor:end]
+            shard = self.shard[self.cursor:end]
+            self.cursor = end
+            wrote += self._route(part, shard)
+        return wrote
+
+    @property
+    def exhausted(self) -> bool:
+        return self.cursor >= len(self.recs) and not len(self.deferred)
+
+
+def handoff_engine_drive(device: str, cfg, donor_recs, recip_recs,
+                         tail_d, tail_r, shards=(2,), total: int = 3
+                         ) -> dict:
+    """One handoff between two engines in one process, no fleet: a donor
+    and a recipient on ``device`` serve their own records, then the donor
+    extracts ``shards`` of ``total``, the recipient adopts the rows, the
+    donor drops them, and each serves its ``tail`` (on the card through
+    the graphs captured before the handoff).  Returns the state after
+    each step, the counts, the three calls' seconds, whether the table
+    pointers held and whether anything was captured."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from flowsentryx_tpu_torch.core import schema
+    from flowsentryx_tpu_torch.engine import ArraySource, CollectSink, Engine
+    from flowsentryx_tpu_torch.ops import graph, kernels
+
+    cuda = torch.device(device).type == "cuda"
+
+    def tables(e):
+        return schema.table_to_numpy(e.table)
+
+    def digest(k, st):
+        return hashlib.sha256(k.tobytes() + st.tobytes()).hexdigest()[:16]
+
+    def tracked(e):
+        return kernels.table_summary(e.table, now=e._device_now,
+                                     stale_s=e.cfg.table.stale_s)["tracked"]
+
+    def ptrs(e):
+        return [e.table.key_rows.data_ptr(), e.table.state_rows.data_ptr()]
+
+    engines, reps = [], []
+    for recs in (donor_recs, recip_recs):
+        e = Engine(cfg, ArraySource(recs.copy()), CollectSink(),
+                   device=device)
+        if cuda:
+            e.warm()
+        engines.append(e)
+    donor, recip = engines
+    if cuda:
+        torch.cuda.synchronize()
+        kernels.reset_launches()          # the window opens
+    runs = [track_runs(e) for e in engines]
+    for e in engines:
+        reps.append(e.run())
+    out = {"served": [{"records": r.records, "batches": r.batches,
+                       "tracked": r.table["tracked"]} for r in reps]}
+    before = [tables(e) for e in engines]
+    out["digest_before"] = [digest(*t) for t in before]
+    tracked_before = [tracked(e) for e in engines]
+    p0 = [ptrs(e) for e in engines]
+    n_cap = graph.CAPTURES
+    times = {}
+    t = time.perf_counter()
+    keys, states = donor.extract_span_rows(list(shards), total)
+    times["extract_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    inserted, dropped = recip.adopt_rows(keys, states)
+    times["adopt_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    n_drop = donor.drop_span_rows(list(shards), total)
+    times["drop_s"] = time.perf_counter() - t
+    after = [tables(e) for e in engines]
+    tracked_after = [tracked(e) for e in engines]
+    out.update({
+        "rows_moved": int(len(keys)),
+        "moved_digest": digest(keys, states),
+        "inserted": inserted, "dropped": dropped, "rows_dropped": n_drop,
+        "digest_after": [digest(*t) for t in after],
+        "tracked_before": tracked_before, "tracked_after": tracked_after,
+        "times_s": times,
+        "pointers_kept": [ptrs(e) for e in engines] == p0,
+        "no_new_capture": graph.CAPTURES == n_cap,
+        # the moved rows left the donor's table and landed in the
+        # recipient's, byte for byte (on the host, from the fetched tables)
+        "donor_lost_the_span": int((before[0][0] != 0).sum()
+                                   - (after[0][0] != 0).sum()) == len(keys),
+        "recipient_holds_the_rows": bool(np.isin(
+            keys, after[1][0]).all()),
+    })
+    tail_sinks = []
+    for e, tail in zip(engines, (tail_d, tail_r)):
+        ts = CollectSink()
+        e.reset_stream(ArraySource(tail.copy()), sink=ts)
+        r = e.run()
+        tail_sinks.append(ts)
+        reps.append(r)
+    out["tail"] = [{"records": r.records, "batches": r.batches}
+                   for r in reps[2:]]
+    out["after_tail"] = [{
+        "digest": digest(*tables(e)), "stats": e.stats.to_dict(),
+        "blacklist": sorted((int(k), int(np.float32(u).view(np.uint32)))
+                            for k, u in s.blocked.items())}
+        for e, s in zip(engines, tail_sinks)]
+    out["no_new_capture_after_tail"] = graph.CAPTURES == n_cap
+    out["dispatched"] = [sum(r["dispatched"]) for r in runs]
+    out["reports"] = len(reps)
+    out["summaries"] = 4          # tracked(), before and after, per engine
+    if cuda:
+        torch.cuda.synchronize()
+        out["launches"] = dict(kernels.LAUNCHES)   # ... and closes
+    del engines, donor, recip
+    return out
+
+
+def _fleet_specs(device: str, cfg, base: str, n: int, total: int,
+                 **extra) -> list:
+    return [{"device": device, "cfg_json": cfg.to_json(), "ring_base": base,
+             "workers": 1, "total_shards": total, "chunk_s": 0.1,
+             "gossip_quiesce_s": 2.0, "mega": "auto", **extra}
+            for _ in range(n)]
+
+
+def _make_rings(base: str, total: int, slots: int) -> list:
+    from flowsentryx_tpu_torch.core import wire
+    from flowsentryx_tpu_torch.engine.shm import ShmRing
+
+    return [ShmRing.create(wire.shard_ring_path(base, k, total), slots,
+                           wire.FLOW_RECORD_DTYPE) for k in range(total)]
+
+
+def _wait_serving(sup, status, ranks, timeout_s: float) -> bool:
+    from flowsentryx_tpu_torch.core import wire
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        sup.poll()
+        if all(status[r].ctl_get("c_state") == wire.CSTATE_SERVING
+               for r in ranks):
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def _served(status, ranks) -> int:
+    return sum(status[r].ctl_get("c_records") for r in ranks)
+
+
+class Trickle:
+    """Feeds ``feeder`` at ``rate`` records/s of wall time, however often
+    :meth:`tick` is called (the fleet phases' live load)."""
+
+    def __init__(self, feeder: Feeder, rate: float):
+        self.feeder, self.rate = feeder, rate
+        self.t = time.perf_counter()
+
+    def tick(self) -> int:
+        now = time.perf_counter()
+        n = int((now - self.t) * self.rate)
+        if n <= 0:
+            return self.feeder.feed(0)
+        self.t += n / self.rate
+        return self.feeder.feed(n)
+
+
+def compute_apps() -> list:
+    """``nvidia-smi --query-compute-apps``: ``[pid, used MiB]`` per
+    context (in a container every pid may read the same, so contexts are
+    told apart by count and memory, not by pid)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout
+    apps = []
+    for line in out.strip().splitlines():
+        pid, _, mib = line.partition(",")
+        try:
+            apps.append([int(pid), float(mib)])
+        except ValueError:
+            continue
+    return sorted(apps)
+
+
+def _drain_fleet(sup, status, feeder, rings, ranks, timeout_s: float,
+                 feed: int) -> dict:
+    """Feed out the corpus, wait for the rings to empty, stop-drain the
+    fleet and aggregate."""
+    deadline = time.monotonic() + timeout_s
+    while not feeder.exhausted and time.monotonic() < deadline:
+        sup.poll()
+        feeder.feed(feed)
+        time.sleep(0.01)
+    while (any(r.readable() for r in rings)
+           and time.monotonic() < deadline):
+        sup.poll()
+        time.sleep(0.02)
+    sup.request_stop()
+    while (len(sup._done) + len(sup._failed) < len(sup._active)
+           and time.monotonic() < deadline + 120):
+        sup.poll()
+        time.sleep(0.02)
+    sup.close()
+    agg = sup.aggregate()
+    agg["rings_left"] = [r.readable() for r in rings]
+    return agg
+
+
+def _rebalance_of(agg: dict, rank: int, gen: int | None = None) -> dict:
+    best: dict = {}
+    for rep in agg["reports"]:
+        if rep.get("rank") == rank and (gen is None or rep.get("gen") == gen):
+            best = rep.get("report", {}).get("rebalance") or best
+    return best
+
+
+def _rank_windows(agg: dict) -> dict:
+    """Each rank report's launch window against its batches and runs."""
+    out = {}
+    for rep in agg["reports"]:
+        r = rep.get("report") or {}
+        out[f"r{rep['rank']}g{rep['gen']}"] = {
+            "launches": rep.get("launches", {}), "batches": r.get("batches"),
+            "runs": rep.get("runs"), "records": r.get("records"),
+            "device": (r.get("device") or {}).get("type")}
+    return out
+
+
+def _windows_ok(windows: dict, device: str) -> bool:
+    """On the card: ``score_int8`` once per dispatched batch and
+    ``table_summary`` once per run (its report) in every rank's window."""
+    if device != "cuda":
+        return True
+    return all(w["device"] == "cuda"
+               and w["launches"].get("score_int8") == w["batches"]
+               and w["launches"].get("table_summary") == w["runs"]
+               for w in windows.values())
+
+
+def rebalance_live_drive(device: str, root: str, cfg, recs, pre: int,
+                         timeout_s: float = 240.0) -> dict:
+    """Phase A of the reference's rebalance smoke on ``device``: a fleet
+    provisioned at 3 ranks boots 2 (shard 2 folded onto rank 0), serves
+    the first ``pre`` records routed by the :class:`Feeder`, then moves
+    shard 2 from rank 0 to rank 1 through the whole protocol while a
+    trickle keeps flowing, then serves the rest and drains."""
+    import numpy as np
+
+    from flowsentryx_tpu_torch.cluster import rebalance as rb
+    from flowsentryx_tpu_torch.cluster.mailbox import StatusBlock, status_path
+    from flowsentryx_tpu_torch.cluster.supervisor import ClusterSupervisor
+    from flowsentryx_tpu_torch.core import wire
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    total, batch = 3, cfg.batch.max_batch
+    base = os.path.join(root, "ring")
+    plane = os.path.join(root, "plane")
+    rings = _make_rings(base, total, 1 << (len(recs) - 1).bit_length())
+    sup = ClusterSupervisor(plane, _fleet_specs(device, cfg, base, 3, total),
+                            t0_ns=int(recs["ts_ns"].min()),
+                            heartbeat_timeout_s=60.0, n_live=2)
+    sup.boot()
+    status = [StatusBlock(status_path(plane, r)) for r in range(3)]
+    feeder = Feeder(plane, rings, recs, total)
+    out, checks = {}, {}
+    try:
+        t = time.perf_counter()
+        checks["serving"] = _wait_serving(sup, status, (0, 1), timeout_s)
+        out["boot_s"] = time.perf_counter() - t
+        # the donor's rows before the handoff: the sources of its shards
+        sh = wire.shard_of(recs["saddr"][:pre], total)
+        out["donor_sources"] = int(len(np.unique(
+            recs["saddr"][:pre][(sh == 0) | (sh == 2)])))
+        out["moving_sources"] = int(len(np.unique(
+            recs["saddr"][:pre][sh == 2])))
+        t = time.perf_counter()
+        feeder.feed(pre)
+        deadline = time.monotonic() + timeout_s
+        while (_served(status, (0, 1)) < feeder.produced
+               and time.monotonic() < deadline):
+            sup.poll()
+            feeder.feed(0)   # the held-back tail, when a ring was full
+            time.sleep(0.005)
+        wall = time.perf_counter() - t
+        out["before"] = {"records": feeder.produced, "wall_s": wall,
+                         "records_per_s": feeder.produced / max(wall, 1e-9)}
+        checks["prefill_served"] = _served(status, (0, 1)) == feeder.produced
+        # the handoff, with a trickle of every shard meanwhile (the
+        # feeder holds shard 2 back while it is fenced)
+        served0 = [status[r].ctl_get("c_records") for r in (0, 1)]
+        t_fence = time.perf_counter()
+        hid = sup.start_handoff([2], donor=0, recipient=1)
+        last_hb = status[0].ctl_get("c_hbeat")
+        gap_s = t_shipped = None
+        deadline = time.monotonic() + timeout_s
+        trickle = Trickle(feeder, TRICKLE_BATCHES_PER_S * batch)
+        next_poll = 0.0
+        while sup._handoff is not None and time.monotonic() < deadline:
+            if time.perf_counter() >= next_poll:
+                sup.poll()
+                trickle.tick()
+                next_poll = time.perf_counter() + 0.01
+            ack = status[0].ctl_get("c_handoff")
+            if t_shipped is None and rb._phase_of(ack, hid) >= wire.HP_SHIPPED:
+                now_ns = time.clock_gettime_ns(time.CLOCK_MONOTONIC)
+                t_shipped = time.perf_counter() - t_fence
+                # the donor ticks its heartbeat while it serves and not
+                # while it extracts and ships: its last beat before the
+                # ack is where its serving stopped
+                gap_s = (now_ns - last_hb) * 1e-9
+            elif t_shipped is None:
+                last_hb = status[0].ctl_get("c_hbeat")
+            time.sleep(0.001)
+        t_lift = time.perf_counter() - t_fence
+        served1 = [status[r].ctl_get("c_records") for r in (0, 1)]
+        during = sum(served1) - sum(served0)
+        out["handoff"] = {
+            "id": hid, "fence_to_lift_s": t_lift,
+            "fence_to_shipped_s": t_shipped, "donor_serving_gap_s": gap_s,
+            "served_per_rank": [b - a for a, b in zip(served0, served1)],
+            "records_per_s": during / max(t_lift, 1e-9)}
+        checks["handoff_completed"] = sup._handoff is None
+        checks["both_ranks_served_during"] = all(
+            b > a for a, b in zip(served0, served1))
+        checks["one_flip_no_abort"] = (
+            sup.rebalance_counters["flips"] == 1
+            and sup.rebalance_counters["aborts"] == 0)
+        asg = rb.ShardAssignment.load(plane)
+        out["layout"] = {"generation": asg.generation,
+                         "owners": list(asg.owners)}
+        checks["layout_gen1_shard2_rank1"] = (asg.generation == 1
+                                              and asg.owners[2] == 1)
+        # the rest of the corpus at once, served by the new layout
+        t = time.perf_counter()
+        n0 = _served(status, (0, 1))
+        feeder.feed(len(recs))
+        deadline = time.monotonic() + timeout_s
+        while (_served(status, (0, 1)) < feeder.produced
+               and time.monotonic() < deadline):
+            sup.poll()
+            feeder.feed(0)
+            time.sleep(0.005)
+        wall = time.perf_counter() - t
+        n = _served(status, (0, 1)) - n0
+        out["after"] = {"records": n, "wall_s": wall,
+                        "records_per_s": n / max(wall, 1e-9)}
+        agg = _drain_fleet(sup, status, feeder, rings, (0, 1), timeout_s,
+                           batch * 16)
+    finally:
+        sup.close()
+    donor, recip = _rebalance_of(agg, 0), _rebalance_of(agg, 1)
+    out["conservation"] = {k: v.get(k, 0) for v, k in (
+        (donor, "rows_shipped"), (recip, "rows_adopted"),
+        (recip, "adopt_dropped"), (donor, "rows_dropped_post_flip"),
+        (donor, "handoffs_donated"), (recip, "handoffs_adopted"))}
+    out["rebalance_counters"] = dict(sup.rebalance_counters)
+    checks["rows_conserved"] = (
+        donor.get("rows_shipped", 0) > 0
+        and donor.get("rows_shipped") == recip.get("rows_adopted")
+        and not recip.get("adopt_dropped"))
+    checks["every_record_served"] = (agg["records"] == feeder.produced
+                                     and not any(agg["rings_left"]))
+    checks["no_failed_rank"] = (agg["failed_ranks"] == []
+                                and not any(agg["restarts"]))
+    out["records"] = {"produced": feeder.produced, "served": agg["records"]}
+    out["windows"] = _rank_windows(agg)
+    checks["launch_windows"] = _windows_ok(out["windows"], device)
+    out["boots"] = {f"r{r['rank']}": {k: (r["report"].get("boot") or {})
+                                      .get(k) for k in (
+        "import_s", "reconcile_s", "serving_ready_s")}
+        for r in agg["reports"]}
+    return {"ok": all(checks.values()), "checks": checks, **out}
+
+
+def rebalance_grow_drive(device: str, root: str, cfg, recs,
+                         timeout_s: float = 300.0) -> dict:
+    """Phase B on ``device``: an ``ElasticPolicy(min_engines=2,
+    max_engines=3)`` fleet with ``--tiered-warm`` and a compile cache (so
+    the pre-warm child runs) under a ring backlog the feeder keeps above
+    the grow bar: the policy decides GROW from the ring cursors, rank 2
+    spawns, serves, takes half the hottest span, and serves the records
+    routed to it.  On the card the boot's processes build the kernels
+    into a fresh ``FSX_KERNEL_BUILD`` directory (storing them in the
+    cache), and rank 2 spawns with another, empty one: it loads every
+    kernel from the cache the pre-warm child filled."""
+    from flowsentryx_tpu_torch.cluster import rebalance as rb
+    from flowsentryx_tpu_torch.cluster.elastic import ElasticPolicy
+    from flowsentryx_tpu_torch.cluster.mailbox import StatusBlock, status_path
+    from flowsentryx_tpu_torch.cluster.supervisor import ClusterSupervisor
+    from flowsentryx_tpu_torch.core import wire
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    total, batch = 3, cfg.batch.max_batch
+    base = os.path.join(root, "ring")
+    plane = os.path.join(root, "plane")
+    rings = _make_rings(base, total, 1 << 18)
+    policy = ElasticPolicy(min_engines=2, max_engines=3, grow_backlog=64.0,
+                           shrink_backlog=0.0, skew_ratio=1e9,
+                           hysteresis_ticks=2, cooldown_s=2.0)
+    specs = _fleet_specs(device, cfg, base, 3, total, tiered_warm=True,
+                         compile_cache=os.path.join(root, "cache"))
+    sup = ClusterSupervisor(plane, specs, t0_ns=int(recs["ts_ns"].min()),
+                            heartbeat_timeout_s=60.0, n_live=2,
+                            elastic=policy)
+    env_build = os.environ.get("FSX_KERNEL_BUILD")
+    os.environ["FSX_KERNEL_BUILD"] = os.path.join(root, "kbuild_boot")
+    try:
+        sup.boot()
+    finally:
+        # the spare spawns later with an empty build directory
+        os.environ["FSX_KERNEL_BUILD"] = os.path.join(root, "kbuild_spare")
+    status = [StatusBlock(status_path(plane, r)) for r in range(3)]
+    feeder = Feeder(plane, rings, recs, total)
+    out, checks = {}, {}
+    mem = {}
+    try:
+        checks["serving"] = _wait_serving(sup, status, (0, 1), timeout_s)
+        t = time.perf_counter()
+        if sup._prewarm_proc is not None:
+            sup._prewarm_proc.join(timeout=timeout_s)
+            out["prewarm_exitcode"] = sup._prewarm_proc.exitcode
+        out["prewarm_wait_s"] = time.perf_counter() - t
+        checks["prewarm_done"] = out.get("prewarm_exitcode") == 0
+        if device == "cuda":
+            import torch
+
+            mem["free_before_grow"] = torch.cuda.mem_get_info()[0]
+            out["compute_apps_before_grow"] = compute_apps()
+        t_spawn = t_serving = None
+        deadline = time.monotonic() + timeout_s
+        grown = False
+        while time.monotonic() < deadline:
+            sup.poll()
+            plan = sup.elastic_tick()
+            if (t_spawn is None and plan is not None
+                    and plan["action"] == "grow" and 2 in sup._active):
+                t_spawn = time.perf_counter()
+                out["grow_decision"] = plan
+            feeder.feed(batch * 64, recycle=True)
+            if (t_spawn is not None and t_serving is None
+                    and status[2].ctl_get("c_state") == wire.CSTATE_SERVING):
+                t_serving = time.perf_counter() - t_spawn
+                if device == "cuda":
+                    mem["free_rank2_serving"] = torch.cuda.mem_get_info()[0]
+                    out["compute_apps_rank2_serving"] = compute_apps()
+            if (t_serving is not None and sup._handoff is None
+                    and sup.rebalance_counters["flips"] >= 1):
+                grown = True
+                break
+            time.sleep(0.01)
+        out["spawn_to_serving_s"] = t_serving
+        out["grow_to_flip_s"] = (time.perf_counter() - t_spawn
+                                 if t_spawn else None)
+        # the decision and the spawn are one elastic tick
+        out["decision_to_spawn_s"] = 0.0 if t_spawn else None
+        checks["grew_and_flipped"] = grown
+        asg = rb.ShardAssignment.load(plane)
+        out["owners"] = list(asg.owners)
+        checks["rank2_owns_a_shard"] = 2 in set(asg.owners)
+        growths = [d for d in policy.decisions if d["action"] == "grow"]
+        checks["grow_logged_with_signals"] = bool(growths) and (
+            "backlog_per_engine" in growths[-1]["signals"])
+        checks["executed"] = sup.elastic_executed >= 1
+        checks["prewarm_spawned"] = sup.prewarm_spawned == 1
+        n_rec = feeder.produced
+        # replay no more: feed out the corpus and drain
+        agg = _drain_fleet(sup, status, feeder, rings, (0, 1, 2), timeout_s,
+                           batch * 16)
+    finally:
+        sup.close()
+        if env_build is None:
+            os.environ.pop("FSX_KERNEL_BUILD", None)
+        else:
+            os.environ["FSX_KERNEL_BUILD"] = env_build
+    r2 = [rep for rep in agg["reports"] if rep.get("rank") == 2]
+    r2rep = r2[-1]["report"] if r2 else {}
+    checks["rank2_served_records"] = bool(r2rep.get("records"))
+    if device == "cuda":
+        # every kernel of rank 2 came out of the pre-warmed cache
+        cache2 = (r2rep.get("boot") or {}).get("cache") or {}
+        checks["rank2_cache_hits"] = (cache2.get("hits", 0) > 0
+                                      and cache2.get("misses", 1) == 0)
+    checks["no_failed_rank"] = (agg["failed_ranks"] == []
+                                and not any(agg["restarts"]))
+    checks["every_record_served"] = (agg["records"] == feeder.produced
+                                     and not any(agg["rings_left"]))
+    boot2 = r2rep.get("boot") or {}
+    out.update({
+        "records": {"produced": feeder.produced, "served": agg["records"],
+                    "at_grow": n_rec},
+        "rank2": {"records": r2rep.get("records"),
+                  "batches": r2rep.get("batches"),
+                  "boot": {k: boot2.get(k) for k in (
+                      "import_s", "reconcile_s", "serving_ready_s",
+                      "time_to_first_verdict_s")},
+                  "cache": boot2.get("cache")},
+        "cache_hits_rank2": (boot2.get("cache") or {}).get("hits"),
+        "elastic": {k: v for k, v in (agg.get("elastic") or {}).items()
+                    if k != "decisions"},
+        "rebalance_counters": dict(sup.rebalance_counters),
+        "rank2_rebalance": _rebalance_of(agg, 2)})
+    if mem:
+        out["card_mib_rank2_context"] = (
+            mem["free_before_grow"] - mem.get("free_rank2_serving",
+                                              mem["free_before_grow"])) / 2**20
+    out["windows"] = _rank_windows(agg)
+    checks["launch_windows"] = _windows_ok(out["windows"], device)
+    return {"ok": all(checks.values()), "checks": checks, **out}
+
+
+def rebalance_kill_retry_drive(device: str, root: str, cfg, recs,
+                               ckpt_every: float,
+                               timeout_s: float = 300.0,
+                               trickle_batches_per_s: float = 8.0) -> dict:
+    """Phase C on ``device``, then a re-attach.  The donor carries
+    ``handoff_crash_midship`` and dies halfway through its ship: the
+    supervisor aborts (the donor keeps the span), respawns it at gen 1
+    from its checkpoint (every ``ckpt_every`` s), and a retry commits.
+    Then rank 1, the recipient, is SIGKILLed right after the fence lifts,
+    this supervisor stops supervising, and a second one boots with
+    ``adopt=True``: it adopts rank 0 untouched and respawns rank 1 at
+    gen+1.  Rank 1 checkpoints only at its exit, so the adopted rows' one
+    durable copy is the staged spool: the new generation's boot-time
+    reconcile must adopt every shipped row from it (exact conservation
+    across the recipient's death after the flip).  The stop-drain then
+    accounts every generation once."""
+    from flowsentryx_tpu_torch.cluster import rebalance as rb
+    from flowsentryx_tpu_torch.cluster.mailbox import StatusBlock, status_path
+    from flowsentryx_tpu_torch.cluster.supervisor import ClusterSupervisor
+    from flowsentryx_tpu_torch.core import wire
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    total, batch = 3, cfg.batch.max_batch
+    base = os.path.join(root, "ring")
+    plane = os.path.join(root, "plane")
+    rings = _make_rings(base, total, 1 << (len(recs) - 1).bit_length())
+    specs = _fleet_specs(device, cfg, base, 3, total)
+    for r, spec in enumerate(specs):
+        spec["checkpoint"] = os.path.join(root, f"ckpt_r{r}.npz")
+    specs[0]["checkpoint_every"] = ckpt_every
+    specs[0]["handoff_crash_midship"] = True
+    t0_ns = int(recs["ts_ns"].min())
+    sup = ClusterSupervisor(plane, specs, t0_ns=t0_ns,
+                            heartbeat_timeout_s=60.0, n_live=2)
+    sup.boot()
+    status = [StatusBlock(status_path(plane, r)) for r in range(3)]
+    feeder = Feeder(plane, rings, recs, total)
+    out, checks = {}, {}
+    sup_b = None
+    try:
+        checks["serving"] = _wait_serving(sup, status, (0, 1), timeout_s)
+        feeder.feed(len(recs) // 4)
+        deadline = time.monotonic() + timeout_s
+        ck0 = specs[0]["checkpoint"]
+        while ((not os.path.exists(ck0)
+                or _served(status, (0, 1)) < feeder.produced)
+               and time.monotonic() < deadline):
+            sup.poll()
+            feeder.feed(0)
+            time.sleep(0.01)
+        # a slower trickle: it must last through two restarts
+        trickle = Trickle(feeder, trickle_batches_per_s * batch)
+        checks["donor_checkpointed"] = os.path.exists(ck0)
+        t_fence = time.perf_counter()
+        hid = sup.start_handoff([2], donor=0, recipient=1)
+        disarmed, t_dead, t_abort, t_gen1 = False, None, None, None
+        spawned = False
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            p0 = sup._procs[0]
+            if not disarmed and p0 is not None and not p0.is_alive():
+                # the corpse is seen: disarm the chaos spec before the
+                # poll that respawns it, so gen 1 ships cleanly
+                specs[0]["handoff_crash_midship"] = False
+                disarmed, t_dead = True, time.perf_counter()
+            sup.poll()
+            trickle.tick()
+            if t_abort is None and sup.rebalance_counters["aborts"]:
+                t_abort = time.perf_counter()
+            # the corpse's state reads SERVING until gen 1 stamps
+            # SPAWNING: gen 1 serves once it was seen spawning
+            st0 = status[0].ctl_get("c_state")
+            if disarmed and status[0].ctl_get("c_gen") == 1:
+                spawned = spawned or st0 == wire.CSTATE_SPAWNING
+                if spawned and st0 == wire.CSTATE_SERVING:
+                    t_gen1 = time.perf_counter()
+                    break
+            time.sleep(0.005)
+        out["crash"] = {
+            "fence_to_death_s": (t_dead - t_fence) if t_dead else None,
+            "death_to_abort_s": (t_abort - t_dead)
+            if t_abort and t_dead else None,
+            "death_to_gen1_serving_s": (t_gen1 - t_dead)
+            if t_gen1 and t_dead else None}
+        checks["donor_died_and_restarted"] = (disarmed
+                                              and sup.restarts[0] == 1
+                                              and t_gen1 is not None)
+        checks["one_abort"] = sup.rebalance_counters["aborts"] == 1
+        checks["abort_moved_nothing"] = (
+            rb.ShardAssignment.load(plane).generation == 0)
+        t = time.perf_counter()
+        hid2 = sup.start_handoff([2], donor=0, recipient=1)
+        deadline = time.monotonic() + timeout_s
+        while sup._handoff is not None and time.monotonic() < deadline:
+            sup.poll()
+            trickle.tick()
+            time.sleep(0.01)
+        out["retry"] = {"id": hid2, "fence_to_lift_s":
+                        time.perf_counter() - t}
+        checks["retry_committed"] = (sup._handoff is None
+                                     and sup.rebalance_counters["flips"] == 1)
+        checks["recipient_inserted"] = rb._phase_of(
+            status[1].ctl_get("c_handoff"), hid2) == wire.HP_INSERTED
+        spool = rb.load_spool(rb.staged_path(plane, 1))
+        out["retry"]["spool_rows"] = (None if spool is None
+                                      else int(len(spool["keys"])))
+        # the re-attach: SIGKILL rank 1, and this supervisor stops
+        # supervising; a second one adopts the live plane
+        gen0_before = status[0].ctl_get("c_gen")
+        gen1_before = status[1].ctl_get("c_gen")
+        t_kill = time.perf_counter()
+        sup.kill(1)
+        sup_b = ClusterSupervisor(plane, specs, heartbeat_timeout_s=60.0,
+                                  n_live=2)
+        sup_b.boot(adopt=True)
+        out["census"] = {"adopted": sorted(sup_b._adopted),
+                         "restarts": list(sup_b.restarts),
+                         "gens": list(sup_b._gen)}
+        checks["census"] = (sup_b._adopted == {0}
+                            and sup_b.restarts[:2] == [0, 1]
+                            and sup_b._gen[1] == gen1_before + 1
+                            and sup_b._gen[0] == gen0_before)
+        t_serving, spawned = None, False
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            sup_b.poll()
+            trickle.tick()
+            st1 = status[1].ctl_get("c_state")
+            if status[1].ctl_get("c_gen") == gen1_before + 1:
+                spawned = spawned or st1 == wire.CSTATE_SPAWNING
+                if spawned and st1 == wire.CSTATE_SERVING:
+                    t_serving = time.perf_counter() - t_kill
+                    break
+            time.sleep(0.005)
+        out["census"]["kill_to_serving_s"] = t_serving
+        checks["rank1_reserved"] = t_serving is not None
+        agg = _drain_fleet(sup_b, status, feeder, rings, (0, 1), timeout_s,
+                           batch * 4)
+    finally:
+        if sup_b is not None:
+            sup_b.close()
+        sup.close()
+    keys = [(r["rank"], r["gen"]) for r in agg["reports"]]
+    out["reports"] = sorted(keys)
+    checks["each_generation_once"] = len(set(keys)) == len(keys)
+    checks["no_failed_rank"] = agg["failed_ranks"] == []
+    checks["rank0_untouched"] = (status[0].ctl_get("c_gen") == gen0_before
+                                 and agg["adopted_ranks"] == [])
+    donor = _rebalance_of(agg, 0, gen=1)
+    g1 = [r for r in agg["reports"] if r["rank"] == 1
+          and r["gen"] == gen1_before + 1]
+    recip = _rebalance_of(agg, 1, gen=gen1_before + 1)
+    reconciled = g1[0].get("reconciled") or {} if g1 else {}
+    out["conservation"] = {
+        "rows_shipped": donor.get("rows_shipped", 0),
+        "rows_staged": sup.rebalance_counters["rows_shipped"],
+        "spool_rows": out["retry"]["spool_rows"],
+        "reconcile_adopted_rows": reconciled.get("adopted_rows"),
+        "rows_adopted": recip.get("rows_adopted", 0),
+        "adopt_dropped": recip.get("adopt_dropped", 0)}
+    checks["retry_conserved"] = (
+        donor.get("rows_shipped", 0) > 0
+        and donor.get("rows_shipped")
+        == sup.rebalance_counters["rows_shipped"]
+        == out["retry"]["spool_rows"]
+        == reconciled.get("adopted_rows")
+        and not recip.get("adopt_dropped"))
+    gen1 = [r for r in agg["reports"] if r["rank"] == 0 and r["gen"] == 1]
+    checks["gen1_restored"] = bool(gen1) and bool(gen1[0].get("restored"))
+    # the new generations served records of their own
+    checks["new_generations_served"] = all(
+        (r.get("report") or {}).get("records", 0) > 0
+        for r in agg["reports"])
+    out["rebalance_counters"] = dict(sup.rebalance_counters)
+    out["records"] = {"produced": feeder.produced, "served": agg["records"]}
+    out["windows"] = _rank_windows(agg)
+    checks["launch_windows"] = _windows_ok(out["windows"], device)
+    return {"ok": all(checks.values()), "checks": checks, **out}
+
+
+def rebalance_phases(card: str, served: dict) -> None:
+    """The self-reshaping fleet on the card: ``handoff_engine_2p20``,
+    ``rebalance_live``, ``rebalance_grow`` and ``rebalance_kill_retry``,
+    at the production table (2^20 rows, 8 probes), B=2048, K=64, the
+    default ``logreg_int8`` params, one ring per rank over 3 shards (3
+    ranks provisioned, 2 live, shard 2 folded onto rank 0), traffic of
+    BASELINE config 5 (``mixed_l34_1m``) from seed 17.  Each fleet rank's
+    launch window is its report's; ``served["launches_cluster"]`` keeps
+    them for the kernels line."""
+    import torch
+
+    from flowsentryx_tpu_torch import benchmarks
+    from flowsentryx_tpu_torch.core import wire
+    from flowsentryx_tpu_torch.core.config import FsxConfig
+    from flowsentryx_tpu_torch.engine import TrafficGen
+
+    root = os.path.join(REPO, "build", "rebalance")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    suite5 = next(sb for sb in benchmarks.scenario_suite(1.0)
+                  if sb.name.startswith("config5"))
+    spec = dataclasses.replace(suite5.traffic, seed=17)
+    cfg = FsxConfig()
+    recs = TrafficGen(spec).next_records(RB_PRE + RB_MORE)
+    windows = served.setdefault("launches_cluster", {})
+
+    def keep(name, res):
+        for k, w in res.get("windows", {}).items():
+            windows[f"{name}/{k}"] = w["launches"]
+        return res
+
+    @phase("handoff_engine_2p20")
+    def handoff_engine_phase():
+        """``handoff_engine_drive`` on the card and on the CPU: the donor
+        serves config 5's records of shards 0 and 2 (at least 200,000
+        rows, half in shard 2), the recipient those of shard 1; extract,
+        adopt and drop of shard 2 in place; 8 more batches each."""
+        sh = wire.shard_of(recs["saddr"], 3)
+        pre_sh = sh[:RB_PRE]
+        d_all = recs[(sh == 0) | (sh == 2)]
+        r_all = recs[sh == 1]
+        n_d = int(((pre_sh == 0) | (pre_sh == 2)).sum())
+        n_r = int((pre_sh == 1).sum())
+        tail = 8 * BATCH
+        args = (d_all[:n_d], r_all[:n_r], d_all[n_d:n_d + tail],
+                r_all[n_r:n_r + tail])
+        got = handoff_engine_drive("cuda", cfg, *args)
+        join_sink_threads()
+        with cpu_threads():
+            want = handoff_engine_drive("cpu", cfg, *args)
+        same = {k: got[k] == want[k] for k in (
+            "served", "digest_before", "rows_moved", "moved_digest",
+            "inserted", "dropped", "rows_dropped", "digest_after",
+            "tracked_before", "tracked_after", "tail", "after_tail")}
+        launches = got["launches"]
+        checks = {
+            **{f"equal_cpu_{k}": v for k, v in same.items()},
+            "pointers_kept": got["pointers_kept"],
+            "no_new_capture": got["no_new_capture"]
+            and got["no_new_capture_after_tail"],
+            "donor_tracks_200k": got["tracked_before"][0] >= 200_000,
+            "tracked_moved_by_the_rows": (
+                got["tracked_before"][0] - got["tracked_after"][0]
+                == got["rows_dropped"] == got["rows_moved"]
+                and got["tracked_after"][1] - got["tracked_before"][1]
+                == got["inserted"] == got["rows_moved"]),
+            "none_dropped": got["dropped"] == 0,
+            "donor_lost_the_span": got["donor_lost_the_span"],
+            "recipient_holds_the_rows": got["recipient_holds_the_rows"],
+            "score_int8_per_batch": launches["score_int8"]
+            == sum(got["dispatched"]),
+            "table_summary_per_report": launches["table_summary"]
+            == got["reports"] + got["summaries"]}
+        served["launches_handoff_engine_2p20"] = launches
+        return {"ok": all(checks.values()), "card": card, "checks": checks,
+                "rows": cfg.table.capacity, "B": cfg.batch.max_batch,
+                "rows_moved": got["rows_moved"],
+                "ms": {k[:-2]: v * 1e3 for k, v in got["times_s"].items()},
+                "cpu_ms": {k[:-2]: v * 1e3
+                           for k, v in want["times_s"].items()},
+                "tracked_before": got["tracked_before"],
+                "tracked_after": got["tracked_after"],
+                "served": got["served"], "launches": launches,
+                "dispatched": got["dispatched"]}
+
+    handoff_engine_phase()
+
+    @phase("rebalance_live")
+    def live_phase():
+        """``rebalance_live_drive`` on the card (the reference smoke's
+        phase A with card ranks)."""
+        res = keep("rebalance_live", rebalance_live_drive(
+            "cuda", os.path.join(root, "live"), cfg, recs, pre=RB_PRE))
+        return {"card": card, **res}
+
+    live_phase()
+
+    @phase("rebalance_grow")
+    def grow_phase():
+        """``rebalance_grow_drive`` on the card (phase B): the third CUDA
+        context spawned by a GROW."""
+        res = keep("rebalance_grow", rebalance_grow_drive(
+            "cuda", os.path.join(root, "grow"), cfg, recs))
+        return {"card": card, **res}
+
+    grow_phase()
+
+    @phase("rebalance_kill_retry")
+    def kill_phase():
+        """``rebalance_kill_retry_drive`` on the card (phase C, then the
+        re-attach)."""
+        res = keep("rebalance_kill_retry", rebalance_kill_retry_drive(
+            "cuda", os.path.join(root, "kill"), cfg, recs, ckpt_every=1.0))
+        return {"card": card, **res}
+
+    kill_phase()
+    torch.cuda.synchronize()
 
 
 def main() -> int:
@@ -1466,18 +2413,6 @@ def main() -> int:
     #: ``mixed_l34_1m``'s one-shot sources fill the table instead
     blk = "syn_benign_mix"
 
-    @contextlib.contextmanager
-    def cpu_threads(n=2):
-        """The plain CPU reference runs with ``n`` threads: at this size
-        torch's default pool (one per core) costs ~5x in thread
-        hand-offs (66 vs 13 ms per 2,048-record batch, measured)."""
-        prev = torch.get_num_threads()
-        torch.set_num_threads(n)
-        try:
-            yield
-        finally:
-            torch.set_num_threads(prev)
-
     class Recording(Engine):
         """Keeps a host copy of every batch it dispatches and of every
         verdict wire it sinks, in order (for the CPU replay)."""
@@ -2168,23 +3103,6 @@ def main() -> int:
             rings.append(ring)
         return [int((sh == k).sum()) for k in range(n_shards)], rings
 
-    def compute_apps():
-        """``nvidia-smi --query-compute-apps``: ``[pid, used MiB]`` per
-        context (in a container every pid may read the same, so contexts
-        are told apart by count and memory, not by pid)."""
-        out = subprocess.run(
-            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
-             "--format=csv,noheader,nounits"], capture_output=True,
-            text=True, timeout=60).stdout
-        apps = []
-        for line in out.strip().splitlines():
-            pid, _, mib = line.partition(",")
-            try:
-                apps.append([int(pid), float(mib)])
-            except ValueError:
-                continue
-        return sorted(apps)
-
     def rank_specs(base, n=2, **extra):
         return [{"device": "cuda", "cfg_json": ring_cfg.to_json(),
                  "ring_base": base, "workers": 1, "total_shards": n,
@@ -2313,14 +3231,15 @@ def main() -> int:
         the slowest rank's drain wall), each rank's device ms per batch
         and idle share at the solo per-graph device times, the card's
         idle share, card memory per context, and each rank's boot."""
-        out = {"card": card, "turns": {}, "batches": 4 * SERVE_BATCHES}
+        out = {"card": card, "turns": {},
+               "batches": CLUSTER_SERVE_DEPTH * SERVE_BATCHES}
         checks = []
         for scen in ring_scen:
-            # four times the ring phases' stream: the drain walls must
+            # a multiple of the ring phases' stream: the drain walls must
             # dwarf the ranks' start skew (a 384-batch drain takes ~0.3 s)
             long_recs = TrafficGen(TrafficSpec(
                 scenario=Scenario(scen), rate_pps=1e6, seed=SEED)
-            ).next_records(4 * SERVE_BATCHES * BATCH)
+            ).next_records(CLUSTER_SERVE_DEPTH * SERVE_BATCHES * BATCH)
             res = out["turns"][scen] = {"cluster": [], "single": []}
             costs = None
             legs = ["single", "cluster", "cluster", "single"]
@@ -4239,6 +5158,8 @@ def main() -> int:
                                      workdir=os.path.join(chaos_root, "cpu"))
         seeded = {"ckpt_truncate": "truncate_fraction",
                   "ckpt_bitflip": "flip_offsets", "engine_kill": "kill_at_s",
+                  "handoff_kill_midship": "kill_after_slots",
+                  "layout_flip_lost": "to_gen",
                   "shm_bad_magic+poison_batch+shm_seq_gap": "records"}
         by_fault = {r["fault"]: r for r in rep["faults"]}
         ref_by_fault = {r["fault"]: r for r in ref["faults"]}
@@ -4246,7 +5167,8 @@ def main() -> int:
                        for f, k in seeded.items()}
         catchers = {"split_atomicity": "sink_crash_atomicity",
                     "crc_skipped": "corrupt_ckpt_refused",
-                    "backoff_removed": "crash_loop_parks"}
+                    "backoff_removed": "crash_loop_parks",
+                    "conservation_removed": "handoff_rows_conserved"}
         plants = {p["plant"]: p["caught"] and p.get("control_holds", True)
                   and p["caught_by"] == catchers[p["plant"]]
                   for p in rep["planted_regressions"]}
@@ -4255,7 +5177,7 @@ def main() -> int:
         checks = [rep["ok"], ref["ok"], rep["device"] == "cuda",
                   all(i["ok"] for r in rep["faults"]
                       for i in r["invariants"]),
-                  len(plants) == 3 and all(plants.values()),
+                  len(plants) == len(catchers) and all(plants.values()),
                   all(same_seeded.values()), dispatched > 0,
                   launches["score_int8"] == dispatched,
                   launches["table_summary"] == reports]
@@ -4348,6 +5270,10 @@ def main() -> int:
                 "reports": got["reports"]}
 
     chaos_engine_phase()
+
+    # -- the self-reshaping fleet on the card ----------------------------------
+
+    rebalance_phases(card, served)
 
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
@@ -4727,6 +5653,8 @@ def main() -> int:
             "chaos_campaign": served.get("launches_chaos_campaign", {}),
             "chaos_engine_2p20": served.get("launches_chaos_engine_2p20",
                                             {}),
+            "handoff_engine_2p20": served.get(
+                "launches_handoff_engine_2p20", {}),
             # each cluster rank's own window, read from its report
             **served.get("launches_cluster", {})}
         for row in rows:

@@ -13,16 +13,18 @@ card its graphs are captured once); they are ordered so each leaves the
 engine in the state the next needs, ending with the watchdog wedge that
 deliberately fails it.
 
-The campaign runs the ten single-host faults of the registry and three
-of the reference's six PLANTED regressions (split-atomicity crash
-accounting, CRC-less checkpoint loads, no-backoff respawn), each of
-which PASSES only when its named invariant FAILS under it.  The
-network, handoff, layout and adopt faults and their plants need modules
-the port does not have yet; :data:`NOT_PORTED` names each with the
-roadmap item that brings it, and the artifact carries that map.  Their
-seeded draws are still made (:func:`_draw_not_ported`), in the
-reference's order, so one ``--seed`` gives the same traffic, offsets and
-kill schedule here as in the reference's campaign.
+The campaign runs the thirteen single-host faults of the registry (the
+elastic fleet's handoff, layout-flip and adopt faults among them) and
+four of the reference's six PLANTED regressions (split-atomicity crash
+accounting, CRC-less checkpoint loads, no-backoff respawn, handoff
+staging without its SEAL check), each of which PASSES only when its
+named invariant FAILS under it.  The network faults and their plants
+need the multi-host leg, which the port does not have yet;
+:data:`NOT_PORTED` names each with the roadmap item that brings it, and
+the artifact carries that map.  Their seeded draws are still made
+(:func:`_draw_not_ported`), in the reference's order, so one ``--seed``
+gives the same traffic, offsets and kill schedule here as in the
+reference's campaign.
 
 Determinism: every random choice flows from one
 ``numpy.random.default_rng(seed)``; wall-clock only bounds waits.
@@ -56,20 +58,12 @@ NOT_PORTED = {
         "net_duplicate": "ROADMAP queue 1 item 3 (multi-host gossip leg)",
         "net_loss_burst": "ROADMAP queue 1 item 3 (multi-host gossip leg)",
         "net_stale_epoch": "ROADMAP queue 1 item 3 (multi-host gossip leg)",
-        "handoff_kill_midship": "ROADMAP queue 1 item 2 (live shard "
-                                "rebalance, adopt, elastic)",
-        "layout_flip_lost": "ROADMAP queue 1 item 2 (live shard "
-                            "rebalance, adopt, elastic)",
-        "adopt_half_dead": "ROADMAP queue 1 item 2 (live shard "
-                           "rebalance, adopt, elastic)",
     },
     "plants": {
         "dup_suppression_removed": "ROADMAP queue 1 item 3 (multi-host "
                                    "gossip leg)",
         "epoch_rebase_skipped": "ROADMAP queue 1 item 3 (multi-host "
                                 "gossip leg)",
-        "conservation_removed": "ROADMAP queue 1 item 2 (live shard "
-                                "rebalance, adopt, elastic)",
     },
 }
 
@@ -659,24 +653,252 @@ def scenario_clock_jump(rng: np.random.Generator) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# elastic-fleet scenarios: a live shard handoff under its worst interruptions
+# ---------------------------------------------------------------------------
+
+def _handoff_rows(rng: np.random.Generator, n: int):
+    """``n`` occupied table rows: unique nonzero u32 keys and a full f32
+    state matrix."""
+    from flowsentryx_tpu_torch.core import wire
+
+    keys = rng.choice(np.arange(1, 1 << 20, dtype=np.uint32), n,
+                      replace=False).astype(np.uint32)
+    states = rng.random((n, wire.NUM_TABLE_COLS)).astype(np.float32)
+    return keys, states
+
+
+def scenario_handoff_kill_midship(tmp: Path,
+                                  rng: np.random.Generator) -> dict:
+    """SIGKILL a REAL donor process mid-stream: a child ships 1000 rows
+    over a real shm handoff mailbox (one slot every ~30 ms) and the
+    parent kills it at a seeded point of the stream.  The recipient must
+    refuse the unsealed stream (no STAGED ack, no row inserted) and the
+    donor's copy must still account every row (it never stopped owning
+    the span): rows in flight, nothing committed."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    import flowsentryx_tpu_torch
+    from flowsentryx_tpu_torch.cluster import rebalance as rb
+
+    keys, states = _handoff_rows(rng, 1000)
+    rows_npz = tmp / "midship_rows.npz"
+    np.savez(rows_npz, keys=keys, states=states)
+    mbx_path = str(tmp / "midship.mbx")
+    # 64-row slots: a 1000-row stream is ~16 slots, wide enough to kill
+    # inside
+    mbx = rb.HandoffMailbox.create(mbx_path, slots=64, rows_per_slot=64)
+    kill_after = int(rng.integers(2, 6))
+    child_src = (
+        "import sys, time\n"
+        "import numpy as np\n"
+        "from flowsentryx_tpu_torch.cluster import rebalance as rb\n"
+        "d = np.load(sys.argv[1])\n"
+        "mbx = rb.HandoffMailbox(sys.argv[2])\n"
+        "rb.ship_rows(mbx, d['keys'], d['states'],\n"
+        "             on_slot=lambda i, n: time.sleep(0.03))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(
+        Path(flowsentryx_tpu_torch.__file__).parent.parent)
+    child = subprocess.Popen(
+        [sys.executable, "-c", child_src, str(rows_npz), mbx_path],
+        env=env)
+    deadline = time.monotonic() + 30.0
+    while mbx.readable() < kill_after:
+        if child.poll() is not None or time.monotonic() > deadline:
+            break
+        time.sleep(0.005)
+    child.send_signal(signal.SIGKILL)
+    rc = child.wait()
+    shipped = mbx.readable()
+    # the recipient drains what arrived, then the stream stays quiet:
+    # what an unsealed stream looks like
+    recv = rb.HandoffReceiver()
+    for _ in range(10):
+        recv.drain(mbx)
+        time.sleep(0.01)
+    got_keys, _got_states = recv.rows()
+    # the donor died before the flip: its copy is the post-state
+    conserved = rb.rows_conserved((keys, states), [(keys, states)])
+    invs = [
+        check("handoff_rows_conserved",
+              conserved["ok"] and not recv.done and not recv.ok,
+              f"donor killed (rc={rc}) after {shipped} slot(s): "
+              f"stream never sealed (done={recv.done}), the "
+              f"{len(got_keys)} staged row(s) may never be inserted, "
+              f"donor copy accounts {conserved['pre_rows']} == "
+              f"{conserved['post_rows']} rows"),
+        check("fail_open_holds",
+              rc == -signal.SIGKILL and 0 < shipped < 17,
+              f"the kill landed mid-stream: {shipped} of ~17 slots "
+              "shipped, then silence — no crash leaked to the "
+              "recipient side"),
+    ]
+    return _scenario("handoff_kill_midship", invs,
+                     kill_after_slots=kill_after,
+                     shipped_slots=int(shipped))
+
+
+def scenario_layout_flip_lost(tmp: Path,
+                              rng: np.random.Generator) -> dict:
+    """Commit a REAL handoff through the REAL coordinator, then lose the
+    layout flip to one bystander rank (it never acks the new
+    generation).  The fence must NOT lift while it is missing, ticked
+    repeatedly, and must lift completely on the late ack.  The harness
+    plays the engines: their acks are plain status-block writes."""
+    del rng
+    from flowsentryx_tpu_torch.cluster import rebalance as rb
+    from flowsentryx_tpu_torch.cluster.mailbox import (
+        StatusBlock, status_path,
+    )
+    from flowsentryx_tpu_torch.cluster.runner import stub_engine_main
+    from flowsentryx_tpu_torch.cluster.supervisor import ClusterSupervisor
+    from flowsentryx_tpu_torch.core import wire
+
+    sup = ClusterSupervisor(
+        tmp / "flip_cl",
+        [{"stub_serve_s": 30.0, "workers": 1},
+         {"stub_serve_s": 30.0, "workers": 1},
+         {"stub_serve_s": 30.0, "workers": 1}],
+        entry=stub_engine_main)
+    sup.boot()
+    try:
+        st = [StatusBlock(status_path(tmp / "flip_cl", r))
+              for r in range(3)]
+        hid = sup.start_handoff([2], donor=2, recipient=0)
+        to_gen = sup._handoff["to_gen"]
+        fenced = (st[2].ctl_get("c_fence") == hid
+                  and st[0].ctl_get("c_fence") == hid)
+        # the harness plays both parties: shipped, staged
+        st[2].ctl_set("c_handoff", hid * 8 + wire.HP_SHIPPED)
+        st[0].ctl_set("c_handoff", hid * 8 + wire.HP_STAGED)
+        sup.poll()
+        committed = (sup._handoff is not None
+                     and sup._handoff["phase"] == "committing"
+                     and rb.ShardAssignment.load(
+                         tmp / "flip_cl").generation == to_gen)
+        # ranks 0 and 2 converge; rank 1's flip is lost
+        st[0].ctl_set("c_layout_ack", to_gen)
+        st[2].ctl_set("c_layout_ack", to_gen)
+        held = True
+        for _ in range(8):
+            sup.poll()
+            held = (held and sup._handoff is not None
+                    and st[0].ctl_get("c_fence") == hid)
+            time.sleep(0.01)
+        # the late ack (in a fleet: the respawn's reconcile)
+        st[1].ctl_set("c_layout_ack", to_gen)
+        sup.poll()
+        lifted = (sup._handoff is None
+                  and all(s.ctl_get("c_fence") == 0 for s in st)
+                  and sup.rebalance_counters["flips"] == 1
+                  and not rb.handoff_json_path(tmp / "flip_cl").exists())
+        owners = rb.ShardAssignment.load(tmp / "flip_cl").owners
+        invs = [
+            check("layout_flip_converges",
+                  fenced and committed and held and lifted,
+                  f"fence {hid} stamped on both parties, commit wrote "
+                  f"generation {to_gen}, the fence HELD through 8 "
+                  "ticks with rank 1's ack missing, and lifted "
+                  "completely on the late ack"),
+            check("counters_conserved",
+                  owners[2] == 0 and list(owners[:2]) == [0, 1],
+                  f"shard 2 reassigned to rank 0 exactly once "
+                  f"(owners={list(owners)})"),
+        ]
+        return _scenario("layout_flip_lost", invs, to_gen=to_gen)
+    finally:
+        sup.close()
+
+
+def scenario_adopt_half_dead(tmp: Path,
+                             rng: np.random.Generator) -> dict:
+    """Supervisor A boots a 2-rank stub fleet, rank 1 is SIGKILLed and A
+    stops supervising.  Supervisor B boots with ``adopt=True``: its
+    census must adopt rank 0 untouched (never a second consumer of a
+    span a live rank drains), respawn rank 1 at gen+1 from its
+    checkpoint, and run the fleet to completion with every generation
+    accounted once."""
+    del rng
+    from flowsentryx_tpu_torch.cluster.mailbox import (
+        StatusBlock, status_path,
+    )
+    from flowsentryx_tpu_torch.cluster.runner import stub_engine_main
+    from flowsentryx_tpu_torch.cluster.supervisor import ClusterSupervisor
+    from flowsentryx_tpu_torch.core import wire
+
+    d = tmp / "adopt_cl"
+    ck = tmp / "adopt_ck_r1.npz"
+    ck.write_bytes(b"stub flow memory")
+    # a long serve: B's stop-drain ends the scenario, so rank 0 is still
+    # serving at the census
+    specs = [{"stub_serve_s": 60.0, "workers": 1},
+             {"stub_serve_s": 60.0, "checkpoint": str(ck), "workers": 1}]
+    sup_a = ClusterSupervisor(d, specs, entry=stub_engine_main)
+    sup_a.boot()
+    st = [StatusBlock(status_path(d, r)) for r in range(2)]
+    deadline = time.monotonic() + 60.0
+    # the census judges liveness by pid AND heartbeat: wait for the first
+    # tick's c_hbeat, not just SERVING
+    while not all(s.ctl_get("c_state") == wire.CSTATE_SERVING
+                  and s.ctl_get("c_pid") and s.ctl_get("c_hbeat")
+                  for s in st):
+        if time.monotonic() > deadline:
+            raise TimeoutError("stub fleet never reached SERVING")
+        time.sleep(0.01)
+    faults.kill_process_group(sup_a._procs[1].pid)
+    sup_a._procs[1].join(timeout=10.0)  # reaped: the pid is gone
+    # supervisor A is now 'dead': it never polls again
+    sup_b = ClusterSupervisor(d, specs, entry=stub_engine_main)
+    sup_b.boot(adopt=True)
+    census_ok = (sup_b._adopted == {0} and sup_b.restarts[0] == 0
+                 and sup_b.restarts[1] == 1 and sup_b._gen[1] == 1)
+    try:
+        agg = sup_b.run(max_seconds=1.0)  # stop-drain the fleet
+    finally:
+        sup_b.close()
+        sup_a.close()
+    r1 = [r for r in agg["reports"] if r["rank"] == 1]
+    invs = [
+        check("adopt_no_second_consumer",
+              census_ok and agg.get("adopted_ranks") == [],
+              f"census adopted rank 0 untouched, respawned only the "
+              f"dead rank (restarts={sup_b.restarts}); the adopted "
+              "rank drained to DONE and left the live-adopted set"),
+        check("recovery_within_bound",
+              bool(r1) and r1[0]["gen"] == 1
+              and r1[0].get("restored") == str(ck),
+              f"rank 1 re-served as gen 1 restored from its "
+              f"checkpoint ({r1[0].get('restored') if r1 else None})"),
+        check("counters_conserved",
+              agg["failed_ranks"] == []
+              and len({(r['rank'], r['gen'])
+                       for r in agg["reports"]})
+              == len(agg["reports"]),
+              f"restarts={agg['restarts']}, latest-gen dedup held"),
+        check("fail_open_holds",
+              st[0].ctl_get("c_gen") == 0,
+              "rank 0 served start to finish as generation 0 — "
+              "adoption never touched it"),
+    ]
+    return _scenario("adopt_half_dead", invs)
+
+
+# ---------------------------------------------------------------------------
 # the reference's scenarios this campaign does not run yet
 # ---------------------------------------------------------------------------
 
 def _draw_not_ported(rng: np.random.Generator) -> None:
-    """The seeded draws of the reference's network and handoff
-    scenarios, made in the reference's order, so the engine fleet's
+    """The seeded draws of the reference's network scenarios, made in
+    the reference's order, so the handoff scenarios, the engine fleet's
     traffic and every later draw equal the reference campaign's at the
     same seed.  Each draw stands in for one scenario of
     :data:`NOT_PORTED`; the port of that scenario replaces its line."""
-    from flowsentryx_tpu_torch.core import schema
-
     rng.integers(1, 4)                     # net_loss_burst: burst index
     rng.random()                           # net_stale_epoch: injected skew
-    # handoff_kill_midship: _handoff_rows(rng, 1000), then kill_after
-    rng.choice(np.arange(1, 1 << 20, dtype=np.uint32), 1000,
-               replace=False)
-    rng.random((1000, schema.NUM_TABLE_COLS))
-    rng.integers(2, 6)
 
 
 # ---------------------------------------------------------------------------
@@ -775,6 +997,47 @@ def plant_backoff_removed(tmp: Path, rng: np.random.Generator) -> dict:
     }
 
 
+def plant_conservation_removed(tmp: Path,
+                               rng: np.random.Generator) -> dict:
+    """Delete the handoff stream's verification: stage whatever arrived
+    without checking the SEAL (the recipient's ``ok`` gate removed).  One
+    flipped payload word in flight then inserts a row the donor never
+    owned — ``handoff_rows_conserved`` must FAIL on the staged rows,
+    while the real gate (``HandoffReceiver.ok``) refuses the same tamper
+    through the stream CRC."""
+    from flowsentryx_tpu_torch.cluster import rebalance as rb
+    from flowsentryx_tpu_torch.core import wire
+
+    keys, states = _handoff_rows(rng, 256)
+    mbx = rb.HandoffMailbox.create(tmp / "plant_conserve.mbx",
+                                   slots=16, rows_per_slot=64)
+    rb.ship_rows(mbx, keys, states)
+    # one bit flips in flight: a payload word of a published, undrained
+    # ROWS cell
+    word = int(rng.integers(0, 64 * rb.ROW_WORDS))
+    mbx._cells[0][wire.HANDOFF_SLOT_HDR_WORDS + word] ^= 1
+    recv = rb.HandoffReceiver()
+    while not recv.done:
+        recv.drain(mbx)
+    control_ok = recv.done and not recv.ok and "CRC" in recv.detail
+    # plant: the ok gate removed — the staged rows insert anyway
+    conserved = rb.rows_conserved((keys, states), [recv.rows()])
+    caught = not conserved["ok"]
+    return {
+        "plant": "conservation_removed",
+        "reintroduces": "handoff staging without the SEAL "
+                        "count+CRC verification (a corrupted "
+                        "in-flight row inserts silently)",
+        "caught_by": "handoff_rows_conserved",
+        "caught": caught,
+        "control_holds": bool(control_ok),
+        "ok": caught and bool(control_ok),
+        "detail": f"payload word {word} flipped: real receiver "
+                  f"refused ({recv.detail}); unguarded staging "
+                  f"broke conservation ({conserved['detail']})",
+    }
+
+
 # ---------------------------------------------------------------------------
 # the campaign
 # ---------------------------------------------------------------------------
@@ -816,6 +1079,11 @@ def run_campaign(seed: int = 17, quick: bool = False,
     run(scenario_clock_jump, rng)
     _draw_not_ported(rng)
 
+    # the elastic fleet: handoff, flip and adopt under interruption
+    run(scenario_handoff_kill_midship, tmp, rng)
+    run(scenario_layout_flip_lost, tmp, rng)
+    run(scenario_adopt_half_dead, tmp, rng)
+
     # the real engine + fleet (one engine, three scenarios)
     n_records = 64 * (6 if quick else 24)
     eng, src, sink, recs = build_engine_fleet(tmp, rng, n_records,
@@ -831,6 +1099,7 @@ def run_campaign(seed: int = 17, quick: bool = False,
         plant_split_atomicity(),
         plant_crc_skipped(tmp, rng),
         plant_backoff_removed(tmp, rng),
+        plant_conservation_removed(tmp, rng),
     ]
 
     fault_classes = sorted({r["fault_class"] for r in results})

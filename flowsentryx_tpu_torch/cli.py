@@ -787,11 +787,6 @@ def _cmd_distill(args: argparse.Namespace) -> int:
 #: ``cluster`` flags of the reference that the port refuses by name: the
 #: paths behind them are not ported (ROADMAP queue 1).
 _CLUSTER_REFUSED = {
-    "elastic": "the self-reshaping fleet (live shard handoffs, "
-               "cluster/rebalance.py and cluster/elastic.py)",
-    "min_engines": "the autoscaler's floor (--elastic)",
-    "max_engines": "the autoscaler's ceiling (--elastic)",
-    "adopt": "re-attaching to a live plane (the supervisor's adopt path)",
     "hosts": "the multi-host gossip leg (cluster/transport.py)",
     "host_id": "the multi-host gossip leg (cluster/transport.py)",
     "gossip_listen": "the multi-host gossip leg (cluster/transport.py)",
@@ -818,9 +813,13 @@ def _cmd_cluster(args: argparse.Namespace) -> int:
     sharing only the verdict-gossip blacklist plane.  This process is
     the supervisor: it creates the plane, stamps the shared epoch,
     spawns the engines and restarts any that die from their last
-    checkpoint; it imports neither torch nor CUDA.  ``--drain`` (a port
-    addition) serves prefilled shards to exhaustion, every rank starting
-    its timed run together once all are warm."""
+    checkpoint; it imports neither torch nor CUDA.  ``--elastic``
+    provisions the plane at ``--max-engines`` and boots ``--engines`` of
+    them, the autoscaler growing, shrinking and rebalancing the live set
+    through live shard handoffs; ``--adopt`` re-attaches to a live
+    plane.  ``--drain`` (a port addition) serves prefilled shards to
+    exhaustion, every rank starting its timed run together once all are
+    warm."""
     for flag, what in _CLUSTER_REFUSED.items():
         if getattr(args, flag) not in (None, False):
             name = flag.replace("_", "-")
@@ -834,7 +833,30 @@ def _cmd_cluster(args: argparse.Namespace) -> int:
               "(unless --hosts makes it one rank of a multi-host "
               "fleet)", file=sys.stderr)
         return 1
+    # the elastic shape: the plane is provisioned at --max-engines
+    # (rings, status blocks, mailboxes) and --engines of them boot; the
+    # autoscaler moves the live set inside that envelope, so
+    # total_shards = max * W never changes and a reshape is a flip
+    if (args.min_engines is not None or args.max_engines is not None) \
+            and not args.elastic:
+        print("fsx cluster: --min-engines/--max-engines require "
+              "--elastic (they bound the autoscaler's live-rank "
+              "envelope)", file=sys.stderr)
+        return 1
     n = args.engines
+    if args.elastic:
+        n = args.max_engines or args.engines + 1
+        if n < args.engines:
+            print(f"fsx cluster: --max-engines {n} < "
+                  f"--engines {args.engines}: the initial live set "
+                  "cannot exceed the provisioned envelope",
+                  file=sys.stderr)
+            return 1
+        if (args.min_engines or 1) > args.engines:
+            print(f"fsx cluster: --min-engines {args.min_engines} > "
+                  f"--engines {args.engines}: the fleet would boot "
+                  "already below its floor", file=sys.stderr)
+            return 1
     if args.shards < n:
         print(f"fsx cluster: --shards {args.shards} cannot feed "
               f"{n} provisioned engines: every engine needs "
@@ -968,17 +990,29 @@ def _cmd_cluster(args: argparse.Namespace) -> int:
         for p in Path(cluster_dir).glob("ready_r*"):
             p.unlink()
         Path(cluster_dir, "start").unlink(missing_ok=True)
+    policy = None
+    if args.elastic:
+        from flowsentryx_tpu_torch.cluster.elastic import ElasticPolicy
+
+        policy = ElasticPolicy(min_engines=args.min_engines or 1,
+                               max_engines=n)
     sup = ClusterSupervisor(cluster_dir, specs,
-                            max_restarts=args.max_restarts)
+                            max_restarts=args.max_restarts,
+                            elastic=policy,
+                            n_live=args.engines if args.elastic else None)
     try:
-        sup.boot()
+        sup.boot(adopt=args.adopt)
     except RuntimeError as e:
-        # a live fleet already owns this plane
+        # a live fleet already owns this plane (booting over it would
+        # truncate the mmaps under its serving engines), or nothing to
+        # adopt
         print(f"fsx cluster: {e}", file=sys.stderr)
         return 1
-    print(f"fsx cluster: {n} engines x {w} worker(s), "
-          f"shards 0..{args.shards - 1}, gossip plane {cluster_dir}",
-          file=sys.stderr)
+    note = (f", elastic [{args.min_engines or 1}, {n}]"
+            if args.elastic else "")
+    print(f"fsx cluster: {args.engines} engines x {w} worker(s), "
+          f"shards 0..{args.shards - 1}, gossip plane {cluster_dir}"
+          f"{note}", file=sys.stderr)
     try:
         if args.drain:
             _start_together(sup, specs)
@@ -1761,10 +1795,29 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device of every engine; default the card "
                          "(a rank without one fails, it never serves on "
                          "the CPU unless asked)")
+    cl.add_argument("--elastic", action="store_true",
+                    help="self-reshaping fleet: provision the plane at "
+                         "--max-engines, boot --engines of them live, and "
+                         "let the autoscaler grow, shrink and rebalance "
+                         "through live shard handoffs (hysteresis and "
+                         "cooldown; every decision logged with its "
+                         "signal vector)")
+    cl.add_argument("--min-engines", type=int, default=None, metavar="N",
+                    help="autoscaler floor: never shrink the live set "
+                         "below N engines (requires --elastic; default 1)")
+    cl.add_argument("--max-engines", type=int, default=None, metavar="N",
+                    help="autoscaler ceiling and the provisioned plane: "
+                         "rings, status blocks and mailboxes for N ranks "
+                         "exist from boot, so a grow is a spawn (requires "
+                         "--elastic; default --engines + 1; --shards must "
+                         "divide by it)")
+    cl.add_argument("--adopt", action="store_true",
+                    help="re-attach to a LIVE plane instead of refusing "
+                         "it: census the ranks from their status blocks "
+                         "(serving ranks keep serving, dead ranks "
+                         "respawn from their checkpoints)")
     for flag, what in _CLUSTER_REFUSED.items():
-        cl.add_argument("--" + flag.replace("_", "-"),
-                        action="store_true" if flag in ("elastic", "adopt")
-                        else "store", default=None,
+        cl.add_argument("--" + flag.replace("_", "-"), default=None,
                         help=f"refused: {what} is not ported")
     cl.set_defaults(fn=_cmd_cluster)
 

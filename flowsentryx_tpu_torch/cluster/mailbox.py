@@ -160,10 +160,14 @@ class StatusBlock:
         "c_batches": wire.STATUS_BATCHES_OFFSET,
         "c_records": wire.STATUS_RECORDS_OFFSET,
         "c_pid": wire.STATUS_PID_OFFSET,
+        "c_handoff": wire.STATUS_HANDOFF_OFFSET,
+        "c_layout_ack": wire.STATUS_LAYOUT_ACK_OFFSET,
         "c_stop": wire.STATUS_STOP_OFFSET,
         "c_gen": wire.STATUS_GEN_OFFSET,
         "c_t0": wire.STATUS_T0_OFFSET,
         "c_t0_wall": wire.STATUS_T0_WALL_OFFSET,
+        "c_layout_gen": wire.STATUS_LAYOUT_GEN_OFFSET,
+        "c_fence": wire.STATUS_FENCE_OFFSET,
     }
 
     def __init__(self, path: str | Path):

@@ -10,11 +10,14 @@ writing its :class:`~flowsentryx_tpu_torch.engine.engine.EngineReport`
 as JSON where the supervisor aggregates it.  A rank's CUDA context is
 its own: the supervisor spawns it and never touches the card.
 
+:func:`prewarm_main` builds an elastic fleet's kernels into the compile
+cache at boot, for the spares a GROW spawns later.
+
 :func:`stub_engine_main` speaks the same status-block protocol but boots
 in milliseconds and imports no torch: the supervisor's restart machinery
 is tested against it on the CPU.
 
-Both are ``spawn`` targets and move into their own process group first:
+All three are ``spawn`` targets and move into their own process group first:
 the engine's drain workers inherit it, so the supervisor can ``killpg``
 a crashed engine's whole tree (an orphaned worker still consuming a
 ring shard would be a second consumer once the replacement boots).
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 import traceback
 from pathlib import Path
@@ -144,9 +148,18 @@ def _serve(spec: dict, plane: GossipPlane) -> None:
     restore_info = None
     if spec.get("restore"):
         restore_info = eng.restore(spec["restore"])
-    # (the reference reconciles and steps its live-rebalance hooks here
-    # and between run chunks; they come back with cluster/rebalance.py,
-    # ROADMAP queue 1)
+    # the live-rebalance hooks (cluster/rebalance.py): the boot-time
+    # reconcile first (adopt a committed but uninserted spool, drop the
+    # rows the committed layout gave away: the two deaths after a flip),
+    # then the handoff state machine between run chunks below
+    from flowsentryx_tpu_torch.cluster.rebalance import EngineRebalancer
+
+    rebalancer = EngineRebalancer(
+        spec["cluster_dir"], rank, plane.status,
+        crash_midship=bool(spec.get("handoff_crash_midship")))
+    t_rec = time.perf_counter()
+    reconciled = rebalancer.reconcile(eng)
+    eng.boot_reconcile_s = time.perf_counter() - t_rec
     eng.warm(tiered=bool(spec.get("tiered_warm")))
     if spec.get("ready_token"):
         Path(spec["ready_token"]).touch()
@@ -172,19 +185,27 @@ def _serve(spec: dict, plane: GossipPlane) -> None:
         source.set_t0(eng.batcher.t0_ns)
         source.request_stop()
         rep = eng.run()
+        runs = 1
         plane.note_progress(rep.batches, rep.records)
     else:
+        runs = 0
         while True:
             rep = eng.run(max_seconds=chunk_s)
+            runs += 1
             plane.note_progress(rep.batches, rep.records)
+            rebalancer.step(eng)
             if next_ckpt is not None and time.monotonic() >= next_ckpt:
                 eng.checkpoint(ckpt)
+                # the checkpoint now holds any adopted rows: the staged
+                # spool (their durable copy until this save) goes
+                rebalancer.note_checkpointed()
                 next_ckpt = time.monotonic() + every
             if plane.stop_requested():
                 # drain-on-stop: the workers empty their shards, the
                 # engine serves the tail, then the rank exits
                 source.request_stop()
                 rep = eng.run()
+                runs += 1
                 plane.note_progress(rep.batches, rep.records)
                 break
             if source.exhausted():
@@ -216,13 +237,66 @@ def _serve(spec: dict, plane: GossipPlane) -> None:
         out = {
             "rank": rank, "n_engines": n, "gen": spec.get("gen", 0),
             "restored": restore_info,
+            "reconciled": reconciled,
             "pid": os.getpid(),
+            # this rank's launch window and its run() calls (one report,
+            # so one table_summary, each)
             "launches": launches,
+            "runs": runs,
             "report": rep._asdict(),
         }
         p = Path(spec["report_path"])
         p.parent.mkdir(parents=True, exist_ok=True)
         p.write_text(json.dumps(out, indent=2) + "\n")
+
+
+def prewarm_main(spec: dict) -> int:
+    """One-shot fleet pre-warm: build the fleet's staged geometry into
+    the compile cache, so that a later GROW spare (or a crash respawn)
+    loads every kernel from it instead of running ``nvcc`` while the
+    burst it was spawned for lands.  The supervisor spawns it at an
+    elastic fleet's boot when the specs carry ``compile_cache``; the
+    spares share the ranks' spec, so one child with an empty source
+    covers them all: ``warm()`` the full ladder, then exit.  Best effort:
+    the fleet never waits on it, and if it fails a spare builds its
+    kernels itself."""
+    _own_process_group()
+    try:
+        import numpy as np
+
+        from flowsentryx_tpu_torch.core import wire
+        from flowsentryx_tpu_torch.core.config import FsxConfig
+        from flowsentryx_tpu_torch.engine import Engine, NullSink
+        from flowsentryx_tpu_torch.engine.sources import ArraySource
+
+        device = spec.get("device", "cuda")
+        cfg = FsxConfig.from_json(spec["cfg_json"])
+        params = None
+        if spec.get("artifact"):
+            from flowsentryx_tpu_torch.models.registry import load_artifact
+
+            params = load_artifact(cfg.model.name, spec["artifact"], device)
+        eng = Engine(
+            cfg, ArraySource(np.empty(0, wire.FLOW_RECORD_DTYPE)),
+            NullSink(),
+            params=params,
+            device=device,
+            mega_n=spec.get("mega") or 0,
+            device_loop=spec.get("device_loop", 0),
+            slo_us=spec.get("slo_us") or 0,
+            sink_thread=False,
+            compile_cache=spec["compile_cache"],
+        )
+        eng.warm()
+        rep = eng._cache.report() if eng._cache is not None else {}
+        print(f"fsx cluster prewarm: cache ready at {rep.get('dir')} "
+              f"(stores {rep.get('stores', 0)}, hits "
+              f"{rep.get('hits', 0)}): GROW spares load from it",
+              file=sys.stderr)
+        return 0
+    except BaseException:  # noqa: BLE001 — best effort, announced
+        traceback.print_exc()
+        return 1
 
 
 def stub_engine_main(spec: dict) -> int:

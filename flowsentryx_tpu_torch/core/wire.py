@@ -342,11 +342,37 @@ WIRE_ID_COMPACT16 = 1
 SHM_GOSSIP_MAGIC = 0x465358474F535331   # "FSXGOSS1"
 GOSSIP_SLOT_HDR_WORDS = 4
 
+#: Live shard-handoff mailbox (``cluster/rebalance.py``): the gossip
+#: mailbox's SPSC geometry with row payloads.  Each slot is a 4-word u32
+#: header (seq lo/hi, row count, slot kind) and ``rows_per_slot`` packed
+#: table rows of ``1 + NUM_TABLE_COLS`` u32 words (the key, then the f32
+#: state columns bit-cast); ``row_words`` rides the file header's 4th
+#: u64.  The stream ends with one SEAL slot carrying the total row count
+#: (u64 split) and a CRC32 of the shipped bytes in ship order.
+SHM_HANDOFF_MAGIC = 0x4653584844464631  # "FSXHDFF1"
+HANDOFF_SLOT_HDR_WORDS = 4
+HANDOFF_KIND_ROWS = 0
+HANDOFF_KIND_SEAL = 1
+
+#: Engine-side handoff phase acks, written to ``STATUS_HANDOFF_OFFSET``
+#: as ``handoff_id * 8 + HP_*``.
+HP_SHIPPED = 1     # donor: span rows published and sealed
+HP_STAGED = 2      # recipient: stream verified and spooled crash-safe
+HP_DROPPED = 3     # donor: observed the flip, span rows dropped
+HP_INSERTED = 4    # recipient: observed the flip, staged rows inserted
+
+#: State columns of one table row and their names (``schema.TableCol``
+#: in order; the checkpoint's ``table_<name>`` members), for the
+#: numpy-only handoff and checkpoint readers.
+TABLE_COLUMN_NAMES = (
+    "last_seen", "win_start", "win_pps", "win_bps", "prev_pps", "prev_bps",
+    "tokens", "tok_ts", "tok_bytes", "rec_seen", "ml_votes",
+    "blocked_until")
+NUM_TABLE_COLS = len(TABLE_COLUMN_NAMES)
+
 #: Per-engine cluster status block (supervisor <-> engine lifecycle).
 #: One writer side per field, split by writer onto cache lines: the
 #: engine writes the line at 64.., the supervisor the line at 128...
-#: Offsets 104, 112, 160 and 168 belong to the reference's shard
-#: handoff (not ported) and are never written here.
 SHM_STATUS_MAGIC = 0x4653585354415431   # "FSXSTAT1"
 SHM_STATUS_SIZE = 192
 STATUS_RANK_OFFSET = 8                  # u64, creator-written geometry
@@ -356,11 +382,22 @@ STATUS_STATE_OFFSET = 72                # u64 CSTATE_*
 STATUS_BATCHES_OFFSET = 80              # u64 batches served
 STATUS_RECORDS_OFFSET = 88              # u64 records served
 STATUS_PID_OFFSET = 96                  # u64 engine process id
+#: The engine's handoff ack, ``handoff_id * 8 + HP_*`` (0: none).
+STATUS_HANDOFF_OFFSET = 104
+#: The last shard-assignment generation the engine converged on (the
+#: supervisor lifts a fence once every live rank's ack matches).
+STATUS_LAYOUT_ACK_OFFSET = 112
 # supervisor-written line
 STATUS_STOP_OFFSET = 128                # u64 drain-and-exit request
 STATUS_GEN_OFFSET = 136                 # u64 restart generation
 STATUS_T0_OFFSET = 144                  # u64 shared cluster epoch (ns)
 STATUS_T0_WALL_OFFSET = 152             # u64 CLOCK_REALTIME ns at t0
+#: The current shard-assignment generation, stamped on every rank after
+#: the matching ``layout.json`` is published (the flip rule).
+STATUS_LAYOUT_GEN_OFFSET = 160
+#: The active handoff id: nonzero fences the moving shards (producers
+#: route none of their new records until the flip or the abort).
+STATUS_FENCE_OFFSET = 168
 
 CSTATE_SPAWNING = 1
 CSTATE_SERVING = 2

@@ -241,6 +241,11 @@ class EngineReport(NamedTuple):
     #: The gossip plane's accounting (:meth:`~flowsentryx_tpu_torch
     #: .cluster.gossip.GossipPlane.report`); None outside cluster serving.
     cluster: dict | None = None
+    #: The live-rebalance audit (``cluster/rebalance.py``): rows shipped,
+    #: adopted and dropped after a flip, handoffs donated and adopted,
+    #: refused streams, staged discards, boot-time foreign-row drops.
+    #: None until a handoff touches this engine.
+    rebalance: dict | None = None
 
 
 class _InFlight(NamedTuple):
@@ -575,6 +580,10 @@ class Engine:
         self.metrics = PipelineMetrics()
         self._lat = LatencyRecorder()
         self._restore_fallbacks = 0
+        #: The live-rebalance counters (``cluster/rebalance.py`` drives
+        #: the quiescent span methods; ``engine/health.py`` folds the
+        #: loss-shaped ones into DEGRADED).  Written between runs only.
+        self._rebalance: dict[str, int] = {}
         self._d2h_bytes = 0
         self._sink_compact = 0
         self._sink_fallback = 0
@@ -660,6 +669,9 @@ class Engine:
         #: Import wall of the engine stack, stamped by the caller that
         #: measured it (the engine cannot observe its own import).
         self.boot_import_s = 0.0
+        #: Seconds of the cluster runner's boot-time reconcile, when one
+        #: ran (the runner sets it, as it sets ``boot_import_s``).
+        self.boot_reconcile_s: float | None = None
 
     def _new_batcher(self, t0_ns: int) -> MicroBatcher:
         # a batcher buffer may be reused only after its batch is staged:
@@ -2054,6 +2066,82 @@ class Engine:
         self._set_t0(ck.t0_ns)
         return info
 
+    # -- live shard handoff (cluster/rebalance.py) ---------------------------
+    #
+    # All three are quiescent, as checkpoint() and restore() are: the
+    # rebalancer calls them between runs.  They read the table through one
+    # host fetch and write it back IN PLACE (``copy_`` into the engine's
+    # own tensors), so every captured graph, rung and drain-ring round
+    # keeps the table it holds by address.  Keys are u32 bit patterns in
+    # int32: viewed as uint32 before the shard rule, back to int32 to
+    # write.  The park row is never shipped, probed or written.
+
+    def count_rebalance(self, name: str, n: int = 1) -> None:
+        self._rebalance[name] = self._rebalance.get(name, 0) + int(n)
+
+    def _quiescent_table(self, what: str) -> tuple[np.ndarray, np.ndarray]:
+        if self._inflight or self._pending:
+            raise RuntimeError(f"{what} with batches in flight")
+        if self._cuda:
+            # nothing on any stream: the copy stream's uploads and the
+            # sink's readbacks included
+            torch.cuda.synchronize(self.device)
+        return schema.table_to_numpy(self.table)
+
+    def _write_table(self, key: np.ndarray, state: np.ndarray) -> None:
+        self.table.key.copy_(torch.from_numpy(
+            np.ascontiguousarray(key, np.uint32).view(np.int32)))
+        self.table.state.copy_(torch.from_numpy(
+            np.ascontiguousarray(state, np.float32)))
+        if self._cuda:
+            torch.cuda.synchronize(self.device)
+
+    @staticmethod
+    def _span_mask(key: np.ndarray, shards, total_shards: int
+                   ) -> np.ndarray:
+        return (key != 0) & np.isin(schema.shard_of(key, total_shards),
+                                    np.asarray(list(shards), np.uint32))
+
+    def extract_span_rows(
+        self, shards, total_shards: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Occupied ``(keys, states)`` of the given ring shards (the
+        producers' ``shard_of`` over the table keys, which are the folded
+        sources).  A pure read: the donor serves the span until the flip."""
+        key, state = self._quiescent_table("extract_span_rows")
+        sel = self._span_mask(key, shards, total_shards)
+        return key[sel].copy(), state[sel].copy()
+
+    def drop_span_rows(self, shards, total_shards: int) -> int:
+        """Zero every row of the given ring shards (the donor after the
+        flip, or the boot-time foreign-row reconcile).  Returns the
+        count."""
+        key, state = self._quiescent_table("drop_span_rows")
+        sel = self._span_mask(key, shards, total_shards)
+        n = int(np.sum(sel))
+        if n:
+            key[sel] = 0
+            state[sel] = 0.0
+            self._write_table(key, state)
+        return n
+
+    def adopt_rows(self, keys, states) -> tuple[int, int]:
+        """Probe-insert handed-off rows into the live table
+        (:func:`~.table.insert_rows`, one shard).  Returns ``(inserted,
+        dropped)``: a dropped row (its key already live, or its probes
+        exhausted) is the caller's to count, never silent."""
+        keys = np.asarray(keys, np.uint32).reshape(-1)
+        if not len(keys):
+            return 0, 0
+        key, state = self._quiescent_table("adopt_rows")
+        tcfg = self.cfg.table
+        plan = tbl.TablePlan(capacity=tcfg.capacity, n_shards=1,
+                             salt=tcfg.salt, probes=tcfg.probes)
+        key, state, dropped = tbl.insert_rows(key, state, keys, states,
+                                              plan)
+        self._write_table(key, state)
+        return len(keys) - dropped, dropped
+
     def _build_report(self, wall: float) -> EngineReport:
         table_sum = kernels.table_summary(self.table, now=self._device_now,
                                           stale_s=self.cfg.table.stale_s)
@@ -2171,11 +2259,13 @@ class Engine:
             health=health.engine_health(
                 ingest=ingest, gossip=cluster,
                 watchdog=self._watchdog.to_dict(),
-                restore_fallbacks=self._restore_fallbacks),
+                restore_fallbacks=self._restore_fallbacks,
+                rebalance=self._rebalance or None),
             predict=predict,
             escalation=escalation,
             boot=self._boot_report(),
             cluster=cluster,
+            rebalance=dict(self._rebalance) or None,
         )
 
     def _boot_report(self) -> dict | None:
@@ -2190,6 +2280,10 @@ class Engine:
         if self._cache is not None:
             rep["cache"] = self._cache.report()
         rep["import_s"] = round(self.boot_import_s, 4)
+        if self.boot_reconcile_s is not None:
+            # a cluster rank's boot-time reconcile (cluster/rebalance.py):
+            # a full host fetch of the table, on the path to serving
+            rep["reconcile_s"] = round(self.boot_reconcile_s, 4)
         rep["time_to_first_verdict_s"] = (
             round(self._first_verdict_s, 4)
             if self._first_verdict_s is not None else None)

@@ -1,7 +1,8 @@
 """The cluster tier of the partition rule: which engine owns a source.
 
 Counterpart of the numpy half of ``flowsentryx_tpu/parallel/layout.py``
-(``cluster_rank_of``, ``ClusterLayout``).  The daemon fans records over
+(``cluster_rank_of``, ``ClusterLayout``, and the elastic fleet's
+``assigned_rank_of``/``assigned_ring_of``).  The daemon fans records over
 ``n_engines * workers_per_engine`` ring shards by
 :func:`~flowsentryx_tpu_torch.core.wire.shard_of`, and engine ``r``
 drains the contiguous span ``[r*w, (r+1)*w)`` end to end, so a source's
@@ -62,3 +63,26 @@ class ClusterLayout:
         """Which of these sources this engine owns."""
         return (cluster_rank_of(saddr, self.n_engines,
                                 self.workers_per_engine) == self.rank)
+
+
+def assigned_rank_of(saddr, owners, w: int = 1) -> np.ndarray:
+    """Owner engine of each folded source under a live shard assignment
+    (``cluster/rebalance.py``'s ``ShardAssignment.owners``): the hash
+    rule of :func:`cluster_rank_of` with the versioned shard -> rank map
+    in place of ``shard // w``.  At generation 0 it is
+    :func:`cluster_rank_of`; ``w`` is unused (the owners are the
+    route)."""
+    del w
+    owners = np.asarray(owners, np.int64)
+    return owners[shard_of(saddr, len(owners)).astype(np.int64)]
+
+
+def assigned_ring_of(saddr, owners, w: int) -> np.ndarray:
+    """The ring a producer writes each record to under a live
+    assignment: the owner's physical span (rank ``owners[s]`` drains
+    rings ``[owners[s]*w, (owners[s]+1)*w)`` for good; ownership is what
+    moves), at the shard's lane ``s % w`` within it, so a flow's records
+    stay in order across a flip."""
+    owners = np.asarray(owners, np.int64)
+    s = shard_of(saddr, len(owners)).astype(np.int64)
+    return owners[s] * int(w) + s % int(w)

@@ -150,3 +150,44 @@ SUPERVISOR_DRAIN_TIMEOUT_S = 60.0
 
 #: ``ClusterSupervisor.close``: join each child this long, then SIGKILL.
 SUPERVISOR_CLOSE_TIMEOUT_S = 10.0
+
+# -- the elastic fleet (cluster/elastic.py, cluster/rebalance.py) -------------
+
+#: Autoscaler decision cadence: the supervisor samples the signal vector
+#: (ring backlog, record-rate skew) once per tick.  2 s sits between the
+#: supervisor's poll (one dispatch burst would read as load) and the
+#: report cadence (a backlog grows by millions of records a minute).
+ELASTIC_TICK_S = 2.0
+
+#: A grow, shrink or rebalance signal must hold this many consecutive
+#: ticks before the policy emits a plan: one checkpoint stall or a
+#: capture does not move the fleet, a real ramp waits ~6 s.
+ELASTIC_HYSTERESIS_TICKS = 3
+
+#: Quiet enforced after an executed plan, so the fleet shows its effect
+#: before the next decision; suppressed decisions are counted and logged.
+ELASTIC_COOLDOWN_S = 10.0
+
+#: Grow when the mean ring backlog per live engine exceeds this many
+#: records (several batches of pressure, not jitter).
+ELASTIC_GROW_BACKLOG = 8192
+
+#: Shrink when every live engine's backlog stays under this (sub-batch:
+#: idle) and the fleet is above its floor.
+ELASTIC_SHRINK_BACKLOG = 64
+
+#: Rebalance (half the hottest rank's span to the coldest) when the
+#: max/mean record-rate skew across live ranks exceeds this.
+ELASTIC_SKEW_RATIO = 2.0
+
+#: Donor-side ship bound (``rebalance.ship_rows``): a mailbox full for
+#: this long means the recipient stopped draining; the handoff then
+#: aborts and the donor keeps the span.
+HANDOFF_SHIP_TIMEOUT_S = 30.0
+
+#: Supervisor-side bound on a whole handoff (fence to every ack); past
+#: it the supervisor aborts, which is always safe before the flip.
+HANDOFF_TIMEOUT_S = 60.0
+
+#: Bound of each side of the UDP handoff leg (``rebalance.NetHandoff``).
+NET_HANDOFF_TIMEOUT_S = 10.0

@@ -8,16 +8,17 @@ chaos``) against the JAX package's, on the CPU.
   package's ``SealedBatchQueue``;
 * both packages' ``_tiny_snapshot`` files are the same bytes (bar the
   zip members' timestamps), so ``flip_bytes`` flips the same offsets;
-* each of the nine ported scenario functions, given a fresh
+* each of the twelve ported scenario functions, given a fresh
   ``default_rng(seed)``, gives the reference's fault name, invariant
   names and verdicts and seeded fields — the slot scenario also the same
   ``records``, injections and sink blacklist, the port's engine on
-  ``device="cpu"``;
-* the three ported plants are caught by their invariants and their
-  controls hold;
+  ``device="cpu"``, the handoff child shipping with the port's
+  ``ship_rows``;
+* the four ported plants are caught by their invariants and their
+  controls hold (``conservation_removed`` with the reference's detail);
 * ``cli chaos --quick --device cpu --json`` (the port's
   ``run_campaign(seed=17, quick=True, device="cpu")``) exits 0, is
-  ``ok``, names the twelve faults and plants it does not run, keeps the
+  ``ok``, names the eight faults and plants it does not run, keeps the
   reference's artifact keys, and its seeded fields — and the generator's
   state where the engine fleet draws its traffic seed — equal the
   reference's ``run_campaign(seed=17, quick=True)``.
@@ -49,16 +50,21 @@ from flowsentryx_tpu_torch.engine import shm
 REPO = Path(__file__).resolve().parents[1]
 SEED = 17
 
-#: The faults whose scenarios the port runs (the registry's first ten).
+#: The faults whose scenarios the port runs (the registry's first ten and
+#: the elastic fleet's three).
 PORTED_FAULTS = ("engine_kill", "crash_loop", "ckpt_bitflip", "ckpt_truncate",
                  "shm_bad_magic", "shm_seq_gap", "poison_batch",
-                 "gossip_stall_flood", "clock_jump", "sink_wedge")
+                 "gossip_stall_flood", "clock_jump", "sink_wedge",
+                 "handoff_kill_midship", "layout_flip_lost",
+                 "adopt_half_dead")
 
 #: Per scenario, the result fields a seed fixes (timings excluded).
 SEEDED = {"ckpt_truncate": ("truncate_fraction",),
           "ckpt_bitflip": ("flip_offsets",),
           "engine_kill": ("kill_at_s",),
           "crash_loop": ("restarts",),
+          "handoff_kill_midship": ("kill_after_slots",),
+          "layout_flip_lost": ("to_gen",),
           "shm_bad_magic+poison_batch+shm_seq_gap": ("records", "injections")}
 
 
@@ -253,7 +259,7 @@ def test_tiny_snapshot_bytes_equal_reference(tmp_path, salt):
 
 
 # ---------------------------------------------------------------------------
-# the nine scenario functions, each from a fresh generator
+# the twelve scenario functions, each from a fresh generator
 # ---------------------------------------------------------------------------
 
 def _table_and_stats(eng) -> tuple:
@@ -281,6 +287,10 @@ def _scenarios(mod, tmp: Path, engine_kw: dict) -> dict:
         "crash_loop": mod.scenario_crash_loop(tmp, rng()),
         "gossip_stall_flood": mod.scenario_gossip_stall_flood(tmp, rng()),
         "clock_jump": mod.scenario_clock_jump(rng()),
+        "handoff_kill_midship": mod.scenario_handoff_kill_midship(
+            tmp, rng()),
+        "layout_flip_lost": mod.scenario_layout_flip_lost(tmp, rng()),
+        "adopt_half_dead": mod.scenario_adopt_half_dead(tmp, rng()),
     }
     eng, src, sink, recs = mod.build_engine_fleet(tmp, rng(), 64 * 6,
                                                   **engine_kw)
@@ -306,8 +316,9 @@ def scenario_pairs(tmp_path_factory, two_threads):
 
 @pytest.mark.parametrize("name", [
     "ckpt_truncate", "ckpt_bitflip", "engine_kill", "crash_loop",
-    "gossip_stall_flood", "clock_jump", "slot_corruption", "ckpt_fallback",
-    "watchdog"])
+    "gossip_stall_flood", "clock_jump", "handoff_kill_midship",
+    "layout_flip_lost", "adopt_half_dead", "slot_corruption",
+    "ckpt_fallback", "watchdog"])
 def test_scenario_equals_reference(scenario_pairs, name):
     got, want = scenario_pairs
     _assert_same_scenario(got[name], want[name])
@@ -334,7 +345,8 @@ def test_slot_scenario_state_equals_reference(scenario_pairs):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("plant", ["split_atomicity", "crc_skipped",
-                                   "backoff_removed"])
+                                   "backoff_removed",
+                                   "conservation_removed"])
 def test_plant_is_caught(tmp_path, plant):
     fn = getattr(campaign, f"plant_{plant}")
     res = (fn() if plant == "split_atomicity"
@@ -344,8 +356,15 @@ def test_plant_is_caught(tmp_path, plant):
     assert res.get("control_holds", True)
     ref = {"split_atomicity": "sink_crash_atomicity",
            "crc_skipped": "corrupt_ckpt_refused",
-           "backoff_removed": "crash_loop_parks"}
+           "backoff_removed": "crash_loop_parks",
+           "conservation_removed": "handoff_rows_conserved"}
     assert res["caught_by"] == ref[plant]
+    if plant == "conservation_removed":
+        # the same rows and the same flipped word as the reference's
+        (tmp_path / "ref").mkdir()
+        want = jcampaign.plant_conservation_removed(
+            tmp_path / "ref", np.random.default_rng(SEED))
+        assert res["detail"] == want["detail"]
 
 
 # ---------------------------------------------------------------------------
@@ -385,8 +404,9 @@ def test_campaign_names_what_it_does_not_run(port_campaign, ref_campaign):
     rep = json.loads(port_campaign[1])
     ref, _ = ref_campaign
     assert ref["ok"]
-    assert len(rep["not_ported"]["faults"]) == 9
-    assert len(rep["not_ported"]["plants"]) == 3
+    assert len(rep["not_ported"]["faults"]) == 6
+    assert len(rep["not_ported"]["plants"]) == 2
+    assert all(f.startswith("net_") for f in rep["not_ported"]["faults"])
     ran = {f for r in rep["faults"] for f in r["fault"].split("+")}
     ref_ran = {f for r in ref["faults"] for f in r["fault"].split("+")}
     assert ran - {"ckpt_fallback"} == set(PORTED_FAULTS)

@@ -1288,3 +1288,39 @@ def test_chaos_campaign_on_card(cuda, tmp_path):
     assert rep["ok"], [(r["fault"], i) for r in rep["faults"]
                        for i in r["invariants"] if not i["ok"]]
     assert all(p["ok"] for p in rep["planted_regressions"])
+
+
+def test_handoff_in_place_under_graphs_equals_cpu(cuda):
+    """``chip_smoke.handoff_engine_drive`` at 2^16 rows: a donor and a
+    recipient engine on the card (graphs captured at ``warm()``) hand
+    shard 2 of 3 over in place — extract, adopt, drop — and serve 8 more
+    batches each through the same graphs.  The table pointers hold, no
+    graph is captured, and every table, count and the tails' stats,
+    blacklists and digests equal the CPU engines' on the same records."""
+    import sys
+
+    sys.path.insert(0, str(ART.parent))
+    import chip_smoke
+
+    cfg = config.FsxConfig(table=config.TableConfig(capacity=1 << 16))
+    recs = TrafficGen(TrafficSpec(
+        scenario=Scenario.MIXED_L34_1M, rate_pps=1e7, n_attack_ips=1024,
+        n_benign_ips=4096, attack_fraction=0.8, seed=17)).next_records(
+            16 * 2048)
+    sh = schema.shard_of(recs["saddr"], 3)
+    d, r = recs[(sh == 0) | (sh == 2)], recs[sh == 1]
+    tail = 8 * 2048
+    args = (d[:-tail], r[:-tail], d[-tail:], r[-tail:])
+    got = chip_smoke.handoff_engine_drive("cuda", cfg, *args)
+    chip_smoke.join_sink_threads()
+    want = chip_smoke.handoff_engine_drive("cpu", cfg, *args)
+    assert got["pointers_kept"] and got["no_new_capture"]
+    assert got["no_new_capture_after_tail"]
+    assert got["rows_moved"] > 0 and got["dropped"] == 0
+    assert got["tracked_after"][1] - got["tracked_before"][1] \
+        == got["inserted"] == got["rows_moved"]
+    for k in ("served", "digest_before", "rows_moved", "moved_digest",
+              "inserted", "dropped", "rows_dropped", "digest_after",
+              "tracked_before", "tracked_after", "tail", "after_tail"):
+        assert got[k] == want[k], k
+    assert got["launches"]["score_int8"] == sum(got["dispatched"])
