@@ -159,8 +159,9 @@ more.
     equal to the CPU replay at its index), in turns with drains that
     swap nothing (records/s); and raw48 ``mlp_robust.npz`` swapped for
     the family's default ``PRNGKey(0)`` params against the CPU engine.
-24. ``sim_kernel_tier``: ``mixed_l34_1m`` through the simulated kernel
-    tier of the committed plan ``artifacts/logreg_int8_plan.npz``: the
+24. ``sim_kernel_tier``: ``SIM_TIER_BATCHES`` x 2,048 records of
+    ``mixed_l34_1m`` through the simulated kernel tier of the committed
+    plan ``artifacts/logreg_int8_plan.npz``: the
     escalation block equals the CPU engine's with the tier, the state
     equals the CPU engine fed the batches the card dispatched,
     ``score_int8`` launches equal those batches; records/s and the
@@ -349,7 +350,17 @@ more.
     generation adopting every shipped row from the spool, each
     generation once at the stop-drain.  Each rank's launch window (its
     report's): ``score_int8`` once per batch, ``table_summary`` once per
-    run.
+    run.  51. ``multihost_fleet`` (``multihost_drive``): two loopback
+    hosts (``ClusterSupervisor(net=...)``, host 1 a process of its own
+    booted 2 s later) of 2 card ranks each at 2^20 rows, B=2048, over one
+    ``syn_benign_mix`` stream split by IP-hash over 4 shards, 192 batches
+    per rank, gossiping within a host over shm and across hosts over UDP
+    (epoch-rebased): records served, every key one host blocked in the
+    other host's canonical maps with the originator's ``until_wall_us``,
+    each host's union digest equal to the fleet's, ``rx_dup`` and
+    ``epoch_skew_dropped`` 0; then host 1's supervisor and ranks are
+    SIGKILLed and host 0's federation announces it dead within 6 s, the
+    fleet FAILED (``hosts_dead:1``) and host 0's ranks alive.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -379,6 +390,7 @@ import hashlib
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -397,6 +409,10 @@ SERVE_BATCHES = 384
 #: ``cluster_serve``'s stream, in SERVE_BATCHES: short enough that the
 #: whole script, the elastic fleet's phases included, stays under ~780 s
 CLUSTER_SERVE_DEPTH = 2
+#: ``sim_kernel_tier``'s stream (the simulated tier and its CPU twin run
+#: at ~56 k records/s on the host): half of SERVE_BATCHES since the
+#: multi-host phase came, 384 before
+SIM_TIER_BATCHES = SERVE_BATCHES // 2
 CROSS_BATCHES = 48
 GRAPH_BATCHES = 24
 MEGA_BATCHES = 23 * 8 + 6      # top-rung groups, then a 4 and a 2
@@ -1498,6 +1514,374 @@ def rebalance_phases(card: str, served: dict) -> None:
 
     kill_phase()
     torch.cuda.synchronize()
+
+
+# -- the multi-host fleet: two loopback hosts, UDP gossip, the federation -----
+
+#: The multi-host phase's engines per host and hosts (4 card contexts).
+MH_ENGINES = 2
+MH_HOSTS = 2
+#: Host 1's supervisor boots this long after host 0's, so every
+#: cross-host merge rebases by a non-zero epoch delta.
+MH_HOST_GAP_S = 2.0
+
+
+def _free_base_ports(n_hosts: int, n_engines: int) -> list:
+    """``n_hosts`` UDP base ports on 127.0.0.1, each with its
+    ``base+1..base+n_engines`` free too (probed by binding them all; the
+    kernel picks the bases)."""
+    import socket
+
+    held, bases = [], []
+    try:
+        while len(bases) < n_hosts:
+            s0 = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            s0.bind(("127.0.0.1", 0))
+            base = s0.getsockname()[1]
+            group = [s0]
+            try:
+                for r in range(1, n_engines + 1):
+                    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                    group.append(s)
+                    s.bind(("127.0.0.1", base + r))
+            except OSError:
+                for s in group:
+                    s.close()
+                continue
+            held += group
+            bases.append(base)
+    finally:
+        for s in held:
+            s.close()
+    return bases
+
+
+def multihost_host(args_path: str) -> None:
+    """Host 1 of :func:`multihost_drive`: its own supervisor process (own
+    session, so a SIGKILL of its group is the host's death), supervising
+    its ranks until it is killed or its deadline passes."""
+    from flowsentryx_tpu_torch.cluster.supervisor import ClusterSupervisor
+    from flowsentryx_tpu_torch.sync import tuning
+
+    with open(args_path) as f:
+        a = json.load(f)
+    sup = ClusterSupervisor(a["plane"], a["specs"], net=a["net"],
+                            heartbeat_timeout_s=60.0)
+    sup.boot()
+    deadline = time.monotonic() + a["deadline_s"]
+    try:
+        while time.monotonic() < deadline:
+            sup.poll()
+            time.sleep(tuning.SUPERVISOR_POLL_S)
+    finally:
+        sup.close(timeout_s=5.0)
+
+
+def _read_report(path: str):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None       # not written yet, or caught mid-write
+
+
+def multihost_drive(device: str, root: str, cfg, artifact: str | None,
+                    batches: int = 192, seed: int = SEED,
+                    timeout_s: float = 240.0) -> dict:
+    """Two hosts of ``MH_ENGINES`` ranks each on loopback, over one
+    ``syn_benign_mix`` stream split by the daemon's IP-hash over four
+    shards (shards 0-1 to host 0's rings, 2-3 to host 1's), each rank
+    serving ``batches`` batches of ``cfg`` on ``device``.
+
+    Host 0's supervisor runs in this process; host 1's is a child
+    process in its own session (:func:`multihost_host`), booted
+    ``MH_HOST_GAP_S`` later, so the hosts' epochs differ.  Both fleets
+    run in drain mode and start together; after its drain each rank
+    merges the network leg until its canonical map holds still for two
+    resync intervals, writes its report (its ``net_map`` and its own
+    keys included) and keeps gossiping until stopped.  Then host 1's
+    supervisor and engines are SIGKILLed: host 0's federation must
+    announce the death within ``NET_HOST_TIMEOUT_S +
+    NET_BEACON_INTERVAL_S`` and fold the fleet FAILED while its own
+    ranks keep running; host 0 then stop-drains."""
+    import numpy as np
+
+    from flowsentryx_tpu_torch.cluster.mailbox import StatusBlock, status_path
+    from flowsentryx_tpu_torch.cluster.supervisor import ClusterSupervisor
+    from flowsentryx_tpu_torch.cluster.transport import map_digest
+    from flowsentryx_tpu_torch.core import wire
+    from flowsentryx_tpu_torch.engine import Scenario, TrafficGen, TrafficSpec
+    from flowsentryx_tpu_torch.sync import tuning
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n, B = MH_ENGINES, cfg.batch.max_batch
+    per_rank = batches * B
+    bases = _free_base_ports(MH_HOSTS, n)
+    hosts = [["127.0.0.1", p] for p in bases]
+    planes = [os.path.join(root, f"h{h}", "plane") for h in range(MH_HOSTS)]
+    ring_bases = [os.path.join(root, f"h{h}", "ring")
+                  for h in range(MH_HOSTS)]
+    slots = 1 << (per_rank - 1).bit_length()
+    for h in range(MH_HOSTS):
+        os.makedirs(os.path.join(root, f"h{h}"))
+    rings = [_make_rings(ring_bases[h], n, slots) for h in range(MH_HOSTS)]
+    settle_s = 2 * tuning.NET_RESYNC_INTERVAL_S
+    specs, nets = [], []
+    for h in range(MH_HOSTS):
+        nets.append({"hosts": hosts, "host_id": h, "engines_per_host": n,
+                     "listen": None})
+        sp = _fleet_specs(device, cfg, ring_bases[h], n, n, drain=True,
+                          artifact=artifact, net_settle_s=settle_s)
+        for r, s in enumerate(sp):
+            s["ready_token"] = os.path.join(planes[h], f"ready_r{r}")
+            s["start_token"] = os.path.join(planes[h], "start")
+        specs.append(sp)
+    out, checks = {"ports": bases}, {}
+    sup = ClusterSupervisor(planes[0], specs[0], net=nets[0],
+                            heartbeat_timeout_s=60.0)
+    child = None
+    host1_pids: list = []
+
+    def kill_host1() -> None:
+        for pid in ([child.pid] if child is not None else []) + host1_pids:
+            try:
+                os.killpg(pid, signal.SIGKILL)
+            except OSError:
+                pass
+
+    try:
+        t_boot0 = time.monotonic()
+        sup.boot()
+        args_path = os.path.join(root, "host1.json")
+        with open(args_path, "w") as f:
+            json.dump({"plane": planes[1], "specs": specs[1], "net": nets[1],
+                       "deadline_s": timeout_s + 120.0}, f)
+        while time.monotonic() < t_boot0 + MH_HOST_GAP_S:
+            sup.poll()
+            time.sleep(0.02)
+        log = open(os.path.join(root, "host1.log"), "wb")
+        child = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys; sys.path.insert(0, sys.argv[2]); import chip_smoke; "
+             "chip_smoke.multihost_host(sys.argv[1])", args_path, REPO],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        log.close()
+        deadline = time.monotonic() + timeout_s
+        tokens = [s["ready_token"] for sp in specs for s in sp]
+        status = [[None] * n for _ in range(MH_HOSTS)]
+        while time.monotonic() < deadline:
+            sup.poll()
+            for h in range(MH_HOSTS):
+                for r in range(n):
+                    p = status_path(planes[h], r)
+                    if status[h][r] is None and os.path.exists(
+                            os.path.join(planes[h], "plane.json")):
+                        status[h][r] = StatusBlock(p)
+            if all(os.path.exists(t) for t in tokens) or sup._failed \
+                    or child.poll() is not None:
+                break
+            time.sleep(0.02)
+        checks["all_ranks_warm"] = all(os.path.exists(t) for t in tokens)
+        t0w = [status[h][0].ctl_get("c_t0_wall") for h in range(MH_HOSTS)]
+        out["t0_wall_ns"] = t0w
+        out["epoch_delta_s"] = (t0w[1] - t0w[0]) * 1e-9
+        checks["epoch_delta_nonzero"] = out["epoch_delta_s"] >= MH_HOST_GAP_S
+        # spawn (the epoch stamp, just before the spawns) -> warm (ready)
+        out["spawn_to_ready_s"] = {
+            f"h{h}r{r}": (os.stat(specs[h][r]["ready_token"]).st_mtime_ns
+                          - t0w[h]) * 1e-9
+            for h in range(MH_HOSTS) for r in range(n)
+            if os.path.exists(specs[h][r]["ready_token"])}
+        if device == "cuda":
+            out["compute_apps"] = compute_apps()
+        # the traffic, stamped now (after both epochs): one stream, the
+        # daemon's IP-hash over four shards, host h rank r = shard 2h+r
+        gen = TrafficGen(TrafficSpec(scenario=Scenario("syn_benign_mix"),
+                                     rate_pps=1e6, seed=seed))
+        recs = gen.next_records(int(MH_HOSTS * n * per_rank * 1.3))
+        recs["ts_ns"] += np.uint64(time.clock_gettime_ns(
+            time.CLOCK_MONOTONIC) - int(recs["ts_ns"][0]))
+        sh = wire.shard_of(recs["saddr"], MH_HOSTS * n)
+        offered = {}
+        for h in range(MH_HOSTS):
+            for r in range(n):
+                part = recs[sh == h * n + r][:per_rank]
+                assert len(part) == per_rank, "short shard"
+                assert rings[h][r].produce(part) == per_rank
+                offered[f"h{h}r{r}"] = len(part)
+        out["offered"] = offered
+        t_start = time.monotonic()
+        for h in range(MH_HOSTS):
+            open(specs[h][0]["start_token"], "w").close()
+        serving_at = {}
+        reports = {}
+        while time.monotonic() < deadline and len(reports) < MH_HOSTS * n:
+            sup.poll()
+            for h in range(MH_HOSTS):
+                for r in range(n):
+                    key = f"h{h}r{r}"
+                    if (key not in serving_at and status[h][r].ctl_get(
+                            "c_state") == wire.CSTATE_SERVING):
+                        serving_at[key] = time.monotonic() - t_start
+                    if key not in reports:
+                        rep = _read_report(os.path.join(
+                            planes[h], f"report_r{r}_g0.json"))
+                        if rep and "net_settle" in rep:
+                            reports[key] = rep
+            if sup._failed or child.poll() is not None:
+                break
+            time.sleep(0.02)
+        out["start_to_serving_s"] = serving_at
+        checks["all_reports"] = len(reports) == MH_HOSTS * n
+        host1_pids = [status[1][r].ctl_get("c_pid") for r in range(n)]
+        # -- the gates of the serve and of convergence ----------------------
+        keys = sorted(reports)
+        rep_of = {k: reports[k]["report"] for k in keys}
+        settle = {k: reports[k]["net_settle"] for k in keys}
+        net_of = {k: (rep_of[k].get("cluster") or {}).get("net") or {}
+                  for k in keys}
+        out["records"] = {k: rep_of[k].get("records") for k in keys}
+        checks["records_equal_offered"] = (
+            len(keys) == MH_HOSTS * n
+            and all(rep_of[k].get("records") == offered[k] for k in keys))
+        own = {k: dict(map(tuple, settle[k]["own_map"])) for k in keys}
+        seen = {k: dict(map(tuple, settle[k]["net_map"])) for k in keys}
+        every = {}
+        for k in keys:
+            every.update(own[k])
+        unions = []
+        for h in range(MH_HOSTS):
+            u = {}
+            for r in range(n):
+                u.update(seen.get(f"h{h}r{r}", {}))
+            unions.append(u)
+        out["blocked_per_host"] = [
+            sum(len(own.get(f"h{h}r{r}", {})) for r in range(n))
+            for h in range(MH_HOSTS)]
+        checks["both_hosts_block"] = all(out["blocked_per_host"])
+        cross = True
+        for k in keys:
+            for k2 in keys:
+                if k2[:2] != k[:2]:
+                    cross &= all(seen[k2].get(key) == us
+                                 for key, us in own[k].items())
+        checks["cross_host_keys_equal_untils"] = cross and bool(keys)
+        out["digests"] = {"union_h0": map_digest(unions[0]),
+                          "union_h1": map_digest(unions[1]),
+                          "all_own": map_digest(every)}
+        checks["union_digests_equal"] = (
+            bool(every) and unions[0] == unions[1] == every
+            and out["digests"]["union_h0"] == out["digests"]["union_h1"])
+        checks["settled"] = all(settle[k]["settled"] for k in keys)
+        drain_end = max((settle[k]["drain_end_wall_ns"] for k in keys),
+                        default=0)
+        changed = max((settle[k]["changed_wall_ns"] for k in keys),
+                      default=0)
+        out["drain_end_to_digest_equal_s"] = max(0, changed - drain_end) * 1e-9
+        checks["converged_within_bound"] = (
+            out["drain_end_to_digest_equal_s"]
+            <= 4 * tuning.NET_RESYNC_INTERVAL_S)
+        out["net"] = {k: {c: net_of[k].get(c) for c in (
+            "tx_wires", "tx_pkts", "rx_pkts", "rx_wires", "rx_dup",
+            "rx_gap", "reorder_evict", "tx_drop", "rx_overflow",
+            "epoch_skew_dropped", "epoch_skew_max", "resyncs",
+            "hellos_rx", "peers_seen", "net_sources")} for k in keys}
+        checks["no_dup_no_skew_drop"] = all(
+            net_of[k].get("rx_dup") == 0
+            and net_of[k].get("epoch_skew_dropped") == 0 for k in keys)
+        out["windows"] = {k: {"launches": reports[k].get("launches", {}),
+                              "batches": rep_of[k].get("batches"),
+                              "runs": reports[k].get("runs"),
+                              "records": rep_of[k].get("records"),
+                              "device": (rep_of[k].get("device") or {})
+                              .get("type")} for k in keys}
+        checks["launch_windows"] = _windows_ok(out["windows"], device)
+        # -- the death of host 1 --------------------------------------------
+        pre_tx = {r: net_of.get(f"h0r{r}", {}).get("tx_pkts", 0)
+                  for r in range(n)}
+        t_kill = time.monotonic()
+        kill_host1()
+        child.wait(timeout=30)
+        announced = None
+        bound = tuning.NET_HOST_TIMEOUT_S + tuning.NET_BEACON_INTERVAL_S
+        while time.monotonic() < t_kill + bound + 5.0:
+            sup.poll()
+            if 1 in sup._dead_hosts_announced:
+                announced = time.monotonic() - t_kill
+                break
+            time.sleep(0.01)
+        out["death_to_announced_s"] = announced
+        checks["death_announced_within_bound"] = (announced is not None
+                                                  and announced <= bound)
+        agg = sup.aggregate()
+        out["hosts"] = agg["hosts"]
+        out["health"] = {"state": agg["health"]["state"],
+                         "reasons": agg["health"]["reasons"]}
+        checks["fleet_failed_hosts_dead"] = (
+            agg["health"]["state"] == "failed"
+            and "hosts_dead:1" in agg["health"]["reasons"]
+            and agg["hosts"]["dead"] == [1])
+        now_ns = time.clock_gettime_ns(time.CLOCK_MONOTONIC)
+        hb_age = [(now_ns - status[0][r].ctl_get("c_hbeat")) * 1e-9
+                  for r in range(n)]
+        out["host0_heartbeat_age_s"] = hb_age
+        checks["host0_ranks_alive"] = (
+            all(p is not None and p.is_alive() for p in sup._procs)
+            and agg["restarts"] == [0] * n and agg["failed_ranks"] == []
+            and all(a < 1.0 for a in hb_age))
+        # host 0 stop-drains: the hold ends, each rank reports its plane
+        t_stop = time.monotonic()
+        sup.request_stop()
+        while (len(sup._done) + len(sup._failed) < len(sup._active)
+               and time.monotonic() < t_stop + 60.0):
+            sup.poll()
+            time.sleep(0.02)
+        out["stop_to_done_s"] = time.monotonic() - t_stop
+        sup.close()
+        final = sup.aggregate()
+        checks["host0_done"] = final["failed_ranks"] == [] and len(
+            sup._done) == n
+        post = {}
+        for rep in final["reports"]:
+            net = ((rep.get("report") or {}).get("cluster") or {}).get(
+                "net") or {}
+            post[f"h0r{rep['rank']}"] = {
+                "tx_pkts_after_death": net.get("tx_pkts", 0)
+                - pre_tx.get(rep["rank"], 0),
+                "tx_sock_drops": net.get("tx_sock_drops"),
+                "tx_drop": net.get("tx_drop")}
+        out["sends_to_dead_host"] = post
+    finally:
+        kill_host1()
+        if child is not None:
+            try:
+                child.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                pass
+        sup.close(timeout_s=10.0)
+    return {"ok": all(checks.values()), "checks": checks, **out}
+
+
+def multihost_phase(card: str, served: dict) -> None:
+    """The multi-host fleet on the card: ``multihost_drive`` at the
+    production table (2^20 rows, 8 probes), B=2048, K=64,
+    ``logreg_int8.npz``, ``--mega auto``, 2 hosts x 2 ranks, 192 batches
+    each; every rank's launch window goes to the kernels line."""
+    from flowsentryx_tpu_torch.core.config import FsxConfig
+
+    @phase("multihost_fleet")
+    def mh_phase():
+        res = multihost_drive(
+            "cuda", os.path.join(REPO, "build", "multihost"), FsxConfig(),
+            os.path.join(REPO, "artifacts", "logreg_int8.npz"))
+        windows = served.setdefault("launches_cluster", {})
+        for k, w in res.get("windows", {}).items():
+            windows[f"multihost_fleet/{k}"] = w["launches"]
+        return {"card": card, **res}
+
+    mh_phase()
 
 
 def main() -> int:
@@ -4262,7 +4646,7 @@ def main() -> int:
         c_mlp = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, name="mlp"))
         recs48 = ring_recs["mixed_l34_1m"][:48 * BATCH]
-        m_boot = load_artifact("mlp", mlp_path)
+        m_boot = load_artifact("mlp", mlp_path, "cpu")
         m_new = get_model("mlp").init("cpu")
         e = Engine(c_mlp, ArraySource(recs48.copy()), CollectSink(),
                    params=m_boot, device="cuda")
@@ -4306,7 +4690,7 @@ def main() -> int:
     @phase("sim_kernel_tier")
     def tier_phase():
         scen = "mixed_l34_1m"
-        recs = ring_recs[scen]
+        recs = ring_recs[scen][:SIM_TIER_BATCHES * BATCH]
         plan = load_plan(plan_path)
         params = logreg.load_params(artifact)
 
@@ -5160,6 +5544,8 @@ def main() -> int:
                   "ckpt_bitflip": "flip_offsets", "engine_kill": "kill_at_s",
                   "handoff_kill_midship": "kill_after_slots",
                   "layout_flip_lost": "to_gen",
+                  "net_loss_burst": "burst_index",
+                  "net_stale_epoch": "injected_skew_s",
                   "shm_bad_magic+poison_batch+shm_seq_gap": "records"}
         by_fault = {r["fault"]: r for r in rep["faults"]}
         ref_by_fault = {r["fault"]: r for r in ref["faults"]}
@@ -5168,6 +5554,8 @@ def main() -> int:
         catchers = {"split_atomicity": "sink_crash_atomicity",
                     "crc_skipped": "corrupt_ckpt_refused",
                     "backoff_removed": "crash_loop_parks",
+                    "dup_suppression_removed": "no_double_apply",
+                    "epoch_rebase_skipped": "epoch_rebase_exact",
                     "conservation_removed": "handoff_rows_conserved"}
         plants = {p["plant"]: p["caught"] and p.get("control_holds", True)
                   and p["caught_by"] == catchers[p["plant"]]
@@ -5195,9 +5583,7 @@ def main() -> int:
                     "shm_bad_magic+poison_batch+shm_seq_gap"]["records"],
                 "launches": launches, "batches_dispatched": dispatched,
                 "dispatched_per_run": fleet["runs"]["dispatched"],
-                "reports": reports,
-                "not_ported": {k: sorted(v) for k, v in
-                               rep["not_ported"].items()}}
+                "reports": reports}
 
     chaos_campaign_phase()
 
@@ -5274,6 +5660,7 @@ def main() -> int:
     # -- the self-reshaping fleet on the card ----------------------------------
 
     rebalance_phases(card, served)
+    multihost_phase(card, served)
 
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);

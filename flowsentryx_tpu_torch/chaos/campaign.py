@@ -13,18 +13,17 @@ card its graphs are captured once); they are ordered so each leaves the
 engine in the state the next needs, ending with the watchdog wedge that
 deliberately fails it.
 
-The campaign runs the thirteen single-host faults of the registry (the
-elastic fleet's handoff, layout-flip and adopt faults among them) and
-four of the reference's six PLANTED regressions (split-atomicity crash
-accounting, CRC-less checkpoint loads, no-backoff respawn, handoff
-staging without its SEAL check), each of which PASSES only when its
-named invariant FAILS under it.  The network faults and their plants
-need the multi-host leg, which the port does not have yet;
-:data:`NOT_PORTED` names each with the roadmap item that brings it, and
-the artifact carries that map.  Their seeded draws are still made
-(:func:`_draw_not_ported`), in the reference's order, so one ``--seed``
-gives the same traffic, offsets and kill schedule here as in the
-reference's campaign.
+The campaign runs every fault of the registry: the thirteen single-host
+ones (the elastic fleet's handoff, layout-flip and adopt faults among
+them) and the six network faults of the multi-host gossip leg, on
+loopback UDP pairs of real planes whose epochs lie 250 s apart; and the
+reference's six PLANTED regressions (split-atomicity crash accounting,
+CRC-less checkpoint loads, no-backoff respawn, duplicate suppression
+removed, the epoch rebase skipped, handoff staging without its SEAL
+check), each of which PASSES only when its named invariant FAILS under
+it.  The scenarios draw from the generator in the reference's order, so
+one ``--seed`` gives the same traffic, offsets and kill schedule here as
+in the reference's campaign.
 
 Determinism: every random choice flows from one
 ``numpy.random.default_rng(seed)``; wall-clock only bounds waits.
@@ -47,26 +46,6 @@ from flowsentryx_tpu_torch.chaos.invariants import all_ok, check
 #: next generation heartbeating) — generous against CI throttling, yet
 #: three orders of magnitude under "an operator noticed".
 RECOVERY_BOUND_S = 15.0
-
-#: The reference's faults and plants this campaign does not run yet,
-#: each with the ROADMAP queue 1 item that brings the modules it needs.
-NOT_PORTED = {
-    "faults": {
-        "net_partition": "ROADMAP queue 1 item 3 (multi-host gossip leg)",
-        "net_heal": "ROADMAP queue 1 item 3 (multi-host gossip leg)",
-        "net_reorder": "ROADMAP queue 1 item 3 (multi-host gossip leg)",
-        "net_duplicate": "ROADMAP queue 1 item 3 (multi-host gossip leg)",
-        "net_loss_burst": "ROADMAP queue 1 item 3 (multi-host gossip leg)",
-        "net_stale_epoch": "ROADMAP queue 1 item 3 (multi-host gossip leg)",
-    },
-    "plants": {
-        "dup_suppression_removed": "ROADMAP queue 1 item 3 (multi-host "
-                                   "gossip leg)",
-        "epoch_rebase_skipped": "ROADMAP queue 1 item 3 (multi-host "
-                                "gossip leg)",
-    },
-}
-
 
 def _scenario(name: str, invs: list, **extra) -> dict:
     cls, desc = faults.FAULTS[name]
@@ -653,6 +632,413 @@ def scenario_clock_jump(rng: np.random.Generator) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# network scenarios: the multi-host gossip leg (cluster/transport.py)
+# ---------------------------------------------------------------------------
+
+#: Host B's epoch predates host A's by this much in every pair below, so
+#: every cross-host merge goes through the tx-epoch -> rx-epoch rebase (a
+#: zero delta would pass with the rebase deleted; the
+#: ``epoch_rebase_skipped`` plant shows the delta has teeth).
+NET_EPOCH_DELTA_S = 250.0
+
+
+class _CountSink:
+    """A collecting sink that also counts what it applied:
+    ``no_double_apply`` needs how many verdicts were APPLIED, not just
+    the last-wins map."""
+
+    def __init__(self):
+        self.blocked: dict[int, float] = {}
+        self.applies = 0
+        self.applied_keys = 0
+
+    def apply(self, update) -> None:
+        self.applies += 1
+        self.applied_keys += len(update.key)
+        self.blocked.update(zip(update.key.tolist(),
+                                update.until_s.tolist()))
+
+
+def _net_pair(tmp: Path, name: str, k_max: int = 8,
+              resync_s: float = 1000.0, **mbx_kw):
+    """Two one-engine loopback 'hosts': real GossipPlanes over a real UDP
+    NetMailbox pair, epochs NET_EPOCH_DELTA_S apart.  ``resync_s`` is
+    inert by default, so a scenario sees exactly the packets it injects;
+    the heal and loss scenarios turn it down."""
+    from flowsentryx_tpu_torch.cluster import gossip as gplane
+    from flowsentryx_tpu_torch.cluster.transport import NetMailbox
+
+    mono = time.clock_gettime_ns(time.CLOCK_MONOTONIC)
+    wall = time.time_ns()
+    d_ns = int(NET_EPOCH_DELTA_S * 1e9)
+    na = NetMailbox(0, 0, mono, wall, k_max=k_max,
+                    resync_interval_s=resync_s, **mbx_kw)
+    nb = NetMailbox(1, 0, mono - d_ns, wall - d_ns, k_max=k_max,
+                    resync_interval_s=resync_s, **mbx_kw)
+    na.add_peer((1, 0), nb.addr)
+    nb.add_peer((0, 0), na.addr)
+    planes = []
+    for h, net in ((0, na), (1, nb)):
+        d = tmp / f"{name}_h{h}"
+        gplane.create_plane(d, 1, k_max=k_max, net=True)
+        planes.append(gplane.GossipPlane(
+            d, 0, 1, sink=_CountSink(), merge_interval_s=0.0, net=net))
+    return planes[0], planes[1]
+
+
+def _local_now(plane) -> float:
+    return (time.clock_gettime_ns(time.CLOCK_MONOTONIC)
+            - plane.net.t0_ns) * 1e-9
+
+
+def _nupd(plane, base: int, n: int):
+    """One publisher-local update: keys ``base..base+n``, untils 10 s out
+    on the PUBLISHER's clock (so ~10 s out on the receiver's, rebased)."""
+    from flowsentryx_tpu_torch.engine.writeback import BlacklistUpdate
+
+    ln = _local_now(plane)
+    return BlacklistUpdate(
+        key=(base + np.arange(n)).astype(np.uint32),
+        until_s=(ln + 10.0 + 0.25 * np.arange(n)).astype(np.float32))
+
+
+def _mk_wire(keys, untils, k: int, now: float = 0.0) -> np.ndarray:
+    """One raw [2K+4] wire, its ``now`` word stamped in the SENDER's
+    epoch (a zero ``now`` from an offset peer is the lying-epoch shape
+    the skew bound refuses, so honest wires must stamp it)."""
+    w = np.zeros(2 * k + 4, np.uint32)
+    keys = np.asarray(keys, np.uint32)
+    untils = np.asarray(untils, np.float32)
+    w[:len(keys)] = keys
+    w[k:k + len(untils)] = untils.view(np.uint32)
+    w[2 * k] = len(keys)
+    w[2 * k + 3] = np.float32(now).view(np.uint32)
+    return w
+
+
+def _digests(a, b) -> tuple[str, str]:
+    from flowsentryx_tpu_torch.cluster.transport import map_digest
+
+    return map_digest(a.net.net_map), map_digest(b.net.net_map)
+
+
+def _close_pair(a, b) -> None:
+    a.net.close()
+    b.net.close()
+
+
+def scenario_net_partition(tmp: Path, rng: np.random.Generator) -> dict:
+    """Cut the wire between two converged hosts mid-publish: the
+    publisher must not block (a partitioned peer is a mailbox that
+    drops, not a coordinator that stalls), and what was delivered before
+    the cut stays converged."""
+    del rng
+    a, b = _net_pair(tmp, "net_part")
+    try:
+        a.publish(_nupd(a, 1000, 12), now=_local_now(a))
+        deadline = time.monotonic() + 5.0
+        while (_digests(a, b)[0] != _digests(a, b)[1]
+               or not b.net.net_map):
+            a.tick(force=True)
+            b.tick(force=True)
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.005)
+        pre_a, pre_b = _digests(a, b)
+        pre_applied = b.sink.applied_keys
+        chaos = faults.NetChaos(a.net)
+        chaos.partition()
+        t0 = time.perf_counter()
+        a.publish(_nupd(a, 2000, 20), now=_local_now(a))
+        for _ in range(5):
+            a.tick(force=True)
+            b.tick(force=True)
+        cut_wall = time.perf_counter() - t0
+        post_a, post_b = _digests(a, b)
+        chaos.uninstall()
+        invs = [
+            check("net_partition_fail_open",
+                  cut_wall < 0.5 and chaos.dropped >= 3
+                  and b.sink.applied_keys == pre_applied,
+                  f"publish+5 ticks into the cut took "
+                  f"{cut_wall * 1e3:.1f} ms, {chaos.dropped} "
+                  "datagram(s) eaten, nothing leaked through"),
+            check("gossip_delivered_converges",
+                  pre_a == pre_b and post_b == pre_b,
+                  f"pre-cut digests converged ({pre_b}) and B's view "
+                  "is untouched by the cut"),
+            check("fail_open_holds",
+                  post_a != pre_a and len(a.net.net_map) == 32,
+                  "A kept publishing into its own map during the "
+                  "cut (serving never waited on the network)"),
+        ]
+        return _scenario("net_partition", invs,
+                         cut_wall_ms=round(cut_wall * 1e3, 2))
+    finally:
+        _close_pair(a, b)
+
+
+def scenario_net_heal(tmp: Path, rng: np.random.Generator) -> dict:
+    """Publish INTO a partition (every wire lost), then heal: the
+    anti-entropy resync must bring the canonical digests together
+    within a bounded number of gossip ticks, with no retransmit protocol
+    and no operator."""
+    del rng
+    a, b = _net_pair(tmp, "net_heal", resync_s=0.05)
+    try:
+        chaos = faults.NetChaos(a.net)
+        chaos.partition()
+        a.publish(_nupd(a, 3000, 12), now=_local_now(a))
+        for _ in range(3):
+            a.tick(force=True)
+            b.tick(force=True)
+        lost = chaos.dropped
+        da, db = _digests(a, b)
+        in_cut_ok = da != db and not b.net.net_map
+        chaos.heal()
+        ticks = None
+        for i in range(80):
+            a.tick(force=True)
+            b.tick(force=True)
+            da, db = _digests(a, b)
+            if da == db and b.net.net_map:
+                ticks = i + 1
+                break
+            time.sleep(0.01)
+        chaos.uninstall()
+        invs = [
+            check("net_heal_converges",
+                  ticks is not None and ticks <= 60
+                  and len(b.net.net_map) == 12,
+                  f"digests re-converged ({db}) {ticks} tick(s) after "
+                  f"heal; {lost} wire(s) had been eaten by the cut"),
+            check("net_loss_accounted", lost >= 1 and in_cut_ok,
+                  f"{lost} datagram(s) provably lost in the cut, B "
+                  "empty until heal"),
+        ]
+        return _scenario("net_heal", invs, ticks_to_converge=ticks)
+    finally:
+        _close_pair(a, b)
+
+
+def scenario_net_reorder(tmp: Path, rng: np.random.Generator) -> dict:
+    """Two legs.  (1) Reordered datagrams deliver in per-peer sequence
+    order through the bounded buffer.  (2) Packets sent one at a time
+    around a hole that never fills must never grow the buffer past its
+    window: the overflow evicts and counts instead of stalling."""
+    del rng
+    from flowsentryx_tpu_torch.cluster import transport
+    from flowsentryx_tpu_torch.core import wire
+
+    window = 4
+    a, b = _net_pair(tmp, "net_reorder", reorder_window=window)
+    try:
+        # leg 1: 8 wires flushed in reversed chunks of 4
+        chaos = faults.NetChaos(b.net)
+        chaos.reorder(depth=4)
+        ln = _local_now(b)
+        for j in range(8):
+            b.net.queue_tx(
+                _mk_wire([5000 + j], [ln + 10.0 + j], 8, now=ln), 1)
+            b.net.pump()
+        chaos.uninstall()
+        time.sleep(0.02)
+        a.net.pump()
+        got = a.net.pop_wires(64)
+        seqs = [seq for _s, seq, *_ in got]
+        ordered = seqs == sorted(seqs) and len(seqs) == 8
+        leg1_ok = (ordered and a.net.rx_dup == 0
+                   and a.net.reorder_evict == 0
+                   and chaos.reordered == 8)
+        # leg 2: seqs 15..10 one at a time (hole at 9): the buffer caps
+        # at `window`, then concedes and counts
+        buf = a.net._rx_state[(1, 0)]["buf"]
+        bounded = True
+        sock = transport.socket.socket(transport.socket.AF_INET,
+                                       transport.socket.SOCK_DGRAM)
+        try:
+            for s in range(15, 9, -1):
+                pkt = transport.pack_packet(
+                    wire.NET_KIND_WIRE, 1, 0, s, 1, b.net.t0_wall_ns,
+                    _mk_wire([6000 + s], [ln + 20.0], 8, now=ln))
+                sock.sendto(pkt, a.net.addr)
+                time.sleep(0.005)
+                a.net.pump()
+                bounded = bounded and len(buf) <= window
+        finally:
+            sock.close()
+        invs = [
+            check("net_reorder_bounded",
+                  leg1_ok and bounded and a.net.reorder_evict >= 1
+                  and a.net.rx_gap >= 1,
+                  f"8 reordered wires delivered as seqs {seqs}; "
+                  f"buffer stayed <= {window} under a never-filling "
+                  f"hole (evictions={a.net.reorder_evict}, "
+                  f"gap={a.net.rx_gap})"),
+            check("seq_gap_counted", a.net.rx_gap >= 1,
+                  "the conceded hole surfaced in rx_gap, not as "
+                  "silence"),
+        ]
+        return _scenario("net_reorder", invs, delivered_seqs=seqs)
+    finally:
+        _close_pair(a, b)
+
+
+def scenario_net_duplicate(tmp: Path, rng: np.random.Generator) -> dict:
+    """Every datagram delivered twice: duplicate suppression counts and
+    drops the copies, and a verdict reaches the sink exactly once (the
+    ``dup_suppression_removed`` plant runs this path with the
+    suppression bypassed and must see this FAIL)."""
+    del rng
+    a, b = _net_pair(tmp, "net_dup")
+    try:
+        chaos = faults.NetChaos(b.net)
+        chaos.duplicate()
+        b.publish(_nupd(b, 7000, 12), now=_local_now(b))
+        b.tick(force=True)
+        chaos.uninstall()
+        time.sleep(0.02)
+        a.tick(force=True)
+        da, db = _digests(a, b)
+        invs = [
+            check("no_double_apply",
+                  a.sink.applied_keys == 12 and a.net.rx_wires == 2
+                  and a.net.rx_dup == 2 and chaos.duplicated == 2,
+                  f"2 wires sent twice: {a.net.rx_wires} delivered, "
+                  f"{a.net.rx_dup} duplicate(s) suppressed, "
+                  f"{a.sink.applied_keys} verdict(s) applied (== 12 "
+                  "unique)"),
+            check("gossip_delivered_converges", da == db,
+                  f"digests byte-identical through the duplication "
+                  f"({da})"),
+        ]
+        return _scenario("net_duplicate", invs)
+    finally:
+        _close_pair(a, b)
+
+
+def scenario_net_loss_burst(tmp: Path, rng: np.random.Generator) -> dict:
+    """Drop a contiguous burst of wires silently: the holes are conceded
+    and counted (rx_gap) within the reorder timeout so the survivors
+    deliver, and the resync then closes the hole."""
+    burst_at = int(rng.integers(1, 4))
+    # the resync stays inert through the burst (a resync wire through the
+    # chaos seam mid-burst would shift the dropped indices); the heal
+    # below turns it on
+    a, b = _net_pair(tmp, "net_loss", reorder_timeout_s=0.05)
+    try:
+        chaos = faults.NetChaos(b.net)
+        chaos.drop_burst(burst_at, 3)
+        ln = _local_now(b)
+        for j in range(8):
+            b.net.queue_tx(
+                _mk_wire([8000 + j], [ln + 10.0 + j], 8, now=ln), 1)
+            b.net.pump()
+        time.sleep(0.02)
+        a.tick(force=True)
+        survivors_early = a.sink.applied_keys
+        time.sleep(0.08)   # past the reorder timeout: concede the holes
+        a.tick(force=True)
+        gap = a.net.rx_gap
+        delivered = a.net.rx_wires
+        conceded_ok = (gap == 3 and delivered == 5
+                       and a.net.gap_timeouts >= 1
+                       and survivors_early >= 1)
+        chaos.uninstall()
+        # the resync closes the hole (on only now; one thread, both
+        # fields the merge section's)
+        for net in (a.net, b.net):
+            net.resync_interval_s = 0.15
+            net._next_resync = 0.0
+        converged = False
+        for _ in range(60):
+            b.tick(force=True)
+            a.tick(force=True)
+            da, db = _digests(a, b)
+            if da == db and len(a.net.net_map) == 8:
+                converged = True
+                break
+            time.sleep(0.01)
+        invs = [
+            check("net_loss_accounted", conceded_ok,
+                  f"8 sent, burst of 3 eaten at index {burst_at}: "
+                  f"{delivered} delivered + {gap} conceded-and-"
+                  f"counted == 8 (gap_timeouts="
+                  f"{a.net.gap_timeouts})"),
+            check("net_heal_converges", converged,
+                  "the anti-entropy resync closed the hole "
+                  f"(digest {_digests(a, b)[0]}, 8 sources)"),
+        ]
+        return _scenario("net_loss_burst", invs, burst_index=burst_at)
+    finally:
+        _close_pair(a, b)
+
+
+def scenario_net_stale_epoch(tmp: Path,
+                             rng: np.random.Generator) -> dict:
+    """A peer publishing under a LYING epoch stamp (its pre-reboot
+    t0_wall, hours stale): the rebased skew bound refuses and counts
+    every wire, and still accepts a truthful wire from the same peer
+    (the bound discriminates, it does not censor)."""
+    skew_s = float(3600.0 + 1800.0 * rng.random())
+    from flowsentryx_tpu_torch.cluster import transport
+    from flowsentryx_tpu_torch.core import wire
+
+    a, b = _net_pair(tmp, "net_stale")
+    try:
+        pkts = faults.stale_epoch_packets(
+            1, 0, b.net.t0_wall_ns, skew_s,
+            keys=[9001, 9002, 9003], untils=[10.0, 11.0, 12.0],
+            k_max=8, start_seq=1)
+        sock = transport.socket.socket(transport.socket.AF_INET,
+                                       transport.socket.SOCK_DGRAM)
+        try:
+            for p in pkts:
+                sock.sendto(p, a.net.addr)
+            time.sleep(0.02)
+            a.tick(force=True)
+            refused = (a.net.epoch_skew_dropped == len(pkts)
+                       and a.sink.applied_keys == 0
+                       and not a.net.net_map)
+            skew_seen = a.net.epoch_skew_max
+            # control: a truthful wire from the same peer is accepted
+            ln_b = ((time.clock_gettime_ns(time.CLOCK_MONOTONIC)
+                     - b.net.t0_ns) * 1e-9)
+            w = _mk_wire([9100], [ln_b + 10.0], 8)
+            w[2 * 8 + 3] = np.float32(ln_b).view(np.uint32)
+            sock.sendto(transport.pack_packet(
+                wire.NET_KIND_WIRE, 1, 0, len(pkts) + 1, 1,
+                b.net.t0_wall_ns, w), a.net.addr)
+            time.sleep(0.02)
+            a.tick(force=True)
+        finally:
+            sock.close()
+        # the liar's wire `now` is its post-reboot clock (~0) while its
+        # stamp predates even B's epoch, so the observed skew is the
+        # injected lie PLUS the pair's epoch delta
+        skew_expect = skew_s + NET_EPOCH_DELTA_S
+        invs = [
+            check("stale_epoch_refused",
+                  refused and abs(skew_seen - skew_expect) < 60.0,
+                  f"{len(pkts)} lying-epoch wire(s) refused-and-"
+                  f"counted (epoch_skew_max {skew_seen:.0f}s ~ "
+                  f"expected {skew_expect:.0f}s), none applied"),
+            check("epoch_rebase_exact",
+                  a.sink.applied_keys == 1
+                  and abs((a.sink.blocked[9100]
+                           + a.net.t0_wall_ns * 1e-9)
+                          - (10.0 + ln_b
+                             + b.net.t0_wall_ns * 1e-9)) < 0.01,
+                  "the truthful control wire was accepted and its "
+                  "ABSOLUTE expiry survived the rebase"),
+        ]
+        return _scenario("net_stale_epoch", invs,
+                         injected_skew_s=round(skew_s, 1))
+    finally:
+        _close_pair(a, b)
+
+
+# ---------------------------------------------------------------------------
 # elastic-fleet scenarios: a live shard handoff under its worst interruptions
 # ---------------------------------------------------------------------------
 
@@ -888,20 +1274,6 @@ def scenario_adopt_half_dead(tmp: Path,
 
 
 # ---------------------------------------------------------------------------
-# the reference's scenarios this campaign does not run yet
-# ---------------------------------------------------------------------------
-
-def _draw_not_ported(rng: np.random.Generator) -> None:
-    """The seeded draws of the reference's network scenarios, made in
-    the reference's order, so the handoff scenarios, the engine fleet's
-    traffic and every later draw equal the reference campaign's at the
-    same seed.  Each draw stands in for one scenario of
-    :data:`NOT_PORTED`; the port of that scenario replaces its line."""
-    rng.integers(1, 4)                     # net_loss_burst: burst index
-    rng.random()                           # net_stale_epoch: injected skew
-
-
-# ---------------------------------------------------------------------------
 # planted regressions (negative controls: the invariant must FAIL)
 # ---------------------------------------------------------------------------
 
@@ -997,6 +1369,93 @@ def plant_backoff_removed(tmp: Path, rng: np.random.Generator) -> dict:
     }
 
 
+def plant_dup_suppression_removed(tmp: Path,
+                                  rng: np.random.Generator) -> dict:
+    """Re-introduce raw datagram delivery: every received copy straight
+    to the sink, no sequence suppression (``NetMailbox._accept`` called
+    per COPY, the receive path with ``_rx_wire``'s discipline deleted).
+    ``no_double_apply`` must FAIL under the plant and HOLD for the real
+    path on the same duplicated traffic."""
+    del rng
+    a, b = _net_pair(tmp, "plant_dup")
+    try:
+        ln_b = _local_now(b)
+        w = _mk_wire([9901, 9902], [ln_b + 10.0, ln_b + 11.0], 8)
+        w[2 * 8 + 3] = np.float32(ln_b).view(np.uint32)
+        # control: the same duplicate through the REAL receive path
+        a.net._rx_wire((1, 0), 1, 2, b.net.t0_wall_ns, w.copy())
+        a.net._rx_wire((1, 0), 1, 2, b.net.t0_wall_ns, w.copy())
+        control_applied = sum(
+            len(keys) for _s, _q, _w, keys, _u in a.net.pop_wires(16))
+        control_ok = control_applied == 2 and a.net.rx_dup == 1
+        # plant: suppression removed, each copy delivered
+        a.net._accept((1, 0), 7, 2, b.net.t0_wall_ns, w.copy())
+        a.net._accept((1, 0), 7, 2, b.net.t0_wall_ns, w.copy())
+        planted_applied = sum(
+            len(keys) for _s, _q, _w, keys, _u in a.net.pop_wires(16))
+        caught = planted_applied > 2  # the double apply happened
+        return {
+            "plant": "dup_suppression_removed",
+            "reintroduces": "raw datagram delivery with the per-peer "
+                            "u64-seq duplicate suppression deleted "
+                            "(a resent/reflected wire re-applies)",
+            "caught_by": "no_double_apply",
+            "caught": caught,
+            "control_holds": bool(control_ok),
+            "ok": caught and bool(control_ok),
+            "detail": f"planted path applied {planted_applied} "
+                      f"verdicts for 2 unique; real path applied "
+                      f"{control_applied} with rx_dup=1",
+        }
+    finally:
+        _close_pair(a, b)
+
+
+def plant_epoch_rebase_skipped(tmp: Path,
+                               rng: np.random.Generator) -> dict:
+    """Re-introduce the single-host assumption across hosts: merge a
+    peer's untils RAW, as if both monotonic epochs were one.  With the
+    pair's NET_EPOCH_DELTA_S the planted verdict's absolute expiry is off
+    by that delta, so ``epoch_rebase_exact`` must FAIL; the real
+    ``_accept`` holds within f32 quantization on the same wire."""
+    del rng
+    a, b = _net_pair(tmp, "plant_epoch")
+    try:
+        ln_b = _local_now(b)
+        until_b = ln_b + 10.0
+        w = _mk_wire([9950], [until_b], 8)
+        w[2 * 8 + 3] = np.float32(ln_b).view(np.uint32)
+        abs_true = until_b + b.net.t0_wall_ns * 1e-9
+
+        def abs_err(until_on_a: float) -> float:
+            return abs((until_on_a + a.net.t0_wall_ns * 1e-9) - abs_true)
+
+        # control: the real rebase
+        a.net._rx_wire((1, 0), 1, 1, b.net.t0_wall_ns, w.copy())
+        [(_, _, _, _, untils)] = a.net.pop_wires(4)
+        control_err = abs_err(float(untils[0]))
+        # plant: the rebase skipped, the raw f32 until read in A's epoch
+        planted_err = abs_err(float(w[8:9].view(np.float32)[0]))
+        caught = planted_err > 1.0
+        return {
+            "plant": "epoch_rebase_skipped",
+            "reintroduces": "cross-host merge without the tx-epoch -> "
+                            "rx-epoch rebase (the single-host "
+                            "byte-identical-untils assumption applied "
+                            "across hosts)",
+            "caught_by": "epoch_rebase_exact",
+            "caught": caught,
+            "control_holds": bool(control_err < 0.01),
+            "ok": caught and control_err < 0.01,
+            "detail": f"planted absolute-expiry error "
+                      f"{planted_err:.1f}s (~ the "
+                      f"{NET_EPOCH_DELTA_S:.0f}s epoch delta); real "
+                      f"rebase error {control_err * 1e3:.2f} ms",
+        }
+    finally:
+        _close_pair(a, b)
+
+
 def plant_conservation_removed(tmp: Path,
                                rng: np.random.Generator) -> dict:
     """Delete the handoff stream's verification: stage whatever arrived
@@ -1046,11 +1505,10 @@ def run_campaign(seed: int = 17, quick: bool = False,
                  workdir: str | Path | None = None,
                  out: str | Path | None = None,
                  device=None) -> dict:
-    """Run every ported scenario + planted regression; return (and
-    optionally write) the artifact: the reference's keys, each
-    scenario's ``wall_s``, the engine's ``device`` and
-    :data:`NOT_PORTED`.  ``quick`` trims the traffic volume, not the
-    coverage.  ``device`` is the engine's: None means the card, and
+    """Run every scenario + planted regression; return (and optionally
+    write) the artifact: the reference's keys, each scenario's
+    ``wall_s`` and the engine's ``device``.  ``quick`` trims the traffic
+    volume, not the coverage.  ``device`` is the engine's: None means the card, and
     raises without one before any scenario runs."""
     import tempfile
 
@@ -1077,7 +1535,16 @@ def run_campaign(seed: int = 17, quick: bool = False,
     run(scenario_crash_loop, tmp, rng)
     run(scenario_gossip_stall_flood, tmp, rng)
     run(scenario_clock_jump, rng)
-    _draw_not_ported(rng)
+
+    # the multi-host gossip leg: loopback UDP pairs of real planes with
+    # epochs 250 s apart — partition, heal, reorder, duplication, loss,
+    # lying epochs
+    run(scenario_net_partition, tmp, rng)
+    run(scenario_net_heal, tmp, rng)
+    run(scenario_net_reorder, tmp, rng)
+    run(scenario_net_duplicate, tmp, rng)
+    run(scenario_net_loss_burst, tmp, rng)
+    run(scenario_net_stale_epoch, tmp, rng)
 
     # the elastic fleet: handoff, flip and adopt under interruption
     run(scenario_handoff_kill_midship, tmp, rng)
@@ -1099,6 +1566,8 @@ def run_campaign(seed: int = 17, quick: bool = False,
         plant_split_atomicity(),
         plant_crc_skipped(tmp, rng),
         plant_backoff_removed(tmp, rng),
+        plant_dup_suppression_removed(tmp, rng),
+        plant_epoch_rebase_skipped(tmp, rng),
         plant_conservation_removed(tmp, rng),
     ]
 
@@ -1119,7 +1588,6 @@ def run_campaign(seed: int = 17, quick: bool = False,
         "registry": {k: {"class": c, "description": d}
                      for k, (c, d) in faults.FAULTS.items()},
         "device": str(device),
-        "not_ported": NOT_PORTED,
     }
     if out:
         Path(out).parent.mkdir(parents=True, exist_ok=True)

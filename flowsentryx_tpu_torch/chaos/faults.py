@@ -10,10 +10,10 @@ reference's injectors draw from that seed.
 
 The registry (:data:`FAULTS`) is documentation-as-data and holds all of
 the reference's entries: ``fsx chaos --list`` prints it, and the
-campaign artifact names each scenario's ``fault`` from it.  The
-injectors of the network faults (``NetChaos``, ``stale_epoch_packets``)
-come with the port of the multi-host gossip leg; the campaign names the
-faults it does not run (:data:`~.campaign.NOT_PORTED`).
+campaign artifact names each scenario's ``fault`` from it.  The network
+faults hurt a :class:`~..cluster.transport.NetMailbox` at its raw send
+seam (:class:`NetChaos`) or forge a peer's lying epoch
+(:func:`stale_epoch_packets`).
 
 This module imports numpy only, so ``fsx chaos --list`` imports no
 torch: the slot-header words come from :mod:`..core.wire`.
@@ -275,6 +275,123 @@ def jumped_stamps(rng: np.random.Generator, n: int,
     k = int(rng.integers(1, n))
     stamps[k:] -= jump_s
     return [float(s) for s in stamps]
+
+
+# -- network faults (cluster/transport.py NetMailbox) ------------------------
+
+class NetChaos:
+    """Deterministic network-fault injector for one
+    :class:`~flowsentryx_tpu_torch.cluster.transport.NetMailbox`.
+
+    It wraps the mailbox's raw ``_sendto`` seam, the one point every
+    datagram leaves through, so the code under test runs its real send
+    path and the fault happens where a network would inflict it: after a
+    successful send.  A dropped packet returns True to the sender (loss
+    in flight is invisible to a UDP publisher), unlike the mailbox's own
+    ``tx_sock_drops``, which count local send failures.
+
+    Modes (one at a time, installed by the scenario):
+
+    * :meth:`partition` — drop everything until :meth:`heal`.
+    * :meth:`duplicate` — deliver every packet twice.
+    * :meth:`reorder` — hold ``depth`` packets, send them reversed.
+    * :meth:`drop_burst` — drop sends ``[start, start+n)`` silently
+      (0-indexed over this injector's sends).
+    """
+
+    def __init__(self, mbx):
+        self.mbx = mbx
+        self._real = mbx._sendto
+        mbx._sendto = self._send
+        self.mode = None
+        self._depth = 0
+        self._held: list[tuple[bytes, tuple]] = []
+        self._burst: tuple[int, int] | None = None
+        self.sent = 0
+        self.dropped = 0
+        self.duplicated = 0
+        self.reordered = 0
+
+    # -- mode selection -------------------------------------------------------
+
+    def partition(self) -> None:
+        self.mode = "drop"
+
+    def heal(self) -> None:
+        self.mode = None
+        self._flush()
+
+    def duplicate(self) -> None:
+        self.mode = "dup"
+
+    def reorder(self, depth: int = 4) -> None:
+        self.mode = "reorder"
+        self._depth = depth
+
+    def drop_burst(self, start: int, n: int) -> None:
+        self.mode = "burst"
+        self._burst = (start, start + n)
+
+    def uninstall(self) -> None:
+        self._flush()
+        self.mbx._sendto = self._real
+
+    # -- the injected seam ----------------------------------------------------
+
+    def _flush(self) -> None:
+        held, self._held = self._held, []
+        for payload, addr in held:
+            self._real(payload, addr)
+
+    def _send(self, payload: bytes, addr: tuple) -> bool:
+        i = self.sent
+        self.sent += 1
+        if self.mode == "drop":
+            self.dropped += 1
+            return True  # the network ate it after a successful send
+        if self.mode == "burst" and self._burst[0] <= i < self._burst[1]:
+            self.dropped += 1
+            return True
+        if self.mode == "dup":
+            self.duplicated += 1
+            self._real(payload, addr)
+            return self._real(payload, addr)
+        if self.mode == "reorder":
+            self._held.append((payload, addr))
+            if len(self._held) >= self._depth:
+                self.reordered += len(self._held)
+                held, self._held = self._held, []
+                for p, a in reversed(held):
+                    self._real(p, a)
+            return True
+        return self._real(payload, addr)
+
+
+def stale_epoch_packets(host: int, rank: int, t0_wall_ns: int,
+                        skew_s: float, keys, untils,
+                        k_max: int = 8,
+                        start_seq: int = 1) -> list[bytes]:
+    """Wire datagrams from a peer whose epoch stamp LIES by ``skew_s``
+    seconds (a pre-reboot ``t0_wall``, a host without clock discipline):
+    the fault ``RANGE_EPOCH_SKEW_S`` exists for.  The wire body is well
+    formed; only the epoch is wrong."""
+    from flowsentryx_tpu_torch.cluster import transport
+
+    bogus_wall = t0_wall_ns - int(skew_s * 1e9)
+    pkts = []
+    keys = np.asarray(keys, np.uint32)
+    untils = np.asarray(untils, np.float32)
+    for j, lo in enumerate(range(0, len(keys), k_max)):
+        ck, cu = keys[lo:lo + k_max], untils[lo:lo + k_max]
+        w = np.zeros(2 * k_max + 4, np.uint32)
+        w[:len(ck)] = ck
+        w[k_max:k_max + len(cu)] = cu.view(np.uint32)
+        w[2 * k_max] = len(ck)
+        w[2 * k_max + 3] = np.float32(0.0).view(np.uint32)
+        pkts.append(transport.pack_packet(
+            wire.NET_KIND_WIRE, host, rank, start_seq + j, len(ck),
+            bogus_wall, w))
+    return pkts
 
 
 def kill_process_group(pid: int) -> None:

@@ -784,13 +784,62 @@ def _cmd_distill(args: argparse.Namespace) -> int:
     return 0
 
 
-#: ``cluster`` flags of the reference that the port refuses by name: the
-#: paths behind them are not ported (ROADMAP queue 1).
-_CLUSTER_REFUSED = {
-    "hosts": "the multi-host gossip leg (cluster/transport.py)",
-    "host_id": "the multi-host gossip leg (cluster/transport.py)",
-    "gossip_listen": "the multi-host gossip leg (cluster/transport.py)",
-}
+def _parse_gossip_addr(text: str, engines: int):
+    """``IP:PORT`` -> (``[ip, port]``, None) or (None, the error): the one
+    parser of ``--hosts`` entries and ``--gossip-listen``, so that the
+    derived engine ports (the beacon binds PORT, engine r PORT+1+r) are
+    bounded the same way everywhere."""
+    ip, _, port_s = text.strip().rpartition(":")
+    try:
+        port = int(port_s)
+    except ValueError:
+        port = -1
+    if not ip or not 0 < port < 65536:
+        return None, ("is not IP:PORT (the gossip base port; the "
+                      "supervisor beacon binds it, engine r binds "
+                      "PORT+1+r)")
+    if port + engines > 65535:
+        # the engine ports must fit too, or the refusal would surface as
+        # a bind crash-loop in a spawned child
+        return None, (f"base port {port} + {engines} engine port(s) "
+                      "exceeds 65535 (engine r binds PORT+1+r) — "
+                      "pick a lower base port")
+    return [ip, port], None
+
+
+def _cluster_netspec(args: argparse.Namespace):
+    """``--hosts --host-id --gossip-listen`` -> (the net spec or None,
+    the refusal or None), with the reference's messages."""
+    if not (args.hosts or args.host_id is not None or args.gossip_listen):
+        return None, None
+    if not args.hosts:
+        return None, ("--host-id/--gossip-listen require --hosts "
+                      "IP:PORT,IP:PORT,... (the fleet's host table — every "
+                      "host runs the same list)")
+    if args.host_id is None:
+        return None, ("--hosts requires --host-id I (this host's index "
+                      "into the --hosts list; the port layout and the "
+                      "federation identity both derive from it)")
+    hosts = []
+    for ent in args.hosts.split(","):
+        addr, err = _parse_gossip_addr(ent, args.engines)
+        if err:
+            return None, f"--hosts entry {ent.strip()!r} {err}"
+        hosts.append(addr)
+    if len(hosts) < 2:
+        return None, (f"--hosts names {len(hosts)} host(s): a 1-host "
+                      "fleet is fsx cluster without --hosts (the shm "
+                      "gossip plane already covers it)")
+    if not 0 <= args.host_id < len(hosts):
+        return None, (f"--host-id {args.host_id} not in [0, {len(hosts)}) "
+                      f"(the --hosts list has {len(hosts)} entries)")
+    listen = None
+    if args.gossip_listen:
+        listen, err = _parse_gossip_addr(args.gossip_listen, args.engines)
+        if err:
+            return None, f"--gossip-listen {args.gossip_listen!r} {err}"
+    return {"hosts": hosts, "host_id": args.host_id,
+            "engines_per_host": args.engines, "listen": listen}, None
 
 
 def _has_observer(model: str, artifact: str | None) -> bool:
@@ -807,7 +856,7 @@ def _has_observer(model: str, artifact: str | None) -> bool:
 
 def _cmd_cluster(args: argparse.Namespace) -> int:
     """Coordinator-less multi-engine scale-out on one host (the
-    reference's ``fsx cluster``, fixed fleet).  N full engine processes,
+    reference's ``fsx cluster``).  N full engine processes,
     each owning ring shards ``[r*W, (r+1)*W)`` of the daemon's
     ``N*W``-shard IP-hash fan-out end to end (``fsxd --shards N*W``),
     sharing only the verdict-gossip blacklist plane.  This process is
@@ -817,21 +866,21 @@ def _cmd_cluster(args: argparse.Namespace) -> int:
     provisions the plane at ``--max-engines`` and boots ``--engines`` of
     them, the autoscaler growing, shrinking and rebalancing the live set
     through live shard handoffs; ``--adopt`` re-attaches to a live
-    plane.  ``--drain`` (a port addition) serves prefilled shards to
+    plane.  ``--hosts --host-id`` make the fleet one host of a multi-host
+    fleet: the engines also gossip over UDP (epoch-rebased), and this
+    supervisor beacons to and watches the other hosts' supervisors.
+    ``--drain`` (a port addition) serves prefilled shards to
     exhaustion, every rank starting its timed run together once all are
     warm."""
-    for flag, what in _CLUSTER_REFUSED.items():
-        if getattr(args, flag) not in (None, False):
-            name = flag.replace("_", "-")
-            print(f"fsx cluster: refusing --{name}: {what} is not ported; "
-                  "run a fixed single-host fleet (or the reference's fsx "
-                  f"cluster --{name})", file=sys.stderr)
-            return 1
-    if args.engines < 2:
+    if args.engines < 2 and not args.hosts:
         print(f"fsx cluster: --engines must be >= 2 (got "
               f"{args.engines}): a 1-engine cluster is fsx serve "
               "(unless --hosts makes it one rank of a multi-host "
               "fleet)", file=sys.stderr)
+        return 1
+    if args.engines < 1:
+        print(f"fsx cluster: --engines must be >= 1 (got "
+              f"{args.engines})", file=sys.stderr)
         return 1
     # the elastic shape: the plane is provisioned at --max-engines
     # (rings, status blocks, mailboxes) and --engines of them boot; the
@@ -842,6 +891,13 @@ def _cmd_cluster(args: argparse.Namespace) -> int:
         print("fsx cluster: --min-engines/--max-engines require "
               "--elastic (they bound the autoscaler's live-rank "
               "envelope)", file=sys.stderr)
+        return 1
+    if args.elastic and args.hosts:
+        print("fsx cluster: --elastic is single-host for now (the "
+              "handoff mailbox and fence protocol ride the shm "
+              "plane; cross-host handoff coordination is a "
+              "documented follow-up — docs/CLUSTER.md §elastic)",
+              file=sys.stderr)
         return 1
     n = args.engines
     if args.elastic:
@@ -921,6 +977,12 @@ def _cmd_cluster(args: argparse.Namespace) -> int:
         refusal = ("--feature-ring BASE is required: engines front the "
                    f"daemon's ring shards (pair with fsxd --shards "
                    f"{args.shards})")
+    netspec = None
+    if not refusal:
+        # the multi-host leg: the host table, our index into it, and the
+        # port layout (beacon at base, engine r at base+1+r), which
+        # assumes the same --engines on every host
+        netspec, refusal = _cluster_netspec(args)
     if refusal:
         print(f"fsx cluster: {refusal}", file=sys.stderr)
         return 1
@@ -998,7 +1060,7 @@ def _cmd_cluster(args: argparse.Namespace) -> int:
                                max_engines=n)
     sup = ClusterSupervisor(cluster_dir, specs,
                             max_restarts=args.max_restarts,
-                            elastic=policy,
+                            net=netspec, elastic=policy,
                             n_live=args.engines if args.elastic else None)
     try:
         sup.boot(adopt=args.adopt)
@@ -1008,8 +1070,12 @@ def _cmd_cluster(args: argparse.Namespace) -> int:
         # adopt
         print(f"fsx cluster: {e}", file=sys.stderr)
         return 1
-    note = (f", elastic [{args.min_engines or 1}, {n}]"
-            if args.elastic else "")
+    note = ""
+    if netspec:
+        note = (f", host {netspec['host_id']} of {len(netspec['hosts'])} "
+                "(UDP gossip + federation beacons)")
+    if args.elastic:
+        note += f", elastic [{args.min_engines or 1}, {n}]"
     print(f"fsx cluster: {args.engines} engines x {w} worker(s), "
           f"shards 0..{args.shards - 1}, gossip plane {cluster_dir}"
           f"{note}", file=sys.stderr)
@@ -1494,10 +1560,6 @@ def _cmd_chaos(args: argparse.Namespace) -> int:
             status = "CAUGHT" if p["ok"] else "MISSED"
             print(f"fsx chaos: plant {p['plant']:32s} {status}  "
                   f"(by {p['caught_by']})")
-        for kind, names in rep["not_ported"].items():
-            for name, item in names.items():
-                what = "plant " if kind == "plants" else ""
-                print(f"fsx chaos: not ported {what + name:32s} ({item})")
         print(f"fsx chaos: {rep['n_fault_classes']} fault classes, "
               f"{rep['invariants_checked']} invariant checks, "
               f"{len(rep['planted_regressions'])} planted regressions, "
@@ -1816,9 +1878,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "it: census the ranks from their status blocks "
                          "(serving ranks keep serving, dead ranks "
                          "respawn from their checkpoints)")
-    for flag, what in _CLUSTER_REFUSED.items():
-        cl.add_argument("--" + flag.replace("_", "-"), default=None,
-                        help=f"refused: {what} is not ported")
+    cl.add_argument("--hosts", default=None, metavar="IP:PORT,...",
+                    help="multi-host fleet: every host's gossip base "
+                         "address, the same list on every host (the "
+                         "supervisor's federation beacon binds the base "
+                         "port, engine r binds PORT+1+r; verdict wires "
+                         "gossip over UDP with epoch rebase)")
+    cl.add_argument("--host-id", type=int, default=None, metavar="I",
+                    help="this host's index into --hosts (required with "
+                         "--hosts)")
+    cl.add_argument("--gossip-listen", default=None, metavar="IP:PORT",
+                    help="local bind address instead of this host's "
+                         "--hosts entry (e.g. 0.0.0.0:9000 behind NAT)")
     cl.set_defaults(fn=_cmd_cluster)
 
     reports_help = ("merge engine-report JSONs matching this glob (serve "

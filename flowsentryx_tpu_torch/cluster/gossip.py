@@ -1,11 +1,10 @@
 """Engine-side verdict gossip: publish local blocks, merge the peers'.
 
-Counterpart of ``flowsentryx_tpu/cluster/gossip.py`` for a single-host
-fleet (the reference's multi-host ``net=`` leg, ``transport.py``, is not
-ported: a non-None ``net`` is refused).  Each engine owns one
-:class:`GossipPlane`: the engine's half of every pair mailbox
+Counterpart of ``flowsentryx_tpu/cluster/gossip.py``.  Each engine
+owns one :class:`GossipPlane`: the engine's half of every pair mailbox
 (:mod:`.mailbox`) — N-1 TX queues it publishes to, N-1 RX queues it
-merges from — and its status block.
+merges from — its status block and, in a multi-host fleet (``cluster
+--hosts``), a :class:`~.transport.NetMailbox` as its ``net`` leg.
 
 Threading contract, as in the reference:
 
@@ -19,15 +18,18 @@ Threading contract, as in the reference:
   producer is the sink section).
 
 Merged verdicts apply last-wins by key.  The supervisor gives every
-engine one t0 epoch, so the ``until`` an engine publishes is the same
-bits every peer enforces.  numpy only.
+engine of a host one t0 epoch, so the ``until`` an engine publishes is
+the same bits every peer on the host enforces.  The net leg's wires
+arrive rebased into this host's epoch (:mod:`.transport` owns the
+network's discipline: duplicates, reorder, gaps, epoch skew).  With
+``net=None`` the plane is the single-host plane, byte for byte.  numpy
+only.
 """
 
 from __future__ import annotations
 
 import json
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -35,6 +37,8 @@ import numpy as np
 from flowsentryx_tpu_torch.cluster.mailbox import (
     StatusBlock, VerdictMailbox, mailbox_path, status_path,
 )
+# the one digest of the gossip reports (re-exported for its callers)
+from flowsentryx_tpu_torch.cluster.transport import map_digest  # noqa: F401
 from flowsentryx_tpu_torch.core import durable
 from flowsentryx_tpu_torch.engine.writeback import (
     BlacklistUpdate, decode_verdict_wire,
@@ -43,14 +47,17 @@ from flowsentryx_tpu_torch.sync import tuning
 
 
 def create_plane(cluster_dir, n_engines: int, k_max: int = 64,
-                 slots: int = 256) -> None:
+                 slots: int = 256, net: bool = False) -> None:
     """Create every pair mailbox and status block (the supervisor, or a
     test standing in for it, once, before any engine attaches), then
     the geometry stamp ``plane.json`` last: its presence implies the
-    files exist."""
-    if n_engines < 2:
+    files exist.  ``net`` marks a multi-host fleet, where a one-engine
+    local plane is legal: its peers are across the network leg."""
+    if n_engines < 2 and not net:
         raise ValueError(
             f"a gossip plane needs >= 2 engines, got {n_engines}")
+    if n_engines < 1:
+        raise ValueError(f"n_engines must be >= 1, got {n_engines}")
     Path(cluster_dir).mkdir(parents=True, exist_ok=True)
     for src in range(n_engines):
         StatusBlock.create(status_path(cluster_dir, src), src)
@@ -60,15 +67,7 @@ def create_plane(cluster_dir, n_engines: int, k_max: int = 64,
                     mailbox_path(cluster_dir, src, dst), slots, k_max)
     durable.atomic_write(Path(cluster_dir) / "plane.json", json.dumps(
         {"n_engines": n_engines, "k_max": k_max, "slots": slots,
-         "net": False}).encode())
-
-
-def map_digest(d: dict[int, int]) -> str:
-    """Order-insensitive digest of a ``key -> until-bits`` map, so two
-    processes can show the same blacklist through a JSON report (the
-    reference's ``transport.map_digest``)."""
-    items = np.array(sorted(d.items()), np.int64)
-    return f"{zlib.crc32(items.tobytes()):08x}.{len(d)}"
+         "net": bool(net)}).encode())
 
 
 class GossipPlane:
@@ -78,11 +77,6 @@ class GossipPlane:
                  sink=None,
                  merge_interval_s: float = tuning.GOSSIP_MERGE_INTERVAL_S,
                  net=None):
-        if net is not None:
-            raise ValueError(
-                "GossipPlane(net=...): the multi-host network leg "
-                "(cluster/transport.py) is not ported; a single-host "
-                "fleet gossips over the shm mailboxes only")
         if not 0 <= rank < n_engines:
             raise ValueError(f"rank {rank} not in [0, {n_engines})")
         meta_path = Path(cluster_dir) / "plane.json"
@@ -101,6 +95,10 @@ class GossipPlane:
         #: Dispatch-thread owned.
         self.sink = sink
         self.merge_interval_s = merge_interval_s
+        #: The multi-host leg (:class:`~.transport.NetMailbox`), or None:
+        #: publish queues each wire to it from the sink section, tick
+        #: pumps and merges it on the dispatch thread.
+        self.net = net
         self.status = StatusBlock(status_path(cluster_dir, rank))
         self._tx = {
             peer: VerdictMailbox(mailbox_path(cluster_dir, rank, peer))
@@ -110,10 +108,15 @@ class GossipPlane:
             peer: VerdictMailbox(mailbox_path(cluster_dir, peer, rank))
             for peer in range(n_engines) if peer != rank
         }
-        if not self._tx:
+        if self._tx:
+            self.k_max = next(iter(self._tx.values())).k_max
+        elif net is not None:
+            self.k_max = net.k_max
+        else:
             raise ValueError(
-                "a single-engine plane has no peer to gossip with")
-        self.k_max = next(iter(self._tx.values())).k_max
+                "a single-engine local plane only makes sense with a "
+                "network leg (fsx cluster --hosts): there is no shm "
+                "peer to gossip with and no NetMailbox was given")
         # -- publish side (engine sink section) ---------------------------
         self._pub_seq = 0
         self._published: dict[int, int] = {}   # key -> until f32 bits
@@ -158,6 +161,10 @@ class GossipPlane:
                     self._tx_wires += 1
                 else:
                     self._tx_dropped += 1
+            if self.net is not None:
+                # the same wire to the network leg's handoff queue (full:
+                # dropped and counted, the publisher never blocks)
+                self.net.queue_tx(w, len(ck))
 
     # -- merge side (dispatch thread) ---------------------------------------
 
@@ -168,7 +175,9 @@ class GossipPlane:
 
         ``pressure > 0`` (the governor's budget-pressure signal) defers
         a due tick by ``SHED_TICK_STRETCH`` intervals, at most
-        ``SHED_MAX_DEFER`` times in a row; deferrals are counted."""
+        ``SHED_MAX_DEFER`` times in a row; deferrals are counted.  A tick
+        that runs passes the pressure on to the net leg's pump, which
+        defers only its periodic resync."""
         t = time.monotonic()
         if not force and t < self._next_tick:
             return 0
@@ -200,19 +209,44 @@ class GossipPlane:
                     merged_k.append(vw.key)
                     merged_u.append(vw.until_s)
                     self._rx_wires += 1
-        if not merged_k:
+        # the network leg: pump it and take its delivered wires, already
+        # in this host's epoch.  They go to the sink (the kernel tier
+        # enforces remote verdicts) but not into ``_merged``, whose
+        # digest is the shm plane's; cross-host convergence is judged on
+        # the canonical form (``net_digest``)
+        net_k: list[np.ndarray] = []
+        net_u: list[np.ndarray] = []
+        if self.net is not None:
+            self.net.pump(pressure=pressure)
+            # deeper than one pump's receive budget, so a sustained
+            # inflow converges instead of backing up into the bounded
+            # staging queue
+            for _src, _seq, _w, keys, untils in self.net.pop_wires(256):
+                if len(keys):
+                    net_k.append(keys)
+                    net_u.append(untils)
+        if not merged_k and not net_k:
             return 0
         self._merge_ticks += 1
-        keys = np.concatenate(merged_k)
-        untils = np.concatenate(merged_u)
-        # last-wins by key in arrival order: the kernel map's
-        # overwrite-on-update semantics
-        self._merged.update(
-            zip(keys.tolist(),
-                untils.astype(np.float32).view(np.uint32).tolist()))
-        if self.sink is not None:
-            self.sink.apply(BlacklistUpdate(key=keys, until_s=untils))
-        return int(len(keys))
+        total = 0
+        if merged_k:
+            keys = np.concatenate(merged_k)
+            untils = np.concatenate(merged_u)
+            # last-wins by key in arrival order: the kernel map's
+            # overwrite-on-update semantics
+            self._merged.update(
+                zip(keys.tolist(),
+                    untils.astype(np.float32).view(np.uint32).tolist()))
+            if self.sink is not None:
+                self.sink.apply(BlacklistUpdate(key=keys, until_s=untils))
+            total += int(len(keys))
+        if net_k:
+            keys = np.concatenate(net_k)
+            untils = np.concatenate(net_u)
+            if self.sink is not None:
+                self.sink.apply(BlacklistUpdate(key=keys, until_s=untils))
+            total += int(len(keys))
+        return total
 
     def quiesce(self, timeout_s: float, peers_quiet=None) -> None:
         """Converge on shutdown: force-tick until the RX mailboxes run
@@ -240,7 +274,7 @@ class GossipPlane:
         self.status.ctl_set("c_records", records)
 
     def report(self) -> dict:
-        return {
+        rep = {
             "rank": self.rank,
             "n_engines": self.n_engines,
             "k_max": self.k_max,
@@ -256,3 +290,9 @@ class GossipPlane:
             "merge_ticks": self._merge_ticks,
             "ticks_deferred": self._ticks_deferred,
         }
+        if self.net is not None:
+            # the network leg's counters: they ride EngineReport.cluster,
+            # feed the health ladder's net_* reasons and `status` /
+            # `monitor`; a single-host report has no "net" key at all
+            rep["net"] = self.net.report()
+        return rep

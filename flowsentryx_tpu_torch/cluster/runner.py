@@ -10,6 +10,12 @@ writing its :class:`~flowsentryx_tpu_torch.engine.engine.EngineReport`
 as JSON where the supervisor aggregates it.  A rank's CUDA context is
 its own: the supervisor spawns it and never touches the card.
 
+:func:`engine_main`'s drain mode (``spec["drain"]``) and the net settle
+(``spec["net_settle_s"]``: after the run, merge the network leg until
+its canonical map holds still, report, then keep gossiping until the
+stop) are this port's additions for timed fleet runs; the rest is the
+reference's.
+
 :func:`prewarm_main` builds an elastic fleet's kernels into the compile
 cache at boot, for the spares a GROW spawns later.
 
@@ -83,12 +89,23 @@ def engine_main(spec: dict) -> int:
     (``cli.py``'s ``_cmd_cluster`` and the supervisor fill it): ``rank``,
     ``n_engines``, ``cluster_dir``, ``gen``, ``t0_ns``, ``cfg_json``,
     ``ring_base``, ``workers``, ``total_shards``, ``device`` (``"cuda"``
-    unless given), and the serve options.  A rank that cannot serve on
-    its device — no card, a kernel that does not build or launch — ends
-    ``CSTATE_FAILED``; it never falls back to the CPU."""
+    unless given), and the serve options; in a multi-host fleet also
+    ``t0_wall_ns`` and ``net``, the CLI's net spec.  A rank that cannot
+    serve on its device — no card, a kernel that does not build or
+    launch — ends ``CSTATE_FAILED``; it never falls back to the CPU."""
     _own_process_group()
+    net = None
+    if spec.get("net"):
+        # the multi-host leg: its socket lives in the engine process,
+        # its counters ride the report's gossip block (numpy only)
+        from flowsentryx_tpu_torch.cluster.transport import (
+            engine_net_mailbox,
+        )
+
+        net = engine_net_mailbox(spec["net"], spec["rank"],
+                                 spec["t0_ns"], spec["t0_wall_ns"])
     plane = GossipPlane(spec["cluster_dir"], spec["rank"],
-                        spec["n_engines"])
+                        spec["n_engines"], net=net)
     plane.status.ctl_set("c_pid", os.getpid())
     plane.set_state(wire.CSTATE_SPAWNING)
     try:
@@ -99,6 +116,9 @@ def engine_main(spec: dict) -> int:
         traceback.print_exc()
         plane.set_state(wire.CSTATE_FAILED)
         return 1
+    finally:
+        if net is not None:
+            net.close()
 
 
 def _serve(spec: dict, plane: GossipPlane) -> None:
@@ -165,6 +185,21 @@ def _serve(spec: dict, plane: GossipPlane) -> None:
         Path(spec["ready_token"]).touch()
     if spec.get("start_token"):
         _wait_for_token(spec["start_token"])
+    if plane.net is not None:
+        # peer discovery with backoff, fail-open on timeout: a silent
+        # peer host is its own supervisor's incident, and its first
+        # HELLO triggers a full-map resync when it appears
+        from flowsentryx_tpu_torch.cluster.transport import (
+            NetHandshakeTimeout,
+        )
+
+        try:
+            plane.net.handshake(
+                spec["net"].get("handshake_timeout_s",
+                                tuning.NET_HANDSHAKE_TIMEOUT_S))
+        except NetHandshakeTimeout as e:
+            print(f"fsx cluster rank {rank}: {e} — serving fail-open",
+                  file=sys.stderr)
     plane.set_state(wire.CSTATE_SERVING)
     # this rank's launch window: zeroed here, read after its last run
     kernels.reset_launches()
@@ -211,6 +246,7 @@ def _serve(spec: dict, plane: GossipPlane) -> None:
             if source.exhausted():
                 break
     wall = time.perf_counter() - t0
+    drain_end_wall_ns = time.time_ns()
     launches = dict(kernels.LAUNCHES)
     # converge on shutdown: DRAINING (every publish of this engine
     # happened before this store), then merge the peers' wires until
@@ -224,6 +260,9 @@ def _serve(spec: dict, plane: GossipPlane) -> None:
         spec.get("gossip_quiesce_s", tuning.GOSSIP_QUIESCE_S),
         peers_quiet=lambda: all(st.ctl_get("c_state") in quiet
                                 for st in peers.values()))
+    settle = None
+    if plane.net is not None and spec.get("net_settle_s"):
+        settle = net_settle(plane, spec["net_settle_s"], drain_end_wall_ns)
     rep = rep._replace(cluster=plane.report())
     if ckpt:
         eng.checkpoint(ckpt)
@@ -245,9 +284,66 @@ def _serve(spec: dict, plane: GossipPlane) -> None:
             "runs": runs,
             "report": rep._asdict(),
         }
-        p = Path(spec["report_path"])
-        p.parent.mkdir(parents=True, exist_ok=True)
-        p.write_text(json.dumps(out, indent=2) + "\n")
+        if settle is not None:
+            out["net_settle"] = settle
+        _write_report(spec["report_path"], out)
+        if settle is not None:
+            # keep the gossip (heartbeat, resync, merges) alive until the
+            # supervisor's stop, then report the plane as it ended
+            while not plane.stop_requested():
+                plane.tick(force=True)
+                time.sleep(plane.merge_interval_s)
+            out["report"]["cluster"] = plane.report()
+            _write_report(spec["report_path"], out)
+
+
+def _write_report(path: str, out: dict) -> None:
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    p.write_text(json.dumps(out, indent=2) + "\n")
+
+
+def net_settle(plane: GossipPlane, settle_s: float, drain_end_wall_ns: int,
+               timeout_s: float = 60.0) -> dict:
+    """After a drain, merge the network leg until its canonical map has
+    not changed for ``settle_s`` (bounded by ``timeout_s``): the fleet's
+    cross-host convergence, seen from this engine.  Returns the wall
+    stamps (CLOCK_REALTIME ns) of the drain's end and of the map's last
+    change, the map (``[key, until_wall_us]`` pairs, sorted), the keys
+    this engine originated in the same form, and their digests."""
+    from flowsentryx_tpu_torch.cluster.transport import (
+        map_digest, until_wall_us,
+    )
+
+    net = plane.net
+    t_end = time.monotonic() + timeout_s
+    digest = map_digest(net.net_map)
+    changed_ns = time.time_ns()
+    still_since = time.monotonic()
+    ticks = 0
+    while time.monotonic() < t_end:
+        plane.tick(force=True)
+        ticks += 1
+        d = map_digest(net.net_map)
+        if d != digest:
+            digest, changed_ns = d, time.time_ns()
+            still_since = time.monotonic()
+        elif time.monotonic() - still_since >= settle_s:
+            break
+        time.sleep(plane.merge_interval_s)
+    own = dict(zip(net._own_map, until_wall_us(
+        list(net._own_map.values()), net.t0_wall_ns).tolist()))
+    return {
+        "drain_end_wall_ns": drain_end_wall_ns,
+        "changed_wall_ns": changed_ns,
+        "settled": time.monotonic() - still_since >= settle_s,
+        "ticks": ticks,
+        "t0_wall_ns": net.t0_wall_ns,
+        "net_digest": digest,
+        "net_map": sorted(net.net_map.items()),
+        "own_digest": map_digest(own),
+        "own_map": sorted(own.items()),
+    }
 
 
 def prewarm_main(spec: dict) -> int:

@@ -1,13 +1,19 @@
 """Cluster supervisor: spawn, watch, restart — never on the data path.
 
-Counterpart of ``flowsentryx_tpu/cluster/supervisor.py`` for a
-single-host fleet (the reference's multi-host federation is not ported:
-ROADMAP queue 1).  The supervisor is control plane only: it creates the
-shm plane, stamps the shared t0 epoch, spawns one engine process per
-rank (``spawn``: this process imports neither torch nor CUDA, only the
+Counterpart of ``flowsentryx_tpu/cluster/supervisor.py``.  The
+supervisor is control plane only: it creates the shm plane, stamps the
+shared t0 epoch (and its wall twin), spawns one engine process per rank
+(``spawn``: this process imports neither torch nor CUDA, only the
 engines own a context on the card), watches liveness and restarts the
 dead from their last checkpoint.  Its own death changes nothing for the
 engines serving: a new supervisor re-attaches (``boot(adopt=True)``).
+
+A multi-host fleet (``net=``, the CLI's ``--hosts`` spec) also runs the
+federation: a :class:`~.transport.HostBeacon` ticked from :meth:`poll`
+beacons this host's liveness to its peer hosts' supervisors and
+announces a peer host silent past ``NET_HOST_TIMEOUT_S`` (once per
+incident); ``aggregate()["hosts"]`` carries the view, and a dead host
+folds fleet health FAILED.
 
 The elastic fleet: shard spans move between live ranks through the
 handoff protocol (:mod:`.rebalance`, one handoff at a time, driven from
@@ -86,13 +92,16 @@ class ClusterSupervisor:
         mailbox_slots: int = 256,
         t0_ns: int | None = None,
         t0_wall_ns: int | None = None,
+        net: dict | None = None,
         elastic=None,
         n_live: int | None = None,
     ):
-        if len(specs) < 2:
+        if len(specs) < 2 and net is None:
             raise ValueError(
                 f"a cluster needs >= 2 engines, got {len(specs)} "
                 "(one engine is fsx serve)")
+        if len(specs) < 1:
+            raise ValueError("a cluster needs >= 1 engine")
         self.cluster_dir = Path(cluster_dir)
         self.n = len(specs)
         self.specs = specs
@@ -114,6 +123,12 @@ class ClusterSupervisor:
         self.mailbox_slots = mailbox_slots
         self.t0_ns = t0_ns
         self.t0_wall_ns = t0_wall_ns
+        #: the multi-host net spec (hosts, host_id, engines_per_host,
+        #: listen): each child's ``engine_net_mailbox`` and the
+        #: federation beacon read it; None on a single-host fleet
+        self.net = net
+        self.federation = None
+        self._dead_hosts_announced: set[int] = set()
         self._ctx = mp.get_context("spawn")
         self._procs: list[mp.process.BaseProcess | None] = [None] * self.n
         self._status: list[StatusBlock] = []
@@ -178,11 +193,14 @@ class ClusterSupervisor:
             return
         self._refuse_live_plane()
         gplane.create_plane(self.cluster_dir, self.n, k_max=self.k_max,
-                            slots=self.mailbox_slots)
+                            slots=self.mailbox_slots,
+                            net=self.net is not None)
         self._write_initial_layout()
         if self.t0_ns is None:
             # the shared epoch: every engine's clock and every gossiped
-            # `until` is relative to it, so untils compare across engines
+            # `until` is relative to it, so untils compare across engines;
+            # its wall twin, stamped at the same instant, lets a peer
+            # host rebase this host's wires into its own epoch
             self.t0_ns = time.clock_gettime_ns(time.CLOCK_MONOTONIC)
             if self.t0_wall_ns is None:
                 self.t0_wall_ns = time.time_ns()
@@ -197,10 +215,25 @@ class ClusterSupervisor:
             st.ctl_set("c_t0_wall", self.t0_wall_ns)
             st.ctl_set("c_gen", 0)
             self._status.append(st)
+        self._start_federation()
         for r in range(self.n):
             if r in self._active:
                 self._spawn(r)
         self._maybe_prewarm()
+
+    def _start_federation(self) -> None:
+        """The multi-host fleet's federation beacon on this host's base
+        port (``net`` spec); nothing on a single-host fleet."""
+        if self.net is None:
+            return
+        from flowsentryx_tpu_torch.cluster import transport
+
+        self.federation = transport.host_beacon(
+            self.net, self.t0_wall_ns,
+            interval_s=self.net.get(
+                "beacon_interval_s", tuning.NET_BEACON_INTERVAL_S),
+            timeout_s=self.net.get(
+                "host_timeout_s", tuning.NET_HOST_TIMEOUT_S))
 
     def _maybe_prewarm(self) -> None:
         """An elastic fleet whose specs carry a compile cache spawns ONE
@@ -288,6 +321,7 @@ class ClusterSupervisor:
                 "adopt=True: no rank ever stamped the shared epoch — "
                 "this plane never served; boot without adopt")
         self._neutralize_stale_handoff()
+        self._start_federation()
         for r in dead:
             # died under the previous supervisor: the crash path
             self.restarts[r] += 1
@@ -342,6 +376,8 @@ class ClusterSupervisor:
         spec["gen"] = gen
         spec["t0_ns"] = self.t0_ns
         spec["t0_wall_ns"] = self.t0_wall_ns
+        if self.net is not None:
+            spec["net"] = self.net
         # per-generation default; a caller's report_path serves every
         # generation (aggregate() keeps each rank's latest)
         spec.setdefault(
@@ -408,11 +444,39 @@ class ClusterSupervisor:
             "to the kernel tier. Fix the crash cause and restart the "
             "fleet to re-serve it.", file=sys.stderr)
 
+    def _announce_dead_host(self, host: int) -> None:
+        """A peer HOST went silent past the federation timeout: every
+        span its engines owned is now mitigated by its kernel tier
+        alone.  Announced with the span and the remedy, as a park."""
+        n_eng = int(self.net.get("engines_per_host", 0) or 0)
+        hosts = self.net.get("hosts") or []
+        addr = (f"{hosts[host][0]}:{hosts[host][1]}"
+                if host < len(hosts) else "?")
+        span = (f"its {n_eng} engine span(s)" if n_eng
+                else "its engine spans")
+        print(
+            f"fsx cluster: peer host {host} ({addr}) DEAD — no "
+            f"federation beacon for "
+            f"{self.federation.timeout_s:.0f}s; {span} fail open to "
+            "that host's kernel tier. Fleet health folds FAILED until "
+            "the host returns (its first beacon/HELLO re-joins it and "
+            "triggers a gossip resync).", file=sys.stderr)
+
     def poll(self) -> None:
-        """One supervision pass: liveness, heartbeat staleness, and the
-        restart-or-park decision for each dead rank."""
+        """One supervision pass: the federation beacon (multi-host),
+        liveness, heartbeat staleness, and the restart-or-park decision
+        for each dead rank."""
         now_ns = time.clock_gettime_ns(time.CLOCK_MONOTONIC)
         now = time.monotonic()
+        if self.federation is not None:
+            # beacon our liveness, take the peers', and announce a peer
+            # host's death once per incident
+            self.federation.tick()
+            dead = set(self.federation.dead_hosts())
+            for h in sorted(dead - self._dead_hosts_announced):
+                self._announce_dead_host(h)
+            # a revived host leaves the set, so a relapse re-announces
+            self._dead_hosts_announced = dead
         for r in range(self.n):
             if (r not in self._active or r in self._failed
                     or r in self._done):
@@ -986,6 +1050,8 @@ class ClusterSupervisor:
                 self._killpg(p)
                 p.terminate()
                 p.join(timeout=1.0)
+        if self.federation is not None:
+            self.federation.close()
 
     # -- reporting ----------------------------------------------------------
 
@@ -1039,8 +1105,16 @@ class ClusterSupervisor:
             r: rep["report"]["health"] for r, rep in latest.items()
             if isinstance(rep.get("report"), dict)
             and rep["report"].get("health")}
+        # the federation's view (multi-host): per-peer-host beacon ages
+        # and the dead list; a dead peer host folds the fleet FAILED
+        hosts_block = None
+        dead_hosts: list[int] = []
+        if self.federation is not None:
+            hosts_block = self.federation.report()
+            dead_hosts = self.federation.dead_hosts()
         health = health_mod.cluster_health(
-            per_rank_health, sorted(self._failed), sorted(self._stalled))
+            per_rank_health, sorted(self._failed), sorted(self._stalled),
+            dead_hosts=dead_hosts)
         # the supervisor's own reasons (a suppressed plan, an aborted
         # handoff), folded so `monitor --alert-degraded` sees them
         sup_reasons = []
@@ -1083,6 +1157,7 @@ class ClusterSupervisor:
             "restarts": list(self.restarts),
             "failed_ranks": sorted(self._failed),
             "stalled_ranks": sorted(self._stalled),
+            "hosts": hosts_block,
             "health": health,
             "records": total_records,
             "batches": total_batches,

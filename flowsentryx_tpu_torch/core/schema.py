@@ -41,8 +41,13 @@ from flowsentryx_tpu_torch.core.wire import (  # noqa: F401
     ML_BAND_ESCALATE, ML_BAND_PASS, ML_BOUNDS_PER_FEATURE,
     ML_MODEL_ACC_DROP_OFFSET, ML_MODEL_ACC_PASS_OFFSET,
     ML_MODEL_BOUNDS_OFFSET, ML_MODEL_FLAGS_OFFSET, ML_MODEL_QBASE_OFFSET,
-    ML_MODEL_SIZE, ML_MODEL_VALID_OFFSET, ML_MODEL_W_OFFSET, NUM_FEATURES,
-    RANGE_DEPLOY_HORIZON_S, RANGE_DT_US_MAX, RANGE_FEAT_Q8_MAX,
+    ML_MODEL_SIZE, ML_MODEL_VALID_OFFSET, ML_MODEL_W_OFFSET,
+    NET_COUNT_WORD, NET_HOST_WORD, NET_KIND_BEACON, NET_KIND_HELLO,
+    NET_KIND_WELCOME, NET_KIND_WIRE, NET_KIND_WORD, NET_MAGIC_WORD,
+    NET_PKT_HDR_WORDS, NET_PKT_MAGIC, NET_RANK_BEACON, NET_RANK_WORD,
+    NET_SEQ_HI_WORD, NET_SEQ_LO_WORD, NET_T0_WALL_HI_WORD,
+    NET_T0_WALL_LO_WORD, NUM_FEATURES, RANGE_DEPLOY_HORIZON_S,
+    RANGE_DT_US_MAX, RANGE_EPOCH_SKEW_S, RANGE_FEAT_Q8_MAX,
     RANGE_FLAGS_MAX, RANGE_LEN8_MAX, RANGE_PKT_LEN_MAX, RECORD_WORDS,
     SHM_BATCHQ_MAGIC, SHM_CAPACITY_OFFSET, SHM_EMIT_DROP_OFFSET,
     SHM_FIRST_TS_OFFSET, SHM_HBEAT_OFFSET, SHM_HDR_SIZE, SHM_HEAD_OFFSET,

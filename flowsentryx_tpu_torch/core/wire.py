@@ -361,6 +361,41 @@ HP_STAGED = 2      # recipient: stream verified and spooled crash-safe
 HP_DROPPED = 3     # donor: observed the flip, span rows dropped
 HP_INSERTED = 4    # recipient: observed the flip, staged rows inserted
 
+#: Multi-host gossip datagram (``cluster/transport.py``): a 9-word u32
+#: header, then the same ``[2K+4]``-word compact verdict wire the shm
+#: mailboxes carry (564 B at K=64, under any MTU).  The u64 sequence and
+#: the u64 epoch wall stamp are split across two u32 words each, as in
+#: the gossip mailbox's slot header.
+NET_PKT_MAGIC = 0x4653584E              # "FSXN"
+NET_MAGIC_WORD = 0
+NET_KIND_WORD = 1
+NET_HOST_WORD = 2                       # sender host id
+NET_RANK_WORD = 3                       # sender rank (or NET_RANK_BEACON)
+NET_SEQ_LO_WORD = 4                     # u64 per-peer wire seq, lo half
+NET_SEQ_HI_WORD = 5
+NET_COUNT_WORD = 6                      # verdicts in the wire payload
+NET_T0_WALL_LO_WORD = 7                 # sender's epoch wall stamp, lo half
+NET_T0_WALL_HI_WORD = 8
+NET_PKT_HDR_WORDS = 9
+#: Datagram kinds: a verdict wire, the peer-discovery handshake (HELLO,
+#: retried with backoff; WELCOME answers) and the supervisors'
+#: federation liveness beacon.
+NET_KIND_WIRE = 1
+NET_KIND_HELLO = 2
+NET_KIND_WELCOME = 3
+NET_KIND_BEACON = 4
+#: The rank word of a supervisor beacon (no engine endpoint).
+NET_RANK_BEACON = 0xFFFFFFFF
+
+#: Cross-host epoch-skew bound (seconds) on rebased verdict wires: after
+#: the tx-epoch -> rx-epoch rebase, a wire's ``now`` word must land
+#: within this of the receiver's own clock.  Honest skew (NTP, transit,
+#: tick batching) sums to well under a second, so 60 s trips only on a
+#: lying epoch (a pre-reboot stamp, a host without clock discipline);
+#: such wires are dropped and counted.  A default block lasts 10 s, so a
+#: verdict 60 s out of frame has expired anyway.
+RANGE_EPOCH_SKEW_S = 60
+
 #: State columns of one table row and their names (``schema.TableCol``
 #: in order; the checkpoint's ``table_<name>`` members), for the
 #: numpy-only handoff and checkpoint readers.

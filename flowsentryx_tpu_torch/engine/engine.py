@@ -1386,7 +1386,7 @@ class Engine:
         self._watch_mtime = m
         try:
             self.hot_swap(load_artifact(self.cfg.model.name,
-                                        self._watch_path))
+                                        self._watch_path, self.device))
             print(f"fsx engine: hot-swapped artifact {self._watch_path} "
                   f"(swap #{self._hot_swaps})", file=sys.stderr)
         # BadZipFile: a non-atomic deploy caught mid-write hands np.load

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from flowsentryx_tpu_torch.core import wire
+from flowsentryx_tpu_torch.core.device import resolve_device
 from flowsentryx_tpu_torch.models import logreg, mlp, multiclass
 from flowsentryx_tpu_torch.ops import kernels
 
@@ -92,13 +93,15 @@ def require_distillable(name: str, params: Any) -> None:
             "another model family?)")
 
 
-def load_artifact(name: str, path: str, device="cpu"):
-    """Load a trained ``.npz`` artifact as the params for ``name``,
-    through its family's loader (as the reference dispatches; an
-    unregistered name has no loader, in the reference's words)."""
+def load_artifact(name: str, path: str, device=None):
+    """Load a trained ``.npz`` artifact as the params for ``name`` on
+    ``device`` (None: the card, raising without one), through its
+    family's loader (as the reference dispatches; an unregistered name
+    has no loader, in the reference's words)."""
     if name not in _REGISTRY:
         raise KeyError(f"no artifact loader for model family {name!r}")
     spec = _REGISTRY[name]
+    device = resolve_device(device)
     try:
         return spec.load(path, device)
     except (TypeError, KeyError) as e:
@@ -160,9 +163,11 @@ register_model(ModelSpec(name="logreg_float", init=logreg.golden_params,
 # the reference's defaults: init_params(jax.random.PRNGKey(0)), drawn by
 # the port's threefry (core/prng.py)
 register_model(ModelSpec(
-    name="mlp", init=lambda device="cpu": mlp.init_params(device=device),
+    name="mlp",
+    init=lambda device=None: mlp.init_params(device=resolve_device(device)),
     classify_batch=mlp.classify_batch, load=mlp.load_params))
 register_model(ModelSpec(
     name="multiclass",
-    init=lambda device="cpu": multiclass.init_params(device=device),
+    init=lambda device=None: multiclass.init_params(
+        device=resolve_device(device)),
     classify_batch=multiclass.classify_batch, load=multiclass.load_params))

@@ -191,3 +191,61 @@ HANDOFF_TIMEOUT_S = 60.0
 
 #: Bound of each side of the UDP handoff leg (``rebalance.NetHandoff``).
 NET_HANDOFF_TIMEOUT_S = 10.0
+
+# -- the multi-host gossip leg (cluster/transport.py) --------------------------
+
+#: Reorder-buffer depth per remote peer (``NetMailbox``): out-of-order
+#: datagrams wait here for the sequence hole to fill; past this depth
+#: the oldest buffered wire is delivered out of order and counted
+#: (``reorder_evict``) instead of the buffer growing.  16 wires (~9 KB
+#: per peer) cover the reorder depth of a rack's ECMP and offload paths
+#: (single-digit packets); a deeper hole is loss, and waiting on loss is
+#: the coordinator coupling the gossip plane exists to avoid.
+NET_REORDER_WINDOW = 16
+
+#: How long a sequence hole may hold later wires in the reorder buffer
+#: before it is conceded as loss (``rx_gap`` counted, the buffered wires
+#: delivered in order).  Real reorder resolves in well under a ms on a
+#: rack; 200 ms is orders above that and far under the 10 s default
+#: block, so a lost wire delays its successors imperceptibly.
+NET_REORDER_TIMEOUT_S = 0.2
+
+#: A backward sequence jump deeper than this (wires) is a peer RESTART
+#: (its sequence began again at 1), not a stale duplicate: the receive
+#: state resets and is counted, instead of dropping the peer's whole new
+#: life as duplicates.  4x the reorder window keeps real stragglers
+#: (bounded by the window) inside duplicate suppression.
+NET_RESTART_JUMP = 4 * NET_REORDER_WINDOW
+
+#: Bound of the publish handoff queue (``NetMailbox.queue_tx``) and of
+#: the receive staging queue: past it the wire is dropped and counted
+#: (``txq_dropped``, ``rx_overflow``), never blocked on.  256 wires
+#: (~144 KB) are ~1.3 s of headroom at the 5 ms gossip tick.
+NET_OUTQ_MAX = 256
+
+#: Peer discovery (``NetMailbox.handshake``): HELLO is re-sent to each
+#: silent peer with exponential backoff from BASE, doubling to MAX,
+#: within TIMEOUT overall.  50 ms is ~100x a rack's round trip, so one
+#: lost HELLO costs little; 1 s keeps a long wait from hammering a dead
+#: address; past 10 s (the supervisor's heartbeat bound) the caller
+#: serves fail-open and converges when the peer appears (its first
+#: HELLO triggers a full-map resync).
+NET_HANDSHAKE_BACKOFF_BASE_S = 0.05
+NET_HANDSHAKE_BACKOFF_MAX_S = 1.0
+NET_HANDSHAKE_TIMEOUT_S = 10.0
+
+#: Anti-entropy resync cadence (``NetMailbox.pump``): each endpoint
+#: re-publishes its own blocked map to every peer this often, so UDP
+#: loss and a healed partition (where no side died and no HELLO fires)
+#: are repaired within one interval plus delivery.  0.5 s is 20x under
+#: the default 10 s block, and the map is bounded by its expiries, so a
+#: resync is a handful of wires.
+NET_RESYNC_INTERVAL_S = 0.5
+
+#: Supervisor federation beacon (``transport.HostBeacon``): each host's
+#: supervisor beacons every interval; a peer host silent past the
+#: timeout is DEAD (announced; fleet health folds FAILED).  Five missed
+#: beacons is far past a GC or throttle pause and inside an operator's
+#: glance, the intra-host heartbeat bound's discipline.
+NET_BEACON_INTERVAL_S = 1.0
+NET_HOST_TIMEOUT_S = 5.0

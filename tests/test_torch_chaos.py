@@ -8,20 +8,23 @@ chaos``) against the JAX package's, on the CPU.
   package's ``SealedBatchQueue``;
 * both packages' ``_tiny_snapshot`` files are the same bytes (bar the
   zip members' timestamps), so ``flip_bytes`` flips the same offsets;
-* each of the twelve ported scenario functions, given a fresh
+* each of the eighteen scenario functions (the six network ones on
+  loopback UDP pairs of the port's planes), given a fresh
   ``default_rng(seed)``, gives the reference's fault name, invariant
   names and verdicts and seeded fields — the slot scenario also the same
   ``records``, injections and sink blacklist, the port's engine on
   ``device="cpu"``, the handoff child shipping with the port's
   ``ship_rows``;
-* the four ported plants are caught by their invariants and their
-  controls hold (``conservation_removed`` with the reference's detail);
+* the six plants are caught by their invariants and their controls hold
+  (``conservation_removed`` and ``dup_suppression_removed`` with the
+  reference's detail);
 * ``cli chaos --quick --device cpu --json`` (the port's
   ``run_campaign(seed=17, quick=True, device="cpu")``) exits 0, is
-  ``ok``, names the eight faults and plants it does not run, keeps the
-  reference's artifact keys, and its seeded fields — and the generator's
-  state where the engine fleet draws its traffic seed — equal the
-  reference's ``run_campaign(seed=17, quick=True)``.
+  ``ok``, runs every fault and plant the reference runs (no
+  ``not_ported`` key), keeps the reference's artifact keys, and its
+  seeded fields — and the generator's state where the engine fleet draws
+  its traffic seed — equal the reference's
+  ``run_campaign(seed=17, quick=True)``.
 
 Every compared field is exact: no tolerance.
 """
@@ -50,13 +53,16 @@ from flowsentryx_tpu_torch.engine import shm
 REPO = Path(__file__).resolve().parents[1]
 SEED = 17
 
-#: The faults whose scenarios the port runs (the registry's first ten and
-#: the elastic fleet's three).
+#: The faults whose scenarios the port runs: every one of the registry
+#: (the single-host ten, the six network faults, the elastic fleet's three).
 PORTED_FAULTS = ("engine_kill", "crash_loop", "ckpt_bitflip", "ckpt_truncate",
                  "shm_bad_magic", "shm_seq_gap", "poison_batch",
                  "gossip_stall_flood", "clock_jump", "sink_wedge",
+                 "net_partition", "net_heal", "net_reorder", "net_duplicate",
+                 "net_loss_burst", "net_stale_epoch",
                  "handoff_kill_midship", "layout_flip_lost",
                  "adopt_half_dead")
+NET_FAULTS = PORTED_FAULTS[10:16]
 
 #: Per scenario, the result fields a seed fixes (timings excluded).
 SEEDED = {"ckpt_truncate": ("truncate_fraction",),
@@ -65,6 +71,9 @@ SEEDED = {"ckpt_truncate": ("truncate_fraction",),
           "crash_loop": ("restarts",),
           "handoff_kill_midship": ("kill_after_slots",),
           "layout_flip_lost": ("to_gen",),
+          "net_reorder": ("delivered_seqs",),
+          "net_loss_burst": ("burst_index",),
+          "net_stale_epoch": ("injected_skew_s",),
           "shm_bad_magic+poison_batch+shm_seq_gap": ("records", "injections")}
 
 
@@ -118,9 +127,8 @@ def two_threads():
 def test_fault_registry_equals_reference():
     assert faults.FAULTS == jfaults.FAULTS
     assert list(faults.FAULTS) == list(jfaults.FAULTS)
-    assert set(PORTED_FAULTS) | set(campaign.NOT_PORTED["faults"]) == set(
-        faults.FAULTS)
-    assert not set(PORTED_FAULTS) & set(campaign.NOT_PORTED["faults"])
+    assert set(PORTED_FAULTS) == set(faults.FAULTS)
+    assert not hasattr(campaign, "NOT_PORTED")
 
 
 def test_chaos_list_is_the_reference_list_without_torch():
@@ -287,6 +295,7 @@ def _scenarios(mod, tmp: Path, engine_kw: dict) -> dict:
         "crash_loop": mod.scenario_crash_loop(tmp, rng()),
         "gossip_stall_flood": mod.scenario_gossip_stall_flood(tmp, rng()),
         "clock_jump": mod.scenario_clock_jump(rng()),
+        **{f: getattr(mod, f"scenario_{f}")(tmp, rng()) for f in NET_FAULTS},
         "handoff_kill_midship": mod.scenario_handoff_kill_midship(
             tmp, rng()),
         "layout_flip_lost": mod.scenario_layout_flip_lost(tmp, rng()),
@@ -318,7 +327,7 @@ def scenario_pairs(tmp_path_factory, two_threads):
     "ckpt_truncate", "ckpt_bitflip", "engine_kill", "crash_loop",
     "gossip_stall_flood", "clock_jump", "handoff_kill_midship",
     "layout_flip_lost", "adopt_half_dead", "slot_corruption",
-    "ckpt_fallback", "watchdog"])
+    "ckpt_fallback", "watchdog", *NET_FAULTS])
 def test_scenario_equals_reference(scenario_pairs, name):
     got, want = scenario_pairs
     _assert_same_scenario(got[name], want[name])
@@ -346,7 +355,9 @@ def test_slot_scenario_state_equals_reference(scenario_pairs):
 
 @pytest.mark.parametrize("plant", ["split_atomicity", "crc_skipped",
                                    "backoff_removed",
-                                   "conservation_removed"])
+                                   "conservation_removed",
+                                   "dup_suppression_removed",
+                                   "epoch_rebase_skipped"])
 def test_plant_is_caught(tmp_path, plant):
     fn = getattr(campaign, f"plant_{plant}")
     res = (fn() if plant == "split_atomicity"
@@ -357,14 +368,18 @@ def test_plant_is_caught(tmp_path, plant):
     ref = {"split_atomicity": "sink_crash_atomicity",
            "crc_skipped": "corrupt_ckpt_refused",
            "backoff_removed": "crash_loop_parks",
-           "conservation_removed": "handoff_rows_conserved"}
+           "conservation_removed": "handoff_rows_conserved",
+           "dup_suppression_removed": "no_double_apply",
+           "epoch_rebase_skipped": "epoch_rebase_exact"}
     assert res["caught_by"] == ref[plant]
-    if plant == "conservation_removed":
-        # the same rows and the same flipped word as the reference's
+    if plant in ("conservation_removed", "dup_suppression_removed"):
+        # the same rows and flipped word, the same double apply, as the
+        # reference's
         (tmp_path / "ref").mkdir()
-        want = jcampaign.plant_conservation_removed(
+        want = getattr(jcampaign, f"plant_{plant}")(
             tmp_path / "ref", np.random.default_rng(SEED))
         assert res["detail"] == want["detail"]
+        assert set(res) == set(want)
 
 
 # ---------------------------------------------------------------------------
@@ -401,29 +416,26 @@ def test_cli_chaos_quick_json_exits_zero(port_campaign):
 
 
 def test_campaign_names_what_it_does_not_run(port_campaign, ref_campaign):
+    """Nothing: the campaign runs every fault and plant the reference's
+    runs, in its order, and its artifact has no ``not_ported`` key."""
     rep = json.loads(port_campaign[1])
     ref, _ = ref_campaign
     assert ref["ok"]
-    assert len(rep["not_ported"]["faults"]) == 6
-    assert len(rep["not_ported"]["plants"]) == 2
-    assert all(f.startswith("net_") for f in rep["not_ported"]["faults"])
+    assert "not_ported" not in rep
     ran = {f for r in rep["faults"] for f in r["fault"].split("+")}
-    ref_ran = {f for r in ref["faults"] for f in r["fault"].split("+")}
-    assert ran - {"ckpt_fallback"} == set(PORTED_FAULTS)
-    assert ref_ran - ran == set(rep["not_ported"]["faults"])
-    planted = {p["plant"] for p in rep["planted_regressions"]}
-    assert {p["plant"] for p in ref["planted_regressions"]} - planted == set(
-        rep["not_ported"]["plants"])
-    for item in (*rep["not_ported"]["faults"].values(),
-                 *rep["not_ported"]["plants"].values()):
-        assert item.startswith("ROADMAP queue 1 item ")
+    assert ran - {"ckpt_fallback"} == set(PORTED_FAULTS) == set(
+        faults.FAULTS)
+    assert [r["fault"] for r in rep["faults"]] == [
+        r["fault"] for r in ref["faults"]]
+    assert [p["plant"] for p in rep["planted_regressions"]] == [
+        p["plant"] for p in ref["planted_regressions"]]
 
 
 def test_campaign_keeps_the_reference_artifact_keys(port_campaign,
                                                     ref_campaign):
     rep = json.loads(port_campaign[1])
     ref, _ = ref_campaign
-    assert set(rep) - set(ref) == {"device", "not_ported"}
+    assert set(rep) - set(ref) == {"device"}
     assert set(ref) <= set(rep)
     assert rep["registry"] == ref["registry"]
     for got in rep["faults"]:
@@ -451,8 +463,8 @@ def test_campaign_seeded_fields_equal_reference(port_campaign, ref_campaign):
 
 def test_campaign_draws_the_fleet_seed_where_the_reference_does(
         port_campaign, ref_campaign):
-    """The draws made for the scenarios the port skips keep the traffic
-    (and every later draw) the reference campaign's."""
+    """Every scenario draws what the reference's draws, so the engine
+    fleet's traffic (and every later draw) is the reference campaign's."""
     [got] = port_campaign[3]
     [want] = ref_campaign[1]
     assert got == want

@@ -293,10 +293,19 @@ def test_plane_refusals_match_reference(tmp_path):
         with pytest.raises(ValueError) as want:
             jgossip.GossipPlane(*args)
         assert str(got.value) == str(want.value)
-    with pytest.raises(ValueError, match="network leg"):
-        gossip.GossipPlane(d, 0, 2, net=object())
     with pytest.raises(ValueError, match=">= 2 engines"):
         gossip.create_plane(tmp_path / "one", 1)
+    # a one-engine plane is legal with the network leg, and attaching it
+    # without a NetMailbox is refused in the reference's words
+    for name, mod in (("one_p", gossip), ("one_j", jgossip)):
+        mod.create_plane(tmp_path / name, 1, net=True)
+    with pytest.raises(ValueError, match="network leg") as got:
+        gossip.GossipPlane(tmp_path / "one_p", 0, 1)
+    with pytest.raises(ValueError) as want:
+        jgossip.GossipPlane(tmp_path / "one_j", 0, 1)
+    assert str(got.value) == str(want.value)
+    assert (tmp_path / "one_p" / "plane.json").read_bytes() == (
+        tmp_path / "one_j" / "plane.json").read_bytes()
 
 
 # ---------------------------------------------------------------------------
@@ -581,8 +590,8 @@ def test_aggregate_equals_reference(tmp_path):
     """``aggregate`` over the same report JSONs — two generations of one
     rank, latency histograms, health, the governors' blocks, boot
     stories, the adopt, rebalance and elastic blocks and the pre-warm
-    count — equals the reference's, minus the multi-host ``hosts`` block
-    the port does not have."""
+    count — equals the reference's, the multi-host ``hosts`` block (None
+    on a single-host fleet) included."""
     d = tmp_path / "cl"
     d.mkdir()
     hists = []
@@ -619,7 +628,7 @@ def test_aggregate_equals_reference(tmp_path):
         s._stalled.add(1)
         s.restarts[0] = 1
     ref = want.aggregate()
-    assert ref.pop("hosts") is None
+    assert ref["hosts"] is None
     assert ref["boot"]["prewarm_spawned"] == 0   # elastic fleets only
     agg = got.aggregate()
     assert agg == ref
@@ -688,8 +697,7 @@ CLUSTER_REFUSALS = [
     ["cluster", "--tiered-warm"],
     ["cluster", "--slo-us", "-5"],
     ["cluster", "--predict"],
-    # the elastic envelope (the port refuses --hosts by name first, so
-    # --elastic --hosts is not a case here)
+    # the elastic envelope
     ["cluster", "--min-engines", "2"],
     ["cluster", "--max-engines", "3"],
     ["cluster", "--elastic", "--max-engines", "1", "--engines", "2"],
@@ -698,6 +706,24 @@ CLUSTER_REFUSALS = [
     ["cluster", "--elastic", "--max-engines", "3", "--shards", "4"],
     ["cluster", "--elastic", "--engines", "2", "--checkpoint",
      "/x/same_path.npz"],
+    ["cluster", "--elastic", "--hosts", "10.0.0.1:9000,10.0.0.2:9000"],
+    # the multi-host leg
+    ["cluster", "--engines", "0", "--hosts", "10.0.0.1:9000"],
+    ["cluster", "--hosts", "10.0.0.1:9000,10.0.0.2"],
+    ["cluster", "--hosts", "10.0.0.1:9000,:9000", "--host-id", "0"],
+    ["cluster", "--hosts", "10.0.0.1:9000,10.0.0.2:70000",
+     "--host-id", "0"],
+    ["cluster", "--hosts", "10.0.0.1:65534,10.0.0.2:9000",
+     "--host-id", "1"],
+    ["cluster", "--hosts", "10.0.0.1:9000,10.0.0.2:9000"],
+    ["cluster", "--hosts", "10.0.0.1:9000", "--host-id", "0"],
+    ["cluster", "--engines", "1", "--shards", "1", "--hosts",
+     "10.0.0.1:9000", "--host-id", "0"],
+    ["cluster", "--hosts", "10.0.0.1:9000,10.0.0.2:9000", "--host-id", "2"],
+    ["cluster", "--hosts", "10.0.0.1:9000,10.0.0.2:9000", "--host-id",
+     "0", "--gossip-listen", "0.0.0.0"],
+    ["cluster", "--hosts", "10.0.0.1:9000,10.0.0.2:9000", "--host-id",
+     "0", "--gossip-listen", "0.0.0.0:65535"],
 ]
 
 
@@ -718,9 +744,12 @@ def test_cluster_needs_a_feature_ring(capsys):
     ["--hosts", "10.0.0.1:9000,10.0.0.2:9000"],
     ["--host-id", "0"], ["--gossip-listen", "0.0.0.0:9000"]])
 def test_cluster_refuses_unported_flags_by_name(flag, capsys):
-    assert cli.main(["cluster", *flag]) == 1
-    err = capsys.readouterr().err
-    assert f"refusing {flag[0]}" in err and "not ported" in err
+    """Each multi-host flag alone is refused before boot, with the
+    reference's exit code and message (the flags were refused as not
+    ported before the multi-host leg was; now each needs its partners)."""
+    port, ref = _both(["cluster", *flag, "--feature-ring",
+                       "/nonexistent/fring"], capsys)
+    assert port == ref and port[0] == 1
 
 
 @pytest.mark.parametrize("model,artifact,refused", [
@@ -832,3 +861,152 @@ def test_cli_cluster_drain_real_engines(tmp_path, two_threads):
         assert gossip.map_digest(part) == reps[r]["report"]["cluster"][
             "published_digest"]
     assert agg["records"] == len(recs)
+
+
+# ---------------------------------------------------------------------------
+# (g) the multi-host leg: the federation on stub fleets, two CLI hosts on
+#     loopback, and chip_smoke's multi-host drive on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _free_bases(n_hosts, n_engines):
+    """Probed free base ports (chip_smoke's: each base and its engine
+    ports free, no two hosts' ranges overlapping)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    return chip_smoke._free_base_ports(n_hosts, n_engines)
+
+
+def _netspec(bases, host_id, n_engines=2, **kw):
+    return {"hosts": [["127.0.0.1", b] for b in bases], "host_id": host_id,
+            "engines_per_host": n_engines, "listen": None, **kw}
+
+
+def test_federation_stub_fleets_detect_death_and_rejoin(tmp_path, capsys):
+    """Two supervisors of two stub ranks each, federated on loopback: each
+    sees the other's beacons; when one host's beacon goes silent the other
+    announces it dead once (the reference's message), folds its fleet
+    FAILED with ``hosts_dead`` and keeps its own ranks; a beacon on the
+    same base port re-joins the host.  Both directions."""
+    from flowsentryx_tpu_torch.sync import tuning
+
+    b0, b1 = _free_bases(2, 2)
+    fast = {"beacon_interval_s": 0.05, "host_timeout_s": 0.4}
+    sups = [ClusterSupervisor(tmp_path / f"h{h}",
+                              [{"stub_serve_s": 60.0}] * 2,
+                              entry=stub_engine_main,
+                              net=_netspec([b0, b1], h, **fast))
+            for h in range(2)]
+
+    def poll_until(pred, active, timeout_s=10.0):
+        deadline = time.monotonic() + timeout_s
+        while not pred():
+            for s in active:
+                s.poll()
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+
+    try:
+        for s in sups:
+            s.boot()
+        assert [s.federation.addr[1] for s in sups] == [b0, b1]
+        poll_until(lambda: all(s.federation.rx_beacons for s in sups), sups)
+        assert all(s.aggregate()["hosts"]["dead"] == [] for s in sups)
+        for dead, watcher in ((1, 0), (0, 1)):
+            sups[dead].federation.close()     # the host's beacon is gone
+            poll_until(lambda: dead in sups[watcher]._dead_hosts_announced,
+                       [sups[watcher]])
+            agg = sups[watcher].aggregate()
+            assert agg["hosts"]["dead"] == [dead]
+            assert agg["health"]["state"] == "failed"
+            assert f"hosts_dead:{dead}" in agg["health"]["reasons"]
+            assert agg["failed_ranks"] == [] and agg["restarts"] == [0, 0]
+            assert all(p.is_alive() for p in sups[watcher]._procs)
+            sups[dead]._start_federation()     # revival: the host re-joins
+            poll_until(lambda: not sups[watcher]._dead_hosts_announced, sups)
+            assert sups[watcher].aggregate()["hosts"]["dead"] == []
+    finally:
+        for s in sups:
+            s.close()
+    lines = [ln for ln in capsys.readouterr().err.splitlines()
+             if "DEAD" in ln]
+    assert len(lines) == 2          # once per incident
+    # the announcement is the reference's, word for word
+    jsup = JSupervisor(tmp_path / "j", [{}, {}], entry=jstub,
+                       net=_netspec([b0, b1], 0, **fast))
+    jsup.federation = sups[0].federation
+    jsup._announce_dead_host(1)
+    assert capsys.readouterr().err.strip() == lines[0]
+    assert tuning.NET_HOST_TIMEOUT_S == 5.0
+
+
+def test_cli_cluster_two_hosts_on_loopback(tmp_path):
+    """Two ``cli cluster --engines 1 --shards 1 --hosts A,B --host-id H
+    --drain --device cpu`` processes (host 1 also ``--gossip-listen``):
+    each serves its ring, finds its peer host's engine through the
+    handshake, refuses no wire for its epoch, and reports the federation
+    block (its own host id, its peer) in the aggregate."""
+    b0, b1 = _free_bases(2, 1)
+    hosts = f"127.0.0.1:{b0},127.0.0.1:{b1}"
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(_cfg(config).to_json())
+    procs, offered = [], []
+    for h in range(2):
+        recs = _flood(B * 6, seed=31 + h)
+        # stamped after the fleets' boots, well inside the epoch bound
+        recs["ts_ns"] += np.uint64(time.clock_gettime_ns(
+            time.CLOCK_MONOTONIC) + 20 * 10**9 - int(recs["ts_ns"][0]))
+        base = str(tmp_path / f"ring{h}")
+        _fill(ShmRing, base, recs, 1)
+        offered.append(len(recs))
+        argv = [sys.executable, "-m", "flowsentryx_tpu_torch.cli", "cluster",
+                "--device", "cpu", "--drain", "--feature-ring", base,
+                "--config", str(cfg_path), "--pin-cores", "on",
+                "--engines", "1", "--shards", "1", "--hosts", hosts,
+                "--host-id", str(h)]
+        if h == 1:
+            argv += ["--gossip-listen", f"127.0.0.1:{b1}"]
+        procs.append(subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=240) for p in procs]
+    for h, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, err[-4000:]
+        assert f"host {h} of 2 (UDP gossip + federation beacons)" in err
+        agg = json.loads(out)
+        assert agg["failed_ranks"] == [] and agg["records"] == offered[h]
+        assert agg["hosts"]["host_id"] == h
+        assert list(agg["hosts"]["peers"]) == [str(1 - h)]
+        [rep] = agg["reports"]
+        net = rep["report"]["cluster"]["net"]
+        assert (net["host"], net["rank"], net["peers"]) == (h, 0, 1)
+        assert net["peers_seen"] == 1
+        assert net["rx_dup"] == net["epoch_skew_dropped"] == 0
+
+
+def test_multihost_drive_on_the_cpu(tmp_path, monkeypatch):
+    """``chip_smoke.multihost_drive`` on the CPU at 2^12 rows, B=256: two
+    loopback hosts of two rank processes each (one torch thread each),
+    host 1 booted 2 s later; every gate of the card phase holds —
+    records served, cross-host keys with the originator's canonical
+    untils, both hosts' union digests equal, no duplicate or lying-epoch
+    wire, host 1's death announced within the federation bound with the
+    fleet FAILED and host 0's ranks alive."""
+    from flowsentryx_tpu_torch.sync import tuning
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    cfg = config.FsxConfig(table=config.TableConfig(capacity=1 << 12),
+                           batch=config.BatchConfig(max_batch=B))
+    res = chip_smoke.multihost_drive(
+        "cpu", str(tmp_path / "mh"), cfg,
+        str(REPO / "artifacts" / "logreg_int8.npz"), batches=64,
+        timeout_s=150)
+    assert res["ok"], res["checks"]
+    assert res["epoch_delta_s"] >= chip_smoke.MH_HOST_GAP_S
+    assert res["death_to_announced_s"] <= (tuning.NET_HOST_TIMEOUT_S
+                                           + tuning.NET_BEACON_INTERVAL_S)
+    assert set(res["records"].values()) == {64 * B}
+    assert res["digests"]["union_h0"] == res["digests"]["all_own"]

@@ -199,7 +199,7 @@ def test_artifact_loads_equal_in_both_packages(name, path):
     jp = jget_model(name) and __import__(
         "flowsentryx_tpu.models.registry", fromlist=["load_artifact"]
     ).load_artifact(name, str(ART / path))
-    tp = registry.load_artifact(name, str(ART / path))
+    tp = registry.load_artifact(name, str(ART / path), "cpu")
     assert type(tp).__name__ == type(jp).__name__
     for f in jp._fields:
         want = np.asarray(jnp.asarray(getattr(jp, f)).astype(
@@ -231,10 +231,11 @@ def test_registry_serves_every_reference_family():
             np.testing.assert_array_equal(
                 getattr(tp, k).numpy(), np.asarray(getattr(jp, k), F32), k)
     with pytest.raises(ValueError, match="not a multiclass artifact"):
-        registry.load_artifact("multiclass", str(ART / "mlp_robust.npz"))
+        registry.load_artifact("multiclass", str(ART / "mlp_robust.npz"),
+                               "cpu")
     # the reference's mlp loader refuses a logreg npz by its version
     with pytest.raises(ValueError, match="mlp artifact schema version 2"):
-        registry.load_artifact("mlp", str(ART / "logreg_int8.npz"))
+        registry.load_artifact("mlp", str(ART / "logreg_int8.npz"), "cpu")
 
 
 def test_mesh_config_refused_by_name():

@@ -908,11 +908,10 @@ def _handoff_state(sup):
 
 
 def _aggregate(pkg, sup):
-    """``aggregate()``, less the reference's multi-host ``hosts`` block
-    (None on one host; the port has no multi-host leg yet)."""
+    """``aggregate()``; its multi-host ``hosts`` block is None on one
+    host, in both packages."""
     agg = sup.aggregate()
-    if pkg == "reference":
-        assert agg.pop("hosts") is None
+    assert agg["hosts"] is None, pkg
     return agg
 
 
