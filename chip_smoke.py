@@ -361,6 +361,33 @@ more.
     ``epoch_skew_dropped`` 0; then host 1's supervisor and ranks are
     SIGKILLed and host 0's federation announces it dead within 6 s, the
     fleet FAILED (``hosts_dead:1``) and host 0's ranks alive.
+52-55. The IP-hash-sharded step (``mesh_phases``), its mesh 4 shards of
+    the one card (``make_mesh(4, devices=["cuda"] * 4)``), at 2^20 rows,
+    B=2048, K=64, ``logreg_int8.npz`` on the compact16 wire.  52.
+    ``sharded_step_parity``: 64 batches of ``mixed_l34_1m`` and one
+    crafted owner-skew batch (salt 0, every source owned by shard 0)
+    through the captured sharded step, the eager step and the CPU's
+    sharded step on the same inputs: outputs, ``route_drop`` (0 on the
+    uniform batches, > 0 on the skewed one), table bytes and stats
+    equal; ``score_int8`` 4 launches per batch, and on one shard's
+    512-row slice of a decoded batch equal to its plain version (timed);
+    then the raw48 ``mlp``
+    with the sweep on, 9 batches (one with a source of 675 records of
+    65,535 B across every slice: lane-order byte sums past 2^24), the
+    captured step against the CPU's.  53. ``serve_mesh``:
+    ``Engine(mesh=4 shards, mega_n="auto")`` and the single-shard engine
+    on the same 384 x 2,048 records, the first 64 batches also through
+    the CPU meshed engine (stats, blacklist, table digest equal); then the
+    timed 320: records/s, each graph's nodes, capture s, host µs and
+    device ms per replay, device ms per batch and idle share;
+    ``score_int8`` 4 per batch, ``table_summary`` once per report.  54.
+    ``mesh_checkpoint_reshard``: the mesh-4 engine's checkpoint after its
+    first 64 batches (~131,000 rows) restored at mesh 4 (bit-identical),
+    mesh 2 and one shard: every occupied key kept, in its owner's rows,
+    the ``resharded`` info.  55. ``scaling``:
+    ``benchmarks.run_scaling(devices=["cuda"] * 8)``, 1, 2, 4 and 8
+    shards at 2^20 rows, B=16,384.  Alone: ``python3
+    scripts/torch_mesh_phases.py``.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -1882,6 +1909,404 @@ def multihost_phase(card: str, served: dict) -> None:
         return {"card": card, **res}
 
     mh_phase()
+
+
+#: ``mesh`` phases: the shards of the sharded step's mesh on the card, the
+#: batches of ``sharded_step_parity``'s stream, and ``serve_mesh``'s
+#: (its first MESH_CHECK_BATCHES also through the CPU meshed engine)
+MESH_SHARDS = 4
+MESH_PARITY_BATCHES = 64
+MESH_SERVE_BATCHES = 384
+MESH_CHECK_BATCHES = 64
+
+
+def _graph_times(gr, reps: int = 20) -> dict:
+    """One captured graph replayed into an idle card (5 times, the host
+    µs of the call) and ``reps`` times back to back (the host µs of a
+    call, its enqueue, and the device ms per replay from CUDA events
+    around the run).  It replays whatever its input holds."""
+    import torch
+
+    idle = 0.0
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gr.replay()
+        idle += time.perf_counter() - t
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    host = 0.0
+    e0.record()
+    for _ in range(reps):
+        t = time.perf_counter()
+        gr.replay()
+        host += time.perf_counter() - t
+    e1.record()
+    torch.cuda.synchronize()
+    return {"nodes": gr.nodes, "capture_s": round(gr.capture_s, 4),
+            "host_us_idle_card": round(idle / 5 * 1e6, 2),
+            "host_us_per_replay": round(host / reps * 1e6, 2),
+            "device_ms_per_replay": round(e0.elapsed_time(e1) / reps, 4)}
+
+
+def _event_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn`` (CUDA events around ``reps``
+    back-to-back calls, after one warm-up call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def mesh_phases(card: str, served: dict) -> None:
+    """The IP-hash-sharded step on the card (``parallel/``), its mesh
+    ``MESH_SHARDS`` shards of the one card: ``sharded_step_parity``,
+    ``serve_mesh``, ``mesh_checkpoint_reshard`` and ``scaling``, at the
+    production table (2^20 rows), B=2048, K=64, ``logreg_int8.npz`` on
+    the compact16 wire.  Each path's launch window goes to ``served``
+    for the kernels line."""
+    import numpy as np
+    import torch
+
+    from flowsentryx_tpu_torch import benchmarks
+    from flowsentryx_tpu_torch.core import schema
+    from flowsentryx_tpu_torch.core.config import (
+        BatchConfig, FsxConfig, TableConfig,
+    )
+    from flowsentryx_tpu_torch.engine import (
+        ArraySource, CollectSink, Engine, Scenario, TrafficGen, TrafficSpec,
+    )
+    from flowsentryx_tpu_torch.engine import table as tbl
+    from flowsentryx_tpu_torch.models import logreg, mlp
+    from flowsentryx_tpu_torch.ops import graph, kernels
+    from flowsentryx_tpu_torch.parallel import make_mesh
+    from flowsentryx_tpu_torch.parallel import step as pstep
+
+    dev = torch.device("cuda")
+    n = MESH_SHARDS
+    root = os.path.join(REPO, "build", "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    artifact = os.path.join(REPO, "artifacts", "logreg_int8.npz")
+    # salt 0: the owner-skew batch below is crafted against the public
+    # hash (the reference's own attack case)
+    cfg = FsxConfig(table=TableConfig(capacity=TABLE_CAP, salt=0),
+                    batch=BatchConfig(max_batch=BATCH))
+    card_mesh = make_mesh(n, devices=[dev] * n)
+    cpu_mesh = make_mesh(n, devices=["cpu"] * n)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def same(a, b):
+        """Card tensor ``a`` equals CPU (or card) tensor ``b``, bits."""
+        return torch.equal(bits(a).cpu(), bits(b).cpu())
+
+    def same_out(o1, o2):
+        return all(same(getattr(o1, f), getattr(o2, f))
+                   for f in ("verdict", "block_key", "block_until", "now",
+                             "route_drop", "wire"))
+
+    def same_table(t1, t2):
+        # the table proper: the park row holds whichever scatter loser
+        # the card wrote last, which no reader looks at
+        return same(t1.key, t2.key) and same(t1.state, t2.state)
+
+    def digest(e):
+        k, st = schema.table_to_numpy(e.table)
+        return hashlib.sha256(k.tobytes() + st.tobytes()).hexdigest()[:16]
+
+    def classify_for(params):
+        return functools.partial(kernels.score_int8,
+                                 packed=kernels.pack_score_params(params))
+
+    def gen_records(total, scen="mixed_l34_1m", seed=SEED):
+        return TrafficGen(TrafficSpec(scenario=Scenario(scen), seed=seed,
+                                      rate_pps=1e6)).next_records(total)
+
+    @phase("sharded_step_parity")
+    def parity_phase():
+        cp = logreg.load_params(artifact, dev)
+        hp = logreg.load_params(artifact, "cpu")
+        quant = schema.wire_quant_for(logreg.LogRegParams(
+            **logreg.params_to_numpy(hp)))
+        rec = gen_records(MESH_PARITY_BATCHES * BATCH)
+        raws = [schema.encode_compact(rec[i * BATCH:(i + 1) * BATCH], BATCH,
+                                      int(rec["ts_ns"][0]), **quant)
+                for i in range(MESH_PARITY_BATCHES)]
+        # the owner skew: 2048 distinct keys whose public hash puts
+        # every one on shard 0, so each slice overflows its route
+        cand = np.arange(1, 1 << 22, dtype=np.uint32)
+        owned = cand[(tbl.hash_u32_np(cand) >> np.uint32(32 - 2)) == 0]
+        skew = np.zeros(BATCH, schema.FLOW_RECORD_DTYPE)
+        skew["saddr"] = owned[:BATCH]
+        skew["pkt_len"] = 100
+        skew["ts_ns"] = int(rec["ts_ns"][-1]) + 1000 + np.arange(BATCH)
+        raws.append(schema.encode_compact(skew, BATCH, int(rec["ts_ns"][0]),
+                                          **quant))
+        step = pstep.make_sharded_compact_step(cfg, classify_for(cp),
+                                               card_mesh, **quant)
+        cpu_step = pstep.make_sharded_compact_step(cfg, classify_for(hp),
+                                                   cpu_mesh, **quant)
+        tg, sg = pstep.make_sharded_table(cfg, card_mesh), \
+            schema.make_stats(dev)
+        te, se = pstep.make_sharded_table(cfg, card_mesh), \
+            schema.make_stats(dev)
+        tc, sc = pstep.make_sharded_table(cfg, cpu_mesh), schema.make_stats()
+        gr = graph.StepGraph(step, tg, sg, cp, (BATCH + 1, 4))
+        eager_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+        bad, drops = [], []
+        kernels.reset_launches()          # the replays' window opens
+        with cpu_threads():
+            for i, raw in enumerate(raws):
+                x = schema.wire_to_tensor(raw)
+                gr.input.copy_(x.to(dev))
+                gr.replay()
+                with kernels.counting_into(eager_launches):
+                    _, _, oe = step(te, se, cp, x.to(dev))
+                _, _, oc = cpu_step(tc, sc, hp, x)
+                parts = {"graph_eager_out": same_out(gr.out, oe),
+                         "eager_cpu_out": same_out(oe, oc)}
+                if i % 16 == 15 or i >= len(raws) - 2:
+                    parts.update(
+                        graph_eager_table=same_table(tg, te),
+                        eager_cpu_table=same_table(te, tc),
+                        stats=sg.to_dict() == se.to_dict() == sc.to_dict())
+                if not all(parts.values()):
+                    bad.append({"batch": i, **parts})
+                drops.append(int(oc.route_drop))
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)  # ... and closes
+        served["launches_sharded_step"] = launches
+        # score_int8 at the shape this path gives it, one shard's slice of
+        # a decoded serving batch, against its plain version
+        feat = schema.decode_compact(schema.wire_to_tensor(raws[0]).to(dev),
+                                     **quant).feat
+        lb = BATCH // n
+        slices = [feat[d * lb:(d + 1) * lb] for d in range(n)]
+        packed = kernels.pack_score_params(cp)
+        with kernels.counting_into(dict.fromkeys(kernels.LAUNCHES, 0)):
+            mism = sum(int((kernels.score_int8(cp, x, packed)
+                            != kernels.score_int8_plain(cp, x)).sum())
+                       for x in slices)
+            x0 = slices[1]
+            score_shard = {
+                "shape": list(x0.shape), "mismatches_vs_plain": mism,
+                "ms": _event_ms(lambda: kernels.score_int8(cp, x0, packed),
+                                200),
+                "plain_ms": _event_ms(
+                    lambda: kernels.score_int8_plain(cp, x0), 50)}
+        served["mesh_score_int8"] = score_shard
+        # raw48: the mlp over lane-order byte sums (a source of 675
+        # records of 65,535 B crosses every slice) and the sweep on
+        mp = mlp.load_params(os.path.join(REPO, "artifacts",
+                                          "mlp_robust.npz"), dev)
+        mh = mlp.load_params(os.path.join(REPO, "artifacts",
+                                          "mlp_robust.npz"), "cpu")
+        rcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, name="mlp"), table=dataclasses.replace(
+                cfg.table, evict_ttl_s=0.002, evict_every=64))
+        rrec = gen_records(8 * BATCH, seed=SEED + 1)
+        lane = np.arange(BATCH)
+        heavy = rrec[:BATCH].copy()
+        heavy["saddr"] = np.where(lane < 900, np.where(lane % 4 != 3, 1, 2),
+                                  heavy["saddr"])
+        heavy["pkt_len"] = np.where(lane < 900, 65_535, heavy["pkt_len"])
+        t0 = int(rrec["ts_ns"][0])
+        rraws = [schema.encode_raw(rrec[i * BATCH:(i + 1) * BATCH], BATCH,
+                                   t0) for i in range(8)]
+        rraws.append(schema.encode_raw(heavy, BATCH, t0))
+        rstep = pstep.make_sharded_raw_step(rcfg, mlp.classify_batch,
+                                            card_mesh)
+        rcpu = pstep.make_sharded_raw_step(rcfg, mlp.classify_batch,
+                                           cpu_mesh)
+        rg, rs = pstep.make_sharded_table(rcfg, card_mesh), \
+            schema.make_stats(dev)
+        rc, rsc = pstep.make_sharded_table(rcfg, cpu_mesh), \
+            schema.make_stats()
+        rgr = graph.StepGraph(rstep, rg, rs, mp, (BATCH + 1, 12))
+        raw_bad = []
+        with cpu_threads(), kernels.counting_into(
+                dict.fromkeys(kernels.LAUNCHES, 0)):
+            for i, raw in enumerate(rraws):
+                x = schema.wire_to_tensor(raw)
+                rgr.input.copy_(x.to(dev))
+                rgr.replay()
+                _, _, oc = rcpu(rc, rsc, mh, x)
+                if not (same_out(rgr.out, oc) and same_table(rg, rc)
+                        and rs.to_dict() == rsc.to_dict()):
+                    raw_bad.append(i)
+        wide = int((rc.state[:, schema.TableCol.WIN_BPS] > 2 ** 24).sum())
+        nb = len(raws)
+        checks = [not bad, not raw_bad, all(d == 0 for d in drops[:-1]),
+                  mism == 0,
+                  drops[-1] > 0, launches["score_int8"] == n * nb,
+                  eager_launches["score_int8"] == n * nb,
+                  gr.launches["score_int8"] == n,
+                  rgr.launches["segment_sum_seq"] == 2 * n, wide > 0]
+        return {"ok": all(checks), "card": card, "shards": n,
+                "rows": TABLE_CAP, "batch": BATCH, "batches": nb,
+                "tolerance": "byte-equal (card graph, card eager, CPU)",
+                "mismatched_batches": bad, "route_drop_skew": drops[-1],
+                "route_drop_uniform_max": max(drops[:-1]),
+                "stats": sc.to_dict(), "launches": launches,
+                "launches_per_replay": gr.launches,
+                "score_int8_at_shard_slice": score_shard,
+                "graph": _graph_times(gr),
+                "raw48_mlp": {"batches": len(rraws),
+                              "mismatched_batches": raw_bad,
+                              "rows_bps_past_2^24": wide,
+                              "evicted": rsc.to_dict()["evicted"],
+                              "launches_per_replay": rgr.launches,
+                              "graph": _graph_times(rgr)}}
+
+    parity_phase()
+
+    ckpt_path = os.path.join(root, "mesh4.npz")
+
+    @phase("serve_mesh")
+    def serve_mesh_phase():
+        # salted as serve salts: the reshard below moves real traffic
+        scfg = dataclasses.replace(cfg, table=dataclasses.replace(
+            cfg.table, salt=SEED & 0xFFFFFFFF))
+        rec = gen_records(MESH_SERVE_BATCHES * BATCH, seed=SEED + 2)
+        res, engines = {}, {}
+        for label, mesh in (("mesh4", card_mesh), ("single", None)):
+            eng = Engine(scfg, ArraySource(rec.copy()), CollectSink(),
+                         params=logreg.load_params(artifact, dev),
+                         device=dev, mega_n="auto", mesh=mesh)
+            t = time.perf_counter()
+            eng.warm()
+            warm_s = time.perf_counter() - t
+            first = eng.run(max_batches=MESH_CHECK_BATCHES)
+            mid = (dict(first.stats), dict(eng.sink.blocked), digest(eng))
+            if mesh is not None:
+                # the reshard phase's checkpoint: ~131,000 rows, a load
+                # at which every row finds a slot in the other layouts
+                eng.checkpoint(ckpt_path)
+                key = schema.table_to_numpy(eng.table)[0]
+                served["mesh_keys"] = set(key[key != 0].tolist())
+                served["mesh_table"] = schema.table_to_numpy(eng.table)
+            eng._reset_counters()         # the timed run's report
+            kernels.reset_launches()      # ... and launch window open
+            rep = eng.run()
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)  # ... and close
+            # the batcher counts from the first run on
+            batches = rep.batches - first.batches
+            records = rep.records - first.records
+            graphs = {eng._label(k): _graph_times(g)
+                      for k, g in sorted(eng._graphs.items())}
+            # device ms per batch at each rung, weighted by the run's
+            # dispatches: the busy share of the timed wall
+            per_batch = {int(g): graphs["single" if int(g) == 1
+                                        else f"mega{g}"][
+                "device_ms_per_replay"] / int(g)
+                for g in rep.dispatch["group_hist"]}
+            busy_ms = sum(per_batch[int(g)] * int(g) * c
+                          for g, c in rep.dispatch["group_hist"].items())
+            res[label] = {
+                "records_per_s": round(records / rep.wall_s, 1),
+                "batches": batches, "records": records,
+                "wall_s": rep.wall_s, "warm_s": round(warm_s, 3),
+                "group_hist": rep.dispatch["group_hist"],
+                "device_ms_per_batch": {str(g): round(v, 4)
+                                        for g, v in per_batch.items()},
+                "idle_share": round(1 - busy_ms / 1e3 / rep.wall_s, 4),
+                "graphs": graphs, "route_drop": rep.route_drop,
+                "stats": rep.stats, "table": rep.table,
+                "launches": launches}
+            engines[label] = (eng, mid, rep, batches, launches)
+        eng, mid, rep, batches, launches = engines["mesh4"]
+        served["launches_serve_mesh"] = launches
+        # the CPU meshed engine on the first MESH_CHECK_BATCHES batches
+        with cpu_threads():
+            ce = Engine(scfg, ArraySource(rec.copy()), CollectSink(),
+                        params=logreg.load_params(artifact, "cpu"),
+                        device="cpu", mega_n="auto",
+                        mesh=cpu_mesh, sink_thread=False)
+            cr = ce.run(max_batches=MESH_CHECK_BATCHES)
+        cpu_equal = (cr.stats == mid[0] and ce.sink.blocked == mid[1]
+                     and digest(ce) == mid[2])
+        single = engines["single"]
+        checks = [cpu_equal, rep.batches == MESH_SERVE_BATCHES,
+                  launches["score_int8"] == n * batches,
+                  launches["table_summary"] == 1,
+                  single[4]["score_int8"] == single[3], rep.route_drop == 0]
+        # the two layouts arbitrate same-slot claims differently, so the
+        # single-shard engine's stats are reported beside, not required
+        stats_equal_single = rep.stats == single[2].stats
+        del engines, eng, single
+        return {"ok": all(checks), "card": card, "shards": n,
+                "rows": TABLE_CAP, "batch": BATCH,
+                "batches_checked_vs_cpu": MESH_CHECK_BATCHES,
+                "cpu_equal": cpu_equal,
+                "stats_equal_single": stats_equal_single, **res}
+
+    serve_mesh_phase()
+
+    @phase("mesh_checkpoint_reshard")
+    def reshard_phase():
+        if "mesh_keys" not in served:
+            raise RuntimeError("serve_mesh left no checkpoint")
+        keys = served.pop("mesh_keys")
+        key0, state0 = served.pop("mesh_table")
+        scfg = dataclasses.replace(cfg, table=dataclasses.replace(
+            cfg.table, salt=SEED & 0xFFFFFFFF))
+        out, checks = {}, []
+        for m in (4, 2, 1):
+            mesh = make_mesh(m, devices=[dev] * m)
+            eng = Engine(scfg, ArraySource(np.zeros(0,
+                                                    schema.FLOW_RECORD_DTYPE)),
+                         CollectSink(), params=logreg.load_params(artifact,
+                                                                   dev),
+                         device=dev, mesh=mesh)
+            t = time.perf_counter()
+            info = eng.restore(ckpt_path)
+            restore_s = time.perf_counter() - t
+            k, st = schema.table_to_numpy(eng.table)
+            got = set(k[k != 0].tolist())
+            local = TABLE_CAP // m
+            rows = np.flatnonzero(k != 0)
+            owner_ok = bool(np.array_equal(
+                rows // local, tbl.owner_of(k[rows], scfg.table.salt, m)))
+            same_bits = (bool(np.array_equal(k, key0))
+                         and bool(np.array_equal(st.view(np.uint32),
+                                                 state0.view(np.uint32))))
+            out[f"mesh{m}"] = {k2: info[k2] for k2 in (
+                "resharded", "dropped_rows", "from", "to")}
+            out[f"mesh{m}"].update(restore_s=round(restore_s, 3),
+                                   keys=len(got), owner_correct=owner_ok,
+                                   bit_identical=same_bits)
+            checks += [got == keys, owner_ok, info["dropped_rows"] == 0,
+                       info["resharded"] == (m != 4)]
+            if m == 4:
+                checks.append(same_bits)
+            del eng
+        return {"ok": all(checks), "card": card, "occupied_keys": len(keys),
+                **out}
+
+    reshard_phase()
+
+    @phase("scaling")
+    def scaling_phase():
+        rep = benchmarks.run_scaling(devices=[dev] * 8)
+        rows = rep["results"]
+        checks = [len(rows) == 4, all("step_ms" in r for r in rows)]
+        return {"ok": all(checks), "card": card,
+                "step_ms": {r["devices"]: r.get("step_ms") for r in rows},
+                **rep}
+
+    scaling_phase()
 
 
 def main() -> int:
@@ -5661,6 +6086,7 @@ def main() -> int:
 
     rebalance_phases(card, served)
     multihost_phase(card, served)
+    mesh_phases(card, served)
 
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
@@ -5772,7 +6198,9 @@ def main() -> int:
             # the serve_mega_auto path's window, and launches per graph
             # replay (the wrapper's host code runs once, at capture)
             "launches_serve_mega_auto": mega_launches.get("score_int8", 0),
-            "launches_per_replay": "1 per single, g per rung g",
+            "launches_per_replay": "1 per single, g per rung g; n per "
+                                   "sharded single, n*g per sharded rung g "
+                                   "(n shards)",
             "max_abs_err": errs["score_int8"], "ms": s_ms,
             "plain_ms": s_plain, "bound_ms": sb, "bound_by": sby,
             "library_ms": s_lib, "device_ms": s_dev,
@@ -6042,11 +6470,17 @@ def main() -> int:
                                             {}),
             "handoff_engine_2p20": served.get(
                 "launches_handoff_engine_2p20", {}),
+            # the sharded step (4 shards of the card): its replays, and
+            # the meshed engine's timed run
+            "sharded_step_parity": served.get("launches_sharded_step", {}),
+            "serve_mesh": served.get("launches_serve_mesh", {}),
             # each cluster rank's own window, read from its report
             **served.get("launches_cluster", {})}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}
+        # the sharded path's slice shape (B/4 rows), timed in its phase
+        score_row["sharded_slice"] = served.get("mesh_score_int8")
         # the batches each chaos window's engine dispatched (score_int8
         # launches once per batch there)
         score_row["batches_chaos"] = served.get("batches_chaos", {})

@@ -253,3 +253,157 @@ def summarize_latencies(lats_s) -> dict:
         "p999_ms": round(float(np.percentile(a, 99.9)), 3),
         "max_ms": round(float(a.max()), 3),
     }
+
+
+def run_scaling(
+    device_counts: tuple[int, ...] = (1, 2, 4, 8),
+    capacity: int = 1 << 20,
+    batch: int = 16384,
+    iters: int = 20,
+    devices=None,
+) -> dict:
+    """Step time against the mesh size at full table capacity (``bench
+    --scaling``; the reference's keys).
+
+    The single-shard raw48 step at n = 1 and the IP-hash-sharded raw48
+    step (``parallel/step.py``) beyond, over the same ``mixed_l34_1m``
+    traffic, then the compact16 step and its 4-chunk megastep on the
+    same mesh.  ``devices`` lists the devices a mesh may take (default:
+    the visible cards); ``[dev] * 8`` lays every mesh's shards on
+    ``dev``, the one-device counterpart of the reference's virtual CPU
+    devices, where the curve shows what n shards cost one device.  A
+    count beyond ``devices`` is skipped, as the reference skips it.
+
+    Each variant's first call is its "compile" (on the card the capture
+    of its CUDA graph; on the CPU the first eager call), then
+    ``max(iters, 25)`` timed calls, the first third discarded and the
+    median kept.  On the card a call is one graph replay and a
+    synchronize; ``device_step_ms`` adds the replays' CUDA-event time."""
+    import functools
+
+    import torch
+
+    from flowsentryx_tpu_torch.core import schema
+    from flowsentryx_tpu_torch.models.registry import get_model
+    from flowsentryx_tpu_torch.ops import fused, graph, kernels
+    from flowsentryx_tpu_torch.parallel import make_mesh
+    from flowsentryx_tpu_torch.parallel import step as pstep
+
+    pool = ([torch.device(d) for d in devices] if devices is not None
+            else [torch.device("cuda", i)
+                  for i in range(torch.cuda.device_count())])
+    n_timed = max(iters, 25)
+
+    def time_step(fn, feeds, dev, table, stats, params):
+        """``(compile_s, steady median s, warm-up max s, device ms or
+        None)`` of ``fn`` over ``feeds`` (device tensors)."""
+        cuda = dev.type == "cuda"
+        t0 = time.perf_counter()
+        if cuda:
+            gr = graph.StepGraph(fn, table, stats, params,
+                                 tuple(feeds[0].shape))
+            gr.input.copy_(feeds[0])
+            gr.replay()
+            torch.cuda.synchronize(dev)
+        else:
+            fn(table, stats, params, feeds[0])
+        compile_s = time.perf_counter() - t0
+        times, ev_ms = [], []
+        for i in range(n_timed):
+            t = time.perf_counter()
+            if cuda:
+                gr.input.copy_(feeds[i % len(feeds)])
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                gr.replay()
+                e1.record()
+                torch.cuda.synchronize(dev)
+                ev_ms.append(e0.elapsed_time(e1))
+            else:
+                fn(table, stats, params, feeds[i % len(feeds)])
+            times.append(time.perf_counter() - t)
+        k = len(times) // 3
+        return (compile_s, float(np.median(times[k:])), max(times[:k]),
+                float(np.median(ev_ms[k:])) if cuda else None)
+
+    results = []
+    for n in device_counts:
+        if n > len(pool):
+            results.append({"devices": n, "skipped": "not enough devices"})
+            continue
+        dev = pool[0]
+        cfg = _cfg(LimiterConfig(), capacity, batch)
+        spec = get_model(cfg.model.name)
+        params = spec.init(dev)
+        classify = spec.classify_batch
+        if classify is kernels.score_int8:
+            classify = functools.partial(
+                classify, packed=kernels.pack_score_params(params))
+        # the wire quantizer reads the params' observer on the host
+        quant = schema.wire_quant_for(spec.init("cpu"))
+        mesh = make_mesh(n, devices=pool) if n > 1 else None
+
+        def table():
+            return (schema.make_table(capacity, dev) if mesh is None
+                    else pstep.make_sharded_table(cfg, mesh))
+
+        if mesh is None:
+            step = fused.make_raw_step(cfg, classify)
+            cstep = fused.make_compact_step(cfg, classify, **quant)
+            mstep = fused.make_compact_megastep(cfg, classify, 4, **quant)
+        else:
+            step = pstep.make_sharded_raw_step(cfg, classify, mesh)
+            cstep = pstep.make_sharded_compact_step(cfg, classify, mesh,
+                                                    **quant)
+            mstep = pstep.make_sharded_compact_megastep(cfg, classify,
+                                                        mesh, 4, **quant)
+        gen = TrafficGen(TrafficSpec(scenario=Scenario.MIXED_L34_1M,
+                                     rate_pps=1e7, seed=42))
+        raws = [schema.wire_to_tensor(schema.encode_raw(
+            gen.next_records(batch), batch, t0_ns=0)).to(dev)
+            for _ in range(4)]
+        compile_s, dt, warm_max, dev_ms = time_step(
+            step, raws, dev, table(), schema.make_stats(dev), params)
+        row = {
+            "devices": n,
+            "compile_s": round(compile_s, 2),
+            "step_ms": round(dt * 1e3, 2),
+            "warmup_max_ms": round(warm_max * 1e3, 1),
+            "records_per_s": round(batch / dt, 0),
+            "mpps": round(batch / dt / 1e6, 3),
+        }
+        if dev_ms is not None:
+            row["device_step_ms"] = round(dev_ms, 4)
+        # the compact16 single step and its 4-chunk megastep on the same
+        # mesh: the megastep's ms per chunk against the single step shows
+        # what one dispatch of four saves
+        craws = torch.stack([schema.wire_to_tensor(schema.encode_compact(
+            gen.next_records(batch), batch, t0_ns=0, **quant)).to(dev)
+            for _ in range(4)])
+        _, cdt, _, _ = time_step(cstep, list(craws), dev, table(),
+                                 schema.make_stats(dev), params)
+        mega_compile_s, mdt, _, _ = time_step(
+            mstep, [craws], dev, table(), schema.make_stats(dev), params)
+        row["compact_step_ms"] = round(cdt * 1e3, 2)
+        row["mega4_compile_s"] = round(mega_compile_s, 2)
+        row["mega4_ms_per_chunk"] = round(mdt / 4 * 1e3, 2)
+        results.append(row)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    base = next((r for r in results
+                 if r.get("devices") == 1 and "step_ms" in r), None)
+    return {
+        "capacity": capacity,
+        "batch": batch,
+        "iters": n_timed,
+        "warmup_discarded": "first third, by median",
+        "backend": pool[0].type if pool else None,
+        "mesh": "shards of one device" if len(set(pool)) == 1 else None,
+        # the reference's collectives, here tensor ops over the shards
+        "collectives_per_step": {"all_gather": 1, "psum": 3},
+        "results": results,
+        "serialization_ratio_8x": round(
+            results[-1]["step_ms"] / base["step_ms"], 2)
+        if base and "step_ms" in results[-1] else None,
+    }

@@ -15,7 +15,12 @@ cpu``) from ``--config`` (the reference's JSON config file) and serves
 * or a synthetic scenario at ``--rate``, or a ``--records`` file of
   48-byte flow records;
 
-and prints the report as JSON.  ``--mega N|auto`` groups backlogged
+and prints the report as JSON.  ``--mesh N`` serves through the
+IP-hash-sharded step over an N-device mesh, refused as the reference
+refuses it where fewer than N devices are visible (a machine with one
+card has one; a mesh over several cards is not ported, and the
+n-shards-on-one-device mesh is ``Engine(mesh=make_mesh(n,
+devices=[dev] * n))``).  ``--mega N|auto`` groups backlogged
 batches as the reference's does (compact16 only: refused before boot for
 a model served over raw48); ``--device-loop N|auto`` adds the drain
 ring above the ladder; ``--tiered-warm`` opens serving on the serving
@@ -64,8 +69,10 @@ engine-report alerts.  Both refuse ``--pin``, and ``monitor`` refuses
 kernel maps, which the port does not.
 
 ``bench --scenarios [--scale S] [--only NAME]`` runs the five BASELINE
-configs (:mod:`.benchmarks`), one JSON line each; a bare ``bench``,
-``--smoke``, ``--scaling`` and ``--cluster`` are refused by name.
+configs (:mod:`.benchmarks`), one JSON line each; ``bench --scaling``
+the step time against 1, 2, 4 and 8 shards of a mesh laid on the one
+``--device`` (:func:`.benchmarks.run_scaling`); a bare ``bench``,
+``--smoke`` and ``--cluster`` are refused by name.
 
 ``chaos [--seed N] [--quick]`` runs the seeded fault-injection campaign
 (:mod:`.chaos`) over the port's engine, ingest fleet, supervisor and
@@ -242,8 +249,10 @@ def _restore_geometry(args, cfg):
                       f"{hdr['hash_salt']:#x} — refusing to restore (the "
                       "table's slot layout is bound to the salt it was "
                       "built under)")
+    n_shards = max(args.mesh, 1)
     if not args.table_capacity and not args.config:
-        problems = validate_capacity(hdr["capacity"], cfg.batch.max_batch)
+        problems = validate_capacity(hdr["capacity"], cfg.batch.max_batch,
+                                     n_shards)
         if problems:
             return None, ("checkpoint capacity: " + "; ".join(problems)
                           + " (pass --table-capacity to reshard)")
@@ -252,11 +261,12 @@ def _restore_geometry(args, cfg):
     if hdr["hash_salt"] == 0:
         print("serve: WARNING restoring a pre-salt checkpoint - running "
               "with the UNSALTED public hash", file=sys.stderr)
-    if hdr["capacity"] != cfg.table.capacity or hdr["n_shards"] != 1:
+    if (hdr["capacity"] != cfg.table.capacity
+            or hdr["n_shards"] != n_shards):
         print(f"serve: checkpoint geometry {hdr['capacity']} rows x "
               f"{hdr['n_shards']} shard(s) != boot geometry "
-              f"{cfg.table.capacity} rows x 1 shard: occupied rows will "
-              "be resharded at restore", file=sys.stderr)
+              f"{cfg.table.capacity} rows x {n_shards} shard(s): occupied "
+              "rows will be resharded at restore", file=sys.stderr)
     return dataclasses.replace(cfg, table=dataclasses.replace(
         cfg.table, salt=hdr["hash_salt"])), None
 
@@ -338,7 +348,8 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         from flowsentryx_tpu_torch.engine.table import validate_capacity
 
         problems = validate_capacity(args.table_capacity,
-                                     cfg.batch.max_batch)
+                                     cfg.batch.max_batch,
+                                     max(args.mesh, 1))
         if problems:
             print("serve: --table-capacity: " + "; ".join(problems),
                   file=sys.stderr)
@@ -382,6 +393,18 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     except RuntimeError as e:
         print(f"serve: {e}", file=sys.stderr)
         return 1
+    mesh = None
+    if args.mesh > 1:
+        from flowsentryx_tpu_torch.parallel import make_mesh
+
+        try:
+            # the devices of --device's kind: the visible cards, or the
+            # one host
+            mesh = make_mesh(args.mesh, devices=(
+                None if device.type == "cuda" else [device]))
+        except ValueError as e:
+            print(f"serve: --mesh: {e}", file=sys.stderr)
+            return 1
     try:
         params = (load_artifact(cfg.model.name, args.artifact, device)
                   if args.artifact else spec.init(device))
@@ -434,8 +457,9 @@ def _cmd_serve(args: argparse.Namespace) -> int:
                 return 1
         device_loop = args.device_loop
         if device_loop == "auto":
-            device_loop = _calibrate(cfg, params, args.mega, device)
+            device_loop = _calibrate(cfg, params, args.mega, device, mesh)
         eng = Engine(cfg, source, sink, params=params, device=device,
+                     mesh=mesh,
                      mega_n=args.mega, slo_us=args.slo_us,
                      predict=args.predict, watchdog_s=args.watchdog_s,
                      sink_thread=False if args.no_sink_thread else None,
@@ -475,7 +499,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
-def _calibrate(cfg, params, mega, device) -> int:
+def _calibrate(cfg, params, mega, device, mesh=None) -> int:
     """``--device-loop auto``: a short calibration drain per candidate
     depth, each with a throwaway engine that frees its graphs and table
     before the next (and before the serving engine boots), judged on
@@ -485,7 +509,7 @@ def _calibrate(cfg, params, mega, device) -> int:
     print("serve: --device-loop auto: calibrating ring depth (one short "
           "drain and capture per candidate)...", file=sys.stderr)
     depth, detail = calibrate_ring_depth(cfg, params=params, mega_n=mega,
-                                         device=device)
+                                         device=device, mesh=mesh)
     print(f"serve: --device-loop auto -> ring depth {depth} "
           f"({detail['reason']}; measured: "
           + ", ".join(f"ring {m['ring']}: overlap {m['overlap_fraction']}"
@@ -1486,8 +1510,6 @@ def _cmd_monitor(args: argparse.Namespace) -> int:
 _BENCH_REFUSED = {
     "smoke": "the headline benchmark, bench.py, is the reference's JAX/TPU "
              "harness; the port's card check is chip_smoke.py",
-    "scaling": "the step time over a device mesh needs the sharded step "
-               "(parallel/step.py), which is not ported",
     "cluster": "the paced fleet comparison runs the reference's "
                "scripts/cluster_bench.py against a pre-cluster checkout",
     "baseline_repo": "it names the pre-cluster checkout of --cluster",
@@ -1495,13 +1517,14 @@ _BENCH_REFUSED = {
 
 
 def _cmd_bench(args: argparse.Namespace) -> int:
-    """The five BASELINE configs (``--scenarios``), one JSON line each."""
+    """The five BASELINE configs (``--scenarios``), one JSON line each;
+    or (``--scaling``) the step time against the mesh size."""
     for flag, why in _BENCH_REFUSED.items():
         if getattr(args, flag) not in (None, False):
             name = flag.replace("_", "-")
             print(f"fsx bench: refusing --{name}: {why}", file=sys.stderr)
             return 1
-    if not args.scenarios:
+    if not (args.scenarios or args.scaling):
         print("fsx bench: refusing a bare bench: "
               f"{_BENCH_REFUSED['smoke']}; run bench --scenarios",
               file=sys.stderr)
@@ -1514,10 +1537,15 @@ def _cmd_bench(args: argparse.Namespace) -> int:
     except RuntimeError as e:
         print(f"fsx bench: {e}", file=sys.stderr)
         return 1
-    for result in benchmarks.run_suite(scale=args.scale,
-                                       names=args.only or None,
-                                       device=device):
-        print(json.dumps(result), flush=True)
+    if args.scenarios:
+        for result in benchmarks.run_suite(scale=args.scale,
+                                           names=args.only or None,
+                                           device=device):
+            print(json.dumps(result), flush=True)
+        return 0
+    # n shards of a mesh laid on the one device, for each n
+    print(json.dumps(benchmarks.run_scaling(devices=[device] * 8)),
+          flush=True)
     return 0
 
 
@@ -1595,8 +1623,12 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--seconds", type=float, default=0,
                    help="stop after S seconds")
     s.add_argument("--table-capacity", type=int, default=None,
-                   help="state-table rows (power of two); default the "
-                        "config's (2^20)")
+                   help="state-table rows (power of two, divisible by "
+                        "--mesh); default the config's (2^20)")
+    s.add_argument("--mesh", type=int, default=0,
+                   help="serve sharded over an N-device mesh (N>1); "
+                        "refused where fewer than N devices of --device's "
+                        "kind are visible")
     s.add_argument("--model", default=None,
                    help="registered model name (logreg_int8, "
                         "logreg_int8_pallas, logreg_float, mlp, "
@@ -1945,9 +1977,12 @@ def build_parser() -> argparse.ArgumentParser:
     mo.set_defaults(fn=_cmd_monitor)
 
     b = sub.add_parser("bench", help="run the five BASELINE configs "
-                       "(--scenarios)")
+                       "(--scenarios) or the mesh scaling (--scaling)")
     b.add_argument("--scenarios", action="store_true",
                    help="run the five BASELINE configs, one JSON line each")
+    b.add_argument("--scaling", action="store_true",
+                   help="step-time vs 1/2/4/8-shard mesh at 1M-row "
+                        "capacity, the shards laid on the one --device")
     b.add_argument("--scale", type=float, default=1.0,
                    help="packet-count multiplier for --scenarios")
     b.add_argument("--only", action="append",

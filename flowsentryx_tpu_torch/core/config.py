@@ -4,9 +4,7 @@ Counterpart of ``flowsentryx_tpu/core/config.py``: the same sections,
 defaults and validation, and the same JSON round trip
 (:meth:`FsxConfig.from_json`, unknown keys refused), so every config
 file the reference reads parses here.  The kernel-map packing
-(``pack_kernel_config``) belongs to the BPF plane and is not copied.  A
-value the port cannot serve yet is refused by name where an engine is
-built (:func:`unsupported`), never dropped silently.
+(``pack_kernel_config``) belongs to the BPF plane and is not copied.
 """
 
 from __future__ import annotations
@@ -178,7 +176,8 @@ class BatchConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device-mesh layout: ``ip_axis`` devices shard the table rows by
-    IP hash.  The port serves one device (:func:`unsupported`)."""
+    IP hash.  As in the reference, nothing reads it: a mesh comes from
+    ``Engine(mesh=)`` and ``serve --mesh``."""
 
     ip_axis: int = 1
     axis_name: str = "ip"
@@ -249,14 +248,4 @@ class FsxConfig:
 
 
 DEFAULT_CONFIG = FsxConfig()
-
-
-def unsupported(cfg: FsxConfig) -> list[str]:
-    """The settings of ``cfg`` this port cannot serve yet, by name (an
-    engine refuses such a config rather than dropping the setting)."""
-    out = []
-    if cfg.mesh.ip_axis > 1:
-        out.append(f"mesh.ip_axis={cfg.mesh.ip_axis}: the sharded "
-                   "multi-device step is not ported (one device only)")
-    return out
 

@@ -139,6 +139,58 @@ class IpTableState(NamedTuple):
     def last_seen(self) -> torch.Tensor:
         return self.state[:, TableCol.LAST_SEEN]
 
+    @property
+    def park(self) -> int:
+        """Row index of the park row."""
+        return self.key_rows.shape[0] - 1
+
+    @staticmethod
+    def at(local: torch.Tensor) -> torch.Tensor:
+        """Row indices of ``key_rows``/``state_rows`` for table slots
+        (the identity here; a :class:`TableShard` adds its offset)."""
+        return local
+
+    def shard(self, row0: int, rows: int) -> "TableShard":
+        """Rows ``[row0, row0 + rows)`` as a table of their own, in place."""
+        return TableShard(self.key_rows, self.state_rows, row0, rows)
+
+
+class TableShard(NamedTuple):
+    """One shard of a row-sharded table: slots ``0..rows-1`` are rows
+    ``row0..row0+rows-1`` of the one table, written in place.  It has no
+    park row of its own: losers write the table's (:attr:`park`), never
+    row ``rows``, which is the next shard's first.  Readers use the
+    ``key``/``state`` views and writers index ``key_rows``/``state_rows``
+    with :meth:`at`, as for :class:`IpTableState`."""
+
+    key_rows: torch.Tensor    # the whole table's, park row included
+    state_rows: torch.Tensor
+    row0: int
+    rows: int
+
+    @property
+    def capacity(self) -> int:
+        return self.rows
+
+    @property
+    def key(self) -> torch.Tensor:
+        return self.key_rows[self.row0:self.row0 + self.rows]
+
+    @property
+    def state(self) -> torch.Tensor:
+        return self.state_rows[self.row0:self.row0 + self.rows]
+
+    @property
+    def last_seen(self) -> torch.Tensor:
+        return self.state[:, TableCol.LAST_SEEN]
+
+    @property
+    def park(self) -> int:
+        return self.key_rows.shape[0] - 1
+
+    def at(self, local: torch.Tensor) -> torch.Tensor:
+        return local + self.row0
+
 
 def make_table(capacity: int, device: str | torch.device = "cpu"
                ) -> IpTableState:

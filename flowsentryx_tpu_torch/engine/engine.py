@@ -16,9 +16,11 @@ swap (:meth:`Engine.hot_swap`, :meth:`Engine.watch_artifact`), the
 simulated kernel tier (``kernel_tier=``, ``EngineReport.escalation``),
 the drain ring (``device_loop=N``, :func:`calibrate_ring_depth`) and the
 boot path (``warm(tiered=True)``, ``compile_cache=``,
-``EngineReport.boot``) and the cluster's gossip hooks (``gossip=``,
-``EngineReport.cluster``).  Not ported yet: the sharded step (ROADMAP
-queue 1).
+``EngineReport.boot``), the cluster's gossip hooks (``gossip=``,
+``EngineReport.cluster``) and the IP-hash-sharded step (``mesh=``, a
+:func:`~..parallel.mesh.make_mesh` of n shards on this engine's device:
+the sharded single step, ladder and ring of :mod:`..parallel.step`,
+``EngineReport.route_drop``, and checkpoints that record the mesh size).
 
 Two threads, as in the reference: the **dispatch thread** (the caller of
 :meth:`Engine.run`) polls, stages and launches; a **sink thread** waits
@@ -157,7 +159,7 @@ import numpy as np
 import torch
 
 from flowsentryx_tpu_torch.core import schema
-from flowsentryx_tpu_torch.core.config import FsxConfig, unsupported
+from flowsentryx_tpu_torch.core.config import FsxConfig
 from flowsentryx_tpu_torch.core.device import resolve_device
 from flowsentryx_tpu_torch.core.signature import staging_signature
 from flowsentryx_tpu_torch.engine import checkpoint as ckpt
@@ -181,6 +183,7 @@ from flowsentryx_tpu_torch.models.registry import (
 )
 from flowsentryx_tpu_torch.ops import fused, kernels
 from flowsentryx_tpu_torch.ops.graph import StepGraph
+from flowsentryx_tpu_torch.parallel import step as pstep
 from flowsentryx_tpu_torch.sync import tuning
 from flowsentryx_tpu_torch.sync.channel import SinkChannel
 
@@ -246,6 +249,9 @@ class EngineReport(NamedTuple):
     #: refused streams, staged discards, boot-time foreign-row drops.
     #: None until a handoff touches this engine.
     rebalance: dict | None = None
+    #: Records fail-opened because their flow overflowed owner routing
+    #: in the sharded step (``parallel/step.py``); always 0 on one shard.
+    route_drop: int = 0
 
 
 class _InFlight(NamedTuple):
@@ -274,6 +280,15 @@ class _Uploaded(NamedTuple):
     event: Any             # the upload's event on the copy stream, or None
     arena_slot: int
     buf: int = -1          # index of the device slot buffer
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` and ``cuda:0`` (the current card) are the same device."""
+    def norm(d):
+        d = torch.device(d)
+        return (d.type, d.index if d.index is not None or d.type != "cuda"
+                else torch.cuda.current_device())
+    return norm(a) == norm(b)
 
 
 def _host_cpus() -> int:
@@ -343,7 +358,12 @@ class Engine:
     group's blacklist updates to the peers right after the local sink
     applies them, and the dispatch thread merges the peers' verdicts
     (``tick``) every loop iteration, idle ones included, deferring under
-    the governor's budget pressure."""
+    the governor's budget pressure.
+
+    ``mesh``: a :class:`~..parallel.mesh.Mesh` of more than one shard
+    serves through the IP-hash-sharded step (:mod:`..parallel.step`)
+    over the same one table; its shards must lie on this engine's
+    device.  A one-shard mesh (or None) is the single-shard step."""
 
     def __init__(
         self,
@@ -365,13 +385,10 @@ class Engine:
         device_loop: int = 0,
         compile_cache: Any | None = None,
         gossip: Any | None = None,
+        mesh: Any | None = None,
     ):
         #: Boot anchor: ``EngineReport.boot``'s walls count from here.
         self._boot_t0 = time.perf_counter()
-        bad = unsupported(cfg)
-        if bad:
-            raise ValueError("config not servable by this port: "
-                             + "; ".join(bad))
         self.slo_us = int(slo_us)
         if self.slo_us < 0:
             raise ValueError(f"slo_us must be >= 0, got {slo_us}")
@@ -383,6 +400,15 @@ class Engine:
                 "the latency-budget machinery (early flush, holds and "
                 "pre-warms are all phrased in budget headroom)")
         self.device = resolve_device(device)
+        #: The mesh when it spans more than one shard, else None (the
+        #: single-shard step).
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and not _same_device(self.mesh.device,
+                                                      self.device):
+            raise ValueError(
+                f"mesh shards lie on {self.mesh.device}, the engine on "
+                f"{self.device}: a mesh's shards must lie on the engine's "
+                "device")
         self.cfg = cfg
         self.source = source
         self.sink = sink
@@ -468,16 +494,25 @@ class Engine:
         if classify is kernels.score_int8:
             self.score_params = kernels.pack_score_params(self.params)
             classify = functools.partial(classify, packed=self.score_params)
-        if compact:
-            self.step = fused.make_compact_step(cfg, classify, **self.quant)
+        if self.mesh is not None:
+            # the sharded step, ladder and ring over the same one table
+            self.step = (pstep.make_sharded_compact_step(
+                cfg, classify, self.mesh, **self.quant) if compact
+                else pstep.make_sharded_raw_step(cfg, classify, self.mesh))
+            self.megasteps = (pstep.make_sharded_compact_megastep_family(
+                cfg, classify, self.mesh, sizes, **self.quant)
+                if sizes else {})
         else:
-            self.step = fused.make_raw_step(cfg, classify)
+            self.step = (fused.make_compact_step(cfg, classify, **self.quant)
+                         if compact else fused.make_raw_step(cfg, classify))
+            self.megasteps = (fused.make_compact_megastep_family(
+                cfg, classify, sizes, **self.quant) if sizes else {})
         self._words = (schema.COMPACT_RECORD_WORDS if compact
                        else schema.RECORD_WORDS)
-        self.megasteps = (fused.make_compact_megastep_family(
-            cfg, classify, sizes, **self.quant) if sizes else {})
         # in place, and captured by address on the card: never rebound
-        self.table = schema.make_table(cfg.table.capacity, self.device)
+        self.table = (schema.make_table(cfg.table.capacity, self.device)
+                      if self.mesh is None
+                      else pstep.make_sharded_table(cfg, self.mesh))
         self.stats = schema.make_stats(self.device)
         self.readback_depth = (cfg.batch.readback_depth
                                if readback_depth is None
@@ -515,8 +550,11 @@ class Engine:
                     f"{round_b} or shrink the ring")
             # a config-default depth grows to cover one full round
             self.readback_depth = max(self.readback_depth, round_b)
-            self.ring_step = dl.make_compact_device_loop(
+            self.ring_step = (dl.make_compact_device_loop(
                 cfg, classify, self.ring, self._ring_chunks, **self.quant)
+                if self.mesh is None else dl.make_sharded_compact_device_loop(
+                    cfg, classify, self.mesh, self.ring, self._ring_chunks,
+                    **self.quant))
         #: Sealed-but-undispatched ``(wire buffer, oldest-record stamp)``
         #: group candidates.
         self._pending: list[tuple[np.ndarray, float]] = []
@@ -580,6 +618,9 @@ class Engine:
         self.metrics = PipelineMetrics()
         self._lat = LatencyRecorder()
         self._restore_fallbacks = 0
+        #: Routing-overflow fail-opens of the sharded step, from each
+        #: sunk wire (or block record).
+        self._route_drop = 0
         #: The live-rebalance counters (``cluster/rebalance.py`` drives
         #: the quiescent span methods; ``engine/health.py`` folds the
         #: loss-shaped ones into DEGRADED).  Written between runs only.
@@ -649,7 +690,8 @@ class Engine:
             self._cache = compile_cache
         else:
             self._cache = CompileCache(compile_cache, staging_signature(
-                cfg, wire=self.wire, mega_sizes=self._mega_sizes,
+                cfg, wire=self.wire, mesh_devices=self._n_shards(),
+                mega_sizes=self._mega_sizes,
                 device_loop=self.ring, params=self.params, donate=True))
         #: The READY rungs: captured and safe to dispatch.  The whole
         #: ladder unless a tiered warm shrank it to the serving tier;
@@ -710,7 +752,10 @@ class Engine:
         if self._cuda:
             k = self.verdict_k
             most = max(self._group_max, self.ring * self._ring_chunks)
-            rec_words = most * (2 * b + 1)
+            # per batch: the block arrays, the clock and, sharded, the
+            # route_drop word (fused.block_record)
+            rec_words = most * (2 * b + 1 if self.mesh is None else
+                                2 * pstep.block_rows(b, self.mesh.size) + 2)
             self._wire_host = ([torch.empty(
                 max(self.ring, 1) * fused.verdict_wire_words(k),
                 dtype=torch.int32, pin_memory=True)
@@ -1187,25 +1232,35 @@ class Engine:
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             return g.blocks.to("cpu").numpy()
 
+    def _split_blocks(self, g: _InFlight) -> tuple:
+        """:func:`~..ops.fused.split_block_record` of the dispatch's
+        block record, and the route_drop words a sharded step's record
+        ends with, summed (0 on one shard and for a ring round, whose
+        wires carry them)."""
+        rec, rd = self._fetch_blocks(g), 0
+        if self.mesh is not None and not g.ring:
+            rec, rd = rec[:-g.n_chunks], int(rec[-g.n_chunks:].sum())
+        return (*fused.split_block_record(rec, g.n_chunks,
+                                          1 if g.ring else None), rd)
+
     def _sink_one(self, g: _InFlight) -> None:
         """Sink one dispatch: wait for its event, decode its wire (or its
         block record), apply the updates, then the latency record, the
         reap hook and the watchdog's progress stamp."""
         t_fetch = time.perf_counter()
         self._wait_event(g.event)
-        n_now = 1 if g.ring else None
         if self.verdict_k:
             # one wire, or a ring round's [R, 2K+4]: one per slot
             wire = g.wire.numpy()
             self._d2h_bytes += wire.nbytes
             rows = [decode_verdict_wire(w) for w in wire.reshape(
                 -1, wire.shape[-1])]
+            self._route_drop += sum(vw.route_drop for vw in rows)
             if any(vw.overflow for vw in rows):
                 # more newly-blocked flows than wire slots: take this
                 # dispatch's full block arrays (a whole round's, in chunk
                 # order) so no block is lost
-                keys, untils, _ = fused.split_block_record(
-                    self._fetch_blocks(g), g.n_chunks, n_now)
+                keys, untils, _, _ = self._split_blocks(g)
                 self._d2h_bytes += keys.nbytes + untils.nbytes
                 self._sink_fallback += 1
                 upd = extract_updates(keys, untils)
@@ -1219,8 +1274,8 @@ class Engine:
                                                    for vw in rows])))
             now = max(vw.now for vw in rows)
         else:
-            keys, untils, nows = fused.split_block_record(
-                self._fetch_blocks(g), g.n_chunks, n_now)
+            keys, untils, nows, rd = self._split_blocks(g)
+            self._route_drop += rd
             self._d2h_bytes += keys.nbytes + untils.nbytes
             self._sink_fallback += 1
             upd = extract_updates(keys, untils)
@@ -1607,6 +1662,7 @@ class Engine:
         self._ring_rounds = self._ring_partial_slots = 0
         self._h2d_put_s = self._h2d_overlap_s = 0.0
         self._h2d_puts = self._h2d_puts_overlapped = 0
+        self._route_drop = 0
 
     def reset_stream(self, source, sink=None,
                      readback_depth: int | None = None,
@@ -1977,24 +2033,28 @@ class Engine:
 
     # -- checkpoint / restore ------------------------------------------------
 
+    def _n_shards(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
+
     def checkpoint(self, path) -> str:
         """Snapshot table, stats and clock (the reference's file format,
         :mod:`.checkpoint`) so a restarted engine resumes with every
-        tracked flow and blacklist expiry.  Call it between runs."""
+        tracked flow and blacklist expiry.  The header records the
+        geometry (salt, shard count, capacity): a sharded table's rows are
+        stored shard-major, as the reference's.  Call it between runs."""
         if self._inflight or self._pending:
             raise RuntimeError("checkpoint with batches in flight")
         return str(ckpt.save_state(path, self.table, self.stats,
                                    self.batcher.t0_ns,
                                    hash_salt=self.cfg.table.salt,
-                                   n_shards=1))
+                                   n_shards=self._n_shards()))
 
     def restore(self, path) -> dict:
         """Resume from a snapshot, IN PLACE: the rows and counters are
         copied into the engine's own table and stats tensors, which every
         captured graph holds by address (the park row is reset).  A
-        snapshot of another geometry (capacity, or a sharded reference
-        engine's row layout) is re-placed for this engine's capacity on
-        the host first (:func:`.table.reshard_rows`, announced, unplaced
+        snapshot of another geometry (capacity or shard count) is
+        re-placed for this engine's geometry on the host first (:func:`.table.reshard_rows`, announced, unplaced
         rows counted).  A salt mismatch is refused.  A corrupt snapshot
         (:class:`~.checkpoint.CheckpointCorrupt`) is never loaded: the
         retained ``.prev`` generation is, announced and counted; with no
@@ -2033,24 +2093,26 @@ class Engine:
             state[:, int(schema.TableCol.TOK_BYTES)] = np.where(
                 key != 0, np.float32(self.cfg.limiter.bucket_burst_bytes),
                 np.float32(0.0))
+        n_shards = self._n_shards()
         info = {
             "resharded": False, "dropped_rows": 0,
             "from": {"capacity": ck.capacity, "n_shards": ck.n_shards},
-            "to": {"capacity": tcfg.capacity, "n_shards": 1},
+            "to": {"capacity": tcfg.capacity, "n_shards": n_shards},
             "crc_checked": ck.crc_checked,
             "fallback_from": fallback_from,
         }
-        if ck.capacity != tcfg.capacity or ck.n_shards != 1:
-            plan = tbl.TablePlan(capacity=tcfg.capacity, n_shards=1,
+        if ck.capacity != tcfg.capacity or ck.n_shards != n_shards:
+            plan = tbl.TablePlan(capacity=tcfg.capacity, n_shards=n_shards,
                                  salt=tcfg.salt, probes=tcfg.probes)
             key, state, dropped = tbl.reshard_rows(key, state, plan)
             info["resharded"] = True
             info["dropped_rows"] = dropped
             print(f"fsx engine: resharding checkpoint {ck.capacity} rows "
-                  f"x {ck.n_shards} shard(s) -> {plan.capacity} rows x 1 "
-                  "shard" + (f"; {dropped} row(s) dropped (probe sequences "
-                             "exhausted - table too full for the new "
-                             "geometry)" if dropped else ""),
+                  f"x {ck.n_shards} shard(s) -> {plan.capacity} rows x "
+                  f"{plan.n_shards} shard(s)"
+                  + (f"; {dropped} row(s) dropped (probe sequences "
+                     "exhausted - table too full for the new geometry)"
+                     if dropped else ""),
                   file=sys.stderr)
         self.table.key.copy_(torch.from_numpy(
             np.ascontiguousarray(key, np.uint32).view(np.int32)))
@@ -2127,7 +2189,7 @@ class Engine:
 
     def adopt_rows(self, keys, states) -> tuple[int, int]:
         """Probe-insert handed-off rows into the live table
-        (:func:`~.table.insert_rows`, one shard).  Returns ``(inserted,
+        (:func:`~.table.insert_rows`, under this engine's shard count).  Returns ``(inserted,
         dropped)``: a dropped row (its key already live, or its probes
         exhausted) is the caller's to count, never silent."""
         keys = np.asarray(keys, np.uint32).reshape(-1)
@@ -2135,8 +2197,9 @@ class Engine:
             return 0, 0
         key, state = self._quiescent_table("adopt_rows")
         tcfg = self.cfg.table
-        plan = tbl.TablePlan(capacity=tcfg.capacity, n_shards=1,
-                             salt=tcfg.salt, probes=tcfg.probes)
+        plan = tbl.TablePlan(capacity=tcfg.capacity,
+                             n_shards=self._n_shards(), salt=tcfg.salt,
+                             probes=tcfg.probes)
         key, state, dropped = tbl.insert_rows(key, state, keys, states,
                                               plan)
         self._write_table(key, state)
@@ -2266,6 +2329,7 @@ class Engine:
             boot=self._boot_report(),
             cluster=cluster,
             rebalance=dict(self._rebalance) or None,
+            route_drop=self._route_drop,
         )
 
     def _boot_report(self) -> dict | None:
@@ -2299,8 +2363,8 @@ def calibrate_ring_depth(cfg: FsxConfig, params: Any | None = None,
                          mega_n: int | str = "auto",
                          candidates: tuple[int, ...] = (2, 4, 8),
                          batches: int = 48, seed: int = 17,
-                         device: str | torch.device | None = None
-                         ) -> tuple[int, dict]:
+                         device: str | torch.device | None = None,
+                         mesh: Any | None = None) -> tuple[int, dict]:
     """Measure a short calibration drain at each candidate ring depth and
     pick one (``serve --device-loop auto``): the drive half of the
     autotuner, whose policy is :func:`~..fused.device_loop
@@ -2324,7 +2388,7 @@ def calibrate_ring_depth(cfg: FsxConfig, params: Any | None = None,
     for d in sorted(set(int(c) for c in candidates)):
         eng = Engine(cfg, ArraySource(np.copy(recs)), NullSink(),
                      params=params, device=device, mega_n=mega_n,
-                     device_loop=d, sink_thread=False)
+                     device_loop=d, sink_thread=False, mesh=mesh)
         eng.warm()
         t0 = time.perf_counter()
         rep = eng.run()

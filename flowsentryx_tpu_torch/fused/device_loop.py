@@ -115,6 +115,26 @@ def make_compact_device_loop(cfg, classify_batch, ring_depth: int,
         ring_depth, n_chunks)
 
 
+def make_sharded_compact_device_loop(cfg, classify_batch, mesh,
+                                     ring_depth: int, n_chunks: int,
+                                     **quant):
+    """The drain ring over the IP-hash-sharded compact16 step
+    (:mod:`..parallel.step`): every chunk of every slot runs the whole
+    owner-routed step, so a round equals its slots run as sequential
+    sharded megasteps.  Needs the compact verdict wire, as the
+    single-shard ring does."""
+    from flowsentryx_tpu_torch.parallel import step as pstep
+
+    if cfg.batch.verdict_k < 1:
+        raise ValueError(
+            "the device loop needs the compact verdict wire "
+            "(batch.verdict_k >= 1): its steady-state readback is one "
+            "[ring, 2K+4] buffer per round")
+    return wrap_device_loop(
+        pstep.make_sharded_compact_step(cfg, classify_batch, mesh, **quant),
+        ring_depth, n_chunks)
+
+
 # ---------------------------------------------------------------------------
 # ring-depth autotuning (serve --device-loop auto)
 # ---------------------------------------------------------------------------

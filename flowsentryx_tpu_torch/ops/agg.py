@@ -115,10 +115,12 @@ def segment_max_cols(v: torch.Tensor, seg: torch.Tensor, n: int,
 
 
 def aggregate(key: torch.Tensor, pkt_len: torch.Tensor, ts: torch.Tensor,
-              valid: torch.Tensor) -> FlowAgg:
+              valid: torch.Tensor, byte_sum=segment_sum) -> FlowAgg:
     """Group a ``[B]`` packet batch by source key (uint32 values in
     int64).  Key 0 (the empty-slot sentinel) is remapped to 0xFFFFFFFE
-    so a spoofed 0.0.0.0 is tracked like any other source."""
+    so a spoofed 0.0.0.0 is tracked like any other source.  ``byte_sum``
+    sums the sorted byte lanes per segment: pass the lane-order sum
+    (``kernels.segment_sum_seq``) where a flow's bytes can pass 2^24."""
     b = key.shape[0]
     key = torch.where(key == 0, torch.full_like(key, 0xFFFFFFFE), key)
     k = torch.where(valid, key, torch.full_like(key, INVALID_KEY))
@@ -126,7 +128,7 @@ def aggregate(key: torch.Tensor, pkt_len: torch.Tensor, ts: torch.Tensor,
     order, sk, seg = ks.order, ks.sorted_key, ks.seg
     sv = valid[order]
     pkts = segment_sum(sv.float(), seg, b)
-    bytes_ = segment_sum(torch.where(sv, pkt_len[order], 0.0), seg, b)
+    bytes_ = byte_sum(torch.where(sv, pkt_len[order], 0.0), seg, b)
     ts_max = segment_max(
         torch.where(sv, ts[order], float("-inf")), seg, b, float("-inf"))
     rep_key = segment_max(sk, seg, b, 0)

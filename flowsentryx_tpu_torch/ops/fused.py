@@ -57,6 +57,10 @@ class StepOutput(NamedTuple):
     block_key: torch.Tensor     # [B] int32 bit patterns, INVALID_KEY padded
     block_until: torch.Tensor   # [B] f32
     now: torch.Tensor           # [] f32 newest valid timestamp
+    #: records fail-opened because their flow overflowed owner routing:
+    #: a [] int64 tensor from the sharded step (``parallel/step.py``),
+    #: the constant 0 on one shard
+    route_drop: Any = 0
     wire: Any = None            # [2K+4] int32 bit patterns, None if K == 0
 
 
@@ -83,23 +87,43 @@ class FlowDecision(NamedTuple):
     tracked: torch.Tensor           # [R] bool
 
 
+def flow_step(
+    cfg: FsxConfig,
+    table: IpTableState | schema.TableShard,
+    fa: agg.FlowAgg,
+    flow_mask: torch.Tensor,
+    ml_count: torch.Tensor,
+    now: torch.Tensor,
+) -> tuple[IpTableState | schema.TableShard, FlowDecision]:
+    """Slot assignment, then :func:`_flow_core`, over aggregated flows:
+    the two-stage composition the sharded step runs on each owner's
+    shard (``flow_mask``: the flows this call owns).  ``ml_count`` is the
+    per-flow count of records scored malicious."""
+    asg = hashtable.assign_slots(table.key, table.last_seen, fa.rep_key,
+                                 fa.rep_valid & flow_mask, now, cfg.table)
+    return table, _flow_core(cfg, table, fa, asg, flow_mask, ml_count)
+
+
 def _flow_core(
     cfg: FsxConfig,
-    table: IpTableState,
+    table: IpTableState | schema.TableShard,
     fa: agg.FlowAgg,
     asg: hashtable.SlotAssignment,
+    flow_mask: torch.Tensor | None,
     ml_count: torch.Tensor,
 ) -> FlowDecision:
     """Blacklist gate, limiter, ML vote, verdicts, and the in-place
     state scatter (tracked flows only; everyone else writes the park
-    row)."""
+    row).  ``flow_mask`` (None: every flow) restricts the flows that may
+    take an ML verdict.  The reference's core also takes the batch
+    clock, which it never reads."""
     lim = cfg.limiter
     mdl = cfg.model
     C = TableCol
     n = table.capacity
     # untracked lanes may carry garbage slots (empty segments read the
     # segment-max identity); their rows never reach an output
-    gslot = asg.slot.clamp(0, n)
+    gslot = table.at(asg.slot.clamp(0, n))
     rows = torch.where(asg.inserted[:, None], 0.0, table.state_rows[gslot])
 
     win = limiters.WindowState(
@@ -114,7 +138,7 @@ def _flow_core(
     ml_votes = rows[:, C.ML_VOTES]
     last_seen = rows[:, C.LAST_SEEN]
 
-    eligible = fa.rep_valid
+    eligible = fa.rep_valid if flow_mask is None else fa.rep_valid & flow_mask
     already_blocked = asg.tracked & (blocked_until > fa.rep_ts)
     dec = limiters.apply_limiter(lim, win, bucket, fa.rep_pkts,
                                  fa.rep_bytes, fa.rep_ts,
@@ -169,7 +193,7 @@ def _flow_core(
         ],
         dim=1,
     )
-    safe_slot = torch.where(asg.tracked, asg.slot, n)
+    safe_slot = torch.where(asg.tracked, table.at(asg.slot), table.park)
     table.key_rows.index_put_((safe_slot,), as_i32(fa.rep_key))
     table.state_rows.index_put_((safe_slot,), new_rows)
     return FlowDecision(flow_verdict=flow_verdict,
@@ -289,19 +313,20 @@ def evict_idle_epoch(tcfg, table: IpTableState, stats: GlobalStats,
     one offset).  The window is read with a gather and only victims are
     written; the other lanes write the park row.  A warm or all-masked
     batch has ``now == 0`` and frees nothing.  Callers gate on
-    ``evict_ttl_s > 0`` statically."""
+    ``evict_ttl_s > 0`` statically.  On a :class:`~..core.schema
+    .TableShard` the window spans the shard's own rows."""
     C = TableCol
     cap = table.capacity
     chunk = evict_window(cap, tcfg.evict_every)
     off = (stats.batches & U32_MASK) % tcfg.evict_every * chunk
     off = torch.clamp(off, max=cap - chunk)
-    idx = off + torch.arange(chunk, device=now.device)
+    idx = table.at(off + torch.arange(chunk, device=now.device))
     keys = table.key_rows[idx]
     rows = table.state_rows[idx]
     idle = now - rows[:, C.LAST_SEEN] > f32(tcfg.evict_ttl_s)
     live_block = rows[:, C.BLOCKED_UNTIL] > now
     victim = (keys != hashtable.EMPTY_KEY) & idle & ~live_block
-    vidx = torch.where(victim, idx, cap)
+    vidx = torch.where(victim, idx, table.park)
     table.key_rows.index_put_((vidx,), torch.zeros_like(keys))
     table.state_rows.index_put_((vidx,), torch.zeros_like(rows))
     return victim.sum()
@@ -388,7 +413,7 @@ def make_step(
             inserted=rep_usable & ~rep_found & rep_winner,
             tracked=rep_usable & rep_winner,
         )
-        dec = _flow_core(cfg, table, fa, asg, ml_count)
+        dec = _flow_core(cfg, table, fa, asg, None, ml_count)
 
         verdict = resolve_record_verdicts(dec.flow_verdict, inv, mal, valid)
         update_stats_from_counts(stats, count_verdicts(verdict, valid))
@@ -483,8 +508,9 @@ def wrap_megastep(base, n_chunks: int):
     ``n_chunks`` leading slices of a ``[N, B+1, 4]`` stacked wire group,
     in order, updating table and stats in place (the reference's
     ``lax.scan`` carry).  ``outs`` fields are stacked ``[N, B]``
-    (``now``: ``[N]``), except ``outs.wire``, the N chunks' verdict wires
-    merged into ONE by :func:`merge_verdict_wires`.
+    (``now``, and a sharded step's ``route_drop``: ``[N]``), except
+    ``outs.wire``, the N chunks' verdict wires merged into ONE by
+    :func:`merge_verdict_wires`.
 
     On the CPU this is the plain loop; on the card the same function is
     what :class:`~.graph.StepGraph` captures, one graph per rung."""
@@ -499,13 +525,15 @@ def wrap_megastep(base, n_chunks: int):
 
         def stacked(field):
             vals = [getattr(o, field) for o in outs]
-            return None if vals[0] is None else torch.stack(vals)
+            return (torch.stack(vals) if isinstance(vals[0], torch.Tensor)
+                    else vals[0])
 
         wires = stacked("wire")
         out = StepOutput(
             verdict=stacked("verdict"), score=stacked("score"),
             block_key=stacked("block_key"),
             block_until=stacked("block_until"), now=stacked("now"),
+            route_drop=stacked("route_drop"),
             wire=None if wires is None else merge_verdict_wires(wires))
         return table, stats, out
 
@@ -533,12 +561,18 @@ def make_compact_megastep_family(cfg: FsxConfig, classify_batch,
 def block_record(out) -> torch.Tensor:
     """A step's (megastep's, drain-ring round's) block arrays and clock as ONE flat int32
     buffer: every ``block_key``, every ``block_until`` (f32 bits), every
-    ``now`` (f32 bits).  The engine keeps one copy per in-flight dispatch
+    ``now`` (f32 bits), and a sharded step's ``route_drop`` words last.
+    The engine keeps one copy per in-flight dispatch
     and reads it when that dispatch's wire overflowed (or when there is
-    no wire); :func:`split_block_record` undoes it on the host."""
-    return torch.cat([out.block_key.reshape(-1),
-                      out.block_until.reshape(-1).view(torch.int32),
-                      out.now.reshape(-1).view(torch.int32)])
+    no wire); :func:`split_block_record` undoes it on the host, after the
+    caller has cut the ``route_drop`` words off."""
+    parts = [out.block_key.reshape(-1),
+             out.block_until.reshape(-1).view(torch.int32),
+             out.now.reshape(-1).view(torch.int32)]
+    rd = getattr(out, "route_drop", None)
+    if isinstance(rd, torch.Tensor):
+        parts.append(rd.reshape(-1).to(torch.int32))
+    return torch.cat(parts)
 
 
 def split_block_record(rec, n_chunks: int, n_now: int | None = None):

@@ -1,21 +1,124 @@
-"""The cluster tier of the partition rule: which engine owns a source.
+"""Declarative placement: the partition-rule table, and the cluster
+tier of the same rule.
 
-Counterpart of the numpy half of ``flowsentryx_tpu/parallel/layout.py``
-(``cluster_rank_of``, ``ClusterLayout``, and the elastic fleet's
-``assigned_rank_of``/``assigned_ring_of``).  The daemon fans records over
-``n_engines * workers_per_engine`` ring shards by
-:func:`~flowsentryx_tpu_torch.core.wire.shard_of`, and engine ``r``
-drains the contiguous span ``[r*w, (r+1)*w)`` end to end, so a source's
-flow state lives on exactly one engine.  numpy only.
+Counterpart of ``flowsentryx_tpu/parallel/layout.py``, both halves:
+
+* **The spec half.**  The reference declares once, as partition rules
+  (a regex on a leaf's path name -> a ``PartitionSpec``), that the
+  table's rows shard over the mesh's ``ip`` axis and everything else
+  (stats, params, wire batches) is replicated, and derives every
+  placement from that table: the sharded step's specs
+  (:func:`table_specs`, :func:`stats_specs`), the engine's
+  (:func:`replicated`) and the restore path's (:func:`shard_table`).
+  The rules are copied.  A mesh here is n shards on one device
+  (:mod:`.mesh`), so a row-sharded table is the one contiguous table on
+  that device, shard ``d`` owning rows ``[d*N/n, (d+1)*N/n)``: the
+  shard-major order of the reference's global array, which is what its
+  ``device_get`` yields and its checkpoints store.  A spec here says
+  which leaves the step splits by row range (:mod:`.step`).
+* **The cluster tier** (``cluster_rank_of``, ``ClusterLayout``, and the
+  elastic fleet's ``assigned_rank_of``/``assigned_ring_of``).  The
+  daemon fans records over ``n_engines * workers_per_engine`` ring
+  shards by :func:`~flowsentryx_tpu_torch.core.wire.shard_of`, and
+  engine ``r`` drains the contiguous span ``[r*w, (r+1)*w)`` end to end,
+  so a source's flow state lives on exactly one engine.
+
+numpy at import: the spec half imports torch only when it places a
+table (the cluster supervisor imports this module and no torch).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
+from typing import Callable
 
 import numpy as np
 
 from flowsentryx_tpu_torch.core.wire import shard_of
+
+
+class PartitionSpec(tuple):
+    """``PartitionSpec("ip")``: rows split over the mesh axis ``ip``;
+    ``PartitionSpec()``: replicated."""
+
+    def __new__(cls, *axes: str) -> "PartitionSpec":
+        return super().__new__(cls, axes)
+
+
+P = PartitionSpec
+
+#: The partition rules, first match wins: ``(leaf-path regex, the spec
+#: as a function of the mesh's table axis)``.  Leaf paths are dotted names
+#: rooted at the step's argument names (``table.key_rows``,
+#: ``stats.allowed``, ``params``, ``raw``...).
+PARTITION_RULES: tuple[tuple[str, Callable[[str], P]], ...] = (
+    # per-IP state rows: sharded over the hash axis
+    (r"^table\.", lambda axis: P(axis)),
+    # global counters, classifier params and wire batches: replicated
+    # (each shard slices its own batch span inside the step)
+    (r"^(stats|params|raw|wire|slot)", lambda _axis: P()),
+)
+
+
+def spec_for(name: str, axis: str = "ip") -> P:
+    """The :class:`PartitionSpec` of one leaf path under the rules."""
+    for pat, build in PARTITION_RULES:
+        if re.search(pat, name) is not None:
+            return build(axis)
+    raise KeyError(f"no partition rule matches leaf {name!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh: where one leaf lives."""
+
+    mesh: object
+    spec: P
+
+    @property
+    def device(self):
+        return self.mesh.device
+
+
+def sharding_for(mesh, name: str) -> NamedSharding:
+    """The placement of one leaf path on ``mesh``."""
+    return NamedSharding(mesh, spec_for(name, mesh.axis_names[0]))
+
+
+def replicated(mesh) -> NamedSharding:
+    """The replicated placement (stats, params, wire buffers)."""
+    return NamedSharding(mesh, P())
+
+
+def table_specs(axis: str = "ip"):
+    """The table's specs, one per leaf, derived from the rules."""
+    from flowsentryx_tpu_torch.core.schema import IpTableState
+
+    return IpTableState(*(spec_for(f"table.{f}", axis)
+                          for f in IpTableState._fields))
+
+
+def stats_specs():
+    """The stats' specs, one per counter, derived from the rules."""
+    from flowsentryx_tpu_torch.core.schema import GlobalStats
+
+    return GlobalStats(*(spec_for(f"stats.{f}")
+                         for f in GlobalStats._fields))
+
+
+def shard_table(table, mesh):
+    """Place a state table under the rules: its rows split over the
+    mesh's shards, which on one device is the one contiguous table on
+    that device (moved there when it lies elsewhere, else the same
+    tensors).  The placement everything restores through."""
+    from flowsentryx_tpu_torch.core.schema import IpTableState
+
+    if table.capacity % mesh.size:
+        raise ValueError("table capacity must divide by device count")
+    return IpTableState(*(
+        leaf.to(sharding_for(mesh, f"table.{f}").device)
+        for f, leaf in zip(IpTableState._fields, table)))
 
 
 def cluster_rank_of(saddr, n_engines: int,

@@ -1324,3 +1324,81 @@ def test_handoff_in_place_under_graphs_equals_cpu(cuda):
               "tracked_before", "tracked_after", "tail", "after_tail"):
         assert got[k] == want[k], k
     assert got["launches"]["score_int8"] == sum(got["dispatched"])
+
+
+# -- the IP-hash-sharded step (parallel/) -----------------------------------------
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_step_graph_equals_eager_and_cpu(cuda, n):
+    """The sharded compact16 step at n shards of the card: the eager step
+    runs without a host sync, the captured step replayed over a stream
+    equals it after every batch, and both equal the CPU's sharded step on
+    the same batches (table, stats, outputs, route_drop); ``score_int8``
+    launches n times per replay."""
+    from flowsentryx_tpu_torch.parallel import make_mesh
+    from flowsentryx_tpu_torch.parallel import step as pstep
+
+    cfg, params, classify = _step_fixture(cuda)
+    raws, quant = _compact_batches(params, 8, 2048)
+    mesh = make_mesh(n, devices=[cuda] * n)
+    step = pstep.make_sharded_compact_step(cfg, classify, mesh, **quant)
+    cpu_params = logreg.load_params(ARTIFACT, "cpu")
+    cpu_mesh = make_mesh(n, devices=["cpu"] * n)
+    cpu_step = pstep.make_sharded_compact_step(
+        cfg, functools.partial(kernels.score_int8,
+                               packed=kernels.pack_score_params(cpu_params)),
+        cpu_mesh, **quant)
+    tg, sg = pstep.make_sharded_table(cfg, mesh), schema.make_stats(cuda)
+    te, se = pstep.make_sharded_table(cfg, mesh), schema.make_stats(cuda)
+    tc, sc = pstep.make_sharded_table(cfg, cpu_mesh), schema.make_stats()
+    gr = graph.StepGraph(step, tg, sg, params, (2049, 4))
+    assert gr.launches["score_int8"] == n
+    for raw in raws:
+        x = schema.wire_to_tensor(raw)
+        gr.input.copy_(x.to(cuda))
+        gr.replay()
+        _, _, oe = step(te, se, params, x.to(cuda))
+        _, _, oc = cpu_step(tc, sc, cpu_params, x)
+        _same_out(gr.out, oe)
+        _same_state(tg, sg, te, se)
+
+        def host(o):
+            return type(o)(*(t.cpu() if isinstance(t, torch.Tensor) else t
+                             for t in o))
+
+        _same_out(host(oe), oc)
+        assert torch.equal(oe.route_drop.cpu(), oc.route_drop)
+        # the table proper (the park row holds the card's last loser)
+        assert torch.equal(te.key.cpu(), tc.key)
+        assert torch.equal(te.state.cpu().view(torch.int32),
+                           tc.state.view(torch.int32))
+    assert se.to_dict() == sc.to_dict()
+
+
+def test_meshed_engine_on_card_equals_cpu(cuda):
+    """``Engine(mesh=4 shards of the card, mega_n="auto")`` against the
+    same engine on the CPU: stats, blacklist, route_drop, table digest;
+    ``table_summary`` once per report."""
+    from flowsentryx_tpu_torch.parallel import make_mesh
+
+    cfg, params, _ = _step_fixture(cuda, verdict_k=8)
+    recs = TrafficGen(TrafficSpec(scenario=Scenario.UDP_FLOOD_MULTI,
+                                  rate_pps=1e6, seed=5)).next_records(
+        2048 * 20)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        sink = CollectSink()
+        eng = Engine(cfg, ArraySource(recs.copy()), sink,
+                     params=logreg.load_params(ARTIFACT, dev), device=dev,
+                     mega_n="auto", mesh=make_mesh(4, devices=[dev] * 4))
+        eng.warm()
+        kernels.reset_launches()
+        rep = eng.run()
+        out.append((rep, sink.blocked, _digest(eng),
+                    dict(kernels.LAUNCHES)))
+    (rc, bc, dc, lc), (rh, bh, dh, _) = out
+    assert rc.stats == rh.stats and bc == bh and dc == dh
+    assert rc.route_drop == rh.route_drop
+    assert lc["score_int8"] == 4 * rc.batches
+    assert lc["table_summary"] == 1

@@ -162,8 +162,9 @@ def test_new_host_modules_are_checked():
     simulated kernel tier, the pcap reader, the training plane
     (fixture, data, optimizers, QAT, evaluation, stress), the drain ring,
     the staged-shape signature, the compile cache, the cluster (its
-    mailboxes, gossip plane, engine runner and supervisor) and the
-    cluster layout are among them."""
+    mailboxes, gossip plane, engine runner and supervisor), the cluster
+    layout and the partition rules, the mesh and the sharded step are
+    among them."""
     names = {".".join(p.relative_to(REPO).with_suffix("").parts)
              for p in _port_sources()}
     for m in ("core.wire", "core.durable", "engine.shm", "engine.arena",
@@ -179,7 +180,7 @@ def test_new_host_modules_are_checked():
               "core.signature", "engine.compile_cache",
               "cluster.__init__", "cluster.mailbox", "cluster.gossip",
               "cluster.runner", "cluster.supervisor", "parallel.__init__",
-              "parallel.layout"):
+              "parallel.layout", "parallel.mesh", "parallel.step"):
         assert f"flowsentryx_tpu_torch.{m}" in names, m
 
 

@@ -239,14 +239,24 @@ def test_registry_serves_every_reference_family():
 
 
 def test_mesh_config_refused_by_name():
-    cfg = config.FsxConfig.from_json('{"mesh": {"ip_axis": 4}}')
-    assert config.unsupported(cfg)
+    """A config with ``mesh.ip_axis > 1`` boots, as in the reference,
+    which never reads the field (a mesh comes from ``Engine(mesh=)``);
+    the port refused it by name until the sharded step was ported."""
+    text = '{"mesh": {"ip_axis": 4}, "table": {"capacity": 4096}}'
+    cfg = config.FsxConfig.from_json(text)
+    assert not hasattr(config, "unsupported")
+    from flowsentryx_tpu.engine import CollectSink as JCollectSink
+    from flowsentryx_tpu.engine import Engine as JEngine
+    from flowsentryx_tpu.engine import TrafficSource as JTrafficSource
     from flowsentryx_tpu_torch.engine import (
         CollectSink, Engine, TrafficSource, TrafficSpec,
     )
-    with pytest.raises(ValueError, match="mesh.ip_axis=4"):
-        Engine(cfg, TrafficSource(TrafficSpec(), total=8), CollectSink(),
-               device="cpu")
+    jeng = JEngine(jconfig.FsxConfig.from_json(text),
+                   JTrafficSource(JTrafficSpec(), total=8), JCollectSink())
+    eng = Engine(cfg, TrafficSource(TrafficSpec(), total=8), CollectSink(),
+                 device="cpu")
+    assert eng.mesh is None and jeng.mesh is None
+    assert eng.run().records == jeng.run().records == 8
 
 
 def test_every_reference_config_parses():
