@@ -129,7 +129,8 @@ more.
 20. ``slo_pulse``: the reference's pulse tier — ``PacedSource`` pulses
     of 96 records every 7.5 ms (12.8 k records/s mean, each pulse
     released at once), a drain-tuned 5 ms deadline, ``mega_n="auto"`` —
-    ``slo_us`` 0 and 2,000 in turns, 4 pairs of 1 s trials on two warm
+    ``slo_us`` 0 and 2,000 in turns, ``PULSE_PAIRS`` pairs of 1 s trials
+    (2 since the headline bench came, 4 before) on two warm
     engines: each arm ends equal to the CPU engine fed the batches it
     dispatched, and arms that dispatched the same batch partition (a
     host stall can merge two pulses into one batch) end byte-equal;
@@ -137,7 +138,8 @@ more.
     past 2 ms; then a saturated drain from the ring, ``slo_us`` 2,000
     against 0 (0, 2000, 2000, 0): the records/s ratio, equal state.
 21. ``predict_pulse``: the same pulse with ``--predict --slo-us 2000``,
-    4 trials: the state equals the CPU replay of its batches, and the
+    ``2 * PULSE_PAIRS`` trials: the state equals the CPU replay of its
+    batches, and the
     ``slo_us=0`` arm's where the partitions match; the governor
     locks a forecast; its report per trial (onset hits and misses,
     holds, pre-warms).
@@ -262,8 +264,9 @@ more.
 41. ``cluster_serve``: ``cli cluster --engines 2 --shards 2 --mega auto
     --drain`` over each prefilled scenario (768 x 2,048 records, cut from
     1,536 so the whole script stays under ~780 s), in
-    turns with one card engine with two workers (single, cluster,
-    cluster, single; ``--pin-cores off``), then once pinned (``auto``):
+    turns with one card engine with two workers (single, cluster; one
+    turn each since the headline bench came, two before; ``--pin-cores
+    off``), then once pinned (``auto``):
     the fleet's records/s (total over the slowest rank's drain wall)
     against the single engine's, each rank's device ms per batch and
     idle share at the solo per-graph device times, card memory per
@@ -388,6 +391,33 @@ more.
     ``benchmarks.run_scaling(devices=["cuda"] * 8)``, 1, 2, 4 and 8
     shards at 2^20 rows, B=16,384.  Alone: ``python3
     scripts/torch_mesh_phases.py``.
+56-57. The headline benchmark and the data-parallel trainer
+    (``headline_phases``).  56. ``headline_bench``: ``python -m
+    flowsentryx_tpu_torch.bench --budget-s 120`` as a child process (a
+    fresh process: no earlier profiler phase in its host times; 2^20
+    rows, B=16,384, the golden ``logreg_int8`` params on compact16, 16
+    pre-encoded batches): rc 0, one JSON line naming the card, a
+    positive ``value``, the single, mega8 and devloop2x8 chunk series,
+    no ``error``; from its stderr each tier's launch window
+    (``score_int8`` once per step body) and each paced engine run's
+    (``score_int8`` once per batch, ``table_summary`` once per report);
+    then here the bench's 16 headline batches through the captured
+    single step and the n=8 megastep on the card against the CPU eager
+    step on the same batches: table digest, stats and every verdict
+    wire equal.  57. ``train_qat_dp``: ``train_logreg_qat_dp`` at 8
+    shards of the card on ``train_qat_deployed``'s training split
+    (2,016,639 rows, 200 epochs, no sample weight) against the
+    single-device trainer on the card with the reference test's
+    relations (input observers bit-identical, ``w_int8`` within 1,
+    ``in_scale`` rtol 1e-6, ``out_scale`` rtol 1e-2); its losses,
+    which the reference's own DP run holds to its single-device run
+    only within 1.64 % at this size, within rtol 1e-2 of the reference's
+    DP run instead (``artifacts/qat_dp_reference.json``, from
+    ``scripts/qat_dp_reference.py``), and its artifact bit-equal to that
+    run's but for the bias (Adagrad's ``rsqrt``, queue 3 item 19);
+    ``gemv_seq`` launched 8 x 200 times; at 203 rows and 30 epochs the
+    card's run byte-equal to the CPU's; ``gemv_seq`` on one shard's
+    operands (252,080 rows) against its plain version, timed.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -451,6 +481,13 @@ RB_PRE = 192 * BATCH
 RB_MORE = 96 * BATCH
 #: the fleet phases' live load while a handoff or a restart is on
 TRICKLE_BATCHES_PER_S = 20
+#: ``slo_pulse``'s pairs of trials (``predict_pulse`` runs twice as many
+#: trials of one arm): 2 since the headline bench came, 4 before
+PULSE_PAIRS = 2
+#: ``headline_bench``'s ``--budget-s``
+HEADLINE_BUDGET_S = 120
+#: ``train_qat_dp``'s mesh: shards of the one card
+DP_SHARDS = 8
 
 FAILED: list[str] = []
 
@@ -1553,21 +1590,39 @@ MH_HOSTS = 2
 MH_HOST_GAP_S = 2.0
 
 
+def _ephemeral_range() -> tuple[int, int]:
+    """The kernel's range for ``bind(port 0)`` (Linux's default where
+    the file is unreadable)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = (int(v) for v in f.read().split())
+        return lo, hi
+    except (OSError, ValueError):
+        return 32768, 60999
+
+
 def _free_base_ports(n_hosts: int, n_engines: int) -> list:
     """``n_hosts`` UDP base ports on 127.0.0.1, each with its
-    ``base+1..base+n_engines`` free too (probed by binding them all; the
-    kernel picks the bases)."""
+    ``base+1..base+n_engines`` free too (probed by binding them all).
+
+    The bases are drawn below the kernel's ephemeral range: the ports are
+    released after the probe and bound again later by other processes
+    (the hosts' beacons and ranks), and meanwhile any ``bind(port 0)``
+    in the machine (a test running beside this one) takes an ephemeral
+    port, so it can never take one of these."""
+    import random
     import socket
 
+    lo_eph = _ephemeral_range()[0]
+    lo = max(1024, lo_eph - 16384)
+    rng = random.Random()
     held, bases = [], []
     try:
         while len(bases) < n_hosts:
-            s0 = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-            s0.bind(("127.0.0.1", 0))
-            base = s0.getsockname()[1]
-            group = [s0]
+            base = rng.randrange(lo, lo_eph - n_engines - 1)
+            group = []
             try:
-                for r in range(1, n_engines + 1):
+                for r in range(n_engines + 1):
                     s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
                     group.append(s)
                     s.bind(("127.0.0.1", base + r))
@@ -1602,6 +1657,14 @@ def multihost_host(args_path: str) -> None:
             time.sleep(tuning.SUPERVISOR_POLL_S)
     finally:
         sup.close(timeout_s=5.0)
+
+
+def _tail(path: str, n: int = 2000) -> str:
+    try:
+        with open(path, "rb") as f:
+            return f.read()[-n:].decode(errors="replace")
+    except OSError:
+        return ""
 
 
 def _read_report(path: str):
@@ -1695,9 +1758,16 @@ def multihost_drive(device: str, root: str, cfg, artifact: str | None,
             cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
             start_new_session=True)
         log.close()
+        # readiness: every rank's status block open and its ready token
+        # written, within timeout_s of host 1's spawn
         deadline = time.monotonic() + timeout_s
         tokens = [s["ready_token"] for sp in specs for s in sp]
         status = [[None] * n for _ in range(MH_HOSTS)]
+
+        def ready() -> bool:
+            return (all(st is not None for row in status for st in row)
+                    and all(os.path.exists(t) for t in tokens))
+
         while time.monotonic() < deadline:
             sup.poll()
             for h in range(MH_HOSTS):
@@ -1706,11 +1776,22 @@ def multihost_drive(device: str, root: str, cfg, artifact: str | None,
                     if status[h][r] is None and os.path.exists(
                             os.path.join(planes[h], "plane.json")):
                         status[h][r] = StatusBlock(p)
-            if all(os.path.exists(t) for t in tokens) or sup._failed \
-                    or child.poll() is not None:
+            if ready() or sup._failed or child.poll() is not None:
                 break
             time.sleep(0.02)
-        checks["all_ranks_warm"] = all(os.path.exists(t) for t in tokens)
+        checks["all_ranks_warm"] = ready()
+        if not checks["all_ranks_warm"]:
+            # no serving loop over a rank that never came up: say which
+            # and why, and tear down (finally)
+            out["not_ready"] = {
+                "tokens_missing": [t for t in tokens
+                                   if not os.path.exists(t)],
+                "status_missing": [f"h{h}r{r}" for h in range(MH_HOSTS)
+                                   for r in range(n) if status[h][r] is None],
+                "host0_failed": sorted(sup._failed),
+                "host1_exit": child.poll(),
+                "host1_log_tail": _tail(os.path.join(root, "host1.log"))}
+            return {"ok": False, "checks": checks, **out}
         t0w = [status[h][0].ctl_get("c_t0_wall") for h in range(MH_HOSTS)]
         out["t0_wall_ns"] = t0w
         out["epoch_delta_s"] = (t0w[1] - t0w[0]) * 1e-9
@@ -1744,6 +1825,7 @@ def multihost_drive(device: str, root: str, cfg, artifact: str | None,
             open(specs[h][0]["start_token"], "w").close()
         serving_at = {}
         reports = {}
+        deadline = t_start + timeout_s       # the drains' own bound
         while time.monotonic() < deadline and len(reports) < MH_HOSTS * n:
             sup.poll()
             for h in range(MH_HOSTS):
@@ -2099,12 +2181,17 @@ def mesh_phases(card: str, served: dict) -> None:
                             != kernels.score_int8_plain(cp, x)).sum())
                        for x in slices)
             x0 = slices[1]
+            w0 = (cp.w_int8.float() * cp.w_scale)[None, :]
             score_shard = {
                 "shape": list(x0.shape), "mismatches_vs_plain": mism,
                 "ms": _event_ms(lambda: kernels.score_int8(cp, x0, packed),
                                 200),
                 "plain_ms": _event_ms(
-                    lambda: kernels.score_int8_plain(cp, x0), 50)}
+                    lambda: kernels.score_int8_plain(cp, x0), 50),
+                # the library call of the kernels line, at this shape
+                "library_ms": _event_ms(
+                    lambda: torch.nn.functional.linear(
+                        x0, w0, cp.bias.reshape(1)), 200)}
         served["mesh_score_int8"] = score_shard
         # raw48: the mlp over lane-order byte sums (a source of 675
         # records of 65,535 B crosses every slice) and the sweep on
@@ -2307,6 +2394,273 @@ def mesh_phases(card: str, served: dict) -> None:
                 **rep}
 
     scaling_phase()
+
+
+def headline_phases(card: str, served: dict) -> None:
+    """``headline_bench`` and ``train_qat_dp`` (module docstring, 56-57).
+    Their launch windows go to ``served`` for the kernels line."""
+    import numpy as np
+    import torch
+
+    from flowsentryx_tpu_torch import bench
+    from flowsentryx_tpu_torch.core import device as fdev
+    from flowsentryx_tpu_torch.core import schema
+    from flowsentryx_tpu_torch.models import logreg
+    from flowsentryx_tpu_torch.models.registry import get_model
+    from flowsentryx_tpu_torch.ops import fused, kernels
+    from flowsentryx_tpu_torch.parallel import make_mesh
+    from flowsentryx_tpu_torch.train import qat
+
+    dev = torch.device("cuda")
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def same_state(t1, s1, t2, s2):
+        """The table proper (the park row aside) and the stats, bits."""
+        return (torch.equal(bits(t1.key).cpu(), bits(t2.key).cpu())
+                and torch.equal(bits(t1.state).cpu(), bits(t2.state).cpu())
+                and s1.to_dict() == s2.to_dict())
+
+    def digest(table):
+        k, st = schema.table_to_numpy(table)
+        return hashlib.sha256(k.tobytes() + st.tobytes()).hexdigest()[:16]
+
+    @phase("headline_bench")
+    def bench_phase():
+        out, checks = {"card": card, "budget_s": HEADLINE_BUDGET_S}, {}
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "flowsentryx_tpu_torch.bench",
+             "--budget-s", str(HEADLINE_BUDGET_S)], cwd=REPO,
+            capture_output=True, text=True, timeout=HEADLINE_BUDGET_S + 180)
+        out["process_wall_s"] = time.perf_counter() - t
+        lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+        checks["rc_0"] = r.returncode == 0
+        checks["one_line"] = len(lines) == 1
+        try:
+            line = json.loads(lines[-1]) if lines else {}
+        except ValueError:
+            line = {}
+        out["line"] = line
+        served["headline_line"] = line
+        checks["device_kind_names_the_card"] = (
+            line.get("device_kind") == torch.cuda.get_device_name(0))
+        checks["value_positive"] = (line.get("value") or 0) > 0
+        for k in ("chunk_mpps", "mega_chunk_mpps", "devloop_chunk_mpps"):
+            checks[f"{k}_not_empty"] = bool(line.get(k))
+        checks["no_error"] = "error" not in line
+        win: dict = {}
+        for ln in r.stderr.splitlines():
+            if ln.startswith("launches "):
+                win = json.loads(ln[len("launches "):])
+        tiers = win.get("throughput") or {}
+        paced = win.get("latency") or []
+        out["launch_windows"] = win
+        checks["score_int8_once_per_step_body"] = bool(tiers) and all(
+            w["launches"]["score_int8"] == w["step_bodies"]
+            for w in tiers.values())
+        checks["paced_score_int8_per_batch_summary_per_report"] = all(
+            w["launches"]["score_int8"] == w["batches"]
+            and w["launches"]["table_summary"] == w["reports"]
+            for w in paced)
+        windows = {f"headline_bench/{k}": w["launches"]
+                   for k, w in tiers.items()}
+        windows["headline_bench/paced"] = {
+            k: sum(w["launches"][k] for w in paced)
+            for k in kernels.LAUNCHES}
+        served["launches_headline"] = windows
+        if not all(checks.values()):
+            out["stderr_tail"] = r.stderr[-4000:]
+        # the bench's 16 headline batches: the captured single step and
+        # the n=8 megastep on the card against the CPU eager step
+        saved = dict(kernels.LAUNCHES)
+        cfg, quant, raws = bench.headline_setup(bench.BATCH, bench.TABLE_CAP)
+        host = torch.from_numpy(np.stack(raws).view(np.int32))
+        cap = cfg.table.capacity
+        cp = get_model(cfg.model.name).init("cpu")
+        t = time.perf_counter()
+        with cpu_threads(2):
+            ct, cs = schema.make_table(cap), schema.make_stats()
+            cstep = fused.make_compact_step(cfg, bench.classify_for(cp),
+                                            **quant)
+            cwires = [cstep(ct, cs, cp, host[i])[2].wire.clone()
+                      for i in range(len(raws))]
+        out["cpu_eager_s"] = time.perf_counter() - t
+        gp = get_model(cfg.model.name).init(dev)
+        classify = bench.classify_for(gp)
+        gt, gs = schema.make_table(cap, dev), schema.make_stats(dev)
+        single = bench.Replayer(fused.make_compact_step(cfg, classify,
+                                                        **quant),
+                                gt, gs, gp, host.shape[1:])
+        single_wires = [torch.equal(single(host[i]).wire.cpu(), cwires[i])
+                        for i in range(len(raws))]
+        mt, ms = schema.make_table(cap, dev), schema.make_stats(dev)
+        mega = bench.Replayer(fused.make_compact_megastep(
+            cfg, classify, bench.MEGA_N, **quant), mt, ms, gp,
+            (bench.MEGA_N, *host.shape[1:]))
+        mega_wires = [torch.equal(
+            mega(host[g:g + bench.MEGA_N]).wire.cpu(),
+            fused.merge_verdict_wires(torch.stack(
+                cwires[g:g + bench.MEGA_N])))
+            for g in range(0, len(raws), bench.MEGA_N)]
+        torch.cuda.synchronize()
+        kernels.LAUNCHES.update(saved)     # comparisons do not count
+        out["parity"] = {
+            "batches": len(raws), "cpu_digest": digest(ct),
+            "single": {"digest": digest(gt), "wires_equal": single_wires,
+                       "state_equal": same_state(gt, gs, ct, cs)},
+            "mega8": {"digest": digest(mt), "wires_equal": mega_wires,
+                      "state_equal": same_state(mt, ms, ct, cs)},
+            "stats": cs.to_dict()}
+        checks["single_equals_cpu"] = (all(single_wires)
+                                       and same_state(gt, gs, ct, cs))
+        checks["mega8_equals_cpu"] = (all(mega_wires)
+                                      and same_state(mt, ms, ct, cs))
+        del single, mega, gt, gs, mt, ms
+        torch.cuda.empty_cache()
+        return {"ok": all(checks.values()), "checks": checks, **out}
+
+    bench_phase()
+
+    @phase("train_qat_dp")
+    def qat_dp_phase():
+        out, checks = {"card": card, "shards": DP_SHARDS}, {}
+        Xtr, ytr = served["qat_split"]
+        epochs = 200
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one = qat.train_logreg_qat(Xtr, ytr, epochs=epochs, device=dev)
+        torch.cuda.synchronize()
+        out["single_device_s"] = time.perf_counter() - t
+        mesh = make_mesh(DP_SHARDS, devices=[dev] * DP_SHARDS)
+        kernels.reset_launches()            # the data-parallel path's window
+        t = time.perf_counter()
+        dp = qat.train_logreg_qat_dp(Xtr, ytr, mesh, epochs=epochs)
+        torch.cuda.synchronize()
+        out["dp_s"] = time.perf_counter() - t
+        launches = served["launches_train_qat_dp"] = dict(kernels.LAUNCHES)
+        out["launches"] = launches
+        served["train_qat_dp_epochs"] = epochs
+        checks["gemv_seq_shards_x_epochs"] = (
+            launches["gemv_seq"] == DP_SHARDS * epochs)
+        p, q = (logreg.params_to_numpy(r.params) for r in (dp, one))
+        out["vs_single_device"] = {
+            "w_int8_max_code_diff": int(np.abs(
+                p["w_int8"].astype(int) - q["w_int8"].astype(int)).max()),
+            "in_scale": [float(p["in_scale"]), float(q["in_scale"])],
+            "out_scale": [float(p["out_scale"]), float(q["out_scale"])],
+            "loss_max_rel": float(np.max(np.abs(dp.losses - one.losses)
+                                         / np.abs(one.losses))),
+            "final_loss": [float(dp.losses[-1]), float(one.losses[-1])]}
+        v = out["vs_single_device"]
+        checks["obs_in_bit_identical"] = all(
+            torch.equal(bits(getattr(dp.state.obs_in, k)),
+                        bits(getattr(one.state.obs_in, k)))
+            for k in ("lo", "hi"))
+        checks["w_int8_within_1"] = v["w_int8_max_code_diff"] <= 1
+        checks["in_scale_rtol_1e-6"] = bool(np.isclose(
+            p["in_scale"], q["in_scale"], rtol=1e-6, atol=0))
+        checks["out_scale_rtol_1e-2"] = bool(np.isclose(
+            p["out_scale"], q["out_scale"], rtol=1e-2, atol=0))
+        # the reference test's loss relation (rtol 1e-2) is its own at
+        # 203 rows; at this size the reference's DP run is 1.64 % off its
+        # single-device run (epoch 174, scripts/qat_dp_reference.py), so
+        # the relation is held against the reference's DP run itself;
+        # and its artifact, every field but the bias bit-equal (the bias
+        # and the losses take Adagrad's rsqrt, whose last bit the
+        # reference takes from the host's estimate: ROADMAP queue 3,
+        # item 19)
+        with open(os.path.join(REPO, "artifacts",
+                               "qat_dp_reference.json")) as f:
+            ref = json.load(f)
+        out["reference_dp_vs_single"] = ref["dp_vs_single"]
+        rl = np.asarray(ref["dp"]["losses"], np.float32)
+        same_run = ref["rows"] == len(Xtr) and len(rl) == len(dp.losses)
+        out["vs_reference_dp"] = {
+            "rows": [ref["rows"], len(Xtr)],
+            "epochs": [ref["epochs"], len(dp.losses)],
+            "losses_differ": int((rl.view(np.uint32)
+                                  != dp.losses.view(np.uint32)).sum())
+            if same_run else None,
+            "loss_max_rel": float(np.max(np.abs(dp.losses - rl)
+                                         / np.abs(rl)))
+            if same_run else None,
+            "params_differ": sorted(
+                k for k, val in ref["dp"]["params"].items()
+                if not np.array_equal(np.asarray(val, np.float32),
+                                      np.asarray(p[k], np.float32)))}
+        vr = out["vs_reference_dp"]
+        checks["losses_rtol_1e-2_vs_reference_dp"] = (
+            same_run and vr["loss_max_rel"] <= 1e-2)
+        checks["artifact_equals_reference_dp_but_bias"] = (
+            set(vr["params_differ"]) <= {"bias"})
+        # gemv_seq on one shard's operands (252,080 rows): the quantized
+        # inputs of shard 0 and its dL/dy at the mesh's cotangent
+        saved = dict(kernels.LAUNCHES)
+        Xd = fdev.xla_log1p(torch.from_numpy(Xtr).to(dev))
+        rows = -(-Xd.shape[0] // DP_SHARDS)
+        st = dp.state
+        xq = qat.fake_quant(Xd[:rows], *st.obs_in.quint8_qparams(), 0.0,
+                            255.0).contiguous()
+        wq = qat.fake_quant(st.w.detach(), qat._weight_scale(st.w),
+                            torch.zeros_like(st.b), -127.0, 127.0)
+        yl = qat.fake_quant(qat._dot8(xq, wq) + st.b,
+                            *st.obs_out.quint8_qparams(), 0.0, 255.0)
+        gy = qat.loss_terms(fdev.xla_sigmoid(yl),
+                            torch.from_numpy(ytr[:rows]).to(dev),
+                            cotangent=DP_SHARDS)[1].contiguous()
+        got = kernels.gemv_seq(gy, xq)
+        t = time.perf_counter()
+        want = kernels.gemv_seq_plain(gy.cpu(), xq.cpu())
+        plain_s = time.perf_counter() - t
+        ms = _event_ms(lambda: kernels.gemv_seq(gy, xq), 10)
+        lib_ms = _event_ms(lambda: torch.mv(xq.t(), gy), 20)
+        kernels.LAUNCHES.update(saved)
+        errs_ok = torch.equal(got.cpu().view(torch.int32),
+                              want.view(torch.int32))
+        checks["gemv_seq_shard_equals_plain"] = errs_ok
+        served["gemv_dp_shard"] = {
+            "rows": int(rows), "ms": ms, "plain_ms": plain_s * 1e3,
+            "library_ms": lib_ms, "bits_equal": errs_ok,
+            "max_abs_err": float((got.cpu() - want).abs().max()),
+            # gy and xq read once, 8 outputs; 2 flops per product
+            **dict(zip(("bound_ms", "bound_by"), max(
+                ((rows * 9 * 4 + 8 * 4) / HBM_BYTES_PER_S * 1e3, "bytes"),
+                (rows * 8 * 2 / FP32_FLOPS * 1e3, "operations"))))}
+        out["gemv_seq_shard"] = served["gemv_dp_shard"]
+        # 203 rows, 30 epochs (tests/test_train.py's inputs): the card's
+        # 8-shard run byte-equal to the CPU's
+        rng = np.random.default_rng(0)
+        X = rng.lognormal(3, 2, (203, 8)).astype(np.float32)
+        w_true = np.array([1.0, -1.0, 0.5, 0, 0, 2.0, -0.5, 0.0])
+        y = ((np.log1p(X) @ w_true) > 2.0).astype(np.float32)
+        saved = dict(kernels.LAUNCHES)
+        g = qat.train_logreg_qat_dp(X, y, mesh, epochs=30)
+        with cpu_threads(2):
+            c = qat.train_logreg_qat_dp(
+                X, y, make_mesh(DP_SHARDS, devices=["cpu"] * DP_SHARDS),
+                epochs=30)
+        kernels.LAUNCHES.update(saved)
+        same = {
+            "w": torch.equal(bits(g.state.w.detach()).cpu(),
+                             bits(c.state.w.detach())),
+            "b": torch.equal(bits(g.state.b.detach()).cpu(),
+                             bits(c.state.b.detach())),
+            "observers": all(
+                torch.equal(bits(getattr(getattr(g.state, o), k)).cpu(),
+                            bits(getattr(getattr(c.state, o), k)))
+                for o in ("obs_in", "obs_out") for k in ("lo", "hi")),
+            "losses": g.losses.tobytes() == c.losses.tobytes(),
+            "artifact": all(
+                np.array_equal(a, b) for a, b in zip(
+                    logreg.params_to_numpy(g.params).values(),
+                    logreg.params_to_numpy(c.params).values()))}
+        out["small_card_vs_cpu"] = same
+        checks["small_byte_equal_cpu"] = all(same.values())
+        return {"ok": all(checks.values()), "checks": checks, **out}
+
+    qat_dp_phase()
 
 
 def main() -> int:
@@ -4033,8 +4387,8 @@ def main() -> int:
     def cluster_serve_phase():
         """``cli cluster --engines 2 --shards 2 --mega auto --drain`` at
         full width over each prefilled scenario, in turns with one card
-        engine with two workers over the same fan-out (single, cluster,
-        cluster, single; ``--pin-cores off``, the single engine being
+        engine with two workers over the same fan-out (single, cluster;
+        ``--pin-cores off``, the single engine being
         unpinned too), then once with the default ``--pin-cores auto``
         on ``mixed_l34_1m``: records/s (the fleet's: total records over
         the slowest rank's drain wall), each rank's device ms per batch
@@ -4051,7 +4405,7 @@ def main() -> int:
             ).next_records(CLUSTER_SERVE_DEPTH * SERVE_BATCHES * BATCH)
             res = out["turns"][scen] = {"cluster": [], "single": []}
             costs = None
-            legs = ["single", "cluster", "cluster", "single"]
+            legs = ["single", "cluster"]
             if scen == "mixed_l34_1m":
                 legs.append("cluster_pin_auto")
             for leg in legs:
@@ -4762,7 +5116,7 @@ def main() -> int:
         batches = {k: [] for k in arms}
         served_chunks = 0
         kernels.reset_launches()                  # this path's window opens
-        for pair in range(4):
+        for pair in range(PULSE_PAIRS):
             order = (0, SLO_US) if pair % 2 == 0 else (SLO_US, 0)
             for k in order:
                 r, s = pulse_trial(arms[k])
@@ -4821,7 +5175,7 @@ def main() -> int:
         e = pulse_engine(SLO_US, predict=True)
         trials, served_chunks = [], 0
         kernels.reset_launches()                  # this path's window opens
-        for _ in range(4):
+        for _ in range(2 * PULSE_PAIRS):
             r, s = pulse_trial(e)
             served_chunks += chunks(r)
             trials.append({**s, "engine": lat_summary(r),
@@ -5514,6 +5868,7 @@ def main() -> int:
                                     "comparison below is not meaningful")
         checks.append(h.hexdigest() == FIXTURE_SHA256)
         Xtr, Xte, ytr, yte = tdata.train_test_split(X, y)
+        served["qat_split"] = (Xtr, ytr)      # train_qat_dp's rows
         ctr = tdata.train_test_split(yc, y)[0]
         sw = 1.0 + (ctr == tfixture.CLASS_SLOW) * 3.0
         out.update(train_n=len(Xtr), test_n=len(Xte))
@@ -6087,6 +6442,7 @@ def main() -> int:
     rebalance_phases(card, served)
     multihost_phase(card, served)
     mesh_phases(card, served)
+    headline_phases(card, served)
 
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
@@ -6438,6 +6794,10 @@ def main() -> int:
         else:
             gemv_row.update({"ms": None, "plain_ms": None, "bound_ms": None,
                              "bound_by": None, "library_ms": None})
+        # one shard's chain on the data-parallel path (252,080 rows)
+        gemv_row["dp_shard"] = served.get("gemv_dp_shard")
+        gemv_row["launches_train_qat_dp"] = served.get(
+            "launches_train_qat_dp", {}).get("gemv_seq", 0)
         kernels.LAUNCHES.update(saved)
         rows = [score_row, summary_row, seg_row, gemv_row]
         # launches on the production serve paths, each counted in its
@@ -6475,7 +6835,11 @@ def main() -> int:
             "sharded_step_parity": served.get("launches_sharded_step", {}),
             "serve_mesh": served.get("launches_serve_mesh", {}),
             # each cluster rank's own window, read from its report
-            **served.get("launches_cluster", {})}
+            **served.get("launches_cluster", {}),
+            # the headline bench's tiers and paced runs (its own process,
+            # read from its stderr), and the data-parallel trainer
+            **served.get("launches_headline", {}),
+            "train_qat_dp/train": served.get("launches_train_qat_dp", {})}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}

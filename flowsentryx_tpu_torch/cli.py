@@ -1,7 +1,7 @@
 """Command line of the port: ``python -m flowsentryx_tpu_torch.cli serve``,
 ``... cli pcap``, ``... cli train``, ``... cli distill``, ``... cli
-cluster``, ``... cli status``, ``... cli monitor``, ``... cli bench`` and
-``... cli chaos``.
+cluster``, ``... cli status``, ``... cli monitor``, ``... cli bench``,
+``... cli chaos`` and ``... cli version``.
 
 Counterpart of the reference's ``fsx serve``: builds an
 :class:`~.engine.Engine` on the card (or on the CPU with ``--device
@@ -68,11 +68,14 @@ engine-report alerts.  Both refuse ``--pin``, and ``monitor`` refuses
 ``--alert-drop-pps`` and ``--alert-blacklist``, by name: they read the
 kernel maps, which the port does not.
 
-``bench --scenarios [--scale S] [--only NAME]`` runs the five BASELINE
-configs (:mod:`.benchmarks`), one JSON line each; ``bench --scaling``
-the step time against 1, 2, 4 and 8 shards of a mesh laid on the one
-``--device`` (:func:`.benchmarks.run_scaling`); a bare ``bench``,
-``--smoke`` and ``--cluster`` are refused by name.
+A bare ``bench [--smoke] [--budget-s S]`` runs the headline benchmark
+(:mod:`.bench`, one JSON line); ``bench --scenarios [--scale S] [--only
+NAME]`` runs the five BASELINE configs (:mod:`.benchmarks`), one JSON
+line each; ``bench --scaling`` the step time against 1, 2, 4 and 8
+shards of a mesh laid on the one ``--device``
+(:func:`.benchmarks.run_scaling`); ``--host-ingest``, ``--cluster`` and
+``--baseline-repo`` are refused by name.  ``version`` prints the
+package's version as the reference's does.
 
 ``chaos [--seed N] [--quick]`` runs the seeded fault-injection campaign
 (:mod:`.chaos`) over the port's engine, ingest fleet, supervisor and
@@ -92,6 +95,7 @@ import secrets
 import sys
 from pathlib import Path
 
+from flowsentryx_tpu_torch import bench
 from flowsentryx_tpu_torch.core.config import DEFAULT_CONFIG, FsxConfig
 
 
@@ -1508,8 +1512,7 @@ def _cmd_monitor(args: argparse.Namespace) -> int:
 
 #: ``bench`` flags of the reference that the port refuses by name.
 _BENCH_REFUSED = {
-    "smoke": "the headline benchmark, bench.py, is the reference's JAX/TPU "
-             "harness; the port's card check is chip_smoke.py",
+    **bench.REFUSED,
     "cluster": "the paced fleet comparison runs the reference's "
                "scripts/cluster_bench.py against a pre-cluster checkout",
     "baseline_repo": "it names the pre-cluster checkout of --cluster",
@@ -1517,18 +1520,21 @@ _BENCH_REFUSED = {
 
 
 def _cmd_bench(args: argparse.Namespace) -> int:
-    """The five BASELINE configs (``--scenarios``), one JSON line each;
-    or (``--scaling``) the step time against the mesh size."""
+    """The headline benchmark (bare, or ``--smoke``; :func:`.bench.main`),
+    the five BASELINE configs (``--scenarios``), one JSON line each; or
+    (``--scaling``) the step time against the mesh size."""
     for flag, why in _BENCH_REFUSED.items():
         if getattr(args, flag) not in (None, False):
             name = flag.replace("_", "-")
             print(f"fsx bench: refusing --{name}: {why}", file=sys.stderr)
             return 1
     if not (args.scenarios or args.scaling):
-        print("fsx bench: refusing a bare bench: "
-              f"{_BENCH_REFUSED['smoke']}; run bench --scenarios",
-              file=sys.stderr)
-        return 1
+        argv = ["--smoke"] if args.smoke else []
+        if args.budget_s is not None:
+            argv += ["--budget-s", str(args.budget_s)]
+        if args.device is not None:
+            argv += ["--device", args.device]
+        return bench.main(argv)
     from flowsentryx_tpu_torch import benchmarks
     from flowsentryx_tpu_torch.core.device import resolve_device
 
@@ -1546,6 +1552,13 @@ def _cmd_bench(args: argparse.Namespace) -> int:
     # n shards of a mesh laid on the one device, for each n
     print(json.dumps(benchmarks.run_scaling(devices=[device] * 8)),
           flush=True)
+    return 0
+
+
+def _cmd_version(args: argparse.Namespace) -> int:
+    import flowsentryx_tpu_torch
+
+    print(json.dumps({"version": flowsentryx_tpu_torch.__version__}))
     return 0
 
 
@@ -1976,8 +1989,15 @@ def build_parser() -> argparse.ArgumentParser:
                         help=f"refused: reads {_NO_KERNEL_MAPS}")
     mo.set_defaults(fn=_cmd_monitor)
 
-    b = sub.add_parser("bench", help="run the five BASELINE configs "
-                       "(--scenarios) or the mesh scaling (--scaling)")
+    b = sub.add_parser("bench", help="run the headline benchmark, the "
+                       "five BASELINE configs (--scenarios) or the mesh "
+                       "scaling (--scaling)")
+    b.add_argument("--smoke", action="store_true",
+                   help="the headline benchmark at small shapes (B=1024, "
+                        "4,096 rows)")
+    b.add_argument("--budget-s", type=float, default=None,
+                   help="the headline benchmark's wall-clock ceiling "
+                        "(default $FSX_BENCH_BUDGET_S or 840)")
     b.add_argument("--scenarios", action="store_true",
                    help="run the five BASELINE configs, one JSON line each")
     b.add_argument("--scaling", action="store_true",
@@ -1991,8 +2011,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device; default the card (raises without one)")
     for flag, why in _BENCH_REFUSED.items():
         b.add_argument("--" + flag.replace("_", "-"),
-                       action=None if flag == "baseline_repo"
-                       else "store_true",
+                       action="store_true" if flag == "cluster" else None,
                        default=None, help=f"refused: {why}")
     b.set_defaults(fn=_cmd_bench)
 
@@ -2022,6 +2041,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device of the campaign's engine; default "
                          "the card (refused without one)")
     ch.set_defaults(fn=_cmd_chaos)
+
+    v = sub.add_parser("version", help="print version")
+    v.set_defaults(fn=_cmd_version)
     return ap
 
 

@@ -218,6 +218,12 @@ def _log_positive(u: torch.Tensor) -> torch.Tensor:
         u == float("inf"), float("inf"), torch.where(u > 0, r, nan)))
 
 
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` of a traced float32 ``x`` as XLA:CPU computes it
+    (:func:`_log_positive`, subnormal inputs read as zero)."""
+    return _log_positive(_daz(x.float()))
+
+
 def xla_log1p(x: torch.Tensor) -> torch.Tensor:
     """``jnp.log1p`` of a traced float32 ``x``, bit for bit as XLA:CPU
     computes it, on any device.  Two branches, selected by

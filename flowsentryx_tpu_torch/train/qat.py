@@ -1,12 +1,14 @@
 """Quantization-aware training of the int8 classifier, and the float
 trainers of the MLP families.
 
-Counterpart of ``flowsentryx_tpu/train/qat.py`` (less its data-parallel
-trainer): moving-average min/max :class:`Observer` s, straight-through
-:func:`fake_quant`, :func:`qat_forward`, the full-batch
-:func:`train_logreg_qat` (an observer-only warmup, then fake-quant with a
-fresh optimizer), :func:`convert` to the deployable
-:class:`~flowsentryx_tpu_torch.models.logreg.LogRegParams`, and the
+Counterpart of ``flowsentryx_tpu/train/qat.py``: moving-average min/max
+:class:`Observer` s, straight-through :func:`fake_quant`,
+:func:`qat_forward`, the full-batch :func:`train_logreg_qat` (an
+observer-only warmup, then fake-quant with a fresh optimizer), its
+data-parallel twin :func:`train_logreg_qat_dp` over the n shards of a
+:class:`~flowsentryx_tpu_torch.parallel.mesh.Mesh`, :func:`convert` to
+the deployable :class:`~flowsentryx_tpu_torch.models.logreg.LogRegParams`,
+and the
 minibatch Adam trainers :func:`train_mlp` / :func:`train_multiclass`.
 
 Rounded as the reference's jitted epoch rounds it (ROADMAP ground rules):
@@ -22,10 +24,10 @@ Rounded as the reference's jitted epoch rounds it (ROADMAP ground rules):
   ``m*lo + (1-m)*blo`` with the ``m*lo`` product fused into the add
   (:func:`_ema`), and fake-quant's ``dq - x`` is one fused multiply-add
   (``tests/test_torch_train.py`` holds both to the jitted reference);
-* the forward's ``x @ w`` is XLA:CPU's sum of eight products
-  (:func:`_dot8`) and its sigmoid is XLA's; the gradients are written
-  out as the reference's compiled backward computes them
-  (:func:`qat_epoch`);
+* the forward's ``x @ w`` is XLA:CPU's sum of eight products, in the
+  order its dot emitter gives a row (:func:`_dot8`), its sigmoid and the
+  loss's ``log`` are XLA's; the gradients are written out as the
+  reference's compiled backward computes them (:func:`qat_epoch`);
 * the optimizers are optax's (:mod:`.optim`).
 
 With these the epoch equals the reference's but for the last bit of
@@ -42,7 +44,7 @@ import numpy as np
 import torch
 
 from flowsentryx_tpu_torch.core.device import (
-    fma32, recip_mul, resolve_device, xla_log1p, xla_sigmoid,
+    fma32, recip_mul, resolve_device, xla_log, xla_log1p, xla_sigmoid,
 )
 from flowsentryx_tpu_torch.core.schema import NUM_FEATURES
 from flowsentryx_tpu_torch.models import logreg
@@ -122,10 +124,17 @@ def _weight_scale(w: torch.Tensor, eager: bool = False) -> torch.Tensor:
 
 
 def _dot8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` for ``[N, 8] x [8]`` as XLA:CPU sums it: the eight
-    products rounded, added as adjacent pairs ``((p0+p1)+(p2+p3)) +
-    ((p4+p5)+(p6+p7))``."""
-    return fixed_order_dot(x, w[:, None], 8, "adjacent")[:, 0]
+    """``x @ w`` for ``[N, 8] x [8]`` as XLA:CPU sums it, the eight
+    products rounded: the rows of whole 8-row tiles add them as adjacent
+    pairs ``((p0+p1)+(p2+p3)) + ((p4+p5)+(p6+p7))``, the ``N mod 8`` rows
+    after the last whole tile as halves ``((p0+p4)+(p2+p6)) +
+    ((p1+p5)+(p3+p7))`` (ROADMAP queue 3, item 29)."""
+    t = x.shape[0] - x.shape[0] % 8
+    out = fixed_order_dot(x[:t], w[:, None], 8, "adjacent")[:, 0]
+    if t == x.shape[0]:
+        return out
+    return torch.cat([out, fixed_order_dot(x[t:], w[:, None], 8,
+                                           "half")[:, 0]])
 
 
 class QatState(NamedTuple):
@@ -175,15 +184,18 @@ _EPS = 1e-7
 
 
 def loss_terms(p: torch.Tensor, y: torch.Tensor,
-               sample_weight: torch.Tensor | None = None
+               sample_weight: torch.Tensor | None = None,
+               cotangent: float = 1.0
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-row BCE terms (``eps = 1e-7``, optionally weighted) and their
-    gradient with respect to the pre-sigmoid output, as JAX's autodiff
-    lays out the reference's compiled epoch: ``dL/dp = -((1 - y) * -sw)
-    / (1.00000012 - p) + (y * -sw) / (p + eps)`` (XLA folds ``1 + eps``),
-    times the sigmoid's ``p * (1 - p)``."""
-    losses = -(y * torch.log(p + _EPS) + (1 - y) * torch.log(_ONE_EPS - p))
-    nsw = -1.0
+    """Per-row BCE terms (``eps = 1e-7``, XLA's ``log``, optionally
+    weighted) and their gradient with respect to the pre-sigmoid output,
+    as JAX's autodiff lays out the reference's compiled epoch:
+    ``dL/dp = -((1 - y) * -sw) / (1.00000012 - p) + (y * -sw) / (p +
+    eps)`` (XLA folds ``1 + eps``), times the sigmoid's ``p * (1 - p)``.
+    Unweighted, ``sw`` is the loss's ``cotangent`` (1, or the
+    data-parallel trainer's mesh size)."""
+    losses = -(y * xla_log(p + _EPS) + (1 - y) * xla_log(_ONE_EPS - p))
+    nsw = -float(cotangent)
     if sample_weight is not None:
         losses = losses * sample_weight
         nsw = -sample_weight
@@ -267,6 +279,139 @@ def train_logreg_qat(
         losses[e] = float(loss)
         if log_every and (e + 1) % log_every == 0:
             print(f"epoch {e + 1}/{epochs}: loss {losses[e]:.1f}")
+    return TrainResult(state=state, losses=losses,
+                       params=convert(state, log_features))
+
+
+def _fused_sum(v: torch.Tensor) -> torch.Tensor:
+    """``v.sum()`` of a ``[n]`` float32 as XLA:CPU reduces the
+    data-parallel loss's masked terms: past 32 rows, its blocked sums
+    (:func:`~..models.mlp.xla_batch_sum`); up to 32 rows, one loop
+    fusion that LLVM vectorizes: eight lanes accumulate the whole 8-row
+    chunks in order, the lanes add as halves ``((a0+a4)+(a2+a6)) +
+    ((a1+a5)+(a3+a7))``, then the ``n mod 8`` rows after the last whole
+    chunk add one by one."""
+    if v.shape[0] > 32:
+        return xla_batch_sum(v)
+    t = v.shape[0] - v.shape[0] % 8
+    if t:
+        acc = v[:t].reshape(-1, 8)
+        lanes = acc[0]
+        for row in acc[1:]:
+            lanes = lanes + row
+        while lanes.shape[0] > 1:
+            h = lanes.shape[0] // 2
+            lanes = lanes[:h] + lanes[h:]
+        s = lanes[0]
+    else:
+        s = v.new_zeros(())
+    for x in v[t:]:
+        s = s + x
+    return s
+
+
+def _shard_sum(parts: list) -> torch.Tensor:
+    """The shards' values added in shard order, left to right: XLA:CPU's
+    cross-device ``psum`` over the reference's virtual CPU devices."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def qat_dp_epoch(state: QatState, X: torch.Tensor, y: torch.Tensor,
+                 mask: torch.Tensor, n_shards: int, quantize: bool
+                 ) -> tuple[QatState, torch.Tensor]:
+    """One epoch of the reference's data-parallel trainer over
+    ``n_shards`` equal row ranges of the padded ``X``/``y``/``mask``
+    (``train_logreg_qat_dp``'s ``device_epoch``, its shard_map unrolled
+    into a loop over the shards of one device):
+
+    * the observers update once, from the global masked min and max
+      (the reference's ``pmin``/``pmax`` of the shards' ranges);
+    * each shard runs the forward over its rows (its own ``[N/n, 8]``
+      dot, :func:`_dot8`) and its masked BCE terms;
+    * each shard's gradients: the weight's a row-order FMA chain over
+      the shard's rows (one ``gemv_seq`` launch per shard on the card),
+      the bias's XLA's sum of the shard's rows (:func:`~..models.mlp
+      .xla_batch_sum`), the loss's its fused sum (:func:`_fused_sum`); their
+      ``psum`` adds the shards in order (:func:`_shard_sum`);
+    * the loss's cotangent is ``n_shards``, not 1: the reference's
+      ``value_and_grad`` of a ``psum`` under ``shard_map(check_vma=
+      False)`` transposes the ``psum`` into another, so every shard's
+      gradient, and their sum, is ``n_shards`` times the full-batch
+      gradient (ROADMAP queue 3, item 30; a power of two, so the scale
+      is exact).
+
+    Returns the new state and the summed loss (a device tensor)."""
+    with torch.no_grad():
+        xs = X[mask]
+        obs_in = state.obs_in.update_minmax(xs.min(), xs.max())
+        w = state.w
+        if quantize:
+            in_s, in_zp = obs_in.quint8_qparams()
+            X = fake_quant(X, in_s, in_zp, 0.0, 255.0)
+            w = fake_quant(w, _weight_scale(w), torch.zeros_like(state.b),
+                           -127.0, 127.0)
+        rows = X.shape[0] // n_shards
+        cuts = [slice(i * rows, (i + 1) * rows) for i in range(n_shards)]
+        yl = torch.cat([_dot8(X[c], w) for c in cuts]) + state.b
+        ys = yl[mask]
+        obs_out = state.obs_out.update_minmax(ys.min(), ys.max())
+        if quantize:
+            out_s, out_zp = obs_out.quint8_qparams()
+            yl = fake_quant(yl, out_s, out_zp, 0.0, 255.0)
+        losses, gy = loss_terms(xla_sigmoid(yl), y, cotangent=n_shards)
+        losses = torch.where(mask, losses, 0.0)
+        gy = torch.where(mask, gy, 0.0)
+        state.w.grad = _shard_sum([kernels.gemv_seq(gy[c].contiguous(),
+                                                    X[c].contiguous())
+                                   for c in cuts])
+        state.b.grad = _shard_sum([xla_batch_sum(gy[c]) for c in cuts])
+        loss = _shard_sum([_fused_sum(losses[c]) for c in cuts])
+    state.opt.step()
+    return state._replace(obs_in=obs_in, obs_out=obs_out), loss
+
+
+def train_logreg_qat_dp(
+    X: np.ndarray,
+    y: np.ndarray,
+    mesh,
+    epochs: int = 200,
+    lr: float = 0.05,
+    warmup_fraction: float = 0.5,
+    log_features: bool = True,
+    optimizer: Callable | None = None,
+) -> TrainResult:
+    """:func:`train_logreg_qat` over the n shards of ``mesh``
+    (:func:`~flowsentryx_tpu_torch.parallel.mesh.make_mesh`, all on one
+    device), each holding ``N/n`` rows: a ragged ``N`` is zero-padded
+    and masked out of the loss, the gradients and the ranges, as the
+    reference's ``train_logreg_qat_dp`` does.  One epoch is
+    :func:`qat_dp_epoch`; the warmup and the optimizer restart are the
+    single-device trainer's."""
+    dev = mesh.device
+    n_shards = mesh.size
+    Xd = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(dev)
+    if log_features:
+        Xd = xla_log1p(Xd)
+    yd = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
+    n = Xd.shape[0]
+    pad = (-n) % n_shards
+    mask = torch.cat([torch.ones(n, dtype=torch.bool, device=dev),
+                      torch.zeros(pad, dtype=torch.bool, device=dev)])
+    Xd = torch.cat([Xd, Xd.new_zeros((pad, Xd.shape[1]))])
+    yd = torch.cat([yd, yd.new_zeros(pad)])
+    make = optimizer or _adagrad(lr)
+    state = new_state(dev, make)
+    n_warm = int(epochs * warmup_fraction)
+    losses = np.zeros(epochs, np.float32)
+    for e in range(epochs):
+        if e == n_warm:  # phase switch: fresh optimizer for finetune
+            state = state._replace(opt=make([state.w, state.b]))
+        state, loss = qat_dp_epoch(state, Xd, yd, mask, n_shards,
+                                   e >= n_warm)
+        losses[e] = float(loss)
     return TrainResult(state=state, losses=losses,
                        params=convert(state, log_features))
 

@@ -1,0 +1,343 @@
+"""The port's headline benchmark (``flowsentryx_tpu_torch/bench.py``,
+``fsx bench``, ``fsx bench --smoke``) and ``fsx version`` against the
+reference's root ``bench.py`` and ``fsx version``.
+
+* ``make_raw_batches`` draws the reference's records, byte for byte;
+* the 16 ``--smoke`` batches (B=1024, 2^12 rows) through the bench's
+  single step, n=8 megastep and 2 x 8 drain ring equal the reference's
+  jitted step, megastep and device loop under ``JAX_PLATFORMS=cpu``:
+  table, stats and every verdict wire, byte-equal;
+* the fold of chunk series equals the reference's ``_finalize`` (taken
+  from its source) on crafted series;
+* the reference's ``main`` with its two phases replaced by crafted
+  results prints a line whose keys, less the tunnel keys the port drops,
+  plus the keys it adds, are the port's line's keys, and whose headline
+  fields (value, tiers, the canonical latency pick) equal the port's;
+* ``fsx bench --smoke --device cpu`` prints one line and exits 0;
+  ``--host-ingest`` is refused by name; a raising phase still prints
+  the line and exits 1; without a card the run exits 1 naming it.
+"""
+
+import ast
+import contextlib
+import io
+import json
+import sys
+import time
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flowsentryx_tpu import cli as jcli
+from flowsentryx_tpu.core import schema as jschema
+from flowsentryx_tpu.core.config import BatchConfig as JBatchConfig
+from flowsentryx_tpu.core.config import FsxConfig as JFsxConfig
+from flowsentryx_tpu.core.config import TableConfig as JTableConfig
+from flowsentryx_tpu.fused import device_loop as jdl
+from flowsentryx_tpu.models import get_model as jget_model
+from flowsentryx_tpu.ops import fused as jfused
+from flowsentryx_tpu_torch import bench, cli
+from flowsentryx_tpu_torch.core import schema
+from flowsentryx_tpu_torch.fused import device_loop as dl
+from flowsentryx_tpu_torch.models.registry import get_model
+from flowsentryx_tpu_torch.ops import fused
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+import bench as rbench  # noqa: E402  (the reference's root bench.py)
+
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _run(main, argv) -> tuple[int, str, str]:
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(list(argv))
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.mark.parametrize("n,b,ips", [(16, 1024, 1 << 20), (4, 2048, 1 << 14),
+                                     (1, 1 << 14, 1 << 13)])
+def test_make_raw_batches_equals_reference(n, b, ips):
+    got = bench.make_raw_batches(n, b, n_ips=ips)
+    want = rbench.make_raw_batches(n, b, n_ips=ips)
+    assert len(got) == len(want) == n
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the smoke batches through the three throughput tiers
+# ---------------------------------------------------------------------------
+
+
+def _state_equal(table, stats, jt, js):
+    key, state = schema.table_to_numpy(table)
+    np.testing.assert_array_equal(key, np.asarray(jt.key))
+    np.testing.assert_array_equal(state.view(np.uint32),
+                                  np.asarray(jt.state).view(np.uint32))
+    ref = schema.stats_to_numpy(stats)
+    for f in jschema.GlobalStats._fields:
+        np.testing.assert_array_equal(ref[f], np.asarray(getattr(js, f)))
+
+
+@pytest.mark.parametrize("tier", ["single", "mega8", "devloop2x8"])
+def test_smoke_batches_through_each_tier_equal_reference(tier):
+    """The bench's 16 smoke batches (its own setup, encoded with the
+    golden params' observer) through the tier's :class:`bench.Replayer`
+    on the CPU and through the reference's jitted function: the wire of
+    every call, then the table and stats, byte-equal."""
+    b, cap = bench.shape_for(True)
+    cfg, quant, raws = bench.headline_setup(b, cap)
+    jcfg = JFsxConfig(table=JTableConfig(capacity=cap),
+                      batch=JBatchConfig(max_batch=b))
+    jspec = jget_model(jcfg.model.name)
+    jp = jspec.init()
+    jquant = jschema.model_quant_args(jp)
+    assert quant == jquant
+    jraws = [jschema.encode_compact(x, b, t0_ns=0, **jquant)
+             for x in rbench.make_raw_batches(16, b, n_ips=1 << 20)]
+    assert all(r.tobytes() == j.tobytes() for r, j in zip(raws, jraws))
+    params = get_model(cfg.model.name).init("cpu")
+    classify = bench.classify_for(params)
+    table, stats = schema.make_table(cap), schema.make_stats()
+    jt, js = jschema.make_table(cap), jschema.make_stats()
+    host = torch.from_numpy(np.stack(raws).view(np.int32))
+    if tier == "single":
+        run = bench.Replayer(fused.make_compact_step(cfg, classify, **quant),
+                             table, stats, params, host.shape[1:])
+        jstep = jfused.make_jitted_compact_step(
+            jcfg, jspec.classify_batch, donate=False, **jquant)
+        calls = [((host[i],), (jnp.asarray(jraws[i]),)) for i in range(16)]
+    elif tier == "mega8":
+        run = bench.Replayer(
+            fused.make_compact_megastep(cfg, classify, 8, **quant),
+            table, stats, params, (8, *host.shape[1:]))
+        jstep = jfused.make_jitted_compact_megastep(
+            jcfg, jspec.classify_batch, n_chunks=8, donate=False, **jquant)
+        calls = [((host[g * 8:(g + 1) * 8],),
+                  (jnp.asarray(np.stack(jraws[g * 8:(g + 1) * 8])),))
+                 for g in range(2)]
+    else:
+        run = bench.Replayer(
+            dl.make_compact_device_loop(cfg, classify, 2, 8, **quant),
+            table, stats, params, (2, 8, *host.shape[1:]), slots=True)
+        jstep = jdl.make_compact_device_loop(
+            jcfg, jspec.classify_batch, 2, 8, donate=False, **jquant)
+        calls = [((host[:8], host[8:]),
+                  (jnp.asarray(np.stack(jraws[:8])),
+                   jnp.asarray(np.stack(jraws[8:]))))]
+    for targs, jargs in calls:
+        out = run(*targs)
+        jt, js, jo = jstep(jt, js, jp, *jargs)
+        np.testing.assert_array_equal(out.wire.numpy().view(np.uint32),
+                                      np.asarray(jo.wire).view(np.uint32))
+    _state_equal(table, stats, jt, js)
+    assert stats.to_dict()["batches"] == 16
+
+
+# ---------------------------------------------------------------------------
+# the fold: chunk series and the headline latency pick
+# ---------------------------------------------------------------------------
+
+
+def _ref_finalize():
+    """The reference's ``_finalize``, compiled from its source (a
+    function nested in ``phase_throughput``)."""
+    tree = ast.parse((REPO / "bench.py").read_text())
+    phase = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                 and n.name == "phase_throughput")
+    fn = next(n for n in phase.body if isinstance(n, ast.FunctionDef)
+              and n.name == "_finalize")
+    ns = {"np": np}
+    exec(compile(ast.Module(body=[fn], type_ignores=[]), "bench.py",
+                 "exec"), ns)
+    return ns["_finalize"]
+
+
+SERIES = [
+    {"chunk_mpps": [3.1]},
+    {"chunk_mpps": [1.0, 9.5, 9.7, 9.6]},
+    {"chunk_mpps": [1.0, 9.5, 9.7], "mega_chunk_mpps": [14.1, 15.0]},
+    {"chunk_mpps": [2.0, 3.0, 3.2], "mega_chunk_mpps": [3.9, 4.1],
+     "mega32_chunk_mpps": [4.6, 4.4], "devloop_chunk_mpps": [4.5, 4.55]},
+    {"chunk_mpps": [2.0, 16.9], "mega_chunk_mpps": [16.1, 16.2],
+     "devloop_chunk_mpps": [16.3, 18.0]},
+    {"chunk_mpps": [5.0, 5.0], "mega_chunk_mpps": [],
+     "dispatch_mode": "stale", "mega_mpps": 99.0},
+]
+
+
+@pytest.mark.parametrize("series", SERIES)
+def test_finalize_equals_reference(series):
+    got, want = json.loads(json.dumps(series)), json.loads(json.dumps(series))
+    bench.finalize(got)
+    _ref_finalize()(want)
+    assert got == want
+
+
+def _paced(batch, depth, load, achieved, p50, p99, n=1000):
+    return {"batch": batch, "depth": depth, "load_mpps": load,
+            "achieved_mpps": achieved, "p50_ms": p50, "p99_ms": p99,
+            "n": n}
+
+
+PACED = {
+    "sustained": [_paced(1024, 0, 0.25, 0.25, 0.4, 0.9),
+                  _paced(1024, 0, 1.0, 0.95, 0.5, 1.2),
+                  _paced(2048, 0, 1.0, 0.99, 0.6, 1.1),
+                  _paced(1024, 0, 5.0, 2.1, 9.0, 30.0),
+                  _paced(2048, 1, 5.0, 4.9, 0.7, 1.4)],
+    "none_sustained": [_paced(2048, 0, 0.25, 0.1, 3.0, 9.0),
+                       _paced(1024, 0, 1.0, 0.2, 2.0, 8.0),
+                       _paced(1024, 0, 0.25, 0.15, 1.0, 7.0),
+                       _paced(2048, 1, 0.25, 0.25, 0.5, 0.8)],
+    "no_depth0": [_paced(2048, 1, 0.25, 0.25, 0.5, 0.8)],
+}
+
+
+def _phases(paced):
+    tput = {"chunk_mpps": [1.2, 17.1, 17.3, 17.2],
+            "mega_chunk_mpps": [16.8, 16.9], "devloop_chunk_mpps": [16.5],
+            "compile_s": 1.5, "backend": "cuda", "device_kind": "card",
+            "h2d_mbps": 21000.0, "device_mpps": 17.4, "iters": 610,
+            "init_s": 0.3}
+    bench.finalize(tput)
+    lat = {"backend": "cuda", "device_kind": "card",
+           "step_ms": {"1024": 0.61, "2048": 0.71, "16384": 0.95},
+           "micro": {"batch": 2048, "fill_ms": 0.5, "h2d_ms": 0.03,
+                     "wire_bytes": 32784, "d2h_ms": 0.04,
+                     "d2h_wire_bytes": 528, "d2h_fallback_ms": 0.08},
+           "sync_floor_ms": 0.021, "paced": paced,
+           "pulse": [{"slo_us": 0, "p99_ms": 5.0}],
+           "stats": {"allowed": 10, "dropped": 0}}
+    return tput, lat
+
+
+def _ref_line(monkeypatch, tmp_path, tput, lat) -> dict:
+    """The reference's ``main`` with its phase children replaced by
+    ``tput``/``lat``, no link probe, its link baseline in ``tmp_path``."""
+    monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+    monkeypatch.setenv("FSX_BENCH_NO_MERGE", "1")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jc"))
+    monkeypatch.setattr(rbench, "LINK_BASELINE_PATH", tmp_path / "bl.json")
+    monkeypatch.setattr(rbench, "PROBE_SCRIPT", tmp_path / "no_probe.py")
+    monkeypatch.setattr(rbench, "T_START", time.perf_counter())
+    monkeypatch.setattr(rbench, "_run_phase", lambda phase, *a, **k: dict(
+        tput if phase == "throughput" else lat))
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        assert rbench.main() == 0
+    [line] = out.getvalue().splitlines()
+    return json.loads(line)
+
+
+def _port_line(tput, lat) -> dict:
+    return bench.fold_line(tput, lat, batch=rbench.B,
+                           capacity=rbench.TABLE_CAP,
+                           budget_s=rbench.BUDGET_S, device_kind_="card",
+                           power_limit_w=700.0)
+
+
+@pytest.mark.parametrize("case", sorted(PACED))
+def test_line_keys_and_headline_equal_reference(case, monkeypatch,
+                                                tmp_path):
+    """The keys: the reference's less :data:`bench.DROPPED_KEYS`, plus
+    :data:`bench.ADDED_KEYS` (the budget's likewise, the pulse tier kept
+    under ``latency``); the values of the headline, the tiers and the
+    canonical latency pick: the reference's."""
+    tput, lat = _phases(PACED[case])
+    want = _ref_line(monkeypatch, tmp_path, tput, lat)
+    got = _port_line(tput, lat)
+    # wall_s is added by main, after the fold
+    assert set(got) | {"wall_s"} == (set(want) - set(bench.DROPPED_KEYS)
+                                     ) | set(bench.ADDED_KEYS)
+    assert "transport_limited" in want and "tpu_init_attempts" in want
+    for k in ("value", "vs_baseline", "chunk_mpps", "compile_s", "backend",
+              "h2d_mbps", "device_mpps", "burst_mpps", "single_mpps",
+              "mega_mpps", "mega_chunk_mpps", "devloop_chunk_mpps",
+              "dispatch_mode", "p50_ms", "p99_ms", "n_lat_records",
+              "latency_config", "p99_minus_floor_ms", "stats", "metric",
+              "unit", "target_mpps", "target_p99_ms", "batch",
+              "table_capacity", "wire_format", "bytes_per_record",
+              "latency_backend"):
+        assert got.get(k) == want.get(k), k
+    assert set(got["latency"]) == set(want["latency"]) | {"pulse"}
+    assert set(got["latency"]["budget"]) == set(
+        want["latency"]["budget"]) - set(bench.DROPPED_BUDGET_KEYS)
+    for k in ("step_ms", "micro", "paced"):
+        assert got["latency"][k] == want["latency"][k]
+    assert got["power_limit_w"] == 700.0 and got["device_kind"] == "card"
+    assert ("p99_ms" in got) == (case != "no_depth0")
+    if case != "no_depth0":
+        assert got["latency_config"]["sustained"] == (case == "sustained")
+
+
+# ---------------------------------------------------------------------------
+# the command line
+# ---------------------------------------------------------------------------
+
+
+def test_cli_bench_smoke_on_the_cpu_prints_one_line():
+    rc, out, err = _run(cli.main, ["bench", "--smoke", "--device", "cpu",
+                                   "--budget-s", "20"])
+    assert rc == 0, err
+    [line] = out.splitlines()
+    rec = json.loads(line)
+    assert rec["value"] > 0 and rec["backend"] == "cpu"
+    assert rec["batch"] == 1024 and rec["table_capacity"] == 1 << 12
+    assert rec["device_kind"] == "cpu" and rec["power_limit_w"] is None
+    assert "error" not in rec and rec["wall_s"] <= 20
+    assert not set(rec) & set(bench.DROPPED_KEYS)
+
+
+@pytest.mark.parametrize("argv", [["--host-ingest=4"],
+                                  ["--host-ingest", "2", "--smoke"]])
+def test_host_ingest_refused_by_name(argv):
+    rc, out, err = _run(bench.main, argv)
+    assert rc == 1 and out == ""
+    assert "refusing --host-ingest" in err
+
+
+@pytest.mark.parametrize("which", ["throughput", "latency"])
+def test_a_raising_phase_prints_the_line_and_exits_one(which, monkeypatch):
+    tput, _ = _phases([])
+
+    def boom(*a, **k):
+        raise RuntimeError("the phase broke")
+
+    if which == "throughput":
+        monkeypatch.setattr(bench, "phase_throughput", boom)
+    else:
+        monkeypatch.setattr(bench, "phase_throughput",
+                            lambda *a, **k: dict(tput))
+        monkeypatch.setattr(bench, "phase_latency", boom)
+    rc, out, err = _run(bench.main, ["--smoke", "--device", "cpu",
+                                     "--budget-s", "60"])
+    assert rc == 1
+    [line] = out.splitlines()
+    rec = json.loads(line)
+    assert "RuntimeError: the phase broke" in rec["error"]
+    assert (rec["value"] > 0) == (which == "latency")
+
+
+def test_without_a_card_exits_one_naming_the_device():
+    rc, out, err = _run(bench.main, ["--smoke"])
+    assert rc == 1 and out == ""
+    assert "no CUDA device" in err
+
+
+def test_version_equals_reference():
+    rc, out, _ = _run(cli.main, ["version"])
+    jrc, jout, _ = _run(jcli.main, ["version"])
+    assert rc == jrc == 0
+    assert json.loads(out) == json.loads(jout) == {"version": "0.1.0"}

@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 from flowsentryx_tpu_torch.core.device import (
     LN2_F32, f32, fma32, recip_mul, xla_erf_inv, xla_exp, xla_exp2,
-    xla_expm1, xla_log1p, xla_sigmoid, xla_tanh,
+    xla_expm1, xla_log, xla_log1p, xla_sigmoid, xla_tanh,
 )
 
 F32 = np.float32
@@ -167,6 +167,17 @@ def test_xla_log1p_matches_jitted_log1p(rng_name):
     if rng_name in ("unit", "heavy_tail"):
         off = torch.log1p(torch.from_numpy(x)).numpy().view(np.uint32)
         assert (off != np.asarray(want).view(np.uint32)).sum() > 100
+
+
+@pytest.mark.parametrize("rng_name", ["below_1e-3", "unit", "1_to_1e3",
+                                      "heavy_tail", "u32_counts", "special"])
+def test_xla_log_matches_jitted_log(rng_name):
+    """``jnp.log`` bit for bit (the QAT loss's BCE terms take it), on the
+    log1p ranges above; ``torch.log`` does not give its bits on all of
+    them."""
+    x = _log_inputs(6)[rng_name]
+    want = jax.jit(jnp.log)(x)
+    _assert_bits_equal(xla_log(torch.from_numpy(x)), want)
 
 
 def test_xla_sigmoid_matches_jitted_sigmoid():

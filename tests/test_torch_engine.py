@@ -120,7 +120,8 @@ def _port_sources():
 
 
 def test_port_never_imports_jax_or_reference_ast():
-    banned = {"jax", "jaxlib", "flowsentryx_tpu", "optax", "pandas"}
+    # "bench": the reference's root bench.py (it imports the JAX package)
+    banned = {"jax", "jaxlib", "flowsentryx_tpu", "optax", "pandas", "bench"}
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -163,8 +164,8 @@ def test_new_host_modules_are_checked():
     (fixture, data, optimizers, QAT, evaluation, stress), the drain ring,
     the staged-shape signature, the compile cache, the cluster (its
     mailboxes, gossip plane, engine runner and supervisor), the cluster
-    layout and the partition rules, the mesh and the sharded step are
-    among them."""
+    layout and the partition rules, the mesh, the sharded step and the
+    headline benchmark are among them."""
     names = {".".join(p.relative_to(REPO).with_suffix("").parts)
              for p in _port_sources()}
     for m in ("core.wire", "core.durable", "engine.shm", "engine.arena",
@@ -180,7 +181,8 @@ def test_new_host_modules_are_checked():
               "core.signature", "engine.compile_cache",
               "cluster.__init__", "cluster.mailbox", "cluster.gossip",
               "cluster.runner", "cluster.supervisor", "parallel.__init__",
-              "parallel.layout", "parallel.mesh", "parallel.step"):
+              "parallel.layout", "parallel.mesh", "parallel.step",
+              "bench"):
         assert f"flowsentryx_tpu_torch.{m}" in names, m
 
 

@@ -144,20 +144,21 @@ def test_bench_scenarios_cli_equals_reference():
 
 
 @pytest.mark.parametrize("argv,flag", [
-    ([], "bench"), (["--smoke"], "--smoke"), (["--scaling"], None),
+    ([], None), (["--smoke"], None), (["--scaling"], None),
     (["--cluster"], "--cluster"),
     (["--baseline-repo", "/tmp/x"], "--baseline-repo"),
-    (["--scenarios", "--scaling"], None)],
+    (["--scenarios", "--scaling"], None),
+    (["--host-ingest", "4"], "--host-ingest")],
     ids=["bare", "smoke", "scaling", "cluster", "baseline-repo",
-         "scenarios-scaling"])
+         "scenarios-scaling", "host-ingest"])
 def test_bench_refuses_unported_modes_by_name(argv, flag):
-    """The modes still unported are refused by name.  ``--scaling`` is
-    ported (the sharded step): without ``--device`` it runs on the card,
-    and a host without one refuses it by that reason."""
+    """The modes still unported are refused by name.  A bare ``bench``,
+    ``--smoke`` (the headline benchmark) and ``--scaling`` (the sharded
+    step) are ported: without ``--device`` they run on the card, and a
+    host without one refuses them by that reason, printing no line."""
     rc, out, err = _run(cli.main, ["bench", *argv])
     assert rc == 1 and out == ""
     if flag is None:
         assert "no CUDA device" in err and "refusing" not in err
     else:
-        assert f"refusing {flag}" in err or (
-            flag == "bench" and "refusing a bare bench" in err)
+        assert f"refusing {flag}" in err

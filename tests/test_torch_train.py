@@ -390,6 +390,141 @@ def test_train_logreg_qat_against_reference():
 
 
 # ---------------------------------------------------------------------------
+# Data-parallel QAT (test_train.py::TestQatDataParallel's inputs)
+# ---------------------------------------------------------------------------
+
+
+class _OptaxAdagrad:
+    """The reference's Adagrad step, ``optax.adagrad(lr)`` jitted, over
+    the port's ``[w, b]``: the port's optimizer factory interface with
+    XLA:CPU's host ``rsqrt`` inside (ROADMAP queue 3, item 19), so a run
+    through it isolates every other bit of the trainer."""
+
+    def __init__(self, params, lr=0.05):
+        self.params = params
+        opt = optax.adagrad(lr)
+        self.state = opt.init(tuple(jnp.asarray(_np(p.detach()))
+                                    for p in params))
+
+        def step(P, G, st):
+            u, st = opt.update(G, st)
+            return optax.apply_updates(P, u), st
+
+        self._step = jax.jit(step)
+
+    def step(self):
+        P = tuple(jnp.asarray(_np(p.detach())) for p in self.params)
+        G = tuple(jnp.asarray(_np(p.grad)) for p in self.params)
+        new, self.state = self._step(P, G, self.state)
+        with torch.no_grad():
+            for p, v in zip(self.params, new):
+                p.copy_(torch.from_numpy(np.array(v)))
+
+
+@pytest.fixture(scope="module")
+def dp_inputs():
+    rng = np.random.default_rng(0)
+    n = 203  # deliberately ragged: exercises the pad+mask path
+    X = rng.lognormal(3, 2, (n, 8)).astype(np.float32)
+    w_true = np.array([1.0, -1.0, 0.5, 0, 0, 2.0, -0.5, 0.0])
+    y = ((np.log1p(X) @ w_true) > 2.0).astype(np.float32)
+    from flowsentryx_tpu.parallel import make_mesh as jmake_mesh
+
+    return X, y, jqat.train_logreg_qat_dp(X, y, jmake_mesh(8), epochs=30)
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+def _dp_mesh():
+    from flowsentryx_tpu_torch.parallel import make_mesh
+
+    return make_mesh(8, devices=["cpu"] * 8)
+
+
+def test_train_logreg_qat_dp_byte_equal_reference(dp_inputs):
+    """8 shards of the CPU against the reference's 8 virtual devices, 30
+    epochs on 203 rows, the reference's own Adagrad step substituted
+    (its host ``rsqrt`` is queue 3 item 19): weights, bias, both
+    observers, every epoch's loss and the converted artifact, byte for
+    byte.  What it holds: the observers merged from the global masked
+    range, each shard's ``[26, 8]`` dot with its tail rows (item 29),
+    the shards' gradients at the mesh size's cotangent (item 30), their
+    in-order ``psum``, and the loss's fused sums."""
+    X, y, ref = dp_inputs
+    got = qat.train_logreg_qat_dp(X, y, _dp_mesh(), epochs=30,
+                                  optimizer=_OptaxAdagrad)
+    assert np.array_equal(_bits(got.state.w.detach()), _bits(ref.state.w))
+    assert _bits(got.state.b.detach()) == _bits(ref.state.b)
+    for o in ("obs_in", "obs_out"):
+        for k in ("lo", "hi"):
+            assert _bits(getattr(getattr(got.state, o), k)) == _bits(
+                getattr(getattr(ref.state, o), k)), (o, k)
+    assert np.array_equal(_bits(got.losses), _bits(ref.losses))
+    p = logreg.params_to_numpy(got.params)
+    for k, v in p.items():
+        assert np.array_equal(v, _np(getattr(ref.params, k))), k
+
+
+def test_train_logreg_qat_dp_own_adagrad_holds_reference_relations(
+        dp_inputs):
+    """With the port's own Adagrad (a correctly rounded ``rsqrt``) the
+    8-shard run holds the reference's DP-against-single-device relations
+    (``tests/test_train.py:144-190``) against the reference's DP run and
+    against the port's single-device trainer: input observers
+    bit-identical, ``w_int8`` within 1 code, ``in_scale`` rtol 1e-6,
+    ``out_scale`` and the losses rtol 1e-2."""
+    X, y, ref = dp_inputs
+    got = qat.train_logreg_qat_dp(X, y, _dp_mesh(), epochs=30)
+    single = qat.train_logreg_qat(X, y, epochs=30, device="cpu")
+    p = logreg.params_to_numpy(got.params)
+    for other, name in ((ref, "reference dp"), (single, "port single")):
+        op = (logreg.params_to_numpy(other.params)
+              if name == "port single" else
+              {k: _np(getattr(other.params, k)) for k in p})
+        assert _bits(got.state.obs_in.lo) == _bits(other.state.obs_in.lo)
+        assert _bits(got.state.obs_in.hi) == _bits(other.state.obs_in.hi)
+        assert np.abs(p["w_int8"].astype(int)
+                      - op["w_int8"].astype(int)).max() <= 1, name
+        np.testing.assert_allclose(p["in_scale"], op["in_scale"], rtol=1e-6)
+        np.testing.assert_allclose(p["out_scale"], op["out_scale"],
+                                   rtol=1e-2)
+        np.testing.assert_allclose(got.losses, other.losses, rtol=1e-2)
+    assert np.isfinite(got.losses).all()
+
+
+@pytest.mark.parametrize("n", [5, 27, 203, 4003])
+def test_dot8_tail_rows_equal_reference_dot(n):
+    """XLA:CPU's ``[N, 8] @ [8]``: whole 8-row tiles add their products
+    as adjacent pairs, the ``N mod 8`` tail rows as halves (queue 3 item
+    29): the port's ``_dot8`` equals the jitted dot on every row."""
+    rng = np.random.default_rng(n)
+    x = rng.lognormal(0, 1, (n, 8)).astype(np.float32)
+    w = rng.standard_normal(8).astype(np.float32)
+    ref = jax.jit(lambda x, w: x @ w)(x, w)
+    got = qat._dot8(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+def test_dp_mesh_of_one_equals_single_device_epoch():
+    """A one-shard mesh runs the single-device epoch's arithmetic (no
+    padding, cotangent 1): one epoch of each phase from one state gives
+    the same bits as :func:`qat.qat_epoch`."""
+    X, y = fixture.cicids_fixture(n=2003, seed=4)
+    Xt = qat.xla_log1p(torch.from_numpy(X))
+    yt = torch.from_numpy(y)
+    mask = torch.ones(len(X), dtype=torch.bool)
+    a, b = qat.new_state("cpu"), qat.new_state("cpu")
+    for quantize in (False, True):
+        a, la = qat.qat_epoch(a, Xt, yt, quantize)
+        b, lb = qat.qat_dp_epoch(b, Xt, yt, mask, 1, quantize)
+        assert torch.equal(a.w.grad, b.w.grad)
+        assert torch.equal(a.b.grad, b.b.grad)
+        assert torch.equal(a.w, b.w) and torch.equal(la, lb)
+
+
+# ---------------------------------------------------------------------------
 # MLP families
 # ---------------------------------------------------------------------------
 
