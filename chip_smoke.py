@@ -418,6 +418,24 @@ more.
     ``gemv_seq`` launched 8 x 200 times; at 203 rows and 30 epochs the
     card's run byte-equal to the CPU's; ``gemv_seq`` on one shard's
     operands (252,080 rows) against its plain version, timed.
+58. ``static_audit`` (``static_audit_phase``), the device plane's static
+    legs at 2^20 rows, B=2048, K=64, the golden ``logreg_int8`` params on
+    compact16: ``fsx audit --mega auto --device-loop 2 --mesh 4`` (the
+    CLI in process: 11 variants, every one OK, each variant's aten
+    nodes, trace seconds and captured-graph census -- kernel, memcpy by
+    direction, memset, host nodes -- with no host node and no
+    host-ended memcpy, a steady-state D2H of 528 B); ``fsx ranges`` with
+    the same flags (PASS: every ``WRAP_OK`` and float64-allowlist entry
+    matched, nothing unmodeled, the negatives fired, the bridge skipped
+    with its note); ``Engine(audit=True)`` against an engine without
+    it over the same 64 batches of ``mixed_l34_1m`` (blacklist, stats
+    and table digest equal; 528 B of D2H per batch served), a second
+    engine of that shape whose boot audit hits the cache with
+    ``CAPTURES`` unchanged, ``serve --audit`` through the CLI with the
+    boot cache cleared first (rc 0, its own audit run: no cache hit and
+    an ``audit_s`` above the cached boot's), and a planted float64 leak refused at
+    ``Engine(audit=True)`` before any batch, its finding naming the op.
+    Alone: ``python3 scripts/torch_static_audit_phase.py``.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -2661,6 +2679,202 @@ def headline_phases(card: str, served: dict) -> None:
         return {"ok": all(checks.values()), "checks": checks, **out}
 
     qat_dp_phase()
+
+
+def _planted_score(params, x):
+    """A scorer that leaks float64 (the static audit's planted
+    violation): the plain float lane plus a float64 sum times zero."""
+    from flowsentryx_tpu_torch.models import logreg
+
+    return logreg.classify_float(params, x) + (x.double().sum(1) * 0).float()
+
+
+def static_audit_phase(card: str, served: dict) -> None:
+    """``static_audit`` (module docstring, 58).  The audited engine's
+    launch window goes to ``served`` for the kernels line."""
+    import io
+
+    import torch
+
+    from flowsentryx_tpu_torch import cli
+    from flowsentryx_tpu_torch.audit import AuditError
+    from flowsentryx_tpu_torch.audit import runner as arunner
+    from flowsentryx_tpu_torch.core import schema
+    from flowsentryx_tpu_torch.core.config import (
+        BatchConfig, FsxConfig, TableConfig,
+    )
+    from flowsentryx_tpu_torch.engine import (
+        ArraySource, CollectSink, Engine, Scenario, TrafficSource,
+        TrafficSpec,
+    )
+    from flowsentryx_tpu_torch.models import logreg, registry
+    from flowsentryx_tpu_torch.ops import graph, kernels
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "static")
+    os.makedirs(root, exist_ok=True)
+    artifact = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "artifacts", "logreg_int8.npz")
+    flags = ["--mega", "auto", "--device-loop", "2", "--mesh", "4",
+             "--device", "cuda"]
+
+    def quiet(argv):
+        """``cli.main(argv)`` with its stdout kept off this script's."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        return rc, buf.getvalue()
+
+    @phase("static_audit")
+    def audit_phase():
+        res: dict = {"card": card}
+        checks: dict = {}
+        # 1. fsx audit
+        t = time.perf_counter()
+        rc, _ = quiet(["audit", *flags, "--json", "--out",
+                       os.path.join(root, "audit.json")])
+        res["audit_s"] = round(time.perf_counter() - t, 3)
+        with open(os.path.join(root, "audit.json")) as f:
+            arep = json.load(f)
+        res["audit_variants"] = {
+            v["name"]: {"ok": v["ok"], "nodes": v["n_eqns"],
+                        "trace_s": v["trace_s"], "traced_as": v["traced_as"],
+                        "d2h_bytes": v["steady_state_d2h_bytes"],
+                        "launches": v["launches"], "graph": v["graph"],
+                        "findings": [str(x) for x in v["findings"]][:3]}
+            for v in arep["variants"]}
+        census = [v["graph"] or {} for v in arep["variants"]]
+        checks["audit_rc0"] = rc == 0 and arep["ok"]
+        checks["eleven_variants"] = len(arep["variants"]) == 11
+        checks["every_variant_censused"] = all(c.get("kernel") for c in
+                                               census)
+        checks["no_host_nodes"] = all(not c.get("host") for c in census)
+        checks["no_host_memcpy"] = all(
+            not c.get(k) for c in census
+            for k in ("memcpy_h2d", "memcpy_d2h", "memcpy_h2h"))
+        checks["wire_528"] = all(v["steady_state_d2h_bytes"] == 528
+                                 for v in arep["variants"])
+        # 2. fsx ranges
+        t = time.perf_counter()
+        rc, _ = quiet(["ranges", *flags, "--json", "--out",
+                       os.path.join(root, "ranges.json")])
+        res["ranges_s"] = round(time.perf_counter() - t, 3)
+        with open(os.path.join(root, "ranges.json")) as f:
+            rrep = json.load(f)
+        res["ranges_variants"] = {
+            v["name"]: {"ok": v["ok"], "nodes": v["n_eqns"],
+                        "checked": v["n_checked"],
+                        "wrap_ok": v["wrap_ok_matches"],
+                        "unmodeled": v["unmodeled"]}
+            for v in rrep["variants"]}
+        checks["ranges_pass"] = rc == 0 and rrep["ok"]
+        checks["ranges_nothing_unmodeled"] = all(
+            not v["unmodeled"] for v in rrep["variants"])
+        checks["ranges_registry_matched"] = not rrep["registry_findings"]
+        checks["ranges_negatives_fired"] = rrep["negative_controls"]["ok"]
+        checks["bridge_skipped_with_note"] = rrep["bridge"] is None and any(
+            "containment bridge skipped" in n for n in rrep["notes"])
+        # 3. an audited engine against one without the audit
+        cfg = FsxConfig(table=TableConfig(capacity=TABLE_CAP,
+                                          salt=SEED & 0xFFFFFFFF),
+                        batch=BatchConfig(max_batch=BATCH))
+        n_b = 64
+        recs = TrafficSource(TrafficSpec(scenario=Scenario("mixed_l34_1m"),
+                                         rate_pps=1e6, seed=SEED),
+                             total=n_b * BATCH).poll(n_b * BATCH)
+        params = logreg.load_params(artifact, "cuda")
+        runs = {}
+        for name, audit in (("audited", True), ("plain", False)):
+            sink = CollectSink()
+            t = time.perf_counter()
+            eng = Engine(cfg, ArraySource(recs.copy()), sink, params=params,
+                         device="cuda", audit=audit)
+            boot_s = time.perf_counter() - t
+            eng.warm()
+            kernels.reset_launches()
+            rep = eng.run()
+            torch.cuda.synchronize()
+            k, st = schema.table_to_numpy(eng.table)
+            runs[name] = {
+                "boot_s": round(boot_s, 3), "boot": rep.boot,
+                "launches": dict(kernels.LAUNCHES), "batches": rep.batches,
+                "stats": rep.stats, "readback": rep.readback,
+                "blocked": sink.blocked,
+                "digest": hashlib.sha256(k.tobytes() + st.tobytes())
+                .hexdigest()[:16]}
+            del eng
+        a, b = runs["audited"], runs["plain"]
+        served["launches_static_audit"] = a["launches"]
+        res["serve"] = {n: {k: v for k, v in r.items() if k != "blocked"}
+                        for n, r in runs.items()}
+        res["serve_blocked"] = len(a["blocked"])
+        checks["audited_equals_plain"] = (
+            a["blocked"] == b["blocked"] and a["stats"] == b["stats"]
+            and a["digest"] == b["digest"] and a["batches"] == n_b)
+        rb = a["readback"]
+        checks["d2h_528_per_batch"] = (
+            rb["wire_bytes"] == 528 and rb["d2h_bytes"] >= 528 * n_b
+            and (rb["fallback_sinks"] or rb["d2h_bytes"] == 528 * n_b))
+        checks["score_int8_per_batch"] = a["launches"]["score_int8"] == n_b
+        # 4. a second boot of that shape: the audit cache, no capture
+        caps = graph.CAPTURES
+        t = time.perf_counter()
+        eng = Engine(cfg, ArraySource(recs[:BATCH].copy()), CollectSink(),
+                     params=params, device="cuda", audit=True)
+        res["cached_boot"] = {"s": round(time.perf_counter() - t, 3),
+                              **eng._audit_boot,
+                              "captures_added": graph.CAPTURES - caps}
+        checks["cached_reaudit_no_capture"] = (
+            eng._audit_boot.get("audit_cache_hit") is True
+            and graph.CAPTURES == caps)
+        eng_cached_audit_s = eng._audit_boot.get("audit_s") or 0.0
+        del eng
+        # 5. serve --audit through the CLI, its audit run afresh (the
+        # engines above cached this shape)
+        arunner._BOOT_CACHE.clear()
+        conf = os.path.join(root, "serve.json")
+        with open(conf, "w") as f:
+            json.dump({"table": {"salt": SEED & 0xFFFFFFFF}}, f)
+        t = time.perf_counter()
+        rc, out = quiet(["serve", "--audit", "--scenario", "mixed_l34_1m",
+                         "--packets", str(n_b * BATCH), "--artifact",
+                         artifact, "--config", conf, "--json",
+                         "--device", "cuda"])
+        srep = json.loads(out.strip().splitlines()[-1]) if rc == 0 else {}
+        sboot = srep.get("boot", {})
+        res["serve_audit_cli"] = {
+            "rc": rc, "s": round(time.perf_counter() - t, 3),
+            "boot_audit_s": sboot.get("audit_s"),
+            "audit_cache_hit": sboot.get("audit_cache_hit"),
+            "batches": srep.get("batches")}
+        checks["serve_audit_cli"] = (
+            rc == 0 and sboot.get("audit_cache_hit") is False
+            and (sboot.get("audit_s") or 0) > eng_cached_audit_s)
+        # 6. the planted violation, refused before the first batch
+        plant = "planted_f64_leak"
+        registry._REGISTRY[plant] = registry.ModelSpec(
+            name=plant, init=logreg.golden_params,
+            classify_batch=_planted_score)
+        pcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, name=plant))
+        src = ArraySource(recs[:BATCH].copy())
+        try:
+            Engine(pcfg, src, CollectSink(), device="cuda", audit=True)
+            refused = None
+        except AuditError as e:
+            refused = [f for f in e.findings if "aten." in f.where]
+        finally:
+            del registry._REGISTRY[plant]
+        res["planted"] = {"refused": refused is not None,
+                          "finding": str(refused[0]) if refused else None,
+                          "records_polled": src.pos}
+        checks["planted_refused_naming_op"] = bool(refused) and (
+            "aten._to_copy.default" in refused[0].where
+            and "_planted_score" in refused[0].where and src.pos == 0)
+        res["checks"] = checks
+        return {"ok": all(checks.values()), **res}
+
+    audit_phase()
 
 
 def main() -> int:
@@ -6443,6 +6657,7 @@ def main() -> int:
     multihost_phase(card, served)
     mesh_phases(card, served)
     headline_phases(card, served)
+    static_audit_phase(card, served)
 
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
@@ -6839,7 +7054,9 @@ def main() -> int:
             # the headline bench's tiers and paced runs (its own process,
             # read from its stderr), and the data-parallel trainer
             **served.get("launches_headline", {}),
-            "train_qat_dp/train": served.get("launches_train_qat_dp", {})}
+            "train_qat_dp/train": served.get("launches_train_qat_dp", {}),
+            # the audited engine's run (Engine(audit=True))
+            "static_audit": served.get("launches_static_audit", {})}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}

@@ -1,7 +1,8 @@
 """Command line of the port: ``python -m flowsentryx_tpu_torch.cli serve``,
 ``... cli pcap``, ``... cli train``, ``... cli distill``, ``... cli
 cluster``, ``... cli status``, ``... cli monitor``, ``... cli bench``,
-``... cli chaos`` and ``... cli version``.
+``... cli chaos``, ``... cli audit``, ``... cli ranges`` and ``... cli
+version``.
 
 Counterpart of the reference's ``fsx serve``: builds an
 :class:`~.engine.Engine` on the card (or on the CPU with ``--device
@@ -76,6 +77,15 @@ shards of a mesh laid on the one ``--device``
 (:func:`.benchmarks.run_scaling`); ``--host-ingest``, ``--cluster`` and
 ``--baseline-repo`` are refused by name.  ``version`` prints the
 package's version as the reference's does.
+
+``audit`` and ``ranges`` are the device plane's two static legs
+(:mod:`.audit`, :mod:`.ranges`): each stages every step variant an
+engine can serve (``--mesh N`` shards of the one ``--device``, ``--mega
+N|auto``, ``--device-loop N``, ``--evict-ttl``, ``--quick`` for small
+shapes) and proves its graph contracts, or that no integer in it can
+silently wrap, printing ``PASS``/``FAIL`` (exit 0/1).  ``serve
+--audit`` (or ``FSX_AUDIT=1``) proves the served variants at boot and
+refuses to serve on a violation.
 
 ``chaos [--seed N] [--quick]`` runs the seeded fault-injection campaign
 (:mod:`.chaos`) over the port's engine, ingest fleet, supervisor and
@@ -462,14 +472,20 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         device_loop = args.device_loop
         if device_loop == "auto":
             device_loop = _calibrate(cfg, params, args.mega, device, mesh)
-        eng = Engine(cfg, source, sink, params=params, device=device,
-                     mesh=mesh,
-                     mega_n=args.mega, slo_us=args.slo_us,
-                     predict=args.predict, watchdog_s=args.watchdog_s,
-                     sink_thread=False if args.no_sink_thread else None,
-                     kernel_tier=kernel_tier, device_loop=device_loop,
-                     compile_cache=args.compile_cache, t0_ns=t0_ns,
-                     gossip=gossip)
+        from flowsentryx_tpu_torch.audit.graph import AuditError
+
+        try:
+            eng = Engine(cfg, source, sink, params=params, device=device,
+                         mesh=mesh,
+                         mega_n=args.mega, slo_us=args.slo_us,
+                         predict=args.predict, watchdog_s=args.watchdog_s,
+                         sink_thread=False if args.no_sink_thread else None,
+                         kernel_tier=kernel_tier, device_loop=device_loop,
+                         compile_cache=args.compile_cache, t0_ns=t0_ns,
+                         gossip=gossip, audit=True if args.audit else None)
+        except AuditError as e:
+            print(f"serve: refusing to serve: {e}", file=sys.stderr)
+            return 1
         eng.boot_import_s = round(import_s, 4)
         if args.restore:
             try:
@@ -501,6 +517,165 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         rep = rep._replace(ingest=source.ingest_stats())
     print(json.dumps(rep._asdict(), indent=None if args.json else 2))
     return 0
+
+
+def _quick_shapes(cfg):
+    """The --quick staging shapes (a 2^12-row table, B=256; the static
+    contracts are shape-generic): one definition for every verb that
+    stages the variant set."""
+    return dataclasses.replace(
+        cfg,
+        table=dataclasses.replace(cfg.table, capacity=1 << 12),
+        batch=dataclasses.replace(cfg.batch, max_batch=256),
+    )
+
+
+def _stage_mesh_and_mega(args: argparse.Namespace, device) -> tuple:
+    """THE one resolution of the staged-variant sizing flags ``audit``
+    and ``ranges`` share: ``--mesh N`` lays N shards on the one
+    ``--device`` (the one-process mesh; ``--mesh 0``: every visible card
+    when they form a >1 power-of-two mesh, which one card does not);
+    ``--mega auto`` is the adaptive power-of-two ladder.  Returns
+    ``(mesh, mega_kwargs)``."""
+    import torch
+
+    mesh = None
+    n_mesh = args.mesh
+    if n_mesh == 0 and device.type == "cuda":
+        n = torch.cuda.device_count()
+        n_mesh = n if n > 1 and not (n & (n - 1)) else 1
+    if n_mesh > 1:
+        from flowsentryx_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(n_mesh, devices=[device] * n_mesh)
+    if args.mega == "auto":
+        from flowsentryx_tpu_torch.engine.engine import MEGA_AUTO_MAX
+        from flowsentryx_tpu_torch.ops.fused import pow2_group_sizes
+
+        return mesh, {"mega_n": MEGA_AUTO_MAX,
+                      "mega_sizes": pow2_group_sizes(MEGA_AUTO_MAX)}
+    return mesh, {"mega_n": args.mega}
+
+
+def _static_cfg(args: argparse.Namespace, verb: str):
+    """The config of ``audit``/``ranges`` after the reference's flag
+    checks, in its order; a string is a refusal."""
+    if args.device_loop < 0:
+        return f"fsx {verb}: --device-loop must be >= 0"
+    if args.device_loop and not args.mega:
+        return (f"fsx {verb}: --device-loop needs --mega N|auto (the ring "
+                "runs top-rung mega groups)")
+    cfg = (FsxConfig.from_json(Path(args.config).read_text())
+           if args.config else DEFAULT_CONFIG)
+    if getattr(args, "verdict_k", None) is not None:
+        if args.verdict_k < 1:
+            return (f"fsx {verb}: --verdict-k must be >= 1 (the transfer "
+                    "contract is about the compact wire)")
+        cfg = dataclasses.replace(cfg, batch=dataclasses.replace(
+            cfg.batch, verdict_k=args.verdict_k))
+    if args.evict_ttl < 0:
+        return f"fsx {verb}: --evict-ttl must be >= 0"
+    if args.evict_every < 1:
+        return f"fsx {verb}: --evict-every must be >= 1"
+    if args.evict_ttl:
+        cfg = dataclasses.replace(cfg, table=dataclasses.replace(
+            cfg.table, evict_ttl_s=args.evict_ttl,
+            evict_every=args.evict_every))
+    if args.quick:
+        cfg = _quick_shapes(cfg)
+    return cfg
+
+
+def _cmd_audit(args: argparse.Namespace) -> int:
+    """``fsx audit``: stage every step variant and prove its graph
+    contracts (dtypes, in-place updates, the D2H budget, the staged
+    input, the exchange sites, and on the card the captured graph's
+    census) without a live batch."""
+    cfg = _static_cfg(args, "audit")
+    if isinstance(cfg, str):
+        print(cfg, file=sys.stderr)
+        return 1
+    from flowsentryx_tpu_torch.audit import runner
+    from flowsentryx_tpu_torch.core.device import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+        mesh, mega = _stage_mesh_and_mega(args, device)
+    except (RuntimeError, ValueError) as e:
+        print(f"fsx audit: {e}", file=sys.stderr)
+        return 1
+    rep = runner.run_audit(cfg, mesh=mesh, device_loop=args.device_loop,
+                           device=device, **mega)
+    if args.out:
+        runner.write_artifact(rep, args.out)
+    if args.json:
+        print(json.dumps(rep.to_json(), indent=2))
+    else:
+        for note in rep.notes:
+            print(f"fsx audit: note: {note}")
+        for v in rep.variants:
+            if v.ok:
+                print(f"fsx audit: {v.name}: OK ({v.n_eqns} eqns, "
+                      f"steady-state D2H {v.steady_state_d2h_bytes} B "
+                      f"= [{v.wire_words}]-word wire)")
+            else:
+                print(f"fsx audit: {v.name}: FAILED", file=sys.stderr)
+                for f in v.findings:
+                    print(f"  {f}", file=sys.stderr)
+        for f in rep.registry_findings:
+            print(f"fsx audit: allowlist: {f}", file=sys.stderr)
+        print(f"fsx audit: {'PASS' if rep.ok else 'FAIL'}")
+    return 0 if rep.ok else 1
+
+
+def _cmd_ranges(args: argparse.Namespace) -> int:
+    """``fsx ranges``: prove that no staged step variant can silently
+    wrap an integer (the interval prover over the same graphs ``audit``
+    stages), audit the ``WRAP_OK`` registry and the float64 allowlist,
+    and fire the planted negative controls."""
+    if args.artifact:
+        print("fsx ranges: refusing --artifact: the BPF containment bridge "
+              "it feeds reads the BPF plane, which is not ported",
+              file=sys.stderr)
+        return 1
+    cfg = _static_cfg(args, "ranges")
+    if isinstance(cfg, str):
+        print(cfg, file=sys.stderr)
+        return 1
+    from flowsentryx_tpu_torch.core.device import resolve_device
+    from flowsentryx_tpu_torch.ranges import runner
+
+    try:
+        device = resolve_device(args.device)
+        mesh, mega = _stage_mesh_and_mega(args, device)
+    except (RuntimeError, ValueError) as e:
+        print(f"fsx ranges: {e}", file=sys.stderr)
+        return 1
+    rep = runner.run_ranges(cfg, mesh=mesh, device_loop=args.device_loop,
+                            device=device, **mega)
+    if args.out:
+        runner.write_artifact(rep, args.out)
+    if args.json:
+        print(json.dumps(rep.to_json(), indent=2))
+    else:
+        for note in rep.notes:
+            print(f"fsx ranges: note: {note}")
+        for v in rep.variants:
+            if v.ok:
+                wraps = sum(v.wrap_ok_matches.values())
+                print(f"fsx ranges: {v.name}: OK ({v.n_eqns} eqns, "
+                      f"{v.n_checked} checked, {wraps} audited wrap-ok)")
+            else:
+                print(f"fsx ranges: {v.name}: FAILED", file=sys.stderr)
+                for f in v.findings:
+                    print(f"  {f}", file=sys.stderr)
+        for f in rep.registry_findings:
+            print(f"fsx ranges: registry: {f}", file=sys.stderr)
+        print("fsx ranges: negative controls: "
+              + ("all fire" if rep.negatives.get("ok") else "FAILED (a "
+                 "finding class no longer fires: prover regression)"))
+        print(f"fsx ranges: {'PASS' if rep.ok else 'FAIL'}")
+    return 0 if rep.ok else 1
 
 
 def _calibrate(cfg, params, mega, device, mesh=None) -> int:
@@ -1647,6 +1822,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "logreg_int8_pallas, logreg_float, mlp, "
                         "multiclass); default the config's")
     s.add_argument("--artifact", help="trained .npz artifact to serve")
+    s.add_argument("--audit", action="store_true",
+                   help="prove the served step variants' graph contracts "
+                        "at boot and refuse to serve on a violation (also "
+                        "FSX_AUDIT=1)")
     s.add_argument("--mega", type=_mega_arg, default=0,
                    help="group N backlogged batches into one megastep "
                         "dispatch (one CUDA graph replay on the card); "
@@ -2041,6 +2220,58 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device of the campaign's engine; default "
                          "the card (refused without one)")
     ch.set_defaults(fn=_cmd_chaos)
+
+    def static_flags(p, verb: str) -> None:
+        p.add_argument("--config", help="JSON config file")
+        p.add_argument("--mesh", type=int, default=0,
+                       help="stage the sharded variants over N shards of "
+                            "the one --device (0 = auto: every visible "
+                            "card when they form a power-of-two mesh > 1)")
+        p.add_argument("--mega", type=_mega_arg, default=2,
+                       help="chunk count for the staged megastep variant, "
+                            "or 'auto' for every rung of the adaptive "
+                            "power-of-two ladder")
+        p.add_argument("--device-loop", type=int, default=0, metavar="N",
+                       help=f"also {verb} the drain ring at depth N "
+                            "(needs --mega)")
+        p.add_argument("--evict-ttl", type=float, default=0.0, metavar="S",
+                       help="stage the eviction-epoch variants at this "
+                            "idle TTL (0 = the sweepless graphs)")
+        p.add_argument("--evict-every", type=int, default=64, metavar="N",
+                       help="sweep epoch period in batches for "
+                            "--evict-ttl (default 64)")
+        p.add_argument("--quick", action="store_true",
+                       help="small table/batch shapes (2^12 rows, B=256); "
+                            "the contracts are shape-generic")
+        p.add_argument("--json", action="store_true",
+                       help="machine-readable report")
+        p.add_argument("--out", metavar="PATH",
+                       help="also write the JSON report here")
+        p.add_argument("--device", default=None,
+                       help="cuda (default) or cpu")
+
+    au = sub.add_parser(
+        "audit",
+        help="statically audit the staged step graphs: dtypes, in-place "
+             "updates, D2H transfer budget, staged-input stability, "
+             "exchange sites, the captured graph (no live batch)")
+    static_flags(au, "audit")
+    au.add_argument("--verdict-k", type=int, default=None,
+                    help="audit with this compact-wire K (>= 1; default: "
+                         "config batch.verdict_k)")
+    au.set_defaults(fn=_cmd_audit)
+
+    rg = sub.add_parser(
+        "ranges",
+        help="statically prove no staged step variant can silently wrap "
+             "a fixed-width integer (interval abstract interpretation "
+             "over the aten graphs)")
+    static_flags(rg, "prove")
+    rg.add_argument("--artifact", default="",
+                    help="refused: the BPF containment bridge it feeds "
+                         "reads the BPF plane, which is not ported (a "
+                         "run without it skips the bridge with a note)")
+    rg.set_defaults(fn=_cmd_ranges)
 
     v = sub.add_parser("version", help="print version")
     v.set_defaults(fn=_cmd_version)

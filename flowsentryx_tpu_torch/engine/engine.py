@@ -363,7 +363,16 @@ class Engine:
     ``mesh``: a :class:`~..parallel.mesh.Mesh` of more than one shard
     serves through the IP-hash-sharded step (:mod:`..parallel.step`)
     over the same one table; its shards must lie on this engine's
-    device.  A one-shard mesh (or None) is the single-shard step."""
+    device.  A one-shard mesh (or None) is the single-shard step.
+
+    ``audit`` (None: on when the environment sets ``FSX_AUDIT=1``)
+    proves the graph contracts of exactly the step variants this engine
+    will serve (single or sharded, every rung, the ring) at
+    construction, before any capture and before the first batch
+    (:func:`~flowsentryx_tpu_torch.audit.boot_audit`), and raises
+    :class:`~flowsentryx_tpu_torch.audit.AuditError` rather than serve
+    on a violated one.  Results are cached per staged shape; the boot
+    report carries ``audit_s`` and ``audit_cache_hit``."""
 
     def __init__(
         self,
@@ -386,6 +395,7 @@ class Engine:
         compile_cache: Any | None = None,
         gossip: Any | None = None,
         mesh: Any | None = None,
+        audit: bool | None = None,
     ):
         #: Boot anchor: ``EngineReport.boot``'s walls count from here.
         self._boot_t0 = time.perf_counter()
@@ -555,6 +565,24 @@ class Engine:
                 if self.mesh is None else dl.make_sharded_compact_device_loop(
                     cfg, classify, self.mesh, self.ring, self._ring_chunks,
                     **self.quant))
+        # -- the static audit: before any capture and the first batch --
+        if audit is None:
+            audit = os.environ.get("FSX_AUDIT", "").lower() in (
+                "1", "true", "on")
+        #: ``EngineReport.boot``'s audit keys (empty when not audited).
+        self._audit_boot: dict[str, Any] = {}
+        if audit:
+            from flowsentryx_tpu_torch.audit import boot_audit
+
+            t_a = time.perf_counter()
+            rep = boot_audit(cfg, wire=self.wire, mesh=self.mesh,
+                             mega_n=self.mega_n if sizes else 0,
+                             mega_sizes=sizes or None,
+                             device_loop=self.ring, params=self.params,
+                             device=self.device, classify=classify)
+            self._audit_boot = {
+                "audit_s": round(time.perf_counter() - t_a, 4),
+                "audit_cache_hit": rep is None}
         #: Sealed-but-undispatched ``(wire buffer, oldest-record stamp)``
         #: group candidates.
         self._pending: list[tuple[np.ndarray, float]] = []
@@ -1541,6 +1569,7 @@ class Engine:
             "tiered": bool(fill_plan),
             "variants": {},
             "fill_pending": [self._label(k) for k in fill_plan],
+            **self._audit_boot,
         }
         if self._cuda:
             # from the compile cache where it has them; a miss, drift or

@@ -50,16 +50,23 @@ caller must respect:
   same base step has already proved it free of host syncs.  Entering
   ``torch.cuda.graph`` synchronizes the device, which stalls only the
   capturing thread.
+* **No garbage collection inside a capture.**  The cyclic collector is
+  off while a graph is captured: a finalizer it would run on the
+  capturing thread (an earlier engine's graph or buffers) makes CUDA
+  calls that invalidate the capture.
 
 Each graph keeps its own memory pool.  Where torch can keep the graph
-before instantiating it (``CUDAGraph(keep_graph=True)``), its node count
-is read with libcuda's ``cuGraphGetNodes`` (:attr:`StepGraph.nodes`,
-else None): a launch costs in proportion to it.
+before instantiating it (``CUDAGraph(keep_graph=True)``), its nodes are
+read with libcuda (:attr:`StepGraph.census`: kernels, memcpy nodes by
+direction, memsets, host nodes; :attr:`StepGraph.nodes` their count,
+else None): a launch costs in proportion to the count, and ``fsx audit``
+holds the census to the step's transfer and in-place contracts.
 """
 
 from __future__ import annotations
 
 import ctypes
+import gc
 import threading
 import time
 from typing import Callable
@@ -85,16 +92,101 @@ def _new_graph() -> tuple[torch.cuda.CUDAGraph, bool]:
         return torch.cuda.CUDAGraph(), False
 
 
-def _node_count(graph: torch.cuda.CUDAGraph) -> int | None:
-    """Nodes of a kept, not yet instantiated graph (``cuGraphGetNodes``)."""
+class _Memcpy3D(ctypes.Structure):
+    """``CUDA_MEMCPY3D`` (libcuda's memcpy node parameters)."""
+
+    _fields_ = [
+        ("srcXInBytes", ctypes.c_size_t), ("srcY", ctypes.c_size_t),
+        ("srcZ", ctypes.c_size_t), ("srcLOD", ctypes.c_size_t),
+        ("srcMemoryType", ctypes.c_int), ("srcHost", ctypes.c_void_p),
+        ("srcDevice", ctypes.c_uint64), ("srcArray", ctypes.c_void_p),
+        ("reserved0", ctypes.c_void_p), ("srcPitch", ctypes.c_size_t),
+        ("srcHeight", ctypes.c_size_t),
+        ("dstXInBytes", ctypes.c_size_t), ("dstY", ctypes.c_size_t),
+        ("dstZ", ctypes.c_size_t), ("dstLOD", ctypes.c_size_t),
+        ("dstMemoryType", ctypes.c_int), ("dstHost", ctypes.c_void_p),
+        ("dstDevice", ctypes.c_uint64), ("dstArray", ctypes.c_void_p),
+        ("reserved1", ctypes.c_void_p), ("dstPitch", ctypes.c_size_t),
+        ("dstHeight", ctypes.c_size_t),
+        ("WidthInBytes", ctypes.c_size_t), ("Height", ctypes.c_size_t),
+        ("Depth", ctypes.c_size_t),
+    ]
+
+
+class _MemsetParams(ctypes.Structure):
+    """``CUDA_MEMSET_NODE_PARAMS``."""
+
+    _fields_ = [("dst", ctypes.c_uint64), ("pitch", ctypes.c_size_t),
+                ("value", ctypes.c_uint), ("elementSize", ctypes.c_uint),
+                ("width", ctypes.c_size_t), ("height", ctypes.c_size_t)]
+
+
+#: ``CUgraphNodeType`` values the census names.
+_KERNEL, _MEMCPY, _MEMSET, _HOST = 0, 1, 2, 3
+#: ``CUmemorytype``: host, device, array, unified.
+_MEM_HOST, _MEM_DEVICE, _MEM_UNIFIED = 1, 2, 4
+_PTR_MEMORY_TYPE = 2   # CU_POINTER_ATTRIBUTE_MEMORY_TYPE
+
+
+def _mem_end(cu, kind: int, host_ptr, dev_ptr: int) -> str:
+    """``"h"`` or ``"d"``: which memory one end of a memcpy node is."""
+    if kind == _MEM_DEVICE:
+        return "d"
+    if kind == _MEM_HOST:
+        return "h"
+    ptr = dev_ptr or (host_ptr or 0)
+    t = ctypes.c_uint(0)
+    rc = cu.cuPointerGetAttribute(ctypes.byref(t), _PTR_MEMORY_TYPE,
+                                  ctypes.c_uint64(ptr))
+    return "d" if rc == 0 and t.value == _MEM_DEVICE else "h"
+
+
+def graph_census(graph: torch.cuda.CUDAGraph) -> dict | None:
+    """Nodes of a kept, not yet instantiated graph by kind, read with
+    libcuda (``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphMemcpyNodeGetParams``, ``cuGraphMemsetNodeGetParams``):
+    ``nodes``, ``kernel``, ``memcpy_<src>2<dst>`` (``h``/``d``),
+    ``memset``, ``host``, ``other``, and the largest memcpy and memset
+    in bytes.  None where it cannot be read."""
     try:
-        raw = graph.raw_cuda_graph()
+        raw = ctypes.c_void_p(int(graph.raw_cuda_graph()))
+        cu = ctypes.CDLL("libcuda.so.1")
         n = ctypes.c_size_t(0)
-        rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
-            ctypes.c_void_p(int(raw)), None, ctypes.byref(n))
-        return int(n.value) if rc == 0 else None
+        if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+            return None
+        nodes = (ctypes.c_void_p * n.value)()
+        if n.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+            return None
     except (AttributeError, OSError, RuntimeError, TypeError):
         return None
+    out = {"nodes": int(n.value), "kernel": 0, "memset": 0, "host": 0,
+           "other": 0, "max_memcpy_bytes": 0, "max_memset_bytes": 0}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value == _KERNEL:
+            out["kernel"] += 1
+        elif kind.value == _MEMCPY:
+            p = _Memcpy3D()
+            cu.cuGraphMemcpyNodeGetParams(ctypes.c_void_p(node),
+                                          ctypes.byref(p))
+            key = (f"memcpy_{_mem_end(cu, p.srcMemoryType, p.srcHost, p.srcDevice)}"
+                   f"2{_mem_end(cu, p.dstMemoryType, p.dstHost, p.dstDevice)}")
+            out[key] = out.get(key, 0) + 1
+            nbytes = p.WidthInBytes * max(p.Height, 1) * max(p.Depth, 1)
+            out["max_memcpy_bytes"] = max(out["max_memcpy_bytes"], nbytes)
+        elif kind.value == _MEMSET:
+            p = _MemsetParams()
+            cu.cuGraphMemsetNodeGetParams(ctypes.c_void_p(node),
+                                          ctypes.byref(p))
+            nbytes = p.width * max(p.height, 1) * p.elementSize
+            out["memset"] += 1
+            out["max_memset_bytes"] = max(out["max_memset_bytes"], nbytes)
+        elif kind.value == _HOST:
+            out["host"] += 1
+        else:
+            out["other"] += 1
+    return out
 
 
 class StepGraph:
@@ -112,7 +204,8 @@ class StepGraph:
     ones); ``sync_check`` runs the first warm-up under
     ``set_sync_debug_mode("error")``.  A failed capture raises; there is
     no eager fallback.  ``capture_s`` is the wall of warm-ups and
-    capture, ``nodes`` the graph's node count (None where not read)."""
+    capture, ``nodes`` the graph's node count and ``census`` its nodes by
+    kind (None where not read)."""
 
     def __init__(self, fn: Callable, table, stats, params,
                  in_shape: tuple[int, ...], slots: bool = False,
@@ -156,13 +249,23 @@ class StepGraph:
         # thread-local: another thread's CUDA calls (the dispatch and
         # sink threads' launches and event waits) must not invalidate
         # this capture
-        with kernels.counting_into(self.launches), torch.cuda.graph(
-                self.graph, capture_error_mode="thread_local"):
-            _, _, self.out = call(table, stats)
-            self.keep = fused.block_record(self.out)
-        self.nodes = None
+        # no cyclic collection inside the capture: a finalizer run on
+        # this thread there, an earlier graph's or buffer's, makes a CUDA
+        # call that invalidates it
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with kernels.counting_into(self.launches), torch.cuda.graph(
+                    self.graph, capture_error_mode="thread_local"):
+                _, _, self.out = call(table, stats)
+                self.keep = fused.block_record(self.out)
+        finally:
+            if gc_on:
+                gc.enable()
+        #: The kept graph's :func:`graph_census` (None where not read).
+        self.census = graph_census(self.graph) if kept else None
+        self.nodes = None if self.census is None else self.census["nodes"]
         if kept:
-            self.nodes = _node_count(self.graph)
             self.graph.instantiate()
         self.capture_s = time.perf_counter() - t0
 

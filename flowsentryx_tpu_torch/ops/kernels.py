@@ -117,24 +117,30 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _count(name: str) -> None:
-    """One launch of ``name``: into the capture in progress on this
-    thread, else into :data:`LAUNCHES`."""
+def _count(name: str, out: torch.Tensor, *operands: torch.Tensor) -> None:
+    """One launch of ``name`` writing ``out`` from ``operands``: into the
+    capture in progress on this thread, else into :data:`LAUNCHES`; and
+    to this thread's launch hook, if one is set (:func:`counting_into`)."""
     counts = getattr(_TLS, "counts", None)
     (LAUNCHES if counts is None else counts)[name] += 1
+    hook = getattr(_TLS, "hook", None)
+    if hook is not None:
+        hook(name, out, operands)
 
 
 @contextlib.contextmanager
-def counting_into(counts: dict):
+def counting_into(counts: dict, on_launch=None):
     """Count this thread's launches into ``counts`` (a dict keyed like
     :data:`LAUNCHES`) instead of :data:`LAUNCHES` for the ``with`` body:
-    a capture's launches are the graph's, added by each replay."""
-    prev = getattr(_TLS, "counts", None)
-    _TLS.counts = counts
+    a capture's launches are the graph's, added by each replay.
+    ``on_launch(name, out, operands)`` is called at each launch (the
+    audit's recorder makes a graph node of it)."""
+    prev = getattr(_TLS, "counts", None), getattr(_TLS, "hook", None)
+    _TLS.counts, _TLS.hook = counts, on_launch
     try:
         yield counts
     finally:
-        _TLS.counts = prev
+        _TLS.counts, _TLS.hook = prev
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +395,7 @@ def score_int8(params: logreg.LogRegParams, x: torch.Tensor,
     b = x.shape[0]
     out = torch.empty(b, dtype=torch.float32, device=dev)
     fn = _FNS.get("score_int8") or _fn("score_int8")
-    _count("score_int8")
+    _count("score_int8", out, x)
     _check(fn(ptr, out.data_ptr(), b, p.args_ptr, _stream(x)),
            "score_int8")
     return out
@@ -514,7 +520,7 @@ def table_summary_counts(key: torch.Tensor, state: torch.Tensor, now: float,
     out = torch.zeros(4, dtype=torch.int64, device=key.device)
     o = out.data_ptr()
     fn = _FNS.get("table_summary") or _fn("table_summary")
-    _count("table_summary")
+    _count("table_summary", out, key, state)
     _check(fn(ptr, state.data_ptr(), key.shape[0], state.stride(0), f32(now),
               f32(stale_s), o, o + 24, _stream(key)), "table_summary")
     return out[:3], out[3:].view(torch.float32)[0]
@@ -562,7 +568,7 @@ def segment_sum_seq(v: torch.Tensor, seg: torch.Tensor, n: int
             f"and {seg.dtype} {tuple(seg.shape)} on {seg.device}, n={n}")
     out = torch.empty(n, dtype=torch.float32, device=dev)
     fn = _FNS.get("segment_sum_seq") or _fn("segment_sum_seq")
-    _count("segment_sum_seq")
+    _count("segment_sum_seq", out, v, seg)
     _check(fn(v.data_ptr(), seg.data_ptr(), v.shape[0], out.data_ptr(), n,
               _stream(v)), "segment_sum_seq")
     return out
@@ -641,7 +647,7 @@ def gemv_seq(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
             f"{tuple(m.shape)} on {m.device}")
     out = torch.empty(m.shape[1], dtype=torch.float32, device=dev)
     fn = _FNS.get("gemv_seq") or _fn("gemv_seq")
-    _count("gemv_seq")
+    _count("gemv_seq", out, g, m)
     _check(fn(g.data_ptr(), m.data_ptr(), g.shape[0], m.shape[1],
               out.data_ptr(), _stream(g)), "gemv_seq")
     return out

@@ -33,7 +33,12 @@ What changes from the reference, and why:
   per-shard values, in shard order: the ``all_to_all`` of the ``[n_src,
   n_dst, C]`` send buffers is a transpose, the ``psum`` of the counts an
   exact sum, the ``pmax`` of the clock an exact max, the ``all_gather``
-  of the K-slot compactions a stack.  The shards run as a Python loop
+  of the K-slot compactions a concatenation.  Each exchange is one
+  call of a named helper per step (``_axis_index``, ``_all_to_all``,
+  ``_psum``, ``_pmax``, ``_all_gather``) over the n shards' values; each
+  reports its call and operand sizes to this thread's record
+  (:func:`recording_exchanges`), so ``fsx audit`` counts the step's
+  exchanges by call as the reference counts its collectives.  The shards run as a Python loop
   over row ranges of the one table: shard ``d`` is
   :class:`~..core.schema.TableShard` rows ``[d*N/n, (d+1)*N/n)``, and a
   scatter loser writes the table's one park row, never the next
@@ -55,7 +60,9 @@ What changes from the reference, and why:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -70,6 +77,73 @@ from flowsentryx_tpu_torch.parallel.mesh import Mesh
 
 #: Re-export (the reference's historical home of the placement).
 shard_table = layout.shard_table
+
+
+# -- the exchange sites: one call each per step, over every shard's value --
+
+#: Per thread: the exchange calls being recorded (:func:`recording_exchanges`).
+_TLS = threading.local()
+
+
+def _numels(x) -> list[int]:
+    if isinstance(x, torch.Tensor):
+        return [x.numel()]
+    if isinstance(x, (list, tuple)):
+        return [n for v in x for n in _numels(v)]
+    return []
+
+
+def _note(site: str, *operands) -> None:
+    """One call of exchange ``site`` over the shards' ``operands``: into
+    this thread's record, if one is open."""
+    calls = getattr(_TLS, "calls", None)
+    if calls is not None:
+        calls.append((site, _numels(operands)))
+
+
+@contextlib.contextmanager
+def recording_exchanges(calls: list):
+    """Append ``(site, per-shard operand sizes)`` to ``calls`` for each
+    exchange this thread makes in the ``with`` body."""
+    prev = getattr(_TLS, "calls", None)
+    _TLS.calls = calls
+    try:
+        yield calls
+    finally:
+        _TLS.calls = prev
+
+
+
+def _axis_index(n_dev: int) -> range:
+    """The shard ids (the reference's ``axis_index``)."""
+    _note("axis_index")
+    return range(n_dev)
+
+
+def _all_to_all(*per_src):
+    """Each buffer's ``n_src`` values ``[n_dst, C, ...]`` ->
+    ``[n_dst, n_src, C, ...]`` (one exchange for all the buffers)."""
+    _note("all_to_all", *per_src)
+    out = tuple(torch.stack(list(b)).transpose(0, 1) for b in per_src)
+    return out if len(out) > 1 else out[0]
+
+
+def _psum(parts):
+    """The exact sum of the shards' values."""
+    _note("psum", parts)
+    return torch.stack(list(parts)).sum(0)
+
+
+def _pmax(parts):
+    """The max of the shards' values."""
+    _note("pmax", parts)
+    return torch.stack(list(parts)).max()
+
+
+def _all_gather(parts):
+    """The shards' values, concatenated in shard order."""
+    _note("all_gather", parts)
+    return torch.cat(list(parts))
 
 
 def make_sharded_table(cfg: FsxConfig, mesh: Mesh) -> IpTableState:
@@ -149,7 +223,7 @@ def make_sharded_step(
 
         # --- each shard's slice: score, aggregate, route -------------------
         src, nows = [], []
-        for d in range(n_dev):
+        for d in _axis_index(n_dev):
             sl = slice(d * local_b, (d + 1) * local_b)
             valid_l, ts_l = batch.valid[sl], batch.ts[sl]
             score_l = classify_batch(params, batch.feat[sl])
@@ -182,7 +256,7 @@ def make_sharded_step(
             src.append(_Slice(score_l, fa, mal_l, valid_l, owner, rank,
                               routed, send_key[:rn].view(n_dev, C),
                               send_val[:rn].view(n_dev, C, 4)))
-        now = torch.stack(nows).max()     # the pmax of the batch clock
+        now = _pmax(nows)     # the batch clock
 
         # the sweep: each shard its own window of its own rows, before
         # any of this batch's inserts claims a slot
@@ -190,8 +264,8 @@ def make_sharded_step(
                       for sh in shards] if evict else None)
 
         # --- the all_to_all: [n_src, n_dst, C] -> [n_dst, n_src, C] -------
-        recv_key = torch.stack([s.send_key for s in src]).transpose(0, 1)
-        recv_val = torch.stack([s.send_val for s in src]).transpose(0, 1)
+        recv_key, recv_val = _all_to_all([s.send_key for s in src],
+                                         [s.send_val for s in src])
 
         # --- each owner: merge the partials, run the flow core -------------
         back, blk_keys, blk_untils = [], [], []
@@ -224,7 +298,7 @@ def make_sharded_step(
                                           dec.new_blocked_until, 0.0))
 
         # --- the verdicts back to their sources: [n_dst, n_src, C] --------
-        back = torch.stack(back).transpose(0, 1)
+        back = _all_to_all(back)
         verdicts, counts = [], []
         for d, sl in enumerate(src):
             rep_verdict = torch.where(
@@ -236,15 +310,17 @@ def make_sharded_step(
             overflow = sl.fa.rep_valid & ~sl.routed
             route_drop_l = (sl.valid & overflow[sl.fa.inv]).sum()
             verdicts.append(verdict_l)
-            counts.append(torch.cat([fused.count_verdicts(verdict_l,
-                                                          sl.valid),
-                                     route_drop_l[None]]))
+            # the eviction count rides the one count fold
+            counts.append(torch.cat(
+                [fused.count_verdicts(verdict_l, sl.valid),
+                 route_drop_l[None]]
+                + ([n_evicted[d][None]] if n_evicted is not None else [])))
 
         # --- the one count fold --------------------------------------------
-        counts = torch.stack(counts).sum(0)
+        counts = _psum(counts)
         fused.update_stats_from_counts(stats, counts[:4])
         if n_evicted is not None:
-            stats.evicted.add_(torch.stack(n_evicted).sum())
+            stats.evicted.add_(counts[5])
         route_drop = counts[4]
 
         block_key = torch.cat(blk_keys)
@@ -257,10 +333,10 @@ def make_sharded_step(
             # the true total, so it is exact
             parts = [fused.compact_blocklist(k, u, k_max)
                      for k, u in zip(blk_keys, blk_untils)]
-            total = torch.stack([p[2] for p in parts]).sum()
+            total = _psum([p[2] for p in parts])
             ck, cu, _ = fused.compact_blocklist(
-                torch.cat([p[0] for p in parts]),
-                torch.cat([p[1] for p in parts]), k_max)
+                _all_gather([p[0] for p in parts]),
+                _all_gather([p[1] for p in parts]), k_max)
             scalars = torch.stack([
                 total, (total > k_max).long(), route_drop,
                 now.reshape(1).view(torch.int32)[0].long()])

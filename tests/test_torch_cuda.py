@@ -1402,3 +1402,41 @@ def test_meshed_engine_on_card_equals_cpu(cuda):
     assert rc.route_drop == rh.route_drop
     assert lc["score_int8"] == 4 * rc.batches
     assert lc["table_summary"] == 1
+
+
+def test_static_audit_captured_graphs_on_card(cuda):
+    """The captured-graph half of ``fsx audit``: every variant is
+    captured and censused (kernel nodes, no host node, no host-ended
+    memcpy), its replays keep the table's addresses and capture nothing,
+    ``score_int8`` launches once per step body and shard, and a cached
+    ``boot_audit`` adds no capture."""
+    from flowsentryx_tpu_torch.audit import runner
+    from flowsentryx_tpu_torch.parallel import make_mesh
+
+    cfg = config.FsxConfig(table=config.TableConfig(capacity=1 << 14,
+                                                    salt=0x3131),
+                           batch=config.BatchConfig(max_batch=512))
+    launches = dict(kernels.LAUNCHES)
+    rep = runner.run_audit(cfg, mesh=make_mesh(4, devices=["cuda"] * 4),
+                           mega_n=2, device_loop=2, device=cuda)
+    assert rep.ok, [str(f) for v in rep.variants for f in v.findings]
+    # the audit's captures and replays count into no served window
+    assert kernels.LAUNCHES == launches
+    assert len(rep.variants) == 7
+    for v in rep.variants:
+        g = v.graph
+        assert g is not None and g["kernel"] > 0, v.name
+        assert not g["host"], v.name
+        assert not any(g.get(k) for k in ("memcpy_h2d", "memcpy_d2h",
+                                          "memcpy_h2h")), v.name
+        assert v.steady_state_d2h_bytes == 528, v.name
+        bodies = {"raw": 1, "compact": 1, "sharded": 1, "megastep": 2,
+                  "sharded_megastep": 2}.get(v.name, 4)
+        shards = 4 if v.name.startswith("sharded") else 1
+        assert v.launches.get("score_int8") == bodies * shards, v.name
+    kw = dict(wire=schema.WIRE_COMPACT16, mesh=None, mega_n=2,
+              device_loop=2, device=cuda)
+    assert runner.boot_audit(cfg, **kw) is not None
+    caps = graph.CAPTURES
+    assert runner.boot_audit(cfg, **kw) is None
+    assert graph.CAPTURES == caps

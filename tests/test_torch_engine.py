@@ -164,8 +164,10 @@ def test_new_host_modules_are_checked():
     (fixture, data, optimizers, QAT, evaluation, stress), the drain ring,
     the staged-shape signature, the compile cache, the cluster (its
     mailboxes, gossip plane, engine runner and supervisor), the cluster
-    layout and the partition rules, the mesh, the sharded step and the
-    headline benchmark are among them."""
+    layout and the partition rules, the mesh, the sharded step, the
+    headline benchmark, and the static legs (the audit's graph recorder
+    and runner, the range prover's interval algebra, seeds, prover,
+    registry and runner) are among them."""
     names = {".".join(p.relative_to(REPO).with_suffix("").parts)
              for p in _port_sources()}
     for m in ("core.wire", "core.durable", "engine.shm", "engine.arena",
@@ -182,7 +184,9 @@ def test_new_host_modules_are_checked():
               "cluster.__init__", "cluster.mailbox", "cluster.gossip",
               "cluster.runner", "cluster.supervisor", "parallel.__init__",
               "parallel.layout", "parallel.mesh", "parallel.step",
-              "bench"):
+              "bench", "audit.__init__", "audit.graph", "audit.runner",
+              "ranges.__init__", "ranges.interval", "ranges.seeds",
+              "ranges.prover", "ranges.registry", "ranges.runner"):
         assert f"flowsentryx_tpu_torch.{m}" in names, m
 
 
