@@ -130,7 +130,8 @@ more.
     of 96 records every 7.5 ms (12.8 k records/s mean, each pulse
     released at once), a drain-tuned 5 ms deadline, ``mega_n="auto"`` —
     ``slo_us`` 0 and 2,000 in turns, ``PULSE_PAIRS`` pairs of 1 s trials
-    (2 since the headline bench came, 4 before) on two warm
+    (1 since the host legs came, 2 since the headline bench, 4 before)
+    on two warm
     engines: each arm ends equal to the CPU engine fed the batches it
     dispatched, and arms that dispatched the same batch partition (a
     host stall can merge two pulses into one batch) end byte-equal;
@@ -221,7 +222,8 @@ more.
 35. ``device_loop_serve``: both scenarios from the 48-byte ring
     (``logreg_int8.npz``, 2^20 rows, B=2048, 384 batches) through
     ``mega_n="auto"`` with the drain ring at depths 2 and 4, in turns with
-    ``auto`` (auto, 2, 4, 4, 2, auto): stats, table digest and
+    ``auto`` (auto, 2, 4; auto, 2, 4, 4, 2, auto before the host legs
+    came): stats, table digest and
     verdict-ring bytes equal the CPU engine's and ``auto``'s without the
     ring; ``score_int8`` launches equal the batches; at least 2 full
     rounds; the report's ``device_loop`` block, the graphs' node counts
@@ -436,6 +438,23 @@ more.
     an ``audit_s`` above the cached boot's), and a planted float64 leak refused at
     ``Engine(audit=True)`` before any batch, its finding naming the op.
     Alone: ``python3 scripts/torch_static_audit_phase.py``.
+59. ``host_legs`` (``host_legs_phase``), the host plane's model
+    checkers: ``python3 -m flowsentryx_tpu_torch.cli sync --json``,
+    ``crash --json`` and ``live --json`` in full mode, three processes at
+    once (each rc 0, every plant caught with a clean control, no check
+    capped; each leg's counts and seconds), then the card half of the
+    arena check: ``mixed_l34_1m`` (2^20 rows, B=2048, 64 batches)
+    through the drain ring (``mega_n="auto"``, ``device_loop=2``), the
+    arena forced to ``ring_safe_slots(1, 2) - 1`` = 3 slots and the
+    copy stream held ``UPLOAD_HOLD_CYCLES`` before each upload
+    (``torch.cuda._sleep``), so that a round's upload is still pending
+    when the next round's claim comes round to its slot.  (a) The port's
+    ``Engine._claim`` (its claims counted that found the slot's event
+    unfired): stats, blacklist and table digest equal the CPU engine's
+    on the same records.  (b) A claim without its event wait, swapped
+    in here for that engine only: the table digest must differ.
+    ``score_int8`` once per batch in each arm's window.  Alone:
+    ``python3 scripts/torch_host_legs_phase.py``.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -500,8 +519,9 @@ RB_MORE = 96 * BATCH
 #: the fleet phases' live load while a handoff or a restart is on
 TRICKLE_BATCHES_PER_S = 20
 #: ``slo_pulse``'s pairs of trials (``predict_pulse`` runs twice as many
-#: trials of one arm): 2 since the headline bench came, 4 before
-PULSE_PAIRS = 2
+#: trials of one arm): 1 since the host legs came, 2 since the headline
+#: bench, 4 before
+PULSE_PAIRS = 1
 #: ``headline_bench``'s ``--budget-s``
 HEADLINE_BUDGET_S = 120
 #: ``train_qat_dp``'s mesh: shards of the one card
@@ -2877,6 +2897,240 @@ def static_audit_phase(card: str, served: dict) -> None:
     audit_phase()
 
 
+#: ``host_legs``' arena check: batches of ``mixed_l34_1m`` served per arm
+#: (4 drain-ring rounds of 2 x 8), and the copy stream's hold before
+#: each upload (~50 ms at the H100's clock: longer than the host takes
+#: to poll, seal and stage the next round, ~16 ms a round on the card's
+#: host, so a round's first upload is still pending when the next
+#: round's second claim comes round to its slot)
+HOST_LEGS_BATCHES = 64
+UPLOAD_HOLD_CYCLES = 100_000_000
+
+
+def host_legs_drive(device: str, cfg, recs, *, claim: str = "real",
+                    hold_cycles: int = 0) -> dict:
+    """Serve ``recs`` through the drain ring (``mega_n="auto"``,
+    ``device_loop=2``, the config's ``readback_depth``) on ``device``, the
+    arena forced one slot below the bound the model checker proves,
+    ``ring_safe_slots(1, 2) - 1`` = 3 slots (``DispatchArena
+    .ring_safe_slots`` patched here, for this engine only).  On the card
+    ``hold_cycles`` holds the copy stream with ``torch.cuda._sleep``
+    before each upload, so a round's uploads are still pending when the
+    next round's claims come round to its slots.  ``claim="planted"``
+    swaps ``Engine._claim`` for one that skips its event wait (here, for
+    this engine only, never in the package).  Returns the served state,
+    the launch window and how many claims found their slot's event not
+    yet fired."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from flowsentryx_tpu_torch.core import schema
+    from flowsentryx_tpu_torch.engine import ArraySource, CollectSink, Engine
+    from flowsentryx_tpu_torch.engine.arena import DispatchArena
+    from flowsentryx_tpu_torch.ops import kernels
+
+    real_rss = DispatchArena.ring_safe_slots
+    real_claim = Engine._claim
+    real_upload = Engine._upload_slot
+    waited = [0, 0]     # claims that found an unfired event, claims
+
+    def claim_counted(self):
+        ev = self._arena_event[(self._arena._cur + 1) % self._arena.slots]
+        waited[1] += 1
+        if ev is not None and not ev.query():
+            waited[0] += 1
+        return real_claim(self) if claim == "real" \
+            else self._arena.claim()     # PLANTED: no event wait
+
+    def upload_held(self, *a, **kw):
+        if hold_cycles and self._copy_stream is not None:
+            with torch.cuda.stream(self._copy_stream):
+                torch.cuda._sleep(hold_cycles)
+        return real_upload(self, *a, **kw)
+
+    DispatchArena.ring_safe_slots = staticmethod(
+        lambda depth, ring: real_rss(1, ring) - 1)
+    Engine._claim = claim_counted
+    Engine._upload_slot = upload_held
+    try:
+        sink = CollectSink()
+        eng = Engine(cfg, ArraySource(recs.copy()), sink, device=device,
+                     mega_n="auto", device_loop=2)
+        slots = eng._arena.slots
+        eng.warm()
+        waited[:] = [0, 0]
+        kernels.reset_launches()          # the window opens
+        t = time.perf_counter()
+        rep = eng.run()
+        wall = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        k, st = schema.table_to_numpy(eng.table)
+        dl = rep.dispatch["device_loop"]
+        out = {"digest": hashlib.sha256(k.tobytes() + st.tobytes())
+               .hexdigest()[:16], "stats": rep.stats,
+               "blacklist": sorted((int(key), int(np.float32(u).view(
+                   np.uint32))) for key, u in sink.blocked.items()),
+               "batches": rep.batches, "rounds": dl["rounds"],
+               "partial_slot_flushes": dl["partial_slot_flushes"],
+               "arena_slots": slots, "readback_depth": eng.readback_depth,
+               "claims": waited[1], "claims_waited": waited[0],
+               "launches": launches, "wall_s": round(wall, 4)}
+        del eng
+        return out
+    finally:
+        DispatchArena.ring_safe_slots = staticmethod(real_rss)
+        Engine._claim = real_claim
+        Engine._upload_slot = real_upload
+
+
+def host_legs_phase(card: str, served: dict) -> None:
+    """``host_legs`` (module docstring, 59): the host plane's three model
+    checkers as subprocesses, then the card half of the arena check.
+    Each arm's launch window goes to ``served`` for the kernels line."""
+    import torch
+
+    from flowsentryx_tpu_torch.core.config import (
+        BatchConfig, FsxConfig, TableConfig,
+    )
+    from flowsentryx_tpu_torch.engine import (
+        Scenario, TrafficSource, TrafficSpec,
+    )
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "host_legs")
+    os.makedirs(root, exist_ok=True)
+
+    @phase("host_legs")
+    def legs_phase():
+        res: dict = {"card": card}
+        checks: dict = {}
+        # 1. fsx sync, crash and live in full mode, one process each, all
+        # three at once (host Python, one core each)
+        legs, procs = {}, {}
+        t0 = time.perf_counter()
+        for verb in ("sync", "crash", "live"):
+            out = os.path.join(root, f"{verb}.json")
+            if os.path.exists(out):
+                os.unlink(out)
+            procs[verb] = (subprocess.Popen(
+                [sys.executable, "-m", "flowsentryx_tpu_torch.cli", verb,
+                 "--json", "--out", out], cwd=REPO,
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True), out)
+        for verb, (p, out) in procs.items():
+            try:
+                _, err = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                _, err = p.communicate()
+            wall = time.perf_counter() - t0
+            rep = {}
+            if os.path.exists(out):
+                with open(out) as f:
+                    rep = json.load(f)
+            legs[verb] = (p.returncode, wall, rep)
+            if p.returncode != 0:
+                print(err[-4000:], file=sys.stderr)
+        res["legs_wall_s"] = round(time.perf_counter() - t0, 3)
+        rc, wall, s = legs["sync"]
+        st = s.get("contracts", {}).get("stats", {})
+        il = s.get("interleave") or {}
+        res["sync"] = {
+            "rc": rc, "s": round(wall, 3), **st,
+            "models": {c["check"]: [c["interleavings"], c["steps"],
+                                    c["ok"]]
+                       for c in il.get("checks", [])},
+            "bound": il.get("bound")}
+        checks["sync_rc0"] = rc == 0 and s.get("ok") is True
+        checks["sync_nothing_capped"] = bool(il.get("checks")) and not any(
+            c["capped"] for c in il["checks"])
+        checks["sync_arena_guard"] = bool(il.get("bound")) and (
+            il["bound"]["safe_ok"] and il["bound"]["below_ok"]
+            and il["bound"]["counterexample_without_event_wait"])
+        rc, wall, c = legs["crash"]
+        res["crash"] = {
+            "rc": rc, "s": round(wall, 3), "elapsed_s": c.get("elapsed_s"),
+            **c.get("totals", {}),
+            "scenarios": {x["scenario"]: [x["crash_points"],
+                                          x["states_explored"],
+                                          x["recoveries"]]
+                          for x in c.get("scenarios", [])},
+            "plants": {x["plant"]: x["caught_by"]
+                       for x in c.get("plants", [])}}
+        checks["crash_rc0"] = rc == 0 and c.get("ok") is True
+        checks["crash_plants_caught"] = len(c.get("plants", [])) == 4 and all(
+            x["caught"] and x["control_ok"] for x in c["plants"])
+        checks["crash_nothing_capped"] = bool(c.get("scenarios")) and not any(
+            x["capped"] for x in c["scenarios"])
+        rc, wall, lv = legs["live"]
+        res["live"] = {
+            "rc": rc, "s": round(wall, 3), "elapsed_s": lv.get("elapsed_s"),
+            **lv.get("totals", {}),
+            "registry": {k: lv.get("registry", {}).get(k)
+                         for k in ("ok", "entries", "sites")},
+            "plants": {x["plant"]: x["caught_by"]
+                       for x in lv.get("plants", [])}}
+        checks["live_rc0"] = rc == 0 and lv.get("ok") is True
+        checks["live_plants_caught"] = len(lv.get("plants", [])) == 4 and all(
+            x["caught"] and x["control_ok"] for x in lv["plants"])
+        checks["live_nothing_capped"] = bool(lv.get("checks")) and not any(
+            x["capped"] for x in lv["checks"])
+        # 2. the card half of the arena check: mixed_l34_1m through the
+        # drain ring with 3 arena slots and the copy stream held
+        cfg = FsxConfig(table=TableConfig(capacity=TABLE_CAP,
+                                          salt=SEED & 0xFFFFFFFF),
+                        batch=BatchConfig(max_batch=BATCH))
+        n_b = HOST_LEGS_BATCHES
+        recs = TrafficSource(TrafficSpec(scenario=Scenario("mixed_l34_1m"),
+                                         rate_pps=1e6, seed=SEED),
+                             total=n_b * BATCH).poll(n_b * BATCH)
+        t = time.perf_counter()
+        guarded = host_legs_drive("cuda", cfg, recs,
+                                  hold_cycles=UPLOAD_HOLD_CYCLES)
+        planted = host_legs_drive("cuda", cfg, recs, claim="planted",
+                                  hold_cycles=UPLOAD_HOLD_CYCLES)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with cpu_threads():
+            want = host_legs_drive("cpu", cfg, recs)
+        cpu_s = time.perf_counter() - t
+        same = {k: guarded[k] == want[k]
+                for k in ("digest", "stats", "blacklist")}
+        served["launches_host_legs_guarded"] = guarded["launches"]
+        served["launches_host_legs_planted"] = planted["launches"]
+        res["arena"] = {
+            "traffic": "mixed_l34_1m, seed SEED", "batches": n_b,
+            "rows": TABLE_CAP, "B": BATCH,
+            "hold_cycles": UPLOAD_HOLD_CYCLES,
+            "guarded": {k: v for k, v in guarded.items()
+                        if k != "blacklist"},
+            "planted": {k: v for k, v in planted.items()
+                        if k != "blacklist"},
+            "cpu": {"digest": want["digest"], "batches": want["batches"],
+                    "arena_slots": want["arena_slots"]},
+            "guarded_equals_cpu": same,
+            "planted_digest_differs": planted["digest"] != want["digest"],
+            "blacklist_keys": len(want["blacklist"]),
+            "card_s": round(card_s, 3), "cpu_s": round(cpu_s, 3)}
+        checks["arena_three_slots"] = (guarded["arena_slots"]
+                                       == planted["arena_slots"] == 3)
+        checks["guarded_equals_cpu"] = all(same.values()) and (
+            guarded["batches"] == want["batches"] == n_b)
+        checks["planted_differs"] = planted["digest"] != want["digest"]
+        checks["guard_waited"] = guarded["claims_waited"] > 0
+        checks["score_int8_per_batch"] = (
+            guarded["launches"].get("score_int8") == n_b
+            and planted["launches"].get("score_int8") == n_b)
+        res["checks"] = checks
+        return {"ok": all(checks.values()), **res}
+
+    legs_phase()
+
+
 def main() -> int:
     import torch
 
@@ -4193,8 +4447,9 @@ def main() -> int:
         out, checks = {"card": card, "batches": SERVE_BATCHES,
                        "model": "logreg_int8 + artifacts/logreg_int8.npz"}, []
         busy = served.get("compact_busy_ms")
-        # in turns: auto, ring 2, ring 4, ring 4, ring 2, auto
-        order = (0, 2, 4, 4, 2, 0)
+        # in turns: auto, ring 2, ring 4 (the mirrored turns were cut to
+        # pay for the host legs)
+        order = (0, 2, 4)
         for scen in ring_scen:
             cpu, auto = served["ring_cpu"][scen], served["ring_auto"][scen]
             out[scen] = {"records_per_s_in_turns": {}}
@@ -6658,6 +6913,7 @@ def main() -> int:
     mesh_phases(card, served)
     headline_phases(card, served)
     static_audit_phase(card, served)
+    host_legs_phase(card, served)
 
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
@@ -7056,7 +7312,12 @@ def main() -> int:
             **served.get("launches_headline", {}),
             "train_qat_dp/train": served.get("launches_train_qat_dp", {}),
             # the audited engine's run (Engine(audit=True))
-            "static_audit": served.get("launches_static_audit", {})}
+            "static_audit": served.get("launches_static_audit", {}),
+            # the arena check's two card arms (3 slots, copy stream held)
+            "host_legs/guarded": served.get("launches_host_legs_guarded",
+                                            {}),
+            "host_legs/planted": served.get("launches_host_legs_planted",
+                                            {})}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}

@@ -1,8 +1,8 @@
 """Command line of the port: ``python -m flowsentryx_tpu_torch.cli serve``,
 ``... cli pcap``, ``... cli train``, ``... cli distill``, ``... cli
 cluster``, ``... cli status``, ``... cli monitor``, ``... cli bench``,
-``... cli chaos``, ``... cli audit``, ``... cli ranges`` and ``... cli
-version``.
+``... cli chaos``, ``... cli audit``, ``... cli ranges``, ``... cli
+sync``, ``... cli crash``, ``... cli live`` and ``... cli version``.
 
 Counterpart of the reference's ``fsx serve``: builds an
 :class:`~.engine.Engine` on the card (or on the CPU with ``--device
@@ -86,6 +86,13 @@ shapes) and proves its graph contracts, or that no integer in it can
 silently wrap, printing ``PASS``/``FAIL`` (exit 0/1).  ``serve
 --audit`` (or ``FSX_AUDIT=1``) proves the served variants at boot and
 refuses to serve on a violation.
+
+``sync``, ``crash`` and ``live`` are the host plane's three model
+checkers (:mod:`.sync.contracts` and :mod:`.sync.interleave`,
+:mod:`.crash`, :mod:`.live`), with the reference's flags (``--quick``,
+``--json``, ``--out``, and ``--quiet-plants`` for the last two), line
+formats and exit codes.  They do no device work and take no
+``--device``.
 
 ``chaos [--seed N] [--quick]`` runs the seeded fault-injection campaign
 (:mod:`.chaos`) over the port's engine, ingest fleet, supervisor and
@@ -486,7 +493,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         except AuditError as e:
             print(f"serve: refusing to serve: {e}", file=sys.stderr)
             return 1
-        eng.boot_import_s = round(import_s, 4)
+        eng.boot_import_s = round(import_s, 6)
         if args.restore:
             try:
                 eng.restore(args.restore)
@@ -1737,6 +1744,172 @@ def _cmd_version(args: argparse.Namespace) -> int:
     return 0
 
 
+def _finish_report(verb: str, rep: dict, args: argparse.Namespace,
+                   pass_line: str) -> int:
+    """The model checkers' tail, as the reference prints it: the
+    ``--out`` file, then the ``--json`` report or the PASS/FAIL line;
+    exit 0 on a passing report."""
+    if args.out:
+        p = Path(args.out)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(json.dumps(rep, indent=2) + "\n")
+        if not args.json:
+            print(f"fsx {verb}: report -> {p}")
+    if args.json:
+        print(json.dumps(rep, indent=2))
+    elif rep["ok"]:
+        print(f"fsx {verb}: {pass_line}")
+    else:
+        print(f"fsx {verb}: FAIL", file=sys.stderr)
+    return 0 if rep["ok"] else 1
+
+
+def _cmd_sync(args: argparse.Namespace) -> int:
+    """The host plane's thread contracts and interleaving models
+    (:mod:`.sync.contracts`, :mod:`.sync.interleave`), as the
+    reference's ``fsx sync``: the contract lint over the port's source,
+    then (unless ``--quick``) the bounded model checks over the port's
+    real SinkChannel, SealedBatchQueue and DispatchArena.  The arena
+    check drives ``Engine._claim``, whose event wait makes one slot below
+    ``ring_safe_slots`` a throughput bound: the line says so, and prints
+    the overwrite a claim without the wait would allow."""
+    from flowsentryx_tpu_torch.sync.contracts import run_contracts
+
+    crep = run_contracts(quick=args.quick)
+    out: dict = {"ok": crep.ok, "contracts": crep.to_json(),
+                 "interleave": None}
+    if not args.json:
+        st = crep.stats
+        print(f"fsx sync: contracts: "
+              f"{'OK' if crep.ok else 'FAILED'} "
+              f"({st['classes']} classes, {st['registered_fields']} "
+              f"fields, {st['cursor_classes']} cursor protocols, "
+              f"{st['ctl_sites']} ctl sites)")
+        for f in crep.findings:
+            print(f"  {f}", file=sys.stderr)
+
+    if not args.quick:
+        from flowsentryx_tpu_torch.sync.interleave import run_interleave
+
+        irep = run_interleave()
+        out["interleave"] = irep.to_json()
+        out["ok"] = out["ok"] and irep.ok
+        if not args.json:
+            for c in irep.checks:
+                tag = ("counterexample found" if c.expect_violation
+                       else f"{c.interleavings} interleavings pass")
+                status = "OK" if c.ok else "FAILED"
+                print(f"fsx sync: model {c.check}: {status} ({tag}, "
+                      f"{c.steps} steps"
+                      + (", CAPPED" if c.capped else "") + ")")
+                if not c.ok:
+                    detail = (c.counterexample or
+                              "expected counterexample not found")
+                    print(f"  {detail}", file=sys.stderr)
+            b = irep.bound
+            if (b["safe_ok"] and b["below_ok"]
+                    and b["counterexample_without_event_wait"]):
+                cx = next(c.counterexample for c in irep.checks
+                          if c.expect_violation
+                          and c.check.startswith("arena"))
+                print(f"fsx sync: arena bound under the event guard: "
+                      f"depth+ring+1 = {b['safe_slots']} slots pass all "
+                      f"{b['interleavings_at_safe']} interleavings; "
+                      f"{b['below_slots']} slots pass all "
+                      f"{b['interleavings_below']} ({b['waited_below']} "
+                      "waited on a slot's event): a throughput bound, "
+                      "not a safety bound; a claim without its event "
+                      f"wait fails at {b['below_slots']} slots:")
+                print("  " + str(cx).replace("\n", "\n  "))
+    return _finish_report("sync", out, args, "PASS")
+
+
+def _cmd_crash(args: argparse.Namespace) -> int:
+    """Crash-consistency model checking of the port's durable-state
+    protocols (:mod:`.crash`), as the reference's ``fsx crash``: the real
+    handoff, adoption, layout flip and checkpoint rotation over a
+    simulated filesystem, a crash at every atomic step, the invariant
+    catalog, and the four planted regressions.  ``--quick`` trims the
+    torn-file fan-out (same crash points)."""
+    from flowsentryx_tpu_torch.crash import run_crash
+
+    rep = run_crash(quick=args.quick)
+    if not args.json:
+        for s in rep["scenarios"]:
+            status = "OK" if s["violations"] == 0 else "FAILED"
+            print(f"fsx crash: {s['scenario']}: {status} "
+                  f"({s['crash_points']} crash points, "
+                  f"{s['states_explored']} durable states, "
+                  f"{s['recoveries']} recoveries"
+                  + (", CAPPED" if s["capped"] else "") + ")")
+            if s["counterexample"]:
+                print("  " + s["counterexample"].replace("\n", "\n  "),
+                      file=sys.stderr)
+        for p in rep["plants"]:
+            ok = p["caught"] and p["control_ok"]
+            why = ("caught by " + p["caught_by"] if p["caught"]
+                   else "NOT CAUGHT")
+            if not p["control_ok"]:
+                why += "; control run dirty"
+            print(f"fsx crash: plant {p['plant']}: "
+                  f"{'OK' if ok else 'FAILED'} ({why})")
+            if p["schedule"] and not args.quiet_plants:
+                print("  " + p["schedule"].replace("\n", "\n  "))
+    t = rep["totals"]
+    return _finish_report(
+        "crash", rep, args,
+        f"PASS ({t['crash_points']} crash points, "
+        f"{t['states_explored']} durable states, "
+        f"{t['recoveries']} recoveries, {rep['elapsed_s']} s)")
+
+
+def _cmd_live(args: argparse.Namespace) -> int:
+    """Liveness and progress model checking (:mod:`.live`), as the
+    reference's ``fsx live``: state-graph search over the port's real
+    protocol objects (deadlock, livelock under weak fairness, bounded
+    starvation), the four planted regressions, and the PROGRESS registry
+    audit, which also covers every ``synchronize()`` wait on the
+    device.  ``--quick`` trims the handoff drop-edge fan-out."""
+    from flowsentryx_tpu_torch.live.checker import run_live
+
+    rep = run_live(quick=args.quick)
+    if not args.json:
+        for c in rep["checks"]:
+            status = "OK" if c["ok"] else "FAILED"
+            print(f"fsx live: {c['check']}: {status} "
+                  f"({c['states']} states, {c['edges']} edges, "
+                  f"{c['terminals']} terminals"
+                  + (", CAPPED" if c["capped"] else "") + ")")
+            if c["counterexample"] and not c["ok"]:
+                cx = c["counterexample"]
+                print(f"  {cx['detail']}", file=sys.stderr)
+                print("  schedule: "
+                      + " -> ".join(cx["schedule"]), file=sys.stderr)
+        for p in rep["plants"]:
+            ok = p["caught"] and p["control_ok"]
+            why = ("caught by " + str(p["caught_by"]) if p["caught"]
+                   else "NOT CAUGHT")
+            if not p["control_ok"]:
+                why += "; control run dirty"
+            print(f"fsx live: plant {p['plant']}: "
+                  f"{'OK' if ok else 'FAILED'} ({why})")
+            if p["schedule"] and not args.quiet_plants:
+                print("  " + p["detail"])
+                print("  schedule: " + " -> ".join(p["schedule"]))
+        reg = rep["registry"]
+        print(f"fsx live: registry: "
+              f"{'OK' if reg['ok'] else 'FAILED'} "
+              f"({reg['entries']} entries, {reg['sites']} blocking "
+              f"sites)")
+        for f in reg["findings"]:
+            print(f"  {f}", file=sys.stderr)
+    t = rep["totals"]
+    return _finish_report(
+        "live", rep, args,
+        f"PASS ({t['checks']} checks, {t['states']} states, "
+        f"{t['steps']} steps, {t['plants']} plants, {rep['elapsed_s']} s)")
+
+
 def _cmd_chaos(args: argparse.Namespace) -> int:
     """The deterministic fault-injection campaign over the port's stack
     (:mod:`.chaos`), printed as the reference's ``fsx chaos`` prints it,
@@ -2272,6 +2445,56 @@ def build_parser() -> argparse.ArgumentParser:
                          "reads the BPF plane, which is not ported (a "
                          "run without it skips the bridge with a note)")
     rg.set_defaults(fn=_cmd_ranges)
+
+    sy = sub.add_parser(
+        "sync",
+        help="statically verify the host plane: thread contracts over "
+             "the port's source + bounded-interleaving model checks of "
+             "its real protocol objects (no device work)")
+    sy.add_argument("--quick", action="store_true",
+                    help="thread-contract lint only (milliseconds): skip "
+                         "the interleaving model checker")
+    sy.add_argument("--json", action="store_true",
+                    help="machine-readable report")
+    sy.add_argument("--out", metavar="PATH",
+                    help="also write the JSON report here")
+    sy.set_defaults(fn=_cmd_sync)
+
+    cr = sub.add_parser(
+        "crash",
+        help="crash-consistency model checking: the real durable-state "
+             "protocols (handoff, adoption, layout flip, checkpoint "
+             "rotation) over a simulated fs, a crash at every atomic "
+             "step, the invariant catalog (no device work)")
+    cr.add_argument("--quick", action="store_true",
+                    help="trim the torn-file fan-out per crash point "
+                         "(same crash points and protocols)")
+    cr.add_argument("--json", action="store_true",
+                    help="machine-readable report")
+    cr.add_argument("--out", metavar="PATH",
+                    help="also write the JSON report here")
+    cr.add_argument("--quiet-plants", action="store_true",
+                    help="suppress the planted regressions' printed "
+                         "crash schedules (kept in the JSON report)")
+    cr.set_defaults(fn=_cmd_crash)
+
+    lv = sub.add_parser(
+        "live",
+        help="liveness & progress model checking over the real protocol "
+             "objects (deadlock, livelock under weak fairness, bounded "
+             "starvation) and the PROGRESS registry audit of every "
+             "blocking loop and device wait (no device work)")
+    lv.add_argument("--quick", action="store_true",
+                    help="trim the handoff drop-edge fan-out (same "
+                         "protocols and plants)")
+    lv.add_argument("--json", action="store_true",
+                    help="machine-readable report")
+    lv.add_argument("--out", metavar="PATH",
+                    help="also write the JSON report here")
+    lv.add_argument("--quiet-plants", action="store_true",
+                    help="suppress the planted regressions' printed "
+                         "catching schedules (kept in the JSON report)")
+    lv.set_defaults(fn=_cmd_live)
 
     v = sub.add_parser("version", help="print version")
     v.set_defaults(fn=_cmd_version)

@@ -253,13 +253,22 @@ class GossipPlane:
         dry (3 idle ticks in a row) and, with ``peers_quiet``, until it
         says every peer stopped publishing — bounded by ``timeout_s``
         (a peer that serves on is a live cluster, not a drain)."""
+        for _ in self._quiesce_steps(timeout_s, peers_quiet):
+            time.sleep(self.merge_interval_s)
+
+    def _quiesce_steps(self, timeout_s: float, peers_quiet=None,
+                       clock=time.monotonic):
+        """The loop of :meth:`quiesce`, one yield per iteration that has
+        not converged: it returns on convergence or at the deadline.
+        ``fsx live`` (``quiesce_terminates``) drives this generator under
+        a model clock; :meth:`quiesce` is it plus a real sleep."""
         idle = 0
-        deadline = time.monotonic() + timeout_s
-        while time.monotonic() < deadline:
+        deadline = clock() + timeout_s
+        while clock() < deadline:
             idle = idle + 1 if self.tick(force=True) == 0 else 0
             if idle >= 3 and (peers_quiet is None or peers_quiet()):
                 return
-            time.sleep(self.merge_interval_s)
+            yield
 
     def stop_requested(self) -> bool:
         return self.status.ctl_get("c_stop") != 0

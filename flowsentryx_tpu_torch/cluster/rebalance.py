@@ -63,10 +63,16 @@ While ``c_fence`` names a handoff, producers hold back new records of
 the moving shards, so the span's rows do not change between extract and
 flip; the donor keeps serving its other shards meanwhile, except while
 it ships (a full mailbox blocks it until the recipient drains).
+
+Every durable file goes through :mod:`..core.durable`'s filesystem seam
+and every handoff mailbox through :func:`mailbox_cls`, so ``fsx crash``
+(:mod:`flowsentryx_tpu_torch.crash`) runs this module's real protocol
+over a simulated filesystem and mailbox.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -143,10 +149,11 @@ def load_spool(path: Path) -> dict | None:
     """The staged spool's contents, ``None`` when absent; a torn or
     corrupt file raises ``ValueError``."""
     path = Path(path)
-    if not path.exists():
+    fs = durable.get_fs()
+    if not fs.exists(path):
         return None
     try:
-        with np.load(io.BytesIO(path.read_bytes())) as z:
+        with np.load(io.BytesIO(fs.read_bytes(path))) as z:
             return {"keys": np.asarray(z["keys"], np.uint32),
                     "states": np.asarray(z["states"], np.float32),
                     "handoff_id": int(z["handoff_id"]),
@@ -165,7 +172,8 @@ def discard_uncommitted_spool(cluster_dir: str | Path,
     committed generation is the shipped rows' last durable copy until
     the recipient's next checkpoint.  True when a spool was removed."""
     spool = staged_path(cluster_dir, rank)
-    if not spool.exists():
+    fs = durable.get_fs()
+    if not fs.exists(spool):
         return False
     asg = ShardAssignment.load(cluster_dir)
     gen = asg.generation if asg is not None else -1
@@ -176,7 +184,7 @@ def discard_uncommitted_spool(cluster_dir: str | Path,
     except ValueError:
         pass  # torn: nothing adoptable in it
     try:
-        spool.unlink()
+        fs.unlink(spool)
     except OSError:
         return False
     return True
@@ -251,9 +259,10 @@ class ShardAssignment:
     @classmethod
     def load(cls, cluster_dir: str | Path) -> "ShardAssignment | None":
         p = layout_path(cluster_dir)
-        if not p.exists():
+        fs = durable.get_fs()
+        if not fs.exists(p):
             return None
-        d = json.loads(p.read_text())
+        d = json.loads(fs.read_text(p))
         return cls(generation=int(d["generation"]),
                    owners=tuple(int(r) for r in d["owners"]))
 
@@ -474,6 +483,32 @@ class HandoffMailbox:
         return int(self._head[0]) - int(self._tail[0])
 
 
+#: The mailbox class behind :func:`mailbox_cls` (swapped by
+#: :func:`use_mailbox_cls`).
+_MAILBOX_CLS = HandoffMailbox
+
+
+def mailbox_cls():
+    """The handoff mailbox class every protocol site creates and opens
+    mailboxes through: :class:`HandoffMailbox` unless ``fsx crash``
+    swapped a simulated one in (``cls.create(path, ...)`` and
+    ``cls(path)``)."""
+    return _MAILBOX_CLS
+
+
+@contextlib.contextmanager
+def use_mailbox_cls(cls):
+    """Put ``cls`` behind :func:`mailbox_cls` for the ``with`` block;
+    the previous class comes back on exit."""
+    global _MAILBOX_CLS
+    prev = _MAILBOX_CLS
+    _MAILBOX_CLS = cls
+    try:
+        yield cls
+    finally:
+        _MAILBOX_CLS = prev
+
+
 def ship_rows(mbx: HandoffMailbox, keys, states, *,
               timeout_s: float = tuning.HANDOFF_SHIP_TIMEOUT_S,
               on_slot=None) -> tuple[int, int]:
@@ -668,7 +703,7 @@ def load_ckpt_rows(path: str | Path) -> tuple[np.ndarray, np.ndarray]:
     path = Path(path)
     entries: dict[str, np.ndarray] = {}
     stored_crc = None
-    with np.load(io.BytesIO(path.read_bytes())) as z:
+    with np.load(io.BytesIO(durable.get_fs().read_bytes(path))) as z:
         for name in z.files:
             if name == "integrity_crc32":
                 stored_crc = int(z[name])
@@ -728,10 +763,11 @@ class EngineRebalancer:
 
     def _handoff(self, handoff_id: int) -> dict | None:
         p = handoff_json_path(self.cluster_dir)
-        if not p.exists():
+        fs = durable.get_fs()
+        if not fs.exists(p):
             return None
         try:
-            d = json.loads(p.read_text())
+            d = json.loads(fs.read_text(p))
         except (OSError, ValueError):
             return None
         return d if d.get("id") == handoff_id else None
@@ -783,7 +819,8 @@ class EngineRebalancer:
         (``to_gen <= _acked_gen``); a newer one belongs to a handoff in
         flight and stays."""
         spool = staged_path(self.cluster_dir, self.rank)
-        if not spool.exists():
+        fs = durable.get_fs()
+        if not fs.exists(spool):
             return False
         try:
             sp = load_spool(spool)
@@ -792,7 +829,7 @@ class EngineRebalancer:
         if sp is None or sp["to_gen"] > self._acked_gen:
             return False
         try:
-            spool.unlink()
+            fs.unlink(spool)
         except OSError:
             return False
         return True
@@ -844,8 +881,8 @@ class EngineRebalancer:
                 return True
             keys, states = eng.extract_span_rows(
                 h["shards"], h["total_shards"])
-            mbx = HandoffMailbox(handoff_mailbox_path(self.cluster_dir,
-                                                      fence))
+            mbx = mailbox_cls()(handoff_mailbox_path(self.cluster_dir,
+                                                     fence))
             on_slot = None
             if self.crash_midship:
                 def on_slot(i, n):
@@ -859,7 +896,7 @@ class EngineRebalancer:
         if h.get("recipient") == self.rank and phase < wire.HP_STAGED:
             if self._mbx is None or self._mbx_hid != fence:
                 try:
-                    self._mbx = HandoffMailbox(
+                    self._mbx = mailbox_cls()(
                         handoff_mailbox_path(self.cluster_dir, fence))
                 except (OSError, RingNotReady):
                     self._mbx = None
@@ -893,9 +930,10 @@ class EngineRebalancer:
             return False  # layout.json not visible yet; next tick
         h = None
         p = handoff_json_path(self.cluster_dir)
-        if p.exists():
+        fs = durable.get_fs()
+        if fs.exists(p):
             try:
-                h = json.loads(p.read_text())
+                h = json.loads(fs.read_text(p))
             except (OSError, ValueError):
                 h = None
         if h is not None and h.get("to_gen") == gen:

@@ -164,7 +164,7 @@ def _serve(spec: dict, plane: GossipPlane) -> None:
         gossip=plane,
         compile_cache=spec.get("compile_cache"),
     )
-    eng.boot_import_s = round(import_s, 4)
+    eng.boot_import_s = round(import_s, 6)
     restore_info = None
     if spec.get("restore"):
         restore_info = eng.restore(spec["restore"])

@@ -43,7 +43,7 @@ from pathlib import Path
 
 from flowsentryx_tpu_torch.cluster import gossip as gplane
 from flowsentryx_tpu_torch.cluster.mailbox import StatusBlock, status_path
-from flowsentryx_tpu_torch.core import wire
+from flowsentryx_tpu_torch.core import durable, wire
 # numpy-only engine leaves (engine/__init__ resolves lazily): the HDR
 # histogram the per-rank reports carry, the health ladder, the
 # governor's report merge
@@ -65,6 +65,15 @@ def _pid_alive(pid: int) -> bool:
     except PermissionError:
         return True  # exists, another uid
     return True
+
+
+def _heartbeat_age_ns(st: StatusBlock) -> tuple[int, int]:
+    """A rank's heartbeat and its age.  The clock is read after the
+    heartbeat: read before it, a rank that ticks in between shows a
+    negative age and passes for a heartbeat from the future (a
+    reboot's), i.e. for a dead rank."""
+    hb = st.ctl_get("c_hbeat")
+    return hb, time.clock_gettime_ns(time.CLOCK_MONOTONIC) - hb
 
 
 class ClusterSupervisor:
@@ -291,7 +300,6 @@ class ClusterSupervisor:
                 f"adopt=True: plane has {meta.get('n_engines')} "
                 f"engines, this supervisor supervises {self.n} — an "
                 "adopted fleet must match the plane's shape")
-        now_ns = time.clock_gettime_ns(time.CLOCK_MONOTONIC)
         dead: list[int] = []
         for r in range(self.n):
             st = StatusBlock(status_path(self.cluster_dir, r))
@@ -303,9 +311,9 @@ class ClusterSupervisor:
                 self.t0_wall_ns = st.ctl_get("c_t0_wall") or None
             self._gen[r] = st.ctl_get("c_gen")
             state = st.ctl_get("c_state")
-            hb = st.ctl_get("c_hbeat")
+            hb, age_ns = _heartbeat_age_ns(st)
             pid = st.ctl_get("c_pid")
-            fresh = (hb and 0 <= now_ns - hb
+            fresh = (hb and 0 <= age_ns
                      < 2 * self.heartbeat_timeout_s * 1e9)
             if state in _LIVE and fresh and pid and _pid_alive(pid):
                 # serving: adopted untouched, judged by its pid from now
@@ -336,7 +344,6 @@ class ClusterSupervisor:
         fine to stomp; a live one is adopted (:meth:`_adopt_plane`).  A
         heartbeat from the future (the monotonic clock restarted at a
         reboot) is stale."""
-        now_ns = time.clock_gettime_ns(time.CLOCK_MONOTONIC)
         live = []
         for r in range(self.n):
             p = Path(status_path(self.cluster_dir, r))
@@ -344,13 +351,14 @@ class ClusterSupervisor:
                 continue
             try:
                 st = StatusBlock(p)
-                state, hb = st.ctl_get("c_state"), st.ctl_get("c_hbeat")
+                state = st.ctl_get("c_state")
+                hb, age_ns = _heartbeat_age_ns(st)
             except Exception:
                 continue  # a partial or corrupt leftover: not a fleet
             if (state in _LIVE and hb
-                    and 0 <= now_ns - hb
+                    and 0 <= age_ns
                     < 2 * self.heartbeat_timeout_s * 1e9):
-                live.append((r, (now_ns - hb) * 1e-9))
+                live.append((r, age_ns * 1e-9))
         if live:
             detail = ", ".join(
                 f"rank {r} heartbeated {age:.1f}s ago" for r, age in live)
@@ -589,11 +597,11 @@ class ClusterSupervisor:
             slots = 1
             while slots < need:
                 slots *= 2
-            mbx = rb.HandoffMailbox.create(mbx_path, slots=slots,
-                                           rows_per_slot=per)
+            mbx = rb.mailbox_cls().create(mbx_path, slots=slots,
+                                          rows_per_slot=per)
             rb.ship_rows(mbx, keys, states)
         else:
-            rb.HandoffMailbox.create(mbx_path)
+            rb.mailbox_cls().create(mbx_path)
         rb._write_atomic(rb.handoff_json_path(self.cluster_dir),
                          json.dumps({
                              "id": hid, "shards": shards,
@@ -699,7 +707,7 @@ class ClusterSupervisor:
         for p in (rb.handoff_json_path(self.cluster_dir),
                   Path(rb.handoff_mailbox_path(self.cluster_dir, hid))):
             try:
-                p.unlink()
+                durable.get_fs().unlink(p)
             except OSError:
                 pass
 
@@ -744,10 +752,11 @@ class ClusterSupervisor:
 
         self._clear_fences()
         p = rb.handoff_json_path(self.cluster_dir)
-        if not p.exists():
+        fs = durable.get_fs()
+        if not fs.exists(p):
             return
         try:
-            stale = json.loads(p.read_text())
+            stale = json.loads(fs.read_text(p))
         except (OSError, ValueError):
             stale = {}
         hid = int(stale.get("id", 0) or 0)
@@ -801,7 +810,7 @@ class ClusterSupervisor:
             ck_file = Path(self._ckpt_file(ckpt))
             prev = ck_file.with_name(ck_file.name + ".prev")
             for cand in (ck_file, prev):
-                if cand.exists():
+                if durable.get_fs().exists(cand):
                     try:
                         keys, states = rb.load_ckpt_rows(cand)
                         break

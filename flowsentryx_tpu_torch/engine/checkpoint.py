@@ -125,7 +125,7 @@ def save_state(path: str | Path, table: schema.IpTableState,
 
 def _read(path: Path) -> bytes:
     try:
-        data = path.read_bytes()
+        data = durable.get_fs().read_bytes(path)
     except OSError as e:
         raise CheckpointCorrupt(
             f"checkpoint {path} is unreadable: {e}") from e

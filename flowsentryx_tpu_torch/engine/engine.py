@@ -187,10 +187,6 @@ from flowsentryx_tpu_torch.parallel import step as pstep
 from flowsentryx_tpu_torch.sync import tuning
 from flowsentryx_tpu_torch.sync.channel import SinkChannel
 
-#: Idle-link backoff of the serving loops, past the spin window
-#: (``tuning.IDLE_SPIN_S``).
-_IDLE_SLEEP_S = 50e-6
-
 #: ``Engine(mega_n="auto")`` / ``serve --mega auto``: the largest group
 #: size of the adaptive power-of-two ladder (rungs 8, 4, 2), as in the
 #: reference.
@@ -824,7 +820,8 @@ class Engine:
         else:
             gr = StepGraph(self.megasteps[key], self.table, self.stats,
                            self.params, (key, b + 1, words), **kw)
-        self._graphs[key] = gr
+        # one rebind: the fill thread publishes a graph beside serving
+        self._graphs = {**self._graphs, key: gr}
         return {"source": "capture", "seconds": round(gr.capture_s, 4),
                 "nodes": gr.nodes}
 
@@ -1796,7 +1793,7 @@ class Engine:
                 < tuning.IDLE_SPIN_S):
             time.sleep(tuning.GIL_YIELD_S)
         else:
-            time.sleep(_IDLE_SLEEP_S)
+            time.sleep(tuning.IDLE_SLEEP_S)
 
     def _run_inline(self, bounded) -> None:
         """The record-source loop: poll -> batch -> dispatch -> reap."""
@@ -2372,7 +2369,9 @@ class Engine:
         rep = dict(snap)
         if self._cache is not None:
             rep["cache"] = self._cache.report()
-        rep["import_s"] = round(self.boot_import_s, 4)
+        # µs: an import of modules this process already holds takes
+        # tens of µs, which 4 places round to 0
+        rep["import_s"] = round(self.boot_import_s, 6)
         if self.boot_reconcile_s is not None:
             # a cluster rank's boot-time reconcile (cluster/rebalance.py):
             # a full host fetch of the table, on the path to serving

@@ -22,8 +22,14 @@ GIL_YIELD_S = 0.0
 #: on the card's host, a whole budget at ``--slo-us 1000``, so a link
 #: that was busy in the last 10 ms (a pulse train, a bursty daemon ring)
 #: is polled within tens of µs; an idle one falls back to
-#: ``Engine``'s idle sleep.
+#: :data:`IDLE_SLEEP_S`.
 IDLE_SPIN_S = 10e-3
+
+#: The serving loops' idle sleep past the spin window: a link idle for
+#: longer than :data:`IDLE_SPIN_S` is re-polled after one such sleep
+#: (``Engine._idle``), which is the bound ``fsx live``'s registry gives
+#: the serving loops.
+IDLE_SLEEP_S = 50e-6
 
 #: Backpressure wait quantum of ``SinkChannel.wait_below``: every state
 #: change notifies the condition variable, so this only bounds how

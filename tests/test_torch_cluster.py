@@ -23,6 +23,7 @@ package's.
 """
 
 import json
+import os
 import platform
 import subprocess
 import sys
@@ -584,6 +585,64 @@ def test_supervisor_refuses_live_plane(tmp_path):
     sup = _sup(tmp_path, [{"stub_serve_s": 0.1}, {"stub_serve_s": 0.1}])
     sup.boot()
     assert sup.run()["failed_ranks"] == []
+
+
+def _tick_after_each_clock_read(monkeypatch, st) -> None:
+    """A serving rank that heartbeats right after every read of the
+    monotonic clock (its 10 ms tick landing between the supervisor's
+    clock read and its heartbeat read).  The clock is a counter, 1 µs a
+    read, so the interleaving is the same on every run."""
+    real = time.clock_gettime_ns
+    now = [real(time.CLOCK_MONOTONIC)]
+    st.ctl_set("c_hbeat", now[0])
+
+    def clock(clk):
+        if clk != time.CLOCK_MONOTONIC:
+            return real(clk)
+        now[0] += 1000
+        st.ctl_set("c_hbeat", now[0] + 1)
+        return now[0]
+
+    monkeypatch.setattr(time, "clock_gettime_ns", clock)
+
+
+def test_census_adopts_a_rank_that_ticks_after_the_clock_read(
+        tmp_path, monkeypatch):
+    """A live rank whose heartbeat is newer than the census' clock read
+    is adopted, not respawned as dead (a second consumer of its span)."""
+    d = tmp_path / "cl"
+    gossip.create_plane(d, 2)
+    sts = [mailbox.StatusBlock(mailbox.status_path(d, r)) for r in (0, 1)]
+    for st in sts:
+        st.ctl_set("c_state", wire.CSTATE_SERVING)
+        st.ctl_set("c_pid", os.getpid())
+        st.ctl_set("c_t0", time.clock_gettime_ns(time.CLOCK_MONOTONIC))
+        st.ctl_set("c_hbeat", time.clock_gettime_ns(time.CLOCK_MONOTONIC))
+    _tick_after_each_clock_read(monkeypatch, sts[0])
+    sup = _sup(tmp_path, [{"stub_serve_s": 0.1}, {"stub_serve_s": 0.1}])
+    try:
+        sup.boot(adopt=True)
+        assert sup._adopted == {0, 1} and sup.restarts == [0, 0]
+        assert sup._procs == [None, None]
+    finally:
+        sup.close()
+
+
+def test_live_plane_refused_when_a_rank_ticks_after_the_clock_read(
+        tmp_path, monkeypatch):
+    """A live rank whose heartbeat is newer than the boot check's clock
+    read keeps its plane from being stomped."""
+    d = tmp_path / "cl"
+    gossip.create_plane(d, 2)
+    st = mailbox.StatusBlock(mailbox.status_path(d, 0))
+    st.ctl_set("c_state", wire.CSTATE_SERVING)
+    _tick_after_each_clock_read(monkeypatch, st)
+    sup = _sup(tmp_path, [{"stub_serve_s": 0.1}, {"stub_serve_s": 0.1}])
+    try:
+        with pytest.raises(RuntimeError, match="rank 0 heartbeated"):
+            sup.boot()
+    finally:
+        sup.close()
 
 
 def test_aggregate_equals_reference(tmp_path):
