@@ -284,7 +284,9 @@ more.
     seal -> verdict count is the ranks' sum, the latency, predict, boot
     and health merges equal the supervisor's ``aggregate()`` of that
     fleet, the p99 alert fires, the degraded alert fires exactly when a
-    rank is not healthy, and the drained feature ring's backlog is 0.
+    rank is not healthy, the drained feature ring's backlog is 0, and
+    each record's ``kernel`` key (``--pin`` a directory without maps)
+    names the maps it could not read.
 44. ``scenario_suite`` (after ``train_distill_serve``): the five BASELINE
     configs (``benchmarks.run_suite(scale=1.0, names=[config])``, one
     launch window per config: the token bucket at 2^14 rows, the
@@ -428,8 +430,9 @@ more.
     direction, memset, host nodes -- with no host node and no
     host-ended memcpy, a steady-state D2H of 528 B); ``fsx ranges`` with
     the same flags (PASS: every ``WRAP_OK`` and float64-allowlist entry
-    matched, nothing unmodeled, the negatives fired, the bridge skipped
-    with its note); ``Engine(audit=True)`` against an engine without
+    matched, nothing unmodeled, the negatives fired, and the BPF
+    containment bridge over ``artifacts/logreg_int8.npz`` contained, its
+    accumulator interval the artifact's closed form); ``Engine(audit=True)`` against an engine without
     it over the same 64 batches of ``mixed_l34_1m`` (blacklist, stats
     and table digest equal; 528 B of D2H per batch served), a second
     engine of that shape whose boot audit hits the cache with
@@ -455,6 +458,31 @@ more.
     in here for that engine only: the table digest must differ.
     ``score_int8`` once per batch in each arm's window.  Alone:
     ``python3 scripts/torch_host_legs_phase.py``.
+60. ``bpf_plane`` (``bpf_plane_phase``), the eBPF plane's legs that reach
+    the card, its host leg at the same time in a child process
+    (``bpf_host_leg``: the static verifier over the two ``ml`` programs,
+    then ``contracts.run_all`` with the sealed images).  (a) ``python -m
+    flowsentryx_tpu_torch.cli distill A --check --emulate --emulate-n N
+    --device cuda`` in process for ``artifacts/logreg_int8.npz`` and
+    ``train_qat_deployed``'s artifact at N = 10,000 and 65,536: rc 0, 0
+    band mismatches among the emitted bytecode (the emulator), the
+    plan's twin and ``score_int8`` on the card, both ``ml`` programs
+    verified; each run's launch window (``score_int8`` once, on the
+    whole corpus); ``score_int8`` against its plain version on the same
+    corpus, exact.  (b) ``fsx ranges --quick --mega 0 --artifact`` (the
+    trained artifact) on the card: PASS, the bridge contained, its
+    accumulator interval the closed form, the final MAC probe's and the
+    band exit's ``[umin, umax]``.  (d) Where ``bpf(2)`` is permitted:
+    both ``ml`` programs loaded through the kernel's verifier, the
+    distilled blob pushed and 256 crafted young flows run through
+    ``BPF_PROG_TEST_RUN`` (``bpf/xdp.py::ml_band_leg``): every scored
+    packet's kernel band equals ``score_int8``'s on the card, the
+    emulator's and the plan's, all three bands present; and on bpffs
+    under a per-process directory ``block``, ``blacklist``,
+    ``status --pin``, ``monitor --pin`` and ``unblock`` round-trip.
+    Without ``bpf(2)`` the phase says ``"bpf_available": false`` and
+    names the legs not run.  Alone: ``python3
+    scripts/torch_bpf_plane_phase.py``.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -2776,8 +2804,8 @@ def static_audit_phase(card: str, served: dict) -> None:
                                  for v in arep["variants"])
         # 2. fsx ranges
         t = time.perf_counter()
-        rc, _ = quiet(["ranges", *flags, "--json", "--out",
-                       os.path.join(root, "ranges.json")])
+        rc, _ = quiet(["ranges", *flags, "--artifact", artifact, "--json",
+                       "--out", os.path.join(root, "ranges.json")])
         res["ranges_s"] = round(time.perf_counter() - t, 3)
         with open(os.path.join(root, "ranges.json")) as f:
             rrep = json.load(f)
@@ -2792,8 +2820,12 @@ def static_audit_phase(card: str, served: dict) -> None:
             not v["unmodeled"] for v in rrep["variants"])
         checks["ranges_registry_matched"] = not rrep["registry_findings"]
         checks["ranges_negatives_fired"] = rrep["negative_controls"]["ok"]
-        checks["bridge_skipped_with_note"] = rrep["bridge"] is None and any(
-            "containment bridge skipped" in n for n in rrep["notes"])
+        b = rrep["bridge"] or {}
+        res["bridge"] = {k: b.get(k) for k in (
+            "ok", "acc_zp_folded", "closed_form", "kernel_acc",
+            "bpf_final_mac", "bpf_band", "seconds")}
+        checks["bridge_contained"] = b.get("ok") is True and (
+            b.get("acc_zp_folded") == b.get("closed_form"))
         # 3. an audited engine against one without the audit
         cfg = FsxConfig(table=TableConfig(capacity=TABLE_CAP,
                                           salt=SEED & 0xFFFFFFFF),
@@ -3129,6 +3161,265 @@ def host_legs_phase(card: str, served: dict) -> None:
         return {"ok": all(checks.values()), **res}
 
     legs_phase()
+
+
+def bpf_host_leg(out_path: str) -> None:
+    """``bpf_plane``'s host leg, run in a child process: the static
+    verifier over the two ``ml`` programs (seconds, instructions and
+    states of each), then ``contracts.run_all`` with the sealed images;
+    one JSON object to ``out_path``."""
+    from flowsentryx_tpu_torch.bpf import contracts, progs, verifier
+
+    out: dict = {"verify": {}}
+    for tag, compact in (("ml_raw48", False), ("ml_compact16", True)):
+        t = time.perf_counter()
+        try:
+            rep = verifier.check_program_cached(progs.build(compact=compact,
+                                                            ml=True))
+            out["verify"][tag] = {"ok": True, "insns": rep.n_insns,
+                                  "states": rep.insns_visited,
+                                  "s": round(time.perf_counter() - t, 3)}
+        except verifier.StaticVerifierError as e:
+            out["verify"][tag] = {"ok": False, "error": str(e)}
+    t = time.perf_counter()
+    crep = contracts.run_all(with_images=True)
+    out["contracts"] = {"ok": crep.ok, "failures": crep.failures,
+                        "checks": sorted(crep.checks),
+                        "s": round(time.perf_counter() - t, 3)}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def bpf_plane_phase(card: str, served: dict, trained_path: str) -> None:
+    """``bpf_plane`` (module docstring, 60): the eBPF plane's legs that
+    reach the card, with the host leg in a child process at the same
+    time.  Each ``distill`` run's launch window goes to ``served``."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from flowsentryx_tpu_torch import cli
+    from flowsentryx_tpu_torch.bpf import loader, xdp
+    from flowsentryx_tpu_torch.core.config import FsxConfig, LimiterConfig
+    from flowsentryx_tpu_torch.distill import emulate, parity
+    from flowsentryx_tpu_torch.distill import plan as dplan
+    from flowsentryx_tpu_torch.models import logreg
+    from flowsentryx_tpu_torch.ops import kernels
+    from flowsentryx_tpu_torch.ranges import bridge
+
+    root = os.path.join(REPO, "build", "bpf_plane")
+    os.makedirs(root, exist_ok=True)
+    artifacts = {"logreg_int8.npz": os.path.join(REPO, "artifacts",
+                                                 "logreg_int8.npz"),
+                 "trained": trained_path}
+
+    def quiet(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        return rc, buf.getvalue()
+
+    @phase("bpf_plane")
+    def plane_phase():
+        res: dict = {"card": card}
+        checks: dict = {}
+        # (c) the host leg, concurrent with the card legs
+        host_out = os.path.join(root, "host.json")
+        if os.path.exists(host_out):
+            os.unlink(host_out)
+        child = subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.bpf_host_leg(%r)" % host_out],
+            cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            # (a) fsx distill --check --emulate on the card, both
+            # artifacts, at the acceptance size and at 2^16 vectors
+            windows, shapes, legs = {}, {}, {}
+            for name, path in artifacts.items():
+                for n in (10000, 65536):
+                    key = f"{name}/{n}"
+                    kernels.reset_launches()     # this run's window opens
+                    t = time.perf_counter()
+                    rc, out = quiet(["distill", path, "--check",
+                                     "--emulate", "--emulate-n", str(n),
+                                     "--json", "--device", "cuda"])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t
+                    windows[key] = dict(kernels.LAUNCHES)   # ... closes
+                    rep = json.loads(out)
+                    em = rep["emulate"]
+                    shapes[key] = [em["vectors"], 8]
+                    legs[key] = {
+                        "rc": rc, "ok": rep["ok"], "s": round(wall, 3),
+                        "vectors": em["vectors"],
+                        "served_mismatches": em["jax_mismatches"],
+                        "sim_mismatches": em["sim_mismatches"],
+                        "split": em["split"],
+                        "escalation_ratio": em["escalation_ratio"],
+                        "emulator_vectors_per_s":
+                            em["emulator_vectors_per_s"],
+                        "served_device": em["served_device"],
+                        "check": {k: v["ok"]
+                                  for k, v in rep["check"].items()}}
+                    checks[f"distill_{key}"] = (
+                        rc == 0 and rep["ok"] and em["jax_mismatches"] == 0
+                        and em["sim_mismatches"] == 0
+                        and em["vectors"] == n
+                        and em["served_device"].startswith("cuda")
+                        and windows[key]["score_int8"] == 1)
+                    # score_int8 against its plain version on the same
+                    # corpus (outside the window)
+                    saved = dict(kernels.LAUNCHES)
+                    params = logreg.load_params(path, "cuda")
+                    p = dplan.compile_plan(params)
+                    x = torch.from_numpy(parity.corpus(p, n).astype(
+                        np.int64)).to("cuda").float()
+                    got = kernels.score_int8(params, x)
+                    want = kernels.score_int8_plain(params, x)
+                    torch.cuda.synchronize()
+                    legs[key]["kernel_vs_plain_mismatches"] = int(
+                        (got != want).sum())
+                    legs[key]["kernel_vs_plain_max_abs_err"] = float(
+                        (got - want).abs().max())
+                    checks[f"plain_{key}"] = bool(torch.equal(got, want))
+                    kernels.LAUNCHES.update(saved)
+            served["launches_bpf_plane"] = windows
+            served["bpf_plane_shapes"] = shapes
+            res["distill"] = legs
+            # (b) the containment bridge: fsx ranges --artifact on the
+            # card for the trained artifact (the shipped one's bridge
+            # runs in static_audit's fsx ranges), and the record
+            t = time.perf_counter()
+            rc, out = quiet(["ranges", "--quick", "--mega", "0",
+                             "--artifact", trained_path, "--json",
+                             "--device", "cuda"])
+            rrep = json.loads(out)
+            b = rrep.get("bridge") or {}
+            res["bridge"] = {
+                "rc": rc, "ok": rrep["ok"], "ranges_s":
+                    round(time.perf_counter() - t, 3),
+                "bridge_s": b.get("seconds"),
+                "final_mac": [(b.get("bpf_final_mac") or {}).get(k)
+                              for k in ("umin", "umax")],
+                "band": [(b.get("bpf_band") or {}).get(k)
+                         for k in ("umin", "umax")],
+                "acc_zp_folded": b.get("acc_zp_folded"),
+                "closed_form": b.get("closed_form"),
+                "kernel_acc": b.get("kernel_acc")}
+            checks["bridge_contained"] = (
+                rc == 0 and b.get("ok") is True
+                and b.get("acc_zp_folded") == b.get("closed_form"))
+            # (d) the XDP legs, where bpf(2) is permitted
+            res["bpf_available"] = loader.bpf_available()
+            pin = xdp.bpffs_dir("chip") if res["bpf_available"] else None
+            res["bpffs_writable"] = pin is not None
+            if not res["bpf_available"]:
+                res["legs_not_run"] = ["kernel_load", "kernel_bands",
+                                       "pinned_maps"]
+            else:
+                res["xdp"] = {}
+                params = logreg.load_params(artifacts["logreg_int8.npz"],
+                                            "cuda")
+                p = dplan.compile_plan(params)
+                blob = dplan.pack_blob(p)
+                open_cfg = FsxConfig(limiter=LimiterConfig(
+                    pps_threshold=1e12, bps_threshold=1e15))
+                for tag, compact in (("ml_raw48", False),
+                                     ("ml_compact16", True)):
+                    t = time.perf_counter()
+                    dep = xdp.Deployment(compact=compact, ml=True)
+                    load_s = time.perf_counter() - t
+                    try:
+                        dep.push_config(open_cfg)
+                        dep.push_model(blob)
+                        t = time.perf_counter()
+                        feats, bands = xdp.ml_band_leg(dep, n_flows=256,
+                                                       seed=7)
+                        leg_s = time.perf_counter() - t
+                        if tag == "ml_raw48" and pin is not None:
+                            dep.pin(pin)
+                            res["pinned_maps"] = pinned_maps_leg(
+                                quiet, pin, checks)
+                    finally:
+                        dep.close()
+                    saved = dict(kernels.LAUNCHES)
+                    card_bands = parity.served_bands(params, p, feats)
+                    kernels.LAUNCHES.update(saved)
+                    res["xdp"][tag] = {
+                        "load_s": round(load_s, 3),
+                        "leg_s": round(leg_s, 3),
+                        "scored_packets": int(len(bands)),
+                        "bands": np.bincount(bands, minlength=3).tolist(),
+                        "vs_card_mismatches": int((bands
+                                                   != card_bands).sum()),
+                        "vs_emulator_mismatches": int((
+                            bands != emulate.emulate_scorer(blob, feats)
+                        ).sum()),
+                        "vs_plan_mismatches": int((bands
+                                                   != p.bands(feats)).sum())}
+                    checks[f"kernel_bands_{tag}"] = (
+                        len(bands) > 500
+                        and set(np.unique(bands)) == {0, 1, 2}
+                        and not res["xdp"][tag]["vs_card_mismatches"]
+                        and not res["xdp"][tag]["vs_emulator_mismatches"]
+                        and not res["xdp"][tag]["vs_plan_mismatches"])
+                if pin is None:
+                    res["legs_not_run"] = ["pinned_maps"]
+        finally:
+            try:
+                _, err = child.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                _, err = child.communicate()
+        host = {}
+        if os.path.exists(host_out):
+            with open(host_out) as f:
+                host = json.load(f)
+        elif err:
+            print(err[-4000:], file=sys.stderr)
+        res["host"] = host
+        checks["host_leg"] = (child.returncode == 0 and bool(host)
+                              and all(v["ok"] for v in host["verify"].values())
+                              and host["contracts"]["ok"])
+        res["checks"] = checks
+        return {"ok": all(checks.values()), **res}
+
+    plane_phase()
+
+
+def pinned_maps_leg(quiet, pin: str, checks: dict) -> dict:
+    """``block``/``blacklist``/``unblock``, ``status --pin`` and
+    ``monitor --pin`` round-tripped on a deployment's maps pinned at
+    ``pin`` (``bpf_plane``'s last leg)."""
+    out: dict = {"pin": pin}
+    rc_b, o = quiet(["block", "192.0.2.7", "--ttl", "30", "--pin", pin])
+    rc_6, _ = quiet(["block", "2001:db8::7", "--ttl", "30", "--pin", pin])
+    rc_l, listed = quiet(["blacklist", "--pin", pin, "--json"])
+    entries = json.loads(listed)["entries"]
+    rc_s, st = quiet(["status", "--pin", pin, "--feature-ring",
+                      os.path.join(pin, "none_f"), "--verdict-ring",
+                      os.path.join(pin, "none_v")])
+    kern = json.loads(st)["kernel"]
+    rc_m, mon = quiet(["monitor", "--pin", pin, "--count", "2",
+                       "--interval", "0", "--alert-blacklist", "2"])
+    recs = [json.loads(x) for x in mon.splitlines()]
+    rc_u, un = quiet(["unblock", "192.0.2.7", "--pin", pin])
+    rc_u6, _ = quiet(["unblock", "2001:db8::7", "--pin", pin])
+    rc_a, _ = quiet(["unblock", "192.0.2.7", "--pin", pin])
+    out.update(entries=len(entries), kernel=kern,
+               monitor_alerts=recs[0].get("alerts"),
+               unblock=json.loads(un))
+    checks["pinned_maps"] = (
+        rc_b == rc_6 == rc_l == rc_s == rc_m == rc_u == rc_u6 == 0
+        and rc_a == 1
+        and {e.get("v4") or e.get("addr") for e in entries}
+        >= {"192.0.2.7", "2001:db8::7"}
+        and kern["blacklist_entries"] >= 2 and "allowed" in kern["stats"]
+        and len(recs) == 2 and "per_s" in recs[1]
+        and json.loads(un)["was_present"] is True)
+    return out
 
 
 def main() -> int:
@@ -5023,6 +5314,7 @@ def main() -> int:
         mo = subprocess.run(cli_argv + [
             "monitor", "--count", "2", "--interval", "0.1",
             "--alert-p99-us", "1", "--alert-degraded",
+            "--pin", os.path.join(plane, "no_pin"),
             "--engine-report", glob, "--out", history],
             cwd=REPO, capture_output=True, text=True, timeout=120)
         monitor_s = time.perf_counter() - t
@@ -5061,8 +5353,9 @@ def main() -> int:
             "degraded_alert_iff_degraded": all(
                 any(a.startswith("engine health") for a in r.get(
                     "alerts", ())) == degraded for r in records),
-            "kernel_key_says_no_maps": all(
-                list(r["kernel"]) == ["error"] for r in records),
+            "kernel_key_names_the_missing_maps": all(
+                list(r["kernel"]) == ["stats", "blacklist_entries"]
+                and "error" in r["kernel"]["stats"] for r in records),
             "monitor_equals_status": all(
                 r["latency"] == status["latency"]
                 and r["health"] == status["health"] for r in records)}
@@ -6914,6 +7207,7 @@ def main() -> int:
     headline_phases(card, served)
     static_audit_phase(card, served)
     host_legs_phase(card, served)
+    bpf_plane_phase(card, served, trained_path)
 
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
@@ -7317,7 +7611,10 @@ def main() -> int:
             "host_legs/guarded": served.get("launches_host_legs_guarded",
                                             {}),
             "host_legs/planted": served.get("launches_host_legs_planted",
-                                            {})}
+                                            {}),
+            # fsx distill --check --emulate per artifact and corpus size
+            **{f"bpf_plane/{k}": w for k, w in
+               served.get("launches_bpf_plane", {}).items()}}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}
@@ -7326,6 +7623,8 @@ def main() -> int:
         # the batches each chaos window's engine dispatched (score_int8
         # launches once per batch there)
         score_row["batches_chaos"] = served.get("batches_chaos", {})
+        # the batch shape of each bpf_plane window's one launch
+        score_row["bpf_plane_shapes"] = served.get("bpf_plane_shapes", {})
         served["kernels"] = rows
         suite_equal = not any(v.get("mismatches_vs_plain") for k, v in
                               score_row.items() if k.startswith("b")

@@ -2,7 +2,10 @@
 ``... cli pcap``, ``... cli train``, ``... cli distill``, ``... cli
 cluster``, ``... cli status``, ``... cli monitor``, ``... cli bench``,
 ``... cli chaos``, ``... cli audit``, ``... cli ranges``, ``... cli
-sync``, ``... cli crash``, ``... cli live`` and ``... cli version``.
+sync``, ``... cli crash``, ``... cli live``, ``... cli version``, and
+the eBPF plane's ``check``, ``codegen``, ``config``, ``block``,
+``unblock``, ``blacklist``, ``rules`` and ``top``
+(:mod:`.kernel_verbs`).
 
 Counterpart of the reference's ``fsx serve``: builds an
 :class:`~.engine.Engine` on the card (or on the CPU with ``--device
@@ -51,10 +54,13 @@ that ``serve --records`` replays.
 ``train`` trains ``logreg_int8`` (QAT), ``mlp`` or ``multiclass`` on the
 CICIDS-calibrated fixture, CICIDS-format CSVs or the synthetic set and
 exports the artifact (:mod:`.train`); ``distill ARTIFACT`` compiles an
-int8 artifact into the kernel tier's plan (:func:`.distill.compile_plan`).
-Both take the reference's flags and refusals; ``distill`` refuses
-``--check``, ``--emulate``, ``--emulate-n`` and ``--pin`` by name (they
-need the eBPF plane, ``bpf/``, which the port does not have).
+int8 artifact into the kernel tier's plan (:func:`.distill.compile_plan`)
+and blob, ``--check`` verifies both ``ml`` programs statically,
+``--emulate`` holds the emitted scorer bytecode, the plan's twin and the
+served lane (``score_int8`` on the card) to 0 band mismatches over the
+reference's corpus (:func:`.distill.parity.emulate_check`), and
+``--pin`` pushes the blob into a pinned ``ml_model_map``.  Both take the
+reference's flags and refusals.
 
 ``cluster`` runs N supervised engine processes over the daemon's shard
 fan-out, sharing the gossip blacklist plane (:mod:`.cluster`).
@@ -63,11 +69,10 @@ fan-out, sharing the gossip blacklist plane (:mod:`.cluster`).
 GLOB`` (repeatable), merges engine reports (``serve`` output, or a
 cluster dir's ``report_r*_g*.json``) into one seal -> verdict latency
 block, the health ladder with the gossip counters, and the governors'
-and boots' folds; ``monitor`` appends those merges every ``--interval``
-to stdout and ``--out`` (JSONL) and raises the reference's four
-engine-report alerts.  Both refuse ``--pin``, and ``monitor`` refuses
-``--alert-drop-pps`` and ``--alert-blacklist``, by name: they read the
-kernel maps, which the port does not.
+and boots' folds, and with ``--pin DIR`` the kernel's counters and
+blacklist size off the pinned maps; ``monitor`` appends the kernel read
+(with ``per_s`` deltas) and those merges every ``--interval`` to stdout
+and ``--out`` (JSONL) and raises the reference's six alerts.
 
 A bare ``bench [--smoke] [--budget-s S]`` runs the headline benchmark
 (:mod:`.bench`, one JSON line); ``bench --scenarios [--scale S] [--only
@@ -83,7 +88,9 @@ package's version as the reference's does.
 engine can serve (``--mesh N`` shards of the one ``--device``, ``--mega
 N|auto``, ``--device-loop N``, ``--evict-ttl``, ``--quick`` for small
 shapes) and proves its graph contracts, or that no integer in it can
-silently wrap, printing ``PASS``/``FAIL`` (exit 0/1).  ``serve
+silently wrap, printing ``PASS``/``FAIL`` (exit 0/1); ``ranges
+--artifact`` adds the BPF containment bridge (:mod:`.ranges.bridge`).
+``serve
 --audit`` (or ``FSX_AUDIT=1``) proves the served variants at boot and
 refuses to serve on a violation.
 
@@ -112,7 +119,7 @@ import secrets
 import sys
 from pathlib import Path
 
-from flowsentryx_tpu_torch import bench
+from flowsentryx_tpu_torch import bench, kernel_verbs
 from flowsentryx_tpu_torch.core.config import DEFAULT_CONFIG, FsxConfig
 
 
@@ -639,12 +646,8 @@ def _cmd_ranges(args: argparse.Namespace) -> int:
     """``fsx ranges``: prove that no staged step variant can silently
     wrap an integer (the interval prover over the same graphs ``audit``
     stages), audit the ``WRAP_OK`` registry and the float64 allowlist,
-    and fire the planted negative controls."""
-    if args.artifact:
-        print("fsx ranges: refusing --artifact: the BPF containment bridge "
-              "it feeds reads the BPF plane, which is not ported",
-              file=sys.stderr)
-        return 1
+    and fire the planted negative controls; with a distill ``--artifact``
+    (by default the shipped one), the BPF containment bridge."""
     cfg = _static_cfg(args, "ranges")
     if isinstance(cfg, str):
         print(cfg, file=sys.stderr)
@@ -659,7 +662,7 @@ def _cmd_ranges(args: argparse.Namespace) -> int:
         print(f"fsx ranges: {e}", file=sys.stderr)
         return 1
     rep = runner.run_ranges(cfg, mesh=mesh, device_loop=args.device_loop,
-                            device=device, **mega)
+                            device=device, artifact=args.artifact, **mega)
     if args.out:
         runner.write_artifact(rep, args.out)
     if args.json:
@@ -681,6 +684,17 @@ def _cmd_ranges(args: argparse.Namespace) -> int:
         print("fsx ranges: negative controls: "
               + ("all fire" if rep.negatives.get("ok") else "FAILED (a "
                  "finding class no longer fires: prover regression)"))
+        if rep.bridge is not None:
+            b = rep.bridge
+            if b.get("ok"):
+                print("fsx ranges: BPF<->served lane containment: OK (acc "
+                      f"{b['kernel_acc']} within the verifier's MAC range; "
+                      f"bands {b['lane_bands']} within "
+                      f"[{b['bpf_band']['umin']}, "
+                      f"{b['bpf_band']['umax']}])")
+            else:
+                print(f"fsx ranges: BPF<->served lane containment: FAILED "
+                      f"({b.get('error', b)})", file=sys.stderr)
         print(f"fsx ranges: {'PASS' if rep.ok else 'FAIL'}")
     return 0 if rep.ok else 1
 
@@ -908,31 +922,19 @@ def _cmd_train(args: argparse.Namespace) -> int:
     return 0
 
 
-#: ``fsx distill`` flags of the reference that need the eBPF plane.
-_DISTILL_REFUSED = {
-    "check": "--check statically verifies the --ml XDP programs "
-             "(flowsentryx_tpu/bpf/verifier.py)",
-    "emulate": "--emulate runs the emitted eBPF scorer in the reference's "
-               "emulator (flowsentryx_tpu/distill/emulate.py)",
-    "emulate_n": "--emulate-n sizes the corpus of --emulate's eBPF "
-                 "emulator run",
-    "pin": "--pin pushes the blob into a pinned ml_model_map through the "
-           "bpf loader",
-}
-
-
 def _cmd_distill(args: argparse.Namespace) -> int:
-    """Compile a trained int8 artifact into the kernel tier's plan (the
-    reference's ``fsx distill``, less its eBPF legs)."""
+    """Compile a trained int8 artifact into the kernel tier (the
+    reference's ``fsx distill``): the plan, the ``ml_model_map`` blob,
+    and with ``--check`` the static verifier over both ``--ml`` programs,
+    the scorer's schema contracts and a blob round trip; with
+    ``--emulate`` the three-way parity run (the emitted bytecode, the
+    plan's twin and the served int8 lane, :func:`.distill.parity
+    .emulate_check`); with ``--pin`` a live push of the blob into a
+    pinned ``ml_model_map``, refused when a check failed."""
     import time
 
-    for flag, why in _DISTILL_REFUSED.items():
-        if getattr(args, flag) is not None:
-            name = flag.replace("_", "-")
-            print(f"fsx distill: refusing --{name}: {why}, which the port "
-                  "does not have (bpf/ is not ported); run the reference's "
-                  f"fsx distill --{name}", file=sys.stderr)
-            return 1
+    import numpy as np
+
     try:
         t_lo_s, _, t_hi_s = args.thresholds.partition(",")
         t_lo, t_hi = float(t_lo_s), float(t_hi_s)
@@ -976,9 +978,70 @@ def _cmd_distill(args: argparse.Namespace) -> int:
     if args.blob:
         Path(args.blob).write_bytes(blob)
         out["blob_file"] = args.blob
+
+    if args.check:
+        # every program that could carry this blob must pass the static
+        # verifier, and the offsets the scorer bakes must match the schema
+        from flowsentryx_tpu_torch.bpf import contracts, progs, verifier
+
+        checks: dict = {}
+        for compact in (False, True):
+            tag = "ml_" + ("compact16" if compact else "raw48")
+            try:
+                rep = verifier.check_program_cached(
+                    progs.build(compact=compact, ml=True))
+                checks[tag] = {"ok": True, **rep.to_json()}
+            except verifier.StaticVerifierError as e:
+                checks[tag] = {"ok": False, "error": str(e)}
+                out["ok"] = False
+        for name, fails in (
+                ("progs_offsets", contracts.check_progs_offsets()),
+                ("map_specs", contracts.check_map_specs())):
+            checks[name] = {"ok": not fails, "failures": fails}
+            out["ok"] = out["ok"] and not fails
+        rt = dplan.unpack_blob(blob)
+        probe = np.arange(64, dtype=np.uint32).reshape(8, 8) * 0x01010101
+        checks["blob_roundtrip"] = {
+            "ok": bool((rt.bands(probe) == plan.bands(probe)).all())}
+        out["ok"] = out["ok"] and checks["blob_roundtrip"]["ok"]
+        out["check"] = checks
+
+    if args.emulate:
+        from flowsentryx_tpu_torch.distill import parity
+
+        out["emulate"] = parity.emulate_check(params, plan, blob,
+                                              n=args.emulate_n)
+        out["ok"] = out["ok"] and out["emulate"]["ok"]
+
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(out, indent=2) + "\n")
+    if args.pin:
+        if not out["ok"]:
+            # --check and --emulate gate a push: never hot-swap a model
+            # that just failed them
+            print("fsx distill: refusing --pin: checks failed (see "
+                  "report); the live model is unchanged", file=sys.stderr)
+            if args.json:
+                print(json.dumps(out, indent=2))
+            return 1
+        try:
+            from flowsentryx_tpu_torch.bpf import loader
+            from flowsentryx_tpu_torch.core import wire
+
+            fd = loader.obj_get(f"{args.pin}/ml_model_map")
+            m = loader.Map(fd, loader.MAP_TYPE_ARRAY, 4,
+                           wire.ML_MODEL_SIZE, 1, "ml_model_map")
+            try:
+                m.update(b"\x00" * 4, blob)
+            finally:
+                m.close()
+            out["pushed"] = args.pin
+        except OSError as e:
+            print(f"fsx distill: cannot push the model blob under "
+                  f"{args.pin}: {e} (is an --ml image attached with "
+                  "maps pinned there?)", file=sys.stderr)
+            return 1
     if args.json:
         print(json.dumps(out, indent=2))
     else:
@@ -987,11 +1050,27 @@ def _cmd_distill(args: argparse.Namespace) -> int:
               f"{p['n_bounds'][0]} boundaries/feature, bands "
               f"s<={p['acc_pass']} pass | s>={p['acc_drop']} drop "
               f"(scores {args.thresholds})")
-        for key in ("plan_file", "blob_file"):
+        for key in ("plan_file", "blob_file", "pushed"):
             if key in out:
                 print(f"fsx distill: {key.replace('_', ' ')}: {out[key]}")
-        print("fsx distill: PASS")
-    return 0
+        if "check" in out:
+            for tag, c in out["check"].items():
+                print(f"fsx distill: check {tag}: "
+                      f"{'OK' if c['ok'] else 'FAILED'}")
+                for f in c.get("failures", []) or (
+                        [c["error"]] if c.get("error") else []):
+                    print(f"  {f}", file=sys.stderr)
+        if "emulate" in out:
+            e = out["emulate"]
+            print(f"fsx distill: emulate: {e['vectors']} vectors, "
+                  f"served/emulator band mismatches: {e['jax_mismatches']} "
+                  f"(sim twin: {e['sim_mismatches']}), split "
+                  f"pass={e['split']['pass']} "
+                  f"escalate={e['split']['escalate']} "
+                  f"drop={e['split']['drop']} "
+                  f"(escalation ratio {e['escalation_ratio']})")
+        print(f"fsx distill: {'PASS' if out['ok'] else 'FAIL'}")
+    return 0 if out["ok"] else 1
 
 
 def _parse_gossip_addr(text: str, engines: int):
@@ -1546,31 +1625,22 @@ def _merged_reports(globs: list) -> dict:
     return out
 
 
-#: What the refused ``--pin`` and kernel-map alerts would read.
-_NO_KERNEL_MAPS = ("the eBPF plane's pinned maps (bpf/ is not ported: the "
-                   "port reads no kernel maps)")
-
-
 def _cmd_status(args: argparse.Namespace) -> int:
-    """Inspect the shm transport (ring cursors and backlog) and, with
-    ``--engine-report``, the merged engine reports."""
-    if args.pin is not None:
-        print(f"fsx status: refusing --pin: it reads {_NO_KERNEL_MAPS}; "
-              "run the reference's fsx status --pin", file=sys.stderr)
-        return 1
+    """Inspect the shm transport (ring cursors and backlog), with
+    ``--pin`` the kernel's counters and blacklist size off the pinned
+    maps, and with ``--engine-report`` the merged engine reports."""
     out = {}
     for name, path in (("feature_ring", args.feature_ring),
                        ("verdict_ring", args.verdict_ring)):
         out[name] = (_ring_header(path) if Path(path).exists()
                      else {"present": False})
+    if args.pin:
+        out["kernel"] = kernel_verbs.read_kernel(args.pin)
     if args.engine_report:
         out.update(_merged_reports(args.engine_report))
     print(json.dumps(out, indent=2))
     return 0
 
-
-#: ``monitor`` flags of the reference that read only the kernel maps.
-_MONITOR_REFUSED = ("pin", "alert_drop_pps", "alert_blacklist")
 
 #: The reference's refusals of an engine-report alert without a report.
 _MONITOR_NEEDS_REPORTS = {
@@ -1638,40 +1708,36 @@ def _monitor_alerts(args: argparse.Namespace, rec: dict) -> list[str]:
 
 
 def _cmd_monitor(args: argparse.Namespace) -> int:
-    """Periodic snapshots of the merged engine reports -> JSONL and
-    threshold alerts.  Each tick appends one JSON line with the merged
-    ``latency``, ``health``, ``boot`` and ``predict`` blocks; alerts
-    print to stderr and ride the record.  The record's ``kernel`` key
-    says that the port reads no kernel maps (the reference's counters,
-    their ``per_s`` deltas and the drop and blacklist alerts come from
-    them)."""
+    """Periodic snapshots -> JSONL and threshold alerts.  Each tick
+    appends one JSON line with the kernel's counters and blacklist size
+    off the ``--pin`` dir (``per_s`` deltas from the second tick on) and,
+    with ``--engine-report``, the merged ``latency``, ``health``,
+    ``boot`` and ``predict`` blocks; alerts print to stderr and ride the
+    record."""
     import time
 
-    for flag in _MONITOR_REFUSED:
-        if getattr(args, flag) is not None:
-            name = flag.replace("_", "-")
-            print(f"fsx monitor: refusing --{name}: it reads "
-                  f"{_NO_KERNEL_MAPS}; run the reference's fsx monitor "
-                  f"--{name}", file=sys.stderr)
-            return 1
     if not args.engine_report:
         for flag, msg in _MONITOR_NEEDS_REPORTS.items():
             if getattr(args, flag):
                 print(msg, file=sys.stderr)
                 return 1
-        print("fsx monitor: requires --engine-report GLOB (the port reads "
-              "no kernel maps: the engine reports are its only source)",
-              file=sys.stderr)
-        return 1
-    kernel = {"error": "the port reads no kernel maps (bpf/ is not "
-                       "ported); kernel counters come from the "
-                       "reference's fsx monitor --pin"}
+    prev: dict | None = None
+    prev_t = 0.0
     fh = open(args.out, "a") if args.out else None
     try:
         for tick in range(args.count) if args.count else iter(int, 1):
-            rec: dict = {"ts": round(time.time(), 3), "kernel": kernel,
-                         **_merged_reports(args.engine_report)}
-            alerts = _monitor_alerts(args, rec)
+            t = time.time()
+            rec: dict = {"ts": round(t, 3),
+                         "kernel": kernel_verbs.read_kernel(args.pin)}
+            stats = rec["kernel"].get("stats", {})
+            alerts = []
+            if args.engine_report:
+                rec.update(_merged_reports(args.engine_report))
+                alerts += _monitor_alerts(args, rec)
+            alerts += kernel_verbs.kernel_alerts(
+                args, rec, stats, prev, max(t - prev_t, 1e-9))
+            if "error" not in stats:
+                prev, prev_t = stats, t
             if alerts:
                 rec["alerts"] = alerts
                 for a in alerts:
@@ -2170,17 +2236,26 @@ def build_parser() -> argparse.ArgumentParser:
     di.add_argument("--blob", metavar="PATH",
                     help="write the raw ml_model_map value bytes "
                          "(struct fsx_ml_model) here")
-    di.add_argument("--check", action="store_true", default=None,
-                    help="refused: needs the eBPF verifier (bpf/)")
-    di.add_argument("--emulate", action="store_true", default=None,
-                    help="refused: needs the eBPF emulator (bpf/)")
-    di.add_argument("--emulate-n", type=int,
-                    help="refused: sizes the corpus of --emulate")
+    di.add_argument("--check", action="store_true",
+                    help="statically verify both --ml program variants "
+                         "(bpf/verifier.py), the scorer's schema "
+                         "contracts and a blob pack/unpack round trip")
+    di.add_argument("--emulate", action="store_true",
+                    help="prove served-lane<->BPF verdict parity: run the "
+                         "emitted scorer bytecode (SIMD emulator) over "
+                         "CICIDS-shaped and saturation-edge vectors and "
+                         "require band agreement with the served int8 "
+                         "lane (score_int8 on the card) and the plan")
+    di.add_argument("--emulate-n", type=int, default=10000,
+                    help="parity corpus size (default 10000)")
     di.add_argument("--report", metavar="PATH",
                     help="also write the JSON report here")
     di.add_argument("--pin",
-                    help="refused: needs the bpf loader and a pinned "
-                         "ml_model_map")
+                    help="push the blob into the ml_model_map pinned "
+                         "under this bpffs dir (live hot-swap: the "
+                         "attached --ml program bands with the new model "
+                         "on the next packet); refused when --check or "
+                         "--emulate failed")
     di.add_argument("--json", action="store_true",
                     help="machine-readable report")
     di.add_argument("--device", default=None,
@@ -2296,8 +2371,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "merged engine reports")
     st.add_argument("--feature-ring", default="/tmp/fsx_feature_ring")
     st.add_argument("--verdict-ring", default="/tmp/fsx_verdict_ring")
-    st.add_argument("--pin", default=None,
-                    help=f"refused: reads {_NO_KERNEL_MAPS}")
+    st.add_argument("--pin",
+                    help="also read the kernel's counters and blacklist "
+                         "size off this bpffs pin dir (e.g. "
+                         f"{kernel_verbs.DEFAULT_PIN_DIR})")
     st.add_argument("--engine-report", action="append", default=None,
                     metavar="GLOB",
                     help=reports_help + ": one seal->verdict latency "
@@ -2307,13 +2384,10 @@ def build_parser() -> argparse.ArgumentParser:
     st.set_defaults(fn=_cmd_status)
 
     mo = sub.add_parser(
-        "monitor", help="periodic merged engine-report snapshots -> JSONL "
-                        "+ alerts",
-        description="Periodic merged engine-report snapshots -> JSONL + "
-                    "alerts.  The port reads no kernel maps: each record's "
-                    "'kernel' key says so, and the reference's per_s "
-                    "deltas and its drop-rate and blacklist-size alerts, "
-                    "which derive from the kernel counters, do not appear.")
+        "monitor", help="periodic kernel and engine-report snapshots -> "
+                        "JSONL + alerts")
+    mo.add_argument("--pin", default=kernel_verbs.DEFAULT_PIN_DIR,
+                    help="bpffs pin dir of a live fsxd deployment")
     mo.add_argument("--interval", type=float, default=2.0,
                     help="seconds between snapshots")
     mo.add_argument("--count", type=int, default=0,
@@ -2321,7 +2395,12 @@ def build_parser() -> argparse.ArgumentParser:
     mo.add_argument("--out", help="append JSONL history to this file")
     mo.add_argument("--engine-report", action="append", default=None,
                     metavar="GLOB",
-                    help=reports_help + "; read every tick (required)")
+                    help=reports_help + "; read every tick")
+    mo.add_argument("--alert-drop-pps", type=float, default=0,
+                    help="alert when the kernel's total drop rate reaches "
+                         "N pps")
+    mo.add_argument("--alert-blacklist", type=int, default=0,
+                    help="alert when the blacklist size reaches N sources")
     mo.add_argument("--alert-p99-us", type=float, default=0,
                     help="alert when the merged engine p99 seal->verdict "
                          "latency reaches N µs")
@@ -2336,9 +2415,6 @@ def build_parser() -> argparse.ArgumentParser:
     mo.add_argument("--alert-cold-boot", action="store_true",
                     help="alert when a report's boot block names a "
                          "compile-cache dir yet loaded zero entries from it")
-    for flag in _MONITOR_REFUSED:
-        mo.add_argument("--" + flag.replace("_", "-"), default=None,
-                        help=f"refused: reads {_NO_KERNEL_MAPS}")
     mo.set_defaults(fn=_cmd_monitor)
 
     b = sub.add_parser("bench", help="run the headline benchmark, the "
@@ -2440,10 +2516,10 @@ def build_parser() -> argparse.ArgumentParser:
              "a fixed-width integer (interval abstract interpretation "
              "over the aten graphs)")
     static_flags(rg, "prove")
-    rg.add_argument("--artifact", default="",
-                    help="refused: the BPF containment bridge it feeds "
-                         "reads the BPF plane, which is not ported (a "
-                         "run without it skips the bridge with a note)")
+    rg.add_argument("--artifact", default="artifacts/logreg_int8.npz",
+                    help="distill artifact for the BPF<->served lane "
+                         "containment bridge (skipped with a note when "
+                         "absent; pass '' to disable)")
     rg.set_defaults(fn=_cmd_ranges)
 
     sy = sub.add_parser(
@@ -2495,6 +2571,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="suppress the planted regressions' printed "
                          "catching schedules (kept in the JSON report)")
     lv.set_defaults(fn=_cmd_live)
+
+    kernel_verbs.add_parsers(sub)
 
     v = sub.add_parser("version", help="print version")
     v.set_defaults(fn=_cmd_version)

@@ -12,9 +12,12 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
+import struct
 import typing
 from dataclasses import dataclass, field
 from typing import Any
+
+from flowsentryx_tpu_torch.core.wire import MAX_RULES, RULE_DROP
 
 
 class LimiterKind(enum.Enum):
@@ -52,8 +55,6 @@ class LimiterConfig:
 
 #: L4 protocol names accepted in rules (number literals also work).
 _PROTO_CODES = {"any": 0, "icmp": 1, "tcp": 6, "udp": 17, "icmpv6": 58}
-#: At most this many stateless rules (the kernel rule map's size).
-MAX_RULES = 1024
 
 
 @dataclass(frozen=True)
@@ -245,6 +246,71 @@ class FsxConfig:
     @classmethod
     def from_json(cls, s: str) -> "FsxConfig":
         return cls.from_dict(json.loads(s))
+
+    # -- kernel config map --------------------------------------------------
+
+    #: ``struct fsx_config`` fields, in wire order.  The C struct in
+    #: ``kern/fsx_schema.h`` is generated from this tuple (codegen.py),
+    #: and the pack format below is derived from it, so the three views
+    #: cannot drift.
+    KERNEL_CONFIG_FIELDS: typing.ClassVar[tuple[tuple[str, str, str], ...]] = (
+        ("limiter_kind", "u32", "FSX_LIMITER_*"),
+        ("valid", "u32", "nonzero once a config has been pushed; the"
+         " all-zero ARRAY-map default means \"no config yet\" (fail open)"),
+        ("pps_threshold", "u64", "packets per window"),
+        ("bps_threshold", "u64", "bytes per window"),
+        ("window_ns", "u64", ""),
+        ("block_ns", "u64", "blacklist TTL"),
+        ("bucket_rate_pps", "u64", "token refill rate (packets/s)"),
+        ("bucket_burst", "u64", "token bucket depth (packets)"),
+        ("bucket_rate_bps", "u64", "byte-bucket refill rate (bytes/s);"
+         " 0 with 0 depth = byte dimension off"),
+        ("bucket_burst_bytes", "u64", "byte bucket depth (bytes)"),
+        ("rule_count", "u64", "number of stateless firewall rules pushed"
+         " into rule_map; 0 skips the rule lookups entirely"),
+        ("hash_salt", "u64", "salt for user-plane slot/owner hashing"
+         " (low 32 bits used).  No kernel-side consumer exists: BPF maps"
+         " hash internally with their own seed.  Carried in the blob so"
+         " a deployment that FIXES the salt in its config file presents"
+         " one value to both planes; a serve-drawn random salt is"
+         " user-plane only"),
+    )
+
+    KERNEL_CONFIG_FMT = "<" + "".join(
+        {"u32": "I", "u64": "Q"}[t] for _, t, _ in KERNEL_CONFIG_FIELDS
+    )
+    KERNEL_CONFIG_SIZE = struct.calcsize(KERNEL_CONFIG_FMT)  # 88
+
+    _KIND_CODE = {
+        LimiterKind.FIXED_WINDOW: 0,
+        LimiterKind.SLIDING_WINDOW: 1,
+        LimiterKind.TOKEN_BUCKET: 2,
+    }
+
+    def pack_kernel_config(self) -> bytes:
+        """Binary blob for the kernel's config array map (index 0), in
+        integer units (packets, bytes, nanoseconds): eBPF has no floats."""
+        lim = self.limiter
+        return struct.pack(
+            self.KERNEL_CONFIG_FMT,
+            self._KIND_CODE[lim.kind],
+            1,  # valid: tells a pushed config from the map's zero fill
+            int(lim.pps_threshold),
+            int(lim.bps_threshold),
+            int(lim.window_s * 1e9),
+            int(lim.block_s * 1e9),
+            int(lim.bucket_rate_pps),
+            int(lim.bucket_burst),
+            int(lim.bucket_rate_bps),
+            int(lim.bucket_burst_bytes),
+            len(self.rules),
+            int(self.table.salt),
+        )
+
+    def rule_entries(self) -> list[tuple[int, int]]:
+        """``(key, action)`` pairs for the kernel rule map (key packing
+        in :func:`flowsentryx_tpu_torch.core.wire.pack_rule_key`)."""
+        return [(r.key(), RULE_DROP) for r in self.rules]
 
 
 DEFAULT_CONFIG = FsxConfig()

@@ -2,8 +2,11 @@
 side of both wires (the host side and the shared-memory layout live in
 :mod:`.wire`, numpy only, and are re-exported here).
 
-Counterpart of ``flowsentryx_tpu/core/schema.py`` (the subset the
-serving path needs), kept as this package's own copy — the port imports
+Counterpart of ``flowsentryx_tpu/core/schema.py`` (the serving path's
+subset, and through :mod:`.wire` the kernel plane's structs:
+``FEATURE_NAMES``, the ``*_FIELDS`` tuples, :func:`struct_layouts`,
+``MAX_RULES``, ``RULE_*``, :func:`pack_rule_key`), kept as this package's
+own copy — the port imports
 nothing of the reference.  Three representation choices differ from the
 reference and are converted at the boundary
 (:func:`table_from_numpy`/:func:`table_to_numpy`,
@@ -35,6 +38,9 @@ from flowsentryx_tpu_torch.core.wire import (  # noqa: F401
     BATCHQ_FILL_DUR_US_WORD, BATCHQ_N_RECORDS_WORD, BATCHQ_RESERVED_WORD,
     BATCHQ_SEAL_NS_HI_WORD, BATCHQ_SEAL_NS_LO_WORD, BATCHQ_SEQ_HI_WORD,
     BATCHQ_SEQ_LO_WORD, BATCHQ_SLOT_HDR_WORDS, BATCHQ_WIRE_ID_WORD,
+    FEATURE_NAMES, FLOW_STATS_FIELDS, IP_STATE_FIELDS, KERNEL_STATS_FIELDS,
+    MAX_RULES, RULE_DROP, FieldLayout, StructLayout, Verdict,
+    pack_rule_key, struct_layouts,
     COMPACT_RECORD_DTYPE, COMPACT_RECORD_SIZE, COMPACT_RECORD_WORDS,
     FLAG_ICMP, FLAG_IPV6, FLAG_TCP, FLAG_TCP_SYN, FLAG_UDP,
     FLOW_RECORD_DTYPE, FLOW_RECORD_SIZE, ML_BAND_DISABLED, ML_BAND_DROP,
@@ -78,13 +84,6 @@ class Feature(enum.IntEnum):
     FWD_IAT_MEAN = 5
     FWD_IAT_STD = 6
     FWD_IAT_MAX = 7
-
-
-class Verdict(enum.IntEnum):
-    PASS = 0
-    DROP_BLACKLIST = 1
-    DROP_RATE = 2
-    DROP_ML = 3
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,22 @@ queue layout that the C++ daemon (``kern/fsx_schema.h``) and the ingest
 workers share.  Every constant here is the contract with another process
 and must equal the reference's value (``tests/test_torch_shm.py``).
 
+It also holds the kernel plane's structs (the eBPF maps' values, the
+rule key, the verdict codes and :func:`struct_layouts`, which
+:mod:`.codegen` renders into ``kern/fsx_schema.h``).
+
 This module imports numpy only — no ``torch`` — so the spawned ingest
 workers (:mod:`flowsentryx_tpu_torch.ingest.worker`) pack batches without
-paying torch's import at boot.  :mod:`.schema` re-exports every name.
+paying torch's import at boot, and the eBPF plane
+(:mod:`flowsentryx_tpu_torch.bpf`) and the pinned-map reads of ``fsx
+status``/``monitor`` run without torch.  :mod:`.schema` re-exports every
+name.
 """
 
 from __future__ import annotations
+
+import enum
+from typing import NamedTuple
 
 import numpy as np
 
@@ -473,3 +483,184 @@ VERDICT_RECORD_DTYPE = np.dtype(
     ]
 )
 VERDICT_RECORD_SIZE = VERDICT_RECORD_DTYPE.itemsize  # 16
+
+
+class Verdict(enum.IntEnum):
+    """Per-record verdict codes (``FSX_VERDICT_*`` in the generated
+    header; :mod:`.schema` re-exports it)."""
+
+    PASS = 0
+    DROP_BLACKLIST = 1
+    DROP_RATE = 2
+    DROP_ML = 3
+
+
+# ---------------------------------------------------------------------------
+# The kernel plane's structs (the eBPF programs' maps and the generated
+# header; :mod:`flowsentryx_tpu_torch.bpf` and :mod:`.codegen` read them)
+# ---------------------------------------------------------------------------
+
+#: The eight features, in wire order (the kernel derives each from its
+#: per-flow statistics; slots 3 and 4 are flow age and rate).
+FEATURE_NAMES: tuple[str, ...] = (
+    "destination_port",
+    "packet_length_mean",
+    "packet_length_std",
+    "flow_duration_ms",
+    "flow_pps_x1000",
+    "fwd_iat_mean",
+    "fwd_iat_std",
+    "fwd_iat_max",
+)
+
+#: ``struct fsx_flow_stats``: the kernel's streaming per-flow sums, in
+#: integer ns and byte units (the IAT sum of squares in µs², so that a
+#: flow's worst-case gaps cannot wrap a u64).
+FLOW_STATS_FIELDS: tuple[tuple[str, str], ...] = (
+    ("pkt_count", "u64"),
+    ("byte_sum", "u64"),
+    ("byte_sq_sum", "u64"),
+    ("first_ts_ns", "u64"),
+    ("last_ts_ns", "u64"),
+    ("iat_sum_ns", "u64"),
+    ("iat_sq_sum_us2", "u64"),
+    ("iat_max_ns", "u64"),
+    ("dst_port", "u16"),
+)
+
+#: ``struct fsx_ip_state``: the kernel's per-source limiter state
+#: (fixed and sliding windows, packet and byte token buckets; tokens
+#: x1000), distinct from the device table's float columns.
+IP_STATE_FIELDS: tuple[tuple[str, str], ...] = (
+    ("win_start_ns", "u64"),
+    ("win_pps", "u64"),
+    ("win_bps", "u64"),
+    ("prev_pps", "u64"),
+    ("prev_bps", "u64"),
+    ("tokens_milli", "u64"),
+    ("tok_ts_ns", "u64"),
+    ("tok_bytes", "u64"),
+)
+
+#: ``struct fsx_stats``: the kernel's global counters (a per-CPU array
+#: map that readers sum over CPUs).  ``ml_pass`` and ``ml_escalated``
+#: count the distilled scorer's confident-benign and uncertain bands.
+KERNEL_STATS_FIELDS: tuple[tuple[str, str], ...] = (
+    ("allowed", "u64"),
+    ("dropped_blacklist", "u64"),
+    ("dropped_rate", "u64"),
+    ("dropped_ml", "u64"),
+    ("dropped_rule", "u64"),
+    ("ml_pass", "u64"),
+    ("ml_escalated", "u64"),
+)
+
+_TYPE_SIZES = {"u64": 8, "u32": 4, "u16": 2, "u8": 1}
+
+
+class FieldLayout(NamedTuple):
+    """One field of a packed struct: byte offset, element size, count."""
+
+    name: str
+    offset: int
+    size: int       # size of ONE element
+    count: int = 1  # > 1 for array fields
+
+
+class StructLayout(NamedTuple):
+    """A packed struct: total size and per-field offsets."""
+
+    name: str
+    size: int
+    fields: tuple[FieldLayout, ...]
+
+    def offset_of(self, field: str) -> int:
+        for f in self.fields:
+            if f.name == field:
+                return f.offset
+        raise KeyError(f"{self.name} has no field {field!r}")
+
+
+def _layout_from_fields(
+    cname: str, fields: tuple[tuple[str, str], ...]
+) -> StructLayout:
+    out, off = [], 0
+    for name, tp in fields:
+        size = _TYPE_SIZES[tp]
+        out.append(FieldLayout(name, off, size))
+        off += size
+    return StructLayout(cname, off, tuple(out))
+
+
+def _layout_from_dtype(cname: str, dt: np.dtype) -> StructLayout:
+    out = []
+    for name in dt.names:
+        ft, off = dt.fields[name][:2]
+        if ft.subdtype is not None:
+            base, shape = ft.subdtype
+            out.append(FieldLayout(name, off, base.itemsize, shape[0]))
+        else:
+            out.append(FieldLayout(name, off, ft.itemsize))
+    return StructLayout(cname, dt.itemsize, tuple(out))
+
+
+def struct_layouts() -> dict[str, StructLayout]:
+    """Every packed struct of the kernel/user/device seam, keyed by its
+    C name: the layouts codegen writes into ``kern/fsx_schema.h``, the
+    eBPF programs bake into immediates and the decoders read.  ``fsx
+    check`` diffs every layer against this one definition."""
+    from flowsentryx_tpu_torch.core.config import FsxConfig
+
+    shm_hdr = StructLayout(
+        "fsx_shm_ring_hdr", SHM_HDR_SIZE, (
+            FieldLayout("magic", 0, 8),
+            FieldLayout("capacity", SHM_CAPACITY_OFFSET, 8),
+            FieldLayout("record_size", SHM_RECORD_SIZE_OFFSET, 8),
+            FieldLayout("_meta_pad", 24, 8, 5),
+            FieldLayout("head", SHM_HEAD_OFFSET, 8),
+            FieldLayout("_head_pad", SHM_HEAD_OFFSET + 8, 8, 7),
+            FieldLayout("tail", SHM_TAIL_OFFSET, 8),
+            FieldLayout("_tail_pad", SHM_TAIL_OFFSET + 8, 8, 7),
+        ))
+    ml_model = StructLayout(
+        "fsx_ml_model", ML_MODEL_SIZE, (
+            FieldLayout("valid", ML_MODEL_VALID_OFFSET, 4),
+            FieldLayout("_reserved", ML_MODEL_FLAGS_OFFSET, 4),
+            FieldLayout("acc_drop", ML_MODEL_ACC_DROP_OFFSET, 8),
+            FieldLayout("acc_pass", ML_MODEL_ACC_PASS_OFFSET, 8),
+            FieldLayout("w", ML_MODEL_W_OFFSET, 4, NUM_FEATURES),
+            FieldLayout("qbase", ML_MODEL_QBASE_OFFSET, 4, NUM_FEATURES),
+            FieldLayout("bounds_m1", ML_MODEL_BOUNDS_OFFSET, 4,
+                        NUM_FEATURES * ML_BOUNDS_PER_FEATURE),
+        ))
+    return {
+        "fsx_config": _layout_from_fields(
+            "fsx_config",
+            tuple((n, t) for n, t, _ in FsxConfig.KERNEL_CONFIG_FIELDS)),
+        "fsx_ml_model": ml_model,
+        "fsx_ip_state": _layout_from_fields("fsx_ip_state",
+                                            IP_STATE_FIELDS),
+        "fsx_flow_stats": _layout_from_fields("fsx_flow_stats",
+                                              FLOW_STATS_FIELDS),
+        "fsx_stats": _layout_from_fields("fsx_stats",
+                                         KERNEL_STATS_FIELDS),
+        "fsx_flow_record": _layout_from_dtype("fsx_flow_record",
+                                              FLOW_RECORD_DTYPE),
+        "fsx_compact_record": _layout_from_dtype("fsx_compact_record",
+                                                 COMPACT_RECORD_DTYPE),
+        "fsx_verdict_record": _layout_from_dtype("fsx_verdict_record",
+                                                 VERDICT_RECORD_DTYPE),
+        "fsx_shm_ring_hdr": shm_hdr,
+    }
+
+
+#: Kernel rule map capacity (exact and wildcard (proto, dport) entries).
+MAX_RULES = 1024
+#: Rule action codes (the rule map's value).
+RULE_DROP = 1
+
+
+def pack_rule_key(proto: int, dport: int) -> int:
+    """Rule-map key: ``(l4_proto << 16) | dport`` in HOST order, 0 the
+    wildcard in either position, as the kernel computes it per packet."""
+    return ((proto & 0xFF) << 16) | (dport & 0xFFFF)

@@ -173,27 +173,35 @@ class FlowTracker:
         n = fs["pkt_count"]
         if not self.emit_all and n > 16 and (n & 15):
             return None
-        sat = lambda x: min(x, 0xFFFFFFFF)  # noqa: E731
-        mean = fs["byte_sum"] // n
-        var = max(fs["byte_sq_sum"] // n
-                  - (mean * mean & ((1 << 64) - 1)), 0)
-        iat_n = max(n - 1, 1)
-        iat_mean_us = (fs["iat_sum_ns"] // iat_n) // 1000
-        # the kernel squares in u64 (wraps past 2^32 us means — ~71 min
-        # idle gaps); mirror the wrap or long-idle flows diverge
-        iat_mean_sq = (iat_mean_us * iat_mean_us) & ((1 << 64) - 1)
-        iat_var = max(fs["iat_sq_sum_us2"] // iat_n - iat_mean_sq, 0)
-        # flow-age slots 3/4 (schema.FEATURE_NAMES): duration in ms and
-        # rate in pps*1000, same integer identities as the kernel
-        dur_ns = fs["last_ts_ns"] - fs["first_ts_ns"]
-        dur_us = dur_ns // 1000
-        pps_x1000 = (n * 1_000_000_000) // dur_us if dur_us else 0
-        return [
-            fs["dst_port"], sat(mean), math.isqrt(var),
-            sat(dur_ns // 1_000_000), sat(pps_x1000), sat(iat_mean_us),
-            math.isqrt(iat_var),
-            sat(min(fs["iat_max_ns"] // 1000, 0xFFFFFFFF)),
-        ]
+        return derive_features(fs)
+
+
+def derive_features(fs: dict) -> list[int]:
+    """The kernel's eight integer features of one flow from its
+    ``fsx_flow_stats`` value (field names of
+    ``wire.FLOW_STATS_FIELDS``), as ``extract_features`` derives them."""
+    n = fs["pkt_count"]
+    sat = lambda x: min(x, 0xFFFFFFFF)  # noqa: E731
+    mean = fs["byte_sum"] // n
+    var = max(fs["byte_sq_sum"] // n
+              - (mean * mean & ((1 << 64) - 1)), 0)
+    iat_n = max(n - 1, 1)
+    iat_mean_us = (fs["iat_sum_ns"] // iat_n) // 1000
+    # the kernel squares in u64 (wraps past 2^32 us means — ~71 min
+    # idle gaps); mirror the wrap or long-idle flows diverge
+    iat_mean_sq = (iat_mean_us * iat_mean_us) & ((1 << 64) - 1)
+    iat_var = max(fs["iat_sq_sum_us2"] // iat_n - iat_mean_sq, 0)
+    # flow-age slots 3/4 (schema.FEATURE_NAMES): duration in ms and
+    # rate in pps*1000, same integer identities as the kernel
+    dur_ns = fs["last_ts_ns"] - fs["first_ts_ns"]
+    dur_us = dur_ns // 1000
+    pps_x1000 = (n * 1_000_000_000) // dur_us if dur_us else 0
+    return [
+        fs["dst_port"], sat(mean), math.isqrt(var),
+        sat(dur_ns // 1_000_000), sat(pps_x1000), sat(iat_mean_us),
+        math.isqrt(iat_var),
+        sat(min(fs["iat_max_ns"] // 1000, 0xFFFFFFFF)),
+    ]
 
 
 def pcap_to_records(path: str | Path, emit_all: bool = False,

@@ -6,7 +6,9 @@ over the aten graph of each step variant (the one ``fsx audit`` records)
 that propagates per-value integer intervals and proves, without a live
 batch, that no int64 partial product overflows and that every int32 or
 narrower result comes from an explicit fold -- modulo the audited
-``WRAP_OK`` registry, itself checked for staleness every run.
+``WRAP_OK`` registry, itself checked for staleness every run -- and
+the BPF containment bridge (:mod:`.bridge`): the eBPF verifier's ranges
+at the distilled scorer's accumulator contain the served int8 lane's.
 """
 
 from flowsentryx_tpu_torch.ranges.interval import IVal  # noqa: F401

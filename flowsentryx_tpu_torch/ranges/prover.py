@@ -68,6 +68,7 @@ class Analysis:
     n_eqns: int
     n_checked: int                 # nodes that went through the escape check
     outputs: dict = dataclasses.field(default_factory=dict)  # leaf -> (lo, hi)
+    collected: dict = dataclasses.field(default_factory=dict)  # key -> (lo, hi)
 
     @property
     def ok(self) -> bool:
@@ -126,9 +127,12 @@ def _full(v: IVal, shape: tuple) -> IVal:
 
 
 class _Prover:
-    def __init__(self, trace: StepTrace, seeds: dict[str, IVal], entries):
+    def __init__(self, trace: StepTrace, seeds: dict[str, IVal], entries,
+                 collect=None):
         self.t = trace
         self.entries = entries
+        self.collect = collect
+        self.collected: dict[str, tuple] = {}
         self.env: dict[int, IVal] = {}
         self.findings: list[Finding] = []
         self.wrap_matches: dict[str, int] = {}
@@ -146,7 +150,14 @@ class _Prover:
     def _fit(self, val: IVal, vid: int) -> IVal:
         shape = self.t.values[vid].shape
         if not val.is_scalar() and val.lo.shape != shape:
-            val = val.collapse()
+            if val.lo.size == int(np.prod(shape, dtype=np.int64)) and \
+                    np.broadcast_shapes(val.lo.shape, shape) == tuple(shape):
+                # the same elements with unit axes added or dropped (an
+                # [8] weight times a [1, 8] row): keep them per element
+                val = IVal(np.broadcast_to(val.lo, shape),
+                           np.broadcast_to(val.hi, shape))
+            else:
+                val = val.collapse()
         if not val.is_scalar() and val.lo.size > FULL_MAX:
             val = val.collapse()
         return _uniform(val)
@@ -238,6 +249,13 @@ class _Prover:
                 except (ValueError, TypeError, IndexError, OverflowError,
                         ZeroDivisionError):
                     self.top_outs(node)
+            key = self.collect(node) if self.collect else None
+            if key is not None and node.outs:
+                lo, hi = self.get(node.outs[0]).bounds()
+                if key in self.collected:
+                    lo = min(lo, self.collected[key][0])
+                    hi = max(hi, self.collected[key][1])
+                self.collected[key] = (lo, hi)
 
     def _refresh(self, node: Node) -> None:
         out = node.outs[0]
@@ -936,15 +954,19 @@ def _round_sum(v: IVal, n: int, dtype) -> IVal:
 
 
 def analyze(trace: StepTrace, seeds: dict[str, IVal], *,
-            entries: tuple = reg.WRAP_OK) -> Analysis:
+            entries: tuple = reg.WRAP_OK, collect=None) -> Analysis:
     """Run the range proof over one recorded step graph.  ``seeds``
     maps input leaf names to their declared intervals
-    (:mod:`.seeds`); ``entries`` is the WRAP_OK registry in force."""
-    pr = _Prover(trace, seeds, entries)
+    (:mod:`.seeds`); ``entries`` is the WRAP_OK registry in force.
+    ``collect(node)`` may name a node (a key) whose first result's
+    interval lands in :attr:`Analysis.collected` (joined over the nodes
+    with one key), as the reference's ``collect`` hook does for an
+    equation."""
+    pr = _Prover(trace, seeds, entries, collect)
     pr.run()
     return Analysis(findings=pr.findings, wrap_matches=pr.wrap_matches,
                     unmodeled=pr.unmodeled,
                     n_eqns=sum(1 for n in trace.nodes if n.op != "refresh"),
-                    n_checked=pr.n_checked,
+                    n_checked=pr.n_checked, collected=pr.collected,
                     outputs={n: pr.get(v).bounds()
                              for n, v in trace.outputs if v is not None})

@@ -8,9 +8,9 @@ aten graph once by the audit's tracing rule, seeds its inputs from the
 declared range registry (:mod:`.seeds`), runs the interval prover
 (:mod:`.prover`), audits the ``WRAP_OK`` registry and the float64
 allowlist for staleness, and proves the three planted negative controls
-still fire.  The BPF containment bridge of the reference reads the
-kernel plane's verifier, which is not ported: it is skipped with a
-note.  One JSON-able report, the ``fsx audit`` idiom.
+still fire, and (when a distill artifact is available) runs the BPF
+containment bridge (:mod:`.bridge`).  One JSON-able report, the ``fsx
+audit`` idiom.
 """
 
 from __future__ import annotations
@@ -31,8 +31,8 @@ from flowsentryx_tpu_torch.core.config import FsxConfig
 from flowsentryx_tpu_torch.core.device import resolve_device
 from flowsentryx_tpu_torch.ranges import prover, registry, seeds
 
-BRIDGE_NOTE = ("containment bridge skipped: it holds the BPF verifier's "
-               "ranges (bpf/), which is not ported")
+#: The distill artifact the bridge proves when none is named.
+DEFAULT_ARTIFACT = "artifacts/logreg_int8.npz"
 
 
 @dataclasses.dataclass
@@ -156,10 +156,13 @@ def run_ranges(
     mega_sizes: tuple[int, ...] | None = None,
     device_loop: int = 0,
     device: Any | None = None,
+    artifact: str | None = DEFAULT_ARTIFACT,
 ) -> RangesReport:
     """Prove the no-silent-wrap property over every staged variant under
     ``cfg`` (staging exactly as :func:`~..audit.runner.run_audit`), plus
-    the registry staleness audits and the planted negative controls."""
+    the registry staleness audits, the planted negative controls and,
+    when ``artifact`` names a loadable distill artifact, the BPF
+    containment bridge (:func:`.bridge.containment_proof`)."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
     staged, notes, params = stage_variants(
@@ -192,8 +195,26 @@ def run_ranges(
     reg_findings = (registry.audit_registry(registry.WRAP_OK, match_totals)
                     + graph.audit_f64_allowlist(graph.F64_OK, f64_totals))
     negatives = negative_controls()
-    notes = notes + [BRIDGE_NOTE]
-    ok = all(v.ok for v in reports) and not reg_findings and negatives["ok"]
+    bridge_rep = None
+    if artifact:
+        apath = Path(artifact)
+        if apath.is_file():
+            from flowsentryx_tpu_torch.models import logreg
+            from flowsentryx_tpu_torch.ranges import bridge
+
+            try:
+                art_params = logreg.load_params(str(apath))
+                bridge_rep = bridge.containment_proof(art_params)
+                bridge_rep["artifact"] = str(apath)
+            except (ValueError, OSError, KeyError) as e:
+                bridge_rep = {"ok": False, "artifact": str(apath),
+                              "error": str(e)}
+        else:
+            notes = notes + [f"containment bridge skipped: no distill "
+                             f"artifact at {artifact}"]
+    ok = (all(v.ok for v in reports) and not reg_findings
+          and negatives["ok"]
+          and (bridge_rep is None or bridge_rep.get("ok", False)))
     return RangesReport(
         ok=ok,
         variants=reports,
@@ -201,7 +222,7 @@ def run_ranges(
         registry=[e.to_json() for e in registry.WRAP_OK]
         + [dict(e.to_json(), allowlist="float64") for e in graph.F64_OK],
         negatives=negatives,
-        bridge=None,
+        bridge=bridge_rep,
         config={
             "max_batch": cfg.batch.max_batch,
             "verdict_k": cfg.batch.verdict_k,

@@ -1440,3 +1440,46 @@ def test_static_audit_captured_graphs_on_card(cuda):
     caps = graph.CAPTURES
     assert runner.boot_audit(cfg, **kw) is None
     assert graph.CAPTURES == caps
+
+
+@pytest.mark.parametrize("n", [10000, 65536])
+def test_distill_emulate_on_card_is_band_exact(cuda, n):
+    """The kernel tier's three-way parity with the served lane on the
+    card: the emitted bytecode, the plan's twin and ``score_int8`` band
+    the reference's corpus alike, and the kernel equals its plain
+    version on it."""
+    from flowsentryx_tpu_torch.distill import parity, plan
+
+    tp = logreg.load_params(ARTIFACT, cuda)
+    p = plan.compile_plan(tp)
+    n0 = kernels.LAUNCHES["score_int8"]
+    got = parity.emulate_check(tp, p, plan.pack_blob(p), n=n)
+    assert kernels.LAUNCHES["score_int8"] == n0 + 1
+    assert got["ok"] and got["served_device"].startswith("cuda")
+    assert got["vectors"] == n and got["jax_mismatches"] == 0
+    x = torch.from_numpy(parity.corpus(p, n).astype(np.int64)).to(
+        cuda).float()
+    assert torch.equal(kernels.score_int8(tp, x),
+                       kernels.score_int8_plain(tp, x))
+
+
+def test_kernel_tier_bands_equal_card(cuda):
+    """A distilled model in a live ``ml`` XDP program: the kernel's band
+    of every scored packet equals ``score_int8``'s on the card."""
+    from flowsentryx_tpu_torch.bpf import loader, xdp
+    from flowsentryx_tpu_torch.distill import parity, plan
+
+    if not loader.bpf_available():
+        pytest.skip("bpf(2) not permitted here")
+    tp = logreg.load_params(ARTIFACT, cuda)
+    p = plan.compile_plan(tp)
+    dep = xdp.Deployment(ml=True)
+    try:
+        dep.push_config(config.FsxConfig(limiter=config.LimiterConfig(
+            pps_threshold=1e12, bps_threshold=1e15)))
+        dep.push_model(plan.pack_blob(p))
+        feats, bands = xdp.ml_band_leg(dep, n_flows=96, seed=5)
+    finally:
+        dep.close()
+    assert len(bands) > 200
+    np.testing.assert_array_equal(bands, parity.served_bands(tp, p, feats))

@@ -449,16 +449,6 @@ def test_cli_distill_refusals_match_reference(argv, capsys):
     assert err_t == err_j
 
 
-@pytest.mark.parametrize("flag", [["--check"], ["--emulate"],
-                                  ["--emulate-n", "100"],
-                                  ["--pin", "/sys/fs/bpf/fsx"]])
-def test_cli_distill_refuses_bpf_flags_by_name(flag, capsys):
-    rc, out, err = _distill(cli.main, [INT8, *flag, "--device", "cpu"],
-                            capsys)
-    assert rc == 1 and not out
-    assert f"refusing {flag[0]}" in err and "bpf/" in err
-
-
 def test_cli_distill_without_card_fails(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc, out, err = _distill(cli.main, [INT8], capsys)

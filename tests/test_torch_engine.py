@@ -165,9 +165,12 @@ def test_new_host_modules_are_checked():
     the staged-shape signature, the compile cache, the cluster (its
     mailboxes, gossip plane, engine runner and supervisor), the cluster
     layout and the partition rules, the mesh, the sharded step, the
-    headline benchmark, and the static legs (the audit's graph recorder
+    headline benchmark, the static legs (the audit's graph recorder
     and runner, the range prover's interval algebra, seeds, prover,
-    registry and runner) are among them."""
+    registry and runner) and the eBPF plane (the ISA, assembler, loader,
+    programs, images, verifier, contracts, blacklist and rule maps, the
+    XDP drive, the header generator, the scorer emulator, the
+    containment bridge and the kernel-map verbs) are among them."""
     names = {".".join(p.relative_to(REPO).with_suffix("").parts)
              for p in _port_sources()}
     for m in ("core.wire", "core.durable", "engine.shm", "engine.arena",
@@ -186,8 +189,40 @@ def test_new_host_modules_are_checked():
               "parallel.layout", "parallel.mesh", "parallel.step",
               "bench", "audit.__init__", "audit.graph", "audit.runner",
               "ranges.__init__", "ranges.interval", "ranges.seeds",
-              "ranges.prover", "ranges.registry", "ranges.runner"):
+              "ranges.prover", "ranges.registry", "ranges.runner",
+              "bpf.__init__", "bpf.isa", "bpf.asm", "bpf.loader",
+              "bpf.progs", "bpf.image", "bpf.verifier", "bpf.contracts",
+              "bpf.blacklist", "bpf.rules", "bpf.xdp", "core.codegen",
+              "distill.emulate", "ranges.bridge", "kernel_verbs"):
         assert f"flowsentryx_tpu_torch.{m}" in names, m
+
+
+def test_ebpf_plane_imports_no_torch():
+    """The eBPF plane, the header generator, the emulator and the
+    kernel-map verbs read the schema's numpy half: ``fsx check``,
+    ``codegen`` and the pinned-map reads of ``status``/``monitor`` run
+    without torch, and importing them makes no ``bpf(2)`` call."""
+    mods = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "flowsentryx_tpu_torch" / "bpf").glob("*.py")
+        if p.name != "__init__.py") + [
+        "flowsentryx_tpu_torch.core.codegen",
+        "flowsentryx_tpu_torch.distill.emulate",
+        "flowsentryx_tpu_torch.kernel_verbs"]
+    code = (
+        "import importlib, sys\n"
+        "from flowsentryx_tpu_torch.bpf import loader\n"
+        "calls = []\n"
+        "loader._bpf = lambda *a: calls.append(a)\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'torch']\n"
+        "assert not bad, bad[:5]\n"
+        "assert not calls, calls\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
 
 
 def test_engine_over_fsxd_sim_blocks_attackers(tmp_path):

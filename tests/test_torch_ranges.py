@@ -228,7 +228,7 @@ def test_param_seeds_equal_reference():
     assert seeds.param_seed("params.in_zp", np.int32).bounds() == (0, 255)
 
 
-# -- negatives, registry, variants, bridge ----------------------------------
+# -- negatives, registry, variants ------------------------------------------
 
 
 def test_negative_controls_fire_in_both_packages():
@@ -267,14 +267,6 @@ def test_stale_registry_entries_are_findings():
     assert f and "matched no node" in f[0].reason
 
 
-def test_bridge_skips_with_its_note(report):
-    assert report.bridge is None
-    assert runner.BRIDGE_NOTE in report.notes
-    js = report.to_json()
-    assert js["negative_controls"]["ok"] and js["config"]["stat_max"] == \
-        1 << 54
-
-
 def test_cli_ranges_exit_code(capsys):
     assert cli.main(["ranges", "--quick", "--mega", "0",
                      "--device", "cpu"]) == 0
@@ -284,11 +276,3 @@ def test_cli_ranges_exit_code(capsys):
     assert out.rstrip().endswith("fsx ranges: PASS")
 
 
-def test_cli_ranges_refuses_artifact(capsys):
-    # the bridge's BPF plane is not ported: the flag is refused by name
-    # before anything is staged, never silently dropped
-    assert cli.main(["ranges", "--quick", "--mega", "0", "--device", "cpu",
-                     "--artifact", "artifacts/logreg_int8.npz"]) == 1
-    cap = capsys.readouterr()
-    assert "refusing --artifact" in cap.err
-    assert "PASS" not in cap.out
