@@ -157,7 +157,7 @@ more.
     same objects, none captured again, the params and the scorer's
     buffer keep their addresses, and the kernel with the swapped-in pack
     equals its plain version; the host µs of a swap on the dispatch
-    thread.  Then ``watch_artifact`` over a 768-batch drain whose
+    thread.  Then ``watch_artifact`` over a 384-batch drain whose
     watched file is replaced atomically mid-drain (exactly one swap,
     equal to the CPU replay at its index), in turns with drains that
     swap nothing (records/s); and raw48 ``mlp_robust.npz`` swapped for
@@ -397,12 +397,15 @@ more.
     scripts/torch_mesh_phases.py``.
 56-57. The headline benchmark and the data-parallel trainer
     (``headline_phases``).  56. ``headline_bench``: ``python -m
-    flowsentryx_tpu_torch.bench --budget-s 120`` as a child process (a
-    fresh process: no earlier profiler phase in its host times; 2^20
-    rows, B=16,384, the golden ``logreg_int8`` params on compact16, 16
-    pre-encoded batches): rc 0, one JSON line naming the card, a
-    positive ``value``, the single, mega8 and devloop2x8 chunk series,
-    no ``error``; from its stderr each tier's launch window
+    flowsentryx_tpu_torch.bench --budget-s 120 --host-ingest 2
+    --host-ingest-dur 3`` as a child process (a fresh process: no
+    earlier profiler phase in its host times; 2^20 rows, B=16,384, the
+    golden ``logreg_int8`` params on compact16, 16 pre-encoded batches;
+    first the sharded host-ingest suite, 2 drain workers, 3 s a row):
+    rc 0, one JSON line naming the card, a positive ``value``, the
+    single, mega8 and devloop2x8 chunk series, no ``error``, a
+    ``host_ingest`` block with the reference's headline keys and no
+    ``error``; from its stderr each tier's launch window
     (``score_int8`` once per step body) and each paced engine run's
     (``score_int8`` once per batch, ``table_summary`` once per report);
     then here the bench's 16 headline batches through the captured
@@ -483,6 +486,20 @@ more.
     Without ``bpf(2)`` the phase says ``"bpf_available": false`` and
     names the legs not run.  Alone: ``python3
     scripts/torch_bpf_plane_phase.py``.
+61. ``host_ingest`` (``host_ingest_phase``): the default mode of the
+    host-ingest harness (:mod:`flowsentryx_tpu_torch.shm_stress`) at
+    ``HOST_INGEST_DUR_S`` a row: ``phase_drain``, then the engine rows
+    paced 1.0 M records/s, free-run B=2048 and free-run B=2048
+    ``mega_n=8`` on the card at 2^20 rows, each fed by a live ``fsxd
+    --sim``.  Each row's launch window (zeroed just before the row, read
+    just after): ``score_int8`` once per dispatched batch,
+    ``table_summary`` once (the row's report).  Each row's batches, as
+    the engine staged them, replayed through ``Engine(device="cpu")`` in
+    child processes, all rows at once: stats, table digest and blacklist
+    equal.  Each row's records/s, stage ms and idle share (the captured
+    step's device ms per batch, replayed back to back over the row's own
+    batches, times the batches, over the wall).  Alone: ``python3
+    scripts/torch_host_ingest_phase.py``.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -532,9 +549,9 @@ SERVE_BATCHES = 384
 #: whole script, the elastic fleet's phases included, stays under ~780 s
 CLUSTER_SERVE_DEPTH = 2
 #: ``sim_kernel_tier``'s stream (the simulated tier and its CPU twin run
-#: at ~56 k records/s on the host): half of SERVE_BATCHES since the
-#: multi-host phase came, 384 before
-SIM_TIER_BATCHES = SERVE_BATCHES // 2
+#: at ~56 k records/s on the host): a quarter of SERVE_BATCHES since the
+#: host-ingest phase came, half since the multi-host phase, 384 before
+SIM_TIER_BATCHES = SERVE_BATCHES // 4
 CROSS_BATCHES = 48
 GRAPH_BATCHES = 24
 MEGA_BATCHES = 23 * 8 + 6      # top-rung groups, then a 4 and a 2
@@ -554,6 +571,16 @@ PULSE_PAIRS = 1
 HEADLINE_BUDGET_S = 120
 #: ``train_qat_dp``'s mesh: shards of the one card
 DP_SHARDS = 8
+#: ``headline_bench``'s host-ingest suite: drain workers, s per row
+HEADLINE_HOST_INGEST = (2, 3.0)
+#: ``host_ingest``'s seconds per row, and its engine rows (labels of
+#: ``shm_stress.ENGINE_ROWS``)
+HOST_INGEST_DUR_S = 3.0
+HOST_INGEST_ROWS = ("paced_1.0mpps", "freerun_b2048", "freerun_b2048_mega8")
+#: the keys of the reference's sharded host-ingest headline
+HOST_INGEST_HEADLINE_KEYS = (
+    "inline_engine_mpps", "inline_host_mpps", "sharded_mpps",
+    "sharded_lossless_mpps", "sharded_config", "meets_3mpps_lossless")
 
 FAILED: list[str] = []
 
@@ -637,6 +664,34 @@ def join_sink_threads(timeout_s: float = 30.0) -> None:
             th.join(timeout=timeout_s)
 
 
+class ListSealed:
+    """A sealed-batch source over recorded wire buffers, in order:
+    the CPU engine fed the batches the card engine dispatched."""
+
+    provides_sealed = True
+
+    def __init__(self, bufs, precompact=False):
+        self.bufs, self.i, self.t0_ns = bufs, 0, 1
+        self.precompact = precompact
+
+    def start(self, *a):
+        pass
+
+    def poll_batches_into(self, dst, max_batches, **timers):
+        out = []
+        while (len(out) < min(max_batches, len(dst))
+               and self.i < len(self.bufs)):
+            b = self.bufs[self.i]
+            dst[len(out)] = b
+            out.append(types.SimpleNamespace(
+                n_records=int(b[-1, 0]), t_enqueue=time.perf_counter()))
+            self.i += 1
+        return out
+
+    def exhausted(self):
+        return self.i >= len(self.bufs)
+
+
 def chaos_engine_drive(device: str, cfg, recs, tail, root: str,
                        watchdog: bool) -> dict:
     """The chaos campaign's three engine-side scenarios on one engine of
@@ -648,7 +703,6 @@ def chaos_engine_drive(device: str, cfg, recs, tail, root: str,
     the engine is dropped.  On the card the engine is warmed first and
     the launch window opens after ``warm()``; returns the scenarios'
     results with the state after each step."""
-    import hashlib
     from pathlib import Path
 
     import numpy as np
@@ -852,7 +906,6 @@ def handoff_engine_drive(device: str, cfg, donor_recs, recip_recs,
     the graphs captured before the handoff).  Returns the state after
     each step, the counts, the three calls' seconds, whether the table
     pointers held and whether anything was captured."""
-    import hashlib
 
     import numpy as np
     import torch
@@ -2170,8 +2223,7 @@ def mesh_phases(card: str, served: dict) -> None:
         return same(t1.key, t2.key) and same(t1.state, t2.state)
 
     def digest(e):
-        k, st = schema.table_to_numpy(e.table)
-        return hashlib.sha256(k.tobytes() + st.tobytes()).hexdigest()[:16]
+        return _table_digest(e.table)
 
     def classify_for(params):
         return functools.partial(kernels.score_int8,
@@ -2488,18 +2540,19 @@ def headline_phases(card: str, served: dict) -> None:
                 and torch.equal(bits(t1.state).cpu(), bits(t2.state).cpu())
                 and s1.to_dict() == s2.to_dict())
 
-    def digest(table):
-        k, st = schema.table_to_numpy(table)
-        return hashlib.sha256(k.tobytes() + st.tobytes()).hexdigest()[:16]
+    digest = _table_digest
 
     @phase("headline_bench")
     def bench_phase():
         out, checks = {"card": card, "budget_s": HEADLINE_BUDGET_S}, {}
+        hi_n, hi_dur = HEADLINE_HOST_INGEST
         t = time.perf_counter()
         r = subprocess.run(
             [sys.executable, "-m", "flowsentryx_tpu_torch.bench",
-             "--budget-s", str(HEADLINE_BUDGET_S)], cwd=REPO,
-            capture_output=True, text=True, timeout=HEADLINE_BUDGET_S + 180)
+             "--budget-s", str(HEADLINE_BUDGET_S),
+             "--host-ingest", str(hi_n), "--host-ingest-dur", str(hi_dur)],
+            cwd=REPO, capture_output=True, text=True,
+            timeout=HEADLINE_BUDGET_S + 180 + max(120, 20 * hi_dur + 120))
         out["process_wall_s"] = time.perf_counter() - t
         lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
         checks["rc_0"] = r.returncode == 0
@@ -2516,6 +2569,33 @@ def headline_phases(card: str, served: dict) -> None:
         for k in ("chunk_mpps", "mega_chunk_mpps", "devloop_chunk_mpps"):
             checks[f"{k}_not_empty"] = bool(line.get(k))
         checks["no_error"] = "error" not in line
+        hi = line.get("host_ingest") or {}
+        checks["host_ingest_reference_keys"] = set(
+            HOST_INGEST_HEADLINE_KEYS) <= set(hi)
+        checks["host_ingest_no_error"] = bool(hi) and "error" not in hi
+        if hi.get("artifact"):
+            try:
+                with open(os.path.join(REPO, hi["artifact"])) as f:
+                    rep = json.load(f)
+                out["host_ingest_report"] = {
+                    k: rep.get(k) for k in ("device_kind", "power_limit_w",
+                                            "host_cores", "n_workers")}
+                out["host_ingest_report"]["inline_engine"] = {
+                    k: rep["inline_engine"].get(k) for k in (
+                        "engine_mpps", "engine_records", "stages_ms",
+                        "offered_mpps", "ring_readable_at_stop")}
+                out["host_ingest_report"]["inline_host"] = rep["inline_host"]
+                out["host_ingest_report"]["sharded_rows"] = [
+                    {k: row.get(k) for k in (
+                        "label", "offered_mpps", "mpps", "lossless",
+                        "records", "produced", "dropped_ring_full",
+                        "seq_gaps", "wall_s")}
+                    for row in rep["sharded_rows"]]
+                checks["host_ingest_report_names_the_card"] = (
+                    rep.get("device_kind") == torch.cuda.get_device_name(0))
+            except (OSError, ValueError, KeyError) as e:
+                checks["host_ingest_report_read"] = False
+                out["host_ingest_report_error"] = repr(e)
         win: dict = {}
         for ln in r.stderr.splitlines():
             if ln.startswith("launches "):
@@ -2953,7 +3033,6 @@ def host_legs_drive(device: str, cfg, recs, *, claim: str = "real",
     this engine only, never in the package).  Returns the served state,
     the launch window and how many claims found their slot's event not
     yet fired."""
-    import hashlib
 
     import numpy as np
     import torch
@@ -3206,7 +3285,6 @@ def bpf_plane_phase(card: str, served: dict, trained_path: str) -> None:
     from flowsentryx_tpu_torch.distill import plan as dplan
     from flowsentryx_tpu_torch.models import logreg
     from flowsentryx_tpu_torch.ops import kernels
-    from flowsentryx_tpu_torch.ranges import bridge
 
     root = os.path.join(REPO, "build", "bpf_plane")
     os.makedirs(root, exist_ok=True)
@@ -3387,6 +3465,230 @@ def bpf_plane_phase(card: str, served: dict, trained_path: str) -> None:
         return {"ok": all(checks.values()), **res}
 
     plane_phase()
+
+
+def _table_digest(table) -> str:
+    from flowsentryx_tpu_torch.core import schema
+
+    k, st = schema.table_to_numpy(table)
+    return hashlib.sha256(k.tobytes() + st.tobytes()).hexdigest()[:16]
+
+
+class TeeSink:
+    """A verdict sink (``ring``, the verdict ring's) and a blacklist dict
+    (``collect``), both fed every update."""
+
+    def __init__(self, ring):
+        from flowsentryx_tpu_torch.engine.writeback import CollectSink
+
+        self.ring, self.collect = ring, CollectSink()
+
+    t0_ns = property(lambda self: self.ring.t0_ns,
+                     lambda self, v: setattr(self.ring, "t0_ns", v))
+
+    def apply(self, upd):
+        self.ring.apply(upd)
+        self.collect.apply(upd)
+
+
+def _blacklist(blocked: dict) -> list:
+    return sorted([int(k), float(v)] for k, v in blocked.items())
+
+
+def host_ingest_replay(args_path: str) -> None:
+    """One ``host_ingest`` row's CPU replay, in a child process: the
+    batches the card engine staged, in order, through
+    ``Engine(device="cpu")`` at the row's config; writes its stats, table
+    digest and blacklist as JSON."""
+    import numpy as np
+    import torch
+
+    from flowsentryx_tpu_torch import shm_stress as ss
+    from flowsentryx_tpu_torch.engine import CollectSink, Engine
+
+    with open(args_path) as f:
+        a = json.load(f)
+    torch.set_num_threads(2)
+    bufs = np.load(a["batches"])
+    sink = CollectSink()
+    e = Engine(ss.engine_config(a["max_batch"], a["capacity"]),
+               ListSealed(list(bufs)), sink, device="cpu")
+    t = time.perf_counter()
+    r = e.run()
+    with open(a["out"], "w") as f:
+        json.dump({"stats": r.stats, "digest": _table_digest(e.table),
+                   "blacklist": _blacklist(sink.blocked),
+                   "batches": r.batches, "records": r.records,
+                   "s": time.perf_counter() - t}, f)
+
+
+def host_ingest_phase(card: str, served: dict, device: str = "cuda",
+                      capacity: int | None = None) -> None:
+    """``host_ingest`` (module docstring, 61).  The rows' launch windows
+    go to ``served`` for the kernels line.  ``device="cpu"`` and a small
+    ``capacity`` (default the harness's 2^20 rows) drive the same checks
+    on the host, without the step timing."""
+    import numpy as np
+    import torch
+
+    from flowsentryx_tpu_torch import shm_stress as ss
+    from flowsentryx_tpu_torch.ops import kernels
+
+    cuda = device == "cuda"
+    capacity = capacity or ss.TABLE_CAPACITY
+
+    root = os.path.join(REPO, "build", "host_ingest_rows")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    def step_busy_ms(eng, key, batches, n=64):
+        """Device ms per batch of the engine's captured graph ``key`` (0:
+        the single step, g: rung g) replayed back to back over the row's
+        own staged batches (the engine's table is scratch by then)."""
+        gr = eng._graphs[key]
+        g = max(key, 1)
+        xs = [torch.from_numpy(np.stack(batches[i:i + g]).view(np.int32))
+              .to("cuda").reshape(gr.input.shape)
+              for i in range(0, min(n * g, len(batches) - g + 1), g)]
+        for x in xs[:4]:
+            gr.input.copy_(x)
+            gr.replay()
+        torch.cuda.synchronize()
+        a, b_ = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        for x in xs:
+            gr.input.copy_(x)
+            gr.replay()
+        b_.record()
+        b_.synchronize()
+        return a.elapsed_time(b_) / (len(xs) * g)
+
+    def drive(row):
+        """One engine row on the card, its engine instrumented: each
+        staged batch copied out (host side, as staged), the row's sink
+        teed into a blacklist, the report kept; the launch window is the
+        row alone (the engine was built and warmed before)."""
+        b, mega_n = row[1], row[5]
+        eng, _ = ss.get_engine(b, mega_n, device=device, capacity=capacity)
+        staged: list = []
+        got: dict = {}
+        real_stage = eng._stage
+
+        def stage(raws):
+            staged.extend(r.copy() for r in raws)
+            return real_stage(raws)
+
+        def run(*a, **kw):
+            eng.sink = got["tee"] = TeeSink(eng.sink)
+            got["report"] = type(eng).run(eng, *a, **kw)
+            return got["report"]
+
+        eng._stage, eng.run = stage, run
+        try:
+            kernels.reset_launches()        # this row's window opens
+            res = ss.engine_row(HOST_INGEST_DUR_S, row, device=device,
+                                capacity=capacity)
+            if cuda:
+                torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)   # ... and closes
+        finally:
+            del eng._stage, eng.run
+        rep = got["report"]
+        card_state = {"stats": rep.stats, "digest": _table_digest(eng.table),
+                      "blacklist": _blacklist(got["tee"].collect.blocked)}
+        busy = step_busy_ms(eng, mega_n, staged) if cuda else None
+        return res, rep, staged, launches, card_state, busy
+
+    @phase("host_ingest")
+    def ingest_phase():
+        out, checks = {"card": card, "dur_s_per_row": HOST_INGEST_DUR_S,
+                       "host_cores": os.cpu_count(),
+                       "capacity": capacity, "device": device}, {}
+        out["daemon_build"] = ss.build_daemon()
+        out["drain_only"] = ss.phase_drain(HOST_INGEST_DUR_S)
+        checks["drained"] = out["drain_only"]["records_drained"] > 0
+        rows = {r[2]: r for r in ss.ENGINE_ROWS}
+        done, windows = {}, {}
+        try:
+            for label in HOST_INGEST_ROWS:
+                res, rep, staged, launches, state, busy = drive(rows[label])
+                path = os.path.join(root, label)
+                np.save(path + ".npy", np.stack(staged))
+                with open(path + ".json", "w") as f:
+                    json.dump({"batches": path + ".npy",
+                               "max_batch": res["max_batch"],
+                               "capacity": capacity,
+                               "out": path + ".cpu.json"}, f)
+                windows[label] = launches
+                done[label] = (res, rep, len(staged), launches, state, busy)
+        finally:
+            ss.close_engines()
+            if cuda:
+                torch.cuda.empty_cache()
+        served["launches_host_ingest"] = windows
+        # every row's CPU replay at once, each in its own process
+        t = time.perf_counter()
+        procs = {label: subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.host_ingest_replay({path!r})"],
+            cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True) for label, path in (
+                (lb, os.path.join(root, lb + ".json")) for lb in done)}
+        errs = {}
+        for label, p in procs.items():
+            try:
+                _, err = p.communicate(timeout=900)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                _, err = p.communicate()
+            if p.returncode:
+                errs[label] = err[-2000:]
+        out["cpu_replay_wall_s"] = time.perf_counter() - t
+        out["rows"] = {}
+        for label, (res, rep, n_staged, launches, state, busy) in done.items():
+            cpu = {}
+            if label not in errs:
+                with open(os.path.join(root, label + ".cpu.json")) as f:
+                    cpu = json.load(f)
+            same = {k: cpu.get(k) == state[k]
+                    for k in ("stats", "digest", "blacklist")}
+            wall_ms = max(rep.wall_s * 1e3, 1e-9)
+            out["rows"][label] = {
+                "engine_mpps": res["engine_mpps"],
+                "records_per_s": res["records_per_s"],
+                "offered_mpps": res["offered_mpps"],
+                "engine_records": res["engine_records"],
+                "engine_wall_s": res["engine_wall_s"],
+                "ring_readable_at_stop": res["ring_readable_at_stop"],
+                "batches": rep.batches, "staged_batches": n_staged,
+                "group_hist": rep.dispatch.get("group_hist"),
+                "stages_ms": res["stages_ms"],
+                **{f"{k}_ms_per_batch": v["mean"] * v["n"]
+                   / max(rep.batches, 1)
+                   for k, v in rep.stages_ms.items() if v},
+                "step_busy_ms_per_batch": busy,
+                "idle_share": (1.0 - busy * rep.batches / wall_ms
+                               if busy is not None else None),
+                "blocked_sources": res["blocked_sources"],
+                "stats": rep.stats, "daemon": res["daemon"],
+                "launches": launches, "equal_cpu_replay": same,
+                "cpu_replay_s": cpu.get("s"),
+                "cpu_replay_error": errs.get(label)}
+            checks[f"{label}/served"] = (rep.records > 0
+                                         and rep.records == res[
+                                             "engine_records"])
+            checks[f"{label}/staged_all"] = n_staged == rep.batches
+            checks[f"{label}/score_int8_per_batch"] = (
+                launches["score_int8"] == rep.batches)
+            checks[f"{label}/table_summary_per_report"] = (
+                launches["table_summary"] == 1)
+            checks[f"{label}/equal_cpu_replay"] = all(same.values())
+        for label in done:
+            os.remove(os.path.join(root, label + ".npy"))
+        out["checks"] = checks
+        return {"ok": all(checks.values()), **out}
+
+    ingest_phase()
 
 
 def pinned_maps_leg(quiet, pin: str, checks: dict) -> dict:
@@ -3783,8 +4085,7 @@ def main() -> int:
     real_table_phase()
 
     def digest(e):
-        k, st = schema.table_to_numpy(e.table)
-        return hashlib.sha256(k.tobytes() + st.tobytes()).hexdigest()[:16]
+        return _table_digest(e.table)
 
     def same_state(t1, s1, t2, s2):
         return (torch.equal(t1.key, t2.key)
@@ -4356,46 +4657,6 @@ def main() -> int:
                 self.wires.append(g.wire.cpu().numpy().copy())
             super()._sink_one(g)
 
-    class ListSealed:
-        """A sealed-batch source over recorded wire buffers, in order:
-        the CPU engine fed the batches the card engine dispatched."""
-
-        provides_sealed = True
-
-        def __init__(self, bufs, precompact=False):
-            self.bufs, self.i, self.t0_ns = bufs, 0, 1
-            self.precompact = precompact
-
-        def start(self, *a):
-            pass
-
-        def poll_batches_into(self, dst, max_batches, **timers):
-            out = []
-            while (len(out) < min(max_batches, len(dst))
-                   and self.i < len(self.bufs)):
-                b = self.bufs[self.i]
-                dst[len(out)] = b
-                out.append(types.SimpleNamespace(
-                    n_records=int(b[-1, 0]), t_enqueue=time.perf_counter()))
-                self.i += 1
-            return out
-
-        def exhausted(self):
-            return self.i >= len(self.bufs)
-
-    class TeeSink:
-        """The verdict ring and a blacklist dict, both fed every update."""
-
-        def __init__(self, path):
-            self.ring, self.collect = ShmVerdictSink(path), CollectSink()
-
-        t0_ns = property(lambda self: self.ring.t0_ns,
-                         lambda self, v: setattr(self.ring, "t0_ns", v))
-
-        def apply(self, upd):
-            self.ring.apply(upd)
-            self.collect.apply(upd)
-
     def verdict_ring(label):
         path = os.path.join(shm_dir, f"{label}.vring")
         return path, ShmRing.create(path, 1 << 18,
@@ -4418,7 +4679,7 @@ def main() -> int:
 
     def cpu_ring_run(label, c, params, recs, **kw):
         vpath, vring = verdict_ring(label)
-        sink = TeeSink(vpath)
+        sink = TeeSink(ShmVerdictSink(vpath))
         e = Engine(c, ArraySource(recs.copy()), sink, params=params,
                    device="cpu", **kw)
         with cpu_threads():
@@ -4570,7 +4831,7 @@ def main() -> int:
                                   1 << 20, schema.FLOW_RECORD_DTYPE)
             assert ring.produce(recs[sh == k]) == int((sh == k).sum())
         vpath, vring = verdict_ring(label)
-        sink = TeeSink(vpath)
+        sink = TeeSink(ShmVerdictSink(vpath))
         src = ShardedIngest(base, n_workers, strict=True, precompact=False,
                             queue_slots=queue_slots)
         cls = Recording if record else Engine
@@ -5519,27 +5780,7 @@ def main() -> int:
 
     crash_phase()
 
-    def build_daemon():
-        """``make -C daemon`` (into ``daemon/build/``); if the compiler
-        trips ``-Werror``, once more with the Makefile's flags without
-        it; without ``make``, the Makefile's ``g++`` line by hand."""
-        ddir = os.path.join(REPO, "daemon")
-        relaxed = "-O2 -std=c++17 -Wall -Wextra -I../kern"
-        if shutil.which("make"):
-            tries = [(["make", "-C", ddir], "make"),
-                     (["make", "-C", ddir, f"CXXFLAGS={relaxed}"],
-                      f"make CXXFLAGS={relaxed}")]
-        else:
-            os.makedirs(os.path.join(ddir, "build"), exist_ok=True)
-            line = ["g++", *relaxed.split(), "fsxd.cpp", "-o",
-                    "build/fsxd", "-lpthread"]
-            tries = [(line, " ".join(line))]
-        for cmd, label in tries:
-            r = subprocess.run(cmd, cwd=ddir, capture_output=True,
-                               text=True, timeout=300)
-            if r.returncode == 0:
-                return label
-        raise RuntimeError(f"daemon build failed: {r.stderr[-2000:]}")
+    from flowsentryx_tpu_torch.shm_stress import build_daemon
 
     def kernel_compact(rec, now_ns):
         """48-byte records as a compact-emit kernel writes them: minifloat
@@ -5753,7 +5994,7 @@ def main() -> int:
                     tag = f"{label}/{'sink_thread' if st else 'inline_sink'}"
                     fpath = feature_ring(f"lat_{label}", recs)
                     vpath, vring = verdict_ring(f"lat_{label}")
-                    sink = TeeSink(vpath)
+                    sink = TeeSink(ShmVerdictSink(vpath))
                     e = Engine(ring_cfg, ShmRingSource(fpath), sink,
                                params=params, device="cuda", mega_n=mega_n,
                                sink_thread=st)
@@ -6037,7 +6278,7 @@ def main() -> int:
         vring, sink = None, CollectSink()
         if label:
             vpath, vring = verdict_ring(label)
-            sink = TeeSink(vpath)
+            sink = TeeSink(ShmVerdictSink(vpath))
         e = Engine(c, ArraySource(recs.copy()), sink, params=boot,
                    device="cpu", **kw)
         with cpu_threads():
@@ -6049,7 +6290,9 @@ def main() -> int:
             out["verdicts"] = vring.consume(1 << 18).tobytes()
         return out
 
-    WATCH_BATCHES, WATCH_AT = 768, 256
+    #: the watched drain: 384 batches, the swap pushed once 128 are
+    #: launched (768 and 256 before the host-ingest phase came)
+    WATCH_BATCHES, WATCH_AT = 384, 128
 
     @phase("hot_swap_live")
     def hot_swap_phase():
@@ -6069,7 +6312,7 @@ def main() -> int:
         for label, mega_n in (("single", 0), ("auto", "auto")):
             fpath = feature_ring(f"swap_{label}", recs)
             vpath, vring = verdict_ring(f"swap_{label}")
-            sink = TeeSink(vpath)
+            sink = TeeSink(ShmVerdictSink(vpath))
             e = Engine(ring_cfg, ShmRingSource(fpath), sink, params=boot,
                        device="cuda", mega_n=mega_n)
             e.warm()
@@ -7208,6 +7451,7 @@ def main() -> int:
     static_audit_phase(card, served)
     host_legs_phase(card, served)
     bpf_plane_phase(card, served, trained_path)
+    host_ingest_phase(card, served)
 
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
@@ -7614,7 +7858,10 @@ def main() -> int:
                                             {}),
             # fsx distill --check --emulate per artifact and corpus size
             **{f"bpf_plane/{k}": w for k, w in
-               served.get("launches_bpf_plane", {}).items()}}
+               served.get("launches_bpf_plane", {}).items()},
+            # the host-ingest harness's engine rows, fed by a live fsxd
+            **{f"host_ingest/{k}": w for k, w in
+               served.get("launches_host_ingest", {}).items()}}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}

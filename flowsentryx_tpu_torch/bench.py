@@ -59,10 +59,16 @@ rate); the pulse tier (``slo_us`` 0 against 2,000); the summed stats.
   phase that raises sets ``error`` and makes the run exit 1;
 * ``_merge_best_tpu_attempt`` (``bench.py:1476-1537``): it adopts
   another run's numbers, and a line describes its own run;
-* ``--host-ingest`` (it drives the reference's ``scripts/shm_stress.py``,
-  a host ceiling): refused by name;
 * the forced-CPU fallback: without ``--device cpu`` the run is on the
   card, and with no card it exits 1 naming the missing device.
+
+**Host ingest** (``--host-ingest N [--host-ingest-dur S]``;
+``bench.py:1159-1188``): before the card phases, and outside
+``--budget-s``, :func:`run_host_ingest` runs the sharded suite of
+:mod:`.shm_stress` (N drain workers, S seconds per row, default 8) as a
+child on the bench's ``--device`` and puts its headline under
+``host_ingest``, with ``artifact`` naming the full report under
+``build/``; a child that fails gives ``{"error": <its stderr's tail>}``.
 
 The line adds ``device_kind`` (``torch.cuda.get_device_name``),
 ``power_limit_w`` (``nvidia-smi``) and ``served_note``, and keeps the
@@ -111,7 +117,6 @@ DROPPED_KEYS = {
     "merged_from_attempt": "another run's numbers adopted",
     "displaced_result": "another run's numbers adopted",
     "tpu_attempts_considered": "another run's numbers adopted",
-    "host_ingest": "--host-ingest is refused",
 }
 #: Keys of the reference's latency budget the port does not print.
 DROPPED_BUDGET_KEYS = {
@@ -127,12 +132,12 @@ SERVED_NOTE = (
     "(the device-resident capability); the generator-fed engine's served "
     "records/s is lower, bound by the host's fill")
 
-#: The reference's refusals of ``bench``'s flags, by name.
-REFUSED = {
-    "host_ingest": "it drives the reference's scripts/shm_stress.py, a "
-                   "host ceiling of its sharded ingest, which the port "
-                   "has not ported",
-}
+#: The repository root (``build/`` holds the host-ingest report).
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: The host-ingest harness, run as ``python -m`` in a child process.
+HOST_INGEST_MODULE = "flowsentryx_tpu_torch.shm_stress"
+#: ``--host-ingest-dur`` default: seconds per row.
+HOST_INGEST_DUR_S = 8.0
 
 
 def log(msg: str) -> None:
@@ -863,6 +868,31 @@ def smi_power() -> tuple[str | None, float | None]:
     return line, watts
 
 
+def run_host_ingest(n_workers: int, dur: float,
+                    device: str | None) -> dict:
+    """The sharded host-ingest suite (:mod:`.shm_stress` ``--shards
+    N``) in a child process, ``dur`` seconds per row: its headline with
+    ``artifact``, the full report's path under ``build/``; or
+    ``{"error": ...}`` when the child printed no line."""
+    rel = os.path.join("build", "host_ingest",
+                       f"shm_stress_w{n_workers}.json")
+    cmd = [sys.executable, "-m", HOST_INGEST_MODULE,
+           "--shards", str(n_workers), "--out", os.path.join(REPO, rel)]
+    if device is not None:
+        cmd += ["--device", device]
+    timeout = max(120.0, 20 * dur + 120)
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO,
+                           env=dict(os.environ, FSX_STRESS_DUR=str(dur)),
+                           timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return {"error": f"host-ingest child timed out after {timeout:g} s"}
+    for line in r.stdout.splitlines()[::-1]:
+        if line.strip().startswith("{"):
+            return {**json.loads(line), "artifact": rel}
+    return {"error": (r.stderr or "no output").strip()[-500:]}
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m flowsentryx_tpu_torch.bench",
@@ -876,22 +906,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device; default the card (exits 1 without "
                         "one)")
-    for flag, why in REFUSED.items():
-        p.add_argument("--" + flag.replace("_", "-"), default=None,
-                       help=f"refused: {why}")
+    p.add_argument("--host-ingest", type=int, default=0, metavar="N",
+                   help="first run the sharded host-ingest suite with N "
+                        "drain workers (outside --budget-s)")
+    p.add_argument("--host-ingest-dur", type=float,
+                   default=HOST_INGEST_DUR_S, metavar="S",
+                   help="seconds per host-ingest row (default 8)")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
     """Run the benchmark and print its line; 1 when a phase raised (the
-    line still prints, with ``error``), when a flag is refused or when
-    there is no card (no line)."""
-    t_start = time.perf_counter()
+    line still prints, with ``error``) or when there is no card (no
+    line)."""
     args = build_parser().parse_args(argv)
-    for flag, why in REFUSED.items():
-        if getattr(args, flag) is not None:
-            log(f"fsx bench: refusing --{flag.replace('_', '-')}: {why}")
-            return 1
     from flowsentryx_tpu_torch.core.device import resolve_device
 
     try:
@@ -899,6 +927,13 @@ def main(argv: list[str] | None = None) -> int:
     except RuntimeError as e:
         log(f"fsx bench: {e}")
         return 1
+    host_ingest = None
+    if args.host_ingest > 0:
+        log(f"host-ingest phase: {args.host_ingest} drain workers, "
+            f"{args.host_ingest_dur:g} s per row")
+        host_ingest = run_host_ingest(args.host_ingest,
+                                      args.host_ingest_dur, args.device)
+    t_start = time.perf_counter()
     budget_s = args.budget_s
 
     def remaining() -> float:
@@ -933,6 +968,8 @@ def main(argv: list[str] | None = None) -> int:
     detail = fold_line(tput, lat, batch=batch, capacity=capacity,
                        budget_s=budget_s,
                        device_kind_=device_kind(dev), power_limit_w=watts)
+    if host_ingest is not None:
+        detail["host_ingest"] = host_ingest
     if errors:
         detail["error"] = "; ".join(
             ([detail["error"]] if "error" in detail else []) + errors)

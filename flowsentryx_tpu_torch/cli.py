@@ -79,8 +79,10 @@ A bare ``bench [--smoke] [--budget-s S]`` runs the headline benchmark
 NAME]`` runs the five BASELINE configs (:mod:`.benchmarks`), one JSON
 line each; ``bench --scaling`` the step time against 1, 2, 4 and 8
 shards of a mesh laid on the one ``--device``
-(:func:`.benchmarks.run_scaling`); ``--host-ingest``, ``--cluster`` and
-``--baseline-repo`` are refused by name.  ``version`` prints the
+(:func:`.benchmarks.run_scaling`); ``--host-ingest N`` first runs the
+sharded host-ingest suite (:mod:`.shm_stress`) and puts its headline in
+the headline's line; ``--cluster`` and ``--baseline-repo`` are refused
+by name.  ``version`` prints the
 package's version as the reference's does.
 
 ``audit`` and ``ranges`` are the device plane's two static legs
@@ -1760,7 +1762,6 @@ def _cmd_monitor(args: argparse.Namespace) -> int:
 
 #: ``bench`` flags of the reference that the port refuses by name.
 _BENCH_REFUSED = {
-    **bench.REFUSED,
     "cluster": "the paced fleet comparison runs the reference's "
                "scripts/cluster_bench.py against a pre-cluster checkout",
     "baseline_repo": "it names the pre-cluster checkout of --cluster",
@@ -1782,6 +1783,9 @@ def _cmd_bench(args: argparse.Namespace) -> int:
             argv += ["--budget-s", str(args.budget_s)]
         if args.device is not None:
             argv += ["--device", args.device]
+        if args.host_ingest:
+            argv += ["--host-ingest", str(args.host_ingest),
+                     "--host-ingest-dur", str(args.host_ingest_dur)]
         return bench.main(argv)
     from flowsentryx_tpu_torch import benchmarks
     from flowsentryx_tpu_torch.core.device import resolve_device
@@ -2437,6 +2441,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="substring filter on scenario names (repeatable)")
     b.add_argument("--device", default=None,
                    help="torch device; default the card (raises without one)")
+    b.add_argument("--host-ingest", type=int, default=0, metavar="N",
+                   help="with the headline benchmark: first the sharded "
+                        "host-ingest suite with N drain workers "
+                        "(flowsentryx_tpu_torch.shm_stress), its headline "
+                        "under host_ingest")
+    b.add_argument("--host-ingest-dur", type=float,
+                   default=bench.HOST_INGEST_DUR_S, metavar="S",
+                   help="seconds per host-ingest row (default 8)")
     for flag, why in _BENCH_REFUSED.items():
         b.add_argument("--" + flag.replace("_", "-"),
                        action="store_true" if flag == "cluster" else None,

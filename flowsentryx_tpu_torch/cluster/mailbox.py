@@ -49,7 +49,7 @@ def _map(path: Path) -> mmap.mmap:
 
 
 def _create_file(path: Path, nbytes: int) -> mmap.mmap:
-    with open(path, "wb") as f:
+    with open(path, "wb") as f:  # noqa: shm ring/status create (tmpfs), not durable state
         f.truncate(nbytes)
     return _map(path)
 

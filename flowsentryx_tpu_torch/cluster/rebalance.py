@@ -410,7 +410,7 @@ class HandoffMailbox:
                       + rows_per_slot * row_words) * 4
         nbytes = wire.SHM_HDR_SIZE + slots * slot_bytes
         path = Path(path)
-        with open(path, "wb") as f:
+        with open(path, "wb") as f:  # noqa: shm handoff mailbox (tmpfs), not durable state
             f.truncate(nbytes)
         with open(path, "r+b") as f:
             mm = mmap.mmap(f.fileno(), 0)

@@ -300,7 +300,7 @@ def _serve(spec: dict, plane: GossipPlane) -> None:
 def _write_report(path: str, out: dict) -> None:
     p = Path(path)
     p.parent.mkdir(parents=True, exist_ok=True)
-    p.write_text(json.dumps(out, indent=2) + "\n")
+    p.write_text(json.dumps(out, indent=2) + "\n")  # noqa: report file, informational
 
 
 def net_settle(plane: GossipPlane, settle_s: float, drain_end_wall_ns: int,
@@ -360,7 +360,6 @@ def prewarm_main(spec: dict) -> int:
     try:
         import numpy as np
 
-        from flowsentryx_tpu_torch.core import wire
         from flowsentryx_tpu_torch.core.config import FsxConfig
         from flowsentryx_tpu_torch.engine import Engine, NullSink
         from flowsentryx_tpu_torch.engine.sources import ArraySource
@@ -422,7 +421,7 @@ def stub_engine_main(spec: dict) -> int:
     if spec.get("report_path"):
         p = Path(spec["report_path"])
         p.parent.mkdir(parents=True, exist_ok=True)
-        p.write_text(json.dumps({
+        p.write_text(json.dumps({  # noqa: report file, informational
             "rank": spec["rank"], "gen": gen, "stub": True,
             "restored": spec.get("restore"),
             "report": {"records": 0, "batches": 0},

@@ -54,7 +54,6 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -599,7 +598,7 @@ def gemv_seq_plain(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     md = m.detach().cpu().numpy().astype(np.float64)
     prods = gd[:, None] * md
     n, k = md.shape
-    sums = np.empty((n, k))
+    sums = np.empty((n, k), np.float64)
     acc = np.zeros(k, np.float32)
     i = 0
     while i < n:

@@ -14,8 +14,10 @@ reference's root ``bench.py`` and ``fsx version``.
   plus the keys it adds, are the port's line's keys, and whose headline
   fields (value, tiers, the canonical latency pick) equal the port's;
 * ``fsx bench --smoke --device cpu`` prints one line and exits 0;
-  ``--host-ingest`` is refused by name; a raising phase still prints
-  the line and exits 1; without a card the run exits 1 naming it.
+  ``--host-ingest N`` puts the sharded host-ingest suite's headline,
+  with the reference's keys, under ``host_ingest``, and a child that
+  fails gives ``{"error": ...}``; a raising phase still prints the line
+  and exits 1; without a card the run exits 1 naming it.
 """
 
 import ast
@@ -300,12 +302,56 @@ def test_cli_bench_smoke_on_the_cpu_prints_one_line():
     assert not set(rec) & set(bench.DROPPED_KEYS)
 
 
-@pytest.mark.parametrize("argv", [["--host-ingest=4"],
-                                  ["--host-ingest", "2", "--smoke"]])
-def test_host_ingest_refused_by_name(argv):
-    rc, out, err = _run(bench.main, argv)
-    assert rc == 1 and out == ""
-    assert "refusing --host-ingest" in err
+def _ref_sharded_headline_keys() -> set:
+    """The keys of the reference's ``scripts/shm_stress.py`` sharded
+    headline (``out["headline"] = {...}`` in ``run_sharded_suite``)."""
+    tree = ast.parse((REPO / "scripts" / "shm_stress.py").read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "run_sharded_suite")
+    for node in ast.walk(fn):
+        if (isinstance(node, ast.Assign)
+                and isinstance(node.targets[0], ast.Subscript)
+                and isinstance(node.value, ast.Dict)
+                and node.targets[0].slice.value == "headline"):
+            return {k.value for k in node.value.keys}
+    raise AssertionError("no headline in the reference's sharded suite")
+
+
+def test_host_ingest_line_has_the_reference_headline_keys():
+    """``--host-ingest 2`` runs the sharded suite of the port's harness
+    (1 s per row, the engine row on the CPU) before the card phases."""
+    rc, out, err = _run(bench.main, ["--host-ingest", "2",
+                                     "--host-ingest-dur", "1", "--smoke",
+                                     "--device", "cpu", "--budget-s", "20"])
+    assert rc == 0, err
+    [line] = out.splitlines()
+    hi = json.loads(line)["host_ingest"]
+    assert "error" not in hi, hi
+    # 2 workers on a host with 2 or more cores: no cores-matched row
+    assert set(hi) == _ref_sharded_headline_keys() | {"artifact"}
+    assert hi["sharded_lossless_mpps"] > 0 and hi["inline_host_mpps"] > 0
+    report = json.loads((REPO / hi["artifact"]).read_text())
+    assert report["headline"] == {k: v for k, v in hi.items()
+                                  if k != "artifact"}
+    assert report["device_kind"] == "cpu" and report["power_limit_w"] is None
+    assert report["inline_engine"]["wire"] == "compact16"
+
+
+def test_host_ingest_child_that_fails_gives_an_error(monkeypatch):
+    tput, lat = _phases([])
+    monkeypatch.setattr(bench, "phase_throughput", lambda *a, **k: dict(tput))
+    monkeypatch.setattr(bench, "phase_latency", lambda *a, **k: dict(lat))
+    monkeypatch.setattr(bench, "HOST_INGEST_MODULE",
+                        "flowsentryx_tpu_torch.no_such_harness")
+    rc, out, err = _run(bench.main, ["--host-ingest", "2", "--smoke",
+                                     "--device", "cpu", "--budget-s", "60"])
+    assert rc == 0, err
+    [line] = out.splitlines()
+    rec = json.loads(line)
+    assert set(rec["host_ingest"]) == {"error"}
+    assert "no_such_harness" in rec["host_ingest"]["error"]
+    assert len(rec["host_ingest"]["error"]) <= 500
+    assert "error" not in rec and rec["value"] > 0
 
 
 @pytest.mark.parametrize("which", ["throughput", "latency"])

@@ -170,7 +170,9 @@ def test_new_host_modules_are_checked():
     registry and runner) and the eBPF plane (the ISA, assembler, loader,
     programs, images, verifier, contracts, blacklist and rule maps, the
     XDP drive, the header generator, the scorer emulator, the
-    containment bridge and the kernel-map verbs) are among them."""
+    containment bridge and the kernel-map verbs), the host-ingest stress
+    harness and the port's lint gate (``scripts/torch_lint.py``) are
+    among them."""
     names = {".".join(p.relative_to(REPO).with_suffix("").parts)
              for p in _port_sources()}
     for m in ("core.wire", "core.durable", "engine.shm", "engine.arena",
@@ -193,8 +195,10 @@ def test_new_host_modules_are_checked():
               "bpf.__init__", "bpf.isa", "bpf.asm", "bpf.loader",
               "bpf.progs", "bpf.image", "bpf.verifier", "bpf.contracts",
               "bpf.blacklist", "bpf.rules", "bpf.xdp", "core.codegen",
-              "distill.emulate", "ranges.bridge", "kernel_verbs"):
+              "distill.emulate", "ranges.bridge", "kernel_verbs",
+              "shm_stress"):
         assert f"flowsentryx_tpu_torch.{m}" in names, m
+    assert "scripts.torch_lint" in names
 
 
 def test_ebpf_plane_imports_no_torch():

@@ -32,7 +32,7 @@ from flowsentryx_tpu_torch.benchmarks import (
 )
 from flowsentryx_tpu_torch.core import config, schema
 from flowsentryx_tpu_torch.engine import (
-    ArraySource, CollectSink, Engine, NullSink, PacedSource, Scenario,
+    ArraySource, CollectSink, Engine, PacedSource, Scenario,
     TrafficGen, TrafficSource, TrafficSpec,
 )
 from flowsentryx_tpu_torch.engine import health, metrics

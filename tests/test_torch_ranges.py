@@ -21,7 +21,6 @@ from flowsentryx_tpu.ranges import runner as jrunner
 from flowsentryx_tpu.ranges import seeds as jseeds
 from flowsentryx_tpu_torch import cli
 from flowsentryx_tpu_torch.audit import graph
-from flowsentryx_tpu_torch.core import schema
 from flowsentryx_tpu_torch.core.config import BatchConfig, FsxConfig, TableConfig
 from flowsentryx_tpu_torch.core.device import as_i32
 from flowsentryx_tpu_torch.parallel import make_mesh

@@ -148,14 +148,16 @@ def test_bench_scenarios_cli_equals_reference():
     (["--cluster"], "--cluster"),
     (["--baseline-repo", "/tmp/x"], "--baseline-repo"),
     (["--scenarios", "--scaling"], None),
-    (["--host-ingest", "4"], "--host-ingest")],
+    (["--host-ingest", "4"], None)],
     ids=["bare", "smoke", "scaling", "cluster", "baseline-repo",
          "scenarios-scaling", "host-ingest"])
 def test_bench_refuses_unported_modes_by_name(argv, flag):
     """The modes still unported are refused by name.  A bare ``bench``,
-    ``--smoke`` (the headline benchmark) and ``--scaling`` (the sharded
-    step) are ported: without ``--device`` they run on the card, and a
-    host without one refuses them by that reason, printing no line."""
+    ``--smoke`` (the headline benchmark), ``--scaling`` (the sharded
+    step) and ``--host-ingest`` (the headline benchmark after the
+    sharded host-ingest suite) are ported: without ``--device`` they run
+    on the card, and a host without one refuses them by that reason,
+    printing no line."""
     rc, out, err = _run(cli.main, ["bench", *argv])
     assert rc == 1 and out == ""
     if flag is None:
