@@ -398,10 +398,10 @@ more.
 56-57. The headline benchmark and the data-parallel trainer
     (``headline_phases``).  56. ``headline_bench``: ``python -m
     flowsentryx_tpu_torch.bench --budget-s 120 --host-ingest 2
-    --host-ingest-dur 3`` as a child process (a fresh process: no
+    --host-ingest-dur 2`` as a child process (a fresh process: no
     earlier profiler phase in its host times; 2^20 rows, B=16,384, the
     golden ``logreg_int8`` params on compact16, 16 pre-encoded batches;
-    first the sharded host-ingest suite, 2 drain workers, 3 s a row):
+    first the sharded host-ingest suite, 2 drain workers, 2 s a row):
     rc 0, one JSON line naming the card, a positive ``value``, the
     single, mega8 and devloop2x8 chunk series, no ``error``, a
     ``host_ingest`` block with the reference's headline keys and no
@@ -500,6 +500,26 @@ more.
     step's device ms per batch, replayed back to back over the row's own
     batches, times the batches, over the wall).  Alone: ``python3
     scripts/torch_host_ingest_phase.py``.
+62. ``mesh_processes`` (``mesh_processes_phase``): the process mesh, one
+    process per shard, at 2^20 rows in all, B=2048, K=64, golden
+    ``logreg_int8`` on compact16, ``MESH_PROC_BATCHES`` batches of
+    ``mixed_l34_1m``.  (a) The NCCL world of one rank per visible card
+    drives ``make_process_step`` itself (the engine maps a one-rank mesh
+    to the single step), eagerly and then captured as one CUDA graph per
+    rank: after every batch every rank's wire, stats and route drops
+    equal the one-process step of as many shards on the card, and at
+    the end the gathered table does; each rank's ``score_int8`` once per
+    batch.  Then, in child processes, whether NCCL takes two ranks on
+    one card (recorded, not required).  (b) Two gloo ranks as engines,
+    a leader here and a spawned follower, both on the one card, each its
+    own CUDA context: stats, blacklist, report summary and gathered
+    table digest equal the one-process 2-shard engine's on the card and
+    on the CPU; each rank's ``score_int8`` once per batch and
+    ``table_summary`` once (the report).  Each world's ranks, backend,
+    cards seen, the leader's records/s, each rank's event ms per step
+    (CUDA events around it, host launch gaps included) and its
+    exchanges' host ms per batch.  Alone: ``python3
+    scripts/torch_mesh_processes_phase.py``.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -571,11 +591,12 @@ PULSE_PAIRS = 1
 HEADLINE_BUDGET_S = 120
 #: ``train_qat_dp``'s mesh: shards of the one card
 DP_SHARDS = 8
-#: ``headline_bench``'s host-ingest suite: drain workers, s per row
-HEADLINE_HOST_INGEST = (2, 3.0)
-#: ``host_ingest``'s seconds per row, and its engine rows (labels of
-#: ``shm_stress.ENGINE_ROWS``)
-HOST_INGEST_DUR_S = 3.0
+#: ``headline_bench``'s host-ingest suite: drain workers, s per row (3.0
+#: before the process-mesh phase came)
+HEADLINE_HOST_INGEST = (2, 2.0)
+#: ``host_ingest``'s seconds per row (3.0 before the process-mesh phase
+#: came), and its engine rows (labels of ``shm_stress.ENGINE_ROWS``)
+HOST_INGEST_DUR_S = 2.0
 HOST_INGEST_ROWS = ("paced_1.0mpps", "freerun_b2048", "freerun_b2048_mega8")
 #: the keys of the reference's sharded host-ingest headline
 HOST_INGEST_HEADLINE_KEYS = (
@@ -3689,6 +3710,251 @@ def host_ingest_phase(card: str, served: dict, device: str = "cuda",
         return {"ok": all(checks.values()), **out}
 
     ingest_phase()
+
+
+#: ``mesh_processes``: batches of ``mixed_l34_1m`` through each world of
+#: the process mesh, and the bound on its NCCL pair probe's child
+MESH_PROC_BATCHES = 64
+NCCL_PAIR_TIMEOUT_S = 150
+
+
+def _proc_boot(cfg, params, quant) -> dict:
+    """The boot message of a process mesh driven without an engine."""
+    from flowsentryx_tpu_torch.core import schema
+
+    return {"cfg": cfg, "wire": schema.WIRE_COMPACT16, "quant": quant,
+            "params": type(params)(*(t.cpu() for t in params)), "keep": 2}
+
+
+def nccl_pair_probe(out_path: str) -> None:
+    """Two NCCL ranks on card 0, each its own process (this one leads,
+    a spawned follower): boot, one gather of every rank's counters, stop;
+    ``{"ok": ..., "error": ...}`` into ``out_path``.  Run as a child of
+    ``mesh_processes``: a refusal NCCL cannot recover from ends this
+    process, not the script."""
+    import torch
+
+    from flowsentryx_tpu_torch.core import schema
+    from flowsentryx_tpu_torch.core.config import (
+        BatchConfig, FsxConfig, TableConfig,
+    )
+    from flowsentryx_tpu_torch.models import logreg
+    from flowsentryx_tpu_torch.parallel import follower, launch
+
+    t = time.perf_counter()
+    res: dict = {}
+    try:
+        with launch.MeshProcesses(2, device="cuda", backend="nccl",
+                                  devices=["cuda:0", "cuda:0"],
+                                  timeout_s=60) as world:
+            params = logreg.golden_params("cpu")
+            cfg = FsxConfig(table=TableConfig(capacity=1 << 12),
+                            batch=BatchConfig(max_batch=256))
+            lead = follower.Leader(world.mesh, _proc_boot(
+                cfg, params, schema.wire_quant_for(params)))
+            res["ranks_answered"] = len(lead.counts())
+            lead.stop()
+            res["ok"] = True
+    except Exception as e:  # the answer is the finding
+        res.update(ok=False, error=repr(e)[:2000])
+    res["s"] = round(time.perf_counter() - t, 3)
+    res["torch_nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def mesh_processes_phase(card: str, served: dict, device: str = "cuda",
+                         capacity: int = TABLE_CAP,
+                         batches: int = MESH_PROC_BATCHES) -> None:
+    """``mesh_processes``: the process mesh (one process per shard) on the
+    card, at the production table (2^20 rows in all), B=2048, K=64,
+    golden ``logreg_int8`` on compact16, MESH_PROC_BATCHES batches of
+    ``mixed_l34_1m`` (module docstring, 62).  Each rank's launch window
+    goes to ``served`` for the kernels line.  ``device="cpu"`` (a small
+    ``capacity`` and ``batches``) is a dry run of its control flow: a
+    one-rank gloo world in place of NCCL, no capture and no probe, and
+    its launch checks fail (the CPU counts no kernel)."""
+    import numpy as np
+    import torch
+
+    from flowsentryx_tpu_torch.core import schema
+    from flowsentryx_tpu_torch.core.config import (
+        BatchConfig, FsxConfig, TableConfig,
+    )
+    from flowsentryx_tpu_torch.engine import (
+        ArraySource, CollectSink, Engine, Scenario, TrafficGen, TrafficSpec,
+    )
+    from flowsentryx_tpu_torch.models import logreg
+    from flowsentryx_tpu_torch.ops import kernels
+    from flowsentryx_tpu_torch.parallel import follower, launch, make_mesh
+    from flowsentryx_tpu_torch.parallel import step as pstep
+
+    dev = torch.device(device)
+    card_run = dev.type == "cuda"
+    root = os.path.join(REPO, "build", "mesh_processes")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = FsxConfig(table=TableConfig(capacity=capacity,
+                                      salt=SEED & 0xFFFFFFFF),
+                    batch=BatchConfig(max_batch=BATCH))
+    hp = logreg.golden_params("cpu")
+    quant = schema.wire_quant_for(hp)
+    rec = TrafficGen(TrafficSpec(scenario=Scenario.MIXED_L34_1M, seed=SEED,
+                                 rate_pps=1e6)).next_records(
+        batches * BATCH)
+    t0 = int(rec["ts_ns"][0])
+    raws = [schema.wire_to_tensor(schema.encode_compact(
+        rec[i * BATCH:(i + 1) * BATCH], BATCH, t0, **quant))
+        for i in range(batches)]
+
+    def digest(key, state) -> str:
+        return hashlib.sha256(key.tobytes() + state.tobytes()).hexdigest()[
+            :16]
+
+    def per_batch(c, key) -> float:
+        return round(c[key] / max(c["steps"], 1), 4)
+
+    @phase("mesh_processes")
+    def mp_phase():
+        n_cards = torch.cuda.device_count() if card_run else 1
+        out: dict = {"cards_seen": n_cards, "batches": batches}
+        checks = {}
+        # (a) the NCCL world, one rank per card, driving the process
+        # step itself (the engine maps a one-rank mesh to the single
+        # step): eager, then captured as one CUDA graph per rank, each
+        # against the one-process step of as many shards on the card
+        one = make_mesh(n_cards, devices=[dev] * n_cards)
+        classify = functools.partial(kernels.score_int8,
+                                     packed=kernels.pack_score_params(
+                                         logreg.golden_params(dev)))
+        ostep = pstep.make_sharded_compact_step(cfg, classify, one, **quant)
+        for mode in ("eager", "graph") if card_run else ("eager",):
+            ot, os_ = pstep.make_sharded_table(cfg, one), \
+                schema.make_stats(dev)
+            t = time.perf_counter()
+            with launch.MeshProcesses(n_cards, device=dev) as world:
+                lead = follower.Leader(world.mesh, _proc_boot(cfg, hp, quant))
+                shard = follower.Shard(world.mesh, _proc_boot(cfg, hp,
+                                                              quant))
+                if mode == "graph":
+                    lead.capture(shard)
+                lead.counts(reset=True, timer=shard.timer)
+                bad = []
+                for i, x in enumerate(raws):
+                    lead.step_shard(shard, x)
+                    # the comparison's launches stay out of the window
+                    with kernels.counting_into(
+                            dict.fromkeys(kernels.LAUNCHES, 0)):
+                        _, _, oo = ostep(ot, os_, shard.params, x.to(dev))
+                    ranks = [follower.split_digest(
+                        d, BATCH // n_cards, shard.out.block_key.shape[0],
+                        cfg.batch.verdict_k)
+                        for d in lead.check(shard.out, shard.stats)]
+                    want_wire = oo.wire.cpu().numpy()
+                    if not all(np.array_equal(r["wire"], want_wire)
+                               and r["stats"] == {
+                                   f: schema.stat_value(v) for f, v in
+                                   zip(schema.GlobalStats._fields, os_)}
+                               and r["route_drop"][0] == int(oo.route_drop)
+                               for r in ranks):
+                        bad.append(i)
+                counts = lead.counts(timer=shard.timer)
+                key, state = lead.rows(shard.table)
+                lead.stop()
+                backend = world.mesh.backend
+            okey, ostate = schema.table_to_numpy(ot)
+            same_table = (np.array_equal(key, okey) and np.array_equal(
+                state.view(np.uint32), ostate.view(np.uint32)))
+            served[f"launches_mesh_processes_nccl_{mode}"] = counts
+            checks[f"nccl_{mode}"] = (not bad and same_table and all(
+                c["score_int8"] == batches for c in counts))
+            out[f"nccl_{mode}"] = {
+                "ranks": n_cards, "backend": backend,
+                "mismatched_batches": bad, "table_equal": same_table,
+                "route_drop": int(oo.route_drop),
+                "launches": [{k: c[k] for k in kernels.LAUNCHES}
+                             for c in counts],
+                "event_ms_per_batch": [per_batch(c, "step_event_ms")
+                                       for c in counts],
+                "exchange_host_ms_per_batch": [
+                    per_batch(c, "exchange_host_ms") for c in counts],
+                "s": round(time.perf_counter() - t, 3)}
+        # NCCL and two ranks on one card: asked once, in child processes
+        probe_path = os.path.join(root, "nccl_pair.json")
+        t = time.perf_counter()
+        if card_run:
+            child = subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke as cs; "
+                 f"cs.nccl_pair_probe({probe_path!r})"], cwd=REPO,
+                start_new_session=True)
+            try:
+                child.wait(NCCL_PAIR_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                os.killpg(child.pid, signal.SIGKILL)
+                child.wait()
+            probe = {"rc": child.returncode,
+                     "s": round(time.perf_counter() - t, 3)}
+            if os.path.exists(probe_path):
+                with open(probe_path) as f:
+                    probe.update(json.load(f))
+            out["nccl_two_ranks_one_card"] = probe
+        # (b) two gloo ranks as engines, both on the one card, each its
+        # own process and CUDA context; against the one-process 2-shard
+        # engine on the card and on the CPU
+        t = time.perf_counter()
+        with launch.MeshProcesses(2, device=dev, backend="gloo",
+                                  devices=[dev] * 2) as world:
+            sink = CollectSink()
+            eng = Engine(cfg, ArraySource(rec.copy()), sink,
+                         params=logreg.golden_params(dev), device=dev,
+                         mesh=world.mesh)
+            timer = follower.StepTimer()
+            eng.step = timer.wrap(eng.step)
+            eng.warm()
+            eng._leader.counts(reset=True, timer=timer)  # windows open
+            rep = eng.run()
+            counts = eng._leader.counts(timer=timer)      # ... and close
+            key, state = eng.table_rows()
+            eng.close()
+        gloo_s = time.perf_counter() - t
+        served["launches_mesh_processes_gloo"] = counts
+        got = (rep.stats, sink.blocked, rep.table, digest(key, state))
+        refs, refs_s = {}, {}
+        for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            t = time.perf_counter()
+            with cpu_threads():
+                rsink = CollectSink()
+                re_ = Engine(cfg, ArraySource(rec.copy()), rsink,
+                             params=logreg.golden_params(d), device=d,
+                             sink_thread=False,
+                             mesh=make_mesh(2, devices=[d] * 2))
+                rr = re_.run()
+                refs[label] = (rr.stats, rsink.blocked, rr.table,
+                               digest(*schema.table_to_numpy(re_.table)))
+            del re_
+            refs_s[label] = round(time.perf_counter() - t, 3)
+        equal = {label: got == ref for label, ref in refs.items()}
+        checks["gloo_engines"] = all(equal.values()) and all(
+            c["score_int8"] == rep.batches and c["table_summary"] == 1
+            for c in counts) and rep.batches == batches
+        out["gloo_2_ranks_one_card"] = {
+            "ranks": 2, "backend": "gloo", "equal": equal,
+            "records_per_s": round(rep.records / rep.wall_s, 1),
+            "wall_s": rep.wall_s, "batches": rep.batches,
+            "stats": rep.stats, "table": rep.table,
+            "blocked": len(sink.blocked), "route_drop": rep.route_drop,
+            "launches": [{k: c[k] for k in kernels.LAUNCHES}
+                         for c in counts],
+            "event_ms_per_batch": [per_batch(c, "step_event_ms")
+                                   for c in counts],
+            "exchange_host_ms_per_batch": [per_batch(c, "exchange_host_ms")
+                                           for c in counts],
+            "s": round(gloo_s, 3), "reference_engines_s": refs_s}
+        return {"ok": all(checks.values()), "card": card,
+                "checks": checks, "rows": capacity, "batch": BATCH,
+                "tolerance": "byte-equal", **out}
+
+    mp_phase()
 
 
 def pinned_maps_leg(quiet, pin: str, checks: dict) -> dict:
@@ -7267,7 +7533,7 @@ def main() -> int:
                 "warmed": {
                     "records_per_s": r.records_per_s, "wall_s": r.wall_s,
                     "batches": r.batches,
-                    "step_device_ms_per_batch": step_ms,
+                    "step_event_ms_per_batch": step_ms,
                     "step_batches_timed": len(xs),
                     "idle_share": idle_share(r, step_ms),
                     "fill_ms_per_batch": fill.get("mean", 0.0)
@@ -7452,6 +7718,7 @@ def main() -> int:
     host_legs_phase(card, served)
     bpf_plane_phase(card, served, trained_path)
     host_ingest_phase(card, served)
+    mesh_processes_phase(card, served)
 
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
@@ -7861,7 +8128,12 @@ def main() -> int:
                served.get("launches_bpf_plane", {}).items()},
             # the host-ingest harness's engine rows, fed by a live fsxd
             **{f"host_ingest/{k}": w for k, w in
-               served.get("launches_host_ingest", {}).items()}}
+               served.get("launches_host_ingest", {}).items()},
+            # the process mesh: each rank's own window, per world
+            **{f"mesh_processes/{w}/rank{r}": c
+               for w in ("nccl_eager", "nccl_graph", "gloo")
+               for r, c in enumerate(served.get(
+                   f"launches_mesh_processes_{w}", []))}}
         for row in rows:
             row["launches_serve_paths"] = {
                 k: w.get(row["name"], 0) for k, w in windows.items()}

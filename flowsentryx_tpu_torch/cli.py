@@ -20,11 +20,16 @@ cpu``) from ``--config`` (the reference's JSON config file) and serves
   48-byte flow records;
 
 and prints the report as JSON.  ``--mesh N`` serves through the
-IP-hash-sharded step over an N-device mesh, refused as the reference
-refuses it where fewer than N devices are visible (a machine with one
-card has one; a mesh over several cards is not ported, and the
-n-shards-on-one-device mesh is ``Engine(mesh=make_mesh(n,
-devices=[dev] * n))``).  ``--mega N|auto`` groups backlogged
+IP-hash-sharded step over N ranks of a process mesh
+(:mod:`.parallel.launch`): this process leads and N-1 spawned followers
+each hold one shard, one card each under NCCL (``--device cuda``), or
+N gloo processes on the CPU (``--device cpu``, the counterpart of the
+reference's N virtual CPU devices).  It is refused as the reference
+refuses it where fewer than N devices of ``--device``'s kind exist (the
+visible cards, or the host's cores), and with ``--mega``,
+``--device-loop`` or ``--artifact-reload`` (not ported on a process
+mesh).  The n-shards-on-one-device mesh is ``Engine(mesh=make_mesh(n,
+devices=[dev] * n))``.  ``--mega N|auto`` groups backlogged
 batches as the reference's does (compact16 only: refused before boot for
 a model served over raw48); ``--device-loop N|auto`` adds the drain
 ring above the ladder; ``--tiered-warm`` opens serving on the serving
@@ -423,18 +428,21 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     except RuntimeError as e:
         print(f"serve: {e}", file=sys.stderr)
         return 1
-    mesh = None
     if args.mesh > 1:
-        from flowsentryx_tpu_torch.parallel import make_mesh
+        from flowsentryx_tpu_torch.parallel.launch import host_devices
 
-        try:
-            # the devices of --device's kind: the visible cards, or the
-            # one host
-            mesh = make_mesh(args.mesh, devices=(
-                None if device.type == "cuda" else [device]))
-        except ValueError as e:
-            print(f"serve: --mesh: {e}", file=sys.stderr)
+        have = host_devices(device)
+        bad = (f"requested {args.mesh} devices, have {have}"
+               if args.mesh > have else
+               "--mega, --device-loop and --artifact-reload are not "
+               "ported on a process mesh (it serves singles with the "
+               "params it booted with)"
+               if args.mega or args.device_loop or args.artifact_reload
+               else None)
+        if bad:
+            print(f"serve: --mesh: {bad}", file=sys.stderr)
             return 1
+    mesh = world = eng = None
     try:
         params = (load_artifact(cfg.model.name, args.artifact, device)
                   if args.artifact else spec.init(device))
@@ -490,6 +498,14 @@ def _cmd_serve(args: argparse.Namespace) -> int:
             device_loop = _calibrate(cfg, params, args.mega, device, mesh)
         from flowsentryx_tpu_torch.audit.graph import AuditError
 
+        if args.mesh > 1:
+            from flowsentryx_tpu_torch.parallel.launch import MeshProcesses
+
+            # N ranks of --device's kind: one card each, or gloo
+            # processes on the host's cores
+            world = MeshProcesses(args.mesh, device=device)
+            mesh = world.mesh
+
         try:
             eng = Engine(cfg, source, sink, params=params, device=device,
                          mesh=mesh,
@@ -522,10 +538,22 @@ def _cmd_serve(args: argparse.Namespace) -> int:
             eng.warm()
         if gossip is not None:
             gossip.set_state(wire.CSTATE_SERVING)
-        rep = _profiled(eng, args, device)
+        try:
+            rep = _profiled(eng, args, device)
+        except RuntimeError as e:
+            if getattr(e, "health", None) is None:
+                raise
+            # a rank of the process mesh was lost: the ladder's verdict
+            print(f"serve: {e}", file=sys.stderr)
+            print(json.dumps({"health": e.health}), file=sys.stderr)
+            return 1
         if gossip is not None:
             gossip.set_state(wire.CSTATE_DONE)
     finally:
+        if world is not None:
+            if eng is not None:
+                eng.close()
+            world.close()
         if hasattr(source, "close"):
             source.close()   # stop and join the ingest worker fleet
     if rep.ingest is not None:
@@ -2057,9 +2085,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="state-table rows (power of two, divisible by "
                         "--mesh); default the config's (2^20)")
     s.add_argument("--mesh", type=int, default=0,
-                   help="serve sharded over an N-device mesh (N>1); "
-                        "refused where fewer than N devices of --device's "
-                        "kind are visible")
+                   help="serve sharded over N ranks, one process per "
+                        "shard (N>1): one card each, or gloo processes "
+                        "with --device cpu; refused where fewer than N "
+                        "devices of --device's kind exist")
     s.add_argument("--model", default=None,
                    help="registered model name (logreg_int8, "
                         "logreg_int8_pallas, logreg_float, mlp, "

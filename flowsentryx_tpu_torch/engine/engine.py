@@ -20,7 +20,9 @@ boot path (``warm(tiered=True)``, ``compile_cache=``,
 ``EngineReport.cluster``) and the IP-hash-sharded step (``mesh=``, a
 :func:`~..parallel.mesh.make_mesh` of n shards on this engine's device:
 the sharded single step, ladder and ring of :mod:`..parallel.step`,
-``EngineReport.route_drop``, and checkpoints that record the mesh size).
+``EngineReport.route_drop``, and checkpoints that record the mesh size;
+or a process mesh, one process per shard, which this engine leads:
+:mod:`..parallel.follower`).
 
 Two threads, as in the reference: the **dispatch thread** (the caller of
 :meth:`Engine.run`) polls, stages and launches; a **sink thread** waits
@@ -145,7 +147,6 @@ the params, as the reference does.
 
 from __future__ import annotations
 
-import functools
 import gc
 import os
 import sys
@@ -179,11 +180,13 @@ from flowsentryx_tpu_torch.engine.writeback import (
 from flowsentryx_tpu_torch.fused import device_loop as dl
 from flowsentryx_tpu_torch.models import logreg
 from flowsentryx_tpu_torch.models.registry import (
-    get_model, load_artifact, validate_swap,
+    batch_scorer, get_model, load_artifact, validate_swap,
 )
 from flowsentryx_tpu_torch.ops import fused, kernels
 from flowsentryx_tpu_torch.ops.graph import StepGraph
+from flowsentryx_tpu_torch.parallel import exchange, follower
 from flowsentryx_tpu_torch.parallel import step as pstep
+from flowsentryx_tpu_torch.parallel.mesh import make_mesh
 from flowsentryx_tpu_torch.sync import tuning
 from flowsentryx_tpu_torch.sync.channel import SinkChannel
 
@@ -263,6 +266,7 @@ class _InFlight(NamedTuple):
     put_s: float = 0.0
     launch_s: float = 0.0
     ring: int = 0          # slots of a drain-ring round (its wire [R, 2K+4])
+    seq: int = -1          # on a process mesh: the step's number
 
 
 class _Uploaded(NamedTuple):
@@ -359,7 +363,18 @@ class Engine:
     ``mesh``: a :class:`~..parallel.mesh.Mesh` of more than one shard
     serves through the IP-hash-sharded step (:mod:`..parallel.step`)
     over the same one table; its shards must lie on this engine's
-    device.  A one-shard mesh (or None) is the single-shard step.
+    device.  A one-shard mesh (or None) is the single-shard step.  On a
+    process mesh (one process per shard, :mod:`..parallel.launch`) this
+    engine is rank 0, the leader: it holds its own shard's rows, sends
+    every batch to the followers (:mod:`..parallel.follower`), and folds
+    reports, checkpoints and restores over them; :meth:`close` stops
+    them.  There it serves singles only (the ladder and the drain ring
+    are refused), without a sink thread (every collective is made from
+    the dispatch thread) and without :meth:`hot_swap`; under NCCL its
+    step is captured like every card step, under gloo (host collectives)
+    it runs eagerly.  A lost follower raises
+    :class:`~..parallel.exchange.PeerLost` out of :meth:`run`, its
+    ``health`` FAILED.
 
     ``audit`` (None: on when the environment sets ``FSX_AUDIT=1``)
     proves the graph contracts of exactly the step variants this engine
@@ -415,6 +430,22 @@ class Engine:
                 f"mesh shards lie on {self.mesh.device}, the engine on "
                 f"{self.device}: a mesh's shards must lie on the engine's "
                 "device")
+        #: One process per shard: this engine leads the followers.
+        self._proc = self.mesh is not None and self.mesh.is_process
+        if self._proc:
+            if self.mesh.rank:
+                raise ValueError("a process mesh's engine is rank 0 (the "
+                                 "followers run parallel.follower.serve)")
+            if mega_n or mega_auto or device_loop:
+                raise ValueError(
+                    "mega grouping and the drain ring on a process mesh "
+                    "are not ported (ROADMAP queue 1): serve singles")
+            if sink_thread:
+                raise ValueError(
+                    "a sink thread on a process mesh is refused: every "
+                    "collective is made from the dispatch thread, in the "
+                    "followers' order")
+            sink_thread = False
         self.cfg = cfg
         self.source = source
         self.sink = sink
@@ -495,12 +526,14 @@ class Engine:
                   file=sys.stderr)
         self.verdict_k = cfg.batch.verdict_k
         # the int8 scorer's kernel arguments and output table, packed once
-        self.score_params = None
-        classify = spec.classify_batch
-        if classify is kernels.score_int8:
-            self.score_params = kernels.pack_score_params(self.params)
-            classify = functools.partial(classify, packed=self.score_params)
-        if self.mesh is not None:
+        classify, self.score_params = batch_scorer(cfg.model.name,
+                                                   self.params)
+        if self._proc:
+            # this rank's process step; the followers build the same
+            self.step = follower.process_steps(cfg, classify, self.mesh,
+                                               wire, self.quant)
+            self.megasteps = {}
+        elif self.mesh is not None:
             # the sharded step, ladder and ring over the same one table
             self.step = (pstep.make_sharded_compact_step(
                 cfg, classify, self.mesh, **self.quant) if compact
@@ -518,6 +551,8 @@ class Engine:
         # in place, and captured by address on the card: never rebound
         self.table = (schema.make_table(cfg.table.capacity, self.device)
                       if self.mesh is None
+                      else pstep.make_process_table(cfg, self.mesh)
+                      if self._proc
                       else pstep.make_sharded_table(cfg, self.mesh))
         self.stats = schema.make_stats(self.device)
         self.readback_depth = (cfg.batch.readback_depth
@@ -571,7 +606,11 @@ class Engine:
             from flowsentryx_tpu_torch.audit import boot_audit
 
             t_a = time.perf_counter()
-            rep = boot_audit(cfg, wire=self.wire, mesh=self.mesh,
+            # a process mesh runs the shard body of the one-process
+            # mesh of its size, which the audit stages on this device
+            rep = boot_audit(cfg, wire=self.wire, mesh=make_mesh(
+                self.mesh.size, devices=[self.device] * self.mesh.size)
+                if self._proc else self.mesh,
                              mega_n=self.mega_n if sizes else 0,
                              mega_sizes=sizes or None,
                              device_loop=self.ring, params=self.params,
@@ -588,6 +627,10 @@ class Engine:
         self._pending_cap = (self.ring * self._ring_chunks if self.ring
                              else self.mega_n)
         self._cuda = self.device.type == "cuda"
+        #: Card steps replay captured graphs; a gloo process mesh's
+        #: step, whose exchanges are host calls, runs eagerly.
+        self._graphed = self._cuda and not (self._proc
+                                            and self.mesh.backend == "gloo")
         self.batcher = self._new_batcher(t0_ns or 0)
         self._t0_auto = t0_ns is None
         if t0_ns is not None and hasattr(sink, "t0_ns"):
@@ -738,6 +781,13 @@ class Engine:
         #: Seconds of the cluster runner's boot-time reconcile, when one
         #: ran (the runner sets it, as it sets ``boot_import_s``).
         self.boot_reconcile_s: float | None = None
+        #: On a process mesh, the followers' side of every step, report,
+        #: checkpoint and restore; they build their shard from this boot
+        #: message (step numbers kept: more than the dispatches unsunk).
+        self._leader = (follower.Leader(self.mesh, {
+            "cfg": cfg, "wire": self.wire, "quant": self.quant,
+            "params": type(self.params)(*(t.cpu() for t in self.params)),
+            "keep": self._n_slots + 1}) if self._proc else None)
 
     def _new_batcher(self, t0_ns: int) -> MicroBatcher:
         # a batcher buffer may be reused only after its batch is staged:
@@ -810,6 +860,8 @@ class Engine:
         kw = ({} if warm_state is None
               else {"warm_state": warm_state, "sync_check": False})
         if key == _SINGLE:
+            if self._leader is not None:
+                self._leader.capture()   # every rank captures its step
             gr = StepGraph(self.step, self.table, self.stats, self.params,
                            (b + 1, words), **kw)
         elif key == _RING:
@@ -889,11 +941,14 @@ class Engine:
         t_l = time.perf_counter()
         n = self._chunks(key)
         slot = self._n_dispatched % self._n_slots
+        seq = -1
         with self._launch_lock:
-            if self._cuda:
+            if self._graphed:
                 gr = self._graphs[key]
                 if uploaded is None:
                     gr.input.copy_(x, non_blocking=True)
+                    if self._leader is not None:
+                        seq = self._leader.step(gr.input)
                 else:
                     dst = gr.input if key == _RING else gr.input[None]
                     for r, u in enumerate(uploaded):
@@ -927,10 +982,14 @@ class Engine:
                 else:
                     fn = (self.step if key == _SINGLE
                           else self.megasteps[key])
-                    _, _, out = fn(self.table, self.stats, self.params,
-                                   x if uploaded is None
-                                   else uploaded[0].dev)
+                    arg = x if uploaded is None else uploaded[0].dev
+                    if self._leader is not None:
+                        seq = self._leader.step(arg)
+                        arg = arg.to(self.device)
+                    _, _, out = fn(self.table, self.stats, self.params, arg)
                 wire, blocks, event = out.wire, fused.block_record(out), None
+                if self._cuda and wire is not None:
+                    wire = wire.cpu()   # the eager card step (gloo mesh)
             if n_records:
                 self._batches_launched += n
         t_d = time.perf_counter()
@@ -947,7 +1006,8 @@ class Engine:
         self._inflight.append(_InFlight(
             n, wire, blocks, event, t_enqueue=t_enqueue,
             n_records=n_records, t_launch=t_l, put_s=put_s,
-            launch_s=t_d - t_p, ring=self.ring if key == _RING else 0))
+            launch_s=t_d - t_p, ring=self.ring if key == _RING else 0,
+            seq=seq))
 
     def _trace_event(self, stream=None):
         """A timing event recorded now on ``stream`` (the current one by
@@ -1251,7 +1311,10 @@ class Engine:
     def _fetch_blocks(self, g: _InFlight) -> np.ndarray:
         """The dispatch's block record on the host.  From device memory
         (the overflow fallback) the copy runs on the step's stream with
-        the device set, whichever thread asks."""
+        the device set, whichever thread asks.  On a process mesh every
+        owner's block arrays are gathered from the followers."""
+        if self._leader is not None:
+            return self._leader.blocks(g.seq, g.blocks).cpu().numpy()
         if g.blocks.device.type != "cuda":
             return g.blocks.numpy()
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
@@ -1413,6 +1476,10 @@ class Engine:
         staging (:func:`~..ops.kernels.repack_score_params`); the graphs,
         which hold them by address, replay the new model.  On the CPU
         the params are rebound, as in the reference."""
+        if self._proc:
+            raise ValueError("hot_swap on a process mesh is not ported: "
+                             "the followers hold the params they booted "
+                             "with (ROADMAP queue 1)")
         validate_swap(self.params, params, self.quant)
         with self._launch_lock:
             if self._cuda:
@@ -1575,7 +1642,7 @@ class Engine:
             boot["kernels"] = kernels.build_all(cache=self._cache)
             for key in ([_SINGLE] + list(serving)
                         + ([_RING] if ring_now else [])):
-                if key not in self._graphs:
+                if self._graphed and key not in self._graphs:
                     boot["variants"][self._label(key)] = \
                         self._capture_one(key)
         warm = np.zeros((self.cfg.batch.max_batch + 1, self._words),
@@ -1739,7 +1806,7 @@ class Engine:
             # the round sizer's key is seeded only by warm()'s quiescent
             # pass (it must include the uploads and the reap)
             self.warm()
-        if self._cuda and not self._graphs:
+        if self._graphed and not self._graphs:
             self._capture()
         self._watchdog.note_progress()     # an idle pipe re-arms the clock
         t_start = time.perf_counter()
@@ -1764,6 +1831,14 @@ class Engine:
                 self._reap(self.readback_depth)
             self._pending.clear()
             self._reap(0)
+        except exchange.PeerLost as e:
+            # a rank of the process mesh is gone: nothing more can be
+            # sent to it, and the ladder reads the engine FAILED
+            self._leader.stopped = True
+            e.health = health.engine_health(
+                watchdog=self._watchdog.to_dict(),
+                mesh={"peer_lost": str(e)})
+            raise
         finally:
             self._stop_sink_thread()
             # serving is over: hand no capturing thread to interpreter
@@ -1787,7 +1862,10 @@ class Engine:
         """An iteration with nothing to do: yield (the GIL to the sink
         thread, the core to the scheduler) while work is in flight, a
         batch is forming or records arrived in the last
-        ``tuning.IDLE_SPIN_S``; sleep on a link idle for longer."""
+        ``tuning.IDLE_SPIN_S``; sleep on a link idle for longer.  A
+        process mesh's leader keeps its followers' link alive."""
+        if self._leader is not None:
+            self._leader.keepalive()
         if (self._busy_depth() or self.batcher.fill
                 or time.perf_counter() - self._last_arrival_t
                 < tuning.IDLE_SPIN_S):
@@ -2062,6 +2140,19 @@ class Engine:
     def _n_shards(self) -> int:
         return self.mesh.size if self.mesh is not None else 1
 
+    def table_rows(self) -> tuple[np.ndarray, np.ndarray]:
+        """The whole table's ``(key, state)`` on the host, in the one
+        table's row order (gathered over a process mesh's ranks), as
+        :func:`~..core.schema.table_to_numpy` reads one table.  Call it
+        between runs."""
+        return self._quiescent_table("table_rows")
+
+    def close(self) -> None:
+        """Stop a process mesh's followers (their loops return); a no-op
+        otherwise.  The engine serves no more batches after it."""
+        if self._leader is not None:
+            self._leader.stop()
+
     def checkpoint(self, path) -> str:
         """Snapshot table, stats and clock (the reference's file format,
         :mod:`.checkpoint`) so a restarted engine resumes with every
@@ -2070,7 +2161,12 @@ class Engine:
         stored shard-major, as the reference's.  Call it between runs."""
         if self._inflight or self._pending:
             raise RuntimeError("checkpoint with batches in flight")
-        return str(ckpt.save_state(path, self.table, self.stats,
+        table = self.table
+        if self._leader is not None:
+            # every rank's rows, in the one table's order
+            table = schema.table_from_numpy(
+                *self._quiescent_table("checkpoint"))
+        return str(ckpt.save_state(path, table, self.stats,
                                    self.batcher.t0_ns,
                                    hash_salt=self.cfg.table.salt,
                                    n_shards=self._n_shards()))
@@ -2140,15 +2236,23 @@ class Engine:
                      "exhausted - table too full for the new geometry)"
                      if dropped else ""),
                   file=sys.stderr)
-        self.table.key.copy_(torch.from_numpy(
-            np.ascontiguousarray(key, np.uint32).view(np.int32)))
-        self.table.state.copy_(torch.from_numpy(
-            np.ascontiguousarray(state, np.float32)))
-        self.table.key_rows[-1:].zero_()
-        self.table.state_rows[-1:].zero_()
-        for f in schema.GlobalStats._fields:
-            lo, hi = (int(v) for v in ck.stats[f])
-            getattr(self.stats, f).fill_(lo | hi << 32)
+        counters = [int(lo) | int(hi) << 32 for lo, hi in
+                    (ck.stats[f] for f in schema.GlobalStats._fields)]
+        if self._leader is not None:
+            # each rank takes its own row range of the re-placed table
+            self._leader.load(self.table, self.stats,
+                              np.ascontiguousarray(key, np.uint32),
+                              np.ascontiguousarray(state, np.float32),
+                              counters)
+        else:
+            self.table.key.copy_(torch.from_numpy(
+                np.ascontiguousarray(key, np.uint32).view(np.int32)))
+            self.table.state.copy_(torch.from_numpy(
+                np.ascontiguousarray(state, np.float32)))
+            self.table.key_rows[-1:].zero_()
+            self.table.state_rows[-1:].zero_()
+            for field, v in zip(self.stats, counters):
+                field.fill_(v)
         if self._cuda:
             torch.cuda.synchronize(self.device)
         self._set_t0(ck.t0_ns)
@@ -2174,13 +2278,21 @@ class Engine:
             # nothing on any stream: the copy stream's uploads and the
             # sink's readbacks included
             torch.cuda.synchronize(self.device)
+        if self._leader is not None:
+            return self._leader.rows(self.table)
         return schema.table_to_numpy(self.table)
 
     def _write_table(self, key: np.ndarray, state: np.ndarray) -> None:
-        self.table.key.copy_(torch.from_numpy(
-            np.ascontiguousarray(key, np.uint32).view(np.int32)))
-        self.table.state.copy_(torch.from_numpy(
-            np.ascontiguousarray(state, np.float32)))
+        if self._leader is not None:
+            self._leader.load(self.table, self.stats,
+                              np.ascontiguousarray(key, np.uint32),
+                              np.ascontiguousarray(state, np.float32),
+                              [schema.stat_value(f) for f in self.stats])
+        else:
+            self.table.key.copy_(torch.from_numpy(
+                np.ascontiguousarray(key, np.uint32).view(np.int32)))
+            self.table.state.copy_(torch.from_numpy(
+                np.ascontiguousarray(state, np.float32)))
         if self._cuda:
             torch.cuda.synchronize(self.device)
 
@@ -2232,8 +2344,10 @@ class Engine:
         return len(keys) - dropped, dropped
 
     def _build_report(self, wall: float) -> EngineReport:
-        table_sum = kernels.table_summary(self.table, now=self._device_now,
-                                          stale_s=self.cfg.table.stale_s)
+        table_sum = (kernels.table_summary(
+            self.table, now=self._device_now, stale_s=self.cfg.table.stale_s)
+            if self._leader is None else self._leader.report(
+                self.table, self._device_now, self.cfg.table.stale_s))
         k = self.verdict_k
         readback = {
             "mode": "compact" if k else "full",

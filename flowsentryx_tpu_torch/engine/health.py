@@ -10,7 +10,8 @@ a pure function of counters the engine report already carries:
   or corrupt slots, gossip or transport drops, a watchdog soft trip, a
   restore that fell back to ``.prev``; each reason is a ``name:count``
   string;
-* **FAILED** — every ingest shard is dead, or the watchdog hard-tripped.
+* **FAILED** — every ingest shard is dead, the watchdog hard-tripped,
+  or (the port's) a rank of a process mesh was lost.
 
 ``cluster_health`` and ``worst`` fold several engines' ladders
 (worst-of).  Standard library only.
@@ -33,6 +34,7 @@ def engine_health(
     restore_fallbacks: int = 0,
     rebalance: dict | None = None,
     elastic: dict | None = None,
+    mesh: dict | None = None,
 ) -> dict:
     """Derive one engine's health from its report blocks (module
     docstring).  Every argument is the corresponding
@@ -132,6 +134,11 @@ def engine_health(
         v = int(elastic.get("aborts") or 0)
         if v:
             reasons.append(f"elastic_handoff_aborts:{v}")
+    if mesh and mesh.get("peer_lost"):
+        # a rank of the process mesh died or stopped answering: its
+        # shard's flows have no owner, so nothing is served
+        reasons.append("mesh_peer_lost:1")
+        failed = True
     state = FAILED if failed else (DEGRADED if reasons else HEALTHY)
     return {"state": state, "reasons": reasons}
 

@@ -263,13 +263,57 @@ PROGRESS: tuple[ProgressEntry, ...] = (
         obligation="converges or fails open at the bound",
         bound="NET_HANDSHAKE_TIMEOUT_S",
         proof=""),
+    # -- the process mesh (parallel/) ------------------------------------------
+    ProgressEntry(
+        name="mesh_collective_wait",
+        path=f"{_PKG}/parallel/exchange.py",
+        qualname="_run",
+        kind="cv-wait",
+        wake="the collective completes on every rank (gloo's transport "
+             "delivers the peers' parts)",
+        fairness="every rank makes the same collectives in the same order "
+                 "(the leader's header names each op before its "
+                 "collectives)",
+        obligation="the collective completes, or raises PeerLost at the "
+                   "group's timeout (a dead peer's closed link raises at "
+                   "once); NCCL's stream-ordered wait is bounded by its "
+                   "own watchdog",
+        bound="MESH_TIMEOUT_S",
+        proof=""),
+    ProgressEntry(
+        name="mesh_follower_loop",
+        path=f"{_PKG}/parallel/follower.py",
+        qualname="serve",
+        kind="poll",
+        wake="the leader's next header broadcast",
+        fairness="weak (an idle leader sends a keepalive header at least "
+                 "every MESH_PING_S)",
+        obligation="each header's op runs; STOP returns; a silent or dead "
+                   "leader raises at the group's timeout",
+        bound="MESH_TIMEOUT_S",
+        proof=""),
+    ProgressEntry(
+        name="mesh_step_timer_sync",
+        path=f"{_PKG}/parallel/follower.py",
+        qualname="StepTimer.event_ms",
+        kind="device-wait",
+        wake="the last timed step's end event fires when the device "
+             "finishes the work already enqueued (the counters are read "
+             "between steps: a finite queue)",
+        fairness="none needed (no other host thread is waited on)",
+        obligation="the device drains; a rank wedged here stops answering, "
+                   "and the other ranks' next collective raises PeerLost at "
+                   "the group's timeout",
+        bound="MESH_TIMEOUT_S",
+        proof=""),
 )
 
 #: Modules :func:`scan_blocking_sites` walks: the reference's protocol
 #: scope (engine dispatch/sink, SinkChannel, gossip, rebalance,
 #: supervisor, elastic autoscale, predict shedding, net transport), in
-#: this package.  ``cluster/runner.py`` is absent as in the reference:
-#: its chunk loop drives the serve, bounded by its run budgets.
+#: this package, and the process mesh's collectives and follower loop.
+#: ``cluster/runner.py`` is absent as in the reference: its chunk loop
+#: drives the serve, bounded by its run budgets.
 SCAN_MODULES: tuple[str, ...] = tuple(f"{_PKG}/{m}" for m in (
     "sync/channel.py",
     "engine/engine.py",
@@ -279,6 +323,8 @@ SCAN_MODULES: tuple[str, ...] = tuple(f"{_PKG}/{m}" for m in (
     "cluster/transport.py",
     "cluster/elastic.py",
     "engine/predict.py",
+    "parallel/exchange.py",
+    "parallel/follower.py",
 ))
 
 

@@ -13,6 +13,7 @@ holds a live model swap to the reference's refusals.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -60,6 +61,18 @@ def get_model(name: str) -> ModelSpec:
         raise KeyError(
             f"unknown model {name!r}; registered: {sorted(_REGISTRY)}"
         ) from None
+
+
+def batch_scorer(name: str, params) -> tuple[Callable[..., torch.Tensor],
+                                              Any]:
+    """``(classify, score_params)``: model ``name``'s batch scorer over
+    ``params``, with the int8 scorer's packed kernel arguments
+    (:func:`~..ops.kernels.pack_score_params`) bound, else None."""
+    classify = get_model(name).classify_batch
+    if classify is kernels.score_int8:
+        packed = kernels.pack_score_params(params)
+        return functools.partial(classify, packed=packed), packed
+    return classify, None
 
 
 def registered_models() -> list[str]:

@@ -525,11 +525,22 @@ def table_summary_counts(key: torch.Tensor, state: torch.Tensor, now: float,
     return out[:3], out[3:].view(torch.float32)[0]
 
 
-def table_summary(table, now: float, stale_s: float = 30.0) -> dict:
+def table_summary(table, now: float, stale_s: float = 30.0,
+                  mesh=None) -> dict:
     """Operational counters over the live table, one device pass (the
-    reference's ``pallas_kernels.table_summary`` report dict)."""
+    reference's ``pallas_kernels.table_summary`` report dict).  On a
+    process mesh (``mesh``, :mod:`..parallel.mesh`) ``table`` is this
+    rank's shard: one launch over its own rows, the counts folded by
+    ``psum`` and the newest ``last_seen`` by ``pmax``, which is the one
+    launch over the whole table (a sum of counts and a max of maxes);
+    every rank calls it."""
     counts, newest = table_summary_counts(table.key, table.state, now,
                                           stale_s)
+    if mesh is not None and mesh.is_process:
+        from flowsentryx_tpu_torch.parallel import exchange
+
+        counts = exchange.psum(mesh, counts)
+        newest = exchange.pmax(mesh, newest)
     c = counts.cpu().numpy()
     return {
         "tracked": int(c[0]),

@@ -1,7 +1,9 @@
 """IP-hash sharding (counterpart of ``flowsentryx_tpu/parallel/``): the
 mesh (:mod:`.mesh`), the partition rules and the cluster tier
 (:mod:`.layout`), and the sharded serving step (:mod:`.step`), with the
-reference's exports.
+reference's exports; and the process mesh, one process per shard: its
+collectives (:mod:`.exchange`), its leader and followers
+(:mod:`.follower`) and the launcher (:mod:`.launch`).
 
 Names resolve lazily (PEP 562): :mod:`.layout` imports no torch, and the
 cluster supervisor imports it without importing the step.
@@ -10,7 +12,12 @@ cluster supervisor imports it without importing the step.
 import importlib
 
 _EXPORTS = {
+    "init_distributed": "mesh",
     "make_mesh": "mesh",
+    "make_process_compact_step": "step",
+    "make_process_raw_step": "step",
+    "make_process_step": "step",
+    "make_process_table": "step",
     "make_sharded_compact_megastep": "step",
     "make_sharded_compact_megastep_family": "step",
     "make_sharded_compact_step": "step",
@@ -20,11 +27,13 @@ _EXPORTS = {
     "shard_table": "step",
 }
 
-__all__ = sorted(_EXPORTS) + ["layout", "mesh", "step"]
+_MODULES = ("exchange", "follower", "launch", "layout", "mesh", "step")
+
+__all__ = sorted(_EXPORTS) + list(_MODULES)
 
 
 def __getattr__(name: str):
-    if name in ("layout", "mesh", "step"):
+    if name in _MODULES:
         return importlib.import_module(f"{__name__}.{name}")
     mod = _EXPORTS.get(name)
     if mod is None:

@@ -10,6 +10,9 @@ Counterpart of ``flowsentryx_tpu/parallel/layout.py``, both halves:
   placement from that table: the sharded step's specs
   (:func:`table_specs`, :func:`stats_specs`), the engine's
   (:func:`replicated`) and the restore path's (:func:`shard_table`).
+  On a process mesh (one process per shard) each rank holds only its
+  own row range (:func:`rank_rows`), and :func:`gather_rows` puts the
+  ranks' rows back in the one table's order.
   The rules are copied.  A mesh here is n shards on one device
   (:mod:`.mesh`), so a row-sharded table is the one contiguous table on
   that device, shard ``d`` owning rows ``[d*N/n, (d+1)*N/n)``: the
@@ -119,6 +122,29 @@ def shard_table(table, mesh):
     return IpTableState(*(
         leaf.to(sharding_for(mesh, f"table.{f}").device)
         for f, leaf in zip(IpTableState._fields, table)))
+
+
+def rank_rows(rows, rank: int, n: int):
+    """Rank ``rank``'s row range of a whole table's rows (any array or
+    tensor whose leading axis is the table's ``N`` rows) on an
+    ``n``-rank process mesh: rows ``[rank*N/n, (rank+1)*N/n)``, the
+    reference's shard-major order."""
+    local = rows.shape[0] // n
+    return rows[rank * local:(rank + 1) * local]
+
+
+def gather_rows(table, mesh) -> tuple[np.ndarray, np.ndarray]:
+    """Every rank's rows of a process mesh's table back in the one
+    table's row order, as :func:`~..core.schema.table_to_numpy` gives a
+    whole table (``[N]`` uint32 keys, ``[N, 12]`` f32 state, each
+    rank's park row dropped): what checkpoints and the table digest
+    read.  Every rank calls it (one gather of each column)."""
+    from flowsentryx_tpu_torch.parallel import exchange
+
+    key = exchange.gather(mesh, table.key)
+    state = exchange.gather(mesh, table.state)
+    return (np.concatenate([k.cpu().numpy() for k in key]).view(np.uint32),
+            np.concatenate([s.cpu().numpy() for s in state]))
 
 
 def cluster_rank_of(saddr, n_engines: int,

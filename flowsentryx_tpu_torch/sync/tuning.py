@@ -255,3 +255,18 @@ NET_RESYNC_INTERVAL_S = 0.5
 #: glance, the intra-host heartbeat bound's discipline.
 NET_BEACON_INTERVAL_S = 1.0
 NET_HOST_TIMEOUT_S = 5.0
+
+# -- the process mesh (parallel/) ----------------------------------------------
+
+#: The process group's timeout (``parallel.mesh.init_distributed``): a
+#: collective whose peer died or stopped answering raises within this,
+#: and the followers' receive loop waits at most this long for the
+#: leader's next header.  The first step of a fresh group builds its
+#: transport (and on the card NCCL's communicator), which takes seconds,
+#: so the bound sits well above that and well under a test's minute.
+MESH_TIMEOUT_S = 30.0
+
+#: The leader's keepalive while it idles (``Engine._idle``): an idle
+#: leader sends the followers an empty header at least this often, so a
+#: quiet link never runs their receive loop into the group timeout.
+MESH_PING_S = MESH_TIMEOUT_S / 4

@@ -1483,3 +1483,90 @@ def test_kernel_tier_bands_equal_card(cuda):
         dep.close()
     assert len(bands) > 200
     np.testing.assert_array_equal(bands, parity.served_bands(tp, p, feats))
+
+
+# -- the process mesh (one process per shard) ----------------------------------
+
+
+@pytest.mark.parametrize("mode", ["eager", "graph"])
+def test_process_step_under_nccl_equals_one_process(cuda, mode):
+    """The NCCL world of one rank per visible card drives the process
+    step (eagerly, or captured as one CUDA graph per rank): every rank's
+    wire and stats after each batch, and the gathered table, equal the
+    one-process step of as many shards on the card; ``score_int8`` once
+    per batch on each rank."""
+    from flowsentryx_tpu_torch.parallel import follower, launch, make_mesh
+    from flowsentryx_tpu_torch.parallel import step as pstep
+
+    n = torch.cuda.device_count()
+    if n & (n - 1):
+        pytest.skip(f"{n} cards: a process mesh needs a power of two")
+    cfg, params, classify = _step_fixture(cuda)
+    raws, quant = _compact_batches(params, 6, 2048)
+    one = make_mesh(n, devices=[cuda] * n)
+    ostep = pstep.make_sharded_compact_step(cfg, classify, one, **quant)
+    ot, os_ = pstep.make_sharded_table(cfg, one), schema.make_stats(cuda)
+    boot = {"cfg": cfg, "wire": schema.WIRE_COMPACT16, "quant": quant,
+            "params": type(params)(*(t.cpu() for t in params)), "keep": 2}
+    with launch.MeshProcesses(n, device="cuda", timeout_s=60) as world:
+        assert world.mesh.backend == "nccl"
+        lead = follower.Leader(world.mesh, boot)
+        shard = follower.Shard(world.mesh, boot)
+        if mode == "graph":
+            lead.capture(shard)
+        lead.counts(reset=True)
+        for raw in raws:
+            x = schema.wire_to_tensor(raw)
+            lead.step_shard(shard, x)
+            with kernels.counting_into(dict.fromkeys(kernels.LAUNCHES, 0)):
+                _, _, oo = ostep(ot, os_, params, x.to(cuda))
+            for d in lead.check(shard.out, shard.stats):
+                r = follower.split_digest(d, 2048 // n,
+                                          shard.out.block_key.shape[0], 64)
+                assert np.array_equal(r["wire"], oo.wire.cpu().numpy())
+                assert r["stats"] == {f: schema.stat_value(v) for f, v in
+                                      zip(schema.GlobalStats._fields, os_)}
+        counts = lead.counts()
+        key, state = lead.rows(shard.table)
+        lead.stop()
+    okey, ostate = schema.table_to_numpy(ot)
+    assert np.array_equal(key, okey)
+    assert np.array_equal(state.view(np.uint32), ostate.view(np.uint32))
+    assert all(c["score_int8"] == len(raws) for c in counts)
+
+
+def test_process_engine_two_gloo_ranks_on_one_card(cuda):
+    """Two gloo ranks as engines, both on card 0, each its own process:
+    stats, blacklist, summary and gathered table digest equal the
+    one-process 2-shard engine on the card; each rank's ``score_int8``
+    once per batch and ``table_summary`` once."""
+    from flowsentryx_tpu_torch.parallel import launch, make_mesh
+
+    cfg, _, _ = _step_fixture(cuda, verdict_k=8)
+    recs = TrafficGen(TrafficSpec(scenario=Scenario.UDP_FLOOD_MULTI,
+                                  rate_pps=1e6, seed=5)).next_records(
+        2048 * 12)
+    sink = CollectSink()
+    with launch.MeshProcesses(2, device="cuda", backend="gloo",
+                              devices=["cuda:0", "cuda:0"],
+                              timeout_s=60) as world:
+        eng = Engine(cfg, ArraySource(recs.copy()), sink,
+                     params=logreg.load_params(ARTIFACT, cuda), device=cuda,
+                     mesh=world.mesh)
+        eng.warm()
+        eng._leader.counts(reset=True)
+        rep = eng.run()
+        counts = eng._leader.counts()
+        key, state = eng.table_rows()
+        eng.close()
+    rsink = CollectSink()
+    ref = Engine(cfg, ArraySource(recs.copy()), rsink,
+                 params=logreg.load_params(ARTIFACT, cuda), device=cuda,
+                 mesh=make_mesh(2, devices=[cuda] * 2))
+    rr = ref.run()
+    assert rep.stats == rr.stats and sink.blocked == rsink.blocked
+    assert rep.table == rr.table and rep.route_drop == rr.route_drop
+    assert hashlib.sha256(key.tobytes() + state.tobytes()).hexdigest() \
+        == _digest(ref)
+    assert all(c["score_int8"] == rep.batches and c["table_summary"] == 1
+               for c in counts)

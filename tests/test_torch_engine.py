@@ -165,6 +165,8 @@ def test_new_host_modules_are_checked():
     the staged-shape signature, the compile cache, the cluster (its
     mailboxes, gossip plane, engine runner and supervisor), the cluster
     layout and the partition rules, the mesh, the sharded step, the
+    process mesh (its collectives, the leader and followers, the
+    launcher), the
     headline benchmark, the static legs (the audit's graph recorder
     and runner, the range prover's interval algebra, seeds, prover,
     registry and runner) and the eBPF plane (the ISA, assembler, loader,
@@ -189,6 +191,7 @@ def test_new_host_modules_are_checked():
               "cluster.__init__", "cluster.mailbox", "cluster.gossip",
               "cluster.runner", "cluster.supervisor", "parallel.__init__",
               "parallel.layout", "parallel.mesh", "parallel.step",
+              "parallel.exchange", "parallel.follower", "parallel.launch",
               "bench", "audit.__init__", "audit.graph", "audit.runner",
               "ranges.__init__", "ranges.interval", "ranges.seeds",
               "ranges.prover", "ranges.registry", "ranges.runner",

@@ -143,9 +143,10 @@ def test_registry_validates_clean_over_the_ports_scope():
     assert rep["ok"], rep["findings"]
     # the reference registers 13 entries over 13 sites; the port drops
     # Engine._ring_worker (no ring worker), and adds _wait_event's poll,
-    # the sealed loops (sleeping through Engine._idle) and the five
-    # synchronize() device waits
-    assert (rep["entries"], rep["sites"]) == (20, 19)
+    # the sealed loops (sleeping through Engine._idle), the five
+    # synchronize() device waits, and the process mesh's collective
+    # wait, follower loop and step timer's event wait
+    assert (rep["entries"], rep["sites"]) == (23, 22)
     assert all(e.path.startswith("flowsentryx_tpu_torch/")
                for e in registry.PROGRESS)
     assert all(m.startswith("flowsentryx_tpu_torch/")

@@ -851,11 +851,38 @@ def test_make_mesh_refusals_match_reference():
         make_mesh(2, devices=["cpu", "meta"])
     m = make_mesh(devices=["cpu"] * 4, axis_name="x")
     assert m.size == 4 and m.axis_names == ("x",)
-    pmesh.init_distributed()                 # one process: a no-op
-    with pytest.raises(ValueError, match="multi-process"):
+    # init_distributed takes the reference's arguments, and is a no-op
+    # for one process with no coordinator, as the reference's is
+    import inspect
+
+    from flowsentryx_tpu.parallel import mesh as jmesh
+
+    ref = list(inspect.signature(jmesh.init_distributed).parameters)
+    assert list(inspect.signature(pmesh.init_distributed).parameters)[
+        :len(ref)] == ref
+    pmesh.init_distributed()
+    assert not pmesh._WORLD
+    # more than one process needs the coordinator's address
+    with pytest.raises(ValueError, match="coordinator_address"):
         pmesh.init_distributed(num_processes=2)
-    with pytest.raises(ValueError, match="multi-process"):
-        pmesh.init_distributed(coordinator_address="localhost:1")
+    # a world of one at a coordinator (a file store, or the reference's
+    # HOST:PORT, port 0 on loopback): the process mesh of one gloo rank
+    # (multi-rank worlds: tests/test_torch_mesh_processes.py)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        for address in (f"file://{d}/store", "localhost:0"):
+            pmesh.init_distributed(address, 1, 0, device="cpu")
+            try:
+                pm = make_mesh()
+                assert (pm.size, pm.rank, pm.backend, pm.is_process) == (
+                    1, 0, "gloo", True)
+                with pytest.raises(RuntimeError, match="already up"):
+                    pmesh.init_distributed(f"file://{d}/other", 1, 0,
+                                           device="cpu")
+            finally:
+                pmesh.shutdown_distributed()
+            assert not pmesh._WORLD
 
 
 @pytest.mark.parametrize("name", ["table.key_rows", "table.state_rows",
@@ -947,11 +974,17 @@ def test_serve_mesh_capacity_refusals_match_reference(argv, expect, capsys):
 @pytest.mark.parametrize("n", [2, 16])
 def test_serve_mesh_needs_the_devices(n, capsys):
     """As the reference on a host without N devices: ``--mesh N`` is
-    refused with the reference's message (one CPU device here)."""
+    refused with the reference's message.  On the CPU a process mesh
+    has one gloo rank per core at most, so ``n`` times the cores is
+    refused (``--mesh 2`` serves: tests/test_torch_mesh_processes.py)."""
+    from flowsentryx_tpu_torch.parallel.launch import host_devices
+
+    have = host_devices("cpu")
     assert cli.main(["serve", "--device", "cpu", "--table-capacity",
-                     "4096", "--mesh", str(n), "--packets", "256"]) == 1
+                     "4096", "--mesh", str(n * have), "--packets",
+                     "256"]) == 1
     err = capsys.readouterr().err
-    assert f"requested {n} devices, have 1" in err
+    assert f"requested {n * have} devices, have {have}" in err
     with pytest.raises(ValueError, match=f"requested {n * 64} devices, "
                                          "have 8"):
         jmake_mesh(n * 64)
