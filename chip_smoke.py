@@ -85,10 +85,10 @@ more.
     (``evicted`` > 0 included), blacklist with untils (more than 8
     blocked), table digest and summary equal.
 14. ``serve_shm_ring``: the daemon's production path on the card.  A
-    producer writes each scenario's 384 x 2,048 records into a 48-byte
+    producer writes each scenario's 256 x 2,048 records into a 48-byte
     shm feature ring; ``Engine(ShmRingSource, ShmVerdictSink)`` serves
     them (``logreg_int8`` with ``artifacts/logreg_int8.npz``, compact16)
-    at 2^20 rows, singles and ``mega_n="auto"``, 384 whole batches;
+    at 2^20 rows, singles and ``mega_n="auto"``, 256 whole batches;
     stats, table digest and the verdict-ring records equal the CPU
     engine's over an ``ArraySource`` of the same records;
     ``score_int8`` launches equal the batches.  Records/s, fill /
@@ -111,15 +111,15 @@ more.
     blacklists and suppresses, no verdict is lost; the compact-emit
     batches the card dispatched give the same wires and state on the
     CPU.
-18. ``checkpoint_restore``: 192 batches on the card, checkpoint (twice:
+18. ``checkpoint_restore``: 128 batches on the card, checkpoint (twice:
     the first generation becomes ``.prev``), a fresh card engine with
     its graphs captured restores in place (pointers unchanged) and
-    serves 192 more: equal to 384 uninterrupted on the card and on the
+    serves 128 more: equal to 256 uninterrupted on the card and on the
     CPU; the ``.prev`` checkpoint loads with the reference's ``(lo,
     hi)`` stats pairs; after a flipped byte the restore falls back to
     ``.prev`` and still ends equal.
 19. ``latency_plane``: both scenarios through the 48-byte shm ring
-    (``logreg_int8.npz``, 2^20 rows, B=2048, 384 batches), singles and
+    (``logreg_int8.npz``, 2^20 rows, B=2048, 256 batches), singles and
     ``auto``, each with the sink thread on and off: stats, table digest,
     blacklist and verdict-ring bytes equal the CPU engine's;
     ``latency.negatives == 0``; the seal -> verdict histogram counts
@@ -151,7 +151,7 @@ more.
     one with it off.
 23. ``hot_swap_live``: ``logreg_int8.npz`` swapped for a second artifact
     derived here with numpy (the same input observer, other weights and
-    bias) after 192 of 384 batches from the 48-byte ring, singles and
+    bias) after 128 of 256 batches from the 48-byte ring, singles and
     ``auto``: stats, table digest, blacklist and verdict-ring bytes equal
     the CPU engine swapped at the same batch index; the graphs are the
     same objects, none captured again, the params and the scorer's
@@ -202,11 +202,17 @@ more.
     plain version; fixture, train, epoch and evaluate times, an epoch's
     device ops and busy ms (``torch.profiler``), and host ms per epoch
     with and without the per-epoch ``float(loss)``.
-31. ``train_mlp_robust`` and 32. ``train_multiclass``: ``stress``'s robust
-    MLP (v2 fixture 300,000 rows plus two shift-augmented copies, 80
-    epochs) and expert heads (60 epochs) on the card, held to
-    ``MODEL_METRICS_r05.json`` (clean F1 within 0.01; binary F1 and
-    per-class recall within 0.02); ms per step and total seconds.
+31. ``train_mlp_robust`` and 32. ``train_multiclass``
+    (``stress_phases``): ``stress``'s robust MLP (the v2 fixture plus
+    two shift-augmented copies) and expert heads on the card, one after
+    the other, at cut recipes (30,000 rows, 12 epochs each), each also
+    trained on the CPU and held to it (at least 98 % of the evaluation
+    rows with the same verdict or class, the clean or binary F1 within
+    0.01); ms per step and total seconds.  The full recipes (300,000
+    rows, 80 and 60 epochs) held to ``MODEL_METRICS_r05.json`` (clean F1
+    within 0.01; binary F1 and per-class recall within 0.02) went to
+    ``python3 scripts/torch_train_stress_phase.py`` when the paced
+    scale-out phase came.
 33. ``distill_compile``: ``compile_plan`` on the card through the stage
     entries for golden params, ``logreg_int8.npz`` (equal to the
     committed ``artifacts/logreg_int8_plan.npz``) and the artifact phase
@@ -220,7 +226,7 @@ more.
     drains; ``score_int8`` once per batch, ``table_summary`` once.
 
 35. ``device_loop_serve``: both scenarios from the 48-byte ring
-    (``logreg_int8.npz``, 2^20 rows, B=2048, 384 batches) through
+    (``logreg_int8.npz``, 2^20 rows, B=2048, 256 batches) through
     ``mega_n="auto"`` with the drain ring at depths 2 and 4, in turns with
     ``auto`` (auto, 2, 4; auto, 2, 4, 4, 2, auto before the host legs
     came): stats, table digest and
@@ -264,8 +270,9 @@ more.
     converged with no seq gaps; each rank's ``score_int8`` launches (its
     own window, zeroed after warm, in its report) equal its batches.
 41. ``cluster_serve``: ``cli cluster --engines 2 --shards 2 --mega auto
-    --drain`` over each prefilled scenario (768 x 2,048 records, cut from
-    1,536 so the whole script stays under ~780 s), in
+    --drain`` over the prefilled ``mixed_l34_1m`` (768 x 2,048 records,
+    cut from 1,536 so the whole script stays under ~780 s; the
+    ``syn_benign_mix`` turn went when the paced scale-out phase came), in
     turns with one card engine with two workers (single, cluster; one
     turn each since the headline bench came, two before; ``--pin-cores
     off``), then once pinned (``auto``):
@@ -305,7 +312,9 @@ more.
 
 45. ``chaos_campaign``: ``chaos.run_campaign(seed=17, quick=False,
     device="cuda")`` at the campaign's own shapes (4,096 rows, B=64, 24
-    batches) and the same campaign on the CPU: every invariant of the
+    batches) and the same campaign on the CPU (``fsx chaos --device cpu``
+    in a child process beside the overflow check and the cross-checks of
+    phases 11-13, which read no time): every invariant of the
     thirteen single-host faults holds, the four plants are caught by
     their invariants with their controls holding, ``truncate_fraction``,
     ``flip_offsets``, ``kill_at_s``, ``kill_after_slots``, ``to_gen`` and
@@ -398,12 +407,13 @@ more.
 56-57. The headline benchmark and the data-parallel trainer
     (``headline_phases``).  56. ``headline_bench``: ``python -m
     flowsentryx_tpu_torch.bench --budget-s 120 --host-ingest 2
-    --host-ingest-dur 2`` as a child process (a fresh process: no
+    --host-ingest-dur 0.5`` as a child process (a fresh process: no
     earlier profiler phase in its host times; 2^20 rows, B=16,384, the
     golden ``logreg_int8`` params on compact16, 16 pre-encoded batches;
-    first the sharded host-ingest suite, 2 drain workers, 2 s a row):
+    first the sharded host-ingest suite, 2 drain workers, 0.5 s a row):
     rc 0, one JSON line naming the card, a positive ``value``, the
-    single, mega8 and devloop2x8 chunk series, no ``error``, a
+    single, mega8 and devloop2x8 chunk series, no ``error``, the four
+    link keys of its healthy-window gate with one probe, a
     ``host_ingest`` block with the reference's headline keys and no
     ``error``; from its stderr each tier's launch window
     (``score_int8`` once per step body) and each paced engine run's
@@ -446,8 +456,9 @@ more.
     Alone: ``python3 scripts/torch_static_audit_phase.py``.
 59. ``host_legs`` (``host_legs_phase``), the host plane's model
     checkers: ``python3 -m flowsentryx_tpu_torch.cli sync --json``,
-    ``crash --json`` and ``live --json`` in full mode, three processes at
-    once (each rc 0, every plant caught with a clean control, no check
+    ``crash --json`` in full mode and ``live --json --quick`` (full mode
+    before the paced scale-out phase came; alone, below), three processes
+    at once (each rc 0, every plant caught with a clean control, no check
     capped; each leg's counts and seconds), then the card half of the
     arena check: ``mixed_l34_1m`` (2^20 rows, B=2048, 64 batches)
     through the drain ring (``mega_n="auto"``, ``device_loop=2``), the
@@ -535,6 +546,27 @@ more.
     each rank's event ms per step (CUDA events around it, host launch
     gaps included) and its exchanges' host ms per batch.  Alone:
     ``python3 scripts/torch_mesh_processes_phase.py``.
+63. ``link_probe`` (``link_probe_phase``): ``scripts/torch_link_probe.py``
+    on the card once, as ``fsx bench``'s healthy-window gate runs it (the
+    captured compact16 step at B=16,384 over 2^16 rows, one pinned 8 MB
+    copy, 20 copy-fed steps): not ``wedged``, every key of the
+    reference's line, ``e2e_mpps`` wherever the step and H2D pass the
+    gate, ``state`` equal to ``linkhealth.classify`` of its numbers,
+    ``score_int8`` once per step replay.
+64. ``cluster_bench`` (``cluster_bench_phase``):
+    ``scripts/torch_cluster_bench.py --trials 1 --cut 20`` (``fsx bench
+    --cluster``, each shape's batches cut to a twentieth: 120 at B=128,
+    80 at B=256 with ``auto``) on the card against the tree of the
+    pre-cluster commit ``c8043dd`` (``build/fsx_port_pr9_tree``, made
+    with ``git archive`` where the checkout has the history; else the
+    tree under test, and the line says ``"baseline": "tree under
+    test"`` and why): the single engine and two gossiping ranks, three
+    CUDA contexts; no failure of the four checks (each shard lossless,
+    digests converged, no seq gaps), the reference's artifact keys, and
+    in each role's drain window ``score_int8`` once per batch and
+    ``table_summary`` once; ``meets_target`` is reported, not gated.
+    The full run (6 trials, no cut) is ``python3
+    scripts/torch_cluster_bench_phase.py``.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
 of a served raw48 batch, ``index_add_`` its library call; the scorer
@@ -579,13 +611,17 @@ SEED = 20261016
 REPO = os.path.dirname(os.path.abspath(__file__))
 TABLE_CAP = 1 << 20
 BATCH = 2048
-SERVE_BATCHES = 384
+#: the serve paths' stream (their CPU references at 2^20 rows take most
+#: of their phases' time): 384 before the paced scale-out phase came
+SERVE_BATCHES = 256
 #: ``cluster_serve``'s stream, in SERVE_BATCHES: short enough that the
 #: whole script, the elastic fleet's phases included, stays under ~780 s
-CLUSTER_SERVE_DEPTH = 2
+#: (768 batches; 2 x 384 before the paced scale-out phase)
+CLUSTER_SERVE_DEPTH = 3
 #: ``sim_kernel_tier``'s stream (the simulated tier and its CPU twin run
 #: at ~56 k records/s on the host): a quarter of SERVE_BATCHES since the
-#: host-ingest phase came, half since the multi-host phase, 384 before
+#: host-ingest phase came (96 until the paced scale-out phase), half
+#: since the multi-host phase, 384 before
 SIM_TIER_BATCHES = SERVE_BATCHES // 4
 CROSS_BATCHES = 48
 GRAPH_BATCHES = 24
@@ -607,12 +643,13 @@ HEADLINE_BUDGET_S = 120
 #: ``train_qat_dp``'s mesh: shards of the one card
 DP_SHARDS = 8
 #: ``headline_bench``'s host-ingest suite: drain workers, s per row (3.0
-#: before the process-mesh phase came, 2.0 before its ladder legs)
-HEADLINE_HOST_INGEST = (2, 1.0)
+#: before the process-mesh phase came, 2.0 before its ladder legs, 1.0
+#: before the paced scale-out phase)
+HEADLINE_HOST_INGEST = (2, 0.5)
 #: ``host_ingest``'s seconds per row (3.0 before the process-mesh phase
-#: came, 2.0 before its ladder legs), and its engine rows (labels of
-#: ``shm_stress.ENGINE_ROWS``)
-HOST_INGEST_DUR_S = 1.0
+#: came, 2.0 before its ladder legs, 1.0 before the paced scale-out
+#: phase), and its engine rows (labels of ``shm_stress.ENGINE_ROWS``)
+HOST_INGEST_DUR_S = 0.5
 HOST_INGEST_ROWS = ("paced_1.0mpps", "freerun_b2048", "freerun_b2048_mega8")
 #: the keys of the reference's sharded host-ingest headline
 HOST_INGEST_HEADLINE_KEYS = (
@@ -727,6 +764,37 @@ class ListSealed:
 
     def exhausted(self):
         return self.i >= len(self.bufs)
+
+
+def start_chaos_cpu_twin(root: str):
+    """``chaos_campaign``'s CPU twin, ``fsx chaos --seed 17 --device cpu``
+    (two torch threads), started in a child process: ``(process, report
+    path)``.  The script starts it beside the overflow check and the
+    cross-checks, which read no time, and joins it before the next timed
+    phase (:func:`chaos_cpu_twin_report`)."""
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = os.path.join(root, "cpu_report.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "flowsentryx_tpu_torch.cli", "chaos",
+         "--seed", "17", "--device", "cpu", "--workdir",
+         os.path.join(root, "cpu"), "--out", out],
+        cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, OMP_NUM_THREADS="2"))
+    return proc, out
+
+
+def chaos_cpu_twin_report(twin) -> dict:
+    """Wait for :func:`start_chaos_cpu_twin`'s child; its campaign report
+    (``fsx chaos`` exits 1 when an invariant broke: the report says
+    which)."""
+    proc, out = twin
+    _, err = proc.communicate(timeout=900)
+    if proc.returncode not in (0, 1):
+        raise RuntimeError(f"fsx chaos --device cpu exited "
+                           f"{proc.returncode}: {err[-3000:]}")
+    with open(out) as f:
+        return json.load(f)
 
 
 def chaos_engine_drive(device: str, cfg, recs, tail, root: str,
@@ -2606,6 +2674,13 @@ def headline_phases(card: str, served: dict) -> None:
         for k in ("chunk_mpps", "mega_chunk_mpps", "devloop_chunk_mpps"):
             checks[f"{k}_not_empty"] = bool(line.get(k))
         checks["no_error"] = "error" not in line
+        # the healthy-window gate: one probe at this budget, its four keys
+        link = {k: line.get(k) for k in ("link_probes", "link_state",
+                                          "healthy_link_criteria",
+                                          "window_flaps")}
+        out["link"] = link
+        checks["link_keys"] = all(v is not None for v in link.values())
+        checks["one_probe"] = len(link["link_probes"] or []) == 1
         hi = line.get("host_ingest") or {}
         checks["host_ingest_reference_keys"] = set(
             HOST_INGEST_HEADLINE_KEYS) <= set(hi)
@@ -3135,10 +3210,14 @@ def host_legs_drive(device: str, cfg, recs, *, claim: str = "real",
         Engine._upload_slot = real_upload
 
 
-def host_legs_phase(card: str, served: dict) -> None:
+def host_legs_phase(card: str, served: dict, *,
+                    live_quick: bool = True) -> None:
     """``host_legs`` (module docstring, 59): the host plane's three model
     checkers as subprocesses, then the card half of the arena check.
-    Each arm's launch window goes to ``served`` for the kernels line."""
+    ``live_quick``: ``fsx live --quick`` (the same protocols and plants,
+    the handoff's drop-edge fan-out trimmed; its full mode runs in
+    ``scripts/torch_host_legs_phase.py``).  Each arm's launch window goes
+    to ``served`` for the kernels line."""
     import torch
 
     from flowsentryx_tpu_torch.core.config import (
@@ -3156,17 +3235,18 @@ def host_legs_phase(card: str, served: dict) -> None:
     def legs_phase():
         res: dict = {"card": card}
         checks: dict = {}
-        # 1. fsx sync, crash and live in full mode, one process each, all
-        # three at once (host Python, one core each)
+        # 1. fsx sync, crash and live (full mode but for live_quick), one
+        # process each, all three at once (host Python, one core each)
         legs, procs = {}, {}
         t0 = time.perf_counter()
         for verb in ("sync", "crash", "live"):
             out = os.path.join(root, f"{verb}.json")
             if os.path.exists(out):
                 os.unlink(out)
+            quick = ["--quick"] if verb == "live" and live_quick else []
             procs[verb] = (subprocess.Popen(
                 [sys.executable, "-m", "flowsentryx_tpu_torch.cli", verb,
-                 "--json", "--out", out], cwd=REPO,
+                 "--json", "--out", out, *quick], cwd=REPO,
                 stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
                 text=True), out)
         for verb, (p, out) in procs.items():
@@ -3738,9 +3818,9 @@ MESH_PROC_BATCHES = 64
 NCCL_PAIR_TIMEOUT_S = 150
 #: (a)'s ladder at one NCCL rank: rungs 2, 4 and 8 and a 2x8 round (the
 #: process mesh's step kinds), each dispatched this many times (its
-#: event ms are the mean over them)
+#: event ms are the mean over them; 8 before the paced scale-out phase)
 MESH_PROC_KINDS = ((2, 0), (4, 0), (8, 0), (2, 8))
-MESH_PROC_KIND_REPS = 8
+MESH_PROC_KIND_REPS = 4
 #: (b)'s gloo engines: label, engine keywords, whether a swap lands at
 #: the stream's midpoint
 MESH_PROC_LEGS = (("singles", {}, False),
@@ -3748,10 +3828,11 @@ MESH_PROC_LEGS = (("singles", {}, False),
                   ("ring2x8", {"mega_n": 8, "device_loop": 2}, False),
                   ("swap", {"mega_n": "auto"}, True))
 #: (c)'s data-parallel trainer: rows a rank (``train_qat_dp``'s shard)
-#: and epochs (the deployed recipe's 200 cut to 20, half of them
-#: quantized, so the whole script stays well inside its limit)
+#: and epochs (the deployed recipe's 200 cut to 10, half of them
+#: quantized, so the whole script stays well inside its limit; 20 before
+#: the paced scale-out phase)
 DP_RANK_ROWS = 252_080
-DP_PROC_EPOCHS = 20
+DP_PROC_EPOCHS = 10
 
 
 def mesh_kind_label(kind) -> str:
@@ -4123,7 +4204,15 @@ def mesh_processes_phase(card: str, served: dict, device: str = "cuda",
         # own process and CUDA context, one session per leg (singles,
         # the auto ladder, the 2x8 ring, a swap at the midpoint);
         # against the one-process 2-shard engine on the card and on the
-        # CPU
+        # CPU.  (c) runs in the same world after them.
+        # (c)'s inputs: DP_RANK_ROWS a rank; the SPMD call goes by its
+        # module's name: under ``python3 chip_smoke.py`` this module is
+        # ``__main__``, which a follower cannot import the function from
+        import chip_smoke
+
+        n_rows = 2 * DP_RANK_ROWS if card_run else 2 * 1024
+        epochs = DP_PROC_EPOCHS if card_run else 4
+        X, y = fixture.cicids_fixture(n=n_rows, seed=SEED & 0xFFFF)
         t = time.perf_counter()
         gloo = {}
         with launch.MeshProcesses(2, device=dev, backend="gloo",
@@ -4157,7 +4246,13 @@ def mesh_processes_phase(card: str, served: dict, device: str = "cuda",
                     time.perf_counter() - t_l, len(runs),
                     sum(r.wall_s for r in runs))
                 served[f"launches_mesh_processes_gloo_{label}"] = counts
-        gloo_s = time.perf_counter() - t
+            gloo_s = time.perf_counter() - t
+            # (c) the data-parallel QAT trainer over the same 2 gloo
+            # ranks on the card, one SPMD call; against the one-process
+            # 2-shard trainer on the card, bit for bit
+            t = time.perf_counter()
+            got, ranks = world.spmd(chip_smoke.dp_rank_train, X, y, epochs)
+            dp_s = time.perf_counter() - t
         t = time.perf_counter()
         card_refs = mesh_reference_engines(str(dev), capacity, batches)
         card_refs_s = time.perf_counter() - t
@@ -4220,22 +4315,6 @@ def mesh_processes_phase(card: str, served: dict, device: str = "cuda",
         checks["gloo_swap_changed_the_verdicts"] = (
             gloo["swap"][1]["stats"] != gloo["auto"][1]["stats"])
         out["gloo_s"] = round(gloo_s, 3)
-        # (c) the data-parallel QAT trainer over 2 gloo ranks on the
-        # card, DP_RANK_ROWS a rank, one SPMD call; against the
-        # one-process 2-shard trainer on the card, bit for bit
-        n_rows = 2 * DP_RANK_ROWS if card_run else 2 * 1024
-        epochs = DP_PROC_EPOCHS if card_run else 4
-        X, y = fixture.cicids_fixture(n=n_rows, seed=SEED & 0xFFFF)
-        # the SPMD call goes by its module's name: under ``python3
-        # chip_smoke.py`` this module is ``__main__``, which a follower
-        # cannot import the function from
-        import chip_smoke
-
-        t = time.perf_counter()
-        with launch.MeshProcesses(2, device=dev, backend="gloo",
-                                  devices=[dev] * 2) as world:
-            got, ranks = world.spmd(chip_smoke.dp_rank_train, X, y, epochs)
-        dp_s = time.perf_counter() - t
         t = time.perf_counter()
         with kernels.counting_into(dict.fromkeys(kernels.LAUNCHES, 0)):
             ref = qat.train_logreg_qat_dp(X, y,
@@ -4274,6 +4353,321 @@ def mesh_processes_phase(card: str, served: dict, device: str = "cuda",
                 "tolerance": "byte-equal", **out}
 
     mp_phase()
+
+
+#: the training phases' recipes: v2 fixture rows to train on (seed 9)
+#: and to evaluate on (seed 8), the robust MLP's and the expert heads'
+#: epochs.  The full recipes, held to ``MODEL_METRICS_r05.json``, run
+#: alone in ``scripts/torch_train_stress_phase.py``; the script runs the
+#: cut ones, held card = CPU (the full MLP took 75-136 s of the script
+#: before the paced scale-out phase's cuts).
+STRESS_FULL = (300_000, 80, 60)
+STRESS_CUT = (30_000, 12, 12)
+#: the cut recipes' agreement: the card's trained model against the
+#: CPU's, over the evaluation rows (the share of equal verdicts or
+#: classes, and the F1's distance)
+STRESS_CUT_AGREE, STRESS_CUT_F1 = 0.98, 0.01
+
+
+def stress_phases(card: str, *, full: bool, device: str = "cuda") -> None:
+    """``train_mlp_robust`` and ``train_multiclass``: ``stress``'s robust
+    MLP (the v2 fixture plus two shift-augmented copies) and expert heads
+    trained on the card, one after the other with nothing else on the
+    card, each with its ms per step and total seconds.  ``full``: the
+    recipes of :data:`STRESS_FULL`, held to ``MODEL_METRICS_r05.json``
+    (clean F1 within 0.01; binary F1 and per-class recall within 0.02).
+    Else the cut recipes of :data:`STRESS_CUT`, each trained also on the
+    CPU (two torch threads) and held to it: at least
+    :data:`STRESS_CUT_AGREE` of the evaluation rows get the same verdict
+    (the MLP) or class (the heads), and the clean or binary F1 within
+    :data:`STRESS_CUT_F1`.  ``device`` is the card but for the tests."""
+    import numpy as np
+    import torch
+
+    from flowsentryx_tpu_torch.models import mlp, multiclass
+    from flowsentryx_tpu_torch.train import evaluate, stress
+
+    rows, mlp_epochs, mc_epochs = STRESS_FULL if full else STRESS_CUT
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with open(os.path.join(REPO, "MODEL_METRICS_r05.json")) as f:
+        metrics_r05 = json.load(f)
+    Xt9, yt9, ct9 = stress.fixture_variant("v2", rows, seed=9)
+    Xe8, ye8, ce8 = stress.fixture_variant("v2", rows, seed=8)
+
+    def on_card(train):
+        steps = []
+        sync()
+        t = time.perf_counter()
+        res = train(dev, steps)
+        sync()
+        total = time.perf_counter() - t
+        return res, {"steps": len(steps), "total_s": total,
+                     "ms_per_step": total / len(steps) * 1e3}
+
+    def on_cpu(train):
+        with cpu_threads():
+            t = time.perf_counter()
+            res = train("cpu", None)
+            return res, time.perf_counter() - t
+
+    def class_preds(params, X):
+        X = np.ascontiguousarray(X, np.float32)
+        d = params[0].device
+        return np.concatenate([
+            multiclass.class_probs(params, torch.from_numpy(
+                X[s:s + 65536]).to(d)).argmax(dim=1).cpu().numpy()
+            for s in range(0, len(X), 65536)])
+
+    def recipe(epochs):
+        return {"rows": rows, "augmented_rows": 3 * rows, "epochs": epochs}
+
+    @phase("train_mlp_robust")
+    def mlp_phase():
+        def train(device, steps):
+            return stress.robust_mlp(Xt9, yt9, Xe8, ye8, ce8,
+                                     epochs=mlp_epochs, device=device,
+                                     step_log=steps)
+
+        (params, cell), timing = on_card(train)
+        out = {"card": card, "recipe": recipe(mlp_epochs), "clean": cell,
+               **timing}
+        if full:
+            want = metrics_r05["robust_detector_mlp"]["clean"]["f1"]
+            return {"ok": abs(cell["f1"] - want) <= 0.01,
+                    "reference_f1": want, **out}
+        (cparams, ccell), cpu_s = on_cpu(train)
+        agree = float(np.mean(
+            (evaluate.score_chunks(mlp.classify_batch, params, Xe8) > 0.5)
+            == (evaluate.score_chunks(mlp.classify_batch, cparams, Xe8)
+                > 0.5)))
+        f1_diff = abs(cell["f1"] - ccell["f1"])
+        return {"ok": agree >= STRESS_CUT_AGREE
+                and f1_diff <= STRESS_CUT_F1,
+                "cpu_clean": ccell, "cpu_s": cpu_s,
+                "verdicts_equal_cpu": agree, "f1_diff_cpu": f1_diff, **out}
+
+    mlp_phase()
+
+    @phase("train_multiclass")
+    def mc_phase():
+        def train(device, steps):
+            return stress.expert_heads(Xt9, ct9, Xe8, ce8, epochs=mc_epochs,
+                                       device=device, step_log=steps)
+
+        (params, rep), timing = on_card(train)
+        rep = {k: rep[k] for k in ("per_class", "macro_f1", "binary")}
+        out = {"card": card, "recipe": recipe(mc_epochs), "report": rep,
+               **timing}
+        out["recipe"].pop("augmented_rows")
+        if full:
+            want = metrics_r05["slow_recall_headline"]["models"][
+                "expert_heads"]
+            diffs = {"binary_f1": abs(rep["binary"]["f1"]
+                                      - want["binary"]["f1"])}
+            for c, v in want["per_class"].items():
+                diffs[f"recall_{c}"] = abs(rep["per_class"][c]["recall"]
+                                           - v["recall"])
+            return {"ok": max(diffs.values()) <= 0.02,
+                    "diff_vs_reference": diffs, **out}
+        (cparams, crep), cpu_s = on_cpu(train)
+        agree = float(np.mean(class_preds(params, Xe8)
+                              == class_preds(cparams, Xe8)))
+        f1_diff = abs(rep["binary"]["f1"] - crep["binary"]["f1"])
+        return {"ok": agree >= STRESS_CUT_AGREE
+                and f1_diff <= STRESS_CUT_F1,
+                "cpu_report": {k: crep[k] for k in ("per_class", "macro_f1",
+                                                    "binary")},
+                "cpu_s": cpu_s, "classes_equal_cpu": agree,
+                "binary_f1_diff_cpu": f1_diff, **out}
+
+    mc_phase()
+
+
+#: ``link_probe``'s script: the card's link probe (``fsx bench``'s gate)
+LINK_PROBE = os.path.join(REPO, "scripts", "torch_link_probe.py")
+#: the probe's keys that every line carries (the reference's, less the
+#: fed loop's ``e2e_mpps``, plus the port's ``power_limit_w``)
+LINK_PROBE_KEYS = ("ts", "init_s", "backend", "device_kind", "dispatch_ms",
+                   "compile_s", "step_ms", "step_mpps", "h2d_mbps", "state",
+                   "power_limit_w")
+#: ``cluster_bench``'s script, its cut of each shape's batches and trials
+CLUSTER_BENCH = os.path.join(REPO, "scripts", "torch_cluster_bench.py")
+CLUSTER_BENCH_CUT = 20
+CLUSTER_BENCH_TRIALS = 1
+#: where the pre-cluster commit's tree is made (the script's default)
+PR9_COMMIT = "c8043dd"
+PR9_TREE = os.path.join(REPO, "build", "fsx_port_pr9_tree")
+#: the keys of the reference's ``paced`` artifact block and of a trial
+CLUSTER_PACED_KEYS = ("ts", "method", "host_noise", "baseline_repo",
+                      "config", "headline", "shapes", "lost_batches", "ok",
+                      "failures")
+CLUSTER_TRIAL_KEYS = ("trial", "order", "produced_per_shard", "single_mpps",
+                      "single_wall_s", "rank_mpps", "rank_walls_s",
+                      "cluster_agg_mpps", "scaling_x")
+
+
+def run_link_probe(device: str = "cuda", extra=()) -> tuple[dict, str]:
+    """``scripts/torch_link_probe.py`` in a child process on ``device``:
+    its line (``{}`` when it printed none) and its stderr."""
+    cmd = [sys.executable, LINK_PROBE, "--device", device, *extra]
+    if device == "cpu":
+        cmd += ["--batch", "1024", "--capacity", "4096"]
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+    try:
+        return (json.loads(lines[-1]) if lines else {}), r.stderr
+    except ValueError:
+        return {}, r.stderr + r.stdout
+
+
+def link_probe_phase(card: str, served: dict, device: str = "cuda") -> None:
+    """``link_probe``: the card's link probe once, as ``fsx bench`` runs it
+    before its throughput phase: not ``wedged``, every key of the
+    reference's line, ``e2e_mpps`` wherever the step and H2D pass the
+    gate, ``state`` equal to ``linkhealth.classify`` of its numbers, and
+    ``score_int8`` once per step replay (``step_bodies``: the first call,
+    the timed replays and the fed loop's 20).  Its launch window goes to
+    ``served``."""
+    from flowsentryx_tpu_torch.core import linkhealth
+
+    @phase("link_probe")
+    def probe_phase():
+        line, err = run_link_probe(device)
+        checks = {"line": bool(line),
+                  "not_wedged": line.get("state") not in (None, "wedged"),
+                  "keys": set(LINK_PROBE_KEYS) <= set(line)}
+        gate = (line.get("step_ms", 1e9) <= linkhealth.HEALTHY_STEP_MS
+                and line.get("h2d_mbps", 0)
+                >= 0.5 * linkhealth.HEALTHY_H2D_MBPS)
+        checks["e2e_where_gated"] = "e2e_mpps" in line or not gate
+        checks["state_is_classify"] = line.get("state") == linkhealth.classify(
+            line.get("step_ms"), line.get("h2d_mbps"), line.get("e2e_mpps"))
+        launches = line.get("launches") or {}
+        reps = line.get("step_bodies")
+        if device == "cuda":
+            checks["score_int8_once_per_replay"] = (
+                bool(reps) and launches.get("score_int8") == reps)
+        served["launches_link_probe"] = launches
+        out = {"ok": all(checks.values()), "card": card, "checks": checks,
+               "probe": line, "replays": reps,
+               "criteria": linkhealth.criteria()}
+        if not out["ok"]:
+            out["stderr_tail"] = err[-3000:]
+        return out
+
+    probe_phase()
+
+
+def pr9_tree() -> tuple[str, str | None]:
+    """``(baseline tree, why it is the tree under test or None)``: the
+    tree of :data:`PR9_COMMIT` at :data:`PR9_TREE`, made with ``git
+    archive`` when the checkout has the history and the tree is not
+    there; else the tree under test, with the reason."""
+    pkg = os.path.join(PR9_TREE, "flowsentryx_tpu_torch")
+    if os.path.isdir(pkg):
+        return PR9_TREE, None
+    try:
+        subprocess.run(["git", "-C", REPO, "cat-file", "-e",
+                        f"{PR9_COMMIT}^{{commit}}"], check=True,
+                       capture_output=True, timeout=60)
+        os.makedirs(PR9_TREE, exist_ok=True)
+        arch = subprocess.Popen(["git", "-C", REPO, "archive", PR9_COMMIT,
+                                 "flowsentryx_tpu_torch"],
+                                stdout=subprocess.PIPE)
+        subprocess.run(["tar", "-x", "-C", PR9_TREE], stdin=arch.stdout,
+                       check=True, timeout=120)
+        arch.stdout.close()
+        if arch.wait(timeout=60) == 0 and os.path.isdir(pkg):
+            return PR9_TREE, None
+        why = f"git archive {PR9_COMMIT} exited {arch.returncode}"
+    except (OSError, subprocess.SubprocessError) as e:
+        why = (f"no {PR9_TREE} and no git history with {PR9_COMMIT} in "
+               f"this checkout ({type(e).__name__})")
+    shutil.rmtree(PR9_TREE, ignore_errors=True)
+    return REPO, why
+
+
+def cluster_bench_phase(card: str, served: dict, device: str = "cuda",
+                        cut: int = CLUSTER_BENCH_CUT,
+                        trials: int = CLUSTER_BENCH_TRIALS) -> None:
+    """``cluster_bench``: ``scripts/torch_cluster_bench.py --trials 1 --cut
+    20`` on the card against the tree of the pre-cluster commit (made with
+    ``git archive`` where the checkout has the history; else the tree
+    under test, and the line says so): the three processes, the gossip
+    plane and the four failure checks (a gate: no failure), the
+    reference's artifact keys, and in each role's drain window
+    ``score_int8`` once per batch and ``table_summary`` once (its
+    report).  ``meets_target`` is a finding, not a gate.  The roles'
+    windows go to ``served``."""
+
+    @phase("cluster_bench")
+    def bench_phase():
+        baseline, why = pr9_tree()
+        out_path = os.path.join(REPO, "build", "chip", "CLUSTER_torch_cut.json")
+        if os.path.exists(out_path):
+            os.unlink(out_path)
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, CLUSTER_BENCH, "--trials", str(trials),
+             "--cut", str(cut), "--baseline-repo", baseline,
+             "--device", device, "--out", out_path],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        out = {"card": card, "process_wall_s": time.perf_counter() - t,
+               "rc": r.returncode,
+               "baseline": (PR9_COMMIT if why is None
+                            else "tree under test"),
+               "baseline_repo": os.path.relpath(baseline, REPO)}
+        if why is not None:
+            out["baseline_why"] = why
+        try:
+            with open(out_path) as f:
+                paced = json.load(f)["paced"]
+        except (OSError, ValueError, KeyError) as e:
+            return {"ok": False, **out, "error": repr(e),
+                    "stderr_tail": r.stderr[-4000:]}
+        checks = {"no_failures": paced["ok"] and not paced["failures"],
+                  "reference_keys": set(CLUSTER_PACED_KEYS) <= set(paced),
+                  "rc_is_target": r.returncode == (
+                      0 if paced["headline"]["meets_target"] else 1)}
+        windows: dict = {"single": {}, "rank0": {}, "rank1": {}}
+        per_batch = []
+        for name, shp in paced["shapes"].items():
+            for tr in shp["trials"]:
+                checks.setdefault("trial_keys", True)
+                checks["trial_keys"] &= set(CLUSTER_TRIAL_KEYS) <= set(tr)
+                roles = [("single", tr["launches"]["single"],
+                          tr["single_batches"])] + [
+                    (f"rank{k}", tr["launches"]["rank"][k],
+                     tr["rank_batches"][k]) for k in range(2)]
+                for role, w, batches in roles:
+                    for kname, n in w.items():
+                        windows[role][kname] = windows[role].get(kname,
+                                                                 0) + n
+                    per_batch.append(
+                        w.get("score_int8") == batches
+                        and w.get("table_summary") == 1)
+        if device == "cuda":
+            checks["score_int8_per_batch_summary_per_report"] = (
+                bool(per_batch) and all(per_batch))
+        served["launches_cluster_bench"] = windows
+        out.update({
+            "checks": checks, "config": paced["config"],
+            "headline": paced["headline"],
+            "meets_target": paced["headline"]["meets_target"],
+            "shapes": {n: {"headline": s["headline"],
+                           "trials": s["trials"]}
+                       for n, s in paced["shapes"].items()},
+            "device_kind": paced.get("device_kind"),
+            "power_limit_w": paced.get("power_limit_w"),
+            "baseline_rings": paced.get("baseline_rings"),
+            "failures": paced["failures"], "launches": windows})
+        if not all(checks.values()):
+            out["stderr_tail"] = r.stderr[-4000:]
+        return {"ok": all(checks.values()), **out}
+
+    bench_phase()
 
 
 def pinned_maps_leg(quiet, pin: str, checks: dict) -> dict:
@@ -4345,9 +4739,32 @@ def main() -> int:
 
     @phase("build")
     def build():
+        """The kernels, and beside them ``fsxd`` (``daemon_loop`` and
+        ``host_ingest`` run it; from a fresh checkout its ``make`` took
+        ~9 s of ``daemon_loop``'s time before it moved here)."""
+        from flowsentryx_tpu_torch.shm_stress import build_daemon
+
         t = time.perf_counter()
-        info = kernels.build_all()
-        return {"wall_s": round(time.perf_counter() - t, 3), "kernels": info}
+        daemon: dict = {}
+
+        def make_fsxd():
+            t_d = time.perf_counter()
+            try:
+                daemon["build"] = build_daemon()
+            except Exception as e:  # noqa: BLE001 -- raised below
+                daemon["error"] = e
+            daemon["s"] = round(time.perf_counter() - t_d, 3)
+
+        th = threading.Thread(target=make_fsxd, name="fsxd-make")
+        th.start()
+        try:
+            info = kernels.build_all()
+        finally:
+            th.join()
+        if "error" in daemon:
+            raise daemon["error"]
+        return {"wall_s": round(time.perf_counter() - t, 3), "kernels": info,
+                "daemon": daemon}
 
     if build() is None:
         return 1
@@ -5142,6 +5559,11 @@ def main() -> int:
             ok &= mism == 0
         return {"ok": ok, "batches": CROSS_BATCHES, **res}
 
+    # chaos_campaign's CPU twin runs beside the overflow check and the
+    # two cross-checks (no time is read in them) and is joined at the
+    # end of the second
+    chaos_twin = start_chaos_cpu_twin(os.path.join(REPO, "build",
+                                                   "chaos_cpu_twin"))
     overflow_phase()
     cross_phase()
 
@@ -5194,7 +5616,11 @@ def main() -> int:
                           "digest": want["digest"]}
         ok &= [res[m]["wire"] for m, *_ in cases] == [
             "raw48", "raw48", "compact16", "raw48"]
-        return {"ok": ok, "batches": CROSS_BATCHES // 2, **flood_ttl, **res}
+        # chaos_campaign's CPU twin is joined before the next timed phase
+        t = time.perf_counter()
+        served["chaos_cpu"] = chaos_cpu_twin_report(chaos_twin)
+        return {"ok": ok, "batches": CROSS_BATCHES // 2, **flood_ttl, **res,
+                "chaos_cpu_twin_wait_s": time.perf_counter() - t}
 
     families_phase()
 
@@ -5992,18 +6418,19 @@ def main() -> int:
     @phase("cluster_serve")
     def cluster_serve_phase():
         """``cli cluster --engines 2 --shards 2 --mega auto --drain`` at
-        full width over each prefilled scenario, in turns with one card
-        engine with two workers over the same fan-out (single, cluster;
-        ``--pin-cores off``, the single engine being
-        unpinned too), then once with the default ``--pin-cores auto``
-        on ``mixed_l34_1m``: records/s (the fleet's: total records over
+        full width over the prefilled ``mixed_l34_1m`` (and
+        ``syn_benign_mix`` before the paced scale-out phase came), in
+        turns with one card engine with two workers over the same fan-out
+        (single, cluster; ``--pin-cores off``, the single engine being
+        unpinned too), then once with the default ``--pin-cores auto``:
+        records/s (the fleet's: total records over
         the slowest rank's drain wall), each rank's device ms per batch
         and idle share at the solo per-graph device times, the card's
         idle share, card memory per context, and each rank's boot."""
         out = {"card": card, "turns": {},
                "batches": CLUSTER_SERVE_DEPTH * SERVE_BATCHES}
         checks = []
-        for scen in ring_scen:
+        for scen in ("mixed_l34_1m",):
             # a multiple of the ring phases' stream: the drain walls must
             # dwarf the ranks' start skew (a 384-batch drain takes ~0.3 s)
             long_recs = TrafficGen(TrafficSpec(
@@ -6011,10 +6438,7 @@ def main() -> int:
             ).next_records(CLUSTER_SERVE_DEPTH * SERVE_BATCHES * BATCH)
             res = out["turns"][scen] = {"cluster": [], "single": []}
             costs = None
-            legs = ["single", "cluster"]
-            if scen == "mixed_l34_1m":
-                legs.append("cluster_pin_auto")
-            for leg in legs:
+            for leg in ("single", "cluster", "cluster_pin_auto"):
                 recs = long_recs.copy()
                 base = os.path.join(cl_dir, f"serve_{scen}")
                 if leg == "single":
@@ -7367,13 +7791,11 @@ def main() -> int:
     from flowsentryx_tpu_torch.distill import parity
     from flowsentryx_tpu_torch.distill import plan as dplan
     from flowsentryx_tpu_torch.train import (
-        data as tdata, evaluate, fixture as tfixture, qat, stress,
+        data as tdata, evaluate, fixture as tfixture, qat,
     )
 
     chip_dir = os.path.join(REPO, "build", "chip")
     os.makedirs(chip_dir, exist_ok=True)
-    with open(os.path.join(REPO, "MODEL_METRICS_r05.json")) as f:
-        metrics_r05 = json.load(f)
     with open(os.path.join(os.path.dirname(artifact),
                            "logreg_int8.json")) as f:
         deployed_meta = json.load(f)
@@ -7573,53 +7995,7 @@ def main() -> int:
 
     qat_phase()
 
-    Xt9, yt9, ct9 = stress.fixture_variant("v2", 300_000, seed=9)
-    Xe8, ye8, ce8 = stress.fixture_variant("v2", 300_000, seed=8)
-
-    @phase("train_mlp_robust")
-    def mlp_phase():
-        """``stress``'s robust detector recipe on the card: v2 fixture
-        (300,000 rows, seed 9) plus two shift-augmented copies, 80 epochs;
-        clean F1 on seed 8 against MODEL_METRICS_r05.json."""
-        steps = []
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        _, cell = stress.robust_mlp(Xt9, yt9, Xe8, ye8, ce8, device=dev,
-                                    step_log=steps)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t
-        want = metrics_r05["robust_detector_mlp"]["clean"]["f1"]
-        return {"ok": abs(cell["f1"] - want) <= 0.01, "card": card,
-                "clean": cell, "reference_f1": want, "steps": len(steps),
-                "total_s": total, "ms_per_step": total / len(steps) * 1e3}
-
-    mlp_phase()
-
-    @phase("train_multiclass")
-    def mc_phase():
-        """The expert heads of the slow-recall headline (60 epochs) on the
-        card: binary F1 and per-class recall within 0.02 of the
-        reference's."""
-        steps = []
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        _, rep = stress.expert_heads(Xt9, ct9, Xe8, ce8, device=dev,
-                                     step_log=steps)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t
-        want = metrics_r05["slow_recall_headline"]["models"]["expert_heads"]
-        diffs = {"binary_f1": abs(rep["binary"]["f1"]
-                                  - want["binary"]["f1"])}
-        for c, v in want["per_class"].items():
-            diffs[f"recall_{c}"] = abs(rep["per_class"][c]["recall"]
-                                       - v["recall"])
-        return {"ok": max(diffs.values()) <= 0.02, "card": card,
-                "report": {k: rep[k] for k in ("per_class", "macro_f1",
-                                               "binary")},
-                "diff_vs_reference": diffs, "steps": len(steps),
-                "total_s": total, "ms_per_step": total / len(steps) * 1e3}
-
-    mc_phase()
+    stress_phases(card, full=False)
 
     trained_plan_path = os.path.join(chip_dir, "trained_plan.npz")
 
@@ -7880,8 +8256,10 @@ def main() -> int:
     @phase("chaos_campaign")
     def chaos_campaign_phase():
         """``run_campaign(seed=17, quick=False, device="cuda")`` at the
-        campaign's own shapes (4,096 rows, B=64, 24 batches), against the
-        same campaign with ``device="cpu"``: every invariant holds, every
+        campaign's own shapes (4,096 rows, B=64, 24 batches), alone on the
+        host, against the same campaign with ``device="cpu"`` (its report
+        from :func:`start_chaos_cpu_twin`'s child, run beside the
+        cross-checks): every invariant holds, every
         plant is caught with its control holding, the seeded fields are
         the CPU campaign's, and ``score_int8`` launched once per batch the
         campaign's engine dispatched."""
@@ -7907,9 +8285,8 @@ def main() -> int:
         finally:
             chaos.build_engine_fleet = real
             join_sink_threads()
-        with cpu_threads():
-            ref = chaos.run_campaign(seed=17, quick=False, device="cpu",
-                                     workdir=os.path.join(chaos_root, "cpu"))
+        # the CPU twin ran beside the cross-checks
+        ref = served.get("chaos_cpu") or chaos_cpu_twin_report(chaos_twin)
         seeded = {"ckpt_truncate": "truncate_fraction",
                   "ckpt_bitflip": "flip_offsets", "engine_kill": "kill_at_s",
                   "handoff_kill_midship": "kill_after_slots",
@@ -8038,6 +8415,8 @@ def main() -> int:
     bpf_plane_phase(card, served, trained_path)
     host_ingest_phase(card, served)
     mesh_processes_phase(card, served)
+    link_probe_phase(card, served)
+    cluster_bench_phase(card, served)
 
     def time_ms(fn, reps, flush=None):
         """Mean device ms per call with CUDA events (after a warm-up);
@@ -8448,6 +8827,11 @@ def main() -> int:
             # the host-ingest harness's engine rows, fed by a live fsxd
             **{f"host_ingest/{k}": w for k, w in
                served.get("launches_host_ingest", {}).items()},
+            # the link probe (its own process) and each role's drain
+            # windows in the paced scale-out comparison
+            "link_probe": served.get("launches_link_probe", {}),
+            **{f"cluster_bench/{k}": w for k, w in
+               served.get("launches_cluster_bench", {}).items()},
             # the process mesh: each rank's own window, per world, leg
             # and step kind
             **{f"mesh_processes/{w[len('launches_mesh_processes_'):]}"

@@ -88,8 +88,10 @@ line each; ``bench --scaling`` the step time against 1, 2, 4 and 8
 shards of a mesh laid on the one ``--device``
 (:func:`.benchmarks.run_scaling`); ``--host-ingest N`` first runs the
 sharded host-ingest suite (:mod:`.shm_stress`) and puts its headline in
-the headline's line; ``--cluster`` and ``--baseline-repo`` are refused
-by name.  ``version`` prints the
+the headline's line; ``--cluster [--baseline-repo DIR]`` runs the paced
+scale-out comparison (``scripts/torch_cluster_bench.py``: two engine
+processes against the single engine of the pre-cluster commit
+``c8043dd``).  ``version`` prints the
 package's version as the reference's does.
 
 ``audit`` and ``ranges`` are the device plane's two static legs
@@ -1791,23 +1793,50 @@ def _cmd_monitor(args: argparse.Namespace) -> int:
     return 0
 
 
-#: ``bench`` flags of the reference that the port refuses by name.
-_BENCH_REFUSED = {
-    "cluster": "the paced fleet comparison runs the reference's "
-               "scripts/cluster_bench.py against a pre-cluster checkout",
-    "baseline_repo": "it names the pre-cluster checkout of --cluster",
-}
+#: The paced scale-out comparison (``bench --cluster``), run by path.
+CLUSTER_BENCH = Path(__file__).resolve().parents[1] / "scripts" \
+    / "torch_cluster_bench.py"
+
+
+def _cmd_cluster_bench(args: argparse.Namespace) -> int:
+    """``bench --cluster``: ``scripts/torch_cluster_bench.py`` in a child
+    process, as the reference runs ``scripts/cluster_bench.py``
+    (``flowsentryx_tpu/cli.py:2750-2764``), with ``--baseline-repo`` and
+    ``--device`` passed through.  Its refusals (2 for a baseline tree
+    without the package, 1 without the device) are asked here first, so
+    they print before anything is spawned; 1 without a source checkout."""
+    import importlib.util
+    import subprocess
+
+    script = CLUSTER_BENCH
+    if not script.exists():
+        print("fsx bench --cluster requires a source checkout "
+              f"(torch_cluster_bench.py not found at {script})",
+              file=sys.stderr)
+        return 1
+    spec = importlib.util.spec_from_file_location("torch_cluster_bench",
+                                                  script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    baseline = args.baseline_repo or mod.DEFAULT_BASELINE
+    refused = mod.preflight(baseline, args.device)
+    if refused is not None:
+        rc, msg = refused
+        print(f"fsx bench: {msg}", file=sys.stderr)
+        return rc
+    cmd = [sys.executable, str(script), "--baseline-repo", baseline]
+    if args.device is not None:
+        cmd += ["--device", args.device]
+    return subprocess.run(cmd, cwd=script.parents[1]).returncode
 
 
 def _cmd_bench(args: argparse.Namespace) -> int:
     """The headline benchmark (bare, or ``--smoke``; :func:`.bench.main`),
-    the five BASELINE configs (``--scenarios``), one JSON line each; or
-    (``--scaling``) the step time against the mesh size."""
-    for flag, why in _BENCH_REFUSED.items():
-        if getattr(args, flag) not in (None, False):
-            name = flag.replace("_", "-")
-            print(f"fsx bench: refusing --{name}: {why}", file=sys.stderr)
-            return 1
+    the five BASELINE configs (``--scenarios``), one JSON line each; the
+    step time against the mesh size (``--scaling``); or the paced
+    scale-out comparison (``--cluster``)."""
+    if args.cluster:
+        return _cmd_cluster_bench(args)
     if not (args.scenarios or args.scaling):
         argv = ["--smoke"] if args.smoke else []
         if args.budget_s is not None:
@@ -2454,8 +2483,9 @@ def build_parser() -> argparse.ArgumentParser:
     mo.set_defaults(fn=_cmd_monitor)
 
     b = sub.add_parser("bench", help="run the headline benchmark, the "
-                       "five BASELINE configs (--scenarios) or the mesh "
-                       "scaling (--scaling)")
+                       "five BASELINE configs (--scenarios), the mesh "
+                       "scaling (--scaling) or the paced scale-out "
+                       "comparison (--cluster)")
     b.add_argument("--smoke", action="store_true",
                    help="the headline benchmark at small shapes (B=1024, "
                         "4,096 rows)")
@@ -2481,10 +2511,16 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--host-ingest-dur", type=float,
                    default=bench.HOST_INGEST_DUR_S, metavar="S",
                    help="seconds per host-ingest row (default 8)")
-    for flag, why in _BENCH_REFUSED.items():
-        b.add_argument("--" + flag.replace("_", "-"),
-                       action="store_true" if flag == "cluster" else None,
-                       default=None, help=f"refused: {why}")
+    b.add_argument("--cluster", action="store_true",
+                   help="paced 2-engine-vs-single scale-out comparison "
+                        "(scripts/torch_cluster_bench.py; interleaved "
+                        "sealed-drain trials against the pre-cluster "
+                        "commit c8043dd, writes build/CLUSTER_torch.json)")
+    b.add_argument("--baseline-repo", default=None,
+                   help="tree of the pre-cluster commit the --cluster "
+                        "baseline engine runs from (default "
+                        "build/fsx_port_pr9_tree; git worktree add or git "
+                        "archive it first)")
     b.set_defaults(fn=_cmd_bench)
 
     ch = sub.add_parser(

@@ -1,6 +1,7 @@
 """The host plane's model checkers' card phase of ``chip_smoke.py``
 alone: build the kernels, then ``chip_smoke.host_legs_phase`` (``fsx
-sync``, ``fsx crash`` and ``fsx live`` in full mode as subprocesses, then
+sync``, ``fsx crash`` and ``fsx live`` in full mode as subprocesses, where
+``chip_smoke.py`` runs ``fsx live --quick``; then
 the arena check: ``mixed_l34_1m`` through the drain ring with the arena
 one slot below the bound and the copy stream held, the port's claim
 against a claim without its event wait), printing its JSON line, then a
@@ -36,7 +37,7 @@ def main() -> int:
     cs.emit({"phase": "build", "s": time.perf_counter() - t})
     served: dict = {}
     t = time.perf_counter()
-    cs.host_legs_phase(card, served)
+    cs.host_legs_phase(card, served, live_quick=False)
     cs.emit({"phase": "total", "s": time.perf_counter() - t,
              "failed": cs.FAILED,
              "windows": {k: served.get(f"launches_host_legs_{k}")

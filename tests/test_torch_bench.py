@@ -26,6 +26,7 @@ import io
 import json
 import sys
 import time
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -225,17 +226,27 @@ def _phases(paced):
     return tput, lat
 
 
-def _ref_line(monkeypatch, tmp_path, tput, lat) -> dict:
-    """The reference's ``main`` with its phase children replaced by
-    ``tput``/``lat``, no link probe, its link baseline in ``tmp_path``."""
+#: A healthy probe whose fed loop ran far above the crafted singles' 17.2
+#: M records/s: every window it opens flaps (singles < 0.3x its e2e).
+FLAP_PROBE = {"backend": "cuda", "device_kind": "card", "init_s": 0.4,
+              "dispatch_ms": 0.02, "compile_s": 1.1, "step_ms": 0.9,
+              "step_mpps": 18.2, "h2d_mbps": 30000.0, "e2e_mpps": 100.0,
+              "state": "healthy"}
+
+
+def _ref_main(monkeypatch, tmp_path, probe, run_phase) -> dict:
+    """The reference's ``main`` with its link probe ``probe`` and its
+    phase children ``run_phase``, its link baseline in ``tmp_path``: its
+    line."""
     monkeypatch.delenv("JAX_PLATFORMS", raising=False)
     monkeypatch.setenv("FSX_BENCH_NO_MERGE", "1")
     monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jc"))
     monkeypatch.setattr(rbench, "LINK_BASELINE_PATH", tmp_path / "bl.json")
-    monkeypatch.setattr(rbench, "PROBE_SCRIPT", tmp_path / "no_probe.py")
-    monkeypatch.setattr(rbench, "T_START", time.perf_counter())
-    monkeypatch.setattr(rbench, "_run_phase", lambda phase, *a, **k: dict(
-        tput if phase == "throughput" else lat))
+    probe_script = tmp_path / "probe.py"
+    probe_script.write_text("")
+    monkeypatch.setattr(rbench, "PROBE_SCRIPT", probe_script)
+    monkeypatch.setattr(rbench, "_probe_link", probe)
+    monkeypatch.setattr(rbench, "_run_phase", run_phase)
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         assert rbench.main() == 0
@@ -243,11 +254,43 @@ def _ref_line(monkeypatch, tmp_path, tput, lat) -> dict:
     return json.loads(line)
 
 
-def _port_line(tput, lat) -> dict:
+def _ref_line(monkeypatch, tmp_path, tput, lat) -> dict:
+    """The reference's ``main`` with its phase children replaced by
+    ``tput``/``lat``, every link probe :data:`FLAP_PROBE` (so the line
+    carries all four link keys), its link baseline in ``tmp_path``."""
+    monkeypatch.setattr(rbench, "T_START", time.perf_counter())
+    return _ref_main(monkeypatch, tmp_path,
+                     lambda timeout_s=120.0: dict(FLAP_PROBE),
+                     lambda phase, *a, **k: dict(
+                         tput if phase == "throughput" else lat))
+
+
+def _port_link(tput) -> dict:
+    """The port's gate over the same probes and phase, on a clock that
+    only the phase and the probes move."""
+    clock = [0.0]
+
+    def probe(timeout_s):
+        clock[0] += 10.0
+        return dict(FLAP_PROBE)
+
+    def run_phase():
+        clock[0] += 100.0
+        return dict(tput)
+
+    link = bench.new_link()
+    bench.gated_throughput(run_phase, link,
+                           lambda: bench.DEFAULT_BUDGET_S - clock[0],
+                           bench.DEFAULT_BUDGET_S, probe=probe,
+                           sleep=lambda s: None, at=lambda: clock[0])
+    return link
+
+
+def _port_line(tput, lat, link=None) -> dict:
     return bench.fold_line(tput, lat, batch=rbench.B,
                            capacity=rbench.TABLE_CAP,
                            budget_s=rbench.BUDGET_S, device_kind_="card",
-                           power_limit_w=700.0)
+                           power_limit_w=700.0, link=link)
 
 
 @pytest.mark.parametrize("case", sorted(PACED))
@@ -259,11 +302,23 @@ def test_line_keys_and_headline_equal_reference(case, monkeypatch,
     canonical latency pick: the reference's."""
     tput, lat = _phases(PACED[case])
     want = _ref_line(monkeypatch, tmp_path, tput, lat)
-    got = _port_line(tput, lat)
+    got = _port_line(tput, lat, _port_link(tput))
     # wall_s is added by main, after the fold
     assert set(got) | {"wall_s"} == (set(want) - set(bench.DROPPED_KEYS)
                                      ) | set(bench.ADDED_KEYS)
     assert "transport_limited" in want and "tpu_init_attempts" in want
+    # the four link keys, now printed: the same probes, state and flaps
+    link_keys = {"link_probes", "link_state", "healthy_link_criteria",
+                 "window_flaps"}
+    assert link_keys <= set(got) and not link_keys & set(bench.DROPPED_KEYS)
+    assert got["link_state"] == want["link_state"] == "healthy"
+    assert got["window_flaps"] == want["window_flaps"] == 2
+    strip = [{k: v for k, v in p.items() if k != "at_s"}
+             for p in want["link_probes"]]
+    assert [{k: v for k, v in p.items() if k != "at_s"}
+            for p in got["link_probes"]] == strip
+    assert set(got["healthy_link_criteria"]) == set(
+        want["healthy_link_criteria"])
     for k in ("value", "vs_baseline", "chunk_mpps", "compile_s", "backend",
               "h2d_mbps", "device_mpps", "burst_mpps", "single_mpps",
               "mega_mpps", "mega_chunk_mpps", "devloop_chunk_mpps",
@@ -374,6 +429,204 @@ def test_a_raising_phase_prints_the_line_and_exits_one(which, monkeypatch):
     rec = json.loads(line)
     assert "RuntimeError: the phase broke" in rec["error"]
     assert (rec["value"] > 0) == (which == "latency")
+
+
+# ---------------------------------------------------------------------------
+# the healthy-window gate, on a fake clock
+# ---------------------------------------------------------------------------
+
+
+def _probe(state, e2e=None):
+    p = {"backend": "cuda", "step_ms": 0.9, "h2d_mbps": 30000.0,
+         "dispatch_ms": 0.02, "init_s": 0.4, "state": state}
+    if e2e is not None:
+        p["e2e_mpps"] = e2e
+    return p
+
+
+GOOD = {"mpps": 17.2, "single_mpps": 17.2}
+HEALTHY, DEGRADED = _probe("healthy", 15.0), _probe("degraded")
+FLAP = _probe("healthy", 100.0)
+
+#: name: (budget s, probes, phases, retry, want: link state, probes,
+#: sleeps, phases run, flaps)
+GATE_CASES = {
+    "healthy_at_once": (840.0, [HEALTHY], [GOOD], True,
+                        ("healthy", 1, [], 1, 0)),
+    "degraded_then_healthy": (840.0, [DEGRADED, HEALTHY], [GOOD], True,
+                              ("healthy", 2, [45.0], 1, 0)),
+    "backoff_grows": (840.0, [DEGRADED] * 3 + [HEALTHY], [GOOD], True,
+                      ("healthy", 4, [45.0, 67.5, 101.25], 1, 0)),
+    "budget_runs_out": (840.0, [DEGRADED] * 6, [GOOD], True,
+                        ("degraded", 4, [45.0, 67.5, 101.25], 1, 0)),
+    "no_budget_left": (120.0, [DEGRADED], [GOOD], True,
+                       ("degraded", 1, [], 1, 0)),
+    "cpu_probes_once": (840.0, [DEGRADED], [GOOD], False,
+                        ("degraded", 1, [], 1, 0)),
+    "wedged_probe": (120.0, [{"error": "RuntimeError: x"}], [GOOD], True,
+                     ("wedged", 1, [], 1, 0)),
+    "flap_regates_once": (840.0, [FLAP, FLAP], [GOOD, GOOD], True,
+                          ("healthy", 2, [], 2, 2)),
+    "flap_without_room": (150.0, [FLAP], [GOOD], True,
+                          ("healthy", 1, [], 1, 1)),
+    "flap_then_degraded": (840.0, [FLAP, DEGRADED, HEALTHY],
+                           [GOOD, {"mpps": 9.0, "single_mpps": 9.0}], True,
+                           ("healthy", 3, [45.0], 2, 1)),
+}
+
+
+def _port_gate(budget, probes, phases, retry=True):
+    """The port's gate on the fake clock: probes take 10 s, a throughput
+    phase 100 s, a sleep its backoff.  ``(link, sleeps, probe timeouts,
+    phases run, kept phase)``."""
+    probes, phases = list(probes), list(phases)
+    clock, sleeps, timeouts, ran = [0.0], [], [], []
+
+    def probe(timeout_s):
+        timeouts.append(timeout_s)
+        clock[0] += 10.0
+        return dict(probes.pop(0))
+
+    def sleep(s):
+        sleeps.append(s)
+        clock[0] += s
+
+    def run_phase():
+        clock[0] += 100.0
+        ran.append(phases[0])
+        return dict(phases.pop(0))
+
+    link = bench.new_link()
+    tput = bench.gated_throughput(
+        run_phase, link, lambda: budget - clock[0], budget, probe=probe,
+        sleep=sleep, at=lambda: clock[0], retry=retry)
+    return link, sleeps, timeouts, ran, tput
+
+
+def _ref_gate(monkeypatch, tmp_path, probes, phases):
+    """The reference's ``main`` at its own 840 s budget on the same fake
+    clock (its ``time.perf_counter`` and ``time.sleep`` replaced, its
+    ``T_START`` at 0): ``(line, sleeps, probe timeouts, phases run)``."""
+    probes, phases = list(probes), list(phases)
+    clock, sleeps, timeouts, ran = [0.0], [], [], []
+    fake = types.SimpleNamespace(**{k: getattr(time, k) for k in dir(time)
+                                    if not k.startswith("_")})
+    fake.perf_counter = lambda: clock[0]
+
+    def sleep(s):
+        sleeps.append(s)
+        clock[0] += s
+
+    fake.sleep = sleep
+
+    def probe(timeout_s=120.0):
+        timeouts.append(timeout_s)
+        clock[0] += 10.0
+        return dict(probes.pop(0))
+
+    lat = _phases(PACED["sustained"])[1]
+
+    def run_phase(phase, *a, **k):
+        if phase != "throughput":
+            return dict(lat)
+        clock[0] += 100.0
+        ran.append(phases[0])
+        return dict(phases.pop(0))
+
+    monkeypatch.setattr(rbench, "time", fake)
+    monkeypatch.setattr(rbench, "T_START", 0.0)
+    monkeypatch.setattr(rbench, "BUDGET_S", bench.REF_BUDGET_S)
+    line = _ref_main(monkeypatch, tmp_path, probe, run_phase)
+    return line, sleeps, timeouts, ran
+
+
+def _probe_rows(probes):
+    return [(p["state"], p.get("e2e_mpps"), p["at_s"]) for p in probes]
+
+
+@pytest.mark.parametrize("case", sorted(GATE_CASES))
+def test_gate_decisions_on_a_fake_clock(case):
+    """Probes take 10 s, a phase 100 s, a sleep its backoff: the gate
+    keeps the reference's rule with its reserves scaled to the budget,
+    and retries a probe only when the backoff and a 30 s probe fit."""
+    budget, probes, phases, retry, want = GATE_CASES[case]
+    link, sleeps, timeouts, ran, tput = _port_gate(budget, probes, phases,
+                                                    retry)
+    state, n_probes, want_sleeps, n_phases, flaps = want
+    assert link["link_state"] == state
+    assert len(link["link_probes"]) == n_probes
+    assert sleeps == want_sleeps
+    assert len(ran) == n_phases and link["window_flaps"] == flaps
+    assert tput["mpps"] == max(p["mpps"] for p in ran)
+    # a probe's timeout never reaches into the last pass's reserve (but
+    # the first probe always runs, with at least 30 s)
+    scale = budget / bench.REF_BUDGET_S
+    assert timeouts[0] == max(30.0, min(240.0, budget - 430.0 * scale))
+    assert all(30.0 <= t <= 240.0 for t in timeouts)
+    assert [p["at_s"] for p in link["link_probes"]] == sorted(
+        p["at_s"] for p in link["link_probes"])
+    line = _port_line(*_phases([])[:1], None, link)
+    assert line["link_state"] == state and line["window_flaps"] == flaps
+
+
+#: the gate cases at the reference's own budget whose every decision the
+#: port shares with it (``budget_runs_out`` is the one divergence below)
+REF_GATE_CASES = ("backoff_grows", "degraded_then_healthy",
+                  "flap_regates_once", "flap_then_degraded",
+                  "healthy_at_once")
+
+
+@pytest.mark.parametrize("case", REF_GATE_CASES)
+def test_gate_decisions_equal_the_references_at_its_budget(
+        case, monkeypatch, tmp_path):
+    """At 840 s the port's reserves are the reference's (scale 1): on the
+    same scripted probes and fake clock, its ``main`` and the port's gate
+    take the same probes (state, fed loop, time, timeout), sleep the same
+    backoffs, run the same phases and count the same flaps."""
+    budget, probes, phases, retry, _ = GATE_CASES[case]
+    assert budget == bench.REF_BUDGET_S and retry
+    link, sleeps, timeouts, ran, _ = _port_gate(budget, probes, phases)
+    line, rsleeps, rtimeouts, rran = _ref_gate(monkeypatch, tmp_path,
+                                               probes, phases)
+    assert _probe_rows(link["link_probes"]) == _probe_rows(
+        line["link_probes"])
+    assert link["link_state"] == line["link_state"]
+    assert sleeps == rsleeps and timeouts == rtimeouts and ran == rran
+    assert link["window_flaps"] == line.get("window_flaps", 0)
+
+
+def test_gate_retries_only_when_a_probe_still_fits(monkeypatch, tmp_path):
+    """Where the two gates part: after four degraded probes (t = 253.75
+    s, 586.25 s left, the next backoff 151.875 s) the reference still
+    sleeps, because the backoff alone fits above its 430 s reserve, and
+    then finds no room for the probe (4.375 s); the port stops at once,
+    because the backoff and a 30 s probe do not fit.  Same probes and
+    label; one sleep fewer."""
+    probes, phases = [DEGRADED] * 6, [GOOD]
+    link, sleeps, timeouts, ran, _ = _port_gate(840.0, probes, phases)
+    line, rsleeps, rtimeouts, rran = _ref_gate(monkeypatch, tmp_path,
+                                               probes, phases)
+    assert _probe_rows(link["link_probes"]) == _probe_rows(
+        line["link_probes"])
+    assert link["link_state"] == line["link_state"] == "degraded"
+    assert timeouts == rtimeouts and ran == rran == [GOOD]
+    assert sleeps == [45.0, 67.5, 101.25]
+    assert rsleeps == sleeps + [151.875]
+    # the reference's extra sleep ends with no probe: 840 - 253.75 -
+    # 151.875 - 430 s is under its 30 s minimum
+    assert 840.0 - 253.75 - 151.875 - 430.0 < 30.0
+
+
+def test_the_cpu_run_labels_its_window_with_one_probe():
+    rc, out, err = _run(bench.main, ["--smoke", "--device", "cpu",
+                                     "--budget-s", "20"])
+    assert rc == 0, err
+    rec = json.loads(out)
+    assert rec["link_state"] == "degraded" and rec["window_flaps"] == 0
+    [p] = rec["link_probes"]
+    assert set(p) <= set(bench.PROBE_KEYS) and "error" not in p
+    assert rec["healthy_link_criteria"]["probe"].startswith(
+        "scripts/torch_link_probe.py")
 
 
 def test_without_a_card_exits_one_naming_the_device():

@@ -1662,3 +1662,54 @@ def test_process_engine_ladder_and_swap_two_gloo_ranks_on_one_card(cuda):
         == _digest(ref)
     assert [(c["swaps"], c["swap_step"]) for c in counts] == \
         [(1, rep.dispatch["mesh"]["swap_steps"][0])] * 2
+
+
+def test_link_probe_on_card_is_not_wedged(cuda):
+    """``scripts/torch_link_probe.py`` on the card: a line that is not
+    ``wedged``, labeled by ``linkhealth.classify``, ``score_int8`` once
+    per step replay."""
+    import json
+    import subprocess
+    import sys
+
+    from flowsentryx_tpu_torch.core import linkhealth
+
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, str(root / "scripts"
+                                            / "torch_link_probe.py")],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    line = json.loads(r.stdout.splitlines()[-1])
+    assert line["state"] != "wedged", line
+    assert line["device_kind"] == torch.cuda.get_device_name(0)
+    assert line["state"] == linkhealth.classify(
+        line["step_ms"], line["h2d_mbps"], line.get("e2e_mpps"))
+    assert line["launches"]["score_int8"] == line["step_bodies"] > 0
+
+
+def test_cut_cluster_bench_on_card_is_lossless_and_converged(cuda, tmp_path):
+    """``scripts/torch_cluster_bench.py --trials 1 --cut 150`` on the card
+    against the tree under test: no failure of the four checks, and in
+    each role's drain ``score_int8`` once per batch, ``table_summary``
+    once."""
+    import json
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path / "CLUSTER_torch.json"
+    r = subprocess.run(
+        [sys.executable, str(root / "scripts" / "torch_cluster_bench.py"),
+         "--trials", "1", "--cut", "150", "--baseline-repo", str(root),
+         "--out", str(out)], cwd=root, capture_output=True, text=True,
+        timeout=600)
+    assert r.returncode in (0, 1), r.stderr[-3000:]
+    paced = json.loads(out.read_text())["paced"]
+    assert paced["ok"] and paced["failures"] == []
+    assert paced["device_kind"] == torch.cuda.get_device_name(0)
+    for shape in paced["shapes"].values():
+        for tr in shape["trials"]:
+            roles = [(tr["launches"]["single"], tr["single_batches"])] + list(
+                zip(tr["launches"]["rank"], tr["rank_batches"]))
+            for w, batches in roles:
+                assert w["score_int8"] == batches and w["table_summary"] == 1

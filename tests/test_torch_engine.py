@@ -173,8 +173,11 @@ def test_new_host_modules_are_checked():
     programs, images, verifier, contracts, blacklist and rule maps, the
     XDP drive, the header generator, the scorer emulator, the
     containment bridge and the kernel-map verbs), the host-ingest stress
-    harness and the port's lint gate (``scripts/torch_lint.py``) are
-    among them."""
+    harness, the port's lint gate (``scripts/torch_lint.py``), the link
+    rule and its probe (``core/linkhealth.py``,
+    ``scripts/torch_link_probe.py``) and the paced scale-out comparison
+    (``scripts/torch_cluster_bench.py``) and the training phases' full
+    recipes (``scripts/torch_train_stress_phase.py``) are among them."""
     names = {".".join(p.relative_to(REPO).with_suffix("").parts)
              for p in _port_sources()}
     for m in ("core.wire", "core.durable", "engine.shm", "engine.arena",
@@ -202,6 +205,10 @@ def test_new_host_modules_are_checked():
               "shm_stress"):
         assert f"flowsentryx_tpu_torch.{m}" in names, m
     assert "scripts.torch_lint" in names
+    assert "flowsentryx_tpu_torch.core.linkhealth" in names
+    for script in ("torch_link_probe", "torch_cluster_bench",
+                   "torch_cluster_bench_phase", "torch_train_stress_phase"):
+        assert f"scripts.{script}" in names, script
 
 
 def test_ebpf_plane_imports_no_torch():

@@ -17,6 +17,7 @@ import contextlib
 import dataclasses
 import io
 import json
+from pathlib import Path
 
 import pytest
 import torch
@@ -143,24 +144,30 @@ def test_bench_scenarios_cli_equals_reference():
     assert got[0]["scenario"] == NAMES[0]
 
 
-@pytest.mark.parametrize("argv,flag", [
-    ([], None), (["--smoke"], None), (["--scaling"], None),
-    (["--cluster"], "--cluster"),
-    (["--baseline-repo", "/tmp/x"], "--baseline-repo"),
-    (["--scenarios", "--scaling"], None),
-    (["--host-ingest", "4"], None)],
+@pytest.mark.parametrize("argv,rc,message", [
+    ([], 1, None), (["--smoke"], 1, None), (["--scaling"], 1, None),
+    (["--cluster", "--baseline-repo",
+      str(Path(__file__).resolve().parents[1])], 1, None),
+    (["--cluster", "--baseline-repo", "/nonexistent/fsx_pr9"], 2,
+     "git archive c8043dd flowsentryx_tpu_torch"),
+    (["--scenarios", "--scaling"], 1, None),
+    (["--host-ingest", "4"], 1, None)],
     ids=["bare", "smoke", "scaling", "cluster", "baseline-repo",
          "scenarios-scaling", "host-ingest"])
-def test_bench_refuses_unported_modes_by_name(argv, flag):
-    """The modes still unported are refused by name.  A bare ``bench``,
-    ``--smoke`` (the headline benchmark), ``--scaling`` (the sharded
-    step) and ``--host-ingest`` (the headline benchmark after the
-    sharded host-ingest suite) are ported: without ``--device`` they run
-    on the card, and a host without one refuses them by that reason,
-    printing no line."""
-    rc, out, err = _run(cli.main, ["bench", *argv])
-    assert rc == 1 and out == ""
-    if flag is None:
-        assert "no CUDA device" in err and "refusing" not in err
+def test_bench_refuses_unported_modes_by_name(argv, rc, message):
+    """Every mode of ``bench`` is ported, and none is refused by name any
+    more.  A bare ``bench``, ``--smoke`` (the headline benchmark),
+    ``--scaling`` (the sharded step), ``--host-ingest`` (the headline
+    benchmark after the sharded host-ingest suite) and ``--cluster``
+    (the paced scale-out comparison, here against this tree) run on the
+    card without ``--device``, and a host without one refuses them by
+    that reason, printing no line; ``--cluster`` with a ``--baseline-repo``
+    that holds no package exits 2 naming how to make the tree, before it
+    asks for the card."""
+    got_rc, out, err = _run(cli.main, ["bench", *argv])
+    assert got_rc == rc and out == ""
+    assert "refusing" not in err
+    if message is None:
+        assert "no CUDA device" in err
     else:
-        assert f"refusing {flag}" in err
+        assert message in err and "no CUDA device" not in err
