@@ -26,9 +26,10 @@ more.
 4. ``raw_decode_and_sum``: ``segment_sum_seq`` vs its plain version,
    exact, on the byte lanes of a crafted raw48 batch (one source with
    300 records of 65,535 B, whose lane-order f32 sum differs from the
-   exact sum), of a served ``mixed_l34_1m`` batch and of ragged random
-   segments; the scorer's device ``log1p`` vs ``xla_log1p`` on the card
-   over every non-negative float32; ``xla_log1p``,
+   exact sum), of a served ``mixed_l34_1m`` batch, of single-source
+   floods (one segment over a B=2048 and a B=16,384 batch) and of
+   ragged random segments; the scorer's device ``log1p`` vs
+   ``xla_log1p`` on the card over every non-negative float32; ``xla_log1p``,
    ``xla_sigmoid`` and the ``mlp``/``multiclass``/``logreg_float``
    scorers give the same bits on the card as on the host.
 5. Serve: ``Engine(device="cuda")`` (singles, every dispatch one CUDA
@@ -432,9 +433,11 @@ more.
     DP run instead (``artifacts/qat_dp_reference.json``, from
     ``scripts/qat_dp_reference.py``), and its artifact bit-equal to that
     run's but for the bias (Adagrad's ``rsqrt``, queue 3 item 19);
-    ``gemv_seq`` launched 8 x 200 times; at 203 rows and 30 epochs the
+    ``gemv_seq`` launched 200 times (one launch an epoch carries the 8
+    shards' chains, a block each); at 203 rows and 30 epochs the
     card's run byte-equal to the CPU's; ``gemv_seq`` on one shard's
-    operands (252,080 rows) against its plain version, timed.
+    operands (252,080 rows), and on all 8 in one launch, against its
+    plain version shard by shard, timed.
 58. ``static_audit`` (``static_audit_phase``), the device plane's static
     legs at 2^20 rows, B=2048, K=64, the golden ``logreg_int8`` params on
     compact16: ``fsx audit --mega auto --device-loop 2 --mesh 4`` (the
@@ -569,12 +572,17 @@ more.
     scripts/torch_cluster_bench_phase.py``.
 
 Then the timing line per kernel (``segment_sum_seq`` on the byte lanes
-of a served raw48 batch, ``index_add_`` its library call; the scorer
+of a served raw48 batch, ``index_add_`` its library call, and on the
+crafted 300-lane batch and the single-source floods at B=2048 and
+16,384, each with its chain floor at the SM clock ``nvidia-smi`` read
+while it ran; the scorer
 also with the log1p artifact on raw48 rows, and at the training path's
 evaluation chunk, B = 65,536 rows, with the trained artifact, and at
 the suite's B = 8192 and 16,384 with ``logreg_int8.npz``;
 ``gemv_seq`` on the QAT epoch's operands at 2,016,639 rows, its plain
-version on the host, ``torch.mv`` its library call): ``ms`` (CUDA events, host
+version on the host, ``torch.mv`` its library call, and the
+data-parallel epoch's one launch of 8 x 252,080 rows; both with the
+chain floor at the read SM clock): ``ms`` (CUDA events, host
 launch gaps included), ``device_ms`` (the kernel's own time from
 ``torch.profiler``),
 ``host_us_per_call`` (the wrapper's enqueue time), the plain version,
@@ -2256,6 +2264,42 @@ def _graph_times(gr, reps: int = 20) -> dict:
             "device_ms_per_replay": round(e0.elapsed_time(e1) / reps, 4)}
 
 
+def _sm_clock_under(fn, seconds: float = 1.0) -> dict:
+    """The card's SM clock while ``fn`` runs back to back for about
+    ``seconds``: ``nvidia-smi --query-gpu=clocks.sm,clocks.max.sm``
+    sampled every 100 ms (the sampler is stopped before returning);
+    ``{"sm_mhz": median, "max_sm_mhz", "samples"}``."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.3)                 # the sampler's first reading
+        t = time.perf_counter()
+        while time.perf_counter() - t < seconds:
+            for _ in range(8):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    rows = [[float(x) for x in ln.split(",")] for ln in out.splitlines()
+            if ln.strip() and "," in ln]
+    busy = sorted(r[0] for r in rows[3:]) or sorted(r[0] for r in rows)
+    return {"sm_mhz": busy[len(busy) // 2] if busy else None,
+            "max_sm_mhz": rows[0][1] if rows else None,
+            "samples": len(rows)}
+
+
+def _chain_floor_ms(steps: int, clock: dict, cycles: int = 4) -> float | None:
+    """``steps`` dependent float32 adds or FMAs at ``cycles`` each (their
+    latency on an H100) at the SM clock read during the timing."""
+    mhz = clock.get("sm_mhz")
+    return steps * cycles / (mhz * 1e3) if mhz else None
+
+
 def _event_ms(fn, reps: int) -> float:
     """Mean device ms per call of ``fn`` (CUDA events around ``reps``
     back-to-back calls, after one warm-up call)."""
@@ -2800,8 +2844,9 @@ def headline_phases(card: str, served: dict) -> None:
         launches = served["launches_train_qat_dp"] = dict(kernels.LAUNCHES)
         out["launches"] = launches
         served["train_qat_dp_epochs"] = epochs
-        checks["gemv_seq_shards_x_epochs"] = (
-            launches["gemv_seq"] == DP_SHARDS * epochs)
+        # one launch an epoch carries all the shards' chains
+        checks["gemv_seq_one_launch_per_epoch"] = (
+            launches["gemv_seq"] == epochs)
         p, q = (logreg.params_to_numpy(r.params) for r in (dp, one))
         out["vs_single_device"] = {
             "w_int8_max_code_diff": int(np.abs(
@@ -2874,10 +2919,38 @@ def headline_phases(card: str, served: dict) -> None:
         plain_s = time.perf_counter() - t
         ms = _event_ms(lambda: kernels.gemv_seq(gy, xq), 10)
         lib_ms = _event_ms(lambda: torch.mv(xq.t(), gy), 20)
-        kernels.LAUNCHES.update(saved)
         errs_ok = torch.equal(got.cpu().view(torch.int32),
                               want.view(torch.int32))
         checks["gemv_seq_shard_equals_plain"] = errs_ok
+        # all 8 shards in one launch, as the epoch makes it (shard 0 the
+        # operands above, the others the rows after them, the padding's
+        # dL/dy 0), each shard's bits against its plain chain
+        n_pad = rows * DP_SHARDS - Xd.shape[0]
+        xq_all = torch.cat([xq, qat.fake_quant(
+            Xd[rows:], *st.obs_in.quint8_qparams(), 0.0, 255.0),
+            torch.zeros(n_pad, Xd.shape[1], device=dev)])
+        yl_all = qat.fake_quant(qat._dot8(xq_all, wq) + st.b,
+                                *st.obs_out.quint8_qparams(), 0.0, 255.0)
+        y_all = torch.cat([torch.from_numpy(ytr).to(dev),
+                           torch.zeros(n_pad, device=dev)])
+        gy_all = qat.loss_terms(fdev.xla_sigmoid(yl_all), y_all,
+                                cotangent=DP_SHARDS)[1]
+        gy_all[Xd.shape[0]:] = 0.0
+        gy8 = gy_all.reshape(DP_SHARDS, rows).contiguous()
+        xq8 = xq_all.reshape(DP_SHARDS, rows, -1).contiguous()
+        got8 = kernels.gemv_seq_shards(gy8, xq8).cpu()
+        t = time.perf_counter()
+        want8 = kernels.gemv_seq_shards_plain(gy8.cpu(), xq8.cpu())
+        plain8_s = time.perf_counter() - t
+        ms8 = _event_ms(lambda: kernels.gemv_seq_shards(gy8, xq8), 20)
+        lib8_ms = _event_ms(lambda: torch.bmm(
+            gy8[:, None, :], xq8), 20)
+        kernels.LAUNCHES.update(saved)
+        per_shard = [torch.equal(got8[i].view(torch.int32),
+                                 want8[i].view(torch.int32))
+                     for i in range(DP_SHARDS)]
+        checks["gemv_seq_8_shards_one_launch_equals_plain"] = all(per_shard)
+        served["gemv_dp_inputs"] = (gy8, xq8)
         served["gemv_dp_shard"] = {
             "rows": int(rows), "ms": ms, "plain_ms": plain_s * 1e3,
             "library_ms": lib_ms, "bits_equal": errs_ok,
@@ -2886,7 +2959,19 @@ def headline_phases(card: str, served: dict) -> None:
             **dict(zip(("bound_ms", "bound_by"), max(
                 ((rows * 9 * 4 + 8 * 4) / HBM_BYTES_PER_S * 1e3, "bytes"),
                 (rows * 8 * 2 / FP32_FLOPS * 1e3, "operations"))))}
+        served["gemv_dp_shards"] = {
+            "shards": DP_SHARDS, "rows_per_shard": int(rows), "ms": ms8,
+            "plain_ms": plain8_s * 1e3, "library_ms": lib8_ms,
+            "library_call": "torch.bmm (another order: not the "
+                            "reference's bits)",
+            "bits_equal_per_shard": per_shard,
+            "max_abs_err": float((got8 - want8).abs().max()),
+            **dict(zip(("bound_ms", "bound_by"), max(
+                ((gy8.numel() * 9 * 4 + gy8.shape[0] * 8 * 4)
+                 / HBM_BYTES_PER_S * 1e3, "bytes"),
+                (gy8.numel() * 8 * 2 / FP32_FLOPS * 1e3, "operations"))))}
         out["gemv_seq_shard"] = served["gemv_dp_shard"]
+        out["gemv_seq_8_shards"] = served["gemv_dp_shards"]
         # 203 rows, 30 epochs (tests/test_train.py's inputs): the card's
         # 8-shard run byte-equal to the CPU's
         rng = np.random.default_rng(0)
@@ -4911,9 +4996,20 @@ def main() -> int:
         rec["feat"] = r.integers(0, 1 << 32, (BATCH, 8), dtype=np.uint64)
         return rec
 
-    def raw_wire(rec):
+    def one_source_records(b):
+        """A single-source flood: ``b`` raw48 records of 65,535 B from
+        one source, one segment over the whole batch."""
+        rec = np.zeros(b, schema.FLOW_RECORD_DTYPE)
+        rec["ts_ns"] = 5 * 10 ** 9 + np.arange(b) * 100
+        rec["saddr"] = 0x0A000001
+        rec["pkt_len"] = 65535
+        rec["feat"] = np.random.default_rng(SEED + b).integers(
+            0, 1 << 32, (b, 8), dtype=np.uint64)
+        return rec
+
+    def raw_wire(rec, b=BATCH):
         return schema.wire_to_tensor(schema.encode_raw(
-            rec, BATCH, int(rec["ts_ns"][0]))).to(dev)
+            rec, b, int(rec["ts_ns"][0]))).to(dev)
 
     def byte_segments(raw):
         """The raw step's byte lanes and segment ids of a wire batch on
@@ -4964,6 +5060,9 @@ def main() -> int:
         seg_cases = {"heavy_300x65535": byte_segments(raw_wire(
             heavy_records()))[:2],
             "mixed_l34_1m": byte_segments(raw_wire(mixed))[:2]}
+        for b in (BATCH, 16_384):
+            seg_cases[f"one_source_{b}"] = byte_segments(raw_wire(
+                one_source_records(b), b))[:2]
         for b in (1, 255, 2048, 4099):
             seg_cases[f"ragged_{b}"] = ragged_segments(b, b)
         res["segment_sum_seq"] = {}
@@ -8638,6 +8737,27 @@ def main() -> int:
         def heavy():
             kernels.segment_sum_seq(hv, hseg, BATCH)
 
+        # single-source floods: one segment over the whole batch
+        floods = {b: byte_segments(raw_wire(one_source_records(b), b))[:2]
+                  for b in (BATCH, 16_384)}
+        seg_clock = _sm_clock_under(heavy)
+
+        def chain_case(fv, fseg):
+            nb = fv.shape[0]
+
+            def call():
+                kernels.segment_sum_seq(fv, fseg, nb)
+
+            longest = int(torch.bincount(fseg).max())
+            cb, cby = bound(nb * (4 + 8) + nb * 4, nb)
+            return {"lanes": nb, "longest_segment": longest,
+                    "ms": time_ms(call, 200),
+                    "device_ms": dev_ms(call, 50, "segment_sum_seq_kernel"),
+                    "bound_ms": cb, "bound_by": cby,
+                    # the longest segment's dependent adds, 4 cycles each
+                    "chain_floor_ms": _chain_floor_ms(longest - 1,
+                                                      seg_clock)}
+
         gb, gby = bound(BATCH * (4 + 8) + BATCH * 4, BATCH)
         seg_row = {
             "name": "segment_sum_seq", "route": "cuda",
@@ -8659,10 +8779,10 @@ def main() -> int:
             "library_device_ms": dev_ms(seglib, 50),
             "shape": [BATCH], "segments": int(seg[-1]) + 1,
             "longest_segment": int(torch.bincount(seg).max()),
-            "heavy_300x65535": {
-                "ms": time_ms(heavy, 200),
-                "device_ms": dev_ms(heavy, 50, "segment_sum_seq_kernel"),
-                "longest_segment": int(torch.bincount(hseg).max())}}
+            "sm_clock": seg_clock,
+            "heavy_300x65535": chain_case(hv, hseg),
+            **{f"one_source_{b}": chain_case(*fl)
+               for b, fl in floods.items()}}
         # the report's scan over both served tables, cold: evict the
         # 50 MB L2 before each call by reading 256 MB (a read leaves L2
         # clean; a zero fill would leave dirty lines for the timed call
@@ -8755,7 +8875,11 @@ def main() -> int:
                 torch.mv(xq.t(), gy)
 
             gb2, gby2 = bound(n_rows * 9 * 4 + 8 * 4, n_rows * 8 * 2)
+            gemv_clock = _sm_clock_under(gemv)
             gemv_row.update({
+                "sm_clock": gemv_clock,
+                # rows dependent FMAs, 4 cycles each
+                "chain_floor_ms": _chain_floor_ms(n_rows, gemv_clock),
                 "ms": time_ms(gemv, 10), "plain_ms": plain_s * 1e3,
                 "plain_where": "host numpy (the serial chain)",
                 "bound_ms": gb2, "bound_by": gby2,
@@ -8768,8 +8892,21 @@ def main() -> int:
         else:
             gemv_row.update({"ms": None, "plain_ms": None, "bound_ms": None,
                              "bound_by": None, "library_ms": None})
-        # one shard's chain on the data-parallel path (252,080 rows)
+        # one shard's chain on the data-parallel path (252,080 rows),
+        # and the epoch's one launch of all 8 shards
         gemv_row["dp_shard"] = served.get("gemv_dp_shard")
+        gemv_row["dp_8_shards"] = served.get("gemv_dp_shards")
+        if "gemv_dp_inputs" in served and gemv_row["dp_8_shards"]:
+            gy8, xq8 = served["gemv_dp_inputs"]
+
+            def gemv8():
+                kernels.gemv_seq_shards(gy8, xq8)
+
+            clock8 = _sm_clock_under(gemv8)
+            gemv_row["dp_8_shards"].update({
+                "device_ms": dev_ms(gemv8, 10, "gemv_seq_kernel"),
+                "sm_clock": clock8,
+                "chain_floor_ms": _chain_floor_ms(gy8.shape[1], clock8)})
         gemv_row["launches_train_qat_dp"] = served.get(
             "launches_train_qat_dp", {}).get("gemv_seq", 0)
         kernels.LAUNCHES.update(saved)

@@ -16,44 +16,63 @@
 // cumsum(run_heads) - 1 makes them; out is [n] f32 with n >= S.  Segments
 // S..n-1 are empty and read 0.
 //
-// Design: one thread per lane.  A lane that opens a segment walks it to
-// its end, summing with __fadd_rn (never contracted or reordered), and
-// writes the segment's total; lanes at or past S zero the empty tail of
-// out, so the wrapper needs no separate fill.  The walk reads eight lanes
-// at a time (their loads issued together, then added in order up to the
-// segment's end), so the chain waits on one load per eight adds.  What
-// bounds it on an H100 is the longest segment's serial chain of dependent
-// adds (a single 2048-record flow is 2048 adds, 256 load rounds), not
-// bytes: at b = 2048 it moves 24 KB in and 8 KB out.
+// What bounds it on an H100: the longest segment's chain of dependent
+// adds (4 cycles each), not bytes (b = 2048 moves 24 KB in and 8 KB out).
+// A raw48 record is one packet, so a single-source flood makes one
+// segment of the whole batch: 2,047 adds at B = 2048, ~4.1 us at
+// 1.98 GHz.  The design keeps load latency off that chain:
+// * one thread per lane; the lane that opens a segment of fewer than 32
+//   lanes (the served batches' flows) walks it itself, eight lanes
+//   loaded per round, summing with __fadd_rn (never contracted or
+//   reordered); every lane loads its first round with its own id, so
+//   one round trip both finds the heads and feeds the short walks;
+// * a segment of 32 lanes or more is walked by a whole warp of its
+//   head's block: each warp instruction loads 32 consecutive lanes of v
+//   and seg (coalesced), 8 such chunks stay in flight in registers, a
+//   ballot gives the chunk's lanes in the segment (a prefix: seg is
+//   non-decreasing), and every lane adds the chunk's values in lane
+//   order from shuffles, so the walk runs at the add's latency
+//   whatever tile or block edge the segment crosses;
+// * lanes at or past S zero the empty tail of out, so the wrapper needs
+//   no separate fill.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 8;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 8;     // lanes per round of a thread's own walk
+constexpr int kLong = 32;      // a segment this long is walked by a warp
+constexpr int kDepth = 8;      // chunks of 32 lanes a walking warp holds
+constexpr unsigned kAll = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-segment_sum_seq_kernel(const float* __restrict__ v,
-                       const long long* __restrict__ seg, long long b,
-                       float* __restrict__ out, long long n) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads
-                      + threadIdx.x;
-  const long long n_seg = b > 0 ? __ldg(seg + b - 1) + 1 : 0;
-  if (i >= n_seg && i < n) out[i] = 0.0f;
-  if (i >= b) return;
-  const long long s = __ldg(seg + i);
-  if (i > 0 && __ldg(seg + i - 1) == s) return;   // not a segment head
+// Lanes j .. j + kUnroll - 1 of seg and v (-1 and 0 past b).
+__device__ __forceinline__ void load_round(const float* __restrict__ v,
+                                           const long long* __restrict__ seg,
+                                           long long b, long long j,
+                                           long long (&sj)[kUnroll],
+                                           float (&vj)[kUnroll]) {
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const bool in = j + u < b;
+    sj[u] = in ? __ldg(seg + j + u) : -1;
+    vj[u] = in ? __ldg(v + j + u) : 0.0f;
+  }
+}
+
+// The segment s opened at lane i, shorter than kLong, walked by the
+// calling thread alone; sj and vj hold its first round (lanes i ..).
+__device__ __forceinline__ void thread_walk(const float* __restrict__ v,
+                                            const long long* __restrict__ seg,
+                                            long long b, long long i,
+                                            long long s,
+                                            float* __restrict__ out,
+                                            long long (&sj)[kUnroll],
+                                            float (&vj)[kUnroll]) {
   float acc = 0.0f;
   for (long long j = i;; j += kUnroll) {
-    long long sj[kUnroll];
-    float vj[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const bool in = j + u < b;
-      sj[u] = in ? __ldg(seg + j + u) : -1;
-      vj[u] = in ? __ldg(v + j + u) : 0.0f;
-    }
+    if (j != i) load_round(v, seg, b, j, sj, vj);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (sj[u] != s) {   // seg is non-decreasing: the segment has ended
@@ -63,6 +82,112 @@ segment_sum_seq_kernel(const float* __restrict__ v,
       acc = __fadd_rn(acc, vj[u]);
     }
   }
+}
+
+// The segment opened at lane h, walked by the calling warp (all 32
+// lanes, converged); lane 0 writes its sum.  `buf` is the warp's 64
+// floats of shared memory: two chunks, one being added while the next
+// is staged.
+__device__ __forceinline__ void warp_walk(const float* __restrict__ v,
+                                          const long long* __restrict__ seg,
+                                          long long b, long long h,
+                                          float* __restrict__ out,
+                                          float* buf) {
+  const int lane = threadIdx.x & 31;
+  const long long s = __ldg(seg + h);
+  // chunk c of the walk (lanes h + 32c ..) sits in ring slot c % kDepth
+  float vr[kDepth];
+  long long sr[kDepth];
+#pragma unroll
+  for (int d = 0; d < kDepth; ++d) {
+    const long long j = h + d * 32 + lane;
+    vr[d] = j < b ? __ldg(v + j) : 0.0f;
+    sr[d] = j < b ? __ldg(seg + j) : -1;
+  }
+  // stage ring slot d into buffer half `half`, refill the slot with the
+  // chunk kDepth further on (lanes from `next`); returns the chunk's
+  // lanes in the segment (a prefix: seg is non-decreasing)
+  auto stage = [&](int d, int half, long long next) {
+    const unsigned in = __ballot_sync(kAll, sr[d] == s);
+    buf[half * 32 + lane] = vr[d];
+    const long long j = next + lane;
+    vr[d] = j < b ? __ldg(v + j) : 0.0f;
+    sr[d] = j < b ? __ldg(seg + j) : -1;
+    __syncwarp();
+    return in;
+  };
+  auto fetch = [&](int half, float4 (&x)[8]) {
+    const float4* p = reinterpret_cast<const float4*>(buf + half * 32);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) x[q] = p[q];
+  };
+  auto add = [](float acc, const float4 (&x)[8]) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      acc = __fadd_rn(acc, x[q].x);
+      acc = __fadd_rn(acc, x[q].y);
+      acc = __fadd_rn(acc, x[q].z);
+      acc = __fadd_rn(acc, x[q].w);
+    }
+    return acc;
+  };
+  float4 xa[8], xb[8];      // the even and the odd chunks' values
+  float acc = 0.0f;
+  unsigned in = stage(0, 0, h + kDepth * 32);
+  fetch(0, xa);
+  for (long long base = h;; base += kDepth * 32) {
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) {
+      // stage and fetch chunk d + 1 while chunk d is added
+      const unsigned nin = stage((d + 1) % kDepth, (d + 1) & 1,
+                                 base + (d + 1 + kDepth) * 32);
+      fetch((d + 1) & 1, (d & 1) ? xa : xb);
+      if (in == kAll) {
+        acc = add(acc, (d & 1) ? xb : xa);
+      } else {
+        const int cnt = __popc(in);
+        for (int u = 0; u < cnt; ++u) {
+          acc = __fadd_rn(acc, buf[(d & 1) * 32 + u]);
+        }
+        if (lane == 0) out[s] = acc;
+        return;
+      }
+      in = nin;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+segment_sum_seq_kernel(const float* __restrict__ v,
+                       const long long* __restrict__ seg, long long b,
+                       float* __restrict__ out, long long n) {
+  __shared__ __align__(16) float walk_buf[kWarps][64];
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads
+                      + threadIdx.x;
+  const long long n_seg = b > 0 ? __ldg(seg + b - 1) + 1 : 0;
+  if (i >= n_seg && i < n) out[i] = 0.0f;
+  // the lane's id and the first round of its walk, its left
+  // neighbour's id and the one kLong - 1 lanes on, loaded together: one
+  // round trip decides the walk and feeds a short one
+  long long sj[kUnroll];
+  float vj[kUnroll];
+  load_round(v, seg, b, i, sj, vj);
+  const long long s = sj[0];
+  bool head = false, walks_long = false;
+  if (i < b) {
+    const long long left = i > 0 ? __ldg(seg + i - 1) : -1;
+    const long long far = i + kLong - 1 < b ? __ldg(seg + i + kLong - 1)
+                                            : -1;
+    head = left != s;
+    walks_long = head && far == s;
+  }
+  // a long segment's lanes span the warp, so a warp opens at most one
+  const unsigned longs = __ballot_sync(kAll, walks_long);
+  if (longs) {
+    warp_walk(v, seg, b, i - (threadIdx.x & 31) + __ffs(longs) - 1, out,
+              walk_buf[threadIdx.x >> 5]);
+  }
+  if (head && !walks_long) thread_walk(v, seg, b, i, s, out, sj, vj);
 }
 
 }  // namespace

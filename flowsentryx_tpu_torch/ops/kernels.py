@@ -20,9 +20,11 @@ chain on the card);
 spreads the tracked bits across the warp with ballots so that its
 predicated state loads are coalesced, all issued before any is consumed.
 ``segment_sum_seq`` sums each sorted segment left to right, the order the
-reference's ``segment_sum`` adds in (the raw48 byte sums, ``ops/agg.py``);
-``gemv_seq`` sums ``g^T M`` row by row with one FMA per row, the order of
-the reference's compiled QAT backward (``train/qat.py``).
+reference's ``segment_sum`` adds in (the raw48 byte sums, ``ops/agg.py``),
+a warp walking each segment of 32 lanes or more;
+``gemv_seq`` sums ``g^T M`` row by row with one flushing FMA per row, the
+order of the reference's compiled QAT backward (``train/qat.py``), one
+block per shard of a ``[S, R]`` launch (:func:`gemv_seq_shards`).
 Each source's header says what bounds it on the card and what its design
 does about it.
 
@@ -88,9 +90,10 @@ _ARGTYPES = {
     # v, seg, b, out, n, stream
     "segment_sum_seq": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
-    # g, m, n, k, out, stream
+    # g, m, shards, rows, k, out, stream
     "gemv_seq": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+                 ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p],
     # x, out, n, stream: score_int8.cu's log1p alone (a check entry)
     "fsx_xla_log1p": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                       ctypes.c_void_p],
@@ -591,22 +594,52 @@ def segment_sum_seq(v: torch.Tensor, seg: torch.Tensor, n: int
 _TINY = 2.0 ** -126
 _MID = 1 << 28                  # an f64 whose low 29 bits are this is an f32 tie
 _LOW29 = (1 << 29) - 1
+_UP = 2.0 ** 100                # lifts a sum near 2^-126 into f32's normal range
+
+
+def _daz(x: torch.Tensor) -> np.ndarray:
+    """``x`` as float64, a denormal value flushed to a sign-preserving
+    zero (XLA:CPU's DAZ)."""
+    a = x.detach().cpu().numpy().astype(np.float32)
+    return np.where(np.abs(a) < np.float32(_TINY), a * np.float32(0), a
+                    ).astype(np.float64)
+
+
+def _round_ftz(exact_hi: np.ndarray, exact_lo: np.ndarray) -> np.ndarray:
+    """One float32 FMA result from its exact value ``exact_hi +
+    exact_lo`` (a float64 sum and its error): rounded once to nearest
+    even, then flushed to a sign-preserving zero where that rounding, at
+    an unbounded exponent, is below 2^-126 (XLA:CPU's FTZ, tininess after
+    rounding).  Round to odd in float64 first, so the float32 rounding of
+    the result is correct; near 2^-126 round at the exponent lifted by
+    2^100, where float32 is normal."""
+    odd = ((exact_hi.view(np.int64) - ((exact_lo * exact_hi) < 0))
+           | (exact_lo != 0)).view(np.float64)
+    near = np.abs(odd) < 2.0 ** -125
+    y = np.where(near, odd * _UP, odd).astype(np.float32)
+    return np.where(near, np.where(np.abs(y) < np.float32(_TINY * _UP),
+                                   y * np.float32(0),
+                                   y * np.float32(1 / _UP)), y
+                    ).astype(np.float32)
 
 
 def gemv_seq_plain(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`gemv_seq`: ``[K]`` float32, each
     ``sum_n g[n] * m[n, k]`` as a chain of float32 fused multiply-adds in
-    row order, a result below 2^-126 flushed to zero.
+    row order, as XLA:CPU runs it: a denormal ``g[n]`` or ``m[n, k]``
+    flushed to zero before its product, a result whose rounding is below
+    2^-126 flushed to zero (ROADMAP queue 3, item 40).
 
     Row by row in numpy: each product is exact in float64 (24 x 24 bits)
     and each step's sum is rounded to float64 and then to float32.  That
     double rounding differs from one correct rounding only where the
     float64 sum lands exactly on a float32 midpoint and is inexact; those
-    steps (and any flush) are found after the pass and redone from there
-    with the sum's exact error (round to odd), so every step is one
-    correct rounding.  Slow (~2 µs a row): the chain is serial."""
-    gd = g.detach().cpu().numpy().astype(np.float64)
-    md = m.detach().cpu().numpy().astype(np.float64)
+    steps, and any whose float32 value is within 2^-126 (a flush, or a
+    rounding to 2^-126 that is tiny at an unbounded exponent), are found
+    after the pass and redone from there with the sum's exact error
+    (:func:`_round_ftz`), so every step is one correct rounding.  Slow
+    (~2 µs a row): the chain is serial."""
+    gd, md = _daz(g), _daz(m)
     prods = gd[:, None] * md
     n, k = md.shape
     sums = np.empty((n, k), np.float64)
@@ -624,41 +657,60 @@ def gemv_seq_plain(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         bb = s - prev
         err = (prev - (s - bb)) + (prods[i:] - bb)
         tie = ((s.view(np.int64) & _LOW29) == _MID) & (err != 0)
-        tiny = (np.abs(rounded) < _TINY) & (rounded != 0)
+        tiny = (np.abs(rounded) <= _TINY) & (rounded != 0)
         bad = np.nonzero((tie | tiny).any(axis=1))[0]
         if not len(bad):
             return torch.from_numpy(rounded[-1].copy())
         j = i + int(bad[0])
         r = j - i
-        trunc = s[r].view(np.int64) - ((err[r] * s[r]) < 0)
-        fixed = (trunc | (err[r] != 0)).view(np.float64).astype(np.float32)
-        acc = np.where(np.abs(fixed) < _TINY, fixed * 0, fixed).astype(
-            np.float32)
+        acc = _round_ftz(s[r], err[r])
         i = j + 1
     return torch.from_numpy(acc.copy())
+
+
+def gemv_seq_shards_plain(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gemv_seq_shards`: ``[S, K]``, shard ``i``
+    :func:`gemv_seq_plain` of ``g[i]`` and ``m[i]``."""
+    return torch.stack([gemv_seq_plain(g[i], m[i])
+                        for i in range(g.shape[0])])
 
 
 def gemv_seq(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """``g^T m`` for a ``[N]`` float32 ``g`` and ``[N, K]`` float32 ``m``
     (``K <= 8``) -> ``[K]``, each output one float32 FMA chain in row
-    order (the reference's QAT weight gradient, :func:`gemv_seq_plain`)."""
+    order (the reference's QAT weight gradient, :func:`gemv_seq_plain`):
+    :func:`gemv_seq_shards` of one shard."""
+    if g.device.type == "cpu":
+        return gemv_seq_plain(g, m)
+    if g.dim() != 1 or m.dim() != 2:
+        raise ValueError(
+            f"gemv_seq: want [N] and [N, K], got {tuple(g.shape)} and "
+            f"{tuple(m.shape)}")
+    return gemv_seq_shards(g[None], m[None])[0]
+
+
+def gemv_seq_shards(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``S`` independent :func:`gemv_seq` chains in one launch: ``[S, R]``
+    and ``[S, R, K]`` float32 (``K <= 8``) -> ``[S, K]``, shard ``i``
+    ``g[i]^T m[i]`` in row order (the data-parallel QAT epoch's shards;
+    one block per shard on the card)."""
     dev = g.device
     if dev.type == "cpu":
-        return gemv_seq_plain(g, m)
+        return gemv_seq_shards_plain(g, m)
     if dev.type != "cuda":
         raise ValueError(f"gemv_seq: unsupported device {dev}")
     if (g.dtype != torch.float32 or m.dtype != torch.float32
-            or g.dim() != 1 or m.dim() != 2 or m.shape[0] != g.shape[0]
-            or not 1 <= m.shape[1] <= 8 or not g.is_contiguous()
+            or g.dim() != 2 or m.dim() != 3 or m.shape[:2] != g.shape
+            or not 1 <= m.shape[2] <= 8 or not g.is_contiguous()
             or not m.is_contiguous() or m.device != dev):
         raise ValueError(
-            f"gemv_seq: want contiguous [N] and [N, K<=8] float32 on one "
-            f"device, got {g.dtype} {tuple(g.shape)} and {m.dtype} "
+            f"gemv_seq: want contiguous [S, R] and [S, R, K<=8] float32 on "
+            f"one device, got {g.dtype} {tuple(g.shape)} and {m.dtype} "
             f"{tuple(m.shape)} on {m.device}")
-    out = torch.empty(m.shape[1], dtype=torch.float32, device=dev)
+    out = torch.empty(g.shape[0], m.shape[2], dtype=torch.float32,
+                      device=dev)
     fn = _FNS.get("gemv_seq") or _fn("gemv_seq")
     _count("gemv_seq", out, g, m)
-    _check(fn(g.data_ptr(), m.data_ptr(), g.shape[0], m.shape[1],
-              out.data_ptr(), _stream(g)), "gemv_seq")
+    _check(fn(g.data_ptr(), m.data_ptr(), g.shape[0], g.shape[1],
+              m.shape[2], out.data_ptr(), _stream(g)), "gemv_seq")
     return out
-

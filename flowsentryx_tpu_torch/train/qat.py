@@ -324,7 +324,8 @@ def qat_dp_epoch(state: QatState, X: torch.Tensor, y: torch.Tensor,
     * each shard runs the forward over its rows (its own ``[N/n, 8]``
       dot, :func:`_dot8`) and its masked BCE terms;
     * each shard's gradients: the weight's a row-order FMA chain over
-      the shard's rows (one ``gemv_seq`` launch per shard on the card),
+      the shard's rows (one ``gemv_seq`` launch for all the shards on
+      the card, a block per shard: :func:`~..ops.kernels.gemv_seq_shards`),
       the bias's XLA's sum of the shard's rows (:func:`~..models.mlp
       .xla_batch_sum`), the loss's its fused sum (:func:`_fused_sum`); their
       ``psum`` adds the shards in order
@@ -392,9 +393,12 @@ def _dp_epoch(state: QatState, X, y, mask, quantize: bool, cuts: list,
         losses, gy = loss_terms(xla_sigmoid(yl), y, cotangent=cotangent)
         losses = torch.where(mask, losses, 0.0)
         gy = torch.where(mask, gy, 0.0)
-        state.w.grad = summed([kernels.gemv_seq(gy[c].contiguous(),
-                                                X[c].contiguous())
-                               for c in cuts])
+        # the cuts are equal row ranges in order: one [S, R] launch
+        s, rows = len(cuts), X.shape[0] // len(cuts)
+        state.w.grad = summed(list(kernels.gemv_seq_shards(
+            gy[:s * rows].reshape(s, rows).contiguous(),
+            X[:s * rows].reshape(s, rows, X.shape[1]).contiguous()
+        ).unbind(0)))
         state.b.grad = summed([xla_batch_sum(gy[c]) for c in cuts])
         loss = summed([_fused_sum(losses[c]) for c in cuts])
     state.opt.step()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's two CUDA kernels at the served shapes, on one GPU.
+"""Time the port's CUDA kernels at the main path's shapes, on one GPU.
 
     python3 scripts/torch_kernel_bench.py [--tree DIR] [--label NAME]
         [--out FILE] [--flush read|write]
@@ -25,13 +25,27 @@ Per kernel, at the shapes the served path gives it:
   L2 clean; ``--flush write`` zero-fills it, which leaves L2 full of
   dirty lines that the timed call then pays to write back);
 
+* ``segment_sum_seq`` on the sorted byte lanes of raw48 batches: a
+  served ``mixed_l34_1m`` batch (B=2048), the crafted batch where one
+  source sends 300 records of 65,535 B, and single-source floods (one
+  segment over the whole batch) at B=2048 and B=16,384;
+* ``gemv_seq``, the QAT weight gradient's row-order FMA chains, on
+  operands of the training path's shapes (seeded: a dL/dy of mixed
+  magnitudes and zeros, quantized inputs on the 0..255 grid times a
+  scale): one chain of 2,016,639 rows, and the data-parallel epoch's 8
+  shards of 252,080 rows (one ``gemv_seq_shards`` launch where the tree
+  has it, else 8 ``gemv_seq`` launches, as that tree's epoch makes them);
+
 it prints ``device_ms`` (the kernel's own time, ``torch.profiler``),
 ``event_ms`` (CUDA events per call: back to back for the scorer, one
 flushed call at a time for the summary; launch gaps included),
 ``host_us_per_call`` (the wrapper's enqueue time) and whether the result
 equals the plain version; and, beside each table, the engine's captured
 single step replayed back to back on a batch of that scenario (device
-busy ms per batch from ``torch.profiler``, event ms per batch).  Needs a
+busy ms per batch from ``torch.profiler``, event ms per batch).  The
+chain kernels' rows add the card's SM clock, read with ``nvidia-smi``
+while the kernel runs, and the chain's floor at that clock (its
+dependent adds or FMAs, 4 cycles each).  Needs a
 CUDA device; exits 2 without one.
 Imports nothing of JAX.
 """
@@ -230,6 +244,9 @@ def main() -> int:
         out["table_summary"][scen]["step"] = {
             "device_busy_ms_per_batch": busy / 20 / 1e3,
             "event_ms_per_batch": back_to_back(replay, 100)}
+    print("torch_kernel_bench: score_int8, table_summary done",
+          file=sys.stderr, flush=True)
+    chain_rows(out, dev, back_to_back, host_us)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:
@@ -237,6 +254,155 @@ def main() -> int:
         with open(args.out, "a") as f:
             f.write(line + "\n")
     return 0
+
+
+def closed_device_ms(fn, reps, name):
+    """The ``name`` kernels' device ms per call from ``torch.profiler``,
+    the window closed by a torch kernel (without one the trace may drop
+    the last launches of a library loaded with ``ctypes``); None when
+    the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tail = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        tail.add_(1)
+        torch.cuda.synchronize()
+    evs = [ev.time_range.elapsed_us() for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and name in ev.name]
+    return sum(evs) / reps / 1e3 if evs else None
+
+
+def chain_rows(out, dev, back_to_back, host_us):
+    """``segment_sum_seq`` and ``gemv_seq`` rows (module docstring)."""
+    import numpy as np
+    import torch
+
+    from flowsentryx_tpu_torch.core import schema
+    from flowsentryx_tpu_torch.engine import (
+        Scenario, TrafficSource, TrafficSpec,
+    )
+    from flowsentryx_tpu_torch.ops import agg, kernels
+
+    sys.path.insert(1, HERE)    # chip_smoke's helpers; --tree stays first
+    from chip_smoke import _chain_floor_ms as floor_ms
+    from chip_smoke import _sm_clock_under as sm_clock
+
+    def byte_segments(rec, b):
+        fb = schema.decode_raw(schema.wire_to_tensor(schema.encode_raw(
+            rec, b, int(rec["ts_ns"][0]))).to(dev))
+        key = torch.where(fb.valid, fb.key, agg.INVALID_KEY)
+        key_s, order = torch.sort(key, stable=True)
+        seg = torch.cumsum(agg.run_heads(key_s), 0) - 1
+        v = torch.where(fb.valid[order], fb.pkt_len[order], 0.0)
+        return v.contiguous(), seg.contiguous()
+
+    def flood(b):
+        rec = np.zeros(b, schema.FLOW_RECORD_DTYPE)
+        rec["ts_ns"] = 5 * 10 ** 9 + np.arange(b) * 100
+        rec["saddr"] = 0x0A000001
+        rec["pkt_len"] = 65535
+        return rec
+
+    def heavy():
+        r = np.random.default_rng(SEED + 1)
+        rec = np.zeros(BATCH, schema.FLOW_RECORD_DTYPE)
+        rec["ts_ns"] = 5 * 10 ** 9 + np.arange(BATCH) * 100
+        keys = r.integers(2, 200, BATCH)
+        keys[r.choice(BATCH, 300, replace=False)] = 1
+        rec["saddr"] = keys
+        rec["pkt_len"] = np.where(keys == 1, 65535,
+                                  r.integers(40, 65536, BATCH))
+        return rec
+
+    mixed = TrafficSource(TrafficSpec(scenario=Scenario("mixed_l34_1m"),
+                                      rate_pps=1e6, seed=SEED),
+                          total=BATCH).poll(BATCH)
+    cases = {"mixed_l34_1m": byte_segments(mixed, BATCH),
+             "heavy_300x65535": byte_segments(heavy(), BATCH),
+             "one_source_2048": byte_segments(flood(BATCH), BATCH),
+             "one_source_16384": byte_segments(flood(16_384), 16_384)}
+    clock = None
+    out["segment_sum_seq"] = {}
+    for label, (v, seg) in cases.items():
+        b = v.shape[0]
+
+        def call(v=v, seg=seg, b=b):
+            return kernels.segment_sum_seq(v, seg, b)
+
+        if clock is None:
+            clock = sm_clock(call)
+        longest = int(torch.bincount(seg).max())
+        got, want = call(), agg.segment_sum_seq_plain(v, seg, b)
+        out["segment_sum_seq"][label] = {
+            "lanes": b, "segments": int(seg[-1]) + 1,
+            "longest_segment": longest,
+            "equal_plain": bool(torch.equal(got.view(torch.int32),
+                                            want.view(torch.int32))),
+            "device_ms": closed_device_ms(call, 100,
+                                          "segment_sum_seq_kernel"),
+            "event_ms": back_to_back(call, 500),
+            "host_us_per_call": host_us(call, 500),
+            "bound_ms": (b * 12 + b * 4) / 3.35e12 * 1e3,
+            "chain_floor_ms": floor_ms(longest - 1, clock),
+            "sm_clock": clock}
+        print(f"torch_kernel_bench: segment_sum_seq {label}",
+              json.dumps(out["segment_sum_seq"][label]), file=sys.stderr,
+              flush=True)
+
+    # gemv_seq on seeded operands of the training path's shapes
+    n, shards = 2_016_639, 8
+    rows = -(-n // shards)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gy = torch.randn(rows * shards, device=dev, generator=gen) * 10.0 ** (
+        torch.rand(rows * shards, device=dev, generator=gen) * 6 - 5)
+    gy[torch.rand(rows * shards, device=dev, generator=gen) < 0.1] = 0.0
+    xq = torch.randint(0, 256, (rows * shards, 8), device=dev,
+                       generator=gen).float() * 0.0174
+    g1, m1 = gy[:n].contiguous(), xq[:n].contiguous()
+    g8 = gy.reshape(shards, rows).contiguous()
+    m8 = xq.reshape(shards, rows, 8).contiguous()
+    one_launch = hasattr(kernels, "gemv_seq_shards")
+
+    def single():
+        return kernels.gemv_seq(g1, m1)
+
+    def dp_epoch():
+        if one_launch:
+            return kernels.gemv_seq_shards(g8, m8)
+        return torch.stack([kernels.gemv_seq(g8[i], m8[i])
+                            for i in range(shards)])
+
+    out["gemv_seq"] = {}
+    for label, fn, steps, nrows in (
+            ("rows_2016639", single, n, n),
+            ("dp_8x252080", dp_epoch, rows, rows * shards)):
+        clock = sm_clock(fn)
+        got = fn()
+        want = (kernels.gemv_seq_plain(g1.cpu(), m1.cpu()) if fn is single
+                else torch.stack([kernels.gemv_seq_plain(g8[i].cpu(),
+                                                         m8[i].cpu())
+                                  for i in range(shards)]))
+        out["gemv_seq"][label] = {
+            "rows": nrows,
+            "launches": 1 if fn is single or one_launch else shards,
+            "equal_plain": bool(torch.equal(got.cpu().view(torch.int32),
+                                            want.view(torch.int32))),
+            "device_ms": closed_device_ms(fn, 5, "gemv_seq_kernel"),
+            "event_ms": back_to_back(fn, 10),
+            "host_us_per_call": host_us(fn, 10),
+            "bound_ms": (nrows * 36 + 32) / 3.35e12 * 1e3,
+            "chain_floor_ms": floor_ms(steps, clock),
+            "sm_clock": clock,
+            "library_event_ms": back_to_back(
+                (lambda: torch.mv(m1.t(), g1)) if fn is single
+                else (lambda: torch.bmm(g8[:, None, :], m8)), 20)}
+        print(f"torch_kernel_bench: gemv_seq {label}",
+              json.dumps(out["gemv_seq"][label]), file=sys.stderr,
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -399,7 +399,7 @@ def _ragged_segments(rng, b, heavy=300):
     return torch.from_numpy(v), torch.from_numpy(seg.astype(np.int64))
 
 
-@pytest.mark.parametrize("b", [1, 255, 2048, 4097])
+@pytest.mark.parametrize("b", [1, 255, 2048, 4097, 16384])
 def test_segment_sum_seq_kernel_matches_plain(cuda, b):
     """Lane-order f32 sums per segment, bit for bit with the plain
     version, the empty tail ``[S, n)`` zeroed, one launch counted."""
@@ -413,6 +413,39 @@ def test_segment_sum_seq_kernel_matches_plain(cuda, b):
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
     # garbage in the output buffer's tail is overwritten
     assert not got[int(seg[-1]) + 1:].any()
+
+
+@pytest.mark.parametrize("b", [1, 255, 2048, 4097, 16384])
+def test_segment_sum_seq_kernel_one_segment_matches_plain(cuda, b):
+    """A single-source flood: one segment over the whole batch of
+    65,535-byte records, walked across every block edge; bit for bit
+    with the plain version, the tail zeroed, one launch counted."""
+    v = torch.full((b,), 65535.0)
+    v[::7] = 1500.0
+    seg = torch.zeros(b, dtype=torch.int64)
+    n = b + 3
+    n0 = kernels.LAUNCHES["segment_sum_seq"]
+    got = kernels.segment_sum_seq(v.to(cuda), seg.to(cuda), n)
+    assert kernels.LAUNCHES["segment_sum_seq"] == n0 + 1
+    want = agg.segment_sum_seq_plain(v, seg, n)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert not got[1:].any()
+
+
+@pytest.mark.parametrize("lens", [[250, 20, 300, 6], [31, 225, 1, 32, 200],
+                                  [255, 2, 32, 33], [7] * 40 + [512]])
+def test_segment_sum_seq_kernel_segments_cross_block_edges(cuda, lens):
+    """Segments short (one lane walks) and long (a warp walks) that
+    start before and end after the kernel's 256-lane block edges and
+    its 32-lane chunks."""
+    rng = np.random.default_rng(sum(lens))
+    seg = torch.from_numpy(np.repeat(np.arange(len(lens)), lens))
+    v = torch.from_numpy(rng.integers(40, 1 << 16, seg.numel()).astype(
+        np.float32) * np.float32(257.0))
+    n = len(lens) + 9
+    got = kernels.segment_sum_seq(v.to(cuda), seg.to(cuda), n)
+    want = agg.segment_sum_seq_plain(v, seg, n)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 def test_segment_sum_seq_order_is_visible(cuda):
@@ -1088,10 +1121,16 @@ def test_compile_plan_on_card_equals_cpu(cuda, name):
 
 
 @pytest.mark.parametrize("n,k", [(0, 8), (1, 8), (511, 8), (512, 8),
-                                 (513, 8), (100_000, 8), (4099, 3)])
+                                 (513, 8), (100_000, 8), (4099, 3),
+                                 (15, 8), (16, 8), (31, 8), (32, 8),
+                                 (33, 8), (1023, 8), (1024, 8), (1025, 8),
+                                 (4095, 8), (4096, 8), (4097, 8),
+                                 (5 * 1024 + 17, 8), (1025, 3), (4097, 3)])
 def test_gemv_seq_kernel_matches_plain(cuda, n, k):
     """The QAT weight gradient's FMA chain on the card equals its plain
-    version bit for bit (tile edges, a ragged last tile, K < 8)."""
+    version bit for bit (the register groups' and the 1024-row ring
+    stages' edges, the ring's wrap after 4 stages, a ragged last tile,
+    K < 8)."""
     rng = np.random.default_rng(n + k)
     g = torch.from_numpy((rng.standard_normal(n) * 10.0 ** rng.uniform(
         -3, 3, n)).astype(np.float32))
@@ -1103,6 +1142,56 @@ def test_gemv_seq_kernel_matches_plain(cuda, n, k):
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
+
+
+def _gemv_flush_case(name):
+    """ROADMAP queue 3, item 40's inputs (``tests/test_torch_train.py``
+    holds the plain version to the reference on them)."""
+    f = np.float32
+    a = f(2.0 ** -63 * (1 + 2.0 ** -13))
+    c = f(2.0 ** -125 * (1 + 2.0 ** -13))
+    g, m = {
+        "denormal_g": ([1e-39, 3.0], [[1e10] * 8, [0.0] * 8]),
+        "denormal_m": ([1e10, 3.0], [[1e-39] * 8, [0.0] * 8]),
+        "rounds_up_to_2^-126": ([1.0, -a], [[c] * 8, [a] * 8]),
+        "tiny_at_unbounded_exponent": (
+            [1.0, -1.5 * 2.0 ** -75], [[2.0 ** -126] * 8, [2.0 ** -76] * 8]),
+        "tie_to_2^-126": (
+            [1.0, -(2.0 ** -75)], [[2.0 ** -126] * 8, [2.0 ** -76] * 8]),
+        "negative_tiny": (
+            [-1.0, 1.5 * 2.0 ** -75], [[2.0 ** -126] * 8, [2.0 ** -76] * 8]),
+    }[name]
+    return torch.tensor(np.asarray(g, f)), torch.tensor(np.asarray(m, f))
+
+
+@pytest.mark.parametrize("name", [
+    "denormal_g", "denormal_m", "rounds_up_to_2^-126",
+    "tiny_at_unbounded_exponent", "tie_to_2^-126", "negative_tiny"])
+def test_gemv_seq_kernel_flushes_as_plain(cuda, name):
+    """The card's ``fma.rn.ftz`` chain flushes denormal inputs and tiny
+    results as XLA:CPU does, by bits, signed zeros included."""
+    g, m = _gemv_flush_case(name)
+    got = kernels.gemv_seq(g.to(cuda), m.to(cuda))
+    want = kernels.gemv_seq_plain(g, m)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("s,r", [(1, 0), (2, 0), (8, 0), (1, 1), (2, 1),
+                                 (8, 1), (1, 1025), (2, 4097), (8, 3000)])
+def test_gemv_seq_shards_kernel_matches_plain(cuda, s, r):
+    """``S`` shards' chains in one launch (one block per shard) equal the
+    plain version per shard, bit for bit; one launch counted."""
+    rng = np.random.default_rng(s * 10_000 + r)
+    g = torch.from_numpy((rng.standard_normal((s, r)) * 10.0 ** rng.uniform(
+        -3, 3, (s, r))).astype(np.float32))
+    m = torch.from_numpy((rng.standard_normal((s, r, 8)) * 3).astype(
+        np.float32))
+    n0 = kernels.LAUNCHES["gemv_seq"]
+    got = kernels.gemv_seq_shards(g.to(cuda), m.to(cuda))
+    assert kernels.LAUNCHES["gemv_seq"] == n0 + 1
+    want = kernels.gemv_seq_shards_plain(g, m)
+    assert got.shape == (s, 8)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 # ---------------------------------------------------------------------------
 # the drain ring and the boot path

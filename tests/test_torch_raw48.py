@@ -281,17 +281,27 @@ def _heavy_flow_batch(b=2048, n_heavy=300):
     return rec
 
 
-def test_segment_sum_seq_plain_adds_in_lane_order():
+@pytest.mark.parametrize("case", ["ragged", "one_source_2048",
+                                  "one_source_16384"])
+def test_segment_sum_seq_plain_adds_in_lane_order(case):
     """The reference's ``segment_sum`` (an XLA:CPU scatter-add) adds the
     sorted lanes one after another; the plain version gives its bits on
     segments whose f32 sum depends on the order (ragged lengths, one of
-    300 x 65,535), where the exact sum and the reversed order differ."""
+    300 x 65,535), where the exact sum and the reversed order differ; and
+    on a single-source flood, one segment over the whole batch of
+    65,535-byte records (B = 2048 and 16,384), whose lane-order sum is
+    not the exact sum."""
     rng = np.random.default_rng(5)
-    lens = np.concatenate([[300], rng.integers(1, 40, 200)])
+    if case == "ragged":
+        lens = np.concatenate([[300], rng.integers(1, 40, 200)])
+    else:
+        lens = np.array([int(case.rsplit("_", 1)[1])])
     seg = np.repeat(np.arange(len(lens)), lens).astype(np.int32)
     v = np.where(seg == 0, 65535.0, rng.integers(40, 65536, seg.size)
                  ).astype(np.float32)
-    v[rng.random(seg.size) < 0.3] = rng.uniform(0, 1e6, 1).astype(np.float32)
+    if case == "ragged":
+        v[rng.random(seg.size) < 0.3] = rng.uniform(0, 1e6, 1).astype(
+            np.float32)
     n = seg.size
     want = np.asarray(jax.jit(lambda v, s: jax.ops.segment_sum(
         v, s, num_segments=n))(v, seg))
@@ -301,6 +311,8 @@ def test_segment_sum_seq_plain_adds_in_lane_order():
     exact = np.zeros(n, np.float64)
     np.add.at(exact, seg, v.astype(np.float64))
     assert (exact.astype(np.float32) != want).any()
+    if case != "ragged":
+        return            # equal lanes: every order adds the same values
     rev = agg.segment_sum_seq_plain(torch.from_numpy(v[::-1].copy()),
                                     torch.from_numpy(
                                         (seg.max() - seg[::-1]).astype(

@@ -219,6 +219,82 @@ def test_gemv_seq_plain_equals_reference_dot(n):
     np.testing.assert_array_equal(got.numpy(), _np(ref))
 
 
+def _ref_dot(g, m):
+    return np.asarray(jax.jit(lambda g, m: jax.lax.dot_general(
+        g, m, (((0,), (0,)), ((), ()))))(g, m))
+
+
+def _flush_case(name):
+    """Inputs of ROADMAP queue 3, item 40: XLA:CPU flushes denormal
+    inputs (DAZ) and results whose rounding, at an unbounded exponent, is
+    below 2^-126 (FTZ, tininess after rounding)."""
+    f = np.float32
+    a = f(2.0 ** -63 * (1 + 2.0 ** -13))
+    c = f(2.0 ** -125 * (1 + 2.0 ** -13))
+    if name == "denormal_g":
+        g, m = [1e-39, 3.0], [[1e10] * 8, [0.0] * 8]
+    elif name == "denormal_m":
+        g, m = [1e10, 3.0], [[1e-39] * 8, [0.0] * 8]
+    elif name == "rounds_up_to_2^-126":
+        # exact 2^-126 (1 - 2^-26): rounds to 2^-126, kept
+        g, m = [1.0, -a], [[c] * 8, [a] * 8]
+    elif name == "tiny_at_unbounded_exponent":
+        # exact 2^-126 - 1.5 x 2^-151: 2^-126 on the denormal grid, but
+        # 2^-126 - 2^-150 at 24 bits: flushed
+        g, m = [1.0, -1.5 * 2.0 ** -75], [[2.0 ** -126] * 8,
+                                          [2.0 ** -76] * 8]
+    else:
+        rng = np.random.default_rng(40)
+        n = 4096
+        g = rng.standard_normal(n) * 10.0 ** rng.uniform(-3, 3, n)
+        den = rng.random(n) < 0.46
+        g[den] = rng.uniform(-1, 1, int(den.sum())) * 2.0 ** -126
+        m = rng.standard_normal((n, 8)) * 3
+    return np.asarray(g, f), np.asarray(m, f)
+
+
+@pytest.mark.parametrize("name", [
+    "denormal_g", "denormal_m", "rounds_up_to_2^-126",
+    "tiny_at_unbounded_exponent", "random_4096_denormal_g"])
+def test_gemv_seq_plain_flushes_denormals_as_reference_dot(name):
+    """The weight gradient's flushes: a denormal ``g[n]`` or ``m[n, k]``
+    is zero in its product, a step whose 24-bit rounding is below 2^-126
+    is zero, one that rounds to 2^-126 is kept; by bits, as the
+    reference's jitted dot (ROADMAP queue 3, item 40)."""
+    from flowsentryx_tpu_torch.ops import kernels
+
+    g, m = _flush_case(name)
+    if name.startswith("random"):
+        assert 1800 < int(((g != 0) & (np.abs(g) < 2.0 ** -126)).sum())
+    got = kernels.gemv_seq(torch.from_numpy(g), torch.from_numpy(m))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  _ref_dot(g, m).view(np.uint32))
+
+
+@pytest.mark.parametrize("shards", [1, 2, 8])
+def test_gemv_seq_shards_plain_equals_per_shard_chains(shards):
+    """The data-parallel epoch's one-launch entry: ``[S, R]`` x ``[S, R,
+    8]`` -> ``[S, 8]``, shard i by bits ``gemv_seq`` of shard i alone
+    and the reference's dot of its rows."""
+    from flowsentryx_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(shards)
+    r = 2500
+    g = (rng.standard_normal((shards, r)) * 10.0 ** rng.uniform(
+        -3, 3, (shards, r))).astype(np.float32)
+    g[rng.random((shards, r)) < 0.05] = np.float32(3e-39)
+    m = (rng.standard_normal((shards, r, 8)) * 3).astype(np.float32)
+    got = kernels.gemv_seq_shards(torch.from_numpy(g), torch.from_numpy(m))
+    assert got.shape == (shards, 8) and got.dtype == torch.float32
+    for i in range(shards):
+        one = kernels.gemv_seq_plain(torch.from_numpy(g[i]),
+                                     torch.from_numpy(m[i]))
+        np.testing.assert_array_equal(got[i].numpy().view(np.uint32),
+                                      one.numpy().view(np.uint32))
+        np.testing.assert_array_equal(got[i].numpy().view(np.uint32),
+                                      _ref_dot(g[i], m[i]).view(np.uint32))
+
+
 def test_observer_and_fake_quant_exact():
     rng = np.random.default_rng(3)
     n = 20_000
